@@ -1,0 +1,109 @@
+"""Where the time of one train step goes on the card.
+
+Runs the bucketed ZeRO-1 step of the cell in ``launch/cell.py`` (the one
+``chip_smoke.py`` drives: full-width phi4-mini cut to 2 layers, 4 DP ranks
+stacked on one GPU, batch 8 x 1024), warms up, then profiles 2 steps with
+``torch.profiler`` and prints the device time by kernel group, the wall
+time and the device's idle share, as text and as one JSON line:
+
+  python -m repro_torch.launch.profile_step --wire-dtype float32
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from collections import defaultdict
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.launch import cell
+from repro_torch.models import transformer as TF
+from repro_torch.train.data import make_batch
+from repro_torch.train.step import make_init_fns, make_train_step
+
+#: profiled steps after the warm-up, and the kernels listed by name
+STEPS, TOP = 2, 12
+
+#: kernel-name patterns -> group, first match wins
+GROUPS = (
+    ("collective step kernels", ("rs_step", "ag_step")),
+    ("matmul", ("gemm", "xmma", "cutlass", "cublas", "nvjet", "matmul")),
+    ("gather/index/copy", ("index", "gather", "scatter", "copy", "cat",
+                           "Memcpy", "Memset")),
+    ("reduction", ("reduce", "softmax", "norm", "sum", "max")),
+)
+
+
+def group_of(name: str) -> str:
+    low = name.lower()
+    for group, keys in GROUPS:
+        if any(k.lower() in low for k in keys):
+            return group
+    return "elementwise/other"
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--backend", default="pallas_fused",
+                    choices=["bine", "pallas_fused"])
+    ap.add_argument("--wire-dtype", default="float32",
+                    choices=["float32", "bfloat16", "int8"])
+    args = ap.parse_args(argv)
+
+    dev = resolve_device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = cell.model_config()
+    tcfg = cell.train_config(args.backend, args.wire_dtype)
+    step, _, _ = make_train_step(cfg, tcfg, cell.N_DP, TF.param_shapes(cfg),
+                                 dev)
+    init_p, init_s = make_init_fns(cfg, tcfg, cell.N_DP, dev)
+    params = init_p(0)
+    state = init_s(params)
+    dcfg = cell.data_config(cfg)
+    batches = [make_batch(dcfg, s) for s in range(STEPS + 1)]
+
+    params, state, m = step(params, state, batches[0])     # warm-up
+    float(m["loss"])
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for s in range(1, STEPS + 1):
+            params, state, m = step(params, state, batches[s])
+            float(m["loss"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / STEPS
+
+    by_group = defaultdict(float)
+    by_kernel = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", 0.0) or 0.0
+        if dev_us <= 0 or ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        by_group[group_of(ev.key)] += dev_us / 1e3 / STEPS
+        by_kernel.append((dev_us / 1e3 / STEPS, ev.count // STEPS,
+                          ev.key))
+    busy_ms = sum(by_group.values())
+    tokens = dcfg.global_batch * dcfg.seq_len
+    print(f"{cfg.name} x{cfg.n_layers} layers, dp={cell.N_DP}, batch "
+          f"{dcfg.global_batch}x{dcfg.seq_len}, {args.backend}/"
+          f"{args.wire_dtype} on {torch.cuda.get_device_name(0)}")
+    print(f"step wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, "
+          f"idle share {1 - busy_ms / wall_ms:.3f}")
+    for g, ms in sorted(by_group.items(), key=lambda t: -t[1]):
+        print(f"  {g:26s} {ms:9.2f} ms  {ms / wall_ms:6.1%} of the step")
+    print("top kernels (ms per step, launches per step):")
+    for ms, n, name in sorted(by_kernel, reverse=True)[:TOP]:
+        print(f"  {ms:9.3f} ms  x{n:<5d} {name[:90]}")
+    print(json.dumps({"wall_ms": wall_ms, "busy_ms": busy_ms,
+                      "idle_share": 1 - busy_ms / wall_ms,
+                      "groups_ms": dict(by_group),
+                      "tokens_per_s": tokens / wall_ms * 1e3}))
+
+
+if __name__ == "__main__":
+    main()
