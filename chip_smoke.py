@@ -5,23 +5,39 @@
 
 Phases, each of which fails the run (non-zero exit) if anything is off:
 
-1. build   — compile the collective step kernels from
-             ``src/repro_torch/kernels/collectives/csrc`` with nvcc;
-2. kernels — each kernel (rs_step, ag_step, rs_step_q) against its plain
-             PyTorch version on the card, BITWISE, at the main path's shape
-             (one 64 MiB f32 bucket at p=4: h = 8 Mi elements at step 0),
-             with its median time, the plain version's, and its bound;
+1. build   — compile the collective kernels from
+             ``src/repro_torch/kernels/collectives/csrc`` (one nvcc per
+             source, all at once);
+2. kernels — each kernel against its plain PyTorch version on the card at
+             the main path's shapes, with its median time, the plain
+             version's, a library call's where one computes the same
+             function, and its bound: rs_step, ag_step, rs_step_q and
+             ring_update BITWISE (one 64 MiB f32 bucket at p=4), the
+             matmul_pack / gather_matmul directions of perm_matmul within a
+             bound stated from k (phi4-mini's tensor-parallel MLP shapes);
 3. collectives — fused ``ops`` reduce-scatter / allgather / allreduce and
              the int8-wire pair against the plain ``stacked`` executor,
              bitwise, at p in {4, 8} on 64 MiB f32 vectors;
-4. train   — a small reference first (reduced phi4-mini, float32: the card
+4. api     — the collectives API (``repro_torch.collectives.api``) at 64
+             MiB per rank: reduce_scatter / allgather / allreduce for every
+             backend at p in {4, 8} (ring, xla and the fused ring also at
+             p=6, 48 MiB), ``pallas_fused`` x algo bitwise equal to the
+             stacked algo and ``auto`` to the backend it resolved to; the
+             rooted collectives and all_to_all at p=8 held to their
+             definitions; the fused matmul collectives at phi4-mini's TP
+             shapes; with the launch counts read around the run and the
+             per-backend times;
+5. train   — a small reference first (reduced phi4-mini, float32: the card
              against the CPU), then the main path, the cell of
              ``repro_torch/launch/cell.py``: full-width phi4-mini cut to 2
              layers, 4 DP ranks stacked on the card, global batch 8 x 1024
              tokens, ``backend="pallas_fused"``, table bucket size (64 MiB),
              3 float32-wire steps and 2 int8-wire steps, with the kernel
              launch counts read around each run; then one ``bine`` float32
-             step from the same start must give the same bits.
+             step from the same start must give the same bits, one
+             ``auto`` step on the torus preset the bits of the explicit
+             ``recdoub`` step, and one ``wire_dtype="auto"`` step those of
+             the explicit step with the pair every bucket resolved to.
 
 Prints a ``kernels:`` summary, one JSON line of per-kernel numbers, the
 card's name and power limit, and as its last line
@@ -43,15 +59,32 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-#: H100 SXM device-memory rate (NVIDIA data sheet), for the kernels' bounds
+#: H100 SXM peaks (NVIDIA data sheet), for the kernels' bounds: device
+#: memory, float32 on the CUDA cores, bf16 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 MiB = 1 << 20
-KERNEL_SOURCE = "src/repro_torch/kernels/collectives/csrc/collective_steps.cu"
+CSRC = "src/repro_torch/kernels/collectives/csrc/"
+SOURCE = {"rs_step": CSRC + "collective_steps.cu",
+          "ag_step": CSRC + "collective_steps.cu",
+          "rs_step_q": CSRC + "collective_steps.cu",
+          "ring_update": CSRC + "ring_update.cu",
+          "matmul_pack": CSRC + "perm_matmul.cu",
+          "gather_matmul": CSRC + "perm_matmul.cu"}
 REPLACES = {
     "rs_step": "src/repro/kernels/collectives/kernel.py:78",
     "ag_step": "src/repro/kernels/collectives/kernel.py:258",
     "rs_step_q": "src/repro/kernels/collectives/kernel.py:166",
+    "ring_update": "src/repro/kernels/collectives/kernel.py:300",
+    "matmul_pack": "src/repro/kernels/collectives/kernel.py:412",
+    "gather_matmul": "src/repro/kernels/collectives/kernel.py:426",
 }
+#: phi4-mini's tensor-parallel MLP at p=4 (d_model 3072, d_ff 8192): the
+#: matmul_reduce_scatter (x @ w_o shard) and allgather_matmul (gathered x
+#: @ w_i shard) shapes, (p, m, k, n)
+MM_RS = (4, 8192, 2048, 3072)
+MM_AG = (4, 8192, 3072, 2048)
 
 
 def log(msg: str) -> None:
@@ -61,6 +94,10 @@ def log(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise AssertionError(msg)
+
+
+def ms(x: float) -> str:
+    return f"{x:.4f}"
 
 
 def time_ms(fn, reps: int = 20) -> float:
@@ -100,6 +137,22 @@ def as_tuple(x):
     return x if isinstance(x, tuple) else (x,)
 
 
+def mm_bound(x, w, k: int):
+    """Elementwise bound on two float32 sums of k products taken in
+    different orders: 2 k 2**-24 (|x| @ |w|) (each order is within
+    k 2**-24 (|x| @ |w|) of the exact sum)."""
+    import torch
+    return 2 * k * 2.0 ** -24 * torch.matmul(x.float().abs(), w.float().abs())
+
+
+def within(got, exp, lim, what: str) -> float:
+    """|got - exp| <= lim elementwise; returns max |got - exp|."""
+    d = (got.double() - exp.double()).abs()
+    check(bool((d <= lim.double()).all()),
+          f"{what}: off by {float(d.max())} (bound {float(lim.max())})")
+    return float(d.max())
+
+
 # ---------------------------------------------------------------------------
 # Phase 2: every kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -124,24 +177,31 @@ def phase_kernels(dev):
 
     rows = {}
 
+    def row(name, err, kernel_fn, plain_fn, bound, bound_by,
+            library_fn=None):
+        torch.cuda.synchronize()
+        k_ms = time_ms(kernel_fn)
+        plain_ms = time_ms(plain_fn)
+        lib_ms = None if library_fn is None else time_ms(library_fn)
+        rows[name] = {"name": name, "route": "cuda", "source": SOURCE[name],
+                      "replaces": REPLACES[name], "launches": 0,
+                      "max_abs_err": err, "ms": k_ms, "plain_ms": plain_ms,
+                      "bound_ms": bound, "bound_by": bound_by,
+                      "library_ms": lib_ms}
+        log(f"  {name}: {ms(k_ms)} ms, plain {ms(plain_ms)} ms, bound "
+            f"{ms(bound)} ms ({bound_by}), library "
+            f"{'none' if lib_ms is None else ms(lib_ms) + ' ms'}")
+
     def entry(name, kernel_fn, plain_fn, nbytes, variants):
         got, exp = as_tuple(kernel_fn()), as_tuple(plain_fn())
         same_bits(got, exp, name)
         err = max_abs_err(got, exp)
         for what, kf, pf in variants:   # the other dtypes / variants
             same_bits(as_tuple(kf()), as_tuple(pf()), f"{name} {what}")
-        torch.cuda.synchronize()
-        ms = time_ms(kernel_fn)
-        plain_ms = time_ms(plain_fn)
-        bound = nbytes / HBM_BYTES_PER_S * 1e3
-        rows[name] = {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
-                      "replaces": REPLACES[name], "launches": 0,
-                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": bound, "bound_by": "bytes",
-                      "library_ms": None}
-        log(f"  {name}: bitwise OK ({1 + len(variants)} variants); "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
-            f"({nbytes / MiB:.0f} MiB), library call: none")
+        log(f"  {name}: bitwise OK ({1 + len(variants)} variants), "
+            f"{nbytes / MiB:.0f} MiB moved")
+        row(name, err, kernel_fn, plain_fn, nbytes / HBM_BYTES_PER_S * 1e3,
+            "bytes")
 
     # rs_step, f32 with the next send: reads the kept half and recv, writes
     # new and send
@@ -190,7 +250,139 @@ def phase_kernels(dev):
             lambda: R.rs_step_ref_q(buf2, rq2, rs2, cn)),
            ("NaN/inf send", lambda: K.rs_step_q(bufn, rq, rs, c, cn),
             lambda: R.rs_step_ref_q(bufn, rq, rs, c, cn))])
+    del buf, recv, b16, r16, a, b, a16, b16_, qa, qb, rq, rs, rq2, rs2, buf2
+    del bufn
+    torch.cuda.empty_cache()
+    phase_ring_update(dev, randn, entry, row)
+    phase_perm_matmul(dev, randn, row)
     return rows
+
+
+def phase_ring_update(dev, randn, entry, row):
+    """ring_update on one 64 MiB f32 bucket at p=4: v [4, 16 Mi] in place,
+    b = 4 Mi, a different block per rank; accumulate with the next send
+    (the reduce-scatter step), accumulate, write, and the same in bf16,
+    all BITWISE.  Library call: one ``index_put_(..., accumulate=True)``
+    over the ranks' blocks."""
+    import torch
+    from repro_torch.kernels.collectives import kernel as K
+    from repro_torch.kernels.collectives import ref as R
+
+    p, n = 4, 64 * MiB // 4
+    b = n // p
+    ridx = torch.tensor([1, 3, 0, 2], dtype=torch.int32, device=dev)
+    v, recv = randn(p, n), randn(p, b)
+    v16, r16 = v.to(torch.bfloat16), recv.to(torch.bfloat16)
+
+    def pair(vv, rr, acc, upd):
+        return (lambda: K.ring_update(vv.clone(), rr, ridx, acc, upd),
+                lambda: R.ring_update_ref(vv.clone(), rr, ridx, acc, upd))
+
+    variants = [("f32 accumulate", *pair(v, recv, True, False)),
+                ("f32 write", *pair(v, recv, False, False)),
+                ("bf16 accumulate + send", *pair(v16, r16, True, True)),
+                ("bf16 accumulate", *pair(v16, r16, True, False)),
+                ("bf16 write", *pair(v16, r16, False, False)),
+                ("bool write", *pair(v > 0, recv > 0, False, False))]
+    kf, pf = pair(v, recv, True, True)
+    got, exp = kf(), pf()
+    same_bits(got, exp, "ring_update")
+    for tag, kv, pv in variants:
+        same_bits(as_tuple(kv()), as_tuple(pv()), f"ring_update {tag}")
+    # the blocks a rank does not receive into stay as they were
+    out = got[0].view(p, p, b)
+    keep = torch.ones(p, p, dtype=torch.bool, device=dev)
+    keep[torch.arange(p, device=dev), ridx.long()] = False
+    check(torch.equal(out[keep], v.view(p, p, b)[keep]),
+          "ring_update touched a block it does not own")
+    err = max_abs_err(got, exp)
+    del got, exp, out
+    log(f"  ring_update: bitwise OK ({1 + len(variants)} variants)")
+    rows_idx = (torch.arange(p, device=dev) * p + ridx.long())
+    nbytes = 4 * p * b * 4          # block read + recv read + block + send
+    row("ring_update", err,
+        lambda: K.ring_update(v, recv, ridx, True, True),
+        lambda: R.ring_update_ref(v, recv, ridx, True, True),
+        nbytes / HBM_BYTES_PER_S * 1e3, "bytes",
+        lambda: v.view(p * p, b).index_put_((rows_idx,), recv,
+                                             accumulate=True))
+    # every other variant: kernel, plain version, bound (and the library
+    # call where it computes the same function)
+    for tag, vv, rr, acc, upd in (
+            ("f32 accumulate", v, recv, True, False),
+            ("f32 write", v, recv, False, False),
+            ("bf16 accumulate + send", v16, r16, True, True),
+            ("bf16 accumulate", v16, r16, True, False),
+            ("bf16 write", v16, r16, False, False)):
+        nb = (2 + acc + upd) * p * b * vv.element_size()
+        t = time_ms(lambda: K.ring_update(vv, rr, ridx, acc, upd))
+        tp = time_ms(lambda: R.ring_update_ref(vv, rr, ridx, acc, upd))
+        lib = ""
+        if acc and not upd:
+            lib = ", library " + ms(time_ms(
+                lambda: vv.view(p * p, b).index_put_((rows_idx,), rr,
+                                                     accumulate=True))) + " ms"
+        log(f"    ring_update {tag}: {ms(t)} ms, plain {ms(tp)} ms, bound "
+            f"{ms(nb / HBM_BYTES_PER_S * 1e3)} ms{lib}")
+    del v, recv, v16, r16
+    torch.cuda.empty_cache()
+
+
+def phase_perm_matmul(dev, randn, row):
+    """perm_matmul in both directions at phi4-mini's TP shapes, f32 and
+    bf16: within ``mm_bound`` of the plain version (plus one bf16 rounding,
+    2**-7 |y|, for a bf16 result), with both held against a float64
+    product.  Library call: ``torch.matmul`` of the same shapes (TF32
+    off)."""
+    import torch
+    from repro_torch.kernels.collectives import kernel as K
+    from repro_torch.kernels.collectives import ref as R
+
+    perm = torch.tensor([2, 0, 3, 1], dtype=torch.int32, device=dev)
+    for name, (p, m, k, n), lhs in (("matmul_pack", MM_RS, False),
+                                    ("gather_matmul", MM_AG, True)):
+        x, w = randn(p, m, k), randn(p, k, n)
+        flops = 2 * p * m * n * k
+        errs = {}
+        for dt in (torch.float32, torch.bfloat16):
+            xd, wd = x.to(dt), w.to(dt)
+            got = K.perm_matmul(xd, wd, perm, lhs)
+            exp = (R.gather_matmul_ref if lhs else R.matmul_pack_ref)(
+                xd, wd, perm)
+            lim = mm_bound(R.row_blocks(xd, perm) if lhs else xd, wd, k)
+            if not lhs:
+                lim = R.row_blocks(lim, perm)
+            if dt == torch.bfloat16:
+                lim = lim + 2.0 ** -7 * exp.float().abs()
+            err = within(got, exp, lim, f"{name} {dt}")
+            x64 = (R.row_blocks(xd, perm) if lhs else xd).double()
+            y64 = torch.matmul(x64, wd.double())
+            if not lhs:
+                y64 = R.row_blocks(y64, perm)
+            e_k = float((got.double() - y64).abs().max())
+            e_p = float((exp.double() - y64).abs().max())
+            errs[dt] = err
+            log(f"  {name} {str(dt)[6:]} {tuple(x.shape)} @ "
+                f"{tuple(w.shape)}: within bound of plain (max |diff| "
+                f"{err:.3e}); vs float64: kernel {e_k:.3e}, plain {e_p:.3e}")
+            del got, exp, lim, x64, y64
+            if dt == torch.bfloat16:
+                t = time_ms(lambda: K.perm_matmul(xd, wd, perm, lhs))
+                tp = time_ms(lambda: (R.gather_matmul_ref if lhs
+                                      else R.matmul_pack_ref)(xd, wd, perm))
+                log(f"    {name} bf16: {ms(t)} ms, plain {ms(tp)} ms, bound "
+                    f"{ms(flops / BF16_FLOPS * 1e3)} ms (989 TFLOP/s), "
+                    f"library {ms(time_ms(lambda: torch.matmul(xd, wd)))} "
+                    f"ms")
+            del xd, wd
+        row(name, errs[torch.float32],
+            lambda: K.perm_matmul(x, w, perm, lhs),
+            lambda: (R.gather_matmul_ref if lhs else R.matmul_pack_ref)(
+                x, w, perm),
+            flops / F32_FLOPS * 1e3, "operations",
+            lambda: torch.matmul(x, w))
+        del x, w
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -229,7 +421,221 @@ def phase_collectives(dev):
 
 
 # ---------------------------------------------------------------------------
-# Phase 4: the train step
+# Phase 4: the collectives API
+# ---------------------------------------------------------------------------
+
+#: backend name -> CollectiveConfig fields; (stacked twin) for the fused
+API_BACKENDS = {
+    "bine": {"backend": "bine"},
+    "recdoub": {"backend": "recdoub"},
+    "ring": {"backend": "ring"},
+    "xla": {"backend": "xla"},
+    "pallas_fused/bine": {"backend": "pallas_fused"},
+    "pallas_fused/recdoub": {"backend": "pallas_fused",
+                             "fused_algo": "recdoub"},
+    "pallas_fused/ring": {"backend": "pallas_fused", "fused_algo": "ring"},
+    "auto/tpu_multipod": {"backend": "auto"},
+    "auto/torus": {"backend": "auto", "topology": "torus"},
+}
+#: what each fused config must equal bitwise
+FUSED_TWIN = {"pallas_fused/bine": "bine", "pallas_fused/recdoub": "recdoub",
+              "pallas_fused/ring": "ring"}
+P6_BACKENDS = ("ring", "xla", "pallas_fused/ring")
+
+
+def phase_api(dev):
+    """Correctness pass (launch counts read around it), then one timing
+    pass.  Returns the correctness pass's launch counts."""
+    import torch
+    from repro_torch.collectives import api, stacked
+    from repro_torch.kernels.collectives import kernel as K
+    from repro_torch.kernels.collectives import ops
+
+    torch.cuda.synchronize()
+    K.reset_launches()
+    timed = []
+    per_call = {}
+
+    def counted(fn):
+        before = dict(K.LAUNCHES)
+        out = fn()
+        return out, {k: v - before[k] for k, v in K.LAUNCHES.items()
+                     if v != before[k]}
+
+    for p in (4, 8, 6):
+        per_rank = (48 if p == 6 else 64) * MiB // 4   # divisible by p
+        gen = torch.Generator(device=dev).manual_seed(100 + p)
+        x = torch.randn((p, per_rank), generator=gen, device=dev)
+        names = P6_BACKENDS if p == 6 else tuple(API_BACKENDS)
+        outs = {}
+        ref_sum = x.double().sum(0)
+        for name in names:
+            cfg = api.CollectiveConfig(**API_BACKENDS[name])
+            rs, n_rs = counted(lambda: api.reduce_scatter(x, cfg))
+            ag, n_ag = counted(lambda: api.allgather(rs, cfg))
+            ar, n_ar = counted(lambda: api.allreduce(x, cfg))
+            if n_rs or n_ag or n_ar:
+                per_call[(name, p)] = (n_rs, n_ag, n_ar)
+            # definitions: the rank sum (to rounding), gathered exactly
+            err = float((ar[0].double() - ref_sum).abs().max())
+            check(err < 1e-4 and all(torch.equal(ar[0], ar[r])
+                                     for r in range(p)),
+                  f"{name} p{p}: allreduce is not the rank sum ({err})")
+            gathered = rs.reshape(1, -1).expand(p, -1)
+            check(torch.equal(ag, gathered),
+                  f"{name} p{p}: allgather is not the rank-ordered blocks")
+            rs_err = float((rs.reshape(-1).double() - ref_sum).abs().max())
+            check(rs_err < 1e-4, f"{name} p{p}: reduce_scatter off by "
+                  f"{rs_err}")
+            outs[name] = (rs, ag, ar)
+            timed.append((name, p, cfg, x, rs))
+        for fused, twin in FUSED_TWIN.items():
+            if fused in outs:
+                for a, b, what in zip(outs[fused], outs[twin],
+                                      ("rs", "ag", "ar")):
+                    same_bits([a], [b], f"{fused} vs {twin} {what} p{p}")
+        for name in names:
+            if not name.startswith("auto"):
+                continue
+            cfg = api.CollectiveConfig(**API_BACKENDS[name])
+            picks = []
+            for i, (coll, inp, kw) in enumerate(
+                    (("reduce_scatter", x, {}), ("allgather", outs[name][0],
+                                                 {"gathered": True}),
+                     ("allreduce", x, {}))):
+                b = api._resolve(cfg, coll, inp, **kw).backend
+                twin = {"pallas_fused": "pallas_fused/bine"}.get(b, b)
+                same_bits([outs[name][i]], [outs[twin][i]],
+                          f"{name} {coll} p{p} vs its resolution {b}")
+                picks.append(f"{coll}->{b}")
+            log(f"  p={p} {name}: {', '.join(picks)} (bitwise)")
+        log(f"  p={p}, {per_rank * 4 // MiB} MiB per rank: reduce_scatter / "
+            f"allgather / allreduce of {len(names)} backends hold their "
+            f"definitions; fused == stacked bitwise")
+        del outs, ref_sum
+        if p == 8:
+            phase_api_rooted(x)
+        del x
+        torch.cuda.empty_cache()
+
+    mm = phase_api_matmul(dev)
+    launches = dict(K.LAUNCHES)
+    for k in ("ring_update", "matmul_pack", "gather_matmul", "rs_step",
+              "ag_step"):
+        check(launches[k] > 0, f"the API run did not launch {k}")
+    for (name, p), (a, b, c) in sorted(per_call.items()):
+        log(f"  launches per call, {name} p={p}: reduce_scatter {a}, "
+            f"allgather {b}, allreduce {c}")
+
+    # timing pass (launch counts above are the correctness pass's)
+    for name, p, cfg, x, rs in timed:
+        t_rs = time_ms(lambda: api.reduce_scatter(x, cfg), reps=5)
+        t_ag = time_ms(lambda: api.allgather(rs, cfg), reps=5)
+        t_ar = time_ms(lambda: api.allreduce(x, cfg), reps=5)
+        log(f"  time {name} p={p}: reduce_scatter {ms(t_rs)} ms, allgather "
+            f"{ms(t_ag)} ms, allreduce {ms(t_ar)} ms")
+    del timed
+    for tag, fn in mm:
+        log(f"  time {tag}: {ms(time_ms(fn, reps=5))} ms")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_api_rooted(x):
+    """broadcast / reduce / gather / scatter (root 1) and all_to_all at p=8
+    under bine, recdoub (binomial trees) and xla: moves exact, sums within
+    1e-4 of a float64 sum."""
+    import torch
+    from repro_torch.collectives import api
+
+    p, root = x.shape[0], 1
+    blk = x[:, : x.shape[1] // p].contiguous()
+    a2a = x.view(p, p, -1)
+    ref_sum = x.double().sum(0)
+    for name in ("bine", "recdoub", "xla"):
+        cfg = api.CollectiveConfig(backend=name)
+        bc = api.broadcast(x, root, cfg)
+        check(torch.equal(bc, x[root].expand_as(x)), f"{name} broadcast")
+        red = api.reduce(x, root, cfg)
+        err = float((red[root].double() - ref_sum).abs().max())
+        check(err < 1e-4, f"{name} reduce off by {err}")
+        g = api.gather(blk, root, cfg)
+        check(torch.equal(g[root], blk.reshape(-1)), f"{name} gather")
+        sc = api.scatter(x, root, cfg)
+        check(torch.equal(sc, x[root].view(p, -1)), f"{name} scatter")
+        at = api.all_to_all(a2a, cfg)
+        check(torch.equal(at, a2a.transpose(0, 1)), f"{name} all_to_all")
+        del bc, red, g, sc, at
+    log(f"  p=8 rooted (root {root}) and all_to_all under bine, recdoub, "
+        f"xla: moves exact, reduce within 1e-4 of the float64 sum")
+
+
+def phase_api_matmul(dev):
+    """matmul_reduce_scatter / allgather_matmul (bine, ring) at the TP
+    shapes against torch.matmul followed by the stacked RS / AG, both held
+    against float64 within (k + p) 2**-24 max(sum_r |x_r| @ |w_r|) (each
+    float32 sum of k products, then p rank adds).  Returns the calls to
+    time."""
+    import torch
+    from repro_torch.collectives import stacked
+    from repro_torch.kernels.collectives import ops
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    p, m, k, n = MM_RS
+    x = torch.randn((p, m, k), generator=gen, device=dev)
+    w = torch.randn((p, k, n), generator=gen, device=dev)
+    y64 = torch.matmul(x.double(), w.double()).sum(0)      # [m, n]
+    tol = (k + p) * 2.0 ** -24 * float(
+        torch.matmul(x.abs(), w.abs()).sum(0).max())
+    timed = []
+    for algo in ("bine", "ring"):
+        got = ops.matmul_reduce_scatter(x, w, algo)
+        plain = stacked.reduce_scatter(torch.matmul(x, w).reshape(p, -1),
+                                       algo).reshape(p, m // p, n)
+        exp = y64.view(p, m // p, n)
+        e_f = float((got.double() - exp).abs().max())
+        e_p = float((plain.double() - exp).abs().max())
+        check(e_f <= tol and e_p <= tol,
+              f"matmul_reduce_scatter {algo}: {e_f}, {e_p} > {tol}")
+        log(f"  matmul_reduce_scatter {algo} {tuple(x.shape)} @ "
+            f"{tuple(w.shape)}: vs float64 fused {e_f:.3e}, matmul+RS "
+            f"{e_p:.3e} (bound {tol:.3e})")
+        timed += [(f"matmul_reduce_scatter {algo} (fused)",
+                   lambda a=algo: ops.matmul_reduce_scatter(x, w, a)),
+                  (f"matmul + reduce_scatter {algo} (plain)",
+                   lambda a=algo: stacked.reduce_scatter(
+                       torch.matmul(x, w).reshape(p, -1), a))]
+        del got, plain
+    del y64
+    p, m, k, n = MM_AG
+    xb = torch.randn((p, m // p, k), generator=gen, device=dev)
+    w2 = torch.randn((p, k, n), generator=gen, device=dev)
+    xg = xb.reshape(1, m, k).expand(p, m, k)
+    y64 = torch.matmul(xg.double(), w2.double())
+    tol2 = k * 2.0 ** -24 * float(torch.matmul(xg.abs(), w2.abs()).max())
+    for algo in ("bine", "ring"):
+        got = ops.allgather_matmul(xb, w2, algo)
+        plain = torch.matmul(stacked.allgather(xb.reshape(p, -1), algo)
+                             .view(p, m, k), w2)
+        e_f = float((got.double() - y64).abs().max())
+        e_p = float((plain.double() - y64).abs().max())
+        check(e_f <= tol2 and e_p <= tol2,
+              f"allgather_matmul {algo}: {e_f}, {e_p} > {tol2}")
+        log(f"  allgather_matmul {algo} {tuple(xb.shape)} -> {m} rows @ "
+            f"{tuple(w2.shape)}: vs float64 fused {e_f:.3e}, AG+matmul "
+            f"{e_p:.3e} (bound {tol2:.3e})")
+        timed += [(f"allgather_matmul {algo} (fused)",
+                   lambda a=algo: ops.allgather_matmul(xb, w2, a)),
+                  (f"allgather + matmul {algo} (plain)",
+                   lambda a=algo: torch.matmul(stacked.allgather(
+                       xb.reshape(p, -1), a).view(p, m, k), w2))]
+        del got, plain
+    del y64
+    return timed
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: the train step
 # ---------------------------------------------------------------------------
 
 def phase_small_reference(dev):
@@ -298,8 +704,10 @@ def phase_train(dev):
     def flat_eq(a, b):
         return all(torch.equal(x, y) for x, y in zip(a, b))
 
-    def run(backend, wire, steps, snapshot=False):
-        tcfg = cell.train_config(backend, wire)
+    def run(backend, wire, steps, snapshot=False, topology="tpu_multipod",
+            **overrides):
+        tcfg = cell.train_config(backend, wire, topology).replace(
+            **overrides)
         step, info, _ = make_train_step(cfg, tcfg, P, shapes, dev)
         init_p, init_s = make_init_fns(cfg, tcfg, P, dev)
         params = init_p(0)
@@ -328,32 +736,74 @@ def phase_train(dev):
                 f"{float(m['grad_norm']):.4f} {times[-1] * 1e3:.1f} ms, "
                 f"peak {peaks[-1]:.1f} GiB")
         counts = dict(K.LAUNCHES)
-        log(f"  {backend}/{wire}: {len(plan.buckets)} buckets "
+        log(f"  {backend}/{wire} ({topology}): {len(plan.buckets)} buckets "
             f"(capacity {plan.capacity_bytes} B), launches {counts}, "
             f"peak memory {max(peaks):.1f} GiB")
+        if backend == "auto" or wire == "auto":
+            log(f"  {backend}/{wire} ({topology}) per-bucket (rs backend, "
+                f"rs wire, ag backend, ag wire): {info['decisions']}")
         del params, state
         torch.cuda.empty_cache()
-        return counts, losses, times, first
+        return counts, losses, times, first, info
 
-    c32, losses, times, first = run("pallas_fused", "float32", 3,
-                                     snapshot=True)
+    c32, losses, times, first, _ = run("pallas_fused", "float32", 3,
+                                        snapshot=True)
     check(abs(losses[0] - math.log(cfg.vocab_size)) < 1.0,
           f"first loss {losses[0]} is not near ln(V) for random weights")
     steady = statistics.median(times[1:])
     log(f"  pallas_fused/float32 steady step {steady * 1e3:.1f} ms, "
         f"{B * S / steady:.0f} tokens/s")
-    c8, _, t8, _ = run("pallas_fused", "int8", 2)
+    c8, _, t8, _, _ = run("pallas_fused", "int8", 2)
     log(f"  pallas_fused/int8 warm step {t8[1] * 1e3:.1f} ms, "
         f"{B * S / t8[1]:.0f} tokens/s")
-    launches = {k: c32[k] + c8[k] for k in c32}
+    launches = {k: c32[k] + c8[k] for k in ("rs_step", "ag_step",
+                                             "rs_step_q")}
     for k, v in launches.items():
         check(v > 0, f"kernel {k} was not launched on the main path")
     check(c8["rs_step_q"] > 0, "the int8 steps did not run rs_step_q")
-    cb, _, _, bine_first = run("bine", "float32", 1, snapshot=True)
+    cb, _, _, bine_first, _ = run("bine", "float32", 1, snapshot=True)
     check(sum(cb.values()) == 0, f"the bine path launched kernels: {cb}")
     check(flat_eq(first, bine_first),
           "bine and pallas_fused params differ after one float32 step")
     log("  bine float32 step == pallas_fused float32 step, bitwise")
+    del bine_first
+    # auto on the torus preset: every bucket, allgather and the small
+    # allreduce resolve to recdoub at p=4
+    _, _, _, auto_first, info = run("auto", "float32", 1, snapshot=True,
+                                    topology="torus")
+    check(all(d == ("recdoub", "float32", "recdoub", "float32")
+              for d in info["decisions"]),
+          f"auto on torus resolved to {info['decisions']}")
+    _, _, _, rd_first, _ = run("recdoub", "float32", 1, snapshot=True,
+                               topology="torus")
+    check(flat_eq(auto_first, rd_first),
+          "auto (torus) and recdoub (torus) params differ after one step")
+    log("  auto float32 step (torus) == recdoub float32 step (torus), "
+        "bitwise")
+    del auto_first, rd_first
+    # wire_dtype="auto" on tpu_multipod: where every bucket resolved to one
+    # (backend, wire), the explicit step with that pair gives the same
+    # bits.  "auto" plans its buckets at float32 width, so the explicit
+    # step gets the capacity that gives its wire the same plan.
+    _, _, _, wa_first, info = run("auto", "auto", 1, snapshot=True)
+    dec, plan = info["decisions"], info["bucket_plan"]
+    pairs = {(d[0], d[1]) for d in dec}
+    if len(pairs) == 1:
+        from repro_torch.collectives.compression import WIRE_BYTES_PER_ELEM
+        b, w = pairs.pop()
+        cap = int(plan.capacity_bytes / 4 * WIRE_BYTES_PER_ELEM[w])
+        _, _, _, ref_first, ref_info = run(b, w, 1, snapshot=True,
+                                           bucket_bytes=cap)
+        check(ref_info["decisions"] == dec and
+              [bk.slots for bk in ref_info["bucket_plan"].buckets] ==
+              [bk.slots for bk in plan.buckets],
+              f"the explicit {b}/{w} step plans or decides otherwise")
+        check(flat_eq(wa_first, ref_first),
+              f"wire_dtype=auto and the explicit {b}/{w} step differ")
+        log(f"  auto/auto step (tpu_multipod) == {b}/{w} step at the same "
+            f"bucket plan, bitwise")
+        del ref_first
+    del wa_first
     # steps after the first of each run: warm, so the wires compare
     return launches, {"f32_step_ms": steady * 1e3,
                       "tokens_per_s": B * S / steady,
@@ -379,22 +829,31 @@ def main() -> int:
     from repro_torch.kernels.collectives import kernel as K
 
     t_all = time.perf_counter()
-    log("[1/4] build")
+    log("[1/5] build")
     t0 = time.perf_counter()
-    lib = K.build()
-    K._lib()
-    log(f"  built {lib.name} in {time.perf_counter() - t0:.1f} s")
+    libs = K.build()
+    for src in K.SOURCES:
+        K._lib(src)
+    log(f"  built {', '.join(p.name for p in libs.values())} in "
+        f"{time.perf_counter() - t0:.1f} s")
 
-    log("[2/4] kernels vs plain versions (bitwise)")
+    log("[2/5] kernels vs plain versions")
     rows = phase_kernels(dev)
     torch.cuda.empty_cache()
 
-    log("[3/4] fused collectives vs stacked (bitwise)")
+    log("[3/5] fused collectives vs stacked (bitwise)")
     phase_collectives(dev)
 
-    log("[4/4] train")
+    log("[4/5] collectives API")
+    api_launches = phase_api(dev)
+
+    log("[5/5] train")
     phase_small_reference(dev)
     launches, train = phase_train(dev)
+    # the step kernels' counts from the train step's main path, the ring
+    # and matmul kernels' from the API run
+    for name in ("ring_update", "matmul_pack", "gather_matmul"):
+        launches[name] = api_launches[name]
     for name, n in launches.items():
         rows[name]["launches"] = n
 

@@ -1,18 +1,25 @@
-"""Stacked-rank executor of the Bine butterfly collectives.
+"""Stacked-rank executor of the Bine collectives.
 
 Counterpart of ``repro.collectives.shmap``.  The JAX package runs p ranks
 as p devices under ``shard_map``; here they run stacked on one device:
 
   * every per-rank buffer is ``[p, ...]`` (row r = rank r);
   * ``lax.ppermute(x, perm)`` becomes an index gather over dim 0,
-    ``out[dst] = x[src]`` (:func:`permute`);
-  * each per-rank table entry, such as ``cbit[i][idx]``, becomes an int32
-    ``[p]`` tensor on the buffer's device.
+    ``out[dst] = x[src]`` (:func:`permute`); a tree step's pair list is
+    not a full permutation, and a rank that receives nothing gets zeros,
+    as from ``ppermute`` (:func:`permute_partial`);
+  * each per-rank table entry, such as ``cbit[i][idx]``, ``recv_off[j]``
+    or the ring's ``(idx - t - 1) % p``, becomes an int32 ``[p]`` tensor on
+    the buffer's device, made once per table (:func:`_ints_on`).
 
-The schedules, the operand order (``kept + recv``) and the quantize points
-are the reference's, so every result is bitwise equal to it.  This module
-is the plain executor; ``kernels.collectives.ops`` runs the same
-schedules with every step's local work in one CUDA kernel launch.
+The schedules, the operand order (``kept + recv``, ``cur + recv``) and the
+quantize points are the reference's, so every result is bitwise equal to
+it.  This module is the plain executor; ``kernels.collectives.ops`` runs
+the same schedules with every step's local work in one CUDA kernel launch.
+The XLA built-ins the reference's ``backend="xla"`` calls (``psum``,
+``psum_scatter``, ``all_gather``, ``all_to_all``) are the framework's own
+reductions and reshapes over the rank dim here (section at the end); a
+multi-GPU executor maps them to NCCL.
 """
 
 from __future__ import annotations
@@ -31,9 +38,8 @@ _KIND = {"bine": "bine_dd", "recdoub": "recdoub_dd"}
 
 def butterfly(algo: str, p: int) -> tb.ButterflyTables:
     if algo not in _KIND:
-        raise NotImplementedError(
-            f"algo {algo!r} is not ported (ROADMAP.md queue A item 2: the "
-            f"ring family comes with kernel 4); ported: {sorted(_KIND)}")
+        raise ValueError(f"{algo!r} is no butterfly family; expected one of "
+                         f"{sorted(_KIND)}")
     return tb.butterfly_tables(_KIND[algo], p)
 
 
@@ -64,6 +70,51 @@ def permute(x: torch.Tensor, perm) -> torch.Tensor:
     """``lax.ppermute`` on a stacked buffer: ``out[dst] = x[src]``."""
     return x.index_select(0, _ints(sources(perm, x.shape[0]), torch.int64,
                                    x.device))
+
+
+def permute_partial(x: torch.Tensor, perm) -> torch.Tensor:
+    """``lax.ppermute`` over a pair list that need not cover every rank (a
+    tree step): ``out[dst] = x[src]``, zeros on a rank that receives
+    nothing."""
+    src = [s for s, _ in perm]
+    dst = [d for _, d in perm]
+    out = torch.zeros_like(x)
+    return out.index_copy_(0, _ints(dst, torch.int64, x.device),
+                           x.index_select(0, _ints(src, torch.int64,
+                                                   x.device)))
+
+
+def rank_rows(table, device) -> torch.Tensor:
+    """A per-rank table ``[p, ...]`` as an int64 index tensor of that
+    shape, made once per table."""
+    a = np.asarray(table)
+    return _ints(a, torch.int64, device).view(a.shape)
+
+
+def rank_mask(row, x: torch.Tensor) -> torch.Tensor:
+    """A per-rank bool row ``[p]`` shaped to broadcast against ``x``."""
+    m = _ints(np.asarray(row, dtype=bool), torch.bool, x.device)
+    return m.view(-1, *([1] * (x.dim() - 1)))
+
+
+def take_blocks(v: torch.Tensor, start: torch.Tensor, nblk: int,
+                blk: int) -> torch.Tensor:
+    """Row r's ``nblk`` blocks from block ``start[r]`` of ``v [p, n]``."""
+    p = v.shape[0]
+    idx = start.view(p, 1) + torch.arange(nblk, device=v.device)
+    ar = torch.arange(p, device=v.device).view(p, 1)
+    return v.view(p, -1, blk)[ar, idx].reshape(p, nblk * blk)
+
+
+def put_blocks(v: torch.Tensor, start: torch.Tensor, vals: torch.Tensor,
+               blk: int) -> None:
+    """Write ``vals [p, nblk*blk]`` into row r of ``v`` from block
+    ``start[r]``, in place."""
+    p = v.shape[0]
+    nblk = vals.shape[1] // blk
+    idx = start.view(p, 1) + torch.arange(nblk, device=v.device)
+    ar = torch.arange(p, device=v.device).view(p, 1)
+    v.view(p, -1, blk)[ar, idx] = vals.reshape(p, nblk, blk)
 
 
 def rank_bits(row: np.ndarray, device) -> torch.Tensor:
@@ -158,6 +209,8 @@ def reduce_scatter(x: torch.Tensor, algo: str = "bine") -> torch.Tensor:
     p = x.shape[0]
     if p == 1:
         return x
+    if algo == "ring":
+        return _ring_reduce_scatter(x)
     bt = butterfly(algo, p)
     v = x.reshape(p, -1)
     if v.shape[1] % p:
@@ -171,6 +224,8 @@ def allgather(x: torch.Tensor, algo: str = "bine") -> torch.Tensor:
     p = x.shape[0]
     if p == 1:
         return x
+    if algo == "ring":
+        return _ring_allgather(x)
     bt = butterfly(algo, p)
     v = _ag_core(x.reshape(p, -1), bt)
     return permute_blocks(v, bt.final_block)
@@ -256,6 +311,8 @@ def reduce_scatter_dim(x: torch.Tensor, dim: int, algo: str = "bine"):
     p = x.shape[0]
     if p == 1:
         return x
+    if algo == "ring":
+        return _ring_rs_dim(x, dim)
     bt = butterfly(algo, p)
     d = dim + 1
     if x.shape[d] % p:
@@ -275,6 +332,8 @@ def allgather_dim(x: torch.Tensor, dim: int, algo: str = "bine"):
     p = x.shape[0]
     if p == 1:
         return x
+    if algo == "ring":
+        return _ring_ag_dim(x, dim)
     bt = butterfly(algo, p)
     d = dim + 1
     blk = x.shape[d]
@@ -287,3 +346,250 @@ def allgather_dim(x: torch.Tensor, dim: int, algo: str = "bine"):
         buf = torch.where((c == 0).view(-1, *([1] * (buf.dim() - 1))), lo, hi)
     return torch.cat([buf.narrow(d, int(b) * blk, blk)
                       for b in bt.final_block], dim=d)
+
+
+def _ring_rs_dim(x: torch.Tensor, dim: int):
+    """Ring RS along per-rank dim ``dim``: the flat ring over a dim-fronted
+    view, whose p blocks are the dim's p blocks (each element sees the
+    same adds in the same order as in the reference's sliced version)."""
+    p = x.shape[0]
+    if x.shape[dim + 1] % p:
+        raise ValueError((tuple(x.shape), dim, p))
+    xm = torch.movedim(x, dim + 1, 1)
+    flat = _ring_reduce_scatter(xm.reshape(p, -1))
+    out = flat.reshape((p, xm.shape[1] // p) + tuple(xm.shape[2:]))
+    return torch.movedim(out, 1, dim + 1)
+
+
+def _ring_ag_dim(x: torch.Tensor, dim: int):
+    p = x.shape[0]
+    xm = torch.movedim(x, dim + 1, 1)
+    flat = _ring_allgather(xm.reshape(p, -1))
+    out = flat.reshape((p, xm.shape[1] * p) + tuple(xm.shape[2:]))
+    return torch.movedim(out, 1, dim + 1)
+
+
+# ---------------------------------------------------------------------------
+# Ring baselines
+# ---------------------------------------------------------------------------
+
+def ring_perm(p: int):
+    return [(r, (r + 1) % p) for r in range(p)]
+
+
+def ring_blocks(p: int, shift: int, device) -> torch.Tensor:
+    """Every rank's ring block ``(idx - shift) % p`` as an int64 ``[p]``."""
+    return _ints((np.arange(p) - shift) % p, torch.int64, device)
+
+
+def _ring_reduce_scatter(x: torch.Tensor) -> torch.Tensor:
+    """``[p, n]`` -> ``[p, n/p]``.  Step t sends block ``(idx-t-1) % p``
+    and adds the received chunk into block ``(idx-t-2) % p``: ``cur +
+    recv``.  Works on one copy of ``x``, updated in place."""
+    p = x.shape[0]
+    v = x.reshape(p, -1)
+    if v.shape[1] % p:
+        raise ValueError("reduce_scatter needs len divisible by p")
+    blk = v.shape[1] // p
+    v = v.clone()
+    perm = ring_perm(p)
+    for t in range(p - 1):
+        chunk = take_blocks(v, ring_blocks(p, t + 1, v.device), 1, blk)
+        recv = permute(chunk, perm)
+        ridx = ring_blocks(p, t + 2, v.device)
+        cur = take_blocks(v, ridx, 1, blk)
+        put_blocks(v, ridx, cur + recv, blk)
+    return take_blocks(v, ring_blocks(p, 0, v.device), 1, blk)
+
+
+def _ring_allgather(x: torch.Tensor) -> torch.Tensor:
+    """``[p, blk]`` -> ``[p, p*blk]``: step t forwards block
+    ``(idx-t) % p`` and lands the received one at ``(idx-t-1) % p``."""
+    p = x.shape[0]
+    row = x.reshape(p, -1)
+    blk = row.shape[1]
+    v = row.new_zeros((p, p * blk))
+    put_blocks(v, ring_blocks(p, 0, v.device), row, blk)
+    perm = ring_perm(p)
+    for t in range(p - 1):
+        chunk = take_blocks(v, ring_blocks(p, t, v.device), 1, blk)
+        put_blocks(v, ring_blocks(p, t + 1, v.device), permute(chunk, perm),
+                   blk)
+    return v
+
+
+def allreduce_ring(x: torch.Tensor) -> torch.Tensor:
+    """Ring RS + ring AG of ``x [p, ...]``, zero-padded to a multiple of p
+    (any rank count)."""
+    p = x.shape[0]
+    if p == 1:
+        return x
+    v, n = _pad_to(x.reshape(p, -1), p)
+    full = _ring_allgather(_ring_reduce_scatter(v))
+    return full[:, :n].reshape(x.shape)
+
+
+# ---------------------------------------------------------------------------
+# Trees: broadcast / reduce (small vectors) — paper Sec. 4.5
+# ---------------------------------------------------------------------------
+
+_TREE = {"bine": "bine_dh", "binomial": "binomial_dh",
+         "binomial_dd": "binomial_dd"}
+
+
+def broadcast(x: torch.Tensor, root: int = 0,
+              algo: str = "bine") -> torch.Tensor:
+    """Root's ``x`` on every rank: at step i the ranks whose
+    ``recv_step`` is i take what they receive."""
+    p = x.shape[0]
+    if p == 1:
+        return x
+    tt = tb.tree_tables(_TREE[algo], p, root)
+    buf = x
+    for i in range(tt.s):
+        recv = permute_partial(buf, tt.perms[i])
+        buf = torch.where(rank_mask(tt.recv_step == i, buf), recv, buf)
+    return buf
+
+
+def reduce(x: torch.Tensor, root: int = 0, algo: str = "bine") -> torch.Tensor:
+    """Tree reduce: the broadcast reversed; each rank forwards its
+    accumulator to its parent once.  Row ``root`` holds the sum."""
+    p = x.shape[0]
+    if p == 1:
+        return x
+    tt = tb.tree_tables(_TREE[algo], p, root)
+    s = tt.s
+    acc = x
+    for i in range(s):
+        pairs = [(dst, src) for (src, dst) in tt.perms[s - 1 - i]]
+        contrib = permute_partial(acc, pairs)
+        receives = np.array([any(d == r for _, d in pairs) for r in range(p)])
+        acc = acc + torch.where(rank_mask(receives, contrib), contrib,
+                                torch.zeros_like(contrib))
+    return acc
+
+
+# ---------------------------------------------------------------------------
+# Gather / Scatter (paper Sec. 4.1 / 4.2)
+# ---------------------------------------------------------------------------
+
+def _clamped(off, p: int, nblk: int) -> np.ndarray:
+    """``lax.dynamic_slice`` clamps its start so the window stays inside
+    the buffer; the tables' offsets of non-participating ranks rely on
+    it."""
+    return np.clip(np.asarray(off), 0, p - nblk)
+
+
+def gather(x: torch.Tensor, root: int = 0, algo: str = "bine") -> torch.Tensor:
+    """``[p, blk]`` -> ``[p, p*blk]``: the rank-ordered vector, valid at
+    the root (the other rows hold what the schedule left there)."""
+    p = x.shape[0]
+    if p == 1:
+        return x
+    gt = tb.gather_tables({"bine": "bine_dh", "binomial": "binomial_dh"}[algo],
+                          p, root)
+    dev = x.device
+    v = x.reshape(p, -1)
+    blk = v.shape[1]
+    buf = v.new_zeros((p, p * blk))
+    put_blocks(buf, rank_rows(gt.own_local, dev), v, blk)
+    for j in range(gt.s):
+        nblk = gt.sizes[j]
+        chunk = buf[:, :nblk * blk]      # the sender's window starts at 0
+        recv = permute_partial(chunk, gt.perms[j])
+        off = rank_rows(_clamped(gt.recv_off[j], p, nblk), dev)
+        cur = take_blocks(buf, off, nblk, blk)
+        put_blocks(buf, off, torch.where(rank_mask(gt.recv_mask[j], cur),
+                                         recv, cur), blk)
+    return permute_blocks(buf, gt.root_unrot)
+
+
+def scatter(x: torch.Tensor, root: int = 0, algo: str = "bine") -> torch.Tensor:
+    """``[p, n]`` (significant at the root) -> ``[p, n/p]``: rank r's
+    block r.  ``bine`` runs the distance-halving tree."""
+    p = x.shape[0]
+    if p == 1:
+        return x
+    st = tb.scatter_tables(
+        {"bine": "bine_dh", "bine_dd": "bine_dd",
+         "binomial": "binomial_dh"}[algo], p, root)
+    dev = x.device
+    v = x.reshape(p, -1)
+    if v.shape[1] % p:
+        raise ValueError("scatter needs len divisible by p")
+    blk = v.shape[1] // p
+    buf = permute_blocks(v, st.root_rot)
+    for j in range(st.s):
+        nblk = st.sizes[j]
+        soff = rank_rows(_clamped(st.send_off[j], p, nblk), dev)
+        recv = permute_partial(take_blocks(buf, soff, nblk, blk), st.perms[j])
+        cur = buf[:, :nblk * blk]
+        buf[:, :nblk * blk] = torch.where(rank_mask(st.recv_mask[j], cur),
+                                          recv, cur)
+    return take_blocks(buf, rank_rows(st.own_local, dev), 1, blk)
+
+
+# ---------------------------------------------------------------------------
+# Alltoall (paper Sec. 4.4)
+# ---------------------------------------------------------------------------
+
+def all_to_all(x: torch.Tensor, algo: str = "bine") -> torch.Tensor:
+    """``x [p, p, ...]`` (rank r's row d goes to rank d) -> ``[p, p, ...]``
+    (rank r's row o came from rank o), by butterfly routing: p/2 slots per
+    step over log2(p) steps."""
+    p = x.shape[0]
+    if p == 1:
+        return x
+    if x.shape[1] != p:
+        raise ValueError("all_to_all expects the per-rank leading dim == p")
+    at = tb.alltoall_tables({"bine": "bine_dd", "bruck": "bruck",
+                             "recdoub": "recdoub_dd"}[algo], p)
+    dev = x.device
+    ar = torch.arange(p, device=dev).view(p, 1)
+    buf = x.reshape(p, p, -1).clone()
+    for j in range(at.s):
+        chunk = buf[ar, rank_rows(at.send_slots[j], dev)]
+        recv = permute(chunk, at.perms[j])
+        buf[ar, rank_rows(at.recv_slots[j], dev)] = recv
+    return buf[ar, rank_rows(at.final_slots, dev)].reshape(x.shape)
+
+
+# ---------------------------------------------------------------------------
+# The framework's own collectives over the rank dim (``backend="xla"``)
+# ---------------------------------------------------------------------------
+# The reference's ``xla`` backend calls XLA's built-ins; on the stacked
+# executor they are PyTorch reductions and reshapes over dim 0 (a
+# multi-GPU executor maps them to NCCL).  Sums run in PyTorch's order, not
+# XLA's: floating-point results agree to rounding, not bitwise.
+
+def psum(x: torch.Tensor) -> torch.Tensor:
+    """``lax.psum``: the rank sum, on every rank.  Ints keep their dtype;
+    bool sums to int32, as ``lax.psum`` counts it."""
+    s = x.sum(0, keepdim=True,
+              dtype=torch.int32 if x.dtype == torch.bool else x.dtype)
+    return s.expand(x.shape).contiguous()
+
+
+def psum_scatter(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``lax.psum_scatter(x, scatter_dimension=dim, tiled=True)``: the rank
+    sum, rank r keeping block r of per-rank dim ``dim``."""
+    p = x.shape[0]
+    s = x.sum(0, dtype=x.dtype)
+    if s.shape[dim] % p:
+        raise ValueError((tuple(x.shape), dim, p))
+    return torch.movedim(s.unflatten(dim, (p, s.shape[dim] // p)), dim, 0)
+
+
+def all_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``lax.all_gather(x, axis=dim, tiled=True)``: every rank gets the
+    ranks' blocks concatenated along per-rank dim ``dim``."""
+    p = x.shape[0]
+    full = torch.cat(list(x), dim=dim)
+    return full.unsqueeze(0).expand((p,) + tuple(full.shape)).contiguous()
+
+
+def all_to_all_xla(x: torch.Tensor) -> torch.Tensor:
+    """``lax.all_to_all(split_axis=0, concat_axis=0)``: the rank and slot
+    dims swapped."""
+    return x.transpose(0, 1).contiguous()

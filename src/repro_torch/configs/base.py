@@ -75,7 +75,7 @@ def get_config(name: str) -> ModelConfig:
         _load_all()
     if name not in _REGISTRY:
         raise NotImplementedError(
-            f"arch {name!r} is not ported (ROADMAP.md queue A item 6); "
+            f"arch {name!r} is not ported (ROADMAP.md queue A item 5); "
             f"ported: {sorted(_REGISTRY)}")
     return _REGISTRY[name]
 

@@ -1,6 +1,7 @@
-"""Fused butterfly collectives on hand-written Hopper kernels.
+"""Fused collectives on hand-written Hopper kernels.
 
 Port of ``repro.kernels.collectives``: ``ops`` holds the stacked entry
-points, ``kernel`` the CUDA kernels' wrappers, ``ref`` their plain
+points (the bine, recdoub and ring families and the fused matmul
+collectives), ``kernel`` the CUDA kernels' wrappers, ``ref`` their plain
 versions.
 """

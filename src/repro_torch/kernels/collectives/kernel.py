@@ -1,10 +1,18 @@
-"""Hopper kernels of the fused butterfly steps, and their wrappers.
+"""Hopper kernels of the fused collectives, and their wrappers.
 
-Counterpart of ``repro.kernels.collectives.kernel`` for kernels 1–3 of the
-TPU set (``rs_step_kernel``, ``ag_step_kernel``, ``rs_step_kernel_q``).  The
-kernels are CUDA C++ in ``csrc/collective_steps.cu``, compiled for
-``sm_90a`` with ``nvcc`` at first use into ``build/repro_torch/`` (keyed by
-a hash of the source) and loaded with ``ctypes``.
+Counterpart of ``repro.kernels.collectives.kernel``: kernels 1-6 of the TPU
+set, CUDA C++ in ``csrc/``:
+
+  * ``collective_steps.cu``: ``rs_step``, ``ag_step``, ``rs_step_q`` (the
+    butterfly steps, TPU kernels 1-3);
+  * ``ring_update.cu``: ``ring_update`` (the ring step, TPU kernel 4);
+  * ``perm_matmul.cu``: ``perm_matmul`` (``matmul_pack_kernel`` and
+    ``gather_matmul_kernel``, TPU kernels 5-6, one kernel with an
+    ``lhs_perm`` flag as the reference's ``_mm_call`` has).
+
+Each source is compiled for ``sm_90a`` with its own ``nvcc`` at first use
+(all of them started together) into ``build/repro_torch/``, keyed by a
+hash of the source, and loaded with ``ctypes``.
 
 Dispatch: a wrapper handed CPU tensors runs the plain version from
 ``ref.py``; handed CUDA tensors it launches its kernel or raises.  There is
@@ -30,16 +38,21 @@ from repro_torch.collectives import compression as comp
 from . import ref as R
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("collective_steps.cu",)
+SOURCES = ("collective_steps.cu", "ring_update.cu", "perm_matmul.cu")
 #: build outputs, at the root of the checkout (listed in .gitignore)
 BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-#: kernel launches per wrapper since the last reset_launches()
-LAUNCHES: Dict[str, int] = {"rs_step": 0, "ag_step": 0, "rs_step_q": 0}
+#: kernel launches since the last reset_launches(), one count per TPU
+#: kernel replaced (``perm_matmul`` counts as ``matmul_pack`` or
+#: ``gather_matmul`` by its ``lhs_perm``)
+LAUNCHES: Dict[str, int] = {"rs_step": 0, "ag_step": 0, "rs_step_q": 0,
+                            "ring_update": 0, "matmul_pack": 0,
+                            "gather_matmul": 0}
 
-_LIB: Optional[ctypes.CDLL] = None
+#: source -> loaded library
+_LIBS: Dict[str, ctypes.CDLL] = {}
 
 
 def reset_launches() -> None:
@@ -58,51 +71,80 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256()
-    for name in SOURCES:
-        digest.update((CSRC / name).read_bytes())
+def library_path(source: str) -> Path:
+    digest = hashlib.sha256((CSRC / source).read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"collective_steps_{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{Path(source).stem}_{digest.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the kernels unless a library of these sources exists."""
-    out = library_path()
-    if out.exists():
-        return out
+def build() -> Dict[str, Path]:
+    """Compile every source that has no library yet, one ``nvcc`` each,
+    all running at once.  Returns source -> library path."""
+    outs = {src: library_path(src) for src in SOURCES}
+    todo = [src for src, out in outs.items() if not out.exists()]
+    if not todo:
+        return outs
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    nvcc = _nvcc()
+    tmps = {}
+    procs = {}
     try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *(str(CSRC / n) for n in SOURCES)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, out)   # atomic: a concurrent build never sees half
+        for src in todo:
+            fd, tmps[src] = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            procs[src] = subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", tmps[src], str(CSRC / src)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        failed = []
+        for src, proc in procs.items():
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc {src} failed ({proc.returncode}):\n"
+                              f"{out}\n{err}")
+            else:
+                os.replace(tmps[src], outs[src])  # atomic: never half a .so
+        if failed:
+            raise RuntimeError("\n".join(failed))
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for tmp in tmps.values():
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return outs
 
 
-def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        vp, ll = ctypes.c_void_p, ctypes.c_longlong
-        for name in ("repro_rs_step_f32", "repro_rs_step_bf16"):
+_VP, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+#: source -> C entry point -> argument types (each returns a cudaError_t)
+_SIGNATURES = {
+    "collective_steps.cu": {
+        "repro_rs_step_f32": [_VP] * 6 + [_LL, _LL, _VP],
+        "repro_rs_step_bf16": [_VP] * 6 + [_LL, _LL, _VP],
+        "repro_ag_step": [_VP] * 4 + [_LL, _LL, _LL, _VP],
+        "repro_rs_step_q": [_VP] * 8 + [_LL, _LL, _LL, _VP],
+    },
+    "ring_update.cu": {
+        "repro_ring_acc_f32": [_VP] * 4 + [_LL, _LL, _LL, _VP],
+        "repro_ring_acc_bf16": [_VP] * 4 + [_LL, _LL, _LL, _VP],
+        "repro_ring_write": [_VP] * 3 + [_LL] * 4 + [_VP],
+    },
+    "perm_matmul.cu": {
+        "repro_perm_matmul": [_VP] * 4 + [_INT] * 3 + [_LL] * 5 + [_VP],
+    },
+}
+
+
+def _lib(source: str = "collective_steps.cu") -> ctypes.CDLL:
+    if source not in _LIBS:
+        lib = ctypes.CDLL(str(build()[source]))
+        for name, argtypes in _SIGNATURES[source].items():
             fn = getattr(lib, name)
-            fn.argtypes = [vp, vp, vp, vp, vp, vp, ll, ll, vp]
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        lib.repro_ag_step.argtypes = [vp, vp, vp, vp, ll, ll, ll, vp]
-        lib.repro_ag_step.restype = ctypes.c_int
-        lib.repro_rs_step_q.argtypes = [vp] * 8 + [ll, ll, ll, vp]
-        lib.repro_rs_step_q.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+        _LIBS[source] = lib
+    return _LIBS[source]
 
 
 def _on_cuda(*tensors) -> bool:
@@ -230,3 +272,86 @@ def rs_step_q(buf, recv_q, recv_s, c, c_next=None):
         _stream(buf)), "rs_step_q")
     LAUNCHES["rs_step_q"] += 1
     return out if sq is None else (out, sq, ss)
+
+
+def ring_update(v, recv, ridx, accumulate=True, return_updated=False):
+    """One ring step IN PLACE: ``v [p, P*b]``, ``recv [p, b]``, ``ridx``
+    int32 ``[p]``; row r's block ``ridx[r]`` gets ``cur + recv[r]``
+    (``accumulate``; float32 or bf16) or ``recv[r]`` (any dtype of 1, 2,
+    4 or 8 bytes).  Returns ``v``, plus the updated blocks ``[p, b]`` (the
+    next ring send) with ``return_updated``.  See ``ref.ring_update_ref``."""
+    if return_updated and not accumulate:
+        raise ValueError("return_updated needs accumulate: an allgather's "
+                         "next send is recv itself")
+    if not _on_cuda(v, recv, ridx):
+        return R.ring_update_ref(v, recv, ridx, accumulate, return_updated)
+    _check(v.dim() == 2 and recv.dim() == 2 and recv.shape[0] == v.shape[0],
+           f"ring_update needs v [p, P*b] and recv [p, b], got "
+           f"{tuple(v.shape)} and {tuple(recv.shape)}")
+    p, b = recv.shape
+    _check(b > 0 and v.shape[1] % b == 0,
+           f"v's row {v.shape[1]} is not a whole number of blocks of {b}")
+    _check(recv.dtype == v.dtype, "v and recv dtypes differ")
+    _check(v.is_contiguous() and recv.is_contiguous(),
+           "ring_update needs contiguous v and recv")
+    _check_bits(ridx, p, "ridx")
+    send = None
+    if accumulate:
+        _check(v.dtype in (torch.float32, torch.bfloat16),
+               f"ring_update accumulates float32 or bfloat16, got {v.dtype}")
+        if return_updated:
+            send = torch.empty_like(recv)
+        fn = (_lib("ring_update.cu").repro_ring_acc_f32
+              if v.dtype == torch.float32
+              else _lib("ring_update.cu").repro_ring_acc_bf16)
+        err = fn(v.data_ptr(), recv.data_ptr(), _ptr(send), ridx.data_ptr(),
+                 p, v.shape[1], b, _stream(v))
+    else:
+        _check(v.element_size() in (1, 2, 4, 8),
+               f"ring_update writes 1, 2, 4 or 8-byte elements, got "
+               f"{v.dtype}")
+        err = _lib("ring_update.cu").repro_ring_write(
+            v.data_ptr(), recv.data_ptr(), ridx.data_ptr(), p, v.shape[1], b,
+            v.element_size(), _stream(v))
+    _raise_on(err, "ring_update")
+    LAUNCHES["ring_update"] += 1
+    return v if send is None else (v, send)
+
+
+def perm_matmul(x, w, perm, lhs_perm: bool):
+    """Row-block-permuted ``x [p, m, k] @ w [p, k, n]`` in float32
+    arithmetic, result in ``result_type(x, w)``; ``perm`` int32 ``[nb]``
+    (one for all ranks), ``m % nb == 0``.  Output row-block ``b`` holds
+    the product's row-block ``perm[b]``: ``lhs_perm`` reads the LHS
+    through the permutation (``ref.gather_matmul_ref``), otherwise the
+    output writes go through its inverse (``ref.matmul_pack_ref``)."""
+    if not _on_cuda(x, w, perm):
+        return (R.gather_matmul_ref(x, w, perm) if lhs_perm
+                else R.matmul_pack_ref(x, w, perm))
+    ok = (torch.float32, torch.bfloat16)
+    _check(x.dtype in ok and w.dtype in ok,
+           f"perm_matmul takes float32 or bfloat16, got {x.dtype}, {w.dtype}")
+    _check(x.dim() == 3 and w.dim() == 3 and x.shape[0] == w.shape[0]
+           and x.shape[2] == w.shape[1],
+           f"perm_matmul needs x [p, m, k] and w [p, k, n], got "
+           f"{tuple(x.shape)} and {tuple(w.shape)}")
+    _check(x.is_contiguous() and w.is_contiguous(),
+           "perm_matmul needs contiguous x and w")
+    p, m, k = x.shape
+    n = w.shape[2]
+    nb = perm.shape[0] if perm.dim() == 1 else 0
+    _check(perm.dtype == torch.int32 and nb > 0 and m % nb == 0
+           and perm.is_contiguous(),
+           f"perm must be a contiguous int32 [nb] with m % nb == 0, got "
+           f"{perm.dtype} {tuple(perm.shape)} for m={m}")
+    # the output-side map is the inverse order (reference kernel.py:421)
+    order = perm if lhs_perm else torch.argsort(perm).to(torch.int32)
+    out = torch.empty((p, m, n), dtype=torch.result_type(x, w),
+                      device=x.device)
+    _raise_on(_lib("perm_matmul.cu").repro_perm_matmul(
+        x.data_ptr(), w.data_ptr(), out.data_ptr(), order.data_ptr(),
+        int(lhs_perm), int(x.dtype == torch.bfloat16),
+        int(w.dtype == torch.bfloat16), p, m, n, k, nb, _stream(x)),
+        "perm_matmul")
+    LAUNCHES["gather_matmul" if lhs_perm else "matmul_pack"] += 1
+    return out

@@ -1,9 +1,9 @@
 """Stacked entry points of the ``pallas_fused`` collective backend.
 
-Counterpart of ``repro.kernels.collectives.ops`` (the bine and recdoub
-butterfly families).  Same schedules as ``collectives.stacked`` and the
-same exchange (one rank-dim gather per step), but every step's local work
-is one kernel launch over all p ranks:
+Counterpart of ``repro.kernels.collectives.ops`` (the bine, recdoub and
+ring families, and the fused matmul collectives).  Same schedules as
+``collectives.stacked`` and the same exchange (one rank-dim gather per
+step), but every step's local work is one kernel launch over all p ranks:
 
   * butterfly RS: the keep-slice, the reduction and the next step's
     send-half pack are one ``rs_step`` (the first step's pack is a plain
@@ -11,7 +11,14 @@ is one kernel launch over all p ranks:
   * butterfly AG: the concat/concat/select triple is one ``ag_step``;
   * int8 wire: ``rs_step_q`` decodes, accumulates and re-quantizes in one
     pass; the AG moves the int8 payload through ``ag_step`` and merges the
-    scales (1/256 of the payload) as plain concats.
+    scales (1/256 of the payload) as plain concats;
+  * ring RS/AG: the read-modify-write of the rotating block runs in place
+    through ``ring_update``, whose second output is the next send (the
+    caller's input is cloned once, so it is never changed);
+  * ``matmul_reduce_scatter`` / ``allgather_matmul``: the tensor-parallel
+    contraction absorbs the block permutation of its adjacent schedule
+    step (``perm_matmul``: output writes resp. LHS reads go through the
+    permuted block index).
 
 Arithmetic order matches the stacked executor, so results are bitwise
 equal to it.
@@ -19,16 +26,23 @@ equal to it.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.collectives import compression as comp
 from repro_torch.collectives import stacked
 from repro_torch.collectives.stacked import (_pad_to, butterfly, merge,
                                              permute, permute_blocks,
-                                             rank_bits, take_half)
+                                             rank_bits, ring_blocks,
+                                             ring_perm, take_blocks,
+                                             take_half)
 from repro_torch.core import tables as tb
 
 from . import kernel as K
+from . import ref as R
+
+#: schedule families the fused kernels execute
+ALGOS = ("bine", "recdoub", "ring")
 
 
 # ---------------------------------------------------------------------------
@@ -125,6 +139,8 @@ def reduce_scatter(x: torch.Tensor, algo: str = "bine") -> torch.Tensor:
     p = x.shape[0]
     if p == 1:
         return x
+    if algo == "ring":
+        return _ring_rs_flat(x.reshape(p, -1))
     bt = butterfly(algo, p)
     v = x.reshape(p, -1)
     if v.shape[1] % p:
@@ -137,6 +153,8 @@ def allgather(x: torch.Tensor, algo: str = "bine") -> torch.Tensor:
     p = x.shape[0]
     if p == 1:
         return x
+    if algo == "ring":
+        return _ring_ag_flat(x.reshape(p, -1))
     bt = butterfly(algo, p)
     return permute_blocks(_ag_core_fused(x.reshape(p, -1), bt),
                           bt.final_block)
@@ -147,9 +165,12 @@ def allreduce(x: torch.Tensor, algo: str = "bine") -> torch.Tensor:
     p = x.shape[0]
     if p == 1:
         return x
-    bt = butterfly(algo, p)
     v, n = _pad_to(x.reshape(p, -1), p)
-    full = _ag_core_fused(_rs_core_fused(v, bt), bt)
+    if algo == "ring":
+        full = _ring_ag_flat(_ring_rs_flat(v))
+    else:
+        bt = butterfly(algo, p)
+        full = _ag_core_fused(_rs_core_fused(v, bt), bt)
     return full[:, :n].reshape(x.shape)
 
 
@@ -176,3 +197,96 @@ def allgather_dim(x: torch.Tensor, dim: int, algo: str = "bine"):
     flat = allgather(xm.reshape(p, -1), algo)
     out_shape = (p, xm.shape[1] * p) + tuple(xm.shape[2:])
     return torch.movedim(flat.reshape(out_shape), 1, dim + 1)
+
+
+
+# ---------------------------------------------------------------------------
+# Ring (fused read-modify-write; the stacked ring's rotation)
+# ---------------------------------------------------------------------------
+
+def _ring_rs_flat(v: torch.Tensor) -> torch.Tensor:
+    """``[p, n]`` -> ``[p, n/p]``.  Step t sends block ``(idx-t-1) % p`` —
+    the block step t-1 just updated, so ``ring_update``'s second output IS
+    the next send.  The first send is block ``(idx-1) % p``, and every add
+    is ``cur + recv``: bitwise the stacked ring."""
+    p = v.shape[0]
+    if v.shape[1] % p:
+        raise ValueError("reduce_scatter needs len divisible by p")
+    blk = v.shape[1] // p
+    v = v.clone(memory_format=torch.contiguous_format)   # updated in place
+    perm = ring_perm(p)
+    send = take_blocks(v, ring_blocks(p, 1, v.device), 1, blk)
+    for t in range(p - 1):
+        recv = permute(send, perm)
+        ridx = rank_bits((np.arange(p) - t - 2) % p, v.device)
+        if t + 1 < p - 1:
+            v, send = K.ring_update(v, recv, ridx, accumulate=True,
+                                    return_updated=True)
+        else:
+            K.ring_update(v, recv, ridx, accumulate=True)
+    return take_blocks(v, ring_blocks(p, 0, v.device), 1, blk)
+
+
+def _ring_ag_flat(block: torch.Tensor) -> torch.Tensor:
+    """``[p, blk]`` -> ``[p, p*blk]``: step t forwards what step t-1
+    delivered and ``ring_update`` writes it into block ``(idx-t-1) % p``."""
+    p, blk = block.shape
+    v = block.new_zeros((p, p * blk))
+    K.ring_update(v, block.contiguous(), rank_bits(np.arange(p), v.device),
+                  accumulate=False)
+    perm = ring_perm(p)
+    send = block
+    for t in range(p - 1):
+        recv = permute(send, perm)
+        K.ring_update(v, recv, rank_bits((np.arange(p) - t - 1) % p, v.device),
+                      accumulate=False)
+        send = recv
+    return v
+
+
+# ---------------------------------------------------------------------------
+# Fused matmul + schedule-edge collectives (tensor-parallel contraction)
+# ---------------------------------------------------------------------------
+
+def matmul_reduce_scatter(x: torch.Tensor, w: torch.Tensor,
+                          algo: str = "bine") -> torch.Tensor:
+    """``reduce_scatter(x @ w)`` over the ranks, rows scattered: ``x [p, m,
+    k]``, ``w [p, k, n]`` -> ``[p, m/p, n]``, rank r holding rows ``[r*m/p,
+    (r+1)*m/p)`` of the rank-summed product.  The matmul writes straight
+    into the reduce-scatter's pre-permuted block layout."""
+    p, m, _ = x.shape
+    n = w.shape[2]
+    if p == 1:      # a plain product, outside any kernel, as the reference
+        return R.dot_ref(x, w)
+    if m % p:
+        raise ValueError(f"matmul_reduce_scatter needs m % p == 0, got "
+                         f"m={m}, p={p}")
+    if algo == "ring":
+        perm = rank_bits(np.arange(p), x.device)   # ring scatters in order
+        y = K.perm_matmul(x, w, perm, lhs_perm=False)
+        out = _ring_rs_flat(y.reshape(p, -1))
+    else:
+        bt = butterfly(algo, p)
+        y = K.perm_matmul(x, w, rank_bits(bt.inv_final, x.device),
+                          lhs_perm=False)
+        out = _rs_core_fused(y.reshape(p, -1), bt)
+    return out.reshape(p, m // p, n)
+
+
+def allgather_matmul(x: torch.Tensor, w: torch.Tensor,
+                     algo: str = "bine") -> torch.Tensor:
+    """``allgather(x) @ w``: ``x [p, mb, k]`` (rank r's rows ``[r*mb,
+    (r+1)*mb)``), ``w [p, k, n]`` -> ``[p, p*mb, n]`` on every rank.  The
+    allgather's final block un-permute is folded into the matmul's LHS
+    reads."""
+    p, mb, k = x.shape
+    if p == 1:
+        return R.dot_ref(x, w)
+    if algo == "ring":
+        g = _ring_ag_flat(x.reshape(p, -1))
+        perm = rank_bits(np.arange(p), x.device)
+    else:
+        bt = butterfly(algo, p)
+        g = _ag_core_fused(x.reshape(p, -1), bt)
+        perm = rank_bits(bt.final_block, x.device)
+    return K.perm_matmul(g.reshape(p, p * mb, k), w, perm, lhs_perm=True)

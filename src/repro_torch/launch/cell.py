@@ -30,7 +30,9 @@ def data_config(cfg: ModelConfig) -> DataConfig:
                       vocab_size=cfg.vocab_size)
 
 
-def train_config(backend: str, wire_dtype: str) -> TrainConfig:
+def train_config(backend: str, wire_dtype: str,
+                 topology: str = "tpu_multipod") -> TrainConfig:
     return TrainConfig(backend=backend, wire_dtype=wire_dtype,
+                       topology=topology,
                        adamw=AdamWConfig(lr=3e-4, warmup_steps=2,
                                          total_steps=100))

@@ -34,7 +34,7 @@ def parse_mesh(mesh: str) -> int:
     raise NotImplementedError(
         f"mesh {mesh!r}: this port runs one DP axis with model axis 1 "
         "(1,<dp>,1 or <dp>,1); tensor parallelism is ROADMAP.md queue A "
-        "item 4")
+        "item 3")
 
 
 def main(argv=None):
@@ -47,9 +47,16 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--backend", default="bine",
-                    choices=["bine", "pallas_fused"])
+                    choices=["bine", "recdoub", "ring", "xla", "pallas_fused",
+                             "auto"])
+    ap.add_argument("--topology", default="tpu_multipod",
+                    help="decision-table preset for --backend auto, "
+                         "--wire-dtype auto and the bucket size")
     ap.add_argument("--wire-dtype", default="float32",
-                    choices=["float32", "bfloat16", "int8"])
+                    choices=["float32", "bfloat16", "int8", "auto"],
+                    help="gradient/param wire; int8 = pow2-scale codec with "
+                         "error feedback (bucketed path), auto = per-bucket "
+                         "(backend, wire) table lookup")
     ap.add_argument("--accum", type=int, default=1)
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--warmup", type=int, default=20)
@@ -68,11 +75,12 @@ def main(argv=None):
     acfg = AdamWConfig(lr=args.lr, warmup_steps=args.warmup,
                        total_steps=args.steps)
     tcfg = TrainConfig(backend=args.backend, accum_steps=args.accum,
-                       adamw=acfg, wire_dtype=args.wire_dtype)
+                       adamw=acfg, wire_dtype=args.wire_dtype,
+                       topology=args.topology)
     shapes = TF.param_shapes(cfg)
     print(f"[train] arch={cfg.name} params={TF.param_count(shapes):,} "
           f"dp={n_dp} backend={args.backend} wire={args.wire_dtype} "
-          f"device={dev}")
+          f"topology={args.topology} device={dev}")
     step_fn, info, _ = make_train_step(cfg, tcfg, n_dp, shapes, dev)
     init_p, init_s = make_init_fns(cfg, tcfg, n_dp, dev)
     params = init_p(args.seed)

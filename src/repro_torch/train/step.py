@@ -10,9 +10,11 @@ on one device:
     another;
   * gradients, optimizer shards, error-feedback residuals and collective
     buffers are stacked ``[p, ...]``, and every collective runs over that
-    rank axis (``collectives.stacked`` for ``backend="bine"``,
+    rank axis: ``collectives.stacked`` for ``bine`` / ``recdoub`` /
+    ``ring``, its rank-dim built-ins for ``xla``,
     ``kernels.collectives.ops`` — the CUDA step kernels — for
-    ``"pallas_fused"``).
+    ``pallas_fused``, and ``auto`` resolved per call site through the
+    packaged decision tables (``repro_torch.topology``).
 
 The bucketed step: pack each bucket's gradients (f32, bf16 or int8 wire,
 pre-scaled as the reference does), one reduce-scatter per bucket (int8
@@ -26,7 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,40 +37,47 @@ from repro_torch import resolve_device
 from repro_torch import tree as T
 from repro_torch.collectives import compression as comp
 from repro_torch.collectives import stacked
+from repro_torch.collectives.api import executable_at
 from repro_torch.kernels.collectives import ops as fused
 from repro_torch.models import transformer as TF
 from repro_torch.optim.adamw import (AdamWConfig, adamw_init_leaf,
                                      adamw_update_leaf, lr_at)
 from repro_torch.train import buckets, zero
 
-#: wire dtypes the reference accepts; "auto" is not ported yet
+#: wire dtypes TrainConfig accepts — "auto" resolves per bucket via the
+#: joint (backend, wire) decision table
 WIRE_DTYPES = ("float32", "bfloat16", "int8", "auto")
 
-#: backends this port runs, and where each missing one is queued
-BACKENDS = ("bine", "pallas_fused")
-_NOT_PORTED = {
-    "auto": "ROADMAP.md queue A item 1 (api.py dispatch + auto)",
-    "recdoub": "ROADMAP.md queue A item 1 (api.py dispatch + auto)",
-    "xla": "ROADMAP.md queue A item 1 (api.py dispatch + auto)",
-    "ring": "ROADMAP.md queue A item 2 (the ring family with kernel 4)",
-    "bine_hier": "ROADMAP.md queue A item 2 (the ring family and "
-                 "composed schedules)",
-}
+#: backends this port runs
+BACKENDS = ("bine", "recdoub", "ring", "xla", "pallas_fused", "auto")
+
+#: backends with an int8 wire-codec path
+_CODEC_BACKENDS = ("bine", "recdoub", "pallas_fused")
+
+_BINE_HIER = ("backend 'bine_hier' is not ported: ROADMAP.md queue A item 1 "
+              "(bine_hier, composed schedules, multi-axis DP)")
 
 
 @dataclass(frozen=True)
 class TrainConfig:
     """The reference's config less what the port does not run yet: one DP
-    axis (the stacked ranks), model axis 1, analytic tables only."""
-    backend: str = "bine"            # bine | pallas_fused
+    axis (the stacked ranks), model axis 1, the packaged (analytic)
+    tables."""
+    backend: str = "bine"            # bine | recdoub | ring | xla
+    #                                # | pallas_fused | auto
     accum_steps: int = 1
     clip_norm: float = 1.0
     #: gradient/param wire: float32 | bfloat16 (cast) | int8 (pow2-scale
-    #: wire codec + error feedback, bucketed path only)
+    #: wire codec + error feedback, bucketed path only) | auto (per-bucket
+    #: joint (backend, wire) table lookup)
     wire_dtype: str = "float32"
     adamw: AdamWConfig = AdamWConfig()
-    #: preset whose bucket capacity bucket_bytes=-1 reads
+    #: decision-table preset for backend="auto", wire_dtype="auto" and
+    #: bucket_bytes=-1
     topology: str = "tpu_multipod"
+    #: table provenance: "analytic" (the packaged tables); "measured" is
+    #: not ported and raises at lookup
+    tuning: str = "analytic"
     #: small/large allreduce switch (inclusive), bytes of the wire dtype
     small_cutoff_bytes: int = 16384
     #: -1: the topology preset's capacity, 0: per-leaf, >0: bytes
@@ -79,20 +88,19 @@ class TrainConfig:
             raise ValueError(
                 f"unsupported wire_dtype {self.wire_dtype!r}: expected one "
                 f"of {WIRE_DTYPES}")
-        if self.backend in _NOT_PORTED:
-            raise NotImplementedError(
-                f"backend {self.backend!r} is not ported: "
-                f"{_NOT_PORTED[self.backend]}")
+        if self.backend == "bine_hier":
+            raise NotImplementedError(_BINE_HIER)
         if self.backend not in BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r}")
-        if self.wire_dtype == "auto":
-            raise NotImplementedError(
-                "wire_dtype='auto' needs the decision tables: "
-                + _NOT_PORTED["auto"])
-        if self.wire_dtype == "int8" and self.bucket_bytes == 0:
-            raise ValueError(
-                "wire_dtype='int8' runs on the bucketed flat-vector "
-                "path; bucket_bytes=0 disables bucketing")
+        if self.wire_dtype == "int8":
+            if self.backend not in _CODEC_BACKENDS + ("auto",):
+                raise ValueError(
+                    f"wire_dtype='int8' needs a codec-capable backend "
+                    f"{_CODEC_BACKENDS} or 'auto', got {self.backend!r}")
+            if self.bucket_bytes == 0:
+                raise ValueError(
+                    "wire_dtype='int8' runs on the bucketed flat-vector "
+                    "path; bucket_bytes=0 disables bucketing")
 
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)
@@ -102,9 +110,32 @@ class TrainConfig:
 # Gradient collectives (bucketed flat + per-leaf dim-general), stacked
 # ---------------------------------------------------------------------------
 
+def _backend_for_bytes(tcfg: TrainConfig, collective: str, p: int,
+                       nbytes: int) -> str:
+    """Concrete backend for a gradient collective of ``nbytes`` payload
+    (one rank's full vector, the table's convention)."""
+    if tcfg.backend != "auto":
+        return tcfg.backend
+    from repro_torch.topology import select_backend
+    return select_backend(collective, p, nbytes, tcfg.topology,
+                          tuning=tcfg.tuning)
+
+
+def _backend_for(tcfg: TrainConfig, collective: str, arr: torch.Tensor,
+                 gathered: bool = False) -> str:
+    """``_backend_for_bytes`` for one stacked ``arr [p, ...]``: one rank's
+    bytes, scaled by p where ``arr`` is one rank's shard (``gathered``)."""
+    if tcfg.backend != "auto":
+        return tcfg.backend
+    p = arr.shape[0]
+    nbytes = arr[0].numel() * arr.element_size() * (p if gathered else 1)
+    return _backend_for_bytes(tcfg, collective, p, nbytes)
+
+
 def _wire_cast(tcfg: TrainConfig, g, n_dp: int):
     """One leaf to the wire dtype (per-leaf/replicated path): bf16 is
-    pre-scaled by the exact ``1/n_dp`` before the reduce."""
+    pre-scaled by the exact ``1/n_dp`` before the reduce; int8 and auto
+    leaves stay float32 (the codec runs on the bucketed path only)."""
     if tcfg.wire_dtype == "bfloat16":
         return (g / n_dp).to(torch.bfloat16)
     return g.to(torch.float32)
@@ -132,73 +163,151 @@ def _rs_leaf(tcfg: TrainConfig, g, zd: int, n_dp: int):
     allreduce when zd < 0."""
     wire = _wire_cast(tcfg, g, n_dp)
     if zd < 0:
+        b = _backend_for(tcfg, "allreduce", wire)
+        if b == "xla":
+            return stacked.psum(wire)
+        if b == "ring":
+            return stacked.allreduce_ring(wire)
+        algo = "recdoub" if b == "recdoub" else "bine"
         per_rank = wire[0].numel() * wire.element_size()
         if per_rank <= tcfg.small_cutoff_bytes:    # inclusive boundary
-            return stacked.allreduce_small(wire, "bine")
-        if tcfg.backend == "pallas_fused":
+            return stacked.allreduce_small(wire, algo)
+        if b == "pallas_fused":
             return fused.allreduce(wire, "bine")
-        return stacked.allreduce_butterfly(wire, "bine")
-    if tcfg.backend == "pallas_fused":
+        return stacked.allreduce_butterfly(wire, algo)
+    b = _backend_for(tcfg, "reduce_scatter", wire)
+    if b == "xla":
+        return stacked.psum_scatter(wire, zd)
+    if b == "pallas_fused":
         return fused.reduce_scatter_dim(wire, zd, "bine")
-    return stacked.reduce_scatter_dim(wire, zd, "bine")
+    return stacked.reduce_scatter_dim(wire, zd, _algo(b))
+
+
+def _algo(b: str) -> str:
+    if b == "bine_hier":
+        raise NotImplementedError(_BINE_HIER)
+    return {"bine": "bine", "recdoub": "recdoub", "ring": "ring"}[b]
 
 
 def _ag_leaf(tcfg: TrainConfig, x, zd: int):
     if zd < 0:
         return x
-    if tcfg.backend == "pallas_fused":
+    b = _backend_for(tcfg, "allgather", x, gathered=True)
+    if b == "xla":
+        return stacked.all_gather(x, zd)
+    if b == "pallas_fused":
         return fused.allgather_dim(x, zd, "bine")
-    return stacked.allgather_dim(x, zd, "bine")
+    return stacked.allgather_dim(x, zd, _algo(b))
 
 
-def _rs_bucket(backend: str, v):
-    if backend == "pallas_fused":
+def _rs_bucket(b: str, v):
+    """One flat reduce-scatter of ``v [p, L]`` -> ``[p, L/p]`` on the
+    bucket's static backend decision."""
+    if b == "xla":
+        return stacked.psum_scatter(v, 0)
+    if b == "pallas_fused":
         return fused.reduce_scatter(v, "bine")
-    return stacked.reduce_scatter(v, "bine")
+    return stacked.reduce_scatter(v, _algo(b))
 
 
-def _ag_bucket(backend: str, row):
-    if backend == "pallas_fused":
+def _ag_bucket(b: str, row):
+    """Inverse flat allgather: ``[p, L/p]`` -> the full bucket ``[p, L]``."""
+    if b == "xla":
+        return stacked.all_gather(row, 0)
+    if b == "pallas_fused":
         return fused.allgather(row, "bine")
-    return stacked.allgather(row, "bine")
+    return stacked.allgather(row, _algo(b))
 
 
 def _rs_bucket_q(backend: str, v):
+    """int8-wire flat reduce-scatter; the stacked and fused twins decode
+    bit-identically, so the backend changes speed, never the result."""
     if backend == "pallas_fused":
         return fused.reduce_scatter_q(v, "bine")
-    return stacked.reduce_scatter_q(v, "bine")
+    return stacked.reduce_scatter_q(v, backend)
 
 
 def _ag_bucket_q(backend: str, row):
     if backend == "pallas_fused":
         return fused.allgather_q(row, "bine")
-    return stacked.allgather_q(row, "bine")
+    return stacked.allgather_q(row, backend)
+
+
+def _small_allreduce(tcfg: TrainConfig, x):
+    """The grad-norm and metrics vector: the small full-vector path
+    (pallas_fused shares bine's tree: nothing to fuse)."""
+    b = _backend_for(tcfg, "allreduce", x)
+    if b == "xla":
+        return stacked.psum(x)
+    if b == "ring":
+        return stacked.allreduce_ring(x)
+    return stacked.allreduce_small(x, "recdoub" if b == "recdoub" else "bine")
 
 
 def resolve_bucket_plan(tcfg: TrainConfig, n_dp: int, params_shapes,
                         layout) -> Optional[buckets.BucketPlan]:
     """The step's static bucket plan (None = bucketing off).  Capacity:
     ``bucket_bytes`` > 0 verbatim, -1 the topology preset's entry, 0 or
-    one rank turns bucketing off."""
+    one rank turns bucketing off.  ``auto`` wires plan at float32 width."""
     if n_dp <= 1 or tcfg.bucket_bytes == 0:
         return None
     cap = tcfg.bucket_bytes
     if cap < 0:
         from repro_torch.topology import select_bucket_bytes
-        cap = select_bucket_bytes(n_dp, tcfg.topology)
-    wire_itemsize = comp.WIRE_BYTES_PER_ELEM[tcfg.wire_dtype]
+        cap = select_bucket_bytes(n_dp, tcfg.topology, tuning=tcfg.tuning)
+    wire_itemsize = comp.WIRE_BYTES_PER_ELEM.get(tcfg.wire_dtype, 4.0)
     plan = buckets.plan_buckets(params_shapes, layout, n_dp, cap,
                                 wire_itemsize)
     return plan if plan.buckets else None
 
 
+def _bucket_decision(tcfg: TrainConfig, collective: str, p: int,
+                     f32_bytes: int, wire_bytes: int) -> Tuple[str, str]:
+    """Joint ``(backend, wire_dtype)`` for one bucket collective.
+
+    ``wire_dtype="auto"`` reads the table's joint wire row at the bucket's
+    float32 payload; a pinned backend keeps its choice and takes the wire
+    only if it has a codec.  An explicit wire prices the backend at the
+    wire payload; an auto-resolved codec-less backend under explicit int8
+    snaps to "bine"."""
+    wire = tcfg.wire_dtype
+    if wire == "auto":
+        if p & (p - 1):
+            return _backend_for_bytes(tcfg, collective, p, f32_bytes), \
+                "float32"
+        from repro_torch.topology import select_wire
+        b, w = select_wire(collective, p, f32_bytes, tcfg.topology,
+                           tuning=tcfg.tuning)
+        if tcfg.backend != "auto":
+            b = tcfg.backend
+            if b not in _CODEC_BACKENDS:
+                w = "float32"
+        return b, w
+    b = _backend_for_bytes(tcfg, collective, p, wire_bytes)
+    if wire == "int8" and b not in _CODEC_BACKENDS:
+        b = "bine"
+    return b, wire
+
+
 def bucket_decisions(tcfg: TrainConfig, plan: buckets.BucketPlan):
     """Static per-bucket ``(rs_backend, rs_wire, ag_backend, ag_wire)``.
-    The allgather wire only goes int8; a bf16 wire gathers params at
-    their own dtype."""
-    ag_w = "int8" if tcfg.wire_dtype == "int8" else "float32"
-    return [(tcfg.backend, tcfg.wire_dtype, tcfg.backend, ag_w)
-            for _ in plan.buckets]
+    The RS prices the bucket's gradient payload, the AG its param-dtype
+    payload; the allgather wire only goes int8 (a bf16 one gathers params
+    at their own dtype)."""
+    p = plan.n_dp
+    out = []
+    for b in plan.buckets:
+        f32_rs = b.nbytes(4.0, p)
+        rs_wire_bytes = b.nbytes(plan.wire_itemsize, p)
+        ag_bytes = b.nbytes(getattr(torch, b.dtype).itemsize, p)
+        rs_b, rs_w = _bucket_decision(tcfg, "reduce_scatter", p, f32_rs,
+                                      rs_wire_bytes)
+        ag_b, ag_w = _bucket_decision(tcfg, "allgather", p, ag_bytes,
+                                      ag_bytes)
+        if ag_w == "bfloat16":
+            ag_w = "float32"
+        out.append((rs_b, rs_w, ag_b, ag_w))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -288,16 +397,22 @@ def make_train_step(model_cfg, tcfg: TrainConfig, n_dp: int, params_shapes,
     the state over, as the reference step donates it.  ``info`` holds the
     static ``bucket_plan`` (None = per-leaf collectives)."""
     dev = resolve_device(device)
-    if n_dp & (n_dp - 1):
+    if n_dp > 1 and not executable_at(tcfg.backend, n_dp):
         raise ValueError(
-            f"the butterfly schedules need a power-of-two DP rank count, "
-            f"got {n_dp}; the ring fallback is "
-            + _NOT_PORTED["ring"])
+            f"backend={tcfg.backend!r} cannot execute at non-power-of-"
+            f"two n_dp={n_dp} (butterfly schedules need pow2 rank counts); "
+            f"use backend='ring' or 'xla'")
     layout = zero.zero_layout(model_cfg, params_shapes, n_dp)
     plan = resolve_bucket_plan(tcfg, n_dp, params_shapes, layout)
-    if tcfg.wire_dtype == "int8" and plan is None and n_dp > 1:
-        raise ValueError("wire_dtype='int8' needs the bucketed path; this "
-                         "model has no bucketable (ZeRO-sharded) leaves")
+    if tcfg.wire_dtype == "int8":
+        if n_dp & (n_dp - 1):
+            raise ValueError(
+                f"wire_dtype='int8' needs a power-of-two DP rank count "
+                f"(the codec schedules are butterfly-only), got {n_dp}")
+        if plan is None and n_dp > 1:
+            raise ValueError("wire_dtype='int8' needs the bucketed path; "
+                             "this model has no bucketable (ZeRO-sharded) "
+                             "leaves")
     decisions = None if plan is None else bucket_decisions(tcfg, plan)
     flat_zd = T.flatten(layout)
 
@@ -379,7 +494,7 @@ def make_train_step(model_cfg, tcfg: TrainConfig, n_dp: int, params_shapes,
         vec = torch.stack(
             [sq_shard] + [torch.stack([m[k] for m in mets]).to(torch.float32)
                           for k in mkeys], dim=1)
-        red = stacked.allreduce_small(vec, "bine")
+        red = _small_allreduce(tcfg, vec)
         gnorm = torch.sqrt(red[:, 0] + sq_repl)
         if tcfg.clip_norm > 0:
             scale = torch.clamp(tcfg.clip_norm / (gnorm + 1e-9), max=1.0)

@@ -1,18 +1,40 @@
-"""The three fused step kernels: their plain stacked versions are BITWISE
-equal, row by row, to the JAX package's ``ref.py`` and to its Pallas
-kernels run in interpret mode; on a card the CUDA kernels equal the plain
-versions, and a CUDA tensor never falls back to them."""
+"""The fused collective kernels: the plain stacked versions of the step
+kernels (``rs_step``, ``ag_step``, ``rs_step_q``, ``ring_update``) are
+BITWISE equal, row by row, to the JAX package's ``ref.py`` and to its
+Pallas kernels run in interpret mode, and those of the matmul
+(``matmul_pack``, ``gather_matmul``) within 1e-5, as the reference's own
+tests hold its kernels; on a card the CUDA kernels equal the plain
+versions (the matmul within a bound stated from k), and a CUDA tensor never
+falls back to them."""
 
-import jax.numpy as jnp
+import functools
+import importlib
+
 import numpy as np
 import pytest
 import torch
 
-from repro.kernels.collectives import kernel as PK
-from repro.kernels.collectives import ref as JR
 from repro_torch.collectives import compression as tcomp
 from repro_torch.kernels.collectives import kernel as K
 from repro_torch.kernels.collectives import ref as R
+
+
+class _Lazy:
+    """A module imported at its first use: only the CPU comparisons run the
+    JAX reference, and the GPU machine that runs the ``cuda`` tests has no
+    JAX."""
+
+    def __init__(self, name):
+        self._name = name
+
+    def __getattr__(self, attr):
+        return getattr(importlib.import_module(self._name), attr)
+
+
+jax = _Lazy("jax")
+jnp = _Lazy("jax.numpy")
+PK = _Lazy("repro.kernels.collectives.kernel")
+JR = _Lazy("repro.kernels.collectives.ref")
 
 rng = np.random.RandomState(0)
 #: per-rank half bits covering every (c, c_next) pair across 4 ranks
@@ -156,7 +178,9 @@ def test_wrappers_take_plain_version_on_cpu():
                     R.rs_step_ref_q(_t(buf), _t(rq), _t(rs), _t(C), _t(CN))):
         _same(a, b)
     # the plain version is no kernel launch
-    assert K.LAUNCHES == {"rs_step": 0, "ag_step": 0, "rs_step_q": 0}
+    assert K.LAUNCHES == {"rs_step": 0, "ag_step": 0, "rs_step_q": 0,
+                          "ring_update": 0, "matmul_pack": 0,
+                          "gather_matmul": 0}
 
 
 def test_wrappers_refuse_other_devices():
@@ -168,6 +192,135 @@ def test_wrappers_refuse_other_devices():
                   torch.empty(P, dtype=torch.int32, device="meta"))
     with pytest.raises(ValueError, match="CUDA device or all on the CPU"):
         K.ag_step(meta, torch.zeros((P, 16)), torch.zeros(P, dtype=torch.int32))
+
+
+#: per-rank block indices, mixed across ranks
+RIDX = np.array([2, 0, 3, 2], np.int32)
+NBLK = 4
+
+
+def _ring_inputs(b, dtype):
+    if dtype == "int32":
+        v = rng.randint(-1000, 1000, (P, NBLK * b)).astype(np.int32)
+        recv = rng.randint(-1000, 1000, (P, b)).astype(np.int32)
+    elif dtype == "bool":
+        v = rng.rand(P, NBLK * b) > 0.5
+        recv = rng.rand(P, b) > 0.5
+    else:
+        v = rng.randn(P, NBLK * b).astype(np.float32)
+        recv = rng.randn(P, b).astype(np.float32)
+    return v, recv
+
+
+def _jt(a, dtype):
+    """A numpy array as a JAX array of ``dtype`` (bf16 via float32)."""
+    return jnp.asarray(a).astype(dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_ring(acc, upd):
+    """The reference's ref and interpret-mode kernel, jitted with the block
+    index traced, so the ranks of one case share one compile."""
+    ref = jax.jit(lambda v, r, i: JR.ring_update_ref(v, r, i, acc))
+    ker = jax.jit(lambda v, r, i: PK.ring_update_kernel(
+        v, r, i, accumulate=acc, return_updated=upd, interpret=True))
+    return ref, ker
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_mm(perm):
+    perm = np.asarray(perm, np.int32)
+    return (jax.jit(lambda x, w: JR.matmul_pack_ref(x, w, perm)),
+            jax.jit(lambda x, w: PK.matmul_pack_kernel(
+                x, w, jnp.asarray(perm), interpret=True)),
+            jax.jit(lambda x, w: JR.gather_matmul_ref(x, w, perm)),
+            jax.jit(lambda x, w: PK.gather_matmul_kernel(
+                x, w, jnp.asarray(perm), interpret=True)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int32", "bool"])
+@pytest.mark.parametrize("b", [8, 12, 6, 128])
+def test_ring_update_plain_matches_jax(b, dtype):
+    """All three variants, a different block per rank, row by row against
+    the reference's ref and its interpret-mode kernel.  Accumulate takes
+    float32 and bf16; write any dtype."""
+    v, recv = _ring_inputs(b, dtype)
+    tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "int32": torch.int32, "bool": torch.bool}[dtype]
+    ridx = _t(RIDX)
+    variants = [(False, False)]
+    if dtype in ("float32", "bfloat16"):
+        variants += [(True, False), (True, True)]
+    for acc, upd in variants:
+        tv = _t(v, tdt).clone()
+        res = R.ring_update_ref(tv, _t(recv, tdt), ridx, acc, upd)
+        got, send = (res if upd else (res, None))
+        assert got is tv                   # in place
+        jref, jker = _jax_ring(acc, upd)
+        for r in range(P):
+            jv, jr = _jt(v[r], dtype), _jt(recv[r], dtype)
+            ri = int(RIDX[r])
+            tag = f"acc={acc} upd={upd} rank {r}"
+            _same(got[r], jref(jv, jr, jnp.int32(ri)), "ref " + tag)
+            kout = jker(jv, jr, jnp.int32(ri))
+            if upd:
+                _same(got[r], kout[0], "pallas " + tag)
+                _same(send[r], kout[1], "pallas send " + tag)
+            else:
+                _same(got[r], kout, "pallas " + tag)
+            # the other blocks are untouched
+            for blk in set(range(NBLK)) - {ri}:
+                _same(got[r, blk * b:(blk + 1) * b],
+                      _t(v[r, blk * b:(blk + 1) * b], tdt), "untouched")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(48, 40, 24), (96, 72, 40), (8, 3, 5)])
+def test_perm_matmul_plain_matches_jax(shape, dtype):
+    """``matmul_pack_ref`` and ``gather_matmul_ref`` of the port against
+    the reference's refs and its interpret-mode kernels, rank by rank, at
+    shapes that are no multiples of 128, within 1e-5 (bf16 results: one
+    bf16 rounding, 2**-8 relative)."""
+    m, k, n = shape
+    perm = np.array([2, 0, 3, 1], np.int32)
+    x = rng.randn(P, m, k).astype(np.float32)
+    w = rng.randn(P, k, n).astype(np.float32)
+    tdt = getattr(torch, dtype)
+    tx, tw = _t(x, tdt), _t(w, tdt)
+    pack = R.matmul_pack_ref(tx, tw, _t(perm))
+    gath = R.gather_matmul_ref(tx, tw, _t(perm))
+    assert pack.dtype == gath.dtype == tdt
+    tol = 1e-5 if dtype == "float32" else 2 ** -8 * 8
+    jpack, jpack_k, jgath, jgath_k = _jax_mm(tuple(perm))
+    for r in range(P):
+        jx, jw = _jt(x[r], dtype), _jt(w[r], dtype)
+        for tag, got, exp in (
+                ("pack ref", pack[r], jpack(jx, jw)),
+                ("pack pallas", pack[r], jpack_k(jx, jw)),
+                ("gather ref", gath[r], jgath(jx, jw)),
+                ("gather pallas", gath[r], jgath_k(jx, jw))):
+            np.testing.assert_allclose(_np(got), _np(exp), rtol=tol,
+                                       atol=tol, err_msg=f"{tag} rank {r}")
+
+
+def test_new_wrappers_take_plain_version_on_cpu():
+    K.reset_launches()
+    v, recv = _ring_inputs(8, "float32")
+    tv = _t(v).clone()
+    out, send = K.ring_update(tv, _t(recv), _t(RIDX), True, True)
+    ev, es = R.ring_update_ref(_t(v), _t(recv), _t(RIDX), True, True)
+    _same(out, ev)
+    _same(send, es)
+    with pytest.raises(ValueError, match="return_updated needs accumulate"):
+        K.ring_update(tv, _t(recv), _t(RIDX), False, True)
+    x = _t(rng.randn(P, 8, 3).astype(np.float32))
+    w = _t(rng.randn(P, 3, 5).astype(np.float32))
+    perm = _t(np.array([1, 0], np.int32))
+    _same(K.perm_matmul(x, w, perm, lhs_perm=False),
+          R.matmul_pack_ref(x, w, perm))
+    _same(K.perm_matmul(x, w, perm, lhs_perm=True),
+          R.gather_matmul_ref(x, w, perm))
+    assert not any(K.LAUNCHES.values())
 
 
 # ---------------------------------------------------------------------------
@@ -182,7 +335,7 @@ def test_cuda_wrapper_raises_without_library(cuda_device, monkeypatch,
     def no_nvcc():
         raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
-    monkeypatch.setattr(K, "_LIB", None)
+    monkeypatch.setattr(K, "_LIBS", {})
     monkeypatch.setattr(K, "BUILD_DIR", tmp_path / "empty")
     monkeypatch.setattr(K, "_nvcc", no_nvcc)
     buf = torch.zeros((P, 32), device=cuda_device)
@@ -191,6 +344,11 @@ def test_cuda_wrapper_raises_without_library(cuda_device, monkeypatch,
         K.rs_step(buf, buf[:, :16].contiguous(), c)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         K.ag_step(buf, buf, c)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        K.ring_update(buf, buf[:, :16].contiguous(), c)
+    x = torch.zeros((P, 8, 4), device=cuda_device)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        K.perm_matmul(x, x.transpose(1, 2).contiguous(), c, lhs_perm=True)
 
 
 @pytest.mark.cuda
@@ -232,3 +390,58 @@ def test_cuda_rs_step_q_non_finite_matches_plain(cuda_device):
     for a, e in zip(K.rs_step_q(*(a.to(dev) for a in args), c, cn),
                     R.rs_step_ref_q(*(a.to(dev) for a in args), c, cn)):
         _same(a.cpu(), e.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [4096, 6, 1000])
+def test_cuda_ring_update_matches_plain(cuda_device, b):
+    """Bitwise, every variant, f32 and bf16 (accumulate) and 1/2/4/8-byte
+    elements (write); the other blocks stay as they were."""
+    dev = cuda_device
+    ridx = _t(RIDX)
+    v, recv = _ring_inputs(b, "float32")
+    for dt in (torch.float32, torch.bfloat16):
+        for acc, upd in ((True, False), (True, True), (False, False)):
+            tv, tr = _t(v, dt), _t(recv, dt)
+            exp = R.ring_update_ref(tv.clone(), tr, ridx, acc, upd)
+            got = K.ring_update(tv.to(dev), tr.to(dev), ridx.to(dev), acc,
+                                upd)
+            for a, e in zip(got if upd else (got,), exp if upd else (exp,)):
+                _same(a.cpu(), e)
+    for dt in (torch.int8, torch.int16, torch.int32, torch.int64, torch.bool):
+        tv = _t(v * 100).to(dt)
+        tr = _t(recv * 100).to(dt)
+        exp = R.ring_update_ref(tv.clone(), tr, ridx, False)
+        got = K.ring_update(tv.to(dev), tr.to(dev), ridx.to(dev), False)
+        assert torch.equal(got.cpu(), exp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(40, 24, 12), (260, 70, 130),
+                                   (512, 256, 384)])
+def test_cuda_perm_matmul_matches_plain(cuda_device, shape):
+    """Both directions, f32 and bf16, within ``2 k 2**-24 (|x| @ |w|)``
+    elementwise (two float32 sums of k products in different orders), plus
+    one bf16 rounding for a bf16 result."""
+    dev = cuda_device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m, k, n = shape
+    perm = _t(np.array([2, 0, 3, 1], np.int32))
+    x = _t(rng.randn(P, m, k).astype(np.float32))
+    w = _t(rng.randn(P, k, n).astype(np.float32))
+    for dt in (torch.float32, torch.bfloat16):
+        tx, tw = x.to(dt), w.to(dt)
+        bound = 2 * k * 2.0 ** -24 * torch.matmul(tx.float().abs(),
+                                                  tw.float().abs())
+        for lhs in (False, True):
+            exp = K.perm_matmul(tx, tw, perm, lhs)
+            got = K.perm_matmul(tx.to(dev), tw.to(dev), perm.to(dev),
+                                lhs).cpu()
+            assert got.dtype == exp.dtype == dt
+            lim = R.row_blocks(bound, perm)
+            if lhs:
+                lim = torch.matmul(R.row_blocks(tx.float(), perm).abs(),
+                                   tw.float().abs()) * 2 * k * 2.0 ** -24
+            if dt == torch.bfloat16:
+                lim = lim + 2.0 ** -7 * exp.float().abs()
+            assert bool(((got.float() - exp.float()).abs() <= lim).all())

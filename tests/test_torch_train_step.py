@@ -1,11 +1,14 @@
 """The port's bucketed ZeRO-1 train step against the JAX step.
 
 The reduced phi4-mini in float32 at p=4, ``bucket_bytes=1<<16``, 2 steps,
-for ``pallas_fused`` with the float32 and the int8 wire.  The JAX step runs
-once per wire in one 4-device subprocess and hands over its initial
-params, per-step metrics, final params, optimizer state and error-feedback
-residuals as an ``.npz``; the port starts from the same params and runs
-the same batches.
+for ``pallas_fused`` with the float32 and the int8 wire, for ``recdoub``,
+``ring`` and ``xla``, for ``auto`` on the torus preset, and for
+``backend="auto", wire_dtype="auto"`` on tpu_multipod.  The JAX step runs
+once per configuration in 4-device subprocesses (three at once) and hands
+over its initial params, per-step metrics, final params, optimizer state
+and error-feedback residuals as an ``.npz``; the port starts from the same
+params and runs the same batches.  The per-bucket decisions of the full
+phi4-mini equal the reference's for every preset.
 
 Tolerances: the collectives are bitwise (test_torch_collectives), but the
 model's float32 gradients differ from JAX's in rounding (test_torch_model:
@@ -40,11 +43,25 @@ from repro_torch.train.step import TrainConfig, make_train_step
 
 STEPS, N_DP, BUCKET = 2, 4, 1 << 16
 WIRES = ("float32", "int8")
+#: run tag -> (backend, wire_dtype, topology); the JAX subprocess groups
+RUNS = {
+    "float32": ("pallas_fused", "float32", "tpu_multipod"),
+    "int8": ("pallas_fused", "int8", "tpu_multipod"),
+    "recdoub": ("recdoub", "float32", "tpu_multipod"),
+    "ring": ("ring", "float32", "tpu_multipod"),
+    "xla": ("xla", "float32", "tpu_multipod"),
+    "auto_torus": ("auto", "float32", "torus"),
+    "wire_auto": ("auto", "auto", "tpu_multipod"),
+}
+GROUPS = (("float32", "int8"), ("recdoub", "ring", "xla"),
+          ("auto_torus", "wire_auto"))
 #: (tight, loose) absolute bounds; see the module docstring
 BOUNDS = {"param": (1e-5, 1e-3), "master": (1e-5, 1e-3), "m": (1e-7, 1e-4),
           "v": (1e-9, 1e-7), "ef": (1e-6, 1e-3)}
 
 JAX_CODE = r"""
+import os
+os.environ["REPRO_OBS"] = "0"
 import jax, numpy as np
 from jax.sharding import Mesh
 from repro.compat import set_mesh
@@ -60,9 +77,10 @@ shapes = jax.eval_shape(lambda k: T.init_params(k, cfg), key)
 dcfg = DataConfig(global_batch=8, seq_len=64, vocab_size=cfg.vocab_size)
 mesh = Mesh(np.asarray(jax.devices()[:4]).reshape(4, 1), ("data", "model"))
 out = {{}}
-for wire in {wires!r}:
-    tcfg = TrainConfig(backend="pallas_fused", dp_axes=("data",),
-                       wire_dtype=wire, bucket_bytes={bucket},
+for wire, (backend, wire_dtype, topology) in {runs!r}.items():
+    tcfg = TrainConfig(backend=backend, dp_axes=("data",),
+                       wire_dtype=wire_dtype, topology=topology,
+                       bucket_bytes={bucket},
                        adamw=AdamWConfig(lr=3e-3, warmup_steps=1,
                                          total_steps=100))
     step, sh, _ = make_train_step(cfg, tcfg, mesh, shapes)
@@ -92,10 +110,19 @@ print("JAX_OK")
 
 @pytest.fixture(scope="module")
 def jax_run(subproc, tmp_path_factory):
-    path = str(tmp_path_factory.mktemp("jax_train") / "out.npz")
-    subproc(JAX_CODE.format(wires=WIRES, bucket=BUCKET, steps=STEPS,
-                            path=path), devices=N_DP, timeout=600)
-    return dict(np.load(path))
+    from concurrent.futures import ThreadPoolExecutor
+    tmp = tmp_path_factory.mktemp("jax_train")
+    jobs = {str(tmp / f"out{i}.npz"): {t: RUNS[t] for t in g}
+            for i, g in enumerate(GROUPS)}
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        for f in [pool.submit(subproc, JAX_CODE.format(
+                runs=runs, bucket=BUCKET, steps=STEPS, path=path), N_DP, 600)
+                for path, runs in jobs.items()]:
+            f.result()
+    out = {}
+    for path in jobs:
+        out.update(np.load(path))
+    return out
 
 
 def _mostly_close(pairs, tight, loose, tag, frac=1e-3):
@@ -116,14 +143,17 @@ def _cfg():
         dtype="float32")
 
 
-def _run(jax_run, backend, wire):
-    """The port's run from JAX's initial params: (metrics, params, state)."""
+def _run(jax_run, tag, backend=None):
+    """The port's run of ``RUNS[tag]`` (``backend`` overriding its backend)
+    from JAX's initial params: (metrics, params, state, layout)."""
     cfg = _cfg()
     shapes = TF.param_shapes(cfg)
     n_init = len(T.flatten(shapes))
-    init = T.unflatten(shapes, [jax_run[f"{wire}_init_{i}"]
+    init = T.unflatten(shapes, [jax_run[f"{tag}_init_{i}"]
                                 for i in range(n_init)])
-    tcfg = TrainConfig(backend=backend, wire_dtype=wire, bucket_bytes=BUCKET,
+    b, wire, topology = RUNS[tag]
+    tcfg = TrainConfig(backend=backend or b, wire_dtype=wire,
+                       topology=topology, bucket_bytes=BUCKET,
                        adamw=AdamWConfig(lr=3e-3, warmup_steps=1,
                                          total_steps=100))
     step, info, layout = make_train_step(cfg, tcfg, N_DP, shapes, "cpu")
@@ -140,7 +170,16 @@ def _run(jax_run, backend, wire):
 
 @pytest.mark.parametrize("wire", WIRES)
 def test_pallas_fused_step_matches_jax(jax_run, wire):
-    metrics, params, state, layout = _run(jax_run, "pallas_fused", wire)
+    _check_against_jax(jax_run, wire)
+
+
+@pytest.mark.parametrize("tag", [t for t in RUNS if t not in WIRES])
+def test_backend_step_matches_jax(jax_run, tag):
+    _check_against_jax(jax_run, tag)
+
+
+def _check_against_jax(jax_run, wire):
+    metrics, params, state, layout = _run(jax_run, wire)
     for s, m in enumerate(metrics):
         np.testing.assert_allclose(float(m["loss"]),
                                    jax_run[f"{wire}_loss_{s}"], rtol=1e-4)
@@ -163,7 +202,8 @@ def test_pallas_fused_step_matches_jax(jax_run, wire):
     ef = {k[len(f"{wire}_ef_"):]: v for k, v in jax_run.items()
           if k.startswith(f"{wire}_ef_")}
     assert sorted(state.get("ef", {})) == sorted(ef)
-    assert bool(ef) == (wire == "int8")
+    if wire in WIRES:
+        assert bool(ef) == (wire == "int8")
     for bid, v in ef.items():
         assert tuple(state["ef"][bid].shape) == v.shape
     pairs["ef"] = [(state["ef"][b].numpy(), v) for b, v in ef.items()]
@@ -174,8 +214,8 @@ def test_pallas_fused_step_matches_jax(jax_run, wire):
 def test_bine_and_pallas_fused_bitwise(jax_run):
     """The plain stacked executor and the fused kernels' path give the same
     bits, as the reference's bine and pallas_fused backends do."""
-    _, pb, sb, _ = _run(jax_run, "bine", "float32")
-    _, pf, sf, _ = _run(jax_run, "pallas_fused", "float32")
+    _, pb, sb, _ = _run(jax_run, "float32", backend="bine")
+    _, pf, sf, _ = _run(jax_run, "float32")
     for a, b in zip(T.flatten(pb[0]), T.flatten(pf[0])):
         assert torch.equal(a, b)
     for a, b in zip(T.flatten(sb["opt"]), T.flatten(sf["opt"])):
@@ -183,13 +223,49 @@ def test_bine_and_pallas_fused_bitwise(jax_run):
 
 
 def test_unported_backends_name_their_roadmap_item():
-    for b in ("auto", "recdoub", "ring", "xla", "bine_hier"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            TrainConfig(backend=b)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TrainConfig(wire_dtype="auto")
+        TrainConfig(backend="bine_hier")
+    cfg = _cfg()
+    shapes = TF.param_shapes(cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        make_train_step(cfg, TrainConfig(backend="auto", tuning="measured"),
+                        N_DP, shapes, "cpu")
     with pytest.raises(ValueError, match="bucket_bytes=0"):
         TrainConfig(wire_dtype="int8", bucket_bytes=0)
+    with pytest.raises(ValueError, match="codec-capable backend"):
+        TrainConfig(backend="ring", wire_dtype="int8")
+    with pytest.raises(ValueError, match="cannot execute at non-power-of-"):
+        make_train_step(cfg, TrainConfig(backend="bine"), 6, shapes, "cpu")
+
+
+@pytest.mark.parametrize("p", [4, 8])
+@pytest.mark.parametrize("wire", ["float32", "auto"])
+def test_bucket_decisions_match_jax(wire, p):
+    """The full phi4-mini's per-bucket (backend, wire) decisions under
+    ``auto``, for every preset, equal the reference's (its shapes from
+    ``jax.eval_shape``, nothing allocated)."""
+    import jax
+    from repro.configs import base as jbase
+    from repro.models import transformer as JT
+    from repro.topology import PRESETS
+    from repro.train import step as jstep
+    from repro.train import zero as jzero
+    from repro_torch.train import step as tstep
+    jcfg = jbase.get_config("phi4-mini-3.8b")
+    jshapes = jax.eval_shape(lambda k: JT.init_params(k, jcfg),
+                             jax.random.key(0))
+    tcfg_ = base.get_config("phi4-mini-3.8b")
+    tshapes = TF.param_shapes(tcfg_)
+    for topology in PRESETS:
+        kw = dict(backend="auto", wire_dtype=wire, topology=topology)
+        jt, tt = jstep.TrainConfig(**kw), TrainConfig(**kw)
+        jplan = jstep.resolve_bucket_plan(
+            jt, p, jshapes, jzero.zero_layout(jcfg, jshapes, p))
+        tplan = tstep.resolve_bucket_plan(
+            tt, p, tshapes, zero.zero_layout(tcfg_, tshapes, p))
+        assert len(tplan.buckets) == len(jplan.buckets), topology
+        assert tstep.bucket_decisions(tt, tplan) == \
+            jstep.bucket_decisions(jt, jplan), topology
 
 
 def test_table_bucket_bytes_and_per_leaf_path():
@@ -214,7 +290,9 @@ def test_table_bucket_bytes_and_per_leaf_path():
         assert torch.equal(a, b)
     assert zero.slice_leaf(torch.arange(8).view(2, 4), 1, 4, 2).tolist() == \
         [[2], [6]]
-    assert K.LAUNCHES == {"rs_step": 0, "ag_step": 0, "rs_step_q": 0}
+    assert K.LAUNCHES == {"rs_step": 0, "ag_step": 0, "rs_step_q": 0,
+                          "ring_update": 0, "matmul_pack": 0,
+                          "gather_matmul": 0}
 
 
 def test_tree_walks_keep_no_leaf_alive():
