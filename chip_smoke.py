@@ -5,16 +5,19 @@
 
 Phases, each of which fails the run (non-zero exit) if anything is off:
 
-1. build   — compile the collective kernels from
-             ``src/repro_torch/kernels/collectives/csrc`` (one nvcc per
-             source, all at once);
+1. build   — compile every kernel from the ``csrc/`` of every package under
+             ``src/repro_torch/kernels`` (one nvcc per source, all at once);
 2. kernels — each kernel against its plain PyTorch version on the card at
-             the main path's shapes, with its median time, the plain
+             its path's shapes, with its median time, the plain
              version's, a library call's where one computes the same
              function, and its bound: rs_step, ag_step, rs_step_q and
              ring_update BITWISE (one 64 MiB f32 bucket at p=4), the
              matmul_pack / gather_matmul directions of perm_matmul within a
              bound stated from k (phi4-mini's tensor-parallel MLP shapes);
+             rmsnorm (rtol 1e-6 / one bf16 ulp) and flash_attention (2e-5 /
+             3e-2) at the serve cell's insert and decode shapes, qacc
+             BITWISE on a 64 MiB accumulator, then the qdot op's own path
+             (four int8 payloads accumulated, launches counted);
 3. collectives — fused ``ops`` reduce-scatter / allgather / allreduce and
              the int8-wire pair against the plain ``stacked`` executor,
              bitwise, at p in {4, 8} on 64 MiB f32 vectors;
@@ -37,7 +40,19 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
              step from the same start must give the same bits, one
              ``auto`` step on the torus preset the bits of the explicit
              ``recdoub`` step, and one ``wire_dtype="auto"`` step those of
-             the explicit step with the pair every bucket resolved to.
+             the explicit step with the pair every bucket resolved to;
+6. serve   — a small reference first (reduced phi4-mini, float32: prefill
+             and decode logits and 6 greedy streams, the card against the
+             CPU), then the main path, ``SERVE_CELL`` of
+             ``repro_torch/launch/cell.py``: phi4-mini at full width and
+             depth, an 8-page pool of 1024 tokens, 16 greedy Poisson
+             requests of 32 new tokens; every request retires with its
+             tokens, every logit is finite, the launch counts read around
+             the run are 65 rmsnorm per insert and per decode step and 32
+             flash_attention per insert, and request 0 alone in a 1-page
+             pool gets the same first token.  Prints prefill ms per insert,
+             decode ms per step, tokens/s, p50/p99 time to first token and
+             peak memory.
 
 Prints a ``kernels:`` summary, one JSON line of per-kernel numbers, the
 card's name and power limit, and as its last line
@@ -66,12 +81,16 @@ F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
 MiB = 1 << 20
 CSRC = "src/repro_torch/kernels/collectives/csrc/"
+KSRC = "src/repro_torch/kernels/"
 SOURCE = {"rs_step": CSRC + "collective_steps.cu",
           "ag_step": CSRC + "collective_steps.cu",
           "rs_step_q": CSRC + "collective_steps.cu",
           "ring_update": CSRC + "ring_update.cu",
           "matmul_pack": CSRC + "perm_matmul.cu",
-          "gather_matmul": CSRC + "perm_matmul.cu"}
+          "gather_matmul": CSRC + "perm_matmul.cu",
+          "rmsnorm": KSRC + "rmsnorm/csrc/rmsnorm.cu",
+          "flash_attention": KSRC + "flash_attention/csrc/flash_attention.cu",
+          "qacc": KSRC + "qdot/csrc/qacc.cu"}
 REPLACES = {
     "rs_step": "src/repro/kernels/collectives/kernel.py:78",
     "ag_step": "src/repro/kernels/collectives/kernel.py:258",
@@ -79,6 +98,9 @@ REPLACES = {
     "ring_update": "src/repro/kernels/collectives/kernel.py:300",
     "matmul_pack": "src/repro/kernels/collectives/kernel.py:412",
     "gather_matmul": "src/repro/kernels/collectives/kernel.py:426",
+    "rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:26",
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:91",
+    "qacc": "src/repro/kernels/qdot/kernel.py:27",
 }
 #: phi4-mini's tensor-parallel MLP at p=4 (d_model 3072, d_ff 8192): the
 #: matmul_reduce_scatter (x @ w_o shard) and allgather_matmul (gathered x
@@ -255,7 +277,8 @@ def phase_kernels(dev):
     torch.cuda.empty_cache()
     phase_ring_update(dev, randn, entry, row)
     phase_perm_matmul(dev, randn, row)
-    return rows
+    qacc_launches = phase_serve_kernels(dev, randn, row)
+    return rows, qacc_launches
 
 
 def phase_ring_update(dev, randn, entry, row):
@@ -385,6 +408,163 @@ def phase_perm_matmul(dev, randn, row):
         torch.cuda.empty_cache()
 
 
+def bf16_ulp(x):
+    """One bf16 ulp at each value of float32 ``x``."""
+    import torch
+    e = torch.floor(torch.log2(x.abs().clamp(min=2.0 ** -126)))
+    return torch.pow(2.0, e - 7)
+
+
+def phase_serve_kernels(dev, randn, row):
+    """The serving kernels at the serve cell's shapes: rmsnorm on one
+    insert's rows [1024, 3072] and one decode step's [8, 3072], bf16 and
+    float32 (float32 within rtol 1e-6 of the plain version, bf16 within one
+    bf16 ulp); flash attention on one insert's prefill (q [1, 1024, 24,
+    128], k/v [1, 1024, 8, 128], bf16, causal), a window-256 and a
+    T = 1000 (padded) variant, within 3e-2 (bf16) and float32 within 2e-5;
+    qacc on C = 65536 chunks of 256 (a 64 MiB float32 accumulator),
+    BITWISE.  Then the qdot op's own path, driven with the counts set to 0:
+    four int8 payloads of that bucket accumulated into one float32 partial
+    (the compressed reduce-scatter's accumulate the reference's kernel
+    describes).  Returns that path's launch count."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import build as KB
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ops as FO
+    from repro_torch.kernels.flash_attention import ref as FR
+    from repro_torch.kernels.qdot import kernel as QK
+    from repro_torch.kernels.qdot import ops as QO
+    from repro_torch.kernels.qdot import ref as QR
+    from repro_torch.kernels.rmsnorm import kernel as RK
+    from repro_torch.kernels.rmsnorm import ref as RR
+    from repro_torch.launch import cell
+
+    cfg = cell.serve_model_config()
+    d, eps = cfg.d_model, cfg.norm_eps
+    # rmsnorm
+    variants = {}
+    for rows_, dt in ((1024, torch.bfloat16), (8, torch.bfloat16),
+                      (1024, torch.float32), (8, torch.float32)):
+        x, w = randn(rows_, d, dtype=dt), (0.1 * randn(d)).to(dt)
+        w1 = 1.0 + w        # the library's weight, made outside the timing
+        got, exp = RK.rmsnorm_kernel(x, w, eps).float(), \
+            RR.rmsnorm_ref(x, w, eps).float()
+        diff = (got - exp).abs()
+        lim = (1e-6 * exp.abs() if dt == torch.float32 else bf16_ulp(exp))
+        check(bool((diff <= lim).all()),
+              f"rmsnorm [{rows_}, {d}] {dt}: off by {float(diff.max())}")
+        nbytes = (2 * rows_ * d + d) * x.element_size()
+        variants[(rows_, dt)] = (x, w, w1, float(diff.max()), nbytes)
+        t = time_ms(lambda: RK.rmsnorm_kernel(x, w, eps))
+        tp = time_ms(lambda: RR.rmsnorm_ref(x, w, eps))
+        tl = time_ms(lambda: F.rms_norm(x, (d,), w1, eps))
+        log(f"    rmsnorm [{rows_}, {d}] {str(dt)[6:]}: {ms(t)} ms, plain "
+            f"{ms(tp)} ms, library {ms(tl)} ms, bound "
+            f"{ms(nbytes / HBM_BYTES_PER_S * 1e3)} ms; max |diff| "
+            f"{float(diff.max()):.3e}")
+    x, w, w1, err, nbytes = variants[(1024, torch.bfloat16)]
+    log("  rmsnorm: within rtol 1e-6 (float32) / one bf16 ulp of plain "
+        "(4 variants)")
+    row("rmsnorm", err, lambda: RK.rmsnorm_kernel(x, w, eps),
+        lambda: RR.rmsnorm_ref(x, w, eps), nbytes / HBM_BYTES_PER_S * 1e3,
+        "bytes", lambda: F.rms_norm(x, (d,), w1, eps))
+    del variants, x, w, w1
+
+    # flash attention at the prefill of one insert (a 1024-token page)
+    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    def flash_case(T, window, dt):
+        q, k, v = (randn(1, T, n, hd, dtype=dt) for n in (nh, nkv, nkv))
+        qpos = torch.arange(T, device=dev)
+        mask = qpos[None, :] <= qpos[:, None]
+        if window is not None:
+            mask &= (qpos[:, None] - qpos[None, :]) < window
+        live = int(mask.sum())
+        qg = q.reshape(1, T, nkv, nh // nkv, hd).permute(0, 2, 3, 1, 4)
+        kg, vg = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+        kern = lambda: FO.flash_attention(q, k, v, window=window)
+        plain = lambda: FR.flash_attention_ref(qg, kg, vg, window=window)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        if window is None:
+            lib = lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+        else:
+            lib = lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        got = kern().float()
+        exp = plain().float().permute(0, 3, 1, 2, 4).reshape(1, T, nh, hd)
+        ref = lib().float().transpose(1, 2)
+        err = float((got - exp).abs().max())
+        tol = 2e-5 if dt == torch.float32 else 3e-2
+        check(err < tol, f"flash_attention T={T} window={window} {dt}: "
+              f"off by {err} (tolerance {tol})")
+        # q, k and v read once, o written once
+        nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
+        flops = 4 * nh * hd * live
+        peak = F32_FLOPS if dt == torch.float32 else BF16_FLOPS
+        bound = max(nbytes / HBM_BYTES_PER_S, flops / peak) * 1e3
+        by = "bytes" if nbytes / HBM_BYTES_PER_S > flops / peak \
+            else "operations"
+        log(f"    flash_attention T={T} window={window} {str(dt)[6:]}: "
+            f"{ms(time_ms(kern))} ms, plain {ms(time_ms(plain, reps=5))} ms, "
+            f"library {ms(time_ms(lib))} ms, bound {ms(bound)} ms ({by}, "
+            f"{live} live pairs); max |diff| {err:.3e} (vs SDPA "
+            f"{float((got - ref).abs().max()):.3e})")
+        return kern, plain, lib, err, bound, by
+
+    for T, window, dt in ((1024, 256, torch.bfloat16),
+                          (1000, None, torch.bfloat16),
+                          (1024, None, torch.float32)):
+        flash_case(T, window, dt)
+    kern, plain, lib, err, bound, by = flash_case(1024, None, torch.bfloat16)
+    log("  flash_attention: within 3e-2 (bf16) / 2e-5 (float32) of plain "
+        "(4 variants)")
+    row("flash_attention", err, kern, plain, bound, by, lib)
+    del kern, plain, lib
+    torch.cuda.empty_cache()
+
+    # qacc: one 64 MiB float32 accumulator, bitwise
+    C, chunk = 64 * MiB // 4 // 256, 256
+    gen = torch.Generator(device=dev).manual_seed(9)
+
+    def payload():
+        q = torch.randint(-127, 128, (C, chunk), generator=gen, device=dev,
+                          dtype=torch.int8)
+        return q, torch.rand((C, 1), generator=gen, device=dev) * 0.01
+
+    q, sc = payload()
+    acc = randn(C, chunk)
+    same_bits([QK.qacc_kernel(q, sc, acc)],
+              [QR.dequant_accumulate_ref(q, sc, acc)], "qacc")
+    same_bits([QK.qacc_kernel(q[:, :100].contiguous(), sc,
+                              acc[:, :100].contiguous())],
+              [QR.dequant_accumulate_ref(q[:, :100], sc, acc[:, :100])],
+              "qacc chunk 100 (scalar path)")
+    log("  qacc: bitwise OK (2 variants)")
+    row("qacc", 0.0, lambda: QK.qacc_kernel(q, sc, acc),
+        lambda: QR.dequant_accumulate_ref(q, sc, acc),
+        (C * chunk * 9 + 4 * C) / HBM_BYTES_PER_S * 1e3, "bytes")
+    # the qdot op's path, counted
+    recvs = [payload() for _ in range(4)]
+    torch.cuda.synchronize()
+    KB.reset_launches()
+    part = acc
+    for rq, rs in recvs:
+        part = QO.dequant_accumulate(rq, rs, part)
+    n = KB.LAUNCHES["qacc"]
+    plain_part = acc
+    for rq, rs in recvs:
+        plain_part = QR.dequant_accumulate_ref(rq, rs, plain_part)
+    same_bits([part], [plain_part], "qacc path (4 accumulates)")
+    check(n == 4, f"the qdot path launched qacc {n} times, not 4")
+    log(f"  qdot path: 4 int8 payloads accumulated into a 64 MiB float32 "
+        f"partial, bitwise the plain accumulation; qacc x{n}")
+    del q, sc, acc, recvs, part, plain_part
+    torch.cuda.empty_cache()
+    return n
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: fused collectives against the plain stacked executor
 # ---------------------------------------------------------------------------
@@ -448,18 +628,18 @@ def phase_api(dev):
     pass.  Returns the correctness pass's launch counts."""
     import torch
     from repro_torch.collectives import api, stacked
-    from repro_torch.kernels.collectives import kernel as K
+    from repro_torch.kernels import build as KB
     from repro_torch.kernels.collectives import ops
 
     torch.cuda.synchronize()
-    K.reset_launches()
+    KB.reset_launches()
     timed = []
     per_call = {}
 
     def counted(fn):
-        before = dict(K.LAUNCHES)
+        before = dict(KB.LAUNCHES)
         out = fn()
-        return out, {k: v - before[k] for k, v in K.LAUNCHES.items()
+        return out, {k: v - before[k] for k, v in KB.LAUNCHES.items()
                      if v != before[k]}
 
     for p in (4, 8, 6):
@@ -519,7 +699,7 @@ def phase_api(dev):
         torch.cuda.empty_cache()
 
     mm = phase_api_matmul(dev)
-    launches = dict(K.LAUNCHES)
+    launches = dict(KB.LAUNCHES)
     for k in ("ring_update", "matmul_pack", "gather_matmul", "rs_step",
               "ag_step"):
         check(launches[k] > 0, f"the API run did not launch {k}")
@@ -686,7 +866,7 @@ def phase_small_reference(dev):
 def phase_train(dev):
     import torch
     from repro_torch import tree as T
-    from repro_torch.kernels.collectives import kernel as K
+    from repro_torch.kernels import build as KB
     from repro_torch.launch import cell
     from repro_torch.models import transformer as TF
     from repro_torch.train.data import make_batch
@@ -714,7 +894,7 @@ def phase_train(dev):
         state = init_s(params)
         plan = info["bucket_plan"]
         torch.cuda.synchronize()
-        K.reset_launches()
+        KB.reset_launches()
         first, times, losses, peaks = None, [], [], []
         for s in range(steps):
             torch.cuda.reset_peak_memory_stats()
@@ -735,7 +915,7 @@ def phase_train(dev):
             log(f"  {backend}/{wire} step {s}: loss {loss:.6f} gnorm "
                 f"{float(m['grad_norm']):.4f} {times[-1] * 1e3:.1f} ms, "
                 f"peak {peaks[-1]:.1f} GiB")
-        counts = dict(K.LAUNCHES)
+        counts = dict(KB.LAUNCHES)
         log(f"  {backend}/{wire} ({topology}): {len(plan.buckets)} buckets "
             f"(capacity {plan.capacity_bytes} B), launches {counts}, "
             f"peak memory {max(peaks):.1f} GiB")
@@ -810,6 +990,172 @@ def phase_train(dev):
                       "int8_step_ms": t8[1] * 1e3}
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: serving
+# ---------------------------------------------------------------------------
+
+def phase_serve_small_reference(dev):
+    """Reduced phi4-mini, float32 with a float32 cache, the same weights on
+    the card (kernels) and on the CPU (plain versions): one padded prefill
+    and two decode steps within rtol 1e-4, atol 1e-5 (the bound
+    tests/test_torch_serve.py holds the port to JAX with: float32 sums in
+    other orders), and every request's greedy stream through the scheduler
+    equal."""
+    import numpy as np
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.configs import base
+    from repro_torch.models import transformer as TF
+    from repro_torch.serve import engine as E
+    from repro_torch.serve.scheduler import (ContinuousBatchingScheduler,
+                                             poisson_trace)
+
+    cfg = base.reduced(base.get_config("phi4-mini-3.8b")).replace(
+        dtype="float32", cache_dtype="float32")
+    init = TF.init_params(cfg, 0, "cpu")
+    S, n_new = 64, 6
+    tok = torch.as_tensor(np.random.RandomState(1).randint(
+        0, cfg.vocab_size, (1, S)), dtype=torch.int32)
+    out, streams = {}, {}
+    for where in ("cpu", dev):
+        params = T.tree_map(lambda x: x.to(where), init)
+        logits = []
+        lg, st = TF.prefill(params, cfg, tok.to(where), length=37)
+        logits.append(lg.cpu())
+        for t in range(2):
+            lg, st = TF.decode_step(params, cfg, st, tok[:, t:t + 1].to(where))
+            logits.append(lg.cpu())
+        out[str(where)] = logits
+        fns = E.make_serve_fns(cfg, E.ServeConfig(), 3, S, where)
+        reqs = poisson_trace(6, 0.8, (5, 40), n_new, cfg.vocab_size, seed=5)
+        sched = ContinuousBatchingScheduler(cfg, fns, params, 3, S, seed=11)
+        for r in reqs:
+            sched.submit(r)
+        sched.run()
+        streams[str(where)] = [r.generated for r in reqs]
+    err = 0.0
+    for a, b in zip(out["cpu"], out[str(dev)]):
+        check(bool(torch.isclose(b, a, rtol=1e-4, atol=1e-5).all()),
+              f"serve small reference: logits differ by "
+              f"{float((a - b).abs().max())}")
+        err = max(err, float((a - b).abs().max()))
+    check(streams["cpu"] == streams[str(dev)],
+          f"serve small reference: card streams {streams[str(dev)]} vs cpu "
+          f"{streams['cpu']}")
+    log(f"  small reference (reduced, f32): prefill + 2 decode logits max "
+        f"|diff| {err:.2e}; 6 greedy streams through 3 pages equal "
+        f"(card vs cpu)")
+
+
+def phase_serve(dev):
+    """The serve cell (repro_torch/launch/cell.py SERVE_CELL): phi4-mini at
+    full width and depth, random weights from the port's init_params, an
+    8-page pool of 1024 tokens, 16 greedy Poisson requests.  Checks every
+    request retires with its 32 tokens, every logit is finite, the launch
+    counts are 65 rmsnorm per insert and per decode step and 32 flash
+    attention per insert, and request 0 served alone in a 1-page pool gets
+    the same first token.  Returns the launch counts and the numbers."""
+    import torch
+    from repro_torch.kernels import build as KB
+    from repro_torch.launch import cell
+    from repro_torch.models import transformer as TF
+    from repro_torch.serve import engine as E
+    from repro_torch.serve.scheduler import (ContinuousBatchingScheduler,
+                                             Request, poisson_trace,
+                                             wall_ttft_ms)
+
+    c = cell.SERVE_CELL
+    cfg = cell.serve_model_config()
+    S = E.page_len(cfg, c.prompt_len_max, c.max_new)
+    torch.cuda.reset_peak_memory_stats()
+    params = TF.init_params(cfg, c.seed, dev)
+    log(f"  {cfg.name}: {cfg.n_layers} layers, {TF.param_count(params):,} "
+        f"params ({cfg.dtype}), {c.slots} pages x {S} tokens "
+        f"({cfg.cache_dtype} cache), {c.requests} requests at "
+        f"{c.rate}/step, prompts {c.prompt_len_min}-{c.prompt_len_max}, "
+        f"{c.max_new} new tokens each")
+    finite = []
+    times = {"insert": [], "decode_slots": []}
+
+    def timed(name, fn):
+        def wrapped(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, pool = fn(*args)
+            finite.append(torch.isfinite(logits).all())
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+            return logits, pool
+        return wrapped
+
+    def serve(reqs, slots):
+        fns = E.make_serve_fns(cfg, E.ServeConfig(), slots, S, dev)
+        fns.insert = timed("insert", fns.insert)
+        fns.decode_slots = timed("decode_slots", fns.decode_slots)
+        sched = ContinuousBatchingScheduler(cfg, fns, params, slots, S,
+                                            seed=c.seed)
+        for r in reqs:
+            sched.submit(r)
+        return sched
+
+    trace = poisson_trace(c.requests, c.rate,
+                          (c.prompt_len_min, c.prompt_len_max), c.max_new,
+                          cfg.vocab_size, seed=c.seed,
+                          temperature=c.temperature)
+    sched = serve(trace, c.slots)
+    torch.cuda.synchronize()
+    KB.reset_launches()
+    t0 = time.perf_counter()
+    stats = sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: KB.LAUNCHES[k] for k in ("rmsnorm", "flash_attention")}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(all(r.finished and len(r.generated) == c.max_new for r in trace),
+          "not every request retired with its tokens")
+    check(bool(torch.stack(finite).all()), "non-finite logits")
+    L, n_ins, n_dec = cfg.n_layers, stats["inserts"], stats["decode_steps"]
+    want = {"rmsnorm": (2 * L + 1) * (n_ins + n_dec),
+            "flash_attention": L * n_ins}
+    check(launches == want, f"launch counts {launches}, expected {want} "
+          f"({n_ins} inserts, {n_dec} decode steps)")
+    ins_ms = statistics.median(times["insert"]) * 1e3
+    dec_ms = statistics.median(times["decode_slots"]) * 1e3
+    ttft = wall_ttft_ms(trace)
+    nums = {"prefill_ms_per_insert": ins_ms,
+            "decode_ms_per_step": dec_ms,
+            "mean_occupancy": stats["mean_occupancy"],
+            "tokens_per_s": stats["tokens_out"] / wall,
+            "ttft_ms_p50": ttft["ttft_ms_p50"],
+            "ttft_ms_p99": ttft["ttft_ms_p99"],
+            "peak_gib": peak, "wall_s": wall}
+    log(f"  served {len(trace)} requests: {stats['tokens_out']} tokens, "
+        f"{n_ins} inserts, {n_dec} decode steps (occupancy mean "
+        f"{stats['mean_occupancy']:.2f}, peak {stats['peak_occupancy']}), "
+        f"all logits finite; launches {launches} == {2 * L + 1} x (inserts "
+        f"+ steps) and {L} x inserts")
+    log(f"  prefill {ins_ms:.2f} ms per insert (median of {n_ins}), decode "
+        f"{dec_ms:.2f} ms per step (median of {n_dec}), "
+        f"{nums['tokens_per_s']:.1f} tokens/s over {wall:.2f} s, ttft p50 "
+        f"{ttft['ttft_ms_p50']:.1f} ms / p99 {ttft['ttft_ms_p99']:.1f} ms, "
+        f"peak {peak:.2f} GiB")
+    # request 0 alone in a 1-page pool: its insert is the same B=1 work
+    solo = Request(rid=0, prompt=trace[0].prompt, max_new_tokens=c.max_new)
+    serve([solo], 1).run()
+    check(solo.generated[0] == trace[0].generated[0],
+          f"request 0's first token alone {solo.generated[0]} vs pooled "
+          f"{trace[0].generated[0]}")
+    agree = sum(a == b for a, b in zip(solo.generated[1:],
+                                       trace[0].generated[1:]))
+    nums["solo_later_tokens_agree"] = agree / (c.max_new - 1)
+    log(f"  request 0 alone in a 1-page pool: same first token; "
+        f"{agree}/{c.max_new - 1} later tokens agree (decode at batch 1 vs "
+        f"8 may take other cuBLAS kernels: reported, not gated)")
+    del params, sched
+    torch.cuda.empty_cache()
+    return launches, nums
+
+
 def main() -> int:
     # one 9.8 GB bucket buffer after another: keep the allocator's segments
     # growable so freed ones are reused (set before CUDA starts)
@@ -826,39 +1172,55 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    from repro_torch.kernels import build as KB
     from repro_torch.kernels.collectives import kernel as K
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.qdot import kernel as QK
+    from repro_torch.kernels.rmsnorm import kernel as RK
 
     t_all = time.perf_counter()
-    log("[1/5] build")
+    log("[1/6] build")
     t0 = time.perf_counter()
-    libs = K.build()
+    libs = KB.build()
     for src in K.SOURCES:
         K._lib(src)
+    for mod in (RK, FK, QK):
+        mod._lib()
     log(f"  built {', '.join(p.name for p in libs.values())} in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    log("[2/5] kernels vs plain versions")
-    rows = phase_kernels(dev)
+    log("[2/6] kernels vs plain versions")
+    rows, qacc_launches = phase_kernels(dev)
     torch.cuda.empty_cache()
 
-    log("[3/5] fused collectives vs stacked (bitwise)")
+    log("[3/6] fused collectives vs stacked (bitwise)")
     phase_collectives(dev)
 
-    log("[4/5] collectives API")
+    log("[4/6] collectives API")
     api_launches = phase_api(dev)
 
-    log("[5/5] train")
+    log("[5/6] train")
     phase_small_reference(dev)
     launches, train = phase_train(dev)
+    torch.cuda.empty_cache()
+
+    log("[6/6] serve")
+    phase_serve_small_reference(dev)
+    serve_launches, serve = phase_serve(dev)
     # the step kernels' counts from the train step's main path, the ring
-    # and matmul kernels' from the API run
+    # and matmul kernels' from the API run, the norm and attention
+    # kernels' from the serve run, qacc's from the qdot op's path
     for name in ("ring_update", "matmul_pack", "gather_matmul"):
         launches[name] = api_launches[name]
+    launches.update(serve_launches)
+    launches["qacc"] = qacc_launches
     for name, n in launches.items():
+        check(n > 0, f"kernel {name} was not launched on its path")
         rows[name]["launches"] = n
 
     log("kernels: [" + ", ".join(f"{k} x{v}" for k, v in launches.items())
         + "]")
+    log(f"serve: {json.dumps(serve)}")
     log(f"train: {json.dumps(train)}; total {time.perf_counter() - t_all:.0f} s")
     print(json.dumps({"kernels": list(rows.values())}))
     smi = subprocess.run(

@@ -10,113 +10,29 @@ set, CUDA C++ in ``csrc/``:
     ``gather_matmul_kernel``, TPU kernels 5-6, one kernel with an
     ``lhs_perm`` flag as the reference's ``_mm_call`` has).
 
-Each source is compiled for ``sm_90a`` with its own ``nvcc`` at first use
-(all of them started together) into ``build/repro_torch/``, keyed by a
-hash of the source, and loaded with ``ctypes``.
+``repro_torch.kernels.build`` compiles and loads them.
 
 Dispatch: a wrapper handed CPU tensors runs the plain version from
 ``ref.py``; handed CUDA tensors it launches its kernel or raises.  There is
 no fallback from the card to the plain version.  Each wrapper counts its
-kernel launches in ``LAUNCHES`` (see :func:`reset_launches`).
+kernel launches in ``build.LAUNCHES``.
 """
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from pathlib import Path
-from typing import Dict, Optional
 
 import torch
 
 from repro_torch.collectives import compression as comp
+from repro_torch.kernels import build as B
 
 from . import ref as R
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("collective_steps.cu", "ring_update.cu", "perm_matmul.cu")
-#: build outputs, at the root of the checkout (listed in .gitignore)
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
 
-#: kernel launches since the last reset_launches(), one count per TPU
-#: kernel replaced (``perm_matmul`` counts as ``matmul_pack`` or
-#: ``gather_matmul`` by its ``lhs_perm``)
-LAUNCHES: Dict[str, int] = {"rs_step": 0, "ag_step": 0, "rs_step_q": 0,
-                            "ring_update": 0, "matmul_pack": 0,
-                            "gather_matmul": 0}
-
-#: source -> loaded library
-_LIBS: Dict[str, ctypes.CDLL] = {}
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = Path(home) / "bin" / "nvcc"
-    if path.exists():
-        return str(path)
-    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
-
-
-def library_path(source: str) -> Path:
-    digest = hashlib.sha256((CSRC / source).read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{Path(source).stem}_{digest.hexdigest()[:16]}.so"
-
-
-def build() -> Dict[str, Path]:
-    """Compile every source that has no library yet, one ``nvcc`` each,
-    all running at once.  Returns source -> library path."""
-    outs = {src: library_path(src) for src in SOURCES}
-    todo = [src for src, out in outs.items() if not out.exists()]
-    if not todo:
-        return outs
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    tmps = {}
-    procs = {}
-    try:
-        for src in todo:
-            fd, tmps[src] = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            procs[src] = subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-o", tmps[src], str(CSRC / src)],
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        failed = []
-        for src, proc in procs.items():
-            out, err = proc.communicate()
-            if proc.returncode != 0:
-                failed.append(f"nvcc {src} failed ({proc.returncode}):\n"
-                              f"{out}\n{err}")
-            else:
-                os.replace(tmps[src], outs[src])  # atomic: never half a .so
-        if failed:
-            raise RuntimeError("\n".join(failed))
-    finally:
-        for proc in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-        for tmp in tmps.values():
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-    return outs
-
-
-_VP, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_VP, _LL, _INT = B.VP, B.LL, B.INT
 #: source -> C entry point -> argument types (each returns a cudaError_t)
 _SIGNATURES = {
     "collective_steps.cu": {
@@ -136,52 +52,14 @@ _SIGNATURES = {
 }
 
 
-def _lib(source: str = "collective_steps.cu") -> ctypes.CDLL:
-    if source not in _LIBS:
-        lib = ctypes.CDLL(str(build()[source]))
-        for name, argtypes in _SIGNATURES[source].items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _LIBS[source] = lib
-    return _LIBS[source]
-
-
-def _on_cuda(*tensors) -> bool:
-    """True when every tensor lies on CUDA, False when every one lies on
-    the CPU; anything else raises."""
-    kinds = {t.device.type for t in tensors if t is not None}
-    if kinds == {"cpu"}:
-        return False
-    if kinds == {"cuda"} and len({t.device for t in tensors
-                                  if t is not None}) == 1:
-        return True
-    raise ValueError(f"tensors must all lie on one CUDA device or all on "
-                     f"the CPU, got {sorted(str(t.device) for t in tensors if t is not None)}")
-
-
-def _check(cond: bool, msg: str) -> None:
-    if not cond:
-        raise ValueError(msg)
+def _lib(source: str = "collective_steps.cu"):
+    return B.load(CSRC / source, _SIGNATURES[source])
 
 
 def _check_bits(c: torch.Tensor, p: int, name: str) -> None:
-    _check(c.dtype == torch.int32 and c.shape == (p,) and c.is_contiguous(),
+    B.check(c.dtype == torch.int32 and c.shape == (p,) and c.is_contiguous(),
            f"{name} must be a contiguous int32 [p={p}] tensor, got "
            f"{c.dtype} {tuple(c.shape)}")
-
-
-def _ptr(t: Optional[torch.Tensor]):
-    return None if t is None else t.data_ptr()
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
 
 
 # ---------------------------------------------------------------------------
@@ -191,49 +69,49 @@ def _raise_on(err: int, name: str) -> None:
 def rs_step(buf, recv, c, c_next=None):
     """``buf [p, 2h]``, ``recv [p, h]`` (f32 or bf16) -> ``new [p, h]``, plus
     ``send [p, h/2]`` when ``c_next`` is given.  See ``ref.rs_step_ref``."""
-    if not _on_cuda(buf, recv, c, c_next):
+    if not B.on_cuda(buf, recv, c, c_next):
         return R.rs_step_ref(buf, recv, c, c_next)
     p, h = recv.shape
-    _check(buf.dtype in (torch.float32, torch.bfloat16),
+    B.check(buf.dtype in (torch.float32, torch.bfloat16),
            f"rs_step takes float32 or bfloat16, got {buf.dtype}")
-    _check(recv.dtype == buf.dtype, "buf and recv dtypes differ")
-    _check(buf.shape == (p, 2 * h), f"buf {tuple(buf.shape)} != [p, 2h]")
-    _check(buf.is_contiguous() and recv.is_contiguous(),
+    B.check(recv.dtype == buf.dtype, "buf and recv dtypes differ")
+    B.check(buf.shape == (p, 2 * h), f"buf {tuple(buf.shape)} != [p, 2h]")
+    B.check(buf.is_contiguous() and recv.is_contiguous(),
            "rs_step needs contiguous buf and recv")
     _check_bits(c, p, "c")
     out = torch.empty_like(recv)
     send = None
     if c_next is not None:
-        _check(h % 2 == 0, f"rs_step with c_next needs even h, got {h}")
+        B.check(h % 2 == 0, f"rs_step with c_next needs even h, got {h}")
         _check_bits(c_next, p, "c_next")
         send = torch.empty((p, h // 2), dtype=buf.dtype, device=buf.device)
     fn = (_lib().repro_rs_step_f32 if buf.dtype == torch.float32
           else _lib().repro_rs_step_bf16)
-    _raise_on(fn(buf.data_ptr(), recv.data_ptr(), out.data_ptr(), _ptr(send),
-                 c.data_ptr(), _ptr(c_next), p, h, _stream(buf)), "rs_step")
-    LAUNCHES["rs_step"] += 1
+    B.raise_on(fn(buf.data_ptr(), recv.data_ptr(), out.data_ptr(), B.ptr(send),
+                 c.data_ptr(), B.ptr(c_next), p, h, B.stream(buf)), "rs_step")
+    B.LAUNCHES["rs_step"] += 1
     return out if send is None else (out, send)
 
 
 def ag_step(buf, recv, c):
     """``buf, recv [p, h]`` (any of f32, bf16, int8) -> ``[p, 2h]``: each
     row ``[buf, recv]`` if ``c == 0`` else ``[recv, buf]``."""
-    if not _on_cuda(buf, recv, c):
+    if not B.on_cuda(buf, recv, c):
         return R.ag_step_ref(buf, recv, c)
-    _check(buf.dtype in (torch.float32, torch.bfloat16, torch.int8),
+    B.check(buf.dtype in (torch.float32, torch.bfloat16, torch.int8),
            f"ag_step takes float32, bfloat16 or int8, got {buf.dtype}")
-    _check(recv.dtype == buf.dtype and recv.shape == buf.shape
+    B.check(recv.dtype == buf.dtype and recv.shape == buf.shape
            and buf.dim() == 2, "ag_step needs buf and recv of one [p, h] "
            "shape and dtype")
-    _check(buf.is_contiguous() and recv.is_contiguous(),
+    B.check(buf.is_contiguous() and recv.is_contiguous(),
            "ag_step needs contiguous buf and recv")
     p, h = buf.shape
     _check_bits(c, p, "c")
     out = torch.empty((p, 2 * h), dtype=buf.dtype, device=buf.device)
-    _raise_on(_lib().repro_ag_step(
+    B.raise_on(_lib().repro_ag_step(
         buf.data_ptr(), recv.data_ptr(), out.data_ptr(), c.data_ptr(), p, h,
-        buf.element_size(), _stream(buf)), "ag_step")
-    LAUNCHES["ag_step"] += 1
+        buf.element_size(), B.stream(buf)), "ag_step")
+    B.LAUNCHES["ag_step"] += 1
     return out
 
 
@@ -243,34 +121,34 @@ def rs_step_q(buf, recv_q, recv_s, c, c_next=None):
     re-quantized next send ``(q [p, h/2] int8, s [p, h/512] f32)`` when
     ``c_next`` is given (that variant needs ``h % 512 == 0``).  See
     ``ref.rs_step_ref_q``."""
-    if not _on_cuda(buf, recv_q, recv_s, c, c_next):
+    if not B.on_cuda(buf, recv_q, recv_s, c, c_next):
         return R.rs_step_ref_q(buf, recv_q, recv_s, c, c_next)
     p, h = recv_q.shape
     ch_r = comp.wire_chunk(h)
-    _check(buf.dtype == torch.float32 and recv_q.dtype == torch.int8
+    B.check(buf.dtype == torch.float32 and recv_q.dtype == torch.int8
            and recv_s.dtype == torch.float32,
            "rs_step_q takes float32 buf, int8 recv_q, float32 recv_s")
-    _check(buf.shape == (p, 2 * h) and recv_s.shape == (p, h // ch_r),
+    B.check(buf.shape == (p, 2 * h) and recv_s.shape == (p, h // ch_r),
            f"rs_step_q shapes: buf {tuple(buf.shape)}, recv_q "
            f"{tuple(recv_q.shape)}, recv_s {tuple(recv_s.shape)}")
-    _check(all(t.is_contiguous() for t in (buf, recv_q, recv_s)),
+    B.check(all(t.is_contiguous() for t in (buf, recv_q, recv_s)),
            "rs_step_q needs contiguous inputs")
     _check_bits(c, p, "c")
     out = torch.empty((p, h), dtype=torch.float32, device=buf.device)
     sq = ss = None
     if c_next is not None:
-        _check(h % (2 * comp.WIRE_CHUNK) == 0,
+        B.check(h % (2 * comp.WIRE_CHUNK) == 0,
                f"rs_step_q send variant needs h % 512 == 0, got {h}")
         _check_bits(c_next, p, "c_next")
         w = h // 2
         sq = torch.empty((p, w), dtype=torch.int8, device=buf.device)
         ss = torch.empty((p, w // comp.WIRE_CHUNK), dtype=torch.float32,
                          device=buf.device)
-    _raise_on(_lib().repro_rs_step_q(
+    B.raise_on(_lib().repro_rs_step_q(
         buf.data_ptr(), recv_q.data_ptr(), recv_s.data_ptr(), out.data_ptr(),
-        _ptr(sq), _ptr(ss), c.data_ptr(), _ptr(c_next), p, h, ch_r,
-        _stream(buf)), "rs_step_q")
-    LAUNCHES["rs_step_q"] += 1
+        B.ptr(sq), B.ptr(ss), c.data_ptr(), B.ptr(c_next), p, h, ch_r,
+        B.stream(buf)), "rs_step_q")
+    B.LAUNCHES["rs_step_q"] += 1
     return out if sq is None else (out, sq, ss)
 
 
@@ -283,38 +161,38 @@ def ring_update(v, recv, ridx, accumulate=True, return_updated=False):
     if return_updated and not accumulate:
         raise ValueError("return_updated needs accumulate: an allgather's "
                          "next send is recv itself")
-    if not _on_cuda(v, recv, ridx):
+    if not B.on_cuda(v, recv, ridx):
         return R.ring_update_ref(v, recv, ridx, accumulate, return_updated)
-    _check(v.dim() == 2 and recv.dim() == 2 and recv.shape[0] == v.shape[0],
+    B.check(v.dim() == 2 and recv.dim() == 2 and recv.shape[0] == v.shape[0],
            f"ring_update needs v [p, P*b] and recv [p, b], got "
            f"{tuple(v.shape)} and {tuple(recv.shape)}")
     p, b = recv.shape
-    _check(b > 0 and v.shape[1] % b == 0,
+    B.check(b > 0 and v.shape[1] % b == 0,
            f"v's row {v.shape[1]} is not a whole number of blocks of {b}")
-    _check(recv.dtype == v.dtype, "v and recv dtypes differ")
-    _check(v.is_contiguous() and recv.is_contiguous(),
+    B.check(recv.dtype == v.dtype, "v and recv dtypes differ")
+    B.check(v.is_contiguous() and recv.is_contiguous(),
            "ring_update needs contiguous v and recv")
     _check_bits(ridx, p, "ridx")
     send = None
     if accumulate:
-        _check(v.dtype in (torch.float32, torch.bfloat16),
+        B.check(v.dtype in (torch.float32, torch.bfloat16),
                f"ring_update accumulates float32 or bfloat16, got {v.dtype}")
         if return_updated:
             send = torch.empty_like(recv)
         fn = (_lib("ring_update.cu").repro_ring_acc_f32
               if v.dtype == torch.float32
               else _lib("ring_update.cu").repro_ring_acc_bf16)
-        err = fn(v.data_ptr(), recv.data_ptr(), _ptr(send), ridx.data_ptr(),
-                 p, v.shape[1], b, _stream(v))
+        err = fn(v.data_ptr(), recv.data_ptr(), B.ptr(send), ridx.data_ptr(),
+                 p, v.shape[1], b, B.stream(v))
     else:
-        _check(v.element_size() in (1, 2, 4, 8),
+        B.check(v.element_size() in (1, 2, 4, 8),
                f"ring_update writes 1, 2, 4 or 8-byte elements, got "
                f"{v.dtype}")
         err = _lib("ring_update.cu").repro_ring_write(
             v.data_ptr(), recv.data_ptr(), ridx.data_ptr(), p, v.shape[1], b,
-            v.element_size(), _stream(v))
-    _raise_on(err, "ring_update")
-    LAUNCHES["ring_update"] += 1
+            v.element_size(), B.stream(v))
+    B.raise_on(err, "ring_update")
+    B.LAUNCHES["ring_update"] += 1
     return v if send is None else (v, send)
 
 
@@ -325,22 +203,22 @@ def perm_matmul(x, w, perm, lhs_perm: bool):
     the product's row-block ``perm[b]``: ``lhs_perm`` reads the LHS
     through the permutation (``ref.gather_matmul_ref``), otherwise the
     output writes go through its inverse (``ref.matmul_pack_ref``)."""
-    if not _on_cuda(x, w, perm):
+    if not B.on_cuda(x, w, perm):
         return (R.gather_matmul_ref(x, w, perm) if lhs_perm
                 else R.matmul_pack_ref(x, w, perm))
     ok = (torch.float32, torch.bfloat16)
-    _check(x.dtype in ok and w.dtype in ok,
+    B.check(x.dtype in ok and w.dtype in ok,
            f"perm_matmul takes float32 or bfloat16, got {x.dtype}, {w.dtype}")
-    _check(x.dim() == 3 and w.dim() == 3 and x.shape[0] == w.shape[0]
+    B.check(x.dim() == 3 and w.dim() == 3 and x.shape[0] == w.shape[0]
            and x.shape[2] == w.shape[1],
            f"perm_matmul needs x [p, m, k] and w [p, k, n], got "
            f"{tuple(x.shape)} and {tuple(w.shape)}")
-    _check(x.is_contiguous() and w.is_contiguous(),
+    B.check(x.is_contiguous() and w.is_contiguous(),
            "perm_matmul needs contiguous x and w")
     p, m, k = x.shape
     n = w.shape[2]
     nb = perm.shape[0] if perm.dim() == 1 else 0
-    _check(perm.dtype == torch.int32 and nb > 0 and m % nb == 0
+    B.check(perm.dtype == torch.int32 and nb > 0 and m % nb == 0
            and perm.is_contiguous(),
            f"perm must be a contiguous int32 [nb] with m % nb == 0, got "
            f"{perm.dtype} {tuple(perm.shape)} for m={m}")
@@ -348,10 +226,11 @@ def perm_matmul(x, w, perm, lhs_perm: bool):
     order = perm if lhs_perm else torch.argsort(perm).to(torch.int32)
     out = torch.empty((p, m, n), dtype=torch.result_type(x, w),
                       device=x.device)
-    _raise_on(_lib("perm_matmul.cu").repro_perm_matmul(
+    B.raise_on(_lib("perm_matmul.cu").repro_perm_matmul(
         x.data_ptr(), w.data_ptr(), out.data_ptr(), order.data_ptr(),
         int(lhs_perm), int(x.dtype == torch.bfloat16),
-        int(w.dtype == torch.bfloat16), p, m, n, k, nb, _stream(x)),
+        int(w.dtype == torch.bfloat16), p, m, n, k, nb, B.stream(x)),
         "perm_matmul")
-    LAUNCHES["gather_matmul" if lhs_perm else "matmul_pack"] += 1
+    # one count per TPU kernel replaced, chosen by lhs_perm
+    B.LAUNCHES["gather_matmul" if lhs_perm else "matmul_pack"] += 1
     return out

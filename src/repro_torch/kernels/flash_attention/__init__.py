@@ -1,0 +1,7 @@
+"""Flash attention on a hand-written Hopper kernel
+(``repro.kernels.flash_attention``)."""
+
+from .ops import flash_attention
+from .ref import flash_attention_ref
+
+__all__ = ["flash_attention", "flash_attention_ref"]

@@ -1,0 +1,7 @@
+"""Fused RMSNorm on a hand-written Hopper kernel
+(``repro.kernels.rmsnorm``)."""
+
+from .ops import rmsnorm
+from .ref import rmsnorm_ref
+
+__all__ = ["rmsnorm", "rmsnorm_ref"]

@@ -1,0 +1,107 @@
+"""Where the time of serving goes on the card.
+
+Builds the serve cell of ``launch/cell.py`` (the one ``chip_smoke.py``
+serves: phi4-mini at full depth, an 8-page pool of 1024 tokens), fills
+every page with one of the cell's requests, then profiles with
+``torch.profiler`` one ``insert`` (a padded 1024-token prefill into a
+page) and ``STEPS`` ``decode_slots`` steps with every page active, and
+prints for each the wall time, the device time by kernel group and the
+device's idle share, as text and as one JSON line:
+
+  python -m repro_torch.launch.profile_serve
+"""
+
+from __future__ import annotations
+
+import json
+import time
+from collections import defaultdict
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.launch import cell
+from repro_torch.launch.profile_step import TOP, group_of
+from repro_torch.models import transformer as TF
+from repro_torch.serve.engine import ServeConfig, make_serve_fns, page_len
+from repro_torch.serve.scheduler import poisson_trace
+
+#: profiled decode steps
+STEPS = 5
+
+
+def _profile(fn, reps: int):
+    """Wall ms per call, device ms per call by group, top kernels."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    by_group = defaultdict(float)
+    by_kernel = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", 0.0) or 0.0
+        if dev_us <= 0 or ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        by_group[group_of(ev.key)] += dev_us / 1e3 / reps
+        by_kernel.append((dev_us / 1e3 / reps, ev.count // reps, ev.key))
+    return wall_ms, dict(by_group), sorted(by_kernel, reverse=True)[:TOP]
+
+
+def main(argv=None):
+    dev = resolve_device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    c = cell.SERVE_CELL
+    cfg = cell.serve_model_config()
+    S = page_len(cfg, c.prompt_len_max, c.max_new)
+    fns = make_serve_fns(cfg, ServeConfig(), c.slots, S, dev)
+    params = TF.init_params(cfg, c.seed, dev)
+    pool = fns.init_pool()
+    reqs = poisson_trace(c.slots, c.rate, (c.prompt_len_min,
+                                           c.prompt_len_max), c.max_new,
+                         cfg.vocab_size, seed=c.seed)
+    padded = np.zeros((c.slots, 1, S), np.int32)
+    for i, r in enumerate(reqs):
+        padded[i, 0, :len(r.prompt)] = r.prompt
+        _, pool = fns.insert(params, pool, padded[i], len(r.prompt), i)
+    tokens = np.zeros((c.slots, 1), np.int32)
+    active = np.ones((c.slots,), np.int32)
+    state = {"pool": pool}
+
+    def insert():
+        _, state["pool"] = fns.insert(params, fns.evict(state["pool"], 0),
+                                      padded[0], len(reqs[0].prompt), 0)
+
+    def decode():
+        logits, state["pool"] = fns.decode_slots(params, state["pool"],
+                                                 tokens, active)
+        tokens[:, 0] = torch.argmax(logits, -1).cpu().numpy()
+
+    insert()
+    decode()                                                 # warm-up
+    out = {}
+    print(f"{cfg.name} x{cfg.n_layers} layers, {c.slots} pages x {S} "
+          f"tokens on {torch.cuda.get_device_name(0)}")
+    for name, fn, reps in (("insert", insert, 2),
+                           ("decode_step", decode, STEPS)):
+        wall_ms, groups, top = _profile(fn, reps)
+        busy = sum(groups.values())
+        out[name] = {"wall_ms": wall_ms, "busy_ms": busy,
+                     "idle_share": 1 - busy / wall_ms, "groups_ms": groups}
+        print(f"{name}: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms, "
+              f"idle share {1 - busy / wall_ms:.3f}")
+        for g, ms in sorted(groups.items(), key=lambda t: -t[1]):
+            print(f"  {g:26s} {ms:9.3f} ms  {ms / wall_ms:6.1%}")
+        print("  top kernels (ms per call, launches per call):")
+        for ms, n, kname in top:
+            print(f"    {ms:9.3f} ms  x{n:<5d} {kname[:90]}")
+    print(json.dumps(out))
+
+
+if __name__ == "__main__":
+    main()

@@ -30,6 +30,8 @@ STEPS, TOP = 2, 12
 #: kernel-name patterns -> group, first match wins
 GROUPS = (
     ("collective step kernels", ("rs_step", "ag_step")),
+    ("rmsnorm kernel", ("rmsnorm_kernel",)),
+    ("flash attention kernel", ("flash_kernel",)),
     ("matmul", ("gemm", "xmma", "cutlass", "cublas", "nvjet", "matmul")),
     ("gather/index/copy", ("index", "gather", "scatter", "copy", "cat",
                            "Memcpy", "Memset")),

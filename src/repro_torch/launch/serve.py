@@ -1,0 +1,105 @@
+"""Continuous-batching serving CLI of the PyTorch port: a Poisson
+arrival trace of mixed-length requests through the paged-KV scheduler.
+
+Port of ``repro.launch.serve`` for one device.  Its defaults are the serve
+cell of ``launch/cell.py`` (phi4-mini at full depth, 8 pages, 16 requests):
+
+  python -m repro_torch.launch.serve                       # on the card
+  python -m repro_torch.launch.serve --reduced --device cpu
+
+Each request prefills into a free KV page, decodes interleaved with
+whatever else is running, and retires on EOS or its token budget,
+recycling the page.  In place of the reference's ``traces:`` line (jit
+retraces) it prints the kernel launch counts of the run.  Runs on CUDA
+unless ``--device cpu`` is given.  There is no ``--mesh`` and no
+``--backend``: on one card the collective plan is empty (tensor
+parallelism is ROADMAP.md queue A item 3).  Only dense ``attn`` models are
+served; the reference's fixed-batch loop for the architectures its pool
+cannot serve has no counterpart (queue A item 5).
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs import base as cfgbase
+from repro_torch.kernels import build as KB
+from repro_torch.launch.cell import SERVE_CELL
+from repro_torch.models import transformer as TF
+from repro_torch.serve.engine import ServeConfig, make_serve_fns, page_len
+from repro_torch.serve.scheduler import (ContinuousBatchingScheduler,
+                                         poisson_trace, wall_ttft_ms)
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def main(argv=None):
+    c = SERVE_CELL
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=c.arch)
+    ap.add_argument("--reduced", action="store_true",
+                    help="tiny same-family config")
+    ap.add_argument("--slots", type=int, default=c.slots)
+    ap.add_argument("--requests", type=int, default=c.requests)
+    ap.add_argument("--rate", type=float, default=c.rate,
+                    help="Poisson arrival rate (requests per decode step)")
+    ap.add_argument("--prompt-len-min", type=int, default=c.prompt_len_min)
+    ap.add_argument("--prompt-len-max", type=int, default=c.prompt_len_max)
+    ap.add_argument("--max-new", type=int, default=c.max_new)
+    ap.add_argument("--temperature", type=float, default=c.temperature)
+    ap.add_argument("--top-k", type=int, default=0)
+    ap.add_argument("--top-p", type=float, default=0.0,
+                    help="pool-global nucleus sampling threshold")
+    ap.add_argument("--seed", type=int, default=c.seed)
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    cfg = cfgbase.get_config(args.arch)
+    if args.reduced:
+        cfg = cfgbase.reduced(cfg)
+
+    S = page_len(cfg, args.prompt_len_max, args.max_new)
+    fns = make_serve_fns(cfg, ServeConfig(), args.slots, S, dev)
+    params = TF.init_params(cfg, args.seed, dev)
+
+    trace = poisson_trace(
+        args.requests, args.rate, (args.prompt_len_min, args.prompt_len_max),
+        args.max_new, cfg.vocab_size, seed=args.seed,
+        temperature=args.temperature)
+    sched = ContinuousBatchingScheduler(
+        cfg, fns, params, args.slots, S, top_k=args.top_k, top_p=args.top_p,
+        seed=args.seed)
+    for req in trace:
+        sched.submit(req)
+    _sync(dev)
+    KB.reset_launches()
+    t0 = time.perf_counter()
+    stats = sched.run()
+    _sync(dev)
+    dt = time.perf_counter() - t0
+
+    print(f"[serve] {cfg.name} ({cfg.n_layers} layers) on {dev}: "
+          f"{args.requests} requests, {args.slots} pages x {S} tokens")
+    print(f"[serve] {stats['tokens_out']} tokens in {dt * 1e3:.0f}ms "
+          f"({stats['tokens_out'] / max(dt, 1e-9):.1f} tok/s), "
+          f"{stats['decode_steps']} decode steps, "
+          f"occupancy mean {stats['mean_occupancy']:.2f} / "
+          f"peak {stats['peak_occupancy']} of {args.slots}; ttft "
+          f"{wall_ttft_ms(trace)}")
+    print(f"[serve] kernel launches: "
+          f"{ {k: v for k, v in KB.LAUNCHES.items() if v} }")
+    done = [r for r in trace if r.finished]
+    print(f"[serve] finished {len(done)}/{len(trace)}; sample request 0 ids:",
+          trace[0].generated[:16])
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,120 @@
+"""Paged/slotted KV pool for continuous batching.
+
+Port of ``repro.serve.kvcache``.  The pool is the model's decode state with
+the batch axis reinterpreted as ``n_slots`` fixed-size *pages*: one page =
+one request's entire cache (KV runs for attention layers, ring buffers
+bounded by the window for sliding-window layers).  A per-slot ``pos``
+vector (``[n_slots]`` int32) replaces the legacy scalar position so every
+page advances independently.
+
+Device-side primitives, updating the pool IN PLACE (the reference returns
+new arrays; here the pool is the largest buffer of a server, and a copy
+per request would move all of it):
+
+  * :func:`init_pool_state`  — the zeroed pool;
+  * :func:`write_slot`       — copy a single-request (B=1) state into a page;
+  * :func:`reset_slot`       — retire a page (position back to 0).
+
+Host-side bookkeeping lives in :class:`SlotAllocator`: a FIFO free list
+plus occupancy accounting, free of torch, so the scheduler's admission
+logic is unit-testable without a device.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import List, Optional
+
+import torch
+
+from repro_torch.models import transformer as T
+
+
+def init_pool_state(model_cfg, n_slots: int, max_seq_len: int,
+                    device="cuda") -> dict:
+    """Zeroed pool: per-segment stacked caches + per-slot positions."""
+    state = T.init_decode_state(model_cfg, n_slots, max_seq_len, device)
+    state["pos"] = torch.zeros((n_slots,), dtype=torch.int32,
+                               device=state["pos"].device)
+    return state
+
+
+def write_slot(pool: dict, one: dict, slot) -> dict:
+    """Install a single-request decode state (batch 1) into page ``slot``.
+
+    ``one`` is a ``prefill``/``init_decode_state`` state with B=1 and a
+    0-dim ``pos``; cache leaves are ``[n_layers, 1, ...]`` and land at
+    ``pool_leaf[:, slot]``.  ``slot`` may be an int or a 0-dim tensor."""
+    slot = _check_slot(pool, slot)
+    for dseg, sseg in zip(pool["segments"], one["segments"]):
+        for k, dst in dseg.items():
+            dst[:, slot] = sseg[k][:, 0].to(dst.dtype)
+    pool["pos"][slot] = torch.as_tensor(one["pos"]).to(torch.int32)
+    return pool
+
+
+def reset_slot(pool: dict, slot) -> dict:
+    """Retire page ``slot``: position back to 0 (cache bytes are left in
+    place — ``write_slot`` overwrites the whole page on reuse)."""
+    pool["pos"][_check_slot(pool, slot)] = 0
+    return pool
+
+
+def _check_slot(pool: dict, slot) -> int:
+    """The page index as an int; out of range raises (the reference's
+    ``dynamic_update_slice`` would clamp it onto another page)."""
+    slot, n = int(slot), pool["pos"].shape[0]
+    if not 0 <= slot < n:
+        raise ValueError(f"slot {slot} out of range [0, {n})")
+    return slot
+
+
+# ---------------------------------------------------------------------------
+# Host-side slot accounting (no torch)
+# ---------------------------------------------------------------------------
+
+@dataclass
+class SlotAllocator:
+    """FIFO page allocator + occupancy counters for the scheduler."""
+
+    n_slots: int
+    free: List[int] = field(default_factory=list)
+    #: cumulative (occupied slots summed over every decode step) — divide
+    #: by ``decode_steps`` for mean occupancy
+    occupancy_sum: int = 0
+    decode_steps: int = 0
+    peak_occupancy: int = 0
+    total_inserts: int = 0
+
+    def __post_init__(self):
+        if not self.free:
+            self.free = list(range(self.n_slots))
+
+    @property
+    def n_occupied(self) -> int:
+        return self.n_slots - len(self.free)
+
+    def acquire(self) -> Optional[int]:
+        """Pop the oldest free page, or None when the pool is full."""
+        if not self.free:
+            return None
+        self.total_inserts += 1
+        slot = self.free.pop(0)
+        self.peak_occupancy = max(self.peak_occupancy, self.n_occupied)
+        return slot
+
+    def release(self, slot: int) -> None:
+        if not 0 <= slot < self.n_slots:
+            raise ValueError(f"slot {slot} out of range [0, {self.n_slots})")
+        if slot in self.free:
+            raise ValueError(f"slot {slot} double-freed")
+        self.free.append(slot)
+
+    def tick(self) -> None:
+        """Record one decode step's occupancy."""
+        self.occupancy_sum += self.n_occupied
+        self.decode_steps += 1
+
+    @property
+    def mean_occupancy(self) -> float:
+        return self.occupancy_sum / max(self.decode_steps, 1)

@@ -34,6 +34,18 @@ def test_every_module_imports_without_jax(subproc):
     n_files = sum(1 for p in PORT.rglob("*.py") if p.name != "__init__.py")
     n_pkgs = sum(1 for p in PORT.rglob("__init__.py")) - 1
     assert n == n_files + n_pkgs
+    for mod in SERVING_MODULES:
+        assert (PORT / (mod.replace(".", "/") + ".py")).is_file(), mod
+
+
+#: the serving slice's modules, each imported above without jax
+SERVING_MODULES = (
+    "kernels.build", "kernels.rmsnorm.ops", "kernels.rmsnorm.kernel",
+    "kernels.rmsnorm.ref", "kernels.flash_attention.ops",
+    "kernels.flash_attention.kernel", "kernels.flash_attention.ref",
+    "kernels.qdot.ops", "kernels.qdot.kernel", "kernels.qdot.ref",
+    "serve.kvcache", "serve.sampling", "serve.engine", "serve.scheduler",
+    "launch.serve")
 
 
 def _imports(tree):

@@ -1,0 +1,344 @@
+"""The serving kernels of the port — RMSNorm, flash attention and int8
+dequantize-accumulate — against the JAX package.
+
+On the CPU the wrappers run their plain versions; these are held against
+the JAX package's ops (its Pallas kernels in interpret mode) and against
+its ``ref.py`` oracles on the cases of the reference's own tests
+(``tests/kernels/test_rmsnorm.py``, ``test_flash_attention.py``,
+``test_qdot.py``), with the tolerances stated there:
+
+  * rmsnorm: float32 1e-6 (rtol and atol), bf16 2e-2;
+  * flash attention: float32 2e-5, bf16 3e-2 (max abs);
+  * dequantize-accumulate: 1e-6, as the reference's test; the port's
+    plain version is held bitwise to the reference's ``ref.py`` too.
+
+Inputs are made from numpy seeds as float32 (bf16 inputs are cast from
+float32 on both sides, so they are the same values).  The JAX side runs
+once, in a subprocess, and hands its outputs over as an ``.npz``.
+
+On a card (``cuda`` marker; skipped elsewhere) each kernel is held to its
+plain version: rmsnorm within float32 rtol 1e-6 or one bf16 ulp, flash
+attention within the tolerances above, qacc bitwise.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import build as B
+from repro_torch.kernels.flash_attention import kernel as FK
+from repro_torch.kernels.flash_attention import ops as FO
+from repro_torch.kernels.flash_attention import ref as FR
+from repro_torch.kernels.qdot import kernel as QK
+from repro_torch.kernels.qdot import ops as QO
+from repro_torch.kernels.qdot import ref as QR
+from repro_torch.kernels.rmsnorm import kernel as RK
+from repro_torch.kernels.rmsnorm import ops as RO
+from repro_torch.kernels.rmsnorm import ref as RR
+
+RMS_SHAPES = [(8, 64), (256, 128), (3, 7, 96), (1000, 48)]
+RMS_DTYPES = {"float32": 1e-6, "bfloat16": 2e-2}
+#: (B, T, nh, nkv, hd, window, dtype, tol), the reference test's cases
+FLASH_CASES = [
+    (2, 256, 4, 2, 64, None, "float32", 2e-5),
+    (1, 384, 8, 2, 128, None, "float32", 2e-5),
+    (2, 256, 4, 4, 64, 64, "float32", 2e-5),
+    (1, 128, 4, 1, 32, None, "bfloat16", 3e-2),
+    (1, 256, 8, 8, 64, 32, "bfloat16", 3e-2),
+    (1, 130, 2, 2, 64, 48, "float32", 2e-5),     # padding path
+    (1, 257, 2, 1, 16, None, "float32", 2e-5),   # padding, MQA, tiny hd
+]
+QACC_CASES = [(64, 128), (100, 256), (1, 64)]
+
+
+def _rms_inputs(shape):
+    rng = np.random.RandomState(0)
+    x = rng.randn(*shape).astype(np.float32)
+    w = (rng.randn(shape[-1]) * 0.1).astype(np.float32)
+    return x, w
+
+
+def _flash_inputs(i):
+    Bn, T, nh, nkv, hd = FLASH_CASES[i][:5]
+    rng = np.random.RandomState(1000 + i)
+    return tuple(rng.randn(Bn, T, n, hd).astype(np.float32)
+                 for n in (nh, nkv, nkv))
+
+
+def _qacc_inputs(C, chunk):
+    rng = np.random.RandomState(0)
+    q = rng.randint(-127, 128, size=(C, chunk)).astype(np.int8)
+    s = (np.abs(rng.randn(C, 1)) * 0.01).astype(np.float32)
+    acc = rng.randn(C, chunk).astype(np.float32)
+    return q, s, acc
+
+
+JAX_CODE = r"""
+import numpy as np, jax.numpy as jnp
+from repro.kernels.flash_attention import flash_attention, flash_attention_ref
+from repro.kernels.qdot import dequant_accumulate, dequant_accumulate_ref
+from repro.kernels.rmsnorm import rmsnorm, rmsnorm_ref
+
+inp = dict(np.load({inp!r}))
+out = {{}}
+f32 = lambda a: np.asarray(jnp.asarray(a, jnp.float32))
+for key in [k for k in inp if k.startswith("rms_x_")]:
+    tag = key[len("rms_x_"):]
+    dt = jnp.bfloat16 if tag.endswith("bfloat16") else jnp.float32
+    x = jnp.asarray(inp[key]).astype(dt)
+    w = jnp.asarray(inp["rms_w_" + tag]).astype(dt)
+    out["rms_ops_" + tag] = f32(rmsnorm(x, w))
+    out["rms_ref_" + tag] = f32(rmsnorm_ref(x, w))
+for i, (B, T, nh, nkv, hd, window, dtype, tol) in enumerate({cases!r}):
+    dt = getattr(jnp, dtype)
+    q, k, v = (jnp.asarray(inp[f"fa_{{n}}_{{i}}"]).astype(dt) for n in "qkv")
+    out[f"fa_ops_{{i}}"] = f32(flash_attention(q, k, v, window=window,
+                                               bq=128, bk=128))
+    g = nh // nkv
+    qg = q.reshape(B, T, nkv, g, hd).transpose(0, 2, 3, 1, 4)
+    ref = flash_attention_ref(qg, k.transpose(0, 2, 1, 3),
+                              v.transpose(0, 2, 1, 3), window=window)
+    out[f"fa_ref_{{i}}"] = f32(ref.transpose(0, 3, 1, 2, 4).reshape(
+        B, T, nh, hd))
+for key in [k for k in inp if k.startswith("qa_q_")]:
+    tag = key[len("qa_q_"):]
+    q, s, a = (jnp.asarray(inp[f"qa_{{n}}_{{tag}}"]) for n in ("q", "s", "a"))
+    out["qa_ops_" + tag] = np.asarray(dequant_accumulate(q, s, a))
+    out["qa_ref_" + tag] = np.asarray(dequant_accumulate_ref(q, s, a))
+np.savez({path!r}, **out)
+print("JAX_OK")
+"""
+
+
+@pytest.fixture(scope="module")
+def jax_out(subproc, tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("jax_serve_kernels")
+    inp = {}
+    for shape in RMS_SHAPES:
+        x, w = _rms_inputs(shape)
+        for dt in RMS_DTYPES:
+            tag = f"{'x'.join(map(str, shape))}_{dt}"
+            inp["rms_x_" + tag], inp["rms_w_" + tag] = x, w
+    for i in range(len(FLASH_CASES)):
+        for n, a in zip("qkv", _flash_inputs(i)):
+            inp[f"fa_{n}_{i}"] = a
+    for C, chunk in QACC_CASES:
+        for n, a in zip(("q", "s", "a"), _qacc_inputs(C, chunk)):
+            inp[f"qa_{n}_{C}x{chunk}"] = a
+    np.savez(tmp / "in.npz", **inp)
+    path = str(tmp / "out.npz")
+    out = subproc(JAX_CODE.format(inp=str(tmp / "in.npz"), path=path,
+                                  cases=FLASH_CASES), devices=1, timeout=600)
+    assert "JAX_OK" in out
+    return dict(np.load(path))
+
+
+def _f32(t):
+    return t.to(torch.float32).numpy()
+
+
+# ---------------------------------------------------------------------------
+# Plain versions on the CPU against the JAX package
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", list(RMS_DTYPES))
+@pytest.mark.parametrize("shape", RMS_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_rmsnorm_plain_matches_jax(jax_out, shape, dtype):
+    x, w = _rms_inputs(shape)
+    tdt = getattr(torch, dtype)
+    tx, tw = torch.from_numpy(x).to(tdt), torch.from_numpy(w).to(tdt)
+    got = RO.rmsnorm(tx, tw)
+    assert got.dtype == tdt and got.shape == tx.shape
+    assert torch.equal(got, RR.rmsnorm_ref(tx, tw))
+    tol = RMS_DTYPES[dtype]
+    tag = f"{'x'.join(map(str, shape))}_{dtype}"
+    for which in ("ops", "ref"):
+        np.testing.assert_allclose(_f32(got), jax_out[f"rms_{which}_{tag}"],
+                                   rtol=tol, atol=tol, err_msg=which)
+
+
+@pytest.mark.parametrize("i", range(len(FLASH_CASES)),
+                         ids=[f"{c[:6]}-{c[6]}" for c in FLASH_CASES])
+def test_flash_attention_plain_matches_jax(jax_out, i):
+    Bn, T, nh, nkv, hd, window, dtype, tol = FLASH_CASES[i]
+    tdt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(a).to(tdt) for a in _flash_inputs(i))
+    got = FO.flash_attention(q, k, v, window=window)
+    assert got.dtype == tdt and got.shape == q.shape
+    for which in ("ops", "ref"):
+        err = np.max(np.abs(_f32(got) - jax_out[f"fa_{which}_{i}"]))
+        assert err < tol, (which, err)
+
+
+def test_flash_attention_ops_pads_keys_like_reference():
+    """Without ``causal``, ops pads K/V to the reference's 128-key tile and
+    the zero keys count (``kpos < Tk`` of the padded length), as in the
+    reference's ops; with ``causal`` they are masked, and a row past every
+    live key gives 0, not NaN."""
+    rng = np.random.RandomState(3)
+    q, k, v = (torch.from_numpy(rng.randn(1, 130, n, 16).astype(np.float32))
+               for n in (2, 1, 1))
+    got = FO.flash_attention(q, k, v, causal=False)
+    pad = lambda t: torch.nn.functional.pad(t, (0, 0, 0, 0, 0, 126))
+    qg = q.reshape(1, 130, 1, 2, 16).permute(0, 2, 3, 1, 4)
+    exp = FR.flash_attention_ref(qg, pad(k).permute(0, 2, 1, 3),
+                                 pad(v).permute(0, 2, 1, 3), causal=False)
+    np.testing.assert_allclose(
+        got.numpy(), exp.permute(0, 3, 1, 2, 4).reshape(1, 130, 2, 16).numpy(),
+        rtol=2e-5, atol=2e-5)
+    # window 1 with causal: only the diagonal; an all-masked row (window
+    # of a key range that ends before the query) is zero
+    qg5, k4, v4 = qg, k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+    out = FK.flash_attention_kernel(qg5, k4[:, :, :8], v4[:, :, :8],
+                                    window=1)
+    assert torch.isfinite(out).all()
+    assert torch.equal(out[:, :, :, 8:], torch.zeros_like(out[:, :, :, 8:]))
+
+
+@pytest.mark.parametrize("C,chunk", QACC_CASES)
+def test_dequant_accumulate_plain_matches_jax(jax_out, C, chunk):
+    q, s, a = _qacc_inputs(C, chunk)
+    got = QO.dequant_accumulate(torch.from_numpy(q), torch.from_numpy(s),
+                                torch.from_numpy(a))
+    assert got.dtype == torch.float32
+    tag = f"{C}x{chunk}"
+    # the reference's ref.py rounds the product and the sum once each
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  jax_out["qa_ref_" + tag].view(np.int32))
+    np.testing.assert_allclose(got.numpy(), jax_out["qa_ops_" + tag],
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_wrappers_take_plain_version_on_cpu():
+    B.reset_launches()
+    x, w = (torch.from_numpy(a) for a in _rms_inputs((8, 64)))
+    assert torch.equal(RK.rmsnorm_kernel(x, w), RR.rmsnorm_ref(x, w))
+    q, s, a = (torch.from_numpy(t) for t in _qacc_inputs(4, 64))
+    assert torch.equal(QK.qacc_kernel(q, s, a),
+                       QR.dequant_accumulate_ref(q, s, a))
+    qq, kk, vv = (torch.from_numpy(t) for t in _flash_inputs(5))
+    qg = qq.reshape(1, 130, 2, 1, 64).permute(0, 2, 3, 1, 4)
+    assert torch.equal(
+        FK.flash_attention_kernel(qg, kk.permute(0, 2, 1, 3),
+                                  vv.permute(0, 2, 1, 3)),
+        FR.flash_attention_ref(qg, kk.permute(0, 2, 1, 3),
+                               vv.permute(0, 2, 1, 3)))
+    # the plain version is no kernel launch
+    assert B.LAUNCHES["rmsnorm"] == B.LAUNCHES["flash_attention"] == \
+        B.LAUNCHES["qacc"] == 0
+    assert set(B.LAUNCHES) >= {"rmsnorm", "flash_attention", "qacc"}
+
+
+def test_wrappers_refuse_other_devices():
+    """Only CPU tensors take the plain version; anything else must be a
+    CUDA launch or an error, never a quiet fallback."""
+    meta = torch.empty((8, 64), device="meta")
+    with pytest.raises(ValueError, match="CUDA device or all on the CPU"):
+        RK.rmsnorm_kernel(meta, torch.empty(64, device="meta"))
+    with pytest.raises(ValueError, match="CUDA device or all on the CPU"):
+        QK.qacc_kernel(meta.to(torch.int8), torch.zeros(8, 1),
+                       torch.zeros(8, 64))
+    with pytest.raises(ValueError, match="CUDA device or all on the CPU"):
+        FK.flash_attention_kernel(torch.empty((1, 1, 1, 8, 16), device="meta"),
+                                  torch.zeros(1, 1, 8, 16),
+                                  torch.zeros(1, 1, 8, 16))
+
+
+def test_every_kernel_source_is_built():
+    """The build module finds one source per kernel file of every package
+    (the smoke's build phase starts one nvcc for each)."""
+    names = sorted(p.name for p in B.sources())
+    assert names == ["collective_steps.cu", "flash_attention.cu",
+                     "perm_matmul.cu", "qacc.cu", "ring_update.cu",
+                     "rmsnorm.cu"]
+    paths = {B.library_path(p) for p in B.sources()}
+    assert len(paths) == len(names)
+    assert all(p.parent == B.BUILD_DIR for p in paths)
+
+
+# ---------------------------------------------------------------------------
+# On the card (skipped without one)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda_device():
+    """The card, or a skip: decided when the test runs, never at import."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    return torch.device("cuda")
+
+
+def _bf16_ulp(x):
+    """One bf16 ulp at each value of float32 ``x``."""
+    e = torch.floor(torch.log2(x.abs().clamp(min=2.0 ** -126)))
+    return torch.pow(2.0, e - 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", RMS_SHAPES + [(1024, 3072), (8, 3072)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_cuda_rmsnorm_matches_plain(cuda_device, shape, dtype):
+    x, w = _rms_inputs(shape)
+    tdt = getattr(torch, dtype)
+    tx = torch.from_numpy(x).to(cuda_device, tdt)
+    tw = torch.from_numpy(w).to(cuda_device, tdt)
+    before = B.LAUNCHES["rmsnorm"]
+    got = RO.rmsnorm(tx, tw).float()
+    assert B.LAUNCHES["rmsnorm"] == before + 1
+    exp = RR.rmsnorm_ref(tx, tw).float()
+    d = (got - exp).abs()
+    if dtype == "float32":
+        assert bool((d <= 1e-6 * exp.abs() + 1e-30).all()), float(d.max())
+    else:
+        assert bool((d <= _bf16_ulp(exp)).all()), float(d.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("i", range(len(FLASH_CASES)),
+                         ids=[f"{c[:6]}-{c[6]}" for c in FLASH_CASES])
+def test_cuda_flash_attention_matches_plain(cuda_device, i):
+    Bn, T, nh, nkv, hd, window, dtype, tol = FLASH_CASES[i]
+    tdt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(a).to(cuda_device, tdt)
+               for a in _flash_inputs(i))
+    got = FO.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    g = nh // nkv
+    qg = q.reshape(Bn, T, nkv, g, hd).permute(0, 2, 3, 1, 4)
+    exp = FR.flash_attention_ref(qg, k.permute(0, 2, 1, 3),
+                                 v.permute(0, 2, 1, 3), window=window)
+    exp = exp.permute(0, 3, 1, 2, 4).reshape(Bn, T, nh, hd)
+    err = float((got.float() - exp.float()).abs().max())
+    assert err < tol, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,chunk", QACC_CASES + [(65536, 256), (7, 100)])
+def test_cuda_qacc_matches_plain_bitwise(cuda_device, C, chunk):
+    q, s, a = (torch.from_numpy(t).to(cuda_device)
+               for t in _qacc_inputs(C, chunk))
+    got = QK.qacc_kernel(q, s, a)
+    exp = QR.dequant_accumulate_ref(q, s, a)
+    assert torch.equal(got.view(torch.int32), exp.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_cuda_wrapper_raises_without_library(cuda_device, monkeypatch,
+                                             tmp_path):
+    """A CUDA tensor with no buildable kernel raises; it never runs the
+    plain version instead."""
+    def no_nvcc():
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+    monkeypatch.setattr(B, "_LIBS", {})
+    monkeypatch.setattr(B, "BUILD_DIR", tmp_path / "empty")
+    monkeypatch.setattr(B, "_nvcc", no_nvcc)
+    x = torch.zeros((8, 64), device=cuda_device)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        RK.rmsnorm_kernel(x, x[0].contiguous())
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        QK.qacc_kernel(x.to(torch.int8), x[:, :1].contiguous(), x)
+    q = torch.zeros((1, 1, 1, 8, 16), device=cuda_device)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        FK.flash_attention_kernel(q, q[0], q[0])
