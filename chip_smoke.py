@@ -13,11 +13,14 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
              function, and its bound: rs_step, ag_step, rs_step_q and
              ring_update BITWISE (one 64 MiB f32 bucket at p=4), the
              matmul_pack / gather_matmul directions of perm_matmul within a
-             bound stated from k (phi4-mini's tensor-parallel MLP shapes);
-             rmsnorm (rtol 1e-6 / one bf16 ulp) and flash_attention (2e-5 /
-             3e-2) at the serve cell's insert and decode shapes, qacc
-             BITWISE on a 64 MiB accumulator, then the qdot op's own path
-             (four int8 payloads accumulated, launches counted);
+             bound stated from k (phi4-mini's tensor-parallel MLP shapes;
+             float32 on the CUDA-core kernel, bf16 on the tensor-core
+             ``wgmma`` kernel, the launch counts saying which ran);
+             rmsnorm (rtol 1e-6 / one bf16 ulp) and flash_attention (2e-5
+             float32 on the CUDA cores / 3e-2 bf16 on wgmma) at the serve
+             cell's insert and decode shapes, qacc BITWISE on a 64 MiB
+             accumulator, then the qdot op's own path (four int8 payloads
+             accumulated, launches counted);
 3. collectives — fused ``ops`` reduce-scatter / allgather / allreduce and
              the int8-wire pair against the plain ``stacked`` executor,
              bitwise, at p in {4, 8} on 64 MiB f32 vectors;
@@ -28,8 +31,9 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
              stacked algo and ``auto`` to the backend it resolved to; the
              rooted collectives and all_to_all at p=8 held to their
              definitions; the fused matmul collectives at phi4-mini's TP
-             shapes; with the launch counts read around the run and the
-             per-backend times;
+             shapes in float32 and bf16 (the bf16 ones on the wgmma
+             perm_matmul); with the launch counts read around the run and
+             the per-backend times;
 5. train   — a small reference first (reduced phi4-mini, float32: the card
              against the CPU), then the main path, the cell of
              ``repro_torch/launch/cell.py``: full-width phi4-mini cut to 2
@@ -49,10 +53,10 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
              requests of 32 new tokens; every request retires with its
              tokens, every logit is finite, the launch counts read around
              the run are 65 rmsnorm per insert and per decode step and 32
-             flash_attention per insert, and request 0 alone in a 1-page
-             pool gets the same first token.  Prints prefill ms per insert,
-             decode ms per step, tokens/s, p50/p99 time to first token and
-             peak memory.
+             flash_attention per insert, every one on the wgmma kernel,
+             and request 0 alone in a 1-page pool gets the same first
+             token.  Prints prefill ms per insert, decode ms per step,
+             tokens/s, p50/p99 time to first token and peak memory.
 
 Prints a ``kernels:`` summary, one JSON line of per-kernel numbers, the
 card's name and power limit, and as its last line
@@ -88,6 +92,8 @@ SOURCE = {"rs_step": CSRC + "collective_steps.cu",
           "ring_update": CSRC + "ring_update.cu",
           "matmul_pack": CSRC + "perm_matmul.cu",
           "gather_matmul": CSRC + "perm_matmul.cu",
+          "matmul_pack_wgmma": CSRC + "perm_matmul.cu",
+          "gather_matmul_wgmma": CSRC + "perm_matmul.cu",
           "rmsnorm": KSRC + "rmsnorm/csrc/rmsnorm.cu",
           "flash_attention": KSRC + "flash_attention/csrc/flash_attention.cu",
           "qacc": KSRC + "qdot/csrc/qacc.cu"}
@@ -98,6 +104,8 @@ REPLACES = {
     "ring_update": "src/repro/kernels/collectives/kernel.py:300",
     "matmul_pack": "src/repro/kernels/collectives/kernel.py:412",
     "gather_matmul": "src/repro/kernels/collectives/kernel.py:426",
+    "matmul_pack_wgmma": "src/repro/kernels/collectives/kernel.py:412",
+    "gather_matmul_wgmma": "src/repro/kernels/collectives/kernel.py:426",
     "rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:26",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:91",
     "qacc": "src/repro/kernels/qdot/kernel.py:27",
@@ -107,6 +115,8 @@ REPLACES = {
 #: @ w_i shard) shapes, (p, m, k, n)
 MM_RS = (4, 8192, 2048, 3072)
 MM_AG = (4, 8192, 3072, 2048)
+#: unit roundoff of bf16 (8 significant bits, round to nearest even)
+BF16_U = 2.0 ** -8
 
 
 def log(msg: str) -> None:
@@ -352,12 +362,15 @@ def phase_ring_update(dev, randn, entry, row):
 
 
 def phase_perm_matmul(dev, randn, row):
-    """perm_matmul in both directions at phi4-mini's TP shapes, f32 and
-    bf16: within ``mm_bound`` of the plain version (plus one bf16 rounding,
-    2**-7 |y|, for a bf16 result), with both held against a float64
-    product.  Library call: ``torch.matmul`` of the same shapes (TF32
-    off)."""
+    """perm_matmul in both directions at phi4-mini's TP shapes, f32 (the
+    CUDA-core kernel, rows ``matmul_pack`` / ``gather_matmul``) and bf16
+    (the tensor-core kernel, rows ``*_wgmma``): within ``mm_bound`` of the
+    plain version (plus one bf16 rounding, 2**-7 |y|, for a bf16 result),
+    with both held against a float64 product; the launch counts say which
+    kernel ran.  Library call: ``torch.matmul`` of the same shapes and
+    dtype (TF32 off)."""
     import torch
+    from repro_torch.kernels import build as KB
     from repro_torch.kernels.collectives import kernel as K
     from repro_torch.kernels.collectives import ref as R
 
@@ -366,16 +379,23 @@ def phase_perm_matmul(dev, randn, row):
                                     ("gather_matmul", MM_AG, True)):
         x, w = randn(p, m, k), randn(p, k, n)
         flops = 2 * p * m * n * k
-        errs = {}
         for dt in (torch.float32, torch.bfloat16):
             xd, wd = x.to(dt), w.to(dt)
+            wgmma = dt == torch.bfloat16
+            check(K.perm_matmul_uses_wgmma(xd, wd, len(perm)) == wgmma,
+                  f"{name} {dt}: the dispatch rule sends it to the wrong "
+                  f"kernel")
+            before = KB.LAUNCHES[name + "_wgmma"]
             got = K.perm_matmul(xd, wd, perm, lhs)
-            exp = (R.gather_matmul_ref if lhs else R.matmul_pack_ref)(
-                xd, wd, perm)
+            check(KB.LAUNCHES[name + "_wgmma"] - before == wgmma,
+                  f"{name} {dt}: the {'wgmma' if wgmma else 'CUDA-core'} "
+                  f"kernel did not run")
+            plain = (R.gather_matmul_ref if lhs else R.matmul_pack_ref)
+            exp = plain(xd, wd, perm)
             lim = mm_bound(R.row_blocks(xd, perm) if lhs else xd, wd, k)
             if not lhs:
                 lim = R.row_blocks(lim, perm)
-            if dt == torch.bfloat16:
+            if wgmma:
                 lim = lim + 2.0 ** -7 * exp.float().abs()
             err = within(got, exp, lim, f"{name} {dt}")
             x64 = (R.row_blocks(xd, perm) if lhs else xd).double()
@@ -384,26 +404,17 @@ def phase_perm_matmul(dev, randn, row):
                 y64 = R.row_blocks(y64, perm)
             e_k = float((got.double() - y64).abs().max())
             e_p = float((exp.double() - y64).abs().max())
-            errs[dt] = err
             log(f"  {name} {str(dt)[6:]} {tuple(x.shape)} @ "
-                f"{tuple(w.shape)}: within bound of plain (max |diff| "
-                f"{err:.3e}); vs float64: kernel {e_k:.3e}, plain {e_p:.3e}")
+                f"{tuple(w.shape)} ({'wgmma' if wgmma else 'CUDA cores'}): "
+                f"within bound of plain (max |diff| {err:.3e}); vs float64: "
+                f"kernel {e_k:.3e}, plain {e_p:.3e}")
             del got, exp, lim, x64, y64
-            if dt == torch.bfloat16:
-                t = time_ms(lambda: K.perm_matmul(xd, wd, perm, lhs))
-                tp = time_ms(lambda: (R.gather_matmul_ref if lhs
-                                      else R.matmul_pack_ref)(xd, wd, perm))
-                log(f"    {name} bf16: {ms(t)} ms, plain {ms(tp)} ms, bound "
-                    f"{ms(flops / BF16_FLOPS * 1e3)} ms (989 TFLOP/s), "
-                    f"library {ms(time_ms(lambda: torch.matmul(xd, wd)))} "
-                    f"ms")
+            row(name + "_wgmma" if wgmma else name, err,
+                lambda: K.perm_matmul(xd, wd, perm, lhs),
+                lambda: plain(xd, wd, perm),
+                flops / (BF16_FLOPS if wgmma else F32_FLOPS) * 1e3,
+                "operations", lambda: torch.matmul(xd, wd))
             del xd, wd
-        row(name, errs[torch.float32],
-            lambda: K.perm_matmul(x, w, perm, lhs),
-            lambda: (R.gather_matmul_ref if lhs else R.matmul_pack_ref)(
-                x, w, perm),
-            flops / F32_FLOPS * 1e3, "operations",
-            lambda: torch.matmul(x, w))
         del x, w
         torch.cuda.empty_cache()
 
@@ -420,8 +431,11 @@ def phase_serve_kernels(dev, randn, row):
     insert's rows [1024, 3072] and one decode step's [8, 3072], bf16 and
     float32 (float32 within rtol 1e-6 of the plain version, bf16 within one
     bf16 ulp); flash attention on one insert's prefill (q [1, 1024, 24,
-    128], k/v [1, 1024, 8, 128], bf16, causal), a window-256 and a
-    T = 1000 (padded) variant, within 3e-2 (bf16) and float32 within 2e-5;
+    128], k/v [1, 1024, 8, 128], bf16, causal), a window-256, a T = 1000
+    (padded) and a T = 4096 variant, within 3e-2 (bf16,
+    the tensor-core kernel)
+    and float32 (the CUDA-core kernel) within 2e-5, the launch counts
+    saying which kernel ran;
     qacc on C = 65536 chunks of 256 (a 64 MiB float32 accumulator),
     BITWISE.  Then the qdot op's own path, driven with the counts set to 0:
     four int8 payloads of that bucket accumulated into one float32 partial
@@ -492,7 +506,15 @@ def phase_serve_kernels(dev, randn, row):
         else:
             lib = lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        wgmma = dt == torch.bfloat16
+        check(FK.flash_uses_wgmma(qg, kg, vg) == wgmma,
+              f"flash_attention {dt}: the dispatch rule sends it to the "
+              f"wrong kernel")
+        before = KB.LAUNCHES["flash_attention_wgmma"]
         got = kern().float()
+        check(KB.LAUNCHES["flash_attention_wgmma"] - before == wgmma,
+              f"flash_attention T={T} {dt}: the "
+              f"{'wgmma' if wgmma else 'CUDA-core'} kernel did not run")
         exp = plain().float().permute(0, 3, 1, 2, 4).reshape(1, T, nh, hd)
         ref = lib().float().transpose(1, 2)
         err = float((got - exp).abs().max())
@@ -506,7 +528,8 @@ def phase_serve_kernels(dev, randn, row):
         bound = max(nbytes / HBM_BYTES_PER_S, flops / peak) * 1e3
         by = "bytes" if nbytes / HBM_BYTES_PER_S > flops / peak \
             else "operations"
-        log(f"    flash_attention T={T} window={window} {str(dt)[6:]}: "
+        log(f"    flash_attention T={T} window={window} {str(dt)[6:]} "
+            f"({'wgmma' if wgmma else 'CUDA cores'}): "
             f"{ms(time_ms(kern))} ms, plain {ms(time_ms(plain, reps=5))} ms, "
             f"library {ms(time_ms(lib))} ms, bound {ms(bound)} ms ({by}, "
             f"{live} live pairs); max |diff| {err:.3e} (vs SDPA "
@@ -515,11 +538,12 @@ def phase_serve_kernels(dev, randn, row):
 
     for T, window, dt in ((1024, 256, torch.bfloat16),
                           (1000, None, torch.bfloat16),
+                          (4096, None, torch.bfloat16),
                           (1024, None, torch.float32)):
         flash_case(T, window, dt)
     kern, plain, lib, err, bound, by = flash_case(1024, None, torch.bfloat16)
-    log("  flash_attention: within 3e-2 (bf16) / 2e-5 (float32) of plain "
-        "(4 variants)")
+    log("  flash_attention: within 3e-2 (bf16, tensor cores) / 2e-5 "
+        "(float32, CUDA cores) of plain (5 variants)")
     row("flash_attention", err, kern, plain, bound, by, lib)
     del kern, plain, lib
     torch.cuda.empty_cache()
@@ -701,8 +725,15 @@ def phase_api(dev):
     mm = phase_api_matmul(dev)
     launches = dict(KB.LAUNCHES)
     for k in ("ring_update", "matmul_pack", "gather_matmul", "rs_step",
-              "ag_step"):
+              "ag_step", "matmul_pack_wgmma", "gather_matmul_wgmma"):
         check(launches[k] > 0, f"the API run did not launch {k}")
+    # bf16 calls ran on the tensor cores, float32 ones on the CUDA cores:
+    # two of each direction (bine, ring)
+    for k in ("matmul_pack", "gather_matmul"):
+        check(launches[k + "_wgmma"] == 2 and launches[k] == 4,
+              f"the API's matmul collectives launched {k} "
+              f"{launches[k]} times, {launches[k + '_wgmma']} on wgmma "
+              f"(expected 4, 2)")
     for (name, p), (a, b, c) in sorted(per_call.items()):
         log(f"  launches per call, {name} p={p}: reduce_scatter {a}, "
             f"allgather {b}, allreduce {c}")
@@ -752,65 +783,94 @@ def phase_api_rooted(x):
 
 def phase_api_matmul(dev):
     """matmul_reduce_scatter / allgather_matmul (bine, ring) at the TP
-    shapes against torch.matmul followed by the stacked RS / AG, both held
-    against float64 within (k + p) 2**-24 max(sum_r |x_r| @ |w_r|) (each
-    float32 sum of k products, then p rank adds).  Returns the calls to
-    time."""
+    shapes, float32 and bf16, against torch.matmul followed by the stacked
+    RS / AG, both held against float64.  float32: within (k + p) 2**-24
+    max(sum_r |x_r| @ |w_r|) (each float32 sum of k products, then p rank
+    adds).  bf16 (the tensor-core perm_matmul), elementwise: each bf16
+    rounding errs by at most u = 2**-8 of what it rounds, and what it
+    rounds (a rank's product, or a partial sum of them) is at most
+    T = sum_r |x_r @ w_r| (float64), so with steps = the rank adds that
+    round to bf16 (log2 p for bine, p - 1 for the ring) and
+    gam = (1 + steps) u / (1 - (1 + steps) u) the bound is
+    (1 + gam) (k + p) 2**-24 S + gam T, S = sum_r |x_r| @ |w_r|; the
+    allgather's one rounding of its product y, (1 + u) k 2**-24 S + u |y|.
+    Returns the calls to time."""
     import torch
     from repro_torch.collectives import stacked
     from repro_torch.kernels.collectives import ops
 
     gen = torch.Generator(device=dev).manual_seed(7)
-    p, m, k, n = MM_RS
-    x = torch.randn((p, m, k), generator=gen, device=dev)
-    w = torch.randn((p, k, n), generator=gen, device=dev)
-    y64 = torch.matmul(x.double(), w.double()).sum(0)      # [m, n]
-    tol = (k + p) * 2.0 ** -24 * float(
-        torch.matmul(x.abs(), w.abs()).sum(0).max())
     timed = []
-    for algo in ("bine", "ring"):
-        got = ops.matmul_reduce_scatter(x, w, algo)
-        plain = stacked.reduce_scatter(torch.matmul(x, w).reshape(p, -1),
-                                       algo).reshape(p, m // p, n)
-        exp = y64.view(p, m // p, n)
-        e_f = float((got.double() - exp).abs().max())
-        e_p = float((plain.double() - exp).abs().max())
-        check(e_f <= tol and e_p <= tol,
-              f"matmul_reduce_scatter {algo}: {e_f}, {e_p} > {tol}")
-        log(f"  matmul_reduce_scatter {algo} {tuple(x.shape)} @ "
-            f"{tuple(w.shape)}: vs float64 fused {e_f:.3e}, matmul+RS "
-            f"{e_p:.3e} (bound {tol:.3e})")
-        timed += [(f"matmul_reduce_scatter {algo} (fused)",
-                   lambda a=algo: ops.matmul_reduce_scatter(x, w, a)),
-                  (f"matmul + reduce_scatter {algo} (plain)",
-                   lambda a=algo: stacked.reduce_scatter(
-                       torch.matmul(x, w).reshape(p, -1), a))]
-        del got, plain
-    del y64
+    p, m, k, n = MM_RS
+    x32 = torch.randn((p, m, k), generator=gen, device=dev)
+    w32 = torch.randn((p, k, n), generator=gen, device=dev)
+    for dt in (torch.float32, torch.bfloat16):
+        x, w = x32.to(dt), w32.to(dt)
+        tag = str(dt)[6:]
+        y64 = torch.matmul(x.double(), w.double())              # [p, m, n]
+        T = y64.abs().sum(0)
+        y64 = y64.sum(0)
+        S = torch.matmul(x.float().abs(), w.float().abs()).sum(0)
+        for algo in ("bine", "ring"):
+            if dt == torch.float32:
+                lim = torch.full_like(S, (k + p) * 2.0 ** -24 * float(S.max()))
+            else:
+                steps = (p - 1) if algo == "ring" else int(math.log2(p))
+                gam = (1 + steps) * BF16_U / (1 - (1 + steps) * BF16_U)
+                lim = ((1 + gam) * (k + p) * 2.0 ** -24 * S.double()
+                       + gam * T)
+            lim = lim.view(p, m // p, n)
+            got = ops.matmul_reduce_scatter(x, w, algo)
+            plain = stacked.reduce_scatter(torch.matmul(x, w).reshape(p, -1),
+                                           algo).reshape(p, m // p, n)
+            exp = y64.view(p, m // p, n)
+            e_f = within(got, exp, lim, f"matmul_reduce_scatter {algo} {tag}")
+            e_p = within(plain, exp, lim, f"matmul + reduce_scatter {algo} "
+                         f"{tag}")
+            log(f"  matmul_reduce_scatter {algo} {tag} {tuple(x.shape)} @ "
+                f"{tuple(w.shape)}: vs float64 fused {e_f:.3e}, matmul+RS "
+                f"{e_p:.3e} (bound max {float(lim.max()):.3e})")
+            timed += [(f"matmul_reduce_scatter {algo} {tag} (fused)",
+                       lambda a=algo, x=x, w=w: ops.matmul_reduce_scatter(
+                           x, w, a)),
+                      (f"matmul + reduce_scatter {algo} {tag} (plain)",
+                       lambda a=algo, x=x, w=w: stacked.reduce_scatter(
+                           torch.matmul(x, w).reshape(p, -1), a))]
+            del got, plain, lim
+        del y64, S, T
+    del x32, w32
     p, m, k, n = MM_AG
-    xb = torch.randn((p, m // p, k), generator=gen, device=dev)
-    w2 = torch.randn((p, k, n), generator=gen, device=dev)
-    xg = xb.reshape(1, m, k).expand(p, m, k)
-    y64 = torch.matmul(xg.double(), w2.double())
-    tol2 = k * 2.0 ** -24 * float(torch.matmul(xg.abs(), w2.abs()).max())
-    for algo in ("bine", "ring"):
-        got = ops.allgather_matmul(xb, w2, algo)
-        plain = torch.matmul(stacked.allgather(xb.reshape(p, -1), algo)
-                             .view(p, m, k), w2)
-        e_f = float((got.double() - y64).abs().max())
-        e_p = float((plain.double() - y64).abs().max())
-        check(e_f <= tol2 and e_p <= tol2,
-              f"allgather_matmul {algo}: {e_f}, {e_p} > {tol2}")
-        log(f"  allgather_matmul {algo} {tuple(xb.shape)} -> {m} rows @ "
-            f"{tuple(w2.shape)}: vs float64 fused {e_f:.3e}, AG+matmul "
-            f"{e_p:.3e} (bound {tol2:.3e})")
-        timed += [(f"allgather_matmul {algo} (fused)",
-                   lambda a=algo: ops.allgather_matmul(xb, w2, a)),
-                  (f"allgather + matmul {algo} (plain)",
-                   lambda a=algo: torch.matmul(stacked.allgather(
-                       xb.reshape(p, -1), a).view(p, m, k), w2))]
-        del got, plain
-    del y64
+    xb32 = torch.randn((p, m // p, k), generator=gen, device=dev)
+    w32 = torch.randn((p, k, n), generator=gen, device=dev)
+    for dt in (torch.float32, torch.bfloat16):
+        xb, w2 = xb32.to(dt), w32.to(dt)
+        tag = str(dt)[6:]
+        xg = xb.reshape(1, m, k).expand(p, m, k)
+        y64 = torch.matmul(xg.double(), w2.double())
+        S = torch.matmul(xg.float().abs(), w2.float().abs())
+        if dt == torch.float32:
+            lim = torch.full_like(S, k * 2.0 ** -24 * float(S.max()))
+        else:
+            lim = ((1 + BF16_U) * k * 2.0 ** -24 * S.double()
+                   + BF16_U * y64.abs())
+        for algo in ("bine", "ring"):
+            got = ops.allgather_matmul(xb, w2, algo)
+            plain = torch.matmul(stacked.allgather(xb.reshape(p, -1), algo)
+                                 .view(p, m, k), w2)
+            e_f = within(got, y64, lim, f"allgather_matmul {algo} {tag}")
+            e_p = within(plain, y64, lim, f"allgather + matmul {algo} {tag}")
+            log(f"  allgather_matmul {algo} {tag} {tuple(xb.shape)} -> {m} "
+                f"rows @ {tuple(w2.shape)}: vs float64 fused {e_f:.3e}, "
+                f"AG+matmul {e_p:.3e} (bound max {float(lim.max()):.3e})")
+            timed += [(f"allgather_matmul {algo} {tag} (fused)",
+                       lambda a=algo, xb=xb, w2=w2: ops.allgather_matmul(
+                           xb, w2, a)),
+                      (f"allgather + matmul {algo} {tag} (plain)",
+                       lambda a=algo, xb=xb, w2=w2: torch.matmul(
+                           stacked.allgather(xb.reshape(p, -1), a)
+                           .view(p, m, k), w2))]
+            del got, plain
+        del y64, S, lim
     return timed
 
 
@@ -1109,14 +1169,15 @@ def phase_serve(dev):
     stats = sched.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: KB.LAUNCHES[k] for k in ("rmsnorm", "flash_attention")}
+    launches = {k: KB.LAUNCHES[k] for k in ("rmsnorm", "flash_attention",
+                                             "flash_attention_wgmma")}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     check(all(r.finished and len(r.generated) == c.max_new for r in trace),
           "not every request retired with its tokens")
     check(bool(torch.stack(finite).all()), "non-finite logits")
     L, n_ins, n_dec = cfg.n_layers, stats["inserts"], stats["decode_steps"]
     want = {"rmsnorm": (2 * L + 1) * (n_ins + n_dec),
-            "flash_attention": L * n_ins}
+            "flash_attention": L * n_ins, "flash_attention_wgmma": L * n_ins}
     check(launches == want, f"launch counts {launches}, expected {want} "
           f"({n_ins} inserts, {n_dec} decode steps)")
     ins_ms = statistics.median(times["insert"]) * 1e3
@@ -1133,7 +1194,7 @@ def phase_serve(dev):
         f"{n_ins} inserts, {n_dec} decode steps (occupancy mean "
         f"{stats['mean_occupancy']:.2f}, peak {stats['peak_occupancy']}), "
         f"all logits finite; launches {launches} == {2 * L + 1} x (inserts "
-        f"+ steps) and {L} x inserts")
+        f"+ steps) and {L} x inserts, every flash launch on wgmma")
     log(f"  prefill {ins_ms:.2f} ms per insert (median of {n_ins}), decode "
         f"{dec_ms:.2f} ms per step (median of {n_dec}), "
         f"{nums['tokens_per_s']:.1f} tokens/s over {wall:.2f} s, ttft p50 "
@@ -1210,9 +1271,15 @@ def main() -> int:
     # the step kernels' counts from the train step's main path, the ring
     # and matmul kernels' from the API run, the norm and attention
     # kernels' from the serve run, qacc's from the qdot op's path
-    for name in ("ring_update", "matmul_pack", "gather_matmul"):
+    # (the float32 matmul rows count the CUDA-core kernel's launches, the
+    # *_wgmma rows the tensor-core kernel's; flash's row is bf16, all of
+    # whose serve launches are wgmma ones)
+    for name in ("ring_update", "matmul_pack_wgmma", "gather_matmul_wgmma"):
         launches[name] = api_launches[name]
+    for name in ("matmul_pack", "gather_matmul"):
+        launches[name] = api_launches[name] - api_launches[name + "_wgmma"]
     launches.update(serve_launches)
+    launches["flash_attention"] = launches.pop("flash_attention_wgmma")
     launches["qacc"] = qacc_launches
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched on its path")

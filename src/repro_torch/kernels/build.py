@@ -3,12 +3,15 @@
 Every kernel package keeps its CUDA C++ sources under its own ``csrc/``.
 Each source is compiled for ``sm_90a`` with its own ``nvcc`` at first use
 (all of them started together) into ``build/repro_torch/``, keyed by a
-hash of the source, and loaded with ``ctypes``: a plain C interface whose
-entry points each return ``cudaGetLastError()``.  No ``--use_fast_math``:
+hash of the source and of every shared header (``kernels/csrc/*.cuh``),
+and loaded with ``ctypes``: a plain C interface whose entry points each
+return ``cudaGetLastError()``.  No ``--use_fast_math``:
 the bitwise contracts rest on IEEE division, ``expf`` and round-half-even.
 
 ``LAUNCHES`` counts kernel launches, one count per TPU kernel replaced,
-over every package.
+over every package, plus one per tensor-core (``wgmma``) implementation of
+such a kernel: a wgmma launch adds one to both its own count and its TPU
+kernel's.
 """
 
 from __future__ import annotations
@@ -31,11 +34,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 #: kernel launches since the last reset_launches(), one count per TPU
-#: kernel replaced, over every kernel package; each wrapper adds one where
-#: it launches its kernel
+#: kernel replaced, over every kernel package, and one per wgmma kernel;
+#: each wrapper adds one where it launches its kernel
 LAUNCHES: Dict[str, int] = dict.fromkeys(
     ("rs_step", "ag_step", "rs_step_q", "ring_update", "matmul_pack",
-     "gather_matmul", "rmsnorm", "flash_attention", "qacc"), 0)
+     "gather_matmul", "rmsnorm", "flash_attention", "qacc",
+     "matmul_pack_wgmma", "gather_matmul_wgmma", "flash_attention_wgmma"), 0)
 
 #: source path -> loaded library
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -51,6 +55,12 @@ def sources() -> List[Path]:
     return sorted(KERNELS_DIR.glob("*/csrc/*.cu"))
 
 
+def headers() -> List[Path]:
+    """The shared headers (``kernels/csrc/*.cuh``); any source may include
+    them, so each goes into every library's hash."""
+    return sorted(KERNELS_DIR.glob("csrc/*.cuh"))
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -64,6 +74,8 @@ def _nvcc() -> str:
 
 def library_path(source: Path) -> Path:
     digest = hashlib.sha256(Path(source).read_bytes())
+    for header in headers():
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     digest.update(str(Path(source).relative_to(KERNELS_DIR)).encode())
     return BUILD_DIR / f"{Path(source).stem}_{digest.hexdigest()[:16]}.so"

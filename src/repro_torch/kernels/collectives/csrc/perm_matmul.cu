@@ -15,29 +15,53 @@
 //              the INVERSE of the block order (kernel.py:421).
 // Both give: output row-block b = (x @ w) row-block order[b].
 //
-// Arithmetic: every input is widened to float32 and multiplied and summed
-// in float32 on the CUDA cores (fmaf; no TF32: the reference casts to f32
-// before a HIGHEST-precision dot), one rounding to bf16 at the end for a
-// bf16 result.  The sum runs in another order than the plain version's
-// torch.matmul, so the two agree within a bound stated from k, not
-// bitwise.
+// Two kernels compute it; the wrapper's predicate (kernel.py,
+// perm_matmul_uses_wgmma) picks one by dtype and shape, never by retrying:
 //
-// Bound: operations.  2*m*n*k*p FLOPs over the H100's 67 TFLOP/s float32
-// CUDA-core peak for float32 inputs; for bf16 inputs over 989 TFLOP/s, the
-// rate of a later tensor-core version of the same function (bf16 products
-// are exact in f32).  What the design does about it: a 128 x 128 output
-// tile per block of 256 threads, each thread an 8 x 8 register tile, k in
-// steps of 16 staged through shared memory (A transposed so both operands
-// are read as float4), 64 FMAs per 4 shared-memory float4 reads.  A first,
-// simple version: no double buffering, no tensor cores.
+// 1. perm_matmul_wgmma, on the tensor cores, for x and w both bf16 with
+//    rows = m / nb a multiple of 64, k and n multiples of 8 (TMA's 16-byte
+//    stride rule) and 16-byte aligned x and w.  A bf16 product is exact in
+//    float32, so wgmma with a float32 accumulator computes the reference's
+//    float32 sums (kernel.py:358-371), in another order; one rounding to
+//    bf16 at the end.  Bound: operations, 2*p*m*n*k FLOPs over the H100's
+//    989 TFLOP/s bf16 tensor-core peak (0.417 ms at the fused TP shapes).
+//    Design: a 128 x 256 output tile per block of 384 threads.  One
+//    producer thread (warpgroup 2, its registers cut to 40 by setmaxnreg)
+//    keeps a 4-stage ring of A (128 x 64) and B (64 x 256) tiles filled by
+//    TMA (48 KB a stage, 128-byte swizzle), each stage with a full and an
+//    empty mbarrier.  Two consumer warpgroups (232 registers each) issue
+//    m64n256k16 for their 64 rows: A K-major from x's rows, B MN-major
+//    from w's n-contiguous rows (the transpose-B bit), 128 float32
+//    accumulators a thread; one wgmma group stays in flight while the
+//    previous stage is released.  3-D tensor maps over [p, m, k] and
+//    [p, k, n] serve every rank with one descriptor each, and TMA
+//    zero-fills the ragged k and n edges.  The permutation never
+//    materialises: with lhs_perm each 64-row A sub-tile's source row goes
+//    through perm (a sub-tile lies in one row block, since rows % 64 ==
+//    0); without, the epilogue's destination rows go through it.  The
+//    epilogue stores bf16 pairs straight from the registers.
+// 2. perm_matmul_kernel, on the CUDA cores, for every other call: float32,
+//    mixed dtypes, and ragged bf16 shapes.  Every input is widened to
+//    float32 and multiplied and summed in float32 (fmaf; no TF32: the
+//    reference casts to f32 before a HIGHEST-precision dot), one rounding
+//    to bf16 at the end for a bf16 result.  Bound: 2*m*n*k*p FLOPs over
+//    the 67 TFLOP/s float32 CUDA-core peak.  Design: a 128 x 128 output
+//    tile per block of 256 threads, each thread an 8 x 8 register tile, k
+//    in steps of 16 staged through shared memory (A transposed so both
+//    operands are read as float4), 64 FMAs per 4 shared-memory float4
+//    reads; no double buffering.
 //
-// Any m, n, k: loads and stores are bounds-checked; out-of-range loads
-// read 0.  Launches on the caller's stream, allocates nothing, returns
-// cudaGetLastError().
+// Both sum in another order than the plain version's torch.matmul, so the
+// two agree within a bound stated from k, not bitwise.  The CUDA-core
+// kernel takes any m, n, k: loads and stores are bounds-checked and
+// out-of-range loads read 0.  Launches on the caller's stream, allocates
+// nothing, returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "../../csrc/hopper.cuh"
 
 namespace {
 
@@ -172,6 +196,168 @@ int launch(const void* x, const void* w, void* out, const void* perm,
 
 }  // namespace
 
+// ---------------------------------------------------------------------------
+// bf16 x bf16 -> bf16 on the tensor cores (wgmma), for calls the wrapper's
+// predicate sends here (rows = m / nb a multiple of 64, k and n multiples
+// of 8, 16-byte aligned x and w)
+// ---------------------------------------------------------------------------
+
+namespace wg {
+
+using namespace hopper;
+
+constexpr int BM = 128;                 // output rows a block: 2 x 64
+constexpr int BN = 256;                 // output columns a block
+constexpr int BK = 64;                  // k a stage: one 128-byte row
+constexpr int STAGES = 4;               // A/B stages in the ring
+constexpr int SUB = 64 * BK * 2;        // one 64-row A sub-tile, bytes
+constexpr int PANEL = BK * 64 * 2;      // one 64-column B panel, bytes
+constexpr int kThreads = 384;           // 2 consumer warpgroups + producer
+
+constexpr int STAGE = 2 * SUB + (BN / 64) * PANEL;   // 48 KB
+// the ring, its full and empty barriers, 1 KB alignment slack
+constexpr size_t kSmem =
+    static_cast<size_t>(STAGES) * STAGE + 2 * STAGES * 8 + 1024;
+
+__global__ void __launch_bounds__(kThreads, 1)
+perm_matmul_wgmma(const __grid_constant__ CUtensorMap tma,
+                  const __grid_constant__ CUtensorMap tmb,
+                  __nv_bfloat16* __restrict__ out,
+                  const int* __restrict__ order, int lhs_perm, int m, int n,
+                  int k, int rows) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE);
+  uint64_t* empty = full + STAGES;
+  const int wgi = threadIdx.x / 128;
+  const int r = blockIdx.z;
+  const int row0 = blockIdx.y * BM;
+  const int col0 = blockIdx.x * BN;
+  const int ktiles = (k + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wgi == 2) {
+    // producer: one thread keeps the ring of A/B stages filled by TMA
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      int src[2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int gr = row0 + 64 * c;   // a sub-tile lies in one row block
+        src[c] = gr >= m ? m
+                 : lhs_perm ? order[gr / rows] * rows + gr % rows
+                            : gr;
+      }
+      for (int kt = 0; kt < ktiles; ++kt) {
+        const int s = kt % STAGES;
+        if (kt >= STAGES) mbar_wait(&empty[s], ((kt / STAGES) - 1) & 1);
+        uint8_t* st = smem + s * STAGE;
+        mbar_expect_tx(&full[s], STAGE);
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          tma_load_3d(st + c * SUB, &tma, &full[s], kt * BK, src[c], r);
+#pragma unroll
+        for (int i = 0; i < BN / 64; ++i)
+          tma_load_3d(st + 2 * SUB + i * PANEL, &tmb, &full[s], col0 + 64 * i,
+                      kt * BK, r);
+      }
+    }
+  } else {
+    // consumers: warpgroup wgi multiplies rows [64 wgi, 64 wgi + 64)
+    setmaxnreg_inc<232>();
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+    for (int kt = 0; kt < ktiles; ++kt) {
+      const int s = kt % STAGES;
+      mbar_wait(&full[s], (kt / STAGES) & 1);
+      const uint32_t a = smem_u32(smem + s * STAGE + wgi * SUB);
+      const uint32_t b = smem_u32(smem + s * STAGE + 2 * SUB);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        // A K-major (x rows), B MN-major (w's n-contiguous rows)
+        const uint64_t da = make_desc(a + 32 * kk, 16, 1024, 1);
+        const uint64_t db = make_desc(b + 2048 * kk, PANEL, 1024, 1);
+        wgmma_ss_m64n256<1>(acc, da, db, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();           // the previous stage's products are done
+      fence_regs(acc);
+      if (kt > 0) mbar_arrive(&empty[(kt - 1) % STAGES]);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+
+    // epilogue: accumulator element 4c + 2h + e is row lr + 8h, column
+    // 8c + 2 (lane % 4) + e of the warp's 16 x BN slice
+    const int lane = threadIdx.x % 32;
+    const int lr = wgi * 64 + ((threadIdx.x / 32) % 4) * 16 + lane / 4;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gr = row0 + lr + 8 * h;
+      if (gr >= m) continue;
+      const long long dr =
+          lhs_perm ? gr
+                   : static_cast<long long>(order[gr / rows]) * rows +
+                         gr % rows;
+      __nv_bfloat16* dst =
+          out + (static_cast<long long>(r) * m + dr) * n;
+#pragma unroll
+      for (int c = 0; c < BN / 8; ++c) {
+        const int col = col0 + 8 * c + 2 * (lane % 4);
+        if (col < n) {
+          *reinterpret_cast<uint32_t*>(dst + col) =
+              pack_bf16(acc[4 * c + 2 * h], acc[4 * c + 2 * h + 1]);
+        }
+      }
+    }
+  }
+}
+
+int launch(const void* x, const void* w, void* out, const void* order,
+           int lhs_perm, long long p, long long m, long long n, long long k,
+           long long nb, cudaStream_t stream) {
+  if (p <= 0 || m <= 0 || n <= 0) return static_cast<int>(cudaGetLastError());
+  // x [p, m, k] and w [p, k, n], innermost first; 64 x 64 boxes of one rank
+  CUtensorMap ta, tb;
+  const uint64_t da[3] = {static_cast<uint64_t>(k), static_cast<uint64_t>(m),
+                          static_cast<uint64_t>(p)};
+  const uint64_t sa[2] = {static_cast<uint64_t>(k) * 2,
+                          static_cast<uint64_t>(m * k) * 2};
+  const uint64_t db[3] = {static_cast<uint64_t>(n), static_cast<uint64_t>(k),
+                          static_cast<uint64_t>(p)};
+  const uint64_t sb[2] = {static_cast<uint64_t>(n) * 2,
+                          static_cast<uint64_t>(k * n) * 2};
+  const uint32_t box[3] = {64, 64, 1};
+  cudaError_t err = encode_tiled_bf16(&ta, x, 3, da, sa, box, 128);
+  if (err == cudaSuccess) err = encode_tiled_bf16(&tb, w, 3, db, sb, box, 128);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(perm_matmul_wgmma,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>((n + BN - 1) / BN),
+                  static_cast<unsigned>((m + BM - 1) / BM),
+                  static_cast<unsigned>(p));
+  perm_matmul_wgmma<<<grid, kThreads, kSmem, stream>>>(
+      ta, tb, static_cast<__nv_bfloat16*>(out),
+      static_cast<const int*>(order), lhs_perm, static_cast<int>(m),
+      static_cast<int>(n), static_cast<int>(k), static_cast<int>(m / nb));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wg
+
 extern "C" {
 
 // dtype codes: 0 = float32, 1 = bfloat16.  out is float32 unless both
@@ -195,6 +381,17 @@ int repro_perm_matmul(const void* x, const void* w, void* out,
   }
   return launch<float, bf, float>(x, w, out, perm, lhs_perm, p, m, n, k, nb,
                                   stream);
+}
+
+// bf16 x [p, m, k], w [p, k, n] -> out [p, m, n] bf16 on the tensor cores;
+// needs m / nb % 64 == 0, k % 8 == 0, n % 8 == 0, 16-byte aligned x and w
+// (the wrapper's predicate)
+int repro_perm_matmul_wgmma(const void* x, const void* w, void* out,
+                            const void* perm, int lhs_perm, long long p,
+                            long long m, long long n, long long k,
+                            long long nb, void* stream) {
+  return wg::launch(x, w, out, perm, lhs_perm, p, m, n, k, nb,
+                    static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -7,8 +7,10 @@ set, CUDA C++ in ``csrc/``:
     butterfly steps, TPU kernels 1-3);
   * ``ring_update.cu``: ``ring_update`` (the ring step, TPU kernel 4);
   * ``perm_matmul.cu``: ``perm_matmul`` (``matmul_pack_kernel`` and
-    ``gather_matmul_kernel``, TPU kernels 5-6, one kernel with an
-    ``lhs_perm`` flag as the reference's ``_mm_call`` has).
+    ``gather_matmul_kernel``, TPU kernels 5-6, with an ``lhs_perm`` flag as
+    the reference's ``_mm_call`` has): a tensor-core (``wgmma``) kernel for
+    the bf16 calls ``perm_matmul_uses_wgmma`` admits, a CUDA-core kernel
+    for every other call.
 
 ``repro_torch.kernels.build`` compiles and loads them.
 
@@ -48,6 +50,7 @@ _SIGNATURES = {
     },
     "perm_matmul.cu": {
         "repro_perm_matmul": [_VP] * 4 + [_INT] * 3 + [_LL] * 5 + [_VP],
+        "repro_perm_matmul_wgmma": [_VP] * 4 + [_INT] + [_LL] * 5 + [_VP],
     },
 }
 
@@ -196,13 +199,34 @@ def ring_update(v, recv, ridx, accumulate=True, return_updated=False):
     return v if send is None else (v, send)
 
 
+#: rows of a wgmma A sub-tile: a permuted row block must hold whole ones
+WGMMA_ROWS = 64
+
+
+def perm_matmul_uses_wgmma(x, w, nb: int) -> bool:
+    """The rule that sends a ``perm_matmul`` call to the tensor-core
+    kernel: x and w both bf16, row blocks of ``m / nb`` rows a multiple of
+    64 (no A sub-tile straddles two permuted blocks), k and n multiples of
+    8 and x and w 16-byte aligned (TMA's 16-byte stride and address
+    rule).  Every other call runs the CUDA-core kernel."""
+    _, m, k = x.shape
+    n = w.shape[2]
+    return (x.dtype == torch.bfloat16 and w.dtype == torch.bfloat16
+            and nb > 0 and m % nb == 0 and (m // nb) % WGMMA_ROWS == 0
+            and k % 8 == 0 and n % 8 == 0
+            and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+
+
 def perm_matmul(x, w, perm, lhs_perm: bool):
     """Row-block-permuted ``x [p, m, k] @ w [p, k, n]`` in float32
     arithmetic, result in ``result_type(x, w)``; ``perm`` int32 ``[nb]``
     (one for all ranks), ``m % nb == 0``.  Output row-block ``b`` holds
     the product's row-block ``perm[b]``: ``lhs_perm`` reads the LHS
     through the permutation (``ref.gather_matmul_ref``), otherwise the
-    output writes go through its inverse (``ref.matmul_pack_ref``)."""
+    output writes go through its inverse (``ref.matmul_pack_ref``).  On
+    the card, calls ``perm_matmul_uses_wgmma`` admits run on the tensor
+    cores (bf16 products are exact in float32, summed in float32), the
+    rest on the CUDA cores."""
     if not B.on_cuda(x, w, perm):
         return (R.gather_matmul_ref(x, w, perm) if lhs_perm
                 else R.matmul_pack_ref(x, w, perm))
@@ -226,11 +250,21 @@ def perm_matmul(x, w, perm, lhs_perm: bool):
     order = perm if lhs_perm else torch.argsort(perm).to(torch.int32)
     out = torch.empty((p, m, n), dtype=torch.result_type(x, w),
                       device=x.device)
+    name = "gather_matmul" if lhs_perm else "matmul_pack"
+    if perm_matmul_uses_wgmma(x, w, nb):
+        B.check(m < 2 ** 31 and k < 2 ** 31 and n < 2 ** 31,
+                f"perm_matmul dims out of range: {tuple(x.shape)}, {n}")
+        B.raise_on(_lib("perm_matmul.cu").repro_perm_matmul_wgmma(
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), order.data_ptr(),
+            int(lhs_perm), p, m, n, k, nb, B.stream(x)), "perm_matmul_wgmma")
+        B.LAUNCHES[name] += 1
+        B.LAUNCHES[name + "_wgmma"] += 1
+        return out
     B.raise_on(_lib("perm_matmul.cu").repro_perm_matmul(
         x.data_ptr(), w.data_ptr(), out.data_ptr(), order.data_ptr(),
         int(lhs_perm), int(x.dtype == torch.bfloat16),
         int(w.dtype == torch.bfloat16), p, m, n, k, nb, B.stream(x)),
         "perm_matmul")
     # one count per TPU kernel replaced, chosen by lhs_perm
-    B.LAUNCHES["gather_matmul" if lhs_perm else "matmul_pack"] += 1
+    B.LAUNCHES[name] += 1
     return out

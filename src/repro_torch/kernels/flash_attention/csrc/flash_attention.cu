@@ -13,36 +13,74 @@
 // The tensors may be strided views (the head dim contiguous), so the
 // caller's [B, T, heads, hd] layout is read and written in place.
 //
-// Design (a first, simple version; wgmma and TMA are later work): one
-// block of 256 threads per (batch, query head, 64-row query tile); GQA
-// maps the query head to its kv head.  The Q tile is staged once in
-// shared memory as float32; the block walks only the live 64-key tiles
-// (the causal and window bounds of the tile, the TPU kernel's block-level
-// skipping at kernel.py:49-54), staging K and V through shared memory.
-// QK^T and PV run on the CUDA cores in float32: thread (ty, tx) of the
-// 16 x 16 grid holds the scores of rows 4ty..4ty+3 and keys tx + 16j
-// (j < 4) and the accumulator of those rows for columns tx + 16c
-// (c < hd/16); the row max and sum are reduced across the 16 threads of a
-// row by shuffles.  Shared rows are padded so the reads are free of bank
-// conflicts.  The TPU kernel's tile (g = 3 heads folded into 128 rows,
-// a 384 x 128 float32 accumulator) does not fit a block's registers and is
-// not copied.
+// Two kernels compute it; the wrapper's predicate (kernel.py,
+// flash_uses_wgmma) picks one by dtype, head_dim and strides, never by
+// retrying:
 //
-// Bound: operations.  4 hd flops per live (query head, query, key) pair
-// (QK^T and PV) over the card's rate for the input type (989 TFLOP/s bf16
-// on the tensor cores, 67 TFLOP/s float32), or the bytes of q, k, v and o
-// over 3.35 TB/s where larger.  This version runs on the CUDA cores only
-// and is far from the bf16 bound.
+// 1. flash_kernel_wgmma, on the tensor cores, for bf16 q, k, v with
+//    head_dim % 16 == 0 (16, 32, 64, 128) whose strides and base addresses
+//    TMA can take (multiples of 16 bytes).  Bound: operations, 4 hd flops
+//    per live (query head, query, key) pair over the H100's 989 TFLOP/s
+//    bf16 tensor-core peak (0.0065 ms at q [1, 1024, 24, 128] causal).
+//    Design: one block of one consumer warpgroup (128 threads) per
+//    (batch, query head, 64 queries).  The serve cell's 1024-token
+//    prefill is then 384 blocks, two resident per SM: the causal
+//    imbalance (a query tile's key count grows with its row) is spread
+//    over many small blocks.  Blocks that fold a GQA group's heads (each
+//    K/V tile loaded once for the group, as the TPU kernel folds g into
+//    its rows) were slower at that shape on an H100 (PERF.md) and
+//    pay only on grids that fill the card several times over, which no
+//    path of the port launches yet.  The blocks with the most live key
+//    tiles launch first.
+//    Thread 0 loads by TMA (swizzled to the row width: 128 bytes, or
+//    64 / 32 at head_dim 32 / 16): the Q tile once, then a ring of
+//    kStages (2) 64-key K and V tiles, each stage with a full and an
+//    empty mbarrier; it refills a stage once the warpgroup has released
+//    it.  The warpgroup runs, per live key tile:
+//      S = Q K^T as head_dim/16 m64n64k16 wgmmas, Q and K K-major from
+//        shared memory, into 32 float32 registers a thread;
+//      the online softmax in registers, in log2 units (exp2f, log2(e)
+//        folded into the scale: expf's range reduction made the softmax,
+//        not the tensor cores, the limit); a row's 64 scores lie in the 4
+//        lanes of a quad (two shuffles for its max and sum), and a tile
+//        live for every row and key skips the masks;
+//      O += P V as m64n{hd}k16 wgmmas with A from registers: the S
+//        accumulator's layout is wgmma's register-A layout, so P packs to
+//        bf16 pairs with no shuffle.  P is split, p_hi = bf16(p) and
+//        p_lo = bf16(p - p_hi), and both multiply the same V tile (V read
+//        MN-major through the transpose-B bit): p keeps about 16
+//        significant bits, so PV's error stays near the float32
+//        sum-order error, far below the output's one bf16 rounding.  The
+//        split doubles PV's tensor-core work (under 10 us at T = 1024).
+//    Registers: hd/2 accumulators (64 at hd 128), 32 scores and 8 packed
+//    P words a thread, no spills.  Shared memory: 5 tiles of 64 x hd bf16
+//    (Q and the K/V ring; 80 KB at hd 128, so two blocks fit an SM).
+// 2. flash_kernel, on the CUDA cores, for float32 (where it beats SDPA)
+//    and any other call: one block of 256 threads per (batch, query head,
+//    64-row query tile); GQA maps the query head to its kv head.  The Q
+//    tile is staged once in shared memory as float32; the block walks only
+//    the live 64-key tiles (the causal and window bounds of the tile, the
+//    TPU kernel's block-level skipping at kernel.py:49-54), staging K and
+//    V through shared memory.  QK^T and PV run in float32: thread (ty, tx)
+//    of the 16 x 16 grid holds the scores of rows 4ty..4ty+3 and keys
+//    tx + 16j (j < 4) and the accumulator of those rows for columns
+//    tx + 16c (c < hd/16); the row max and sum are reduced across the 16
+//    threads of a row by shuffles.  Shared rows are padded so the reads
+//    are free of bank conflicts.  Bound: operations, over 67 TFLOP/s
+//    float32.
 //
-// Numerics: expf (no fast math), IEEE division; sums in another order
-// than the plain version's, so results agree within float32 rounding
-// (2e-5) and, for bf16 inputs, within bf16 rounding (3e-2).  Kernels
-// launch on the caller's stream and allocate nothing; each C entry point
-// returns cudaGetLastError().
+// Numerics: no fast math; expf (CUDA cores) or exp2f of log2(e)-scaled
+// scores (tensor cores), IEEE division; sums in another order than the
+// plain version's, so results agree within float32 rounding (2e-5) and,
+// for bf16 inputs, within bf16 rounding (3e-2).
+// Kernels launch on the caller's stream and allocate nothing; each C
+// entry point returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "../../csrc/hopper.cuh"
 
 namespace {
 
@@ -253,6 +291,323 @@ int dispatch(int hd, const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores (wgmma), for calls the wrapper's predicate sends
+// here (bf16 q, k, v; head_dim % 16 == 0; TMA-legal strides)
+// ---------------------------------------------------------------------------
+
+namespace wg {
+
+using namespace hopper;
+
+constexpr int kStages = 2;     // K/V tiles in flight
+
+template <int HD>
+struct Geo {
+  static constexpr int SW = HD * 2 < 128 ? HD * 2 : 128;  // swizzle, bytes
+  static constexpr int PW = SW / 2;          // bf16 per swizzled row
+  static constexpr int NP = HD / PW;         // panels a tile (2 at HD=128)
+  static constexpr int PANEL = 64 * SW;      // one 64-row panel, bytes
+  static constexpr int TILE = NP * PANEL;    // one 64 x HD tile, bytes
+  static constexpr int LAYOUT = desc_layout(SW);
+};
+
+template <int HD>
+constexpr size_t smem_bytes() {
+  // the Q tile, the K/V ring, its barriers and Q's, 1 KB alignment slack
+  return static_cast<size_t>(1 + 2 * kStages) * Geo<HD>::TILE +
+         (1 + 2 * kStages) * 8 + 1024;
+}
+
+// shared-memory descriptor of k step kk (16 deep) of a K-major 64 x HD tile
+template <int HD>
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int kk) {
+  using G = Geo<HD>;
+  constexpr int STEPS = G::PW / 16;          // k steps a panel row holds
+  return make_desc(tile + (kk / STEPS) * G::PANEL + (kk % STEPS) * 32, 16,
+                   8 * G::SW, G::LAYOUT);
+}
+
+template <int HD>
+__device__ __forceinline__ void pv_wgmma(float (&o)[HD / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (HD == 128) {
+    wgmma_rs_m64n128(o, a, db, 1);
+  } else if constexpr (HD == 64) {
+    wgmma_rs_m64n64(o, a, db, 1);
+  } else if constexpr (HD == 32) {
+    wgmma_rs_m64n32(o, a, db, 1);
+  } else {
+    wgmma_rs_m64n16(o, a, db, 1);
+  }
+}
+
+// K/V tile j (key tile kt) into stage j % kStages, completing on its full
+// barrier
+template <int HD>
+__device__ __forceinline__ void load_kv(uint8_t* Ks, uint8_t* Vs,
+                                        const CUtensorMap* tk,
+                                        const CUtensorMap* tv, uint64_t* full,
+                                        int j, int kt, int hn, int b) {
+  using G = Geo<HD>;
+  const int s = j % kStages;
+  mbar_expect_tx(&full[s], 2 * G::TILE);
+#pragma unroll
+  for (int p = 0; p < G::NP; ++p) {
+    tma_load_4d(Ks + s * G::TILE + p * G::PANEL, tk, &full[s], p * G::PW,
+                kt * 64, hn, b);
+    tma_load_4d(Vs + s * G::TILE + p * G::PANEL, tv, &full[s], p * G::PW,
+                kt * 64, hn, b);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(128, 1)
+flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   __nv_bfloat16* __restrict__ o, int nkv, int Tq, int Tk,
+                   long long ob, long long on, long long og,
+                   long long ot, int window, int causal, float scale) {
+  using G = Geo<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint8_t* Qs = smem;                              // one tile
+  uint8_t* Ks = Qs + G::TILE;                      // [kStages] tiles
+  uint8_t* Vs = Ks + kStages * G::TILE;            // [kStages] tiles
+  uint64_t* bars = reinterpret_cast<uint64_t*>(Vs + kStages * G::TILE);
+  uint64_t* qbar = bars;
+  uint64_t* full = bars + 1;                       // [kStages]
+  uint64_t* empty = full + kStages;                // [kStages]
+
+  const int b = blockIdx.x / nkv, hn = blockIdx.x % nkv;
+  const int qh = blockIdx.y;                       // query head in the group
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * 64;   // heaviest tiles first
+
+  // the live key tiles (the TPU kernel's block skipping, kernel.py:49-54)
+  const int q_last = min(q0 + 63, Tq - 1);
+  int kt_end = (Tk + 63) / 64;
+  if (causal) kt_end = min(kt_end, q_last / 64 + 1);
+  int kt_begin = 0;
+  if (window > 0) {
+    const int lo = q0 - window + 1;
+    if (lo > 0) kt_begin = lo / 64;
+  }
+  const int ntiles = max(0, kt_end - kt_begin);
+
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 128);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // thread 0 issues every load: Q once, then K/V tile j into stage
+  // j % kStages as soon as the warpgroup has released tile j - kStages
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(qbar, G::TILE);
+#pragma unroll
+    for (int p = 0; p < G::NP; ++p)
+      tma_load_5d(Qs + p * G::PANEL, &tq, qbar, p * G::PW, q0, qh, hn, b);
+    for (int j = 0; j < min(kStages, ntiles); ++j)
+      load_kv<HD>(Ks, Vs, &tk, &tv, full, j, kt_begin + j, hn, b);
+  }
+  __syncwarp();
+
+  // this thread's rows of the warpgroup's 64: ra and ra + 8; accumulator
+  // element 4c + 2h + e is row ra + 8h, column 8c + 2 (lane % 4) + e
+  const int lane = threadIdx.x % 32;
+  const int ra = ((threadIdx.x / 32) % 4) * 16 + lane / 4;
+  const int cq = 2 * (lane % 4);
+  float acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.0f;
+  float mrow[2] = {NEG_INF, NEG_INF}, lrow[2] = {0.0f, 0.0f};
+  const uint32_t qtile = smem_u32(Qs);
+  const float scale_log2 = scale * 1.4426950408889634f;   // log2(e) folded in
+
+  mbar_wait(qbar, 0);
+  for (int j = 0; j < ntiles; ++j) {
+    const int s = j % kStages, k0 = (kt_begin + j) * 64;
+    mbar_wait(&full[s], (j / kStages) & 1);
+
+    // S = Q K^T: m64n64k16 over head_dim, Q and K both K-major
+    float sc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.0f;
+    const uint32_t ktile = smem_u32(Ks + s * G::TILE);
+    fence_regs(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss_m64n64<0>(sc, kmajor_desc<HD>(qtile, kk),
+                         kmajor_desc<HD>(ktile, kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+
+    // online softmax over the tile, the plain version's masks; scores in
+    // log2 units (exp2f); a row's 64 keys live in the 4 lanes of a quad.
+    // A tile live for every (row, key) of the block skips the masks.
+    uint32_t live = 0xffffffffu;
+    float mx[2] = {NEG_INF, NEG_INF};
+    if (k0 + 63 < Tk && (!causal || k0 + 63 <= q0) &&
+        (window <= 0 || q0 + 63 - k0 < window)) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        sc[i] *= scale_log2;
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+      }
+    } else {
+      live = 0;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int h = (i >> 1) & 1;
+        const int tqp = q0 + ra + 8 * h;
+        const int tkp = k0 + 8 * (i / 4) + cq + (i & 1);
+        const bool ok = tkp < Tk && (!causal || tkp <= tqp) &&
+                        (window <= 0 || tqp - tkp < window);
+        live |= static_cast<uint32_t>(ok) << i;
+        sc[i] = ok ? sc[i] * scale_log2 : NEG_INF;
+        mx[h] = fmaxf(mx[h], sc[i]);
+      }
+    }
+    float alpha[2], rs[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      mx[h] = fmaxf(mrow[h], mx[h]);
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i >> 1) & 1;
+      sc[i] = (live >> i) & 1u ? exp2f(sc[i] - mx[h]) : 0.0f;
+      rs[h] += sc[i];
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 1);
+      rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 2);
+      alpha[h] = exp2f(mrow[h] - mx[h]);
+      lrow[h] = lrow[h] * alpha[h] + rs[h];
+      mrow[h] = mx[h];
+    }
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+
+    // O += P V with P = p_hi + p_lo, two bf16 terms from the registers
+    // (the accumulator layout of S is wgmma's register-A layout); V is
+    // read MN-major through the transpose-B bit
+    const uint32_t vtile = smem_u32(Vs + s * G::TILE);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const float x0 = sc[8 * kk + 2 * t], x1 = sc[8 * kk + 2 * t + 1];
+        hi[t] = pack_bf16(x0, x1);
+        const __nv_bfloat162 hb = *reinterpret_cast<__nv_bfloat162*>(&hi[t]);
+        lo[t] = pack_bf16(x0 - __bfloat162float(hb.x),
+                          x1 - __bfloat162float(hb.y));
+      }
+      const uint64_t db =
+          make_desc(vtile + kk * 16 * G::SW, G::PANEL, 8 * G::SW, G::LAYOUT);
+      pv_wgmma<HD>(acc, hi, db);
+      pv_wgmma<HD>(acc, lo, db);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+
+    mbar_arrive(&empty[s]);
+    if (threadIdx.x == 0 && j + kStages < ntiles) {
+      mbar_wait(&empty[s], (j / kStages) & 1);
+      load_kv<HD>(Ks, Vs, &tk, &tv, full, j + kStages, kt_begin + j + kStages,
+                  hn, b);
+    }
+    __syncwarp();
+  }
+
+  // o = acc / max(l, 1e-30): 0 for a row with no live key
+  __nv_bfloat16* op = o + b * ob + hn * on + qh * og;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int tqp = q0 + ra + 8 * r;
+    if (tqp >= Tq) continue;
+    const float li = fmaxf(lrow[r], 1e-30f);
+#pragma unroll
+    for (int c = 0; c < HD / 8; ++c) {
+      *reinterpret_cast<uint32_t*>(op + tqp * ot + 8 * c + cq) = pack_bf16(
+          acc[4 * c + 2 * r] / li, acc[4 * c + 2 * r + 1] / li);
+    }
+  }
+}
+
+template <int HD>
+int launch(const CUtensorMap& mq, const CUtensorMap& mk,
+           const CUtensorMap& mv, void* o, int B, int nkv, int g, int Tq,
+           int Tk, const Strides& st, int window, int causal, float scale,
+           cudaStream_t stream) {
+  const size_t smem = smem_bytes<HD>();
+  auto kern = flash_kernel_wgmma<HD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(B * nkv, g, (Tq + 63) / 64);
+  kern<<<grid, 128, smem, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), nkv, Tq, Tk, st.ob, st.on,
+      st.og, st.ot, window, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD>
+int run(const void* q, const void* k, const void* v, void* o, int B, int nkv,
+        int g, int Tq, int Tk, const Strides& st, int window, int causal,
+        float scale, cudaStream_t s) {
+  using G = Geo<HD>;
+  // q [B, nkv, g, Tq, HD] and k, v [B, nkv, Tk, HD], innermost first, in
+  // the caller's strides (bytes); a box is one head's 64 rows x one panel
+  const uint64_t dq[5] = {HD, static_cast<uint64_t>(Tq),
+                          static_cast<uint64_t>(g),
+                          static_cast<uint64_t>(nkv),
+                          static_cast<uint64_t>(B)};
+  const uint64_t sq[4] = {static_cast<uint64_t>(st.qt) * 2,
+                          static_cast<uint64_t>(st.qg) * 2,
+                          static_cast<uint64_t>(st.qn) * 2,
+                          static_cast<uint64_t>(st.qb) * 2};
+  const uint64_t dk[4] = {HD, static_cast<uint64_t>(Tk),
+                          static_cast<uint64_t>(nkv),
+                          static_cast<uint64_t>(B)};
+  const uint64_t sk[3] = {static_cast<uint64_t>(st.kt) * 2,
+                          static_cast<uint64_t>(st.kn) * 2,
+                          static_cast<uint64_t>(st.kb) * 2};
+  const uint64_t sv[3] = {static_cast<uint64_t>(st.vt) * 2,
+                          static_cast<uint64_t>(st.vn) * 2,
+                          static_cast<uint64_t>(st.vb) * 2};
+  const uint32_t box[5] = {G::PW, 64, 1, 1, 1};
+  CUtensorMap mq, mk, mv;
+  cudaError_t err = encode_tiled_bf16(&mq, q, 5, dq, sq, box, G::SW);
+  if (err == cudaSuccess) {
+    err = encode_tiled_bf16(&mk, k, 4, dk, sk, box, G::SW);
+  }
+  if (err == cudaSuccess) {
+    err = encode_tiled_bf16(&mv, v, 4, dk, sv, box, G::SW);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch<HD>(mq, mk, mv, o, B, nkv, g, Tq, Tk, st, window, causal,
+                    scale, s);
+}
+
+}  // namespace wg
+
 extern "C" {
 
 // q, k, v, o: device pointers; strides in elements (the head dim has
@@ -275,6 +630,38 @@ int repro_flash_attention(const void* q, const void* k, const void* v,
   }
   return dispatch<float>(hd, q, k, v, o, B, nkv, g, Tq, Tk, st, window,
                          causal, scale, s);
+}
+
+// the same arguments for bf16 on the tensor cores (the wrapper's
+// predicate: hd % 16 == 0, strides multiples of 8 elements, 16-byte
+// aligned q, k, v)
+int repro_flash_attention_wgmma(const void* q, const void* k, const void* v,
+                                void* o, int B, int nkv, int g, int Tq,
+                                int Tk, int hd, long long qb, long long qn,
+                                long long qg, long long qt, long long kb,
+                                long long kn, long long kt, long long vb,
+                                long long vn, long long vt, long long ob,
+                                long long on, long long og, long long ot,
+                                int window, int causal, float scale,
+                                void* stream) {
+  const Strides st{qb, qn, qg, qt, kb, kn, kt, vb, vn, vt, ob, on, og, ot};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 16:
+      return wg::run<16>(q, k, v, o, B, nkv, g, Tq, Tk, st, window, causal,
+                         scale, s);
+    case 32:
+      return wg::run<32>(q, k, v, o, B, nkv, g, Tq, Tk, st, window, causal,
+                         scale, s);
+    case 64:
+      return wg::run<64>(q, k, v, o, B, nkv, g, Tq, Tk, st, window, causal,
+                         scale, s);
+    case 128:
+      return wg::run<128>(q, k, v, o, B, nkv, g, Tq, Tk, st, window, causal,
+                          scale, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

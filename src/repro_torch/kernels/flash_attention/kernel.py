@@ -1,12 +1,16 @@
 """The flash-attention kernel and its wrapper.
 
 Counterpart of ``repro.kernels.flash_attention.kernel`` (TPU kernel 8,
-``flash_attention_kernel``), CUDA C++ in ``csrc/flash_attention.cu``: one
-block per (batch, query head, 64-row query tile), K/V tiles staged through
-shared memory, the online softmax and both products in float32 on the CUDA
-cores, dead key tiles skipped.  The kernel reads strided views, so the
-model's ``[B, T, heads, hd]`` tensors need no transposed copies, and it
-writes its output in that layout (returned as a view shaped like ``q``).
+``flash_attention_kernel``), CUDA C++ in ``csrc/flash_attention.cu``, two
+kernels chosen by ``flash_uses_wgmma``: for bf16 a tensor-core (``wgmma``)
+kernel, one warpgroup a block per (batch, query head, 64 queries), TMA
+loads of Q and a 2-stage K/V ring, QK^T and PV (P split into two bf16
+terms) on ``wgmma``; for float32 a CUDA-core kernel, one block
+per (batch, query head, 64-row query tile).  Both keep the online softmax
+in float32 and skip dead key tiles.  The kernels read strided views, so
+the model's ``[B, T, heads, hd]`` tensors need no transposed copies, and
+they write the output in that layout (returned as a view shaped like
+``q``).
 
 A wrapper handed CPU tensors runs the plain version from ``ref.py``;
 handed CUDA tensors it launches the kernel or raises.
@@ -27,13 +31,28 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 _SIGNATURES = {
     "repro_flash_attention": [B.VP] * 4 + [B.INT] * 6 + [B.LL] * 14
     + [B.INT, B.INT, B.FLOAT, B.INT, B.VP],
+    "repro_flash_attention_wgmma": [B.VP] * 4 + [B.INT] * 6 + [B.LL] * 14
+    + [B.INT, B.INT, B.FLOAT, B.VP],
 }
 HEAD_DIMS = (16, 32, 64, 128)
 
 
-
 def _lib():
     return B.load(SOURCE, _SIGNATURES)
+
+
+def flash_uses_wgmma(q, k, v) -> bool:
+    """The rule that sends a flash-attention call to the tensor-core
+    kernel: bf16 q, k and v with ``head_dim % 16 == 0``, every stride a
+    positive multiple of 8 elements and every base address 16-byte
+    aligned (TMA's rule).  Every other call, float32 among them, runs the
+    CUDA-core kernel."""
+    return (q.dtype == k.dtype == v.dtype == torch.bfloat16
+            and q.shape[-1] % 16 == 0
+            and all(s > 0 and s % 8 == 0
+                    for t in (q, k, v) for s in t.stride()[:-1])
+            and all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
+
 
 def flash_attention_kernel(q, k, v, *, window=None, causal: bool = True,
                            scale=None):
@@ -69,12 +88,18 @@ def flash_attention_kernel(q, k, v, *, window=None, causal: bool = True,
     # written in the model's [B, Tq, nkv, g, hd] layout, returned as q's
     out = torch.empty((Bn, Tq, nkv, g, hd), dtype=q.dtype,
                       device=q.device).permute(0, 2, 3, 1, 4)
-    lib = _lib()
-    B.raise_on(lib.repro_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        Bn, nkv, g, Tq, Tk, hd, *q.stride()[:4], *k.stride()[:3],
-        *v.stride()[:3], *out.stride()[:4],
-        0 if window is None else int(window), int(causal), float(scale),
-        int(q.dtype == torch.bfloat16), B.stream(q)), "flash_attention")
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            Bn, nkv, g, Tq, Tk, hd, *q.stride()[:4], *k.stride()[:3],
+            *v.stride()[:3], *out.stride()[:4],
+            0 if window is None else int(window), int(causal), float(scale))
+    if flash_uses_wgmma(q, k, v):
+        B.check(Tq <= 64 * 65535, f"flash_attention Tq {Tq} out of range")
+        B.raise_on(_lib().repro_flash_attention_wgmma(*args, B.stream(q)),
+                   "flash_attention_wgmma")
+        B.LAUNCHES["flash_attention_wgmma"] += 1
+    else:
+        B.raise_on(_lib().repro_flash_attention(
+            *args, int(q.dtype == torch.bfloat16), B.stream(q)),
+            "flash_attention")
     B.LAUNCHES["flash_attention"] += 1
     return out

@@ -322,6 +322,51 @@ def test_new_wrappers_take_plain_version_on_cpu():
     assert not any(KB.LAUNCHES.values())
 
 
+#: (p, m, k, n), nb, x and w dtypes, whether the tensor-core kernel takes
+#: the call: chip_smoke.py's TP shapes (MM_RS, MM_AG) in bf16 and float32,
+#: the cuda test's shapes, and each condition of the rule broken alone
+WGMMA_RULE = [
+    ((4, 8192, 2048, 3072), 4, ("bfloat16", "bfloat16"), True),   # MM_RS
+    ((4, 8192, 3072, 2048), 4, ("bfloat16", "bfloat16"), True),   # MM_AG
+    ((4, 8192, 2048, 3072), 4, ("float32", "float32"), False),
+    ((4, 256, 264, 136), 4, ("bfloat16", "bfloat16"), True),      # ragged k, n
+    ((4, 512, 1000, 520), 4, ("bfloat16", "bfloat16"), True),
+    ((4, 512, 256, 384), 4, ("bfloat16", "bfloat16"), True),
+    ((4, 512, 256, 384), 8, ("bfloat16", "bfloat16"), True),      # rows 64
+    ((4, 512, 256, 384), 4, ("bfloat16", "float32"), False),      # mixed
+    ((4, 512, 256, 384), 4, ("float32", "bfloat16"), False),
+    ((4, 384, 256, 384), 4, ("bfloat16", "bfloat16"), False),     # rows 96
+    ((4, 512, 260, 384), 4, ("bfloat16", "bfloat16"), False),     # k % 8
+    ((4, 512, 256, 388), 4, ("bfloat16", "bfloat16"), False),     # n % 8
+    ((4, 260, 70, 130), 4, ("bfloat16", "bfloat16"), False),
+    ((4, 40, 24, 12), 4, ("bfloat16", "bfloat16"), False),
+]
+
+
+@pytest.mark.parametrize("shape,nb,dtypes,wgmma", WGMMA_RULE,
+                         ids=[f"{'x'.join(map(str, c[0]))}-nb{c[1]}-"
+                              f"{c[2][0][:4]}{c[2][1][:4]}"
+                              for c in WGMMA_RULE])
+def test_perm_matmul_wgmma_rule(shape, nb, dtypes, wgmma):
+    """Which calls the tensor-core kernel takes: bf16 x and w, row blocks
+    of a multiple of 64 rows, k and n multiples of 8 (stride-0 stand-ins:
+    the rule reads shapes, dtypes and addresses only)."""
+    p, m, k, n = shape
+    x = torch.zeros((), dtype=getattr(torch, dtypes[0])).expand(p, m, k)
+    w = torch.zeros((), dtype=getattr(torch, dtypes[1])).expand(p, k, n)
+    assert K.perm_matmul_uses_wgmma(x, w, nb) is wgmma
+
+
+def test_perm_matmul_wgmma_rule_needs_aligned_operands():
+    """TMA reads from 16-byte aligned addresses: a bf16 view two bytes in
+    goes to the CUDA-core kernel."""
+    p, m, k, n = 4, 256, 64, 64
+    x = torch.zeros(p * m * k + 8, dtype=torch.bfloat16)
+    w = torch.zeros((p, k, n), dtype=torch.bfloat16)
+    assert K.perm_matmul_uses_wgmma(x[:-8].view(p, m, k), w, 4)
+    assert not K.perm_matmul_uses_wgmma(x[1:-7].view(p, m, k), w, 4)
+
+
 # ---------------------------------------------------------------------------
 # On the card (skipped without one)
 # ---------------------------------------------------------------------------
@@ -418,11 +463,15 @@ def test_cuda_ring_update_matches_plain(cuda_device, b):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(40, 24, 12), (260, 70, 130),
-                                   (512, 256, 384)])
+                                   (512, 256, 384), (256, 264, 136),
+                                   (512, 1000, 520)])
 def test_cuda_perm_matmul_matches_plain(cuda_device, shape):
     """Both directions, f32 and bf16, within ``2 k 2**-24 (|x| @ |w|)``
     elementwise (two float32 sums of k products in different orders), plus
-    one bf16 rounding for a bf16 result."""
+    one bf16 rounding for a bf16 result; the launch counts say which
+    kernel ran (``perm_matmul_uses_wgmma``: bf16 at the last three
+    shapes, rows 128 / 64 / 128 and ragged k, n tails, on the tensor
+    cores)."""
     dev = cuda_device
     torch.backends.cuda.matmul.allow_tf32 = False
     m, k, n = shape
@@ -435,8 +484,15 @@ def test_cuda_perm_matmul_matches_plain(cuda_device, shape):
                                                   tw.float().abs())
         for lhs in (False, True):
             exp = K.perm_matmul(tx, tw, perm, lhs)
-            got = K.perm_matmul(tx.to(dev), tw.to(dev), perm.to(dev),
-                                lhs).cpu()
+            name = "gather_matmul" if lhs else "matmul_pack"
+            before = dict(KB.LAUNCHES)
+            dx, dw = tx.to(dev), tw.to(dev)
+            wgmma = K.perm_matmul_uses_wgmma(dx, dw, len(perm))
+            got = K.perm_matmul(dx, dw, perm.to(dev), lhs).cpu()
+            assert wgmma == (dt == torch.bfloat16 and m // 4 % 64 == 0)
+            assert KB.LAUNCHES[name] == before[name] + 1
+            assert KB.LAUNCHES[name + "_wgmma"] == \
+                before[name + "_wgmma"] + wgmma
             assert got.dtype == exp.dtype == dt
             lim = R.row_blocks(bound, perm)
             if lhs:

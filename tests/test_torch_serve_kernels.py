@@ -21,6 +21,8 @@ plain version: rmsnorm within float32 rtol 1e-6 or one bf16 ulp, flash
 attention within the tolerances above, qacc bitwise.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -47,6 +49,15 @@ FLASH_CASES = [
     (1, 256, 8, 8, 64, 32, "bfloat16", 3e-2),
     (1, 130, 2, 2, 64, 48, "float32", 2e-5),     # padding path
     (1, 257, 2, 1, 16, None, "float32", 2e-5),   # padding, MQA, tiny hd
+    # bf16 on the tensor cores: g = 1, 2, 3, 8 (4 above), hd 16-128,
+    # windows, T not a multiple of 64
+    (1, 130, 3, 1, 128, None, "bfloat16", 3e-2),
+    (2, 192, 2, 2, 128, None, "bfloat16", 3e-2),
+    (1, 320, 4, 2, 64, 100, "bfloat16", 3e-2),
+    (1, 1000, 8, 1, 64, 256, "bfloat16", 3e-2),
+    (1, 1000, 6, 2, 128, None, "bfloat16", 3e-2),
+    (1, 130, 8, 1, 128, None, "bfloat16", 3e-2),
+    (1, 257, 2, 1, 16, None, "bfloat16", 3e-2),
 ]
 QACC_CASES = [(64, 128), (100, 256), (1, 64)]
 
@@ -244,6 +255,55 @@ def test_wrappers_refuse_other_devices():
                                   torch.zeros(1, 1, 8, 16))
 
 
+def _model_layout(Bn, T, nh, nkv, hd, dtype):
+    """q, k, v as ``ops.flash_attention`` hands them to the kernel: views
+    of the model's ``[B, T, heads, hd]`` tensors, K/V padded to the key
+    tile (stride-0 stand-ins for q's storage: the rule reads strides,
+    dtypes and addresses only)."""
+    q = torch.zeros((Bn, T, nh, hd), dtype=dtype)
+    k = torch.zeros((Bn, T, nkv, hd), dtype=dtype)
+    qg = q.reshape(Bn, T, nkv, nh // nkv, hd).permute(0, 2, 3, 1, 4)
+    bk = min(FO.KEY_TILE, max(16, T))
+    kg = FO._pad_to(k.permute(0, 2, 1, 3), 2, bk)
+    return qg, kg, kg
+
+
+#: (B, T, nh, nkv, hd, dtype) -> whether the tensor-core kernel takes it:
+#: the serve cell's insert (phi4-mini, a 1024-token page) and chip_smoke's
+#: T = 1000 variant, the bf16 test cases' head dims, float32
+FLASH_RULE = [
+    ((1, 1024, 24, 8, 128, "bfloat16"), True),
+    ((1, 1000, 24, 8, 128, "bfloat16"), True),
+    ((1, 1024, 24, 8, 128, "float32"), False),
+    ((1, 128, 4, 1, 32, "bfloat16"), True),
+    ((1, 257, 2, 1, 16, "bfloat16"), True),
+    ((1, 256, 8, 8, 64, "bfloat16"), True),
+    ((2, 256, 4, 2, 64, "float32"), False),
+]
+
+
+@pytest.mark.parametrize("case,wgmma", FLASH_RULE,
+                         ids=["x".join(map(str, c[:5])) + f"-{c[5]}"
+                              for c, _ in FLASH_RULE])
+def test_flash_wgmma_rule(case, wgmma):
+    *shape, dtype = case
+    assert FK.flash_uses_wgmma(*_model_layout(*shape, getattr(torch, dtype))) \
+        is wgmma
+
+
+def test_flash_wgmma_rule_needs_tma_strides():
+    """A stride TMA cannot take (0, or not a multiple of 16 bytes) or an
+    address off 16 bytes sends a bf16 call to the CUDA-core kernel."""
+    q, k, v = _model_layout(1, 128, 4, 2, 64, torch.bfloat16)
+    assert FK.flash_uses_wgmma(q, k, v)
+    assert not FK.flash_uses_wgmma(q, k[:, :, :1].expand_as(k), v)
+    flat = torch.zeros(2 * 128 * 64 + 1, dtype=torch.bfloat16)
+    odd = flat[1:].view(1, 2, 128, 64)
+    assert not FK.flash_uses_wgmma(q, odd, v)
+    wide = torch.zeros((1, 2, 128, 68), dtype=torch.bfloat16)[..., :64]
+    assert not FK.flash_uses_wgmma(q, wide, v)
+
+
 def test_every_kernel_source_is_built():
     """The build module finds one source per kernel file of every package
     (the smoke's build phase starts one nvcc for each)."""
@@ -254,6 +314,19 @@ def test_every_kernel_source_is_built():
     paths = {B.library_path(p) for p in B.sources()}
     assert len(paths) == len(names)
     assert all(p.parent == B.BUILD_DIR for p in paths)
+
+
+def test_shared_header_change_rebuilds_every_source(monkeypatch, tmp_path):
+    """Every library's name hashes the shared headers (``kernels/csrc/
+    hopper.cuh``), so a change there rebuilds each source that may
+    include it."""
+    assert any(h.name == "hopper.cuh" for h in B.headers())
+    before = {p: B.library_path(p) for p in B.sources()}
+    header = tmp_path / "hopper.cuh"
+    header.write_bytes(B.headers()[0].read_bytes() + b"// changed\n")
+    monkeypatch.setattr(B, "headers", lambda: [header])
+    after = {p: B.library_path(p) for p in B.sources()}
+    assert all(before[p] != after[p] for p in before)
 
 
 # ---------------------------------------------------------------------------
@@ -302,8 +375,12 @@ def test_cuda_flash_attention_matches_plain(cuda_device, i):
     tdt = getattr(torch, dtype)
     q, k, v = (torch.from_numpy(a).to(cuda_device, tdt)
                for a in _flash_inputs(i))
+    before = B.LAUNCHES["flash_attention_wgmma"]
     got = FO.flash_attention(q, k, v, window=window)
     torch.cuda.synchronize()
+    # bf16 runs on the tensor cores, float32 on the CUDA cores
+    assert B.LAUNCHES["flash_attention_wgmma"] == \
+        before + (dtype == "bfloat16")
     g = nh // nkv
     qg = q.reshape(Bn, T, nkv, g, hd).permute(0, 2, 3, 1, 4)
     exp = FR.flash_attention_ref(qg, k.permute(0, 2, 1, 3),
@@ -311,6 +388,82 @@ def test_cuda_flash_attention_matches_plain(cuda_device, i):
     exp = exp.permute(0, 3, 1, 2, 4).reshape(Bn, T, nh, hd)
     err = float((got.float() - exp.float()).abs().max())
     assert err < tol, err
+
+
+#: bf16 GQA grids that fill an H100's 132 SMs several times over
+#: (phi4-mini's 24/8 heads, g = 8, and g = 4 with a window): correctness
+#: inputs for the tensor-core kernel at larger batch and length
+FLASH_GROUPED_CASES = [
+    (2, 2048, 24, 8, 128, None),
+    (12, 512, 8, 1, 64, None),
+    (10, 1024, 4, 1, 64, 200),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_GROUPED_CASES,
+                         ids=lambda c: "x".join(map(str, c[:5])) + f"-w{c[5]}")
+def test_cuda_flash_attention_grouped_matches_plain(cuda_device, case):
+    Bn, T, nh, nkv, hd, window = case
+    gen = torch.Generator(device=cuda_device).manual_seed(T)
+    q, k, v = (torch.randn((Bn, T, n, hd), generator=gen, device=cuda_device)
+               .to(torch.bfloat16) for n in (nh, nkv, nkv))
+    before = B.LAUNCHES["flash_attention_wgmma"]
+    got = FO.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert B.LAUNCHES["flash_attention_wgmma"] == before + 1
+    qg = q.reshape(Bn, T, nkv, nh // nkv, hd).permute(0, 2, 3, 1, 4)
+    exp = FR.flash_attention_ref(qg, k.permute(0, 2, 1, 3),
+                                 v.permute(0, 2, 1, 3), window=window)
+    exp = exp.permute(0, 3, 1, 2, 4).reshape(Bn, T, nh, hd)
+    err = float((got.float() - exp.float()).abs().max())
+    assert err < 3e-2, err
+
+
+def _off_tma(kind, shape, gen, dev):
+    """A bf16 tensor of ``shape`` as a view that TMA cannot take: rows 4
+    elements wider than the head dim (a row stride not a multiple of 8
+    elements) or a base address 2 bytes past a 16-byte boundary."""
+    *lead, hd = shape
+    if kind == "wide":
+        return torch.randn((*lead, hd + 4), generator=gen, device=dev)\
+            .to(torch.bfloat16)[..., :hd]
+    flat = torch.randn(math.prod(shape) + 1, generator=gen, device=dev)
+    return flat.to(torch.bfloat16)[1:].view(shape)
+
+
+#: (B, T, nh, nkv, hd, window, view of k and v) for bf16 calls that the
+#: tensor-core rule refuses
+FLASH_OFF_TMA_CASES = [
+    (1, 256, 8, 2, 128, None, "wide"),
+    (2, 130, 4, 1, 64, 48, "odd"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_OFF_TMA_CASES,
+                         ids=lambda c: "x".join(map(str, c[:5]))
+                         + f"-w{c[5]}-{c[6]}")
+def test_cuda_flash_attention_bf16_off_tma_matches_plain(cuda_device, case):
+    """bf16 views that TMA cannot take run the CUDA-core kernel's bf16
+    branch, within bf16 rounding of the plain version."""
+    Bn, T, nh, nkv, hd, window, kind = case
+    gen = torch.Generator(device=cuda_device).manual_seed(T)
+    q = torch.randn((Bn, T, nh, hd), generator=gen, device=cuda_device)\
+        .to(torch.bfloat16)
+    qg = q.reshape(Bn, T, nkv, nh // nkv, hd).permute(0, 2, 3, 1, 4)
+    k, v = (_off_tma(kind, (Bn, nkv, T, hd), gen, cuda_device)
+            for _ in range(2))
+    assert not FK.flash_uses_wgmma(qg, k, v)
+    before = dict(B.LAUNCHES)
+    got = FK.flash_attention_kernel(qg, k, v, window=window)
+    torch.cuda.synchronize()
+    assert B.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert B.LAUNCHES["flash_attention_wgmma"] == \
+        before["flash_attention_wgmma"]
+    exp = FR.flash_attention_ref(qg, k, v, window=window)
+    err = float((got.float() - exp.float()).abs().max())
+    assert err < 3e-2, err
 
 
 @pytest.mark.cuda
