@@ -16,8 +16,11 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
              bound stated from k (phi4-mini's tensor-parallel MLP shapes;
              float32 on the CUDA-core kernel, bf16 on the tensor-core
              ``wgmma`` kernel, the launch counts saying which ran);
-             rmsnorm (rtol 1e-6 / one bf16 ulp) and flash_attention (2e-5
-             float32 on the CUDA cores / 3e-2 bf16 on wgmma) at the serve
+             rmsnorm (rtol 1e-6 / one bf16 ulp; its row adds the
+             kernel's and F.rms_norm's device ms per call from
+             torch.profiler, and the log the wrapper's host us per call)
+             and flash_attention (2e-5 float32 on the CUDA cores / 3e-2
+             bf16 on wgmma) at the serve
              cell's insert and decode shapes, qacc BITWISE on a 64 MiB
              accumulator, then the qdot op's own path (four int8 payloads
              accumulated, launches counted);
@@ -210,7 +213,7 @@ def phase_kernels(dev):
     rows = {}
 
     def row(name, err, kernel_fn, plain_fn, bound, bound_by,
-            library_fn=None):
+            library_fn=None, **extra):
         torch.cuda.synchronize()
         k_ms = time_ms(kernel_fn)
         plain_ms = time_ms(plain_fn)
@@ -219,7 +222,7 @@ def phase_kernels(dev):
                       "replaces": REPLACES[name], "launches": 0,
                       "max_abs_err": err, "ms": k_ms, "plain_ms": plain_ms,
                       "bound_ms": bound, "bound_by": bound_by,
-                      "library_ms": lib_ms}
+                      "library_ms": lib_ms, **extra}
         log(f"  {name}: {ms(k_ms)} ms, plain {ms(plain_ms)} ms, bound "
             f"{ms(bound)} ms ({bound_by}), library "
             f"{'none' if lib_ms is None else ms(lib_ms) + ' ms'}")
@@ -430,8 +433,11 @@ def phase_serve_kernels(dev, randn, row):
     """The serving kernels at the serve cell's shapes: rmsnorm on one
     insert's rows [1024, 3072] and one decode step's [8, 3072], bf16 and
     float32 (float32 within rtol 1e-6 of the plain version, bf16 within one
-    bf16 ulp); flash attention on one insert's prefill (q [1, 1024, 24,
-    128], k/v [1, 1024, 8, 128], bf16, causal), a window-256, a T = 1000
+    bf16 ulp), its row with the kernel's and ``F.rms_norm``'s device time
+    per call (``device_ms``, ``library_device_ms``) beside the
+    host-inclusive ``ms``, and the wrapper's host us per call; flash
+    attention on one insert's prefill (q [1, 1024, 24, 128], k/v [1, 1024,
+    8, 128], bf16, causal), a window-256, a T = 1000
     (padded) and a T = 4096 variant, within 3e-2 (bf16,
     the tensor-core kernel)
     and float32 (the CUDA-core kernel) within 2e-5, the launch counts
@@ -451,8 +457,10 @@ def phase_serve_kernels(dev, randn, row):
     from repro_torch.kernels.qdot import ops as QO
     from repro_torch.kernels.qdot import ref as QR
     from repro_torch.kernels.rmsnorm import kernel as RK
+    from repro_torch.kernels.rmsnorm import ops as RO
     from repro_torch.kernels.rmsnorm import ref as RR
     from repro_torch.launch import cell
+    from repro_torch.launch import profile_rmsnorm as PR
 
     cfg = cell.serve_model_config()
     d, eps = cfg.d_model, cfg.norm_eps
@@ -462,8 +470,11 @@ def phase_serve_kernels(dev, randn, row):
                       (1024, torch.float32), (8, torch.float32)):
         x, w = randn(rows_, d, dtype=dt), (0.1 * randn(d)).to(dt)
         w1 = 1.0 + w        # the library's weight, made outside the timing
-        got, exp = RK.rmsnorm_kernel(x, w, eps).float(), \
-            RR.rmsnorm_ref(x, w, eps).float()
+        before = KB.LAUNCHES["rmsnorm"]
+        got = RK.rmsnorm_kernel(x, w, eps).float()
+        check(KB.LAUNCHES["rmsnorm"] == before + 1,
+              f"rmsnorm [{rows_}, {d}] {dt}: the kernel did not run")
+        exp = RR.rmsnorm_ref(x, w, eps).float()
         diff = (got - exp).abs()
         lim = (1e-6 * exp.abs() if dt == torch.float32 else bf16_ulp(exp))
         check(bool((diff <= lim).all()),
@@ -480,10 +491,21 @@ def phase_serve_kernels(dev, randn, row):
     x, w, w1, err, nbytes = variants[(1024, torch.bfloat16)]
     log("  rmsnorm: within rtol 1e-6 (float32) / one bf16 ulp of plain "
         "(4 variants)")
-    row("rmsnorm", err, lambda: RK.rmsnorm_kernel(x, w, eps),
-        lambda: RR.rmsnorm_ref(x, w, eps), nbytes / HBM_BYTES_PER_S * 1e3,
-        "bytes", lambda: F.rms_norm(x, (d,), w1, eps))
-    del variants, x, w, w1
+    kern = lambda: RK.rmsnorm_kernel(x, w, eps)
+    lib = lambda: F.rms_norm(x, (d,), w1, eps)
+    # the single-call time (ms) holds the host's part; the kernel's own
+    # device time, and the library's (the sum of its kernels), apart
+    dev_ms = PR.device_ms_per_call(kern, "rmsnorm_kernel")
+    lib_dev_ms = PR.device_ms_per_call(lib)
+    row("rmsnorm", err, kern, lambda: RR.rmsnorm_ref(x, w, eps),
+        nbytes / HBM_BYTES_PER_S * 1e3, "bytes", lib, device_ms=dev_ms,
+        library_device_ms=lib_dev_ms)
+    host_us = PR.host_us_per_call(lambda: RO.rmsnorm(x, w, eps))
+    log(f"  rmsnorm [1024, {d}] bfloat16: device {ms(dev_ms)} ms per call "
+        f"(F.rms_norm {ms(lib_dev_ms)} ms; torch.profiler over "
+        f"{PR.PROFILED} calls); ops.rmsnorm host {host_us:.2f} us per call "
+        f"({PR.CALLS} calls, no sync)")
+    del variants, x, w, w1, kern, lib
 
     # flash attention at the prefill of one insert (a 1024-token page)
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim

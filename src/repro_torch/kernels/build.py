@@ -166,7 +166,10 @@ def ptr(t):
 
 
 def stream(t) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The handle of the current stream of ``t``'s CUDA device (the raw
+    getter: ``torch.cuda.current_stream`` builds a ``Stream`` object, a
+    few microseconds a call on the wrappers' host path)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def raise_on(err: int, name: str) -> None:

@@ -41,21 +41,34 @@
 //    0); without, the epilogue's destination rows go through it.  The
 //    epilogue stores bf16 pairs straight from the registers.
 // 2. perm_matmul_kernel, on the CUDA cores, for every other call: float32,
-//    mixed dtypes, and ragged bf16 shapes.  Every input is widened to
-//    float32 and multiplied and summed in float32 (fmaf; no TF32: the
-//    reference casts to f32 before a HIGHEST-precision dot), one rounding
-//    to bf16 at the end for a bf16 result.  Bound: 2*m*n*k*p FLOPs over
-//    the 67 TFLOP/s float32 CUDA-core peak.  Design: a 128 x 128 output
-//    tile per block of 256 threads, each thread an 8 x 8 register tile, k
-//    in steps of 16 staged through shared memory (A transposed so both
-//    operands are read as float4), 64 FMAs per 4 shared-memory float4
-//    reads; no double buffering.
+//    mixed dtypes, and ragged bf16 shapes, at any m, n and k.  Every
+//    input is widened to float32 and multiplied and summed in float32
+//    (fmaf; no TF32: the reference casts to f32 before a HIGHEST-precision
+//    dot), one rounding to bf16 at the end for a bf16 result.  Bound:
+//    2*m*n*k*p FLOPs over the 67 TFLOP/s float32 CUDA-core peak (6.154 ms
+//    at the fused TP shapes).  The first version reached 44% of it: no
+//    double buffering (each 16-deep k step loaded, waited at a barrier,
+//    computed and waited again), scalar global loads, and a 2-way bank
+//    conflict on A's transposing store.  This design: a 128 x 256 output
+//    tile per block of 256 threads, each thread an 8 x 16 register tile
+//    (128 FMAs per 6 shared-memory float4 reads: two broadcast A reads,
+//    four contiguous B reads a warp); k in steps of 16 through two shared
+//    stages (48 KB).  The next step's tiles are loaded into registers
+//    (16-byte float32 / 8-byte bf16 vectors where k or n is a multiple of
+//    4 and the operand aligned, else element by element, bounds-checked,
+//    0 beyond the edge) while this step computes, then stored, widened,
+//    to the other stage: one barrier a step.  A is stored transposed with
+//    an XOR swizzle (row bits 3-4 ^ k / 4), so neither its stores nor its
+//    float4 reads conflict.  Each thread's two A source rows go through
+//    perm once, before the k loop (lhs_perm); without it the epilogue's
+//    destination rows do.  nvcc -Xptxas -v: 245 registers (float32),
+//    231 (bf16), 241 / 243 (mixed), no spills; one block (8 warps) an SM.
+//    The wider tile was chosen over a 128 x 128 one (8 x 8 a thread, 128
+//    registers, two blocks an SM), which ran slower at the TP shapes.
 //
 // Both sum in another order than the plain version's torch.matmul, so the
-// two agree within a bound stated from k, not bitwise.  The CUDA-core
-// kernel takes any m, n, k: loads and stores are bounds-checked and
-// out-of-range loads read 0.  Launches on the caller's stream, allocates
-// nothing, returns cudaGetLastError().
+// two agree within a bound stated from k, not bitwise.  Launches on the
+// caller's stream, allocates nothing, returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -65,19 +78,17 @@
 
 namespace {
 
-constexpr int kBM = 128;
-constexpr int kBN = 128;
-constexpr int kBK = 16;
+constexpr int kBM = 128;      // output rows a block
+constexpr int kBK = 16;       // k a stage
 constexpr int kThreads = 256;
-constexpr int kPad = 4;  // keeps each shared row 16-byte aligned
+constexpr int kNB = 4;        // output columns a block: kNB groups of 64
+constexpr int kBN = 64 * kNB;
+constexpr int kQuads = kBN / 4;              // 4-column quads a k row of B
+constexpr int kKStep = kThreads / kQuads;    // k rows of B a load pass
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* o, float v) { *o = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* o, float v) {
-  *o = __float2bfloat16_rn(v);
 }
 
 __device__ __forceinline__ long long mapped(long long i, const int* perm,
@@ -85,96 +96,247 @@ __device__ __forceinline__ long long mapped(long long i, const int* perm,
   return static_cast<long long>(perm[i / rows]) * rows + i % rows;
 }
 
-// Thread t owns output rows {tr*4 + i, 64 + tr*4 + i} and columns
-// {tc*4 + j, 64 + tc*4 + j}, i, j < 4 (tr = t / 16, tc = t % 16), so a
-// warp's float4 reads of a shared row are contiguous.
-__device__ __forceinline__ int sub(int t4, int i) {
-  return (i < 4 ? 0 : 64) + t4 * 4 + (i & 3);
+// Four consecutive elements as loaded from device memory, not yet widened:
+// the load's result is first needed at the shared-memory store, after the
+// stage's products, so its latency hides behind them.
+template <typename T>
+struct Raw;
+template <>
+struct Raw<float> {
+  uint4 u;
+};
+template <>
+struct Raw<__nv_bfloat16> {
+  uint2 u;
+};
+
+// p[0, 4) with a 16-byte (float32) or 8-byte (bf16) load when vec (the
+// caller checked alignment and avail == 4 or 0); else one element at a
+// time; elements from avail on read 0.
+__device__ __forceinline__ Raw<float> load4(const float* p, bool vec,
+                                            int avail) {
+  Raw<float> r{make_uint4(0u, 0u, 0u, 0u)};
+  if (vec) {
+    if (avail > 0) r.u = __ldg(reinterpret_cast<const uint4*>(p));
+  } else {
+    const unsigned* q = reinterpret_cast<const unsigned*>(p);
+    if (avail > 0) r.u.x = __ldg(q);
+    if (avail > 1) r.u.y = __ldg(q + 1);
+    if (avail > 2) r.u.z = __ldg(q + 2);
+    if (avail > 3) r.u.w = __ldg(q + 3);
+  }
+  return r;
+}
+__device__ __forceinline__ Raw<__nv_bfloat16> load4(const __nv_bfloat16* p,
+                                                    bool vec, int avail) {
+  Raw<__nv_bfloat16> r{make_uint2(0u, 0u)};
+  if (vec) {
+    if (avail > 0) r.u = __ldg(reinterpret_cast<const uint2*>(p));
+  } else {
+    const unsigned short* q = reinterpret_cast<const unsigned short*>(p);
+    if (avail > 0) r.u.x = __ldg(q);
+    if (avail > 1) r.u.x |= static_cast<unsigned>(__ldg(q + 1)) << 16;
+    if (avail > 2) r.u.y = __ldg(q + 2);
+    if (avail > 3) r.u.y |= static_cast<unsigned>(__ldg(q + 3)) << 16;
+  }
+  return r;
+}
+
+// Widen to float32 (exact for bf16: its bits are a float32's top half).
+__device__ __forceinline__ float4 widen(const Raw<float>& r) {
+  return make_float4(__uint_as_float(r.u.x), __uint_as_float(r.u.y),
+                     __uint_as_float(r.u.z), __uint_as_float(r.u.w));
+}
+__device__ __forceinline__ float4 widen(const Raw<__nv_bfloat16>& r) {
+  return make_float4(__uint_as_float(r.u.x << 16),
+                     __uint_as_float(r.u.x & 0xffff0000u),
+                     __uint_as_float(r.u.y << 16),
+                     __uint_as_float(r.u.y & 0xffff0000u));
+}
+
+// dst[0, 4) <- v, one 16-byte (float32) or 8-byte (bf16) store when vec,
+// else element by element up to avail.
+__device__ __forceinline__ void store4(float* dst, float4 v, bool vec,
+                                       int avail) {
+  if (vec) {
+    *reinterpret_cast<float4*>(dst) = v;
+    return;
+  }
+  const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (j < avail) dst[j] = e[j];
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* dst, float4 v, bool vec,
+                                       int avail) {
+  const __nv_bfloat16 e[4] = {__float2bfloat16_rn(v.x),
+                              __float2bfloat16_rn(v.y),
+                              __float2bfloat16_rn(v.z),
+                              __float2bfloat16_rn(v.w)};
+  if (vec) {
+    uint2 u;
+    u.x = static_cast<unsigned>(__bfloat16_as_ushort(e[0])) |
+          (static_cast<unsigned>(__bfloat16_as_ushort(e[1])) << 16);
+    u.y = static_cast<unsigned>(__bfloat16_as_ushort(e[2])) |
+          (static_cast<unsigned>(__bfloat16_as_ushort(e[3])) << 16);
+    *reinterpret_cast<uint2*>(dst) = u;
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (j < avail) dst[j] = e[j];
+}
+
+// The A tile is stored transposed, As[k][row], with the row's bits 3-4
+// XORed with the k quad (k / 4): a warp's transposing store (8 rows x 4
+// quads) then hits 32 distinct banks, and a float4 read of 4 consecutive
+// rows at one k stays contiguous and 16-byte aligned.
+__device__ __forceinline__ int swz(int row, int kk) {
+  return row ^ ((kk >> 2) << 3);
 }
 
 template <typename TX, typename TW, typename TO>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 perm_matmul_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
                    TO* __restrict__ out, const int* __restrict__ perm,
-                   int lhs_perm, long long m, long long n, long long k,
-                   long long rows) {
-  __shared__ __align__(16) float As[kBK][kBM + kPad];  // [k][row]
-  __shared__ __align__(16) float Bs[kBK][kBN + kPad];  // [k][col]
+                   int lhs_perm, int m, int n, int k, int rows, int vec_x,
+                   int vec_w, int vec_o) {
+  __shared__ __align__(16) float As[2][kBK][kBM];  // [stage][k][row ^ swz]
+  __shared__ __align__(16) float Bs[2][kBK][kBN];   // [stage][k][col]
   const long long r = blockIdx.z;
-  const TX* xr = x + r * m * k;
-  const TW* wr = w + r * k * n;
-  TO* orr = out + r * m * n;
-  const long long row0 = static_cast<long long>(blockIdx.y) * kBM;
-  const long long col0 = static_cast<long long>(blockIdx.x) * kBN;
+  const int row0 = blockIdx.y * kBM;
+  const int col0 = blockIdx.x * kBN;
   const int t = threadIdx.x;
-  const int tr = t / 16;
-  const int tc = t % 16;
 
-  // A tile loads: thread t reads 8 consecutive k of tile row t / 2; its
-  // source row is fixed for the whole k loop.
-  const int a_row = t / 2;
-  const int a_k = (t % 2) * 8;
-  const long long ga = row0 + a_row;
-  const TX* a_src = nullptr;
-  if (ga < m) {
-    a_src = xr + (lhs_perm ? mapped(ga, perm, rows) : ga) * k;
+  // A loads: rows t / 4 and 64 + t / 4 of the tile, k quad t % 4; each
+  // row's source (through perm with lhs_perm) is fixed for the k loop.
+  const int a_row = t >> 2;
+  const int a_q = t & 3;
+  const TX* a_src[2];
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const int gr = row0 + a_row + 64 * c;
+    a_src[c] = nullptr;
+    if (gr < m) {
+      const long long src = lhs_perm ? mapped(gr, perm, rows) : gr;
+      a_src[c] = x + (r * m + src) * k + 4 * a_q;
+    }
   }
-  // B tile loads: thread t reads 8 consecutive columns of tile k row t / 16.
-  const int b_k = t / 16;
-  const int b_col = (t % 16) * 8;
+  // B loads: k rows t / kQuads + kKStep c of the stage (c < kNB),
+  // column quad t % kQuads
+  const int b_k = t / kQuads;
+  const int b_col = col0 + 4 * (t % kQuads);
+  const int b_avail = min(4, n - b_col);
+  const TW* b_src = w + r * k * static_cast<long long>(n) +
+                    static_cast<long long>(b_k) * n + b_col;
 
-  float acc[8][8];
+  Raw<TX> ra[2];
+  Raw<TW> rb[kNB];
+  auto gload = [&](int k0) {
+    const int a_avail = min(4, k - (k0 + 4 * a_q));
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      ra[c] = load4(a_src[c] + k0, vec_x != 0,
+                    a_src[c] != nullptr ? a_avail : 0);
+    }
+#pragma unroll
+    for (int c = 0; c < kNB; ++c) {
+      const int kr = k0 + b_k + kKStep * c;
+      rb[c] = load4(b_src + static_cast<long long>(k0 + kKStep * c) * n,
+                    vec_w != 0, kr < k ? b_avail : 0);
+    }
+  };
+  auto sstore = [&](int s) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const float4 a = widen(ra[c]);
+      const int rr = swz(a_row + 64 * c, 4 * a_q);
+      As[s][4 * a_q + 0][rr] = a.x;
+      As[s][4 * a_q + 1][rr] = a.y;
+      As[s][4 * a_q + 2][rr] = a.z;
+      As[s][4 * a_q + 3][rr] = a.w;
+    }
+#pragma unroll
+    for (int c = 0; c < kNB; ++c) {
+      *reinterpret_cast<float4*>(&Bs[s][b_k + kKStep * c][4 * (t % kQuads)]) =
+          widen(rb[c]);
+    }
+  };
+
+  // Thread t owns output rows {tr*4 + i, 64 + tr*4 + i}, i < 4, and
+  // columns {64 h + tc*4 + j}, h < kNB, j < 4 (tr = t / 16, tc = t % 16): a
+  // warp's A reads are 2 broadcast float4s, its B reads 16 contiguous ones.
+  const int tr = t >> 4;
+  const int tc = t & 15;
+  float acc[8][4 * kNB];
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+    for (int j = 0; j < 4 * kNB; ++j) acc[i][j] = 0.0f;
   }
 
-  for (long long k0 = 0; k0 < k; k0 += kBK) {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const long long gk = k0 + a_k + e;
-      As[a_k + e][a_row] =
-          (a_src != nullptr && gk < k) ? to_f(a_src[gk]) : 0.0f;
-    }
-    {
-      const long long gk = k0 + b_k;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const long long gc = col0 + b_col + e;
-        Bs[b_k][b_col + e] =
-            (gk < k && gc < n) ? to_f(wr[gk * n + gc]) : 0.0f;
-      }
-    }
-    __syncthreads();
+  const int ktiles = (k + kBK - 1) / kBK;
+  gload(0);
+  sstore(0);
+  __syncthreads();
+  for (int kt = 0; kt < ktiles; ++kt) {
+    const int s = kt & 1;
+    const bool more = kt + 1 < ktiles;
+    if (more) gload((kt + 1) * kBK);   // in flight during the products
 #pragma unroll
     for (int kk = 0; kk < kBK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][tr * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][64 + tr * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][tc * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[kk][64 + tc * 4]);
+      const float4 a0 =
+          *reinterpret_cast<const float4*>(&As[s][kk][swz(tr * 4, kk)]);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(&As[s][kk][swz(64 + tr * 4, kk)]);
       const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+      float b[4 * kNB];
+#pragma unroll
+      for (int h = 0; h < kNB; ++h) {
+        const float4 bh =
+            *reinterpret_cast<const float4*>(&Bs[s][kk][64 * h + tc * 4]);
+        b[4 * h] = bh.x;
+        b[4 * h + 1] = bh.y;
+        b[4 * h + 2] = bh.z;
+        b[4 * h + 3] = bh.w;
+      }
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        for (int j = 0; j < 4 * kNB; ++j) {
+          acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        }
       }
     }
+    // the other stage was last read before the previous barrier, so one
+    // barrier a stage suffices
+    if (more) sstore(s ^ 1);
     __syncthreads();
   }
 
+  // epilogue: the destination row goes through perm without lhs_perm
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const long long gr = row0 + sub(tr, i);
+    const int gr = row0 + (i < 4 ? 0 : 64) + tr * 4 + (i & 3);
     if (gr >= m) continue;
-    TO* dst = orr + (lhs_perm ? gr : mapped(gr, perm, rows)) * n;
+    const long long dr = lhs_perm ? gr : mapped(gr, perm, rows);
+    TO* dst = out + (r * m + dr) * n;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const long long gc = col0 + sub(tc, j);
-      if (gc < n) store(dst + gc, acc[i][j]);
+    for (int h = 0; h < kNB; ++h) {
+      const int gc = col0 + 64 * h + tc * 4;
+      if (gc < n) {
+        store4(dst + gc,
+               make_float4(acc[i][4 * h], acc[i][4 * h + 1],
+                           acc[i][4 * h + 2], acc[i][4 * h + 3]),
+               vec_o != 0, min(4, n - gc));
+      }
     }
   }
+}
+
+template <typename T>
+bool aligned(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % (4 * sizeof(T)) == 0;
 }
 
 template <typename TX, typename TW, typename TO>
@@ -182,14 +344,19 @@ int launch(const void* x, const void* w, void* out, const void* perm,
            int lhs_perm, long long p, long long m, long long n, long long k,
            long long nb, void* stream) {
   if (p > 0 && m > 0 && n > 0) {
+    // 4-element vectors where every row of the operand starts aligned
+    const int vec_x = k % 4 == 0 && aligned<TX>(x);
+    const int vec_w = n % 4 == 0 && aligned<TW>(w);
+    const int vec_o = n % 4 == 0 && aligned<TO>(out);
     const dim3 grid(static_cast<unsigned>((n + kBN - 1) / kBN),
                     static_cast<unsigned>((m + kBM - 1) / kBM),
                     static_cast<unsigned>(p));
     perm_matmul_kernel<TX, TW, TO><<<grid, kThreads, 0,
                                      static_cast<cudaStream_t>(stream)>>>(
         static_cast<const TX*>(x), static_cast<const TW*>(w),
-        static_cast<TO*>(out), static_cast<const int*>(perm), lhs_perm, m, n,
-        k, m / nb);
+        static_cast<TO*>(out), static_cast<const int*>(perm), lhs_perm,
+        static_cast<int>(m), static_cast<int>(n), static_cast<int>(k),
+        static_cast<int>(m / nb), vec_x, vec_w, vec_o);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -251,9 +251,10 @@ def perm_matmul(x, w, perm, lhs_perm: bool):
     out = torch.empty((p, m, n), dtype=torch.result_type(x, w),
                       device=x.device)
     name = "gather_matmul" if lhs_perm else "matmul_pack"
+    # both kernels index rows, columns and k in 32 bits
+    B.check(m < 2 ** 31 and k < 2 ** 31 and n < 2 ** 31,
+            f"perm_matmul dims out of range: {tuple(x.shape)}, {n}")
     if perm_matmul_uses_wgmma(x, w, nb):
-        B.check(m < 2 ** 31 and k < 2 ** 31 and n < 2 ** 31,
-                f"perm_matmul dims out of range: {tuple(x.shape)}, {n}")
         B.raise_on(_lib("perm_matmul.cu").repro_perm_matmul_wgmma(
             x.data_ptr(), w.data_ptr(), out.data_ptr(), order.data_ptr(),
             int(lhs_perm), p, m, n, k, nb, B.stream(x)), "perm_matmul_wgmma")

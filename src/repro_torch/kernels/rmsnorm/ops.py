@@ -10,6 +10,11 @@ def rmsnorm(x, w, eps: float = 1e-6):
     """``x [..., d]``, ``w [d]`` -> like ``x``:
     ``x·rsqrt(mean(x²)+eps)·(1+w)`` in float32, cast to ``x.dtype``."""
     shape = x.shape
-    d = shape[-1]
-    out = rmsnorm_kernel(x.reshape(-1, d).contiguous(), w.contiguous(), eps)
-    return out.reshape(shape)
+    if len(shape) != 2:
+        x = x.reshape(-1, shape[-1])
+    if not x.is_contiguous():
+        x = x.contiguous()
+    if not w.is_contiguous():
+        w = w.contiguous()
+    out = rmsnorm_kernel(x, w, eps)
+    return out if len(shape) == 2 else out.reshape(shape)

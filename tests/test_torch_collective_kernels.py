@@ -464,14 +464,17 @@ def test_cuda_ring_update_matches_plain(cuda_device, b):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(40, 24, 12), (260, 70, 130),
                                    (512, 256, 384), (256, 264, 136),
-                                   (512, 1000, 520)])
+                                   (512, 1000, 520), (132, 1001, 67),
+                                   (516, 67, 1001), (1028, 36, 130)])
 def test_cuda_perm_matmul_matches_plain(cuda_device, shape):
     """Both directions, f32 and bf16, within ``2 k 2**-24 (|x| @ |w|)``
     elementwise (two float32 sums of k products in different orders), plus
     one bf16 rounding for a bf16 result; the launch counts say which
-    kernel ran (``perm_matmul_uses_wgmma``: bf16 at the last three
-    shapes, rows 128 / 64 / 128 and ragged k, n tails, on the tensor
-    cores)."""
+    kernel ran (``perm_matmul_uses_wgmma``: bf16 at the shapes (512, 256,
+    384), (256, 264, 136) and (512, 1000, 520), rows 128 / 64 / 128 and
+    ragged k, n tails, on the tensor cores).  The last three shapes put
+    m, n and k off the CUDA-core kernel's 128-row, 128-column and 16-deep
+    tiles and off its 4-element vectors (element-wise loads)."""
     dev = cuda_device
     torch.backends.cuda.matmul.allow_tf32 = False
     m, k, n = shape
@@ -501,3 +504,37 @@ def test_cuda_perm_matmul_matches_plain(cuda_device, shape):
             if dt == torch.bfloat16:
                 lim = lim + 2.0 ** -7 * exp.float().abs()
             assert bool(((got.float() - exp.float()).abs() <= lim).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtypes", [("bfloat16", "float32"),
+                                    ("float32", "bfloat16")])
+@pytest.mark.parametrize("shape", [(512, 256, 384), (132, 1001, 67)])
+def test_cuda_perm_matmul_mixed_dtypes_matches_plain(cuda_device, shape,
+                                                     dtypes):
+    """A bf16 operand beside a float32 one runs the CUDA-core kernel
+    (widened to float32, a float32 result) within ``2 k 2**-24 (|x| @
+    |w|)`` of the plain version, both directions."""
+    dev = cuda_device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m, k, n = shape
+    perm = _t(np.array([2, 0, 3, 1], np.int32))
+    tx = _t(rng.randn(P, m, k).astype(np.float32)).to(getattr(torch,
+                                                               dtypes[0]))
+    tw = _t(rng.randn(P, k, n).astype(np.float32)).to(getattr(torch,
+                                                               dtypes[1]))
+    for lhs in (False, True):
+        exp = K.perm_matmul(tx, tw, perm, lhs)
+        name = "gather_matmul" if lhs else "matmul_pack"
+        before = dict(KB.LAUNCHES)
+        dx, dw = tx.to(dev), tw.to(dev)
+        assert not K.perm_matmul_uses_wgmma(dx, dw, len(perm))
+        got = K.perm_matmul(dx, dw, perm.to(dev), lhs).cpu()
+        assert KB.LAUNCHES[name] == before[name] + 1
+        assert KB.LAUNCHES[name + "_wgmma"] == before[name + "_wgmma"]
+        assert got.dtype == exp.dtype == torch.float32
+        xs = R.row_blocks(tx.float(), perm) if lhs else tx.float()
+        lim = torch.matmul(xs.abs(), tw.float().abs()) * 2 * k * 2.0 ** -24
+        if not lhs:
+            lim = R.row_blocks(lim, perm)
+        assert bool(((got - exp).abs() <= lim).all())

@@ -304,6 +304,60 @@ def test_flash_wgmma_rule_needs_tma_strides():
     assert not FK.flash_uses_wgmma(q, wide, v)
 
 
+#: (d, itemsize, vector path) -> (threads, vectors a thread)
+RMS_LAUNCH = [
+    ((3072, 2, True), (128, 3)),      # the serve cell's rows, bf16
+    ((3072, 4, True), (256, 3)),
+    ((3080, 2, True), (160, 3)),
+    ((1, 4, False), (32, 1)),
+    ((7, 2, False), (32, 1)),
+    ((48, 2, True), (32, 1)),
+    ((48, 4, True), (32, 1)),
+    ((2048, 4, False), (512, 4)),     # the last row held in registers
+    ((2049, 4, False), (512, 0)),     # the loop over the row
+    ((16384, 2, True), (512, 4)),
+    ((16392, 2, True), (512, 0)),
+    ((RK.MAX_D, 2, True), (512, 0)),
+    ((RK.MAX_D, 4, True), (512, 0)),
+]
+
+
+@pytest.mark.parametrize("case,shape", RMS_LAUNCH,
+                         ids=[f"d{c[0]}-{c[1]}B-{'vec' if c[2] else 'elem'}"
+                              for c, _ in RMS_LAUNCH])
+def test_rmsnorm_launch_shape_cases(case, shape):
+    d, itemsize, vec = case
+    threads, vpt, grid = RK.launch_shape(1024, d, itemsize, vec, 1584)
+    assert (threads, vpt) == shape
+    assert grid == 1024
+    assert RK.launch_shape(10000, d, itemsize, vec, 1584)[2] == 1584
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_launch_shape_covers_every_d(dtype):
+    """Every d the wrapper takes, 0 < d <= MAX_D, in both dtypes, on the
+    vector path (d a multiple of 16 bytes) and element by element: a
+    block of 32 to MAX_THREADS threads (whole warps) whose threads hold 1 to
+    MAX_VPT vectors covering the row with less than one vector a thread
+    to spare, or the loop over the row once that would take more than
+    MAX_VPT; the grid is one wave or the rows, whichever is fewer."""
+    itemsize = torch.empty((), dtype=getattr(torch, dtype)).element_size()
+    per = 16 // itemsize
+    for vec in (True, False):
+        for d in (range(per, RK.MAX_D + 1, per) if vec
+                  else range(1, RK.MAX_D + 1)):
+            nv = d // per if vec else d
+            threads, vpt, grid = RK.launch_shape(7, d, itemsize, vec, 5)
+            assert threads % 32 == 0 and 32 <= threads <= RK.MAX_THREADS, d
+            assert grid == 5
+            if vpt:
+                assert 1 <= vpt <= RK.MAX_VPT, d
+                assert threads * (vpt - 1) < nv <= threads * vpt, d
+            else:
+                assert threads == RK.MAX_THREADS, d
+                assert nv > RK.MAX_THREADS * RK.MAX_VPT, d
+
+
 def test_every_kernel_source_is_built():
     """The build module finds one source per kernel file of every package
     (the smoke's build phase starts one nvcc for each)."""
@@ -347,9 +401,28 @@ def _bf16_ulp(x):
     return torch.pow(2.0, e - 7)
 
 
+def _rms_check(got, exp, dtype):
+    """float32 within rtol 1e-6, bf16 within one bf16 ulp."""
+    d = (got.float() - exp.float()).abs()
+    if dtype == "float32":
+        assert bool((d <= 1e-6 * exp.float().abs() + 1e-30).all()), \
+            float(d.max())
+    else:
+        assert bool((d <= _bf16_ulp(exp.float())).all()), float(d.max())
+
+
+#: beyond the reference's shapes: the serve cell's insert and decode rows,
+#: rows past one wave of blocks, d of one element and of 7 (no 16-byte
+#: vectors), d = 3072 + 8 (160 threads of 3 vectors in bf16), d = 4097,
+#: 16392 and MAX_D (the loop over the row, in both dtypes or in float32)
+RMS_CUDA_SHAPES = RMS_SHAPES + [(1024, 3072), (8, 3072), (10000, 3072),
+                                (3, 1), (5, 7), (16, 3080), (2, 4097),
+                                (3, 16392), (4, RK.MAX_D)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", RMS_SHAPES + [(1024, 3072), (8, 3072)],
+@pytest.mark.parametrize("shape", RMS_CUDA_SHAPES,
                          ids=lambda s: "x".join(map(str, s)))
 def test_cuda_rmsnorm_matches_plain(cuda_device, shape, dtype):
     x, w = _rms_inputs(shape)
@@ -357,14 +430,32 @@ def test_cuda_rmsnorm_matches_plain(cuda_device, shape, dtype):
     tx = torch.from_numpy(x).to(cuda_device, tdt)
     tw = torch.from_numpy(w).to(cuda_device, tdt)
     before = B.LAUNCHES["rmsnorm"]
-    got = RO.rmsnorm(tx, tw).float()
+    got = RO.rmsnorm(tx, tw)
     assert B.LAUNCHES["rmsnorm"] == before + 1
-    exp = RR.rmsnorm_ref(tx, tw).float()
-    d = (got - exp).abs()
-    if dtype == "float32":
-        assert bool((d <= 1e-6 * exp.abs() + 1e-30).all()), float(d.max())
-    else:
-        assert bool((d <= _bf16_ulp(exp)).all()), float(d.max())
+    _rms_check(got, RR.rmsnorm_ref(tx, tw), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(1024, 3072), (7, 48), (3, RK.MAX_D)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_cuda_rmsnorm_unaligned_view_matches_plain(cuda_device, shape,
+                                                   dtype):
+    """Contiguous views one element into their storage (x and w off 16
+    bytes) take the element-wise path and stay within the same bounds."""
+    x, w = _rms_inputs(shape)
+    tdt = getattr(torch, dtype)
+    n, d = shape
+    fx = torch.zeros(n * d + 1, dtype=tdt, device=cuda_device)
+    fw = torch.zeros(d + 1, dtype=tdt, device=cuda_device)
+    tx, tw = fx[1:].view(n, d), fw[1:]
+    tx.copy_(torch.from_numpy(x).to(tdt))
+    tw.copy_(torch.from_numpy(w).to(tdt))
+    assert tx.is_contiguous() and tx.data_ptr() % 16
+    before = B.LAUNCHES["rmsnorm"]
+    got = RO.rmsnorm(tx, tw)
+    assert B.LAUNCHES["rmsnorm"] == before + 1
+    _rms_check(got, RR.rmsnorm_ref(tx, tw), dtype)
 
 
 @pytest.mark.cuda
