@@ -11,7 +11,11 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
              its path's shapes, with its median time, the plain
              version's, a library call's where one computes the same
              function, and its bound: rs_step, ag_step, rs_step_q and
-             ring_update BITWISE (one 64 MiB f32 bucket at p=4), the
+             ring_update BITWISE (one 64 MiB f32 bucket at p=4; rs_step_q
+             also with NaN, inf, subnormal and FLT_MAX codec chunks in
+             the send half; their rows and qacc's add the kernel's own
+             device ms from torch.profiler, and the log each collectives
+             wrapper's host us per call), the
              matmul_pack / gather_matmul directions of perm_matmul within a
              bound stated from k (phi4-mini's tensor-parallel MLP shapes;
              float32 on the CUDA-core kernel, bf16 on the tensor-core
@@ -58,8 +62,11 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
              the run are 65 rmsnorm per insert and per decode step and 32
              flash_attention per insert, every one on the wgmma kernel,
              and request 0 alone in a 1-page pool gets the same first
-             token.  Prints prefill ms per insert, decode ms per step,
-             tokens/s, p50/p99 time to first token and peak memory.
+             token (the agreement of its later tokens, and which of one
+             decode step's ops differ between a row alone and in a batch
+             of 8, reported).  Prints prefill ms per insert, decode ms
+             per step, tokens/s, p50/p99 time to first token and peak
+             memory.
 
 Prints a ``kernels:`` summary, one JSON line of per-kernel numbers, the
 card's name and power limit, and as its last line
@@ -199,6 +206,7 @@ def phase_kernels(dev):
     from repro_torch.kernels.collectives import kernel as K
     from repro_torch.kernels.collectives import ref as R
     from repro_torch.launch import cell
+    from repro_torch.launch import profile_rmsnorm as PR
 
     p, n = cell.N_DP, 64 * MiB // 4       # one 64 MiB f32 bucket per rank
     h = n // 2
@@ -213,18 +221,26 @@ def phase_kernels(dev):
     rows = {}
 
     def row(name, err, kernel_fn, plain_fn, bound, bound_by,
-            library_fn=None, **extra):
+            library_fn=None, device=None, **extra):
+        """One kernels-line row; ``device``: the kernel's name (a
+        substring) whose own time under torch.profiler goes into
+        ``device_ms`` beside the host-inclusive ``ms``."""
         torch.cuda.synchronize()
         k_ms = time_ms(kernel_fn)
         plain_ms = time_ms(plain_fn)
         lib_ms = None if library_fn is None else time_ms(library_fn)
+        if device is not None:
+            extra["device_ms"] = PR.device_ms_per_call(kernel_fn, device)
         rows[name] = {"name": name, "route": "cuda", "source": SOURCE[name],
                       "replaces": REPLACES[name], "launches": 0,
                       "max_abs_err": err, "ms": k_ms, "plain_ms": plain_ms,
                       "bound_ms": bound, "bound_by": bound_by,
                       "library_ms": lib_ms, **extra}
-        log(f"  {name}: {ms(k_ms)} ms, plain {ms(plain_ms)} ms, bound "
-            f"{ms(bound)} ms ({bound_by}), library "
+        dev_note = ("" if device is None else
+                    f", device {ms(extra['device_ms'])} ms "
+                    f"({bound / extra['device_ms']:.0%} of the bound)")
+        log(f"  {name}: {ms(k_ms)} ms{dev_note}, plain {ms(plain_ms)} ms, "
+            f"bound {ms(bound)} ms ({bound_by}), library "
             f"{'none' if lib_ms is None else ms(lib_ms) + ' ms'}")
 
     def entry(name, kernel_fn, plain_fn, nbytes, variants):
@@ -236,7 +252,7 @@ def phase_kernels(dev):
         log(f"  {name}: bitwise OK ({1 + len(variants)} variants), "
             f"{nbytes / MiB:.0f} MiB moved")
         row(name, err, kernel_fn, plain_fn, nbytes / HBM_BYTES_PER_S * 1e3,
-            "bytes")
+            "bytes", device=name)
 
     # rs_step, f32 with the next send: reads the kept half and recv, writes
     # new and send
@@ -274,19 +290,38 @@ def phase_kernels(dev):
     rq2, rs2 = comp.quantize_wire(randn(p, h2))
     buf2 = randn(p, 2 * h2)
     # a NaN in one codec chunk and an infinity in another of both halves of
-    # both kept halves: whatever c and c_next, the send half holds both
-    bufn = buf.clone()
+    # both kept halves: whatever c and c_next, the send half holds both;
+    # likewise a chunk of subnormals (scale 2**-126) and one holding
+    # FLT_MAX (scale 2**122), with a zero payload so new keeps them
+    bufn, rqn = buf.clone(), rq.clone()
+    tiny, big = torch.finfo(torch.float32).tiny, torch.finfo(torch.float32).max
     for j in (5, h // 2 + 5, h + 5, h + h // 2 + 5):
         bufn[:, j], bufn[:, j + 256] = float("nan"), float("inf")
+        bufn[:, j + 507:j + 763] = tiny / 4 * torch.rand(p, 256, device=dev,
+                                                         generator=gen)
+        bufn[:, j + 763] = big
+        rqn[:, (j + 507) % h:(j + 764) % h] = 0
     entry("rs_step_q", lambda: K.rs_step_q(buf, rq, rs, c, cn),
           lambda: R.rs_step_ref_q(buf, rq, rs, c, cn),
           p * (4 * h + h + 4 * h // 256 + 4 * h + h // 2 + 4 * h // 2 // 256),
           [("no-send", lambda: K.rs_step_q(buf2, rq2, rs2, cn),
             lambda: R.rs_step_ref_q(buf2, rq2, rs2, cn)),
-           ("NaN/inf send", lambda: K.rs_step_q(bufn, rq, rs, c, cn),
-            lambda: R.rs_step_ref_q(bufn, rq, rs, c, cn))])
+           ("NaN/inf/subnormal/FLT_MAX send",
+            lambda: K.rs_step_q(bufn, rqn, rs, c, cn),
+            lambda: R.rs_step_ref_q(bufn, rqn, rs, c, cn))])
+    ss = R.rs_step_ref_q(bufn, rqn, rs, c, cn)[2]
+    check(bool((ss == 2.0 ** -126).any() and (ss == 2.0 ** 122).any()
+               and ss.isinf().any() and (ss == 1.0).any()),
+          "rs_step_q's edge chunks did not reach the send half")
+    # each collectives wrapper's host time, at the shapes above
+    kh = {"rs_step": lambda: K.rs_step(buf, recv, c, cn),
+          "ag_step": lambda: K.ag_step(a, b, c),
+          "rs_step_q": lambda: K.rs_step_q(buf, rq, rs, c, cn)}
+    for name, fn in kh.items():
+        log(f"  {name} wrapper: host {PR.host_us_per_call(fn, 100):.2f} us "
+            f"per call (100 calls, no sync)")
     del buf, recv, b16, r16, a, b, a16, b16_, qa, qb, rq, rs, rq2, rs2, buf2
-    del bufn
+    del bufn, rqn, ss, kh
     torch.cuda.empty_cache()
     phase_ring_update(dev, randn, entry, row)
     phase_perm_matmul(dev, randn, row)
@@ -298,11 +333,15 @@ def phase_ring_update(dev, randn, entry, row):
     """ring_update on one 64 MiB f32 bucket at p=4: v [4, 16 Mi] in place,
     b = 4 Mi, a different block per rank; accumulate with the next send
     (the reduce-scatter step), accumulate, write, and the same in bf16,
-    all BITWISE.  Library call: one ``index_put_(..., accumulate=True)``
-    over the ranks' blocks."""
+    all BITWISE.  The row is the accumulate with the next send, which no
+    library call computes (library none); the f32 and bf16 accumulates
+    without send are logged beside one ``index_put_(...,
+    accumulate=True)`` over the ranks' blocks, the same work, both with
+    their device times."""
     import torch
     from repro_torch.kernels.collectives import kernel as K
     from repro_torch.kernels.collectives import ref as R
+    from repro_torch.launch import profile_rmsnorm as PR
 
     p, n = 4, 64 * MiB // 4
     b = n // p
@@ -336,14 +375,18 @@ def phase_ring_update(dev, randn, entry, row):
     log(f"  ring_update: bitwise OK ({1 + len(variants)} variants)")
     rows_idx = (torch.arange(p, device=dev) * p + ridx.long())
     nbytes = 4 * p * b * 4          # block read + recv read + block + send
+    # no library call writes the next send beside the accumulate: the
+    # library time stands beside the f32 accumulate below, the same work
     row("ring_update", err,
         lambda: K.ring_update(v, recv, ridx, True, True),
         lambda: R.ring_update_ref(v, recv, ridx, True, True),
-        nbytes / HBM_BYTES_PER_S * 1e3, "bytes",
-        lambda: v.view(p * p, b).index_put_((rows_idx,), recv,
-                                             accumulate=True))
+        nbytes / HBM_BYTES_PER_S * 1e3, "bytes", device="ring_")
+    host_us = PR.host_us_per_call(
+        lambda: K.ring_update(v, recv, ridx, True, True), 100)
+    log(f"  ring_update wrapper: host {host_us:.2f} us per call (100 calls, "
+        f"no sync)")
     # every other variant: kernel, plain version, bound (and the library
-    # call where it computes the same function)
+    # call, beside its device time, where it computes the same function)
     for tag, vv, rr, acc, upd in (
             ("f32 accumulate", v, recv, True, False),
             ("f32 write", v, recv, False, False),
@@ -355,9 +398,12 @@ def phase_ring_update(dev, randn, entry, row):
         tp = time_ms(lambda: R.ring_update_ref(vv, rr, ridx, acc, upd))
         lib = ""
         if acc and not upd:
-            lib = ", library " + ms(time_ms(
-                lambda: vv.view(p * p, b).index_put_((rows_idx,), rr,
-                                                     accumulate=True))) + " ms"
+            lf = lambda: vv.view(p * p, b).index_put_((rows_idx,), rr,
+                                                      accumulate=True)
+            kd = PR.device_ms_per_call(
+                lambda: K.ring_update(vv, rr, ridx, acc, upd), "ring_")
+            lib = (f", device {ms(kd)} ms; library {ms(time_ms(lf))} ms, "
+                   f"device {ms(PR.device_ms_per_call(lf))} ms")
         log(f"    ring_update {tag}: {ms(t)} ms, plain {ms(tp)} ms, bound "
             f"{ms(nb / HBM_BYTES_PER_S * 1e3)} ms{lib}")
     del v, recv, v16, r16
@@ -376,6 +422,7 @@ def phase_perm_matmul(dev, randn, row):
     from repro_torch.kernels import build as KB
     from repro_torch.kernels.collectives import kernel as K
     from repro_torch.kernels.collectives import ref as R
+    from repro_torch.launch import profile_rmsnorm as PR
 
     perm = torch.tensor([2, 0, 3, 1], dtype=torch.int32, device=dev)
     for name, (p, m, k, n), lhs in (("matmul_pack", MM_RS, False),
@@ -417,6 +464,10 @@ def phase_perm_matmul(dev, randn, row):
                 lambda: plain(xd, wd, perm),
                 flops / (BF16_FLOPS if wgmma else F32_FLOPS) * 1e3,
                 "operations", lambda: torch.matmul(xd, wd))
+            host_us = PR.host_us_per_call(
+                lambda: K.perm_matmul(xd, wd, perm, lhs), 10)
+            log(f"  perm_matmul wrapper ({name}, {str(dt)[6:]}): host "
+                f"{host_us:.2f} us per call (10 calls, no sync)")
             del xd, wd
         del x, w
         torch.cuda.empty_cache()
@@ -590,7 +641,8 @@ def phase_serve_kernels(dev, randn, row):
     log("  qacc: bitwise OK (2 variants)")
     row("qacc", 0.0, lambda: QK.qacc_kernel(q, sc, acc),
         lambda: QR.dequant_accumulate_ref(q, sc, acc),
-        (C * chunk * 9 + 4 * C) / HBM_BYTES_PER_S * 1e3, "bytes")
+        (C * chunk * 9 + 4 * C) / HBM_BYTES_PER_S * 1e3, "bytes",
+        device="qacc")
     # the qdot op's path, counted
     recvs = [payload() for _ in range(4)]
     torch.cuda.synchronize()
@@ -1136,9 +1188,13 @@ def phase_serve(dev):
     request retires with its 32 tokens, every logit is finite, the launch
     counts are 65 rmsnorm per insert and per decode step and 32 flash
     attention per insert, and request 0 served alone in a 1-page pool gets
-    the same first token.  Returns the launch counts and the numbers."""
+    the same first token; reports how many of its later tokens agree, and
+    which of one decode step's ops give a row alone other bits than the
+    same row in a batch of 8.  Returns the launch counts and the
+    numbers."""
     import torch
     from repro_torch.kernels import build as KB
+    from repro_torch.kernels.rmsnorm import ops as RO
     from repro_torch.launch import cell
     from repro_torch.models import transformer as TF
     from repro_torch.serve import engine as E
@@ -1234,7 +1290,39 @@ def phase_serve(dev):
     log(f"  request 0 alone in a 1-page pool: same first token; "
         f"{agree}/{c.max_new - 1} later tokens agree (decode at batch 1 vs "
         f"8 may take other cuBLAS kernels: reported, not gated)")
-    del params, sched
+    # where batch 1 and batch 8 part: one decode step's ops on row 0 alone
+    # against row 0 of a batch of 8 (bf16 rows [8, 1, d_model], layer 0's
+    # weights): rmsnorm, every matmul of the layer and the head (cuBLAS),
+    # and the attention scores over a 1024-slot page (float32 einsum)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    dt = getattr(torch, cfg.dtype)
+    x = torch.randn((8, 1, cfg.d_model), generator=gen, device=dev).to(dt)
+    seg = params["segments"][0]
+    norm_same = torch.equal(RO.rmsnorm(x[:1], seg["ln1"][0]),
+                            RO.rmsnorm(x, seg["ln1"][0])[:1])
+    head = (params["embed"].t() if cfg.tie_embeddings
+            else params["lm_head"])
+    mats = {f"attn.{k}": seg["attn"][k][0] for k in ("wq", "wk", "wv", "wo")}
+    mats.update({f"mlp.{k}": seg["mlp"][k][0] for k in ("wi", "wg", "wo")})
+    mats["head"] = head
+    differ = {}
+    for name, w in mats.items():
+        xi = torch.randn((8, 1, w.shape[0]), generator=gen,
+                         device=dev).to(dt)
+        differ[name] = int((torch.matmul(xi[:1], w)
+                            != torch.matmul(xi, w)[:1]).sum())
+    nkv, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+    qg = torch.randn((8, 1, nkv, g, hd), generator=gen, device=dev)
+    ck = torch.randn((8, S, nkv, hd), generator=gen, device=dev)
+    sc = "btkgh,bskh->bkgs"
+    differ["attn scores"] = int((torch.einsum(sc, qg[:1], ck[:1])
+                                 != torch.einsum(sc, qg, ck)[:1]).sum())
+    nums["batch1_vs_8_rmsnorm_bitwise"] = norm_same
+    nums["batch1_vs_8_outputs_differ"] = differ
+    log(f"  row 0 alone vs in a batch of 8 ({cfg.dtype}, layer 0's "
+        f"weights): rmsnorm bitwise {'equal' if norm_same else 'DIFFERENT'}"
+        f"; outputs that differ: {differ}")
+    del params, sched, x, xi, seg, head, mats, qg, ck
     torch.cuda.empty_cache()
     return launches, nums
 

@@ -145,7 +145,13 @@ VP, LL, INT, FLOAT = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
 
 def on_cuda(*tensors) -> bool:
     """True when every tensor lies on CUDA, False when every one lies on
-    the CPU; anything else raises."""
+    the CPU; anything else raises.  The first argument is a tensor; the
+    card's case is tested first and cheaply, since a wrapper's host time
+    is part of its kernel's cost."""
+    d = tensors[0].get_device() if tensors[0].is_cuda else -1
+    if d >= 0 and all(t is None or (t.is_cuda and t.get_device() == d)
+                      for t in tensors):
+        return True
     kinds = {t.device.type for t in tensors if t is not None}
     if kinds == {"cpu"}:
         return False

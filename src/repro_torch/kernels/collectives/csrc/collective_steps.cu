@@ -16,10 +16,32 @@
 // next step's send half are written from the same registers, so neither
 // makes a separate round trip through device memory.
 //
+// rs_step and rs_step_q (TPU kernels 1 and 3) are laid out for the card's
+// memory system:
+// - rs_step moves 16-byte vectors (4 float32 or 8 bf16) of the kept half,
+//   recv, new and send, kUnroll of them a thread in flight: every load is
+//   issued before any add.  The send window starts at a whole vector when
+//   h/2 is a multiple of the lanes, so it is tested per vector.  Rows or
+//   pointers off that rule take the element-wise kernel.
+// - rs_step_q gives one warp to each 256-element codec chunk, 8
+//   consecutive elements a lane (two float4 of the kept half, one 8-byte
+//   int8 load, the chunk's one scale), and reduces the chunk's max-abs
+//   with shuffles alone.  The scale index is a shift (the codec chunk is
+//   a power of two); codec chunks under 8 elements take the element-wise
+//   kernel.  Quantizing multiplies by the scale's exact reciprocal.
+// - The wrapper sizes each grid to a few waves of resident blocks (the
+//   occupancy from repro_step_blocks_per_sm), and the loads stream
+//   (evict-first): at the train step's 64 MiB buckets nothing a call reads
+//   is read again from the 50 MB L2.
+//
 // Bitwise parity with the plain versions rests on: no fast-math flags
-// (IEEE division, no flush to zero), rintf rounding half to even as
-// torch.round does, and explicit __fadd_rn/__fmul_rn so the compiler
-// contracts nothing into an FMA.
+// (no flush to zero), rintf rounding half to even as torch.round does,
+// explicit __fadd_rn/__fmul_rn so the compiler contracts nothing into an
+// FMA, and a power-of-two scale: v * (1/scale) is then the same correctly
+// rounded number as v / scale (1/scale is exact for every scale the codec
+// makes, 2^-126 to 2^122, and is 0 for scale = inf, so NaN and inf give
+// what the division gives).  The chunk max is exact whatever the order of
+// its reduction.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -30,9 +52,14 @@ namespace {
 constexpr int kThreads = 256;
 constexpr long long kMaxBlocksX = 1LL << 20;
 
-// Codec chunk of the send half; the send variant of rs_step_q handles
-// exactly one chunk per block.
+// 16-byte vectors a thread of the rs_step vector kernel holds per stream
+// (kernel.py RS_UNROLL)
+constexpr int kUnroll = 4;
+
+// Codec chunk of the send half; rs_step_q's warp kernel gives each warp
+// one chunk of the row at a time, 8 elements a lane.
 constexpr int kWireChunk = 256;
+constexpr int kLaneElems = kWireChunk / 32;
 
 dim3 grid_for(long long n, long long p) {
   long long bx = (n + kThreads - 1) / kThreads;
@@ -61,15 +88,111 @@ __device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
 // ---------------------------------------------------------------------------
 // rs_step: new = buf[c*h : (c+1)*h] + recv (+ send = new[(1-c_next)*h/2 :+h/2])
 // Replaces repro/kernels/collectives/kernel.py:78 (rs_step_kernel).
-// bf16 adds are computed in f32 and rounded once to bf16, as torch does.
+// bf16 adds are computed in float32 and rounded once to bf16, as torch
+// does.
 // ---------------------------------------------------------------------------
 
+// Elements of T in one 16-byte vector.
 template <typename T>
-__global__ void rs_step_kernel(const T* __restrict__ buf,
-                               const T* __restrict__ recv,
-                               T* __restrict__ out, T* __restrict__ send,
-                               const int* __restrict__ c,
-                               const int* __restrict__ c_next, long long h) {
+struct Lanes {
+  static constexpr int n = 16 / sizeof(T);
+};
+
+// A 16-byte vector widened to float32 (bf16 -> float32 is exact: the bits
+// shifted into the high half), and narrowed back with one rounding.
+__device__ __forceinline__ void widen16(const uint4& u, float* f, float*) {
+  f[0] = __uint_as_float(u.x);
+  f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z);
+  f[3] = __uint_as_float(u.w);
+}
+__device__ __forceinline__ void widen16(const uint4& u, float* f,
+                                        __nv_bfloat16*) {
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    f[2 * k] = __uint_as_float(w[k] << 16);
+    f[2 * k + 1] = __uint_as_float(w[k] & 0xFFFF0000u);
+  }
+}
+__device__ __forceinline__ uint4 narrow16(const float* f, float*) {
+  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                    __float_as_uint(f[2]), __float_as_uint(f[3]));
+}
+__device__ __forceinline__ unsigned bf16_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+__device__ __forceinline__ uint4 narrow16(const float* f, __nv_bfloat16*) {
+  unsigned w[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    w[k] = bf16_bits(f[2 * k]) | (bf16_bits(f[2 * k + 1]) << 16);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// The vector kernel: h a multiple of Lanes<T>::n (and, with send, h/2
+// too), every pointer 16-byte aligned.  A block-iteration covers
+// kThreads * kUnroll vectors of the row, neighbouring threads on
+// neighbouring vectors.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+rs_step_vec_kernel(const T* __restrict__ buf, const T* __restrict__ recv,
+                   T* __restrict__ out, T* __restrict__ send,
+                   const int* __restrict__ c,
+                   const int* __restrict__ c_next, long long h) {
+  constexpr int L = Lanes<T>::n;
+  const long long r = blockIdx.y;
+  const long long nv = h / L;
+  const uint4* kept = reinterpret_cast<const uint4*>(
+      buf + r * 2 * h + static_cast<long long>(c[r]) * h);
+  const uint4* rv = reinterpret_cast<const uint4*>(recv + r * h);
+  uint4* o = reinterpret_cast<uint4*>(out + r * h);
+  const long long qv = nv / 2;       // the send window, in vectors
+  long long w0 = 0;
+  uint4* s = nullptr;
+  if (send != nullptr) {
+    w0 = static_cast<long long>(1 - c_next[r]) * qv;
+    s = reinterpret_cast<uint4*>(send + r * (h / 2));
+  }
+  const long long step = static_cast<long long>(gridDim.x) * kThreads *
+                         kUnroll;
+  for (long long i0 = static_cast<long long>(blockIdx.x) * kThreads *
+                          kUnroll + threadIdx.x;
+       i0 < nv; i0 += step) {
+    uint4 a[kUnroll], b[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {   // every load before any add
+      const long long i = i0 + u * kThreads;
+      if (i < nv) {
+        a[u] = __ldcs(kept + i);
+        b[u] = __ldcs(rv + i);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long i = i0 + u * kThreads;
+      if (i < nv) {
+        float x[L], y[L];
+        widen16(a[u], x, static_cast<T*>(nullptr));
+        widen16(b[u], y, static_cast<T*>(nullptr));
+#pragma unroll
+        for (int k = 0; k < L; ++k) x[k] = __fadd_rn(x[k], y[k]);
+        const uint4 v = narrow16(x, static_cast<T*>(nullptr));
+        o[i] = v;
+        if (s != nullptr && i >= w0 && i < w0 + qv) s[i - w0] = v;
+      }
+    }
+  }
+}
+
+// The element-wise kernel: any h, any alignment.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+rs_step_kernel(const T* __restrict__ buf, const T* __restrict__ recv,
+               T* __restrict__ out, T* __restrict__ send,
+               const int* __restrict__ c, const int* __restrict__ c_next,
+               long long h) {
   const long long r = blockIdx.y;
   const T* kept = buf + r * 2 * h + static_cast<long long>(c[r]) * h;
   const T* rv = recv + r * h;
@@ -91,10 +214,11 @@ __global__ void rs_step_kernel(const T* __restrict__ buf,
 template <typename T>
 int launch_rs_step(const void* buf, const void* recv, void* out, void* send,
                    const void* c, const void* c_next, long long p,
-                   long long h, void* stream) {
+                   long long h, int vec, int grid, void* stream) {
   if (p > 0 && h > 0) {
-    rs_step_kernel<T><<<grid_for(h, p), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+    const dim3 g(static_cast<unsigned>(grid), static_cast<unsigned>(p));
+    auto kernel = vec ? rs_step_vec_kernel<T> : rs_step_kernel<T>;
+    kernel<<<g, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(buf), static_cast<const T*>(recv),
         static_cast<T*>(out), static_cast<T*>(send),
         static_cast<const int*>(c), static_cast<const int*>(c_next), h);
@@ -153,73 +277,168 @@ __device__ __forceinline__ float nan_max(float a, float b) {
   return (a != a || b != b) ? __int_as_float(0x7FC00000) : fmaxf(a, b);
 }
 
-// clip(round(v), -127, 127) cast to int8, with NaN -> 0 as XLA's and the
-// plain version's float-to-int8 conversion give (fmaxf would clip it to
-// -127)
-__device__ __forceinline__ int8_t quantize(float v, float scale) {
-  const float r = rintf(__fdiv_rn(v, scale));
-  return r != r ? 0 : static_cast<int8_t>(fminf(fmaxf(r, -127.0f), 127.0f));
+// clip(round(v * inv), -127, 127) cast to int8, inv the exact reciprocal of
+// a power-of-two scale (v * inv is v / scale rounded once, see the
+// header), with NaN -> 0 as XLA's and the plain version's float-to-int8
+// conversion give (fmaxf would clip it to -127)
+__device__ __forceinline__ int quantize(float v, float inv) {
+  const float r = rintf(__fmul_rn(v, inv));
+  return r != r ? 0 : static_cast<int>(fminf(fmaxf(r, -127.0f), 127.0f));
 }
 
-__global__ void rs_step_q_kernel(const float* __restrict__ buf,
-                                 const int8_t* __restrict__ rq,
-                                 const float* __restrict__ rs,
-                                 float* __restrict__ out,
-                                 const int* __restrict__ c, long long h,
-                                 long long ch_r) {
+// The element-wise no-send kernel: codec chunks under 8 elements (odd or
+// small h), where a lane's 8 elements would straddle scales.
+__global__ void __launch_bounds__(kThreads)
+rs_step_q_scalar_kernel(const float* __restrict__ buf,
+                        const int8_t* __restrict__ rq,
+                        const float* __restrict__ rs,
+                        float* __restrict__ out,
+                        const int* __restrict__ c, long long h, int shift) {
   const long long r = blockIdx.y;
   const float* kept = buf + r * 2 * h + static_cast<long long>(c[r]) * h;
   const int8_t* q = rq + r * h;
-  const float* s = rs + r * (h / ch_r);
+  const float* s = rs + r * (h >> shift);
   float* o = out + r * h;
   for (long long j = first_index(); j < h; j += stride()) {
     o[j] = __fadd_rn(kept[j],
-                     __fmul_rn(static_cast<float>(q[j]), s[j / ch_r]));
+                     __fmul_rn(static_cast<float>(q[j]), s[j >> shift]));
   }
 }
 
-// One block of kWireChunk threads per 256-element chunk of the row, so the
-// max-abs reduction of a codec chunk stays inside the block (warp
-// shuffles, then shared memory).  Needs h % 512 == 0: the send half w = h/2
-// is then a whole number of chunks and every chunk lies wholly inside or
-// outside it.
-__global__ void rs_step_q_send_kernel(
-    const float* __restrict__ buf, const int8_t* __restrict__ rq,
-    const float* __restrict__ rs, float* __restrict__ out,
-    int8_t* __restrict__ sq, float* __restrict__ ss,
-    const int* __restrict__ c, const int* __restrict__ c_next, long long h,
-    long long ch_r) {
-  __shared__ float warp_max[kWireChunk / 32];
+// The warp kernel: codec chunks of 8 elements or more (so h % 8 == 0 and a
+// lane's 8 elements share one scale).  Each warp takes 256 elements of the
+// row at a time, kLaneElems consecutive ones a lane; VEC loads and stores
+// them as vectors (buf, out 16-byte and recv_q, send_q 8-byte aligned),
+// otherwise element by element in the same layout.  With SEND (h % 512 ==
+// 0, so the codec chunk is 256 and every warp's 256 elements are one
+// chunk, wholly inside or outside the send half) the warp also
+// re-quantizes its chunk when it lies in the send half: the max-abs by
+// shuffles, the scale, the 8 int8 of each lane in one 8-byte store.
+template <bool VEC, bool SEND>
+__global__ void __launch_bounds__(kThreads)
+rs_step_q_kernel(const float* __restrict__ buf,
+                 const int8_t* __restrict__ rq, const float* __restrict__ rs,
+                 float* __restrict__ out, int8_t* __restrict__ sq,
+                 float* __restrict__ ss, const int* __restrict__ c,
+                 const int* __restrict__ c_next, long long h, int shift) {
   const long long r = blockIdx.y;
   const float* kept = buf + r * 2 * h + static_cast<long long>(c[r]) * h;
   const int8_t* q = rq + r * h;
-  const float* s = rs + r * (h / ch_r);
+  const float* s = rs + r * (h >> shift);
   float* o = out + r * h;
-  const long long w = h / 2;
-  const long long w0 = static_cast<long long>(1 - c_next[r]) * w;
-  int8_t* oq = sq + r * w;
-  float* os = ss + r * (w / kWireChunk);
-  const long long n_chunks = h / kWireChunk;
-  for (long long b = blockIdx.x; b < n_chunks; b += gridDim.x) {
-    const long long base = b * kWireChunk;
-    const long long j = base + threadIdx.x;
-    const float v = __fadd_rn(kept[j],
-                              __fmul_rn(static_cast<float>(q[j]), s[j / ch_r]));
-    o[j] = v;
-    if (base >= w0 && base < w0 + w) {  // uniform across the block
-      float a = fabsf(v);
-      for (int off = 16; off > 0; off >>= 1) {
-        a = nan_max(a, __shfl_xor_sync(0xffffffffu, a, off));
+  long long w = 0, w0 = 0;
+  int8_t* oq = nullptr;
+  float* os = nullptr;
+  if constexpr (SEND) {
+    w = h / 2;
+    w0 = static_cast<long long>(1 - c_next[r]) * w;
+    oq = sq + r * w;
+    os = ss + r * (w / kWireChunk);
+  }
+  const int lane = threadIdx.x & 31;
+  const long long warp =
+      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
+  const long long warps = (static_cast<long long>(gridDim.x) * kThreads) >> 5;
+  for (long long base = warp * kWireChunk; base < h;
+       base += warps * kWireChunk) {
+    const long long j = base + lane * kLaneElems;
+    float v[kLaneElems] = {};
+    if (j < h) {   // h % 8 == 0: a lane's elements lie wholly in the row
+      float k[kLaneElems];
+      int qi[kLaneElems];
+      if constexpr (VEC) {
+        const float4 k0 = __ldcs(reinterpret_cast<const float4*>(kept + j));
+        const float4 k1 =
+            __ldcs(reinterpret_cast<const float4*>(kept + j + 4));
+        const uint2 qw = __ldcs(reinterpret_cast<const uint2*>(q + j));
+        k[0] = k0.x; k[1] = k0.y; k[2] = k0.z; k[3] = k0.w;
+        k[4] = k1.x; k[5] = k1.y; k[6] = k1.z; k[7] = k1.w;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          qi[e] = static_cast<int8_t>(qw.x >> (8 * e));
+          qi[e + 4] = static_cast<int8_t>(qw.y >> (8 * e));
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < kLaneElems; ++e) {
+          k[e] = kept[j + e];
+          qi[e] = q[j + e];
+        }
       }
-      if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = a;
-      __syncthreads();
-      float m = warp_max[0];
-      for (int k = 1; k < kWireChunk / 32; ++k) m = nan_max(m, warp_max[k]);
-      __syncthreads();  // warp_max is reused by the next chunk
-      const float scale = pow2_scale(__fdiv_rn(m, 127.0f));
-      oq[j - w0] = quantize(v, scale);
-      if (threadIdx.x == 0) os[(base - w0) / kWireChunk] = scale;
+      const float sc = s[j >> shift];
+#pragma unroll
+      for (int e = 0; e < kLaneElems; ++e) {
+        v[e] = __fadd_rn(k[e], __fmul_rn(static_cast<float>(qi[e]), sc));
+      }
+      if constexpr (VEC) {
+        reinterpret_cast<float4*>(o + j)[0] =
+            make_float4(v[0], v[1], v[2], v[3]);
+        reinterpret_cast<float4*>(o + j)[1] =
+            make_float4(v[4], v[5], v[6], v[7]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < kLaneElems; ++e) o[j + e] = v[e];
+      }
     }
+    if constexpr (SEND) {
+      if (base >= w0 && base < w0 + w) {  // uniform across the warp
+        float a = fabsf(v[0]);
+#pragma unroll
+        for (int e = 1; e < kLaneElems; ++e) a = nan_max(a, fabsf(v[e]));
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+          a = nan_max(a, __shfl_xor_sync(0xffffffffu, a, off));
+        }
+        const float scale = pow2_scale(__fdiv_rn(a, 127.0f));
+        const float inv = __frcp_rn(scale);
+        int8_t* dst = oq + (j - w0);
+        if constexpr (VEC) {
+          unsigned lo = 0, hi = 0;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            lo |= (static_cast<unsigned>(quantize(v[e], inv)) & 0xFFu)
+                  << (8 * e);
+            hi |= (static_cast<unsigned>(quantize(v[e + 4], inv)) & 0xFFu)
+                  << (8 * e);
+          }
+          *reinterpret_cast<uint2*>(dst) = make_uint2(lo, hi);
+        } else {
+#pragma unroll
+          for (int e = 0; e < kLaneElems; ++e) {
+            dst[e] = static_cast<int8_t>(quantize(v[e], inv));
+          }
+        }
+        if (lane == 0) os[(base - w0) / kWireChunk] = scale;
+      }
+    }
+  }
+}
+
+template <bool VEC, bool SEND>
+void launch_q(dim3 g, cudaStream_t st, const float* b, const int8_t* q,
+              const float* s, float* o, void* sq, void* ss, const void* c,
+              const void* c_next, long long h, int shift) {
+  rs_step_q_kernel<VEC, SEND><<<g, kThreads, 0, st>>>(
+      b, q, s, o, static_cast<int8_t*>(sq), static_cast<float*>(ss),
+      static_cast<const int*>(c), static_cast<const int*>(c_next), h, shift);
+}
+
+// Kernel ids of repro_step_blocks_per_sm (kernel.py _KERNEL_ID).
+const void* step_kernel(int id) {
+  switch (id) {
+    case 0: return reinterpret_cast<const void*>(rs_step_vec_kernel<float>);
+    case 1:
+      return reinterpret_cast<const void*>(rs_step_vec_kernel<__nv_bfloat16>);
+    case 2: return reinterpret_cast<const void*>(rs_step_kernel<float>);
+    case 3:
+      return reinterpret_cast<const void*>(rs_step_kernel<__nv_bfloat16>);
+    case 4: return reinterpret_cast<const void*>(rs_step_q_kernel<true, false>);
+    case 5: return reinterpret_cast<const void*>(rs_step_q_kernel<true, true>);
+    case 6:
+      return reinterpret_cast<const void*>(rs_step_q_kernel<false, false>);
+    case 7: return reinterpret_cast<const void*>(rs_step_q_kernel<false, true>);
+    case 8: return reinterpret_cast<const void*>(rs_step_q_scalar_kernel);
+    default: return nullptr;
   }
 }
 
@@ -227,17 +446,22 @@ __global__ void rs_step_q_send_kernel(
 
 extern "C" {
 
+// vec selects the 16-byte vector kernel (the wrapper's rs_step_uses_vectors
+// checks h and the alignment); grid: blocks a rank (blockIdx.x).
 int repro_rs_step_f32(const void* buf, const void* recv, void* out,
                       void* send, const void* c, const void* c_next,
-                      long long p, long long h, void* stream) {
-  return launch_rs_step<float>(buf, recv, out, send, c, c_next, p, h, stream);
+                      long long p, long long h, int vec, int grid,
+                      void* stream) {
+  return launch_rs_step<float>(buf, recv, out, send, c, c_next, p, h, vec,
+                               grid, stream);
 }
 
 int repro_rs_step_bf16(const void* buf, const void* recv, void* out,
                        void* send, const void* c, const void* c_next,
-                       long long p, long long h, void* stream) {
+                       long long p, long long h, int vec, int grid,
+                       void* stream) {
   return launch_rs_step<__nv_bfloat16>(buf, recv, out, send, c, c_next, p, h,
-                                       stream);
+                                       vec, grid, stream);
 }
 
 int repro_ag_step(const void* buf, const void* recv, void* out,
@@ -262,31 +486,51 @@ int repro_ag_step(const void* buf, const void* recv, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// shift = log2(the codec chunk of recv); path: 0 the warp kernel with
+// vectors, 1 the warp kernel element by element, 2 the element-wise kernel
+// (no send); send_q non-null selects the send variant (h % 512 == 0, a
+// warp path); grid: blocks a rank.
 int repro_rs_step_q(const void* buf, const void* recv_q, const void* recv_s,
                     void* out, void* send_q, void* send_s, const void* c,
-                    const void* c_next, long long p, long long h,
-                    long long ch_r, void* stream) {
+                    const void* c_next, long long p, long long h, int shift,
+                    int path, int grid, void* stream) {
   if (p > 0 && h > 0) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const dim3 g(static_cast<unsigned>(grid), static_cast<unsigned>(p));
     const float* b = static_cast<const float*>(buf);
     const int8_t* q = static_cast<const int8_t*>(recv_q);
     const float* s = static_cast<const float*>(recv_s);
     float* o = static_cast<float*>(out);
-    if (send_q == nullptr) {
-      rs_step_q_kernel<<<grid_for(h, p), kThreads, 0, st>>>(
-          b, q, s, o, static_cast<const int*>(c), h, ch_r);
+    const bool send = send_q != nullptr;
+    if (path == 2 && !send) {
+      rs_step_q_scalar_kernel<<<g, kThreads, 0, st>>>(
+          b, q, s, o, static_cast<const int*>(c), h, shift);
+    } else if (path == 0 && send) {
+      launch_q<true, true>(g, st, b, q, s, o, send_q, send_s, c, c_next, h,
+                           shift);
+    } else if (path == 0) {
+      launch_q<true, false>(g, st, b, q, s, o, send_q, send_s, c, c_next, h,
+                            shift);
+    } else if (path == 1 && send) {
+      launch_q<false, true>(g, st, b, q, s, o, send_q, send_s, c, c_next, h,
+                            shift);
+    } else if (path == 1) {
+      launch_q<false, false>(g, st, b, q, s, o, send_q, send_s, c, c_next, h,
+                             shift);
     } else {
-      long long bx = h / kWireChunk;
-      if (bx > kMaxBlocksX) bx = kMaxBlocksX;
-      rs_step_q_send_kernel<<<dim3(static_cast<unsigned>(bx),
-                                   static_cast<unsigned>(p)),
-                              kWireChunk, 0, st>>>(
-          b, q, s, o, static_cast<int8_t*>(send_q),
-          static_cast<float*>(send_s), static_cast<const int*>(c),
-          static_cast<const int*>(c_next), h, ch_r);
+      return static_cast<int>(cudaErrorInvalidValue);
     }
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// *blocks = resident blocks of kernel `id` (step_kernel) per SM at
+// kThreads a block; the wrapper's grids span RS_WAVES such waves.
+int repro_step_blocks_per_sm(int id, int* blocks) {
+  const void* fn = step_kernel(id);
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, kThreads, 0));
 }
 
 }  // extern "C"

@@ -22,6 +22,7 @@ kernel launches in ``build.LAUNCHES``.
 
 from __future__ import annotations
 
+import ctypes
 from pathlib import Path
 
 import torch
@@ -38,10 +39,11 @@ _VP, _LL, _INT = B.VP, B.LL, B.INT
 #: source -> C entry point -> argument types (each returns a cudaError_t)
 _SIGNATURES = {
     "collective_steps.cu": {
-        "repro_rs_step_f32": [_VP] * 6 + [_LL, _LL, _VP],
-        "repro_rs_step_bf16": [_VP] * 6 + [_LL, _LL, _VP],
+        "repro_rs_step_f32": [_VP] * 6 + [_LL, _LL, _INT, _INT, _VP],
+        "repro_rs_step_bf16": [_VP] * 6 + [_LL, _LL, _INT, _INT, _VP],
         "repro_ag_step": [_VP] * 4 + [_LL, _LL, _LL, _VP],
-        "repro_rs_step_q": [_VP] * 8 + [_LL, _LL, _LL, _VP],
+        "repro_rs_step_q": [_VP] * 8 + [_LL, _LL] + [_INT] * 3 + [_VP],
+        "repro_step_blocks_per_sm": [_INT, ctypes.POINTER(ctypes.c_int)],
     },
     "ring_update.cu": {
         "repro_ring_acc_f32": [_VP] * 4 + [_LL, _LL, _LL, _VP],
@@ -60,9 +62,95 @@ def _lib(source: str = "collective_steps.cu"):
 
 
 def _check_bits(c: torch.Tensor, p: int, name: str) -> None:
-    B.check(c.dtype == torch.int32 and c.shape == (p,) and c.is_contiguous(),
-           f"{name} must be a contiguous int32 [p={p}] tensor, got "
-           f"{c.dtype} {tuple(c.shape)}")
+    if not (c.dtype == torch.int32 and c.dim() == 1 and c.shape[0] == p
+            and c.is_contiguous()):
+        raise ValueError(f"{name} must be a contiguous int32 [p={p}] tensor, "
+                         f"got {c.dtype} {tuple(c.shape)}")
+
+
+# ---------------------------------------------------------------------------
+# Launch rules of rs_step and rs_step_q
+# ---------------------------------------------------------------------------
+
+#: threads a block of every step kernel (``collective_steps.cu`` kThreads)
+STEP_THREADS = 256
+#: 16-byte vectors a thread of rs_step's vector kernel holds per stream
+#: (kUnroll)
+RS_UNROLL = 4
+#: waves of resident blocks (blocks per SM x SMs) a grid spans at most
+RS_WAVES = 2
+#: elements a warp of rs_step_q's warp kernel takes at a time: one codec
+#: chunk, 8 a lane
+Q_WARP_ELEMS = 256
+#: the smallest codec chunk the warp kernel takes (a lane's 8 elements)
+Q_LANE_ELEMS = 8
+
+#: kernel -> id of ``repro_step_blocks_per_sm`` (``step_kernel`` in the
+#: source): rs_step (dtype, vector kernel); rs_step_q (path, send)
+_KERNEL_ID = {
+    ("rs", torch.float32, True): 0, ("rs", torch.bfloat16, True): 1,
+    ("rs", torch.float32, False): 2, ("rs", torch.bfloat16, False): 3,
+    ("q", 0, False): 4, ("q", 0, True): 5, ("q", 1, False): 6,
+    ("q", 1, True): 7, ("q", 2, False): 8,
+}
+#: (kernel key, device index) -> resident blocks per SM x SMs
+_WAVES: dict = {}
+#: call key -> launch shape, for each wrapper
+_RS_PLANS: dict = {}
+_Q_PLANS: dict = {}
+
+
+def step_grid(p: int, units: int, per_block: int, wave: int) -> int:
+    """Blocks a rank (grid.x) for ``p`` rows of ``units`` work units, a
+    block covering ``per_block`` units an iteration of its grid-stride
+    loop: enough to cover a row in one iteration, at most ``RS_WAVES``
+    waves of ``wave`` resident blocks over all p rows, at least 1."""
+    need = -(-units // per_block)
+    cap = -(-RS_WAVES * wave // max(p, 1))
+    return max(1, min(need, cap))
+
+
+def rs_step_launch(p: int, h: int, itemsize: int, send: bool,
+                   aligned: bool, wave: int):
+    """rs_step's launch of ``p`` rows of ``h`` elements of ``itemsize``
+    bytes: ``(vec, grid)``.  The vector kernel (16-byte vectors, RS_UNROLL
+    a thread in flight) takes rows whose h, and with ``send`` whose h/2,
+    is a multiple of the vector's lanes, when every pointer is 16-byte
+    ``aligned``; the element-wise kernel takes the rest."""
+    lanes = 16 // itemsize
+    vec = aligned and h % lanes == 0 and (not send or (h // 2) % lanes == 0)
+    if vec:
+        return True, step_grid(p, h // lanes, STEP_THREADS * RS_UNROLL, wave)
+    return False, step_grid(p, h, STEP_THREADS, wave)
+
+
+def rs_step_q_launch(p: int, h: int, aligned: bool, wave: int):
+    """rs_step_q's launch of ``p`` rows of ``h`` elements: ``(path,
+    shift, grid)``.  ``shift`` is log2 of the codec chunk
+    ``wire_chunk(h)`` (a power of two).  Path 0, the warp kernel with
+    vectors, takes chunks of at least ``Q_LANE_ELEMS`` when buf is 16-byte
+    and recv_q 8-byte ``aligned``; path 1, the warp kernel element by
+    element, those chunks otherwise; path 2, the element-wise kernel,
+    smaller chunks (no send: the send variant's h % 512 == 0 makes the
+    chunk 256)."""
+    ch_r = comp.wire_chunk(h)
+    shift = ch_r.bit_length() - 1
+    if ch_r < Q_LANE_ELEMS:
+        return 2, shift, step_grid(p, h, STEP_THREADS, wave)
+    per_block = STEP_THREADS // 32 * Q_WARP_ELEMS
+    return (0 if aligned else 1), shift, step_grid(p, h, per_block, wave)
+
+
+def _wave(kernel, dev: int) -> int:
+    wave = _WAVES.get((kernel, dev))
+    if wave is None:
+        blocks = ctypes.c_int(0)
+        B.raise_on(_lib().repro_step_blocks_per_sm(_KERNEL_ID[kernel],
+                                                   ctypes.byref(blocks)),
+                   "step kernel occupancy")
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        wave = _WAVES[(kernel, dev)] = max(1, blocks.value) * sms
+    return wave
 
 
 # ---------------------------------------------------------------------------
@@ -71,27 +159,51 @@ def _check_bits(c: torch.Tensor, p: int, name: str) -> None:
 
 def rs_step(buf, recv, c, c_next=None):
     """``buf [p, 2h]``, ``recv [p, h]`` (f32 or bf16) -> ``new [p, h]``, plus
-    ``send [p, h/2]`` when ``c_next`` is given.  See ``ref.rs_step_ref``."""
+    ``send [p, h/2]`` when ``c_next`` is given.  See ``ref.rs_step_ref``.
+    The launch (``rs_step_launch``) is cached per shape, dtype, variant,
+    alignment and device; check messages are built only on failure."""
     if not B.on_cuda(buf, recv, c, c_next):
         return R.rs_step_ref(buf, recv, c, c_next)
+    dtype = buf.dtype
+    if not ((dtype == torch.float32 or dtype == torch.bfloat16)
+            and recv.dtype == dtype):
+        raise ValueError(f"rs_step takes float32 or bfloat16 buf and recv of "
+                         f"one dtype, got {dtype}, {recv.dtype}")
+    if not (recv.dim() == 2 and buf.dim() == 2
+            and buf.shape[0] == recv.shape[0]
+            and buf.shape[1] == 2 * recv.shape[1]):
+        raise ValueError(f"rs_step needs buf [p, 2h] and recv [p, h], got "
+                         f"{tuple(buf.shape)} and {tuple(recv.shape)}")
+    if not (buf.is_contiguous() and recv.is_contiguous()):
+        raise ValueError("rs_step needs contiguous buf and recv")
     p, h = recv.shape
-    B.check(buf.dtype in (torch.float32, torch.bfloat16),
-           f"rs_step takes float32 or bfloat16, got {buf.dtype}")
-    B.check(recv.dtype == buf.dtype, "buf and recv dtypes differ")
-    B.check(buf.shape == (p, 2 * h), f"buf {tuple(buf.shape)} != [p, 2h]")
-    B.check(buf.is_contiguous() and recv.is_contiguous(),
-           "rs_step needs contiguous buf and recv")
     _check_bits(c, p, "c")
-    out = torch.empty_like(recv)
-    send = None
-    if c_next is not None:
-        B.check(h % 2 == 0, f"rs_step with c_next needs even h, got {h}")
+    send_on = c_next is not None
+    if send_on:
+        if h % 2:
+            raise ValueError(f"rs_step with c_next needs even h, got {h}")
         _check_bits(c_next, p, "c_next")
-        send = torch.empty((p, h // 2), dtype=buf.dtype, device=buf.device)
-    fn = (_lib().repro_rs_step_f32 if buf.dtype == torch.float32
-          else _lib().repro_rs_step_bf16)
-    B.raise_on(fn(buf.data_ptr(), recv.data_ptr(), out.data_ptr(), B.ptr(send),
-                 c.data_ptr(), B.ptr(c_next), p, h, B.stream(buf)), "rs_step")
+    out = torch.empty_like(recv)
+    send = (torch.empty((p, h // 2), dtype=dtype, device=buf.device)
+            if send_on else None)
+    bp, rp = buf.data_ptr(), recv.data_ptr()
+    aligned = (bp | rp) & 15 == 0       # out and send are fresh: aligned
+    dev = buf.get_device()
+    key = (p, h, dtype, send_on, aligned, dev)
+    plan = _RS_PLANS.get(key)
+    if plan is None:
+        if p >= 2 ** 16:
+            raise ValueError(f"rs_step takes fewer than 2**16 ranks, got {p}")
+        vec, _ = rs_step_launch(p, h, buf.element_size(), send_on, aligned, 1)
+        wave = _wave(("rs", dtype, vec), dev)
+        plan = _RS_PLANS[key] = rs_step_launch(p, h, buf.element_size(),
+                                               send_on, aligned, wave)
+    lib = _lib()
+    fn = lib.repro_rs_step_f32 if dtype == torch.float32 \
+        else lib.repro_rs_step_bf16
+    B.raise_on(fn(bp, rp, out.data_ptr(), B.ptr(send), c.data_ptr(),
+                  B.ptr(c_next), p, h, plan[0], plan[1], B.stream(buf)),
+               "rs_step")
     B.LAUNCHES["rs_step"] += 1
     return out if send is None else (out, send)
 
@@ -123,33 +235,54 @@ def rs_step_q(buf, recv_q, recv_s, c, c_next=None):
     ``recv_s [p, h / wire_chunk(h)]`` f32 -> ``new [p, h]`` f32, plus the
     re-quantized next send ``(q [p, h/2] int8, s [p, h/512] f32)`` when
     ``c_next`` is given (that variant needs ``h % 512 == 0``).  See
-    ``ref.rs_step_ref_q``."""
+    ``ref.rs_step_ref_q``.  The launch (``rs_step_q_launch``) is cached
+    per shape, variant, alignment and device; check messages are built
+    only on failure."""
     if not B.on_cuda(buf, recv_q, recv_s, c, c_next):
         return R.rs_step_ref_q(buf, recv_q, recv_s, c, c_next)
-    p, h = recv_q.shape
-    ch_r = comp.wire_chunk(h)
-    B.check(buf.dtype == torch.float32 and recv_q.dtype == torch.int8
-           and recv_s.dtype == torch.float32,
-           "rs_step_q takes float32 buf, int8 recv_q, float32 recv_s")
-    B.check(buf.shape == (p, 2 * h) and recv_s.shape == (p, h // ch_r),
-           f"rs_step_q shapes: buf {tuple(buf.shape)}, recv_q "
-           f"{tuple(recv_q.shape)}, recv_s {tuple(recv_s.shape)}")
-    B.check(all(t.is_contiguous() for t in (buf, recv_q, recv_s)),
-           "rs_step_q needs contiguous inputs")
+    if not (buf.dtype == torch.float32 and recv_q.dtype == torch.int8
+            and recv_s.dtype == torch.float32):
+        raise ValueError("rs_step_q takes float32 buf, int8 recv_q, float32 "
+                         f"recv_s, got {buf.dtype}, {recv_q.dtype}, "
+                         f"{recv_s.dtype}")
+    p, h = recv_q.shape if recv_q.dim() == 2 else (-1, -1)
+    if not (buf.shape == (p, 2 * h)
+            and recv_s.shape == (p, h // comp.wire_chunk(h))):
+        raise ValueError(f"rs_step_q shapes: buf {tuple(buf.shape)}, recv_q "
+                         f"{tuple(recv_q.shape)}, recv_s "
+                         f"{tuple(recv_s.shape)}")
+    if not (buf.is_contiguous() and recv_q.is_contiguous()
+            and recv_s.is_contiguous()):
+        raise ValueError("rs_step_q needs contiguous inputs")
     _check_bits(c, p, "c")
+    send_on = c_next is not None
+    if send_on:
+        if h % (2 * comp.WIRE_CHUNK):
+            raise ValueError(f"rs_step_q send variant needs h % 512 == 0, "
+                             f"got {h}")
+        _check_bits(c_next, p, "c_next")
+    dev = buf.get_device()
     out = torch.empty((p, h), dtype=torch.float32, device=buf.device)
     sq = ss = None
-    if c_next is not None:
-        B.check(h % (2 * comp.WIRE_CHUNK) == 0,
-               f"rs_step_q send variant needs h % 512 == 0, got {h}")
-        _check_bits(c_next, p, "c_next")
+    if send_on:
         w = h // 2
         sq = torch.empty((p, w), dtype=torch.int8, device=buf.device)
         ss = torch.empty((p, w // comp.WIRE_CHUNK), dtype=torch.float32,
                          device=buf.device)
+    bp, qp = buf.data_ptr(), recv_q.data_ptr()
+    aligned = bp & 15 == 0 and qp & 7 == 0     # out and send are fresh
+    key = (p, h, send_on, aligned, dev)
+    plan = _Q_PLANS.get(key)
+    if plan is None:
+        if p >= 2 ** 16:
+            raise ValueError(f"rs_step_q takes fewer than 2**16 ranks, got "
+                             f"{p}")
+        path = rs_step_q_launch(p, h, aligned, 1)[0]
+        plan = _Q_PLANS[key] = rs_step_q_launch(
+            p, h, aligned, _wave(("q", path, send_on), dev))
     B.raise_on(_lib().repro_rs_step_q(
-        buf.data_ptr(), recv_q.data_ptr(), recv_s.data_ptr(), out.data_ptr(),
-        B.ptr(sq), B.ptr(ss), c.data_ptr(), B.ptr(c_next), p, h, ch_r,
+        bp, qp, recv_s.data_ptr(), out.data_ptr(), B.ptr(sq), B.ptr(ss),
+        c.data_ptr(), B.ptr(c_next), p, h, plan[1], plan[0], plan[2],
         B.stream(buf)), "rs_step_q")
     B.LAUNCHES["rs_step_q"] += 1
     return out if sq is None else (out, sq, ss)

@@ -15,10 +15,14 @@
 // the reduction, and w read again for every row.  This design:
 //
 // - The row stays in registers.  A thread holds VPT vectors of 16 bytes
-//   (8 bf16 or 4 float32; 1 element where d or an address is not 16-byte
-//   aligned) and issues all of its loads before any arithmetic: at bf16
-//   d = 3072 a 128-thread block holds the row as 3 vectors a thread, so
-//   the whole 6 KB row is in flight at once.
+//   (8 bf16 or 4 float32; 1 element where d is not a multiple of those)
+//   and issues all of its loads before any arithmetic: at bf16 d = 3072 a
+//   128-thread block holds the row as 3 vectors a thread, so the whole
+//   6 KB row is in flight at once.  Where an address is not 16-byte
+//   aligned the same vectors are read element by element: a row's sum is
+//   taken in one order whatever its alignment, and (one block a row, the
+//   launch shape a function of d alone) whatever the batch, so a row's
+//   bits are the same alone or in any batch.
 // - w is loaded once per block into registers (VPT vectors, kept packed)
 //   and reused for every row the block walks.
 // - One barrier per row: each warp reduces its sum of squares by shuffle,
@@ -51,7 +55,7 @@
 // a bf16 output to one bf16 ulp.  No fast math.
 //
 // Registers and occupancy (nvcc -Xptxas -v, sm_90a): no instance spills;
-// 26 to 124 registers.  The serve cell's instance (bf16, 8-wide vectors,
+// 26 to 126 registers.  The serve cell's instance (bf16, 8-wide vectors,
 // VPT 3, 128 threads) takes 95, so 5 blocks an SM: a wave of 660 blocks
 // for the insert's 1024 rows.  Capping it at 64 registers (two 512-thread
 // blocks an SM) made it spill 88 bytes and run slower.
@@ -123,9 +127,36 @@ __device__ __forceinline__ void widen(const Pack<T, VEC>& p, float* xf) {
   for (int j = 0; j < VEC; ++j) xf[j] = to_f(p.v[j]);
 }
 
+// Vector i of a row: one 16-byte access when ALIGNED, else VEC element
+// accesses into the same registers (a view off 16 bytes), so both give the
+// row the same threads, the same partial sums and the same bits.
+template <typename T, int VEC, bool ALIGNED>
+__device__ __forceinline__ Pack<T, VEC> load_pack(const T* p, int i) {
+  if constexpr (ALIGNED) {
+    return reinterpret_cast<const Pack<T, VEC>*>(p)[i];
+  } else {
+    Pack<T, VEC> out;
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) out.v[j] = p[i * VEC + j];
+    return out;
+  }
+}
+
+template <typename T, int VEC, bool ALIGNED>
+__device__ __forceinline__ void store_pack(T* p, int i,
+                                           const Pack<T, VEC>& v) {
+  if constexpr (ALIGNED) {
+    reinterpret_cast<Pack<T, VEC>*>(p)[i] = v;
+  } else {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) p[i * VEC + j] = v.v[j];
+  }
+}
+
 // VPT > 0: the row in registers, VPT vectors a thread; VPT == 0: the loop
-// over the row in two passes (rows beyond the register budget).
-template <typename T, int VEC, int VPT>
+// over the row in two passes (rows beyond the register budget).  ALIGNED:
+// x, w and y are 16-byte aligned (see load_pack).
+template <typename T, int VEC, int VPT, bool ALIGNED>
 __global__ void __launch_bounds__(kMaxThreads)
 rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ w,
                T* __restrict__ y, long long n, int d, float eps) {
@@ -134,15 +165,14 @@ rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int nv = d / VEC;            // VEC divides d (the wrapper's rule)
   const int t = threadIdx.x;
   const float inv_d = 1.0f / static_cast<float>(d);
-  const P* wv = reinterpret_cast<const P*>(w);
   int par = 0;
 
   if constexpr (VPT == 0) {
     for (long long row = blockIdx.x; row < n; row += gridDim.x, par ^= 1) {
-      const P* xv = reinterpret_cast<const P*>(x + row * d);
+      const T* xr = x + row * d;
       float ss = 0.0f;
       for (int i = t; i < nv; i += blockDim.x) {
-        const P xs = xv[i];
+        const P xs = load_pack<T, VEC, ALIGNED>(xr, i);
 #pragma unroll
         for (int j = 0; j < VEC; ++j) {
           const float f = to_f(xs.v[j]);
@@ -151,11 +181,12 @@ rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ w,
       }
       const float tot = block_sum(ss, part, par);
       const float r = rsqrtf(__fadd_rn(__fmul_rn(tot, inv_d), eps));
-      P* yv = reinterpret_cast<P*>(y + row * d);
+      T* yr = y + row * d;
       for (int i = t; i < nv; i += blockDim.x) {
         float xf[VEC];
-        widen(xv[i], xf);
-        yv[i] = scale(xf, wv[i], r);
+        widen(load_pack<T, VEC, ALIGNED>(xr, i), xf);
+        store_pack<T, VEC, ALIGNED>(
+            yr, i, scale(xf, load_pack<T, VEC, ALIGNED>(w, i), r));
       }
     }
   } else {
@@ -163,15 +194,15 @@ rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ w,
 #pragma unroll
     for (int i = 0; i < VPT; ++i) {
       const int idx = t + i * blockDim.x;
-      if (idx < nv) ws[i] = wv[idx];
+      if (idx < nv) ws[i] = load_pack<T, VEC, ALIGNED>(w, idx);
     }
     for (long long row = blockIdx.x; row < n; row += gridDim.x, par ^= 1) {
-      const P* xv = reinterpret_cast<const P*>(x + row * d);
+      const T* xr = x + row * d;
       P xs[VPT];
 #pragma unroll
       for (int i = 0; i < VPT; ++i) {   // every load before any arithmetic
         const int idx = t + i * blockDim.x;
-        if (idx < nv) xs[i] = xv[idx];
+        if (idx < nv) xs[i] = load_pack<T, VEC, ALIGNED>(xr, idx);
       }
       // widened once: the packed loads die here, so x is held once, as
       // float32, across the reduction
@@ -189,34 +220,49 @@ rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ w,
       }
       const float tot = block_sum(ss, part, par);
       const float r = rsqrtf(__fadd_rn(__fmul_rn(tot, inv_d), eps));
-      P* yv = reinterpret_cast<P*>(y + row * d);
+      T* yr = y + row * d;
 #pragma unroll
       for (int i = 0; i < VPT; ++i) {
         const int idx = t + i * blockDim.x;
-        if (idx < nv) yv[idx] = scale(xf[i], ws[i], r);
+        if (idx < nv) {
+          store_pack<T, VEC, ALIGNED>(yr, idx, scale(xf[i], ws[i], r));
+        }
       }
     }
   }
 }
 
-// The kernel instance for (T, VEC, vpt), vpt in 0..4 (kernel.py MAX_VPT).
-template <typename T, int VEC>
+// The kernel instance for (T, VEC, vpt, ALIGNED), vpt in 0..4 (kernel.py
+// MAX_VPT).
+template <typename T, int VEC, bool ALIGNED>
 const void* pick(int vpt) {
   switch (vpt) {
-    case 0: return reinterpret_cast<const void*>(rmsnorm_kernel<T, VEC, 0>);
-    case 1: return reinterpret_cast<const void*>(rmsnorm_kernel<T, VEC, 1>);
-    case 2: return reinterpret_cast<const void*>(rmsnorm_kernel<T, VEC, 2>);
-    case 3: return reinterpret_cast<const void*>(rmsnorm_kernel<T, VEC, 3>);
-    case 4: return reinterpret_cast<const void*>(rmsnorm_kernel<T, VEC, 4>);
+    case 0:
+      return reinterpret_cast<const void*>(rmsnorm_kernel<T, VEC, 0, ALIGNED>);
+    case 1:
+      return reinterpret_cast<const void*>(rmsnorm_kernel<T, VEC, 1, ALIGNED>);
+    case 2:
+      return reinterpret_cast<const void*>(rmsnorm_kernel<T, VEC, 2, ALIGNED>);
+    case 3:
+      return reinterpret_cast<const void*>(rmsnorm_kernel<T, VEC, 3, ALIGNED>);
+    case 4:
+      return reinterpret_cast<const void*>(rmsnorm_kernel<T, VEC, 4, ALIGNED>);
     default: return nullptr;
   }
 }
 
+// vec: 0 one element a vector, 1 the 16-byte vectors, 2 the vectors' layout
+// with element accesses (d a multiple of the lanes, a pointer off 16
+// bytes).
 const void* kernel_for(int bf16, int vec, int vpt) {
   if (bf16) {
-    return vec ? pick<__nv_bfloat16, 8>(vpt) : pick<__nv_bfloat16, 1>(vpt);
+    return vec == 1 ? pick<__nv_bfloat16, 8, true>(vpt)
+           : vec == 2 ? pick<__nv_bfloat16, 8, false>(vpt)
+                      : pick<__nv_bfloat16, 1, true>(vpt);
   }
-  return vec ? pick<float, 4>(vpt) : pick<float, 1>(vpt);
+  return vec == 1 ? pick<float, 4, true>(vpt)
+         : vec == 2 ? pick<float, 4, false>(vpt)
+                    : pick<float, 1, true>(vpt);
 }
 
 }  // namespace
@@ -224,8 +270,8 @@ const void* kernel_for(int bf16, int vec, int vpt) {
 extern "C" {
 
 // x, w, y: device pointers; n rows of d; bf16 selects __nv_bfloat16 (else
-// float32); vec selects the 16-byte path (the wrapper checks d and the
-// alignment); vpt: vectors a thread holds (1-4), or 0 for the loop over
+// float32); vec selects the layout (kernel_for: the wrapper checks d and
+// the alignment); vpt: vectors a thread holds (1-4), or 0 for the loop over
 // the row; threads: the block size, a multiple of 32 up to 512; grid:
 // blocks, each walking rows with a stride of grid.
 int repro_rmsnorm(const void* x, const void* w, void* y, long long n, int d,

@@ -10,8 +10,8 @@ rule.  A wrapper handed CPU tensors runs the plain version from
 
 The wrapper's host time is part of the kernel's cost (it runs 65 times
 per insert and per decode step), so it builds a check's message only when
-the check fails, computes the launch shape once per ``(d, dtype, vector
-path, device)`` and reads the stream as a raw handle.
+the check fails, computes the launch shape once per ``(d, dtype, layout,
+device)`` and reads the stream as a raw handle.
 """
 
 from __future__ import annotations
@@ -45,7 +45,9 @@ MAX_VPT = 4
 #: threads of 3)
 VPT_TARGET = 3
 
-#: (d, dtype, vector path, device index) -> (threads, vpt, one wave)
+#: (d, dtype, layout mode, device index) -> (threads, vpt, one wave); mode
+#: 0 one element a vector, 1 16-byte vectors, 2 the vectors' layout read
+#: element by element (a pointer off 16 bytes)
 _PLANS: dict = {}
 
 
@@ -70,25 +72,24 @@ def launch_shape(n: int, d: int, itemsize: int, vec: bool, wave: int):
     return threads, (vpt if vpt <= MAX_VPT else 0), min(n, wave)
 
 
-def _plan(d: int, dtype, vec: bool, dev: int):
+def _plan(d: int, dtype, mode: int, dev: int):
     bf16 = dtype == torch.bfloat16
-    threads, vpt, _ = launch_shape(1, d, 2 if bf16 else 4, vec, 1)
+    threads, vpt, _ = launch_shape(1, d, 2 if bf16 else 4, mode != 0, 1)
     blocks = ctypes.c_int(0)
     B.raise_on(_lib().repro_rmsnorm_blocks_per_sm(
-        int(bf16), int(vec), vpt, threads, ctypes.byref(blocks)),
+        int(bf16), mode, vpt, threads, ctypes.byref(blocks)),
         "rmsnorm occupancy")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    plan = _PLANS[(d, dtype, vec, dev)] = (threads, vpt,
-                                            max(1, blocks.value) * sms)
+    plan = _PLANS[(d, dtype, mode, dev)] = (threads, vpt,
+                                             max(1, blocks.value) * sms)
     return plan
 
 
 def rmsnorm_kernel(x, w, eps: float = 1e-6):
     """``x [N, d]`` (float32 or bf16), ``w [d]`` of the same dtype ->
     ``[N, d]`` in ``x.dtype``.  See ``ref.rmsnorm_ref``."""
-    if not (x.is_cuda and w.is_cuda and x.get_device() == w.get_device()):
-        if not B.on_cuda(x, w):     # both on the CPU; anything else raises
-            return R.rmsnorm_ref(x, w, eps)
+    if not B.on_cuda(x, w):     # both on the CPU; anything else raises
+        return R.rmsnorm_ref(x, w, eps)
     dtype = x.dtype
     if not ((dtype == torch.float32 or dtype == torch.bfloat16)
             and w.dtype == dtype):
@@ -108,12 +109,16 @@ def rmsnorm_kernel(x, w, eps: float = 1e-6):
         return y
     xp, wp, yp = x.data_ptr(), w.data_ptr(), y.data_ptr()
     bf16 = dtype == torch.bfloat16
-    vec = (xp | wp | yp) & 15 == 0 and d % (8 if bf16 else 4) == 0
+    # the vector layout wherever d allows it, its loads element by element
+    # where a pointer is off 16 bytes (mode 2): a row's bits then depend on
+    # neither its alignment nor the batch
+    mode = (0 if d % (8 if bf16 else 4)
+            else 1 if (xp | wp | yp) & 15 == 0 else 2)
     dev = x.get_device()
-    threads, vpt, wave = (_PLANS.get((d, dtype, vec, dev))
-                          or _plan(d, dtype, vec, dev))
+    threads, vpt, wave = (_PLANS.get((d, dtype, mode, dev))
+                          or _plan(d, dtype, mode, dev))
     B.raise_on(_lib().repro_rmsnorm(
-        xp, wp, yp, n, d, eps, bf16, vec, vpt, threads, min(n, wave),
+        xp, wp, yp, n, d, eps, bf16, mode, vpt, threads, min(n, wave),
         B.stream(x)), "rmsnorm")
     B.LAUNCHES["rmsnorm"] += 1
     return y

@@ -3,15 +3,23 @@
 Runs the bucketed ZeRO-1 step of the cell in ``launch/cell.py`` (the one
 ``chip_smoke.py`` drives: full-width phi4-mini cut to 2 layers, 4 DP ranks
 stacked on one GPU, batch 8 x 1024), warms up, then profiles 2 steps with
-``torch.profiler`` and prints the device time by kernel group, the wall
-time and the device's idle share, as text and as one JSON line:
+``torch.profiler`` and prints the device time by kernel group (the
+butterfly step kernels ``rs_step``, ``rs_step_q`` and ``ag_step`` each a
+group of its own), the wall time and the device's idle share, as text and
+as one JSON line, for each wire dtype in turn (by default the float32 and
+the int8 wire, so both steps' kernels are read in one call):
 
-  python -m repro_torch.launch.profile_step --wire-dtype float32
+  python -m repro_torch.launch.profile_step [--wire-dtype float32 int8]
+
+It uses only the port's public entry points, so the same file runs
+against an older tree (``PYTHONPATH=<tree>/src python
+src/repro_torch/launch/profile_step.py``).
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import time
 from collections import defaultdict
@@ -29,7 +37,9 @@ STEPS, TOP = 2, 12
 
 #: kernel-name patterns -> group, first match wins
 GROUPS = (
-    ("collective step kernels", ("rs_step", "ag_step")),
+    ("rs_step_q kernel", ("rs_step_q",)),
+    ("rs_step kernel", ("rs_step",)),
+    ("ag_step kernel", ("ag_step",)),
     ("rmsnorm kernel", ("rmsnorm_kernel",)),
     ("flash attention kernel", ("flash_kernel",)),
     ("matmul", ("gemm", "xmma", "cutlass", "cublas", "nvjet", "matmul")),
@@ -47,18 +57,10 @@ def group_of(name: str) -> str:
     return "elementwise/other"
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--backend", default="pallas_fused",
-                    choices=["bine", "pallas_fused"])
-    ap.add_argument("--wire-dtype", default="float32",
-                    choices=["float32", "bfloat16", "int8"])
-    args = ap.parse_args(argv)
-
-    dev = resolve_device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = cell.model_config()
-    tcfg = cell.train_config(args.backend, args.wire_dtype)
+def profile(cfg, backend: str, wire_dtype: str, dev) -> dict:
+    """Warm up, then profile ``STEPS`` steps of one wire dtype; prints the
+    breakdown and returns its JSON record."""
+    tcfg = cell.train_config(backend, wire_dtype)
     step, _, _ = make_train_step(cfg, tcfg, cell.N_DP, TF.param_shapes(cfg),
                                  dev)
     init_p, init_s = make_init_fns(cfg, tcfg, cell.N_DP, dev)
@@ -81,30 +83,52 @@ def main(argv=None):
         wall_ms = (time.perf_counter() - t0) * 1e3 / STEPS
 
     by_group = defaultdict(float)
+    launches = defaultdict(int)
     by_kernel = []
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total", 0.0) or 0.0
         if dev_us <= 0 or ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         by_group[group_of(ev.key)] += dev_us / 1e3 / STEPS
+        launches[group_of(ev.key)] += ev.count // STEPS
         by_kernel.append((dev_us / 1e3 / STEPS, ev.count // STEPS,
                           ev.key))
     busy_ms = sum(by_group.values())
     tokens = dcfg.global_batch * dcfg.seq_len
     print(f"{cfg.name} x{cfg.n_layers} layers, dp={cell.N_DP}, batch "
-          f"{dcfg.global_batch}x{dcfg.seq_len}, {args.backend}/"
-          f"{args.wire_dtype} on {torch.cuda.get_device_name(0)}")
+          f"{dcfg.global_batch}x{dcfg.seq_len}, {backend}/"
+          f"{wire_dtype} on {torch.cuda.get_device_name(0)}")
     print(f"step wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, "
           f"idle share {1 - busy_ms / wall_ms:.3f}")
     for g, ms in sorted(by_group.items(), key=lambda t: -t[1]):
-        print(f"  {g:26s} {ms:9.2f} ms  {ms / wall_ms:6.1%} of the step")
+        print(f"  {g:26s} {ms:9.3f} ms  {ms / wall_ms:6.1%} of the step, "
+              f"x{launches[g]} launches")
     print("top kernels (ms per step, launches per step):")
     for ms, n, name in sorted(by_kernel, reverse=True)[:TOP]:
         print(f"  {ms:9.3f} ms  x{n:<5d} {name[:90]}")
-    print(json.dumps({"wall_ms": wall_ms, "busy_ms": busy_ms,
-                      "idle_share": 1 - busy_ms / wall_ms,
-                      "groups_ms": dict(by_group),
-                      "tokens_per_s": tokens / wall_ms * 1e3}))
+    rec = {"backend": backend, "wire_dtype": wire_dtype, "wall_ms": wall_ms,
+           "busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
+           "groups_ms": dict(by_group), "group_launches": dict(launches),
+           "tokens_per_s": tokens / wall_ms * 1e3}
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--backend", default="pallas_fused",
+                    choices=["bine", "pallas_fused"])
+    ap.add_argument("--wire-dtype", nargs="+", default=["float32", "int8"],
+                    choices=["float32", "bfloat16", "int8"])
+    args = ap.parse_args(argv)
+
+    dev = resolve_device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = cell.model_config()
+    for wire_dtype in args.wire_dtype:
+        profile(cfg, args.backend, wire_dtype, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -367,6 +367,78 @@ def test_perm_matmul_wgmma_rule_needs_aligned_operands():
     assert not K.perm_matmul_uses_wgmma(x[1:-7].view(p, m, k), w, 4)
 
 
+#: (h, itemsize, send, aligned) -> rs_step's vector kernel
+RS_VEC_RULE = [
+    ((8 << 20, 4, True, True), True),     # the smoke's bucket step, f32
+    ((8 << 20, 2, True, True), True),     # bf16
+    ((8 << 20, 4, True, False), False),   # a pointer off 16 bytes
+    ((6, 4, False, True), False),         # h not a multiple of the lanes
+    ((12, 4, False, True), True),
+    ((12, 4, True, True), False),         # h/2 not a multiple of the lanes
+    ((1000, 2, False, True), True),
+    ((1000, 2, True, True), False),
+    ((1000, 4, True, True), True),
+    ((1002, 4, False, True), False),
+]
+
+
+@pytest.mark.parametrize("case,vec", RS_VEC_RULE,
+                         ids=[f"h{c[0]}-{c[1]}B-{'send' if c[2] else 'nosend'}"
+                              f"-{'al' if c[3] else 'off'}"
+                              for c, _ in RS_VEC_RULE])
+def test_rs_step_launch_rule(case, vec):
+    h, itemsize, send, aligned = case
+    got_vec, grid = K.rs_step_launch(4, h, itemsize, send, aligned, 1056)
+    assert got_vec is vec
+    units = h // (16 // itemsize) if vec else h
+    per = K.STEP_THREADS * (K.RS_UNROLL if vec else 1)
+    assert grid == K.step_grid(4, units, per, 1056)
+
+
+#: (h, aligned) -> (path, log2 of the codec chunk)
+Q_RULE = [
+    ((8 << 20, True), (0, 8)),      # the smoke's bucket step
+    ((8 << 20, False), (1, 8)),
+    ((512, True), (0, 8)),
+    ((96, True), (0, 5)),           # codec chunk 32
+    ((1000, True), (0, 3)),         # codec chunk 8: one scale a lane
+    ((1000, False), (1, 3)),
+    ((1004, True), (2, 2)),         # chunk 4: a lane would straddle scales
+    ((6, True), (2, 1)),
+    ((1001, False), (2, 0)),
+]
+
+
+@pytest.mark.parametrize("case,path", Q_RULE,
+                         ids=[f"h{c[0]}-{'al' if c[1] else 'off'}"
+                              for c, _ in Q_RULE])
+def test_rs_step_q_launch_rule(case, path):
+    h, aligned = case
+    got = K.rs_step_q_launch(4, h, aligned, 1056)
+    assert got[:2] == path
+    assert 1 << got[1] == tcomp.wire_chunk(h)
+    per = K.STEP_THREADS if path[0] == 2 else \
+        K.STEP_THREADS // 32 * K.Q_WARP_ELEMS
+    assert got[2] == K.step_grid(4, h, per, 1056)
+
+
+@pytest.mark.parametrize("p", [1, 4, 8, 6])
+def test_step_grid_covers_the_row_within_the_waves(p):
+    """A rank's blocks cover its row in one iteration where RS_WAVES waves
+    allow it; otherwise all p ranks' blocks together fill RS_WAVES waves
+    (to within one block a rank).  Never fewer than 1 block."""
+    wave = 1056
+    for units in (0, 1, 255, 256, 257, 4096, 1 << 20, 2 << 20, 1 << 30):
+        for per in (256, 1024, 2048):
+            g = K.step_grid(p, units, per, wave)
+            assert g >= 1
+            if g * per < units:
+                assert K.RS_WAVES * wave <= g * p < K.RS_WAVES * wave + p
+            else:
+                assert (g - 1) * per < max(units, 1)
+    assert K.step_grid(0, 10, 256, wave) == 1
+
+
 # ---------------------------------------------------------------------------
 # On the card (skipped without one)
 # ---------------------------------------------------------------------------
@@ -397,8 +469,13 @@ def test_cuda_wrapper_raises_without_library(cuda_device, monkeypatch,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("h", [512, 4096, 6])
+@pytest.mark.parametrize("h", [512, 4096, 6, 12, 96, 1000, 1002, 1001])
 def test_cuda_kernels_match_plain(cuda_device, h):
+    """Bitwise, f32 and bf16, with and without send, every path of the
+    launch rules: h a multiple of the vector lanes (512, 4096) or not (6,
+    1002, 1001), h/2 not (12 f32, 1000 bf16); rs_step_q's codec chunks 256
+    (512, 4096), 32 (96), 8 (1000: the warp kernel, one scale a lane) and
+    2 and 1 (6, 1002, 1001: the element-wise kernel)."""
     dev = cuda_device
     buf = rng.randn(P, 2 * h).astype(np.float32)
     recv = rng.randn(P, h).astype(np.float32)
@@ -425,16 +502,128 @@ def test_cuda_kernels_match_plain(cuda_device, h):
             _same(a.cpu(), e)
 
 
+def _q_inputs_edges(h):
+    """``_q_inputs_non_finite`` plus, in the last two codec chunks of both
+    halves of both kept halves of every rank (so in the next send half
+    whatever ``c`` and ``c_next``; clear of the NaN and infinity chunks
+    from h = 4096), a chunk of subnormals whose max is a subnormal and a
+    chunk holding FLT_MAX, -FLT_MAX and the smallest subnormal, each with
+    a zero payload so ``new`` keeps them."""
+    buf, rq, rs = _q_inputs_non_finite(h)
+    tiny = np.float32(np.finfo(np.float32).tiny)
+    big = np.finfo(np.float32).max
+    for half in (0, h // 2):
+        sub = h // 2 - 2 * 256 + half           # the last two chunks of a half
+        for off in (0, h):
+            buf[:, off + sub:off + sub + 256] = (
+                rng.uniform(-1, 1, (P, 256)) * tiny / 4).astype(np.float32)
+            buf[:, off + sub + 256:off + sub + 512] = rng.randn(P, 256)
+            buf[:, off + sub + 300] = big
+            buf[:, off + sub + 301] = -big
+            buf[:, off + sub + 302] = np.float32(1.4e-45)
+        rq[:, sub:sub + 512] = 0
+    return buf, rq, rs
+
+
 @pytest.mark.cuda
-def test_cuda_rs_step_q_non_finite_matches_plain(cuda_device):
+@pytest.mark.parametrize("h", [1024, 4096, 8192])
+def test_cuda_rs_step_q_non_finite_matches_plain(cuda_device, h):
     """The kernel's chunk max keeps NaN and its int8 cast maps NaN to 0, so
-    a loss spike's NaN or infinity gives the plain version's bits."""
+    a loss spike's NaN or infinity gives the plain version's bits; from h
+    = 4096 so do a chunk whose max is a subnormal (scale 2**-126) and
+    chunks holding FLT_MAX (scale 2**122): the quantizer's multiply by
+    1/scale is exact.  The plain version runs on the card too (a NaN's
+    bits are the card's)."""
     dev = cuda_device
-    args = tuple(_t(a) for a in _q_inputs_non_finite(1024))
+    edges = h >= 4096
+    args = tuple(_t(a) for a in (_q_inputs_edges if edges
+                                 else _q_inputs_non_finite)(h))
     c, cn = _t(C).to(dev), _t(CN).to(dev)
-    for a, e in zip(K.rs_step_q(*(a.to(dev) for a in args), c, cn),
-                    R.rs_step_ref_q(*(a.to(dev) for a in args), c, cn)):
+    got = K.rs_step_q(*(a.to(dev) for a in args), c, cn)
+    exp = R.rs_step_ref_q(*(a.to(dev) for a in args), c, cn)
+    # the edge chunks reach the send half: scales 2**-126 and 2**122
+    assert not edges or (bool((exp[2] == 2.0 ** -126).any())
+                         and bool((exp[2] == 2.0 ** 122).any()))
+    assert bool(exp[0].isnan().any()) and bool(exp[0].isinf().any())
+    for a, e in zip(got, exp):
         _same(a.cpu(), e.cpu())
+    _same(K.rs_step_q(*(a.to(dev) for a in args), c).cpu(),
+          R.rs_step_ref_q(*(a.to(dev) for a in args), c).cpu())
+
+
+def _offset_view(t, dev, nbytes=4):
+    """A contiguous copy of ``t`` on ``dev``, ``nbytes`` into its storage
+    (off 16 and 8 bytes: the allocator's blocks are 512-byte aligned)."""
+    k = nbytes // t.element_size()
+    flat = torch.zeros(t.numel() + k, dtype=t.dtype, device=dev)
+    v = flat[k:].view(t.shape)
+    v.copy_(t)
+    assert v.is_contiguous() and v.data_ptr() % 16 == nbytes
+    return v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [512, 1000])
+def test_cuda_step_kernels_unaligned_views_match_plain(cuda_device, h):
+    """Contiguous views 4 bytes into their storage: rs_step runs its
+    element-wise kernel, rs_step_q its warp kernel element by element
+    (``rs_step_q_launch`` path 1); both bitwise the plain version, with and
+    without send."""
+    dev = cuda_device
+    c, cn = _t(C).to(dev), _t(CN).to(dev)
+    buf = rng.randn(P, 2 * h).astype(np.float32)
+    recv = rng.randn(P, h).astype(np.float32)
+    for dt in (torch.float32, torch.bfloat16):
+        b, v = _t(buf, dt), _t(recv, dt)
+        ob, ov = _offset_view(b, dev), _offset_view(v, dev)
+        assert not K.rs_step_launch(P, h, b.element_size(), False, False,
+                                    1)[0]
+        _same(K.rs_step(ob, ov, c).cpu(), R.rs_step_ref(b, v, _t(C)))
+        for a, e in zip(K.rs_step(ob, ov, c, cn),
+                        R.rs_step_ref(b, v, _t(C), _t(CN))):
+            _same(a.cpu(), e)
+    args = tuple(_t(a) for a in _q_inputs(h))
+    offs = tuple(_offset_view(a, dev) for a in args)
+    assert K.rs_step_q_launch(P, h, False, 1)[0] == 1
+    _same(K.rs_step_q(*offs, c).cpu(), R.rs_step_ref_q(*args, _t(C)))
+    if h % 512 == 0:
+        for a, e in zip(K.rs_step_q(*offs, c, cn),
+                        R.rs_step_ref_q(*args, _t(C), _t(CN))):
+            _same(a.cpu(), e)
+
+
+@pytest.mark.cuda
+def test_cuda_step_kernels_at_the_smoke_shape(cuda_device):
+    """p = 4, h = 8 Mi (one 64 MiB f32 bucket's first step, the vector and
+    warp kernels at ``chip_smoke.py``'s shape): rs_step f32 / bf16 with and
+    without send, rs_step_q with and without send, bitwise the plain
+    versions run on the card."""
+    dev = cuda_device
+    h = 8 << 20
+    gen = torch.Generator(device=dev).manual_seed(0)
+    c, cn = _t(C).to(dev), _t(CN).to(dev)
+    buf = torch.randn((P, 2 * h), generator=gen, device=dev)
+    recv = torch.randn((P, h), generator=gen, device=dev)
+
+    def same(got, exp):
+        for a, e in zip(got if isinstance(got, tuple) else (got,),
+                        exp if isinstance(exp, tuple) else (exp,)):
+            assert a.dtype == e.dtype and a.shape == e.shape
+            if a.is_floating_point():
+                a, e = (t.view(torch.int32 if t.element_size() == 4
+                               else torch.int16) for t in (a, e))
+            assert torch.equal(a, e)
+
+    for dt in (torch.float32, torch.bfloat16):
+        b, v = buf.to(dt), recv.to(dt)
+        assert K.rs_step_launch(P, h, b.element_size(), True, True, 1)[0]
+        same(K.rs_step(b, v, c), R.rs_step_ref(b, v, c))
+        same(K.rs_step(b, v, c, cn), R.rs_step_ref(b, v, c, cn))
+        del b, v
+    rq, rs = tcomp.quantize_wire(recv)
+    assert K.rs_step_q_launch(P, h, True, 1)[0] == 0
+    same(K.rs_step_q(buf, rq, rs, c), R.rs_step_ref_q(buf, rq, rs, c))
+    same(K.rs_step_q(buf, rq, rs, c, cn), R.rs_step_ref_q(buf, rq, rs, c, cn))
 
 
 @pytest.mark.cuda

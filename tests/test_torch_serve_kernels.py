@@ -442,7 +442,8 @@ def test_cuda_rmsnorm_matches_plain(cuda_device, shape, dtype):
 def test_cuda_rmsnorm_unaligned_view_matches_plain(cuda_device, shape,
                                                    dtype):
     """Contiguous views one element into their storage (x and w off 16
-    bytes) take the element-wise path and stay within the same bounds."""
+    bytes) take the vectors' layout read element by element (d a multiple
+    of the lanes) and stay within the same bounds."""
     x, w = _rms_inputs(shape)
     tdt = getattr(torch, dtype)
     n, d = shape
@@ -456,6 +457,43 @@ def test_cuda_rmsnorm_unaligned_view_matches_plain(cuda_device, shape,
     got = RO.rmsnorm(tx, tw)
     assert B.LAUNCHES["rmsnorm"] == before + 1
     _rms_check(got, RR.rmsnorm_ref(tx, tw), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [3072, 16392, 4097])
+def test_cuda_rmsnorm_batch_invariant(cuda_device, d, dtype):
+    """A row's bits do not depend on the batch it comes in: rows 0, 5 and 7
+    alone, in a batch of 8 and in a batch of 1024 give the same bits, and
+    so do the same rows reached through views 2 or 4 bytes into their
+    storage (x, w and y off 16 bytes).  d = 3072 is the serve cell's row
+    (registers), 16392 bf16 the loop over the row, 4097 one element a
+    vector; the serve cell compares a request alone with the same request
+    in the pool."""
+    tdt = getattr(torch, dtype)
+    x, w = _rms_inputs((1024, d))
+    tx = torch.from_numpy(x).to(cuda_device, tdt)
+    tw = torch.from_numpy(w).to(cuda_device, tdt)
+    fx = torch.zeros(1024 * d + 1, dtype=tdt, device=cuda_device)
+    fw = torch.zeros(d + 1, dtype=tdt, device=cuda_device)
+    ux, uw = fx[1:].view(1024, d), fw[1:]
+    ux.copy_(tx)
+    uw.copy_(tw)
+    assert ux.data_ptr() % 16 and uw.data_ptr() % 16
+    full = RK.rmsnorm_kernel(tx, tw)
+    eight = RK.rmsnorm_kernel(tx[:8], tw)
+    off = RK.rmsnorm_kernel(ux, uw)
+    off8 = RK.rmsnorm_kernel(ux[:8], uw)
+    bits = torch.int32 if dtype == "float32" else torch.int16
+    for i in (0, 5, 7):
+        alone = RK.rmsnorm_kernel(tx[i:i + 1], tw).view(bits)
+        for tag, got in (("batch 1024", full[i:i + 1]),
+                         ("batch 8", eight[i:i + 1]),
+                         ("unaligned 1024", off[i:i + 1]),
+                         ("unaligned 8", off8[i:i + 1]),
+                         ("unaligned alone",
+                          RK.rmsnorm_kernel(ux[i:i + 1], uw))):
+            assert torch.equal(got.view(bits), alone), (tag, i)
 
 
 @pytest.mark.cuda
