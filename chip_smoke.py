@@ -41,7 +41,20 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
              shapes in float32 and bf16 (the bf16 ones on the wgmma
              perm_matmul); with the launch counts read around the run and
              the per-backend times;
-5. train   — a small reference first (reduced phi4-mini, float32: the card
+5. two-tier — ``bine_hier`` (the paper's composed schedules): one axis
+             at p=8 with tpu_multipod's tiers (4, 2), and two axes,
+             (pods, data) = (2, 4), on 64 MiB f32 a rank: reduce_scatter /
+             allgather / allreduce held to a float64 sum within gamma_3
+             sum |x| (the allgather exact), the card's bits equal to the
+             CPU's on a 1 MiB slice, each call's time beside flat bine's;
+             then the train cell over two DP axes (pod, data) = (2, 2):
+             bine_hier bucketed == per-leaf (1 step each, bitwise),
+             pallas_fused float32 (3 steps) == bine after step 1
+             (bitwise), pallas_fused int8 (2 steps), every step-1 loss
+             bitwise the flat p=4 pallas_fused one and later ones within
+             1e-3 of the flat run's, rs_step / ag_step / rs_step_q
+             launched on the two-axis path; warm step ms, tokens/s, peak;
+6. train   — a small reference first (reduced phi4-mini, float32: the card
              against the CPU), then the main path, the cell of
              ``repro_torch/launch/cell.py``: full-width phi4-mini cut to 2
              layers, 4 DP ranks stacked on the card, global batch 8 x 1024
@@ -52,7 +65,7 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
              ``auto`` step on the torus preset the bits of the explicit
              ``recdoub`` step, and one ``wire_dtype="auto"`` step those of
              the explicit step with the pair every bucket resolved to;
-6. serve   — a small reference first (reduced phi4-mini, float32: prefill
+7. serve   — a small reference first (reduced phi4-mini, float32: prefill
              and decode logits and 6 greedy streams, the card against the
              CPU), then the main path, ``SERVE_CELL`` of
              ``repro_torch/launch/cell.py``: phi4-mini at full width and
@@ -68,7 +81,9 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
              per step, tokens/s, p50/p99 time to first token and peak
              memory.
 
-Prints a ``kernels:`` summary, one JSON line of per-kernel numbers, the
+The kernels line's launches of rs_step, ag_step and rs_step_q count the
+train step's main path and its two-axis path.  Prints a ``kernels:``
+summary, one JSON line of per-kernel numbers, the
 card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``.  Exits 2 without a result when there is
 no CUDA device or no ``src/repro_torch`` beside this file.
@@ -949,7 +964,244 @@ def phase_api_matmul(dev):
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: the train step
+# Phase 5: the two-tier half of the paper (bine_hier)
+# ---------------------------------------------------------------------------
+
+#: float32 unit roundoff
+F32_U = 2.0 ** -24
+
+
+def gamma(k: int) -> float:
+    """Higham's gamma_k = k u / (1 - k u): a float32 sum whose every
+    element takes k rounded adds lies within gamma_k * sum |x_r| of the
+    exact sum."""
+    return k * F32_U / (1 - k * F32_U)
+
+
+def phase_two_tier(dev):
+    """(a) one-axis bine_hier at p = 8 (tiers (4, 2) from tpu_multipod) and
+    (b) two-axis bine_hier, (pods, data) = (2, 4), on 64 MiB f32 a rank:
+    reduce_scatter / allgather / allreduce held to a float64 sum within
+    gamma_3 sum_r |x_r| (each element takes log2 8 = 3 adds; the
+    two-axis reduce-scatter's rank (o, i) holds block i * 2 + o), the
+    allgather exact, and on a 1 MiB slice the card's bits equal the
+    CPU's; each call's time beside flat bine's.  (c) the train cell over
+    two DP axes.  Returns (launch counts of the two-axis train path,
+    numbers)."""
+    import torch
+    from repro_torch.collectives import api
+    from repro_torch.core import schedules as sc
+    from repro_torch.core import traffic
+    from repro_torch.topology import tier_split
+
+    p = 8
+    n = 64 * MiB // 4
+    gen = torch.Generator(device=dev).manual_seed(17)
+    x = torch.randn((p, n), generator=gen, device=dev)
+    ref = x.double().sum(0)
+    lim = gamma(3) * x.double().abs().sum(0)
+    small = x[:, : MiB // 4].contiguous()
+    small_cpu = small.cpu()
+    tiers = tier_split("tpu_multipod", p)
+    check(tiers == (4, 2), f"tpu_multipod tiers at p=8: {tiers}")
+    # the traffic model's bytes crossing groups of 4 ranks (a host of
+    # tpu_multipod), per collective of the 64 MiB vector: the host computes
+    # them from the schedules, the card plays no part
+    groups = traffic.GroupedTopo("groups of 4", group_size=4)
+    for coll in ("reduce_scatter", "allgather", "allreduce"):
+        model = {a: traffic.global_bytes(sc.get_schedule(coll, a, p), p,
+                                         4.0 * n, groups) / MiB
+                 for a in ("bine", "recdoub")}
+        model["bine_hier"] = traffic.compose_global_bytes(
+            coll, tiers, 4.0 * n, 4) / MiB
+        log(f"  traffic model, {coll} of 64 MiB at p={p}, groups of 4: "
+            f"MiB crossing groups {model}")
+    flat = api.CollectiveConfig(backend="bine")
+    nums = {}
+    for tag, cfg, outer, inner in (
+            ("one-axis tiers (4, 2)",
+             api.CollectiveConfig(backend="bine_hier"), 1, p),
+            ("two-axis (pods, data) = (2, 4)",
+             api.CollectiveConfig(backend="bine_hier", dp_shape=(2, 4)),
+             2, 4)):
+        rs = api.reduce_scatter(x, cfg)
+        # rank (o, i) holds block i * outer + o (one axis: block r)
+        own = torch.tensor([(r % inner) * outer + r // inner
+                            for r in range(p)], device=dev)
+        blocks = ref.view(p, -1)[own]
+        e_rs = within(rs, blocks, lim.view(p, -1)[own],
+                      f"bine_hier {tag} reduce_scatter")
+        ag = api.allgather(rs, cfg)
+        check(torch.equal(ag[0], rs[torch.argsort(own)].reshape(-1)) and
+              all(torch.equal(ag[0], ag[r]) for r in range(p)),
+              f"bine_hier {tag} allgather is not every block in place")
+        ar = api.allreduce(x, cfg)
+        e_ar = within(ar, ref.expand(p, -1), lim.expand(p, -1),
+                      f"bine_hier {tag} allreduce")
+        check(all(torch.equal(ar[0], ar[r]) for r in range(p)),
+              f"bine_hier {tag} allreduce differs between ranks")
+        del ag, ar
+        s_rs = api.reduce_scatter(small, cfg)
+        same_bits([s_rs.cpu(), api.allgather(s_rs, cfg).cpu(),
+                   api.allreduce(small, cfg).cpu()],
+                  [api.reduce_scatter(small_cpu, cfg),
+                   api.allgather(s_rs.cpu(), cfg),
+                   api.allreduce(small_cpu, cfg)],
+                  f"bine_hier {tag} 1 MiB slice, card vs CPU")
+        log(f"  bine_hier {tag}, p={p}, 64 MiB a rank: reduce_scatter and "
+            f"allreduce vs float64 {e_rs:.2e} / {e_ar:.2e} (bound max "
+            f"{float(lim.max()):.2e}), allgather exact; 1 MiB slice "
+            f"bitwise equal card vs CPU")
+        times = {}
+        for name, c in (("bine_hier", cfg), ("bine", flat)):
+            times[name] = (time_ms(lambda: api.reduce_scatter(x, c), reps=5),
+                           time_ms(lambda: api.allgather(rs, c), reps=5),
+                           time_ms(lambda: api.allreduce(x, c), reps=5))
+            log(f"  time {name} ({tag}) p={p}: reduce_scatter "
+                f"{ms(times[name][0])} ms, allgather {ms(times[name][1])} ms,"
+                f" allreduce {ms(times[name][2])} ms")
+        nums[tag] = times
+        del rs, s_rs
+        torch.cuda.empty_cache()
+    del x, ref, lim, small
+    torch.cuda.empty_cache()
+    launches, train = phase_two_tier_train(dev)
+    nums.update(train)
+    return launches, nums
+
+
+def train_runs(dev):
+    """A runner of the train cell's steps: ``run(tcfg, dp, steps)`` ->
+    (launch counts read around the steps, losses, step seconds, peak GiB,
+    params after step 1 on rank 0)."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.kernels import build as KB
+    from repro_torch.launch import cell
+    from repro_torch.models import transformer as TF
+    from repro_torch.train.data import make_batch
+    from repro_torch.train.step import make_init_fns, make_train_step
+
+    cfg = cell.model_config()
+    shapes = TF.param_shapes(cfg)
+    dcfg = cell.data_config(cfg)
+
+    def run(tcfg, dp, steps, tag):
+        step, info, _ = make_train_step(cfg, tcfg, dp, shapes, dev)
+        init_p, init_s = make_init_fns(cfg, tcfg, dp, dev)
+        params = init_p(0)
+        state = init_s(params)
+        torch.cuda.synchronize()
+        KB.reset_launches()
+        losses, times, peaks, first = [], [], [], None
+        for s in range(steps):
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, make_batch(dcfg, s))
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+            losses.append(loss)
+            check(math.isfinite(loss), f"{tag} step {s}: loss {loss}")
+            if s == 0:
+                first = [x.clone() for x in T.flatten(params[0])]
+            log(f"  {tag} step {s}: loss {loss:.6f} gnorm "
+                f"{float(m['grad_norm']):.4f} {times[-1] * 1e3:.1f} ms, "
+                f"peak {peaks[-1]:.1f} GiB")
+        counts = {k: v for k, v in KB.LAUNCHES.items() if v}
+        plan = info["bucket_plan"]
+        where = ("per-leaf" if plan is None
+                 else f"{len(plan.buckets)} buckets")
+        log(f"  {tag}: {where}, launches {counts}, peak {max(peaks):.1f} "
+            f"GiB")
+        del params, state
+        torch.cuda.empty_cache()
+        return dict(KB.LAUNCHES), losses, times, max(peaks), first
+
+    return cfg, dcfg, run
+
+
+def phase_two_tier_train(dev):
+    """The train cell (``launch/cell.py``) over two DP axes, ("pod",
+    "data") = ``cell.HIER_DP``: bine_hier bucketed and per-leaf (1 step
+    each, bitwise equal), pallas_fused float32 (3 steps; after step 1
+    bitwise equal to two-axis bine) and int8 (2 steps), which must launch
+    rs_step, ag_step and rs_step_q.  Every step-1 loss equals the flat
+    p=4 pallas_fused step-1 loss bitwise; later losses lie within 1e-3 of
+    the flat run's at the same step (same params, same batches)."""
+    import torch
+    from repro_torch.launch import cell
+
+    cfg, dcfg, run = train_runs(dev)
+    tokens = dcfg.global_batch * dcfg.seq_len
+    flat = {}
+    for wire, steps in (("float32", 3), ("int8", 2)):
+        flat[wire] = run(cell.train_config("pallas_fused", wire), cell.N_DP,
+                         steps, f"flat pallas_fused/{wire}")[1]
+    loss0 = flat["float32"][0]
+
+    def flat_eq(a, b):
+        return all(torch.equal(u, v) for u, v in zip(a, b))
+
+    def losses_ok(tag, losses, wire):
+        check(losses[0] == loss0, f"{tag}: step-1 loss {losses[0]!r} is not "
+              f"the flat pallas_fused step-1 loss {loss0!r}")
+        for s, (a, b) in enumerate(zip(losses[1:], flat[wire][1:]), 1):
+            check(abs(a - b) <= 1e-3, f"{tag} step {s}: loss {a} vs flat {b}")
+
+    hier = cell.hier_train_config
+    dp = cell.HIER_DP
+    _, lb, tb, pb, bucketed = run(hier("bine_hier", "float32"), dp, 1,
+                                  "two-axis bine_hier/float32 bucketed")
+    losses_ok("bine_hier bucketed", lb, "float32")
+    _, ll, tl, pl, per_leaf = run(
+        hier("bine_hier", "float32").replace(bucket_bytes=0), dp, 1,
+        "two-axis bine_hier/float32 per-leaf")
+    losses_ok("bine_hier per-leaf", ll, "float32")
+    check(flat_eq(bucketed, per_leaf),
+          "bucketed and per-leaf bine_hier params differ after one step")
+    log("  bine_hier bucketed == per-leaf after one float32 step, bitwise")
+    del bucketed, per_leaf
+    c32, l32, t32, p32, fused_first = run(
+        hier("pallas_fused", "float32"), dp, 3,
+        "two-axis pallas_fused/float32")
+    losses_ok("pallas_fused float32", l32, "float32")
+    _, lbn, _, _, bine_first = run(hier("bine", "float32"), dp, 1,
+                                   "two-axis bine/float32")
+    losses_ok("bine float32", lbn, "float32")
+    check(flat_eq(fused_first, bine_first),
+          "two-axis pallas_fused and bine params differ after one step")
+    log("  two-axis pallas_fused == bine after one float32 step, bitwise")
+    del fused_first, bine_first
+    c8, l8, t8, p8, _ = run(hier("pallas_fused", "int8"), dp, 2,
+                            "two-axis pallas_fused/int8")
+    losses_ok("pallas_fused int8", l8, "int8")
+    launches = {k: c32[k] + c8[k] for k in ("rs_step", "ag_step",
+                                             "rs_step_q")}
+    for k, v in launches.items():
+        check(v > 0, f"kernel {k} was not launched on the two-axis path")
+    check(c8["rs_step_q"] > 0, "the two-axis int8 steps did not run "
+          "rs_step_q")
+    warm = statistics.median(t32[1:])
+    nums = {"hier_bucketed_step_ms": tb[0] * 1e3,
+            "hier_per_leaf_step_ms": tl[0] * 1e3,
+            "two_axis_f32_step_ms": warm * 1e3,
+            "two_axis_f32_tokens_per_s": tokens / warm,
+            "two_axis_int8_step_ms": t8[1] * 1e3,
+            "two_axis_int8_tokens_per_s": tokens / t8[1],
+            "peak_gib": {"bine_hier_bucketed": pb, "bine_hier_per_leaf": pl,
+                         "pallas_fused_f32": p32, "pallas_fused_int8": p8}}
+    log(f"  two-axis pallas_fused warm step: float32 {warm * 1e3:.1f} ms "
+        f"({tokens / warm:.0f} tokens/s, peak {p32:.1f} GiB), int8 "
+        f"{t8[1] * 1e3:.1f} ms ({tokens / t8[1]:.0f} tokens/s, peak "
+        f"{p8:.1f} GiB); bine_hier step (cold) bucketed {tb[0] * 1e3:.1f} "
+        f"ms, per-leaf {tl[0] * 1e3:.1f} ms; launches {launches}")
+    return launches, nums
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the train step
 # ---------------------------------------------------------------------------
 
 def phase_small_reference(dev):
@@ -1125,7 +1377,7 @@ def phase_train(dev):
 
 
 # ---------------------------------------------------------------------------
-# Phase 6: serving
+# Phase 7: serving
 # ---------------------------------------------------------------------------
 
 def phase_serve_small_reference(dev):
@@ -1350,7 +1602,7 @@ def main() -> int:
     from repro_torch.kernels.rmsnorm import kernel as RK
 
     t_all = time.perf_counter()
-    log("[1/6] build")
+    log("[1/7] build")
     t0 = time.perf_counter()
     libs = KB.build()
     for src in K.SOURCES:
@@ -1360,30 +1612,37 @@ def main() -> int:
     log(f"  built {', '.join(p.name for p in libs.values())} in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    log("[2/6] kernels vs plain versions")
+    log("[2/7] kernels vs plain versions")
     rows, qacc_launches = phase_kernels(dev)
     torch.cuda.empty_cache()
 
-    log("[3/6] fused collectives vs stacked (bitwise)")
+    log("[3/7] fused collectives vs stacked (bitwise)")
     phase_collectives(dev)
 
-    log("[4/6] collectives API")
+    log("[4/7] collectives API")
     api_launches = phase_api(dev)
 
-    log("[5/6] train")
+    log("[5/7] two-tier (bine_hier)")
+    hier_launches, two_tier = phase_two_tier(dev)
+    torch.cuda.empty_cache()
+
+    log("[6/7] train")
     phase_small_reference(dev)
     launches, train = phase_train(dev)
     torch.cuda.empty_cache()
 
-    log("[6/6] serve")
+    log("[7/7] serve")
     phase_serve_small_reference(dev)
     serve_launches, serve = phase_serve(dev)
-    # the step kernels' counts from the train step's main path, the ring
-    # and matmul kernels' from the API run, the norm and attention
+    # the step kernels' counts from the train step's main path and its
+    # two-axis path, the ring and matmul kernels' from the API run, the
+    # norm and attention
     # kernels' from the serve run, qacc's from the qdot op's path
     # (the float32 matmul rows count the CUDA-core kernel's launches, the
     # *_wgmma rows the tensor-core kernel's; flash's row is bf16, all of
     # whose serve launches are wgmma ones)
+    for name, n in hier_launches.items():
+        launches[name] += n
     for name in ("ring_update", "matmul_pack_wgmma", "gather_matmul_wgmma"):
         launches[name] = api_launches[name]
     for name in ("matmul_pack", "gather_matmul"):
@@ -1397,6 +1656,7 @@ def main() -> int:
 
     log("kernels: [" + ", ".join(f"{k} x{v}" for k, v in launches.items())
         + "]")
+    log(f"two-tier: {json.dumps(two_tier)}")
     log(f"serve: {json.dumps(serve)}")
     log(f"train: {json.dumps(train)}; total {time.perf_counter() - t_all:.0f} s")
     print(json.dumps({"kernels": list(rows.values())}))

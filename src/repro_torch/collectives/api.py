@@ -24,17 +24,28 @@ Backends
   auto         : the packaged decision table for ``cfg.topology`` picks
                  the backend for (collective, p, payload bytes of ONE
                  rank); ``repro_torch.topology``.
-  bine_hier    : not ported (ROADMAP.md queue A item 1).
+  bine_hier    : hierarchical (Sec. 6.2).  With ``cfg.dp_shape = (outer,
+                 inner)`` (e.g. ``(pods, data)``; the reference's
+                 ``outer_axis`` / ``inner_axis``) the p = outer * inner
+                 stacked ranks are ``r = o * inner + i``: bine RS/AG over
+                 the inner axis and bine across the outer one
+                 (``stacked.over_axis``).  On one axis the tier stack is
+                 derived from the ``cfg.topology`` preset
+                 (``topology.tier_split``) and the composed schedule
+                 (``core.schedules.compose``) runs through
+                 ``stacked.run_schedule``.  The rooted collectives and
+                 all_to_all run bine.
 
 The allreduce switches small/large at ``small_cutoff_bytes``, inclusive.
 The reference's trace-time telemetry hook (``_obs_record``) is not ported:
-it comes with ``repro.obs`` (ROADMAP.md queue A item 1).
+it comes with ``repro.obs`` (ROADMAP.md queue A item 1c).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import torch
 
@@ -50,16 +61,18 @@ WIRE_DTYPES = ("float32", "bfloat16", "int8", "auto")
 #: backends with an int8 wire-codec path
 WIRE_CODEC_BACKENDS = ("bine", "recdoub", PALLAS_FUSED_BACKEND)
 
-_BINE_HIER = ("backend='bine_hier' is not ported: ROADMAP.md queue A item 1 "
-              "(bine_hier, composed schedules and run_schedule)")
-
 
 @dataclass(frozen=True)
 class CollectiveConfig:
-    backend: str = "bine"             # bine | recdoub | ring | xla
+    backend: str = "bine"             # bine | recdoub | ring | xla | bine_hier
     #                                 # | pallas_fused | auto
     small_cutoff_bytes: int = 16384   # allreduce small/large switch (inclusive)
-    topology: str = "tpu_multipod"    # decision-table preset for backend="auto"
+    #: for bine_hier over two axes: (outer, inner) sizes of the stacked
+    #: ranks, row-major (rank r = o * inner + i); None = one axis
+    dp_shape: Optional[Tuple[int, int]] = None
+    #: preset of backend="auto"'s decision table and one-axis bine_hier's
+    #: tier stack
+    topology: str = "tpu_multipod"
     fused_algo: str = "bine"          # schedule family pallas_fused executes
     #: decision-table provenance: "analytic" (the packaged tables);
     #: "measured" is not ported and raises at lookup
@@ -187,11 +200,59 @@ def _wire_rs_ag(collective: str, x: torch.Tensor, cfg: CollectiveConfig):
 
 
 def _butterfly_algo(b: str) -> str:
-    if b == "bine_hier":
-        raise NotImplementedError(_BINE_HIER)
     if b not in ("bine", "recdoub"):
         raise ValueError(f"unknown backend {b!r}")
     return b
+
+
+def _hier_tiers(cfg: CollectiveConfig, p: int) -> Tuple[int, ...]:
+    """Tier stack for one-axis ``bine_hier``: derived from the
+    ``cfg.topology`` preset's physical hierarchy (ranks/node, nodes/group)
+    via ``topology.tier_split``.
+
+    Raises ``ValueError`` naming the preset when no hierarchy can be
+    derived (torus / unknown preset) or when the composed schedule cannot
+    run as static steps (non-power-of-two p)."""
+    from repro_torch.topology import tier_split
+    try:
+        tiers = tier_split(cfg.topology, p)
+    except (KeyError, ValueError) as e:
+        raise ValueError(
+            "backend='bine_hier' on one axis derives its tier stack from "
+            f"the topology preset {cfg.topology!r}: {e}") from e
+    if p & (p - 1):
+        raise ValueError(
+            f"backend='bine_hier' needs a power-of-two rank count to execute "
+            f"the composed schedule as static steps; preset "
+            f"{cfg.topology!r} derived tiers {tiers} from p={p}.  Use a "
+            "two-axis dp_shape or a flat backend.")
+    return tiers
+
+
+def _composed(collective: str, tiers: Tuple[int, ...]):
+    from repro_torch.core.schedules import compose
+    return compose(collective, tiers, "bine")
+
+
+def _check_hier_divisible(n: int, p: int, cfg: CollectiveConfig,
+                          tiers: Tuple[int, ...]) -> None:
+    if n % p:
+        raise ValueError(
+            f"bine_hier needs the vector length divisible by the total "
+            f"rank count p={p} (preset {cfg.topology!r}, tiers {tiers}); "
+            f"got length {n}")
+
+
+def _dp_shape(cfg: CollectiveConfig, p: int) -> Optional[Tuple[int, int]]:
+    """The two-axis ``(outer, inner)`` shape of a ``bine_hier`` call, or
+    None on one axis."""
+    if cfg.dp_shape is None:
+        return None
+    shape = tuple(int(d) for d in cfg.dp_shape)
+    if len(shape) != 2 or shape[0] * shape[1] != p:
+        raise ValueError(f"dp_shape {cfg.dp_shape} is not the (outer, "
+                         f"inner) shape of {p} stacked ranks")
+    return shape
 
 
 def allreduce(x: torch.Tensor, cfg: CollectiveConfig = BINE) -> torch.Tensor:
@@ -201,6 +262,17 @@ def allreduce(x: torch.Tensor, cfg: CollectiveConfig = BINE) -> torch.Tensor:
     b = cfg.backend
     if b == "xla":
         return stacked.psum(x)
+    if b == "bine_hier":
+        p = x.shape[0]
+        shape = _dp_shape(cfg, p)
+        if shape is not None:
+            return stacked.allreduce_hierarchical(x, shape, 1, 0, "bine")
+        tiers = _hier_tiers(cfg, p)
+        if len(tiers) == 1:
+            # degenerate split (all ranks inside one node): flat bine
+            b = "bine"
+        else:
+            return stacked.allreduce_sched(x, _composed("allreduce", tiers))
     if b == "ring":
         return stacked.allreduce_ring(x)
     if b == PALLAS_FUSED_BACKEND:
@@ -217,7 +289,15 @@ def allreduce(x: torch.Tensor, cfg: CollectiveConfig = BINE) -> torch.Tensor:
 def reduce_scatter(x: torch.Tensor,
                    cfg: CollectiveConfig = BINE) -> torch.Tensor:
     """``x [p, ...]`` (per-rank length divisible by p) -> ``[p, n/p]``:
-    rank r's reduced block r."""
+    rank r's reduced block r.
+
+    ``bine_hier`` over two axes (``cfg.dp_shape``) runs the Sec. 6.2
+    composition: RS over the fast inner axis first (the big messages stay
+    on the fast links), then over the outer axis on the 1/inner shard.
+    Block ownership is inner-major: rank ``(o, i)`` ends with block
+    ``i * outer + o``, which this module's two-axis ``bine_hier``
+    allgather (outer first) inverts.  The one-axis composed path keeps
+    the flat convention: rank r ends with block r."""
     cfg = _resolve(cfg, "reduce_scatter", x)
     if cfg.wire_dtype != "float32":
         out = _wire_rs_ag("reduce_scatter", x, cfg)
@@ -229,6 +309,20 @@ def reduce_scatter(x: torch.Tensor,
         return x.reshape(p, p, -1).sum(0, dtype=x.dtype)
     if b == PALLAS_FUSED_BACKEND:
         return fused.reduce_scatter(x.reshape(p, -1), cfg.fused_algo)
+    if b == "bine_hier":
+        v = x.reshape(p, -1)
+        shape = _dp_shape(cfg, p)
+        if shape is not None:
+            v = stacked.over_axis(stacked.reduce_scatter, v, shape, 1,
+                                  "bine")
+            return stacked.over_axis(stacked.reduce_scatter, v, shape, 0,
+                                     "bine")
+        tiers = _hier_tiers(cfg, p)
+        _check_hier_divisible(v.shape[1], p, cfg, tiers)
+        if len(tiers) == 1:
+            return stacked.reduce_scatter(v, "bine")
+        return stacked.reduce_scatter_sched(
+            v, _composed("reduce_scatter", tiers))
     if b == "ring":
         return stacked.reduce_scatter(x.reshape(p, -1), "ring")
     return stacked.reduce_scatter(x.reshape(p, -1), _butterfly_algo(b))
@@ -236,7 +330,8 @@ def reduce_scatter(x: torch.Tensor,
 
 def allgather(x: torch.Tensor, cfg: CollectiveConfig = BINE) -> torch.Tensor:
     """``x [p, ...]`` (rank r's block) -> ``[p, p*blk]``: the blocks in rank
-    order, on every rank."""
+    order, on every rank (two-axis ``bine_hier``: inner-major, inverting
+    this module's two-axis ``bine_hier`` reduce_scatter)."""
     cfg = _resolve(cfg, "allgather", x, gathered=True)
     if cfg.wire_dtype != "float32":
         out = _wire_rs_ag("allgather", x, cfg)
@@ -248,6 +343,16 @@ def allgather(x: torch.Tensor, cfg: CollectiveConfig = BINE) -> torch.Tensor:
         return stacked.all_gather(x.reshape(p, -1), 0)
     if b == PALLAS_FUSED_BACKEND:
         return fused.allgather(x.reshape(p, -1), cfg.fused_algo)
+    if b == "bine_hier":
+        v = x.reshape(p, -1)
+        shape = _dp_shape(cfg, p)
+        if shape is not None:
+            v = stacked.over_axis(stacked.allgather, v, shape, 0, "bine")
+            return stacked.over_axis(stacked.allgather, v, shape, 1, "bine")
+        tiers = _hier_tiers(cfg, p)
+        if len(tiers) == 1:
+            return stacked.allgather(v, "bine")
+        return stacked.allgather_sched(v, _composed("allgather", tiers))
     if b == "ring":
         return stacked.allgather(x.reshape(p, -1), "ring")
     return stacked.allgather(x.reshape(p, -1), _butterfly_algo(b))
@@ -263,10 +368,8 @@ def all_to_all(x: torch.Tensor, cfg: CollectiveConfig = BINE) -> torch.Tensor:
         return stacked.all_to_all_xla(x)
     if b == PALLAS_FUSED_BACKEND:
         b = cfg.fused_algo   # no fused alltoall kernel: the same family
-    if b == "bine_hier":
-        raise NotImplementedError(_BINE_HIER)
-    algo = {"bine": "bine", "recdoub": "recdoub", "ring": "bruck",
-            "bruck": "bruck"}[b]
+    algo = {"bine": "bine", "bine_hier": "bine", "recdoub": "recdoub",
+            "ring": "bruck", "bruck": "bruck"}[b]
     return stacked.all_to_all(x, algo)
 
 
@@ -276,8 +379,6 @@ def _rooted_algo(cfg: CollectiveConfig) -> str:
     b = cfg.backend
     if b == PALLAS_FUSED_BACKEND:
         b = cfg.fused_algo
-    if b == "bine_hier":
-        raise NotImplementedError(_BINE_HIER)
     return "bine" if b.startswith("bine") else "binomial"
 
 

@@ -14,6 +14,9 @@ from typing import Tuple
 
 import torch
 
+#: wire dtypes the collective stack can put on the wire
+WIRE_DTYPES = ("float32", "bfloat16", "int8")
+
 #: codec chunk cap (elements) shared by the stacked and fused int8 paths
 WIRE_CHUNK = 256
 
@@ -24,6 +27,11 @@ WIRE_BYTES_PER_ELEM = {
     "bfloat16": 2.0,
     "int8": 1.0 + 4.0 / WIRE_CHUNK,
 }
+
+
+def wire_factor(wire_dtype: str) -> float:
+    """Wire bytes relative to float32 (scale metadata included)."""
+    return WIRE_BYTES_PER_ELEM[wire_dtype] / 4.0
 
 
 def wire_chunk(n: int, cap: int = WIRE_CHUNK) -> int:

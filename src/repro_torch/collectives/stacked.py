@@ -20,6 +20,14 @@ The XLA built-ins the reference's ``backend="xla"`` calls (``psum``,
 ``psum_scatter``, ``all_gather``, ``all_to_all``) are the framework's own
 reductions and reshapes over the rank dim here (section at the end); a
 multi-GPU executor maps them to NCCL.
+
+Two DP axes: the reference flattens a tuple of mesh axes row-major
+(``shmap.axis_index``), so the stacked ranks of a ``(pods, data)`` layout
+are ``r = pod * data + d`` and a tuple-axis collective is the flat one
+over all p rows.  A collective over ONE of the axes runs within each of
+its groups (the ranks that differ only in that axis): :func:`over_axis`.
+The schedule-IR executor (:func:`run_schedule`) runs any composed
+(hierarchical) schedule of ``core.schedules.compose``.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ import torch
 
 from repro_torch.collectives import compression as comp
 from repro_torch.core import tables as tb
+from repro_torch.core.schedules import BLOCK_ALL, KIND_REDUCE, Schedule
 
 _KIND = {"bine": "bine_dd", "recdoub": "recdoub_dd"}
 
@@ -553,6 +562,187 @@ def all_to_all(x: torch.Tensor, algo: str = "bine") -> torch.Tensor:
         recv = permute(chunk, at.perms[j])
         buf[ar, rank_rows(at.recv_slots[j], dev)] = recv
     return buf[ar, rank_rows(at.final_slots, dev)].reshape(x.shape)
+
+
+# ---------------------------------------------------------------------------
+# Schedule-IR executor: one index gather a step, static block-id tables
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _schedule_tables(sched: Schedule):
+    """Static per-step dispatch tables for ``run_schedule``:
+    ``(kind, perm, send [p, k], recv [p, k])`` a step, as the reference's.
+
+    Requires full-permutation steps (every rank sends once and receives
+    once, all messages the same block count): true of every pow2
+    butterfly, ring and composed schedule; the non-pow2 adapter schedules
+    are not executable here.  Packing order is the message's ``blocks``
+    tuple, so sender and receiver tables agree by construction."""
+    p = sched.p
+    out = []
+    for step, kind in zip(sched.steps, sched.kinds):
+        if len(step) != p:
+            raise ValueError(
+                f"run_schedule needs full-permutation steps; got "
+                f"{len(step)} messages for p={p}")
+        k = len(step[0].blocks)
+        send = np.zeros((p, k), np.int32)
+        recv = np.zeros((p, k), np.int32)
+        perm = []
+        for m in step:
+            if len(m.blocks) != k or BLOCK_ALL in m.blocks:
+                raise ValueError("uneven or whole-vector blocks in a step")
+            send[m.src] = m.blocks
+            recv[m.dst] = m.blocks
+            perm.append((int(m.src), int(m.dst)))
+        out.append((kind, tuple(perm), send, recv))
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
+def _schedule_rows(sched: Schedule):
+    """Per step, ``(kind, gather, land)``: row indices into the ``[p*p,
+    blk]`` view of the ``[p, p, blk]`` (rank, block) buffer.  ``gather``
+    lists, for each receiving rank in turn, the rows its sender sends (the
+    send gather and the ppermute in one); ``land`` the rows they land in."""
+    p = sched.p
+    out = []
+    for kind, perm, send, recv in _schedule_tables(sched):
+        src = sources(perm, p)
+        gather = (src[:, None] * p + send[src]).ravel()
+        land = (np.arange(p)[:, None] * p + recv).ravel()
+        out.append((kind, tuple(int(i) for i in gather),
+                    tuple(int(i) for i in land)))
+    return tuple(out)
+
+
+def run_schedule(v: torch.Tensor, sched: Schedule) -> torch.Tensor:
+    """Execute a block-schedule IR value on ``v [p, p, blk]`` (rank r's
+    block b at ``v[r, b]``); returns the new buffer, ``v`` is not changed.
+
+    Each step is one index gather over the ``[p*p, blk]`` rows (every
+    rank's send blocks, taken from its sender: the ppermute), landed by
+    kind: ``reduce`` accumulates (``index_add_``: ``block + recv``, one
+    add a block, as the reference's ``.at[].add``), ``copy``/``move``
+    install (``index_copy_``).  Relinquished blocks go stale in the
+    buffer; the IR's kind discipline (the numpy oracle checks it) keeps
+    them from being read again."""
+    p = sched.p
+    if tuple(v.shape[:2]) != (p, p):
+        raise ValueError(f"run_schedule needs a [p, p, blk] buffer for "
+                         f"p={p}; got {tuple(v.shape)}")
+    rows = v.reshape(p * p, -1).clone()
+    for kind, gather, land in _schedule_rows(sched):
+        got = rows.index_select(0, _ints(gather, torch.int64, rows.device))
+        idx = _ints(land, torch.int64, rows.device)
+        if kind == KIND_REDUCE:
+            rows.index_add_(0, idx, got)
+        else:
+            rows.index_copy_(0, idx, got)
+    return rows.view(v.shape)
+
+
+def reduce_scatter_sched(x: torch.Tensor, sched: Schedule) -> torch.Tensor:
+    """``x [p, n]`` -> ``[p, n/p]``: rank r's reduced block r, via an RS
+    schedule value (e.g. ``core.schedules.compose("reduce_scatter",
+    tiers)``)."""
+    p = sched.p
+    v = x.reshape(p, -1)
+    if v.shape[1] % p:
+        raise ValueError(f"reduce_scatter_sched needs len divisible by "
+                         f"p={p}; got {v.shape[1]}")
+    v = run_schedule(v.view(p, p, -1), sched)
+    ar = torch.arange(p, device=v.device)
+    return v[ar, ar]
+
+
+def allgather_sched(x: torch.Tensor, sched: Schedule) -> torch.Tensor:
+    """``x [p, blk]`` (rank r's block) -> ``[p, p*blk]``: the blocks in
+    rank order on every rank, via an AG schedule value."""
+    p = sched.p
+    blk = x.reshape(p, -1)
+    v = blk.new_zeros((p, p, blk.shape[1]))
+    ar = torch.arange(p, device=v.device)
+    v[ar, ar] = blk
+    return run_schedule(v, sched).reshape(p, -1)
+
+
+def allreduce_sched(x: torch.Tensor, sched: Schedule) -> torch.Tensor:
+    """Allreduce of ``x [p, ...]`` via a composed RS+AG schedule value,
+    zero-padded to a multiple of p."""
+    p = sched.p
+    v, n = _pad_to(x.reshape(p, -1), p)
+    v = run_schedule(v.view(p, p, -1), sched)
+    return v.reshape(p, -1)[:, :n].reshape(x.shape)
+
+
+# ---------------------------------------------------------------------------
+# Two DP axes: one axis of a row-major stacking; the hierarchy (Sec. 6.2)
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def axis_groups(shape: Tuple[int, ...], axis: int) -> Tuple[Tuple[int, ...],
+                                                            ...]:
+    """The rank groups of axis ``axis`` of a row-major stacking of
+    ``shape``: each group holds the ranks that differ only in that axis,
+    in the axis's order (its rank 0 first)."""
+    ranks = np.arange(int(np.prod(shape))).reshape(shape)
+    return tuple(tuple(int(r) for r in g)
+                 for g in np.moveaxis(ranks, axis, -1).reshape(
+                     -1, shape[axis]))
+
+
+def over_axis(fn, x: torch.Tensor, shape: Tuple[int, ...], axis: int,
+              *args) -> torch.Tensor:
+    """Run the stacked one-axis collective ``fn(rows, *args)`` over axis
+    ``axis`` of ``x [p, ...]`` stacked row-major as ``shape``: within each
+    group of :func:`axis_groups`, one group after another, so a reduction
+    stays inside its group; row r of the result is rank r's."""
+    shape = tuple(int(d) for d in shape)
+    if x.shape[0] != int(np.prod(shape)):
+        raise ValueError(f"{x.shape[0]} stacked ranks do not make the "
+                         f"DP shape {shape}")
+    groups = axis_groups(shape, axis)
+    if len(groups) == 1:
+        return fn(x, *args)
+    out = None
+    for g in groups:
+        idx = _ints(g, torch.int64, x.device)
+        y = fn(x.index_select(0, idx), *args)
+        if out is None:
+            out = y.new_empty((x.shape[0],) + tuple(y.shape[1:]))
+        out.index_copy_(0, idx, y)
+    return out
+
+
+def allreduce_hier(x: torch.Tensor, shape: Tuple[int, ...],
+                   axes: Sequence[int], algo: str = "bine") -> torch.Tensor:
+    """Arbitrary-depth hierarchy over the axes of ``shape``, innermost
+    (fastest) first: RS down the stack, each level on a 1/p shard of the
+    one above, the butterfly allreduce at the top, AG back up.  The
+    stacked twin of ``core.schedules.compose`` over the axes' sizes."""
+    if len(axes) == 1:
+        return over_axis(allreduce_butterfly, x, shape, axes[0], algo)
+    inner = axes[0]
+    p_in = shape[inner]
+    if p_in == 1:
+        return allreduce_hier(x, shape, axes[1:], algo)
+    p = x.shape[0]
+    v, n = _pad_to(x.reshape(p, -1), p_in)
+    shard = over_axis(reduce_scatter, v, shape, inner, algo)
+    shard = allreduce_hier(shard, shape, axes[1:], algo)
+    full = over_axis(allgather, shard, shape, inner, algo)
+    return full[:, :n].reshape(x.shape)
+
+
+def allreduce_hierarchical(x: torch.Tensor, shape: Tuple[int, ...],
+                           inner: int, outer: int,
+                           algo: str = "bine") -> torch.Tensor:
+    """RS within the (fast) inner axis, allreduce across the (slow) outer
+    axis on the 1/p_in shard, AG within the inner axis: each rank's
+    crossing bytes drop from O(n) to n/p_in.  The depth-2 case of
+    :func:`allreduce_hier`."""
+    return allreduce_hier(x, shape, (inner, outer), algo)
 
 
 # ---------------------------------------------------------------------------

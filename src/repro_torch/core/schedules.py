@@ -753,7 +753,7 @@ def compose(collective: str, tiers: Sequence[int],
 def default_tiers(p: int) -> Tuple[int, ...]:
     """Topology-agnostic balanced two-tier pow2 split, innermost first
     (p=8 → (4, 2), p=16 → (4, 4)); presets refine this via
-    ``repro.topology.tier_split``."""
+    ``topology.tier_split``."""
     s = log2_int(p)
     inner = 1 << ((s + 1) // 2)
     return tuple(t for t in (inner, p // inner) if t > 1) or (p,)

@@ -4,6 +4,8 @@ Train: full-width phi4-mini cut to 2 of its 32 layers, 4 DP ranks stacked
 on one card, global batch 8 x 1024 tokens, the table bucket size, AdamW
 with a 2-step warm-up.  ``chip_smoke.py`` and ``launch/profile_step.py``
 both build their step from here, so the profiled step is the smoked one.
+``hier_train_config`` stacks the same 4 ranks as two DP axes,
+``("pod", "data")`` of shape ``HIER_DP`` = (2, 2), for the two-tier path.
 
 Serve (``SERVE_CELL``): phi4-mini at full width and full depth, an 8-page
 pool, a Poisson trace of 16 greedy requests at 0.5 per decode step with
@@ -25,6 +27,8 @@ from repro_torch.train.step import TrainConfig
 ARCH = "phi4-mini-3.8b"
 N_LAYERS = 2
 N_DP = 4
+#: the 4 ranks as (pods, data) for the two-tier (bine_hier) path
+HIER_DP = (2, 2)
 GLOBAL_BATCH = 8
 SEQ_LEN = 1024
 
@@ -44,6 +48,13 @@ def train_config(backend: str, wire_dtype: str,
                        topology=topology,
                        adamw=AdamWConfig(lr=3e-4, warmup_steps=2,
                                          total_steps=100))
+
+
+def hier_train_config(backend: str, wire_dtype: str) -> TrainConfig:
+    """``train_config`` over two DP axes: pass ``HIER_DP`` as the step's
+    ``dp``."""
+    return train_config(backend, wire_dtype).replace(
+        dp_axes=("pod", "data"))
 
 
 @dataclass(frozen=True)

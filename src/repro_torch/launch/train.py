@@ -6,6 +6,8 @@ ranks run stacked on one device (``train.step``):
   python -m repro_torch.launch.train --arch phi4-mini-3.8b --reduced \\
       --mesh 4,1 --steps 20 --batch 8 --seq 64 --backend pallas_fused
 
+``--mesh pod,data,model`` stacks two DP axes, as the reference's mesh has
+them (``--mesh 2,2,1 --backend bine_hier`` runs the two-tier hierarchy).
 Runs on CUDA unless ``--device cpu`` is given.
 """
 
@@ -13,6 +15,7 @@ from __future__ import annotations
 
 import argparse
 import time
+from typing import Tuple
 
 import torch
 
@@ -24,17 +27,20 @@ from repro_torch.train.data import DataConfig, make_batch
 from repro_torch.train.step import TrainConfig, make_init_fns, make_train_step
 
 
-def parse_mesh(mesh: str) -> int:
-    """``1,<dp>,1`` or ``<dp>,1`` -> the DP rank count (model axis 1)."""
+def parse_mesh(mesh: str) -> Tuple[Tuple[str, ...], Tuple[int, ...]]:
+    """``pod,data,model`` or ``data,model`` -> (dp_axes, their sizes), as
+    the reference names a mesh's axes; the model axis must be 1."""
     shape = tuple(int(x) for x in mesh.split(","))
-    if len(shape) == 3 and shape[0] == 1 and shape[2] == 1:
-        return shape[1]
-    if len(shape) == 2 and shape[1] == 1:
-        return shape[0]
-    raise NotImplementedError(
-        f"mesh {mesh!r}: this port runs one DP axis with model axis 1 "
-        "(1,<dp>,1 or <dp>,1); tensor parallelism is ROADMAP.md queue A "
-        "item 3")
+    if len(shape) not in (2, 3):
+        raise ValueError(f"mesh {mesh!r}: expected pod,data,model or "
+                         "data,model")
+    if shape[-1] != 1:
+        raise NotImplementedError(
+            f"mesh {mesh!r}: this port runs model axis 1; tensor "
+            "parallelism (a model axis above 1) is ROADMAP.md queue A "
+            "item 3")
+    axes = ("pod", "data", "model")[-len(shape):]
+    return axes[:-1], shape[:-1]
 
 
 def main(argv=None):
@@ -42,13 +48,14 @@ def main(argv=None):
     ap.add_argument("--arch", default="phi4-mini-3.8b")
     ap.add_argument("--reduced", action="store_true",
                     help="tiny same-family config")
-    ap.add_argument("--mesh", default="4,1", help="1,<dp>,1 or <dp>,1")
+    ap.add_argument("--mesh", default="4,1",
+                    help="pod,data,model or data,model (model 1)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--backend", default="bine",
-                    choices=["bine", "recdoub", "ring", "xla", "pallas_fused",
-                             "auto"])
+                    choices=["bine", "recdoub", "ring", "xla", "bine_hier",
+                             "pallas_fused", "auto"])
     ap.add_argument("--topology", default="tpu_multipod",
                     help="decision-table preset for --backend auto, "
                          "--wire-dtype auto and the bucket size")
@@ -70,19 +77,19 @@ def main(argv=None):
     cfg = cfgbase.get_config(args.arch)
     if args.reduced:
         cfg = cfgbase.reduced(cfg)
-    n_dp = parse_mesh(args.mesh)
+    dp_axes, dp = parse_mesh(args.mesh)
 
     acfg = AdamWConfig(lr=args.lr, warmup_steps=args.warmup,
                        total_steps=args.steps)
-    tcfg = TrainConfig(backend=args.backend, accum_steps=args.accum,
-                       adamw=acfg, wire_dtype=args.wire_dtype,
-                       topology=args.topology)
+    tcfg = TrainConfig(backend=args.backend, dp_axes=dp_axes,
+                       accum_steps=args.accum, adamw=acfg,
+                       wire_dtype=args.wire_dtype, topology=args.topology)
     shapes = TF.param_shapes(cfg)
     print(f"[train] arch={cfg.name} params={TF.param_count(shapes):,} "
-          f"dp={n_dp} backend={args.backend} wire={args.wire_dtype} "
-          f"topology={args.topology} device={dev}")
-    step_fn, info, _ = make_train_step(cfg, tcfg, n_dp, shapes, dev)
-    init_p, init_s = make_init_fns(cfg, tcfg, n_dp, dev)
+          f"dp={dict(zip(dp_axes, dp))} backend={args.backend} "
+          f"wire={args.wire_dtype} topology={args.topology} device={dev}")
+    step_fn, info, _ = make_train_step(cfg, tcfg, dp, shapes, dev)
+    init_p, init_s = make_init_fns(cfg, tcfg, dp, dev)
     params = init_p(args.seed)
     state = init_s(params)
     dcfg = DataConfig(global_batch=args.batch, seq_len=args.seq,

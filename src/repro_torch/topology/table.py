@@ -1,17 +1,21 @@
 """Decision tables: ``(collective, p, size-bucket) -> backend``.
 
-The read side of ``repro.topology.table``: the five preset tables packaged
-with the JAX package, copied byte for byte into ``topology/tables/``, are
-parsed (formats 1-3) and looked up exactly as the reference does.  The
-tables are built by the reference's cost model (``repro.topology.cost``),
-which the port does not carry: ``build_table`` is not ported, and only the
-packaged presets load.
+Port of ``repro.topology.table``.  A table is built once per topology
+preset by brute-force argmin of ``cost.predict_time`` over
+``cost.CANDIDATES`` on a (p, size) grid (``build_table``), then serialized
+to JSON.  The five preset tables the JAX package ships are copied byte for
+byte into ``tables/``; ``build_table`` with the reference's constants
+rebuilds each of them byte for byte, and with ``hbm_bw`` set builds one
+for another card's local memory beside them.  ``load_table`` reads the
+packaged presets only (a built table is saved and loaded by the caller).
 
 ``entries[collective][p][i]`` is the backend for payloads in bucket ``i``
 (``nbytes <= size_buckets[i]``, first match; larger payloads use the last
 bucket).  A rank count off the grid snaps to the nearest grid point in
 log-space.  ``wire_entries`` (format 3) holds the joint
 ``(backend, wire_dtype)`` decision for reduce_scatter and allgather.
+``with_measured_cells`` and ``merge_measured`` overlay a tuner's measured
+cells; reading measured tables (``tuning="measured"``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -22,8 +26,16 @@ import os
 from bisect import bisect_left
 from dataclasses import dataclass, field
 from functools import lru_cache
-from typing import Dict, Tuple
+from typing import Dict, List, Optional, Tuple
 
+from .cost import (CANDIDATES, HBM_BW, SMALL_CUTOFF_BYTES,
+                   WIRE_CODEC_COLLECTIVES, candidates_for,
+                   optimal_bucket_bytes, predict_time, wire_candidates)
+from .presets import PRESETS, get_topology
+
+_FORMAT = 3
+#: formats ``from_json_dict`` accepts: 1 = pre-provenance, 2 = adds the
+#: per-cell provenance map, 3 = adds the joint (backend, wire_dtype) rows
 _COMPAT_FORMATS = (1, 2, 3)
 
 #: decision provenance values
@@ -39,33 +51,11 @@ P_GRID: Tuple[int, ...] = (4, 8, 16, 32, 64, 128)
 #: inclusive upper edges (bytes) of the payload buckets: 256 B .. 256 MiB
 SIZE_BUCKETS: Tuple[int, ...] = tuple(1 << k for k in range(8, 29, 2))
 
-#: allreduce small/large switch the tables were priced at (inclusive)
-SMALL_CUTOFF_BYTES = 16384
-
-#: backends the tables minimize over, per collective (the reference's
-#: ``cost.CANDIDATES``); for the rooted collectives "recdoub" selects the
-#: binomial-tree family in ``collectives.api``
-CANDIDATES: Dict[str, Tuple[str, ...]] = {
-    "allreduce": ("bine", "recdoub", "ring", "pallas_fused", "bine_hier"),
-    "reduce_scatter": ("bine", "recdoub", "ring", "pallas_fused",
-                       "bine_hier"),
-    "allgather": ("bine", "recdoub", "ring", "pallas_fused", "bine_hier"),
-    "alltoall": ("bine", "recdoub", "bruck"),
-    "broadcast": ("bine", "recdoub"),
-    "reduce": ("bine", "recdoub"),
-    "gather": ("bine", "recdoub"),
-    "scatter": ("bine", "recdoub"),
-}
-
-#: the packaged presets, one table each under ``tables/``
-PRESETS: Tuple[str, ...] = ("leonardo", "lumi", "marenostrum5", "torus",
-                            "tpu_multipod")
-
 _PACKAGED_DIR = os.path.join(os.path.dirname(__file__), "tables")
 
 #: where ``tuning="measured"`` is queued
-_MEASURED_ITEM = ("ROADMAP.md queue A item 1 (the tuner's measured tables, "
-                  "tuning='measured')")
+_MEASURED_ITEM = ("ROADMAP.md queue A item 1c (the tuner's measured "
+                  "tables, tuning='measured')")
 
 
 @dataclass(frozen=True)
@@ -136,6 +126,49 @@ class DecisionTable:
         row = per_p.get(q)
         return row[self.bucket_of(nbytes)] if row else ANALYTIC
 
+    def to_json_dict(self) -> dict:
+        d = {
+            "format": _FORMAT,
+            "topology": self.topology,
+            "small_cutoff_bytes": self.small_cutoff_bytes,
+            "ps": list(self.ps),
+            "size_buckets": list(self.size_buckets),
+            "entries": {c: {str(p): list(row) for p, row in per_p.items()}
+                        for c, per_p in self.entries.items()},
+            "bucket_bytes": {str(p): int(v)
+                             for p, v in self.bucket_bytes.items()},
+        }
+        if self.provenance:
+            d["provenance"] = {
+                c: {str(p): list(row) for p, row in per_p.items()}
+                for c, per_p in self.provenance.items()}
+        if self.wire_entries:
+            d["wire_entries"] = {
+                c: {str(p): [list(cell) for cell in row]
+                    for p, row in per_p.items()}
+                for c, per_p in self.wire_entries.items()}
+        if self.wire_provenance:
+            d["wire_provenance"] = {
+                c: {str(p): list(row) for p, row in per_p.items()}
+                for c, per_p in self.wire_provenance.items()}
+        return d
+
+    def to_json(self) -> str:
+        """The file's text, as the reference's ``save`` writes it."""
+        return json.dumps(self.to_json_dict(), indent=1, sort_keys=True) + "\n"
+
+    def save(self, path: str) -> None:
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            f.write(self.to_json())
+        os.replace(tmp, path)
+
+    @classmethod
+    def load(cls, path: str) -> "DecisionTable":
+        with open(path) as f:
+            return cls.from_json_dict(json.load(f))
+
     @classmethod
     def from_json_dict(cls, d: dict) -> "DecisionTable":
         if d.get("format") not in _COMPAT_FORMATS:
@@ -162,6 +195,160 @@ class DecisionTable:
         )
 
 
+# ---------------------------------------------------------------------------
+# Building
+# ---------------------------------------------------------------------------
+
+def build_table(topology: str,
+                ps: Tuple[int, ...] = P_GRID,
+                size_buckets: Tuple[int, ...] = SIZE_BUCKETS,
+                small_cutoff_bytes: int = SMALL_CUTOFF_BYTES,
+                hbm_bw: float = HBM_BW) -> DecisionTable:
+    """Brute-force argmin of ``predict_time`` over the candidate backends.
+
+    Each bucket is priced at its upper edge; ties break toward the earlier
+    entry in ``CANDIDATES[collective]`` (deterministic across rebuilds).
+    The ``wire_entries`` rows run the same argmin over the joint
+    ``cost.wire_candidates`` grid for the codec collectives; the float32
+    pairs enumerate first, so on a tie the uncompressed wire wins.
+    ``hbm_bw`` is the local memory's rate (B/s) in every price; its
+    default is the reference's, with which the packaged tables rebuild.
+    """
+    entries: Dict[str, Dict[int, Tuple[str, ...]]] = {}
+    wire_entries: Dict[str, Dict[int, Tuple[Tuple[str, str], ...]]] = {}
+    for collective in CANDIDATES:
+        cands = candidates_for(collective, topology)
+        wcands = wire_candidates(collective, topology)
+        per_p: Dict[int, Tuple[str, ...]] = {}
+        wire_per_p: Dict[int, Tuple[Tuple[str, str], ...]] = {}
+        for p in ps:
+            topo = get_topology(topology, p)
+            row: List[str] = []
+            wrow: List[Tuple[str, str]] = []
+            for edge in size_buckets:
+                best = min(cands, key=lambda b: predict_time(
+                    collective, b, p, edge, topo, small_cutoff_bytes,
+                    hbm_bw=hbm_bw))
+                row.append(best)
+                if collective in WIRE_CODEC_COLLECTIVES:
+                    wrow.append(min(wcands, key=lambda bw: predict_time(
+                        collective, bw[0], p, edge, topo,
+                        small_cutoff_bytes, wire_dtype=bw[1],
+                        hbm_bw=hbm_bw)))
+            per_p[p] = tuple(row)
+            if wrow:
+                wire_per_p[p] = tuple(wrow)
+        entries[collective] = per_p
+        if wire_per_p:
+            wire_entries[collective] = wire_per_p
+    bucket_bytes = {p: optimal_bucket_bytes(
+        p, get_topology(topology, p),
+        small_cutoff_bytes=small_cutoff_bytes, hbm_bw=hbm_bw) for p in ps}
+    return DecisionTable(topology=topology,
+                         small_cutoff_bytes=small_cutoff_bytes,
+                         ps=tuple(ps), size_buckets=tuple(size_buckets),
+                         entries=entries, bucket_bytes=bucket_bytes,
+                         wire_entries=wire_entries)
+
+
+# ---------------------------------------------------------------------------
+# Measured-cell merging (a tuner's output)
+# ---------------------------------------------------------------------------
+
+def with_measured_cells(base: DecisionTable,
+                        cells: Dict[Tuple[str, int, int], str],
+                        wire_cells: Optional[
+                            Dict[Tuple[str, int, int],
+                                 Tuple[str, str]]] = None
+                        ) -> DecisionTable:
+    """Overlay measured decisions onto ``base``.
+
+    ``cells`` maps ``(collective, p, size-bucket index) -> backend``; every
+    named cell takes the measured backend (``provenance_of`` says
+    ``"measured"``) and every other cell keeps the analytic entry.  Cells
+    off ``base``'s grid raise ``KeyError``.  ``wire_cells`` overlays the
+    joint ``(backend, wire_dtype)`` rows the same way; a wire cell for a
+    collective without a wire row raises too.
+    """
+    entries = {c: {p: list(row) for p, row in per_p.items()}
+               for c, per_p in base.entries.items()}
+    prov = {c: {p: [ANALYTIC] * len(row) for p, row in per_p.items()}
+            for c, per_p in base.entries.items()}
+    if base.provenance:  # keep measured cells already in the base
+        for c, per_p in base.provenance.items():
+            for p, row in per_p.items():
+                prov[c][p] = list(row)
+    nb = len(base.size_buckets)
+    for (coll, p, bucket), backend in cells.items():
+        if coll not in entries or p not in entries[coll] or not (
+                0 <= bucket < nb):
+            raise KeyError(f"measured cell ({coll}, {p}, {bucket}) is off "
+                           f"the {base.topology!r} table grid")
+        entries[coll][p][bucket] = backend
+        prov[coll][p][bucket] = MEASURED
+    wentries = {c: {p: list(row) for p, row in per_p.items()}
+                for c, per_p in base.wire_entries.items()}
+    wprov = {c: {p: [ANALYTIC] * len(row) for p, row in per_p.items()}
+             for c, per_p in base.wire_entries.items()}
+    if base.wire_provenance:
+        for c, per_p in base.wire_provenance.items():
+            for p, row in per_p.items():
+                if c in wprov and p in wprov[c]:
+                    wprov[c][p] = list(row)
+    for (coll, p, bucket), pair in (wire_cells or {}).items():
+        if coll not in wentries or p not in wentries[coll] or not (
+                0 <= bucket < nb):
+            raise KeyError(f"measured wire cell ({coll}, {p}, {bucket}) is "
+                           f"off the {base.topology!r} table grid")
+        wentries[coll][p][bucket] = (pair[0], pair[1])
+        wprov[coll][p][bucket] = MEASURED
+    return DecisionTable(
+        topology=base.topology,
+        small_cutoff_bytes=base.small_cutoff_bytes,
+        ps=base.ps, size_buckets=base.size_buckets,
+        entries={c: {p: tuple(row) for p, row in per_p.items()}
+                 for c, per_p in entries.items()},
+        bucket_bytes=dict(base.bucket_bytes),
+        provenance={c: {p: tuple(row) for p, row in per_p.items()}
+                    for c, per_p in prov.items()},
+        wire_entries={c: {p: tuple(row) for p, row in per_p.items()}
+                      for c, per_p in wentries.items()},
+        wire_provenance={c: {p: tuple(row) for p, row in per_p.items()}
+                         for c, per_p in wprov.items()})
+
+
+def merge_measured(base: DecisionTable,
+                   measured: DecisionTable) -> DecisionTable:
+    """Merge a measured table's MEASURED cells over an analytic base.
+
+    Both tables must share the (ps, size_buckets, small_cutoff) grid; a
+    mismatch means the measured table is stale and raises ``ValueError``.
+    """
+    if (measured.ps != base.ps
+            or measured.size_buckets != base.size_buckets
+            or measured.small_cutoff_bytes != base.small_cutoff_bytes):
+        raise ValueError(
+            f"measured table grid for {base.topology!r} does not match the "
+            f"analytic base (stale measured table? re-run launch/tune.py)")
+    cells = {}
+    for c, per_p in measured.provenance.items():
+        for p, row in per_p.items():
+            for i, src in enumerate(row):
+                if src == MEASURED:
+                    cells[(c, p, i)] = measured.entries[c][p][i]
+    wire_cells = {}
+    for c, per_p in measured.wire_provenance.items():
+        for p, row in per_p.items():
+            for i, src in enumerate(row):
+                if src == MEASURED and c in base.wire_entries:
+                    wire_cells[(c, p, i)] = measured.wire_entries[c][p][i]
+    return with_measured_cells(base, cells, wire_cells)
+
+
+# ---------------------------------------------------------------------------
+# The packaged tables
+# ---------------------------------------------------------------------------
+
 def table_path(topology: str) -> str:
     return os.path.join(_PACKAGED_DIR, f"{topology}.json")
 
@@ -178,8 +365,7 @@ def load_table(topology: str, tuning: str = ANALYTIC) -> DecisionTable:
     if topology not in PRESETS:
         raise ValueError(f"unknown topology {topology!r}; known: "
                          f"{list(PRESETS)}")
-    with open(table_path(topology)) as f:
-        return DecisionTable.from_json_dict(json.load(f))
+    return DecisionTable.load(table_path(topology))
 
 
 def select_backend(collective: str, p: int, nbytes: float,

@@ -1,9 +1,8 @@
 """The training step: DP ranks stacked on one device, Bine gradient
 collectives, ZeRO-1 AdamW.
 
-Port of ``repro.train.step`` (model axis 1, one DP axis).  The reference
-runs the step body under ``shard_map`` on p devices; here the p ranks run
-on one device:
+Port of ``repro.train.step`` (model axis 1).  The reference runs the step
+body under ``shard_map`` on p devices; here the p ranks run on one device:
 
   * every rank holds its own parameters — ``params`` is a list of p trees —
     and runs forward and backward on its own batch shard, one rank after
@@ -15,6 +14,18 @@ on one device:
     ``kernels.collectives.ops`` — the CUDA step kernels — for
     ``pallas_fused``, and ``auto`` resolved per call site through the
     packaged decision tables (``repro_torch.topology``).
+
+Two DP axes: ``TrainConfig.dp_axes=("pod", "data")`` with the axes' sizes
+``(pods, data)`` given where the reference gives a mesh.  The ranks are
+stacked row-major, ``r = pod * data + d``, as the reference flattens the
+tuple axis, so every backend but ``bine_hier`` runs over the flattened
+rank set, as the reference's tuple-axis calls do.  ``bine_hier`` runs the
+Sec. 6.2 hierarchy: reduce-scatter over ``data`` first (the big messages
+stay inside a pod), then over ``pod``; the allgather the other way.  Rank
+``(pod, d)`` then owns flat block ``d * pods + pod``: ``opt_dp_order``
+says so, and the optimizer shards are cut that way.  On one axis
+``bine_hier`` is flat ``bine``, as in the reference's bucketed path (its
+per-leaf path raises ``KeyError`` there).
 
 The bucketed step: pack each bucket's gradients (f32, bf16 or int8 wire,
 pre-scaled as the reference does), one reduce-scatter per bucket (int8
@@ -49,22 +60,23 @@ from repro_torch.train import buckets, zero
 WIRE_DTYPES = ("float32", "bfloat16", "int8", "auto")
 
 #: backends this port runs
-BACKENDS = ("bine", "recdoub", "ring", "xla", "pallas_fused", "auto")
+BACKENDS = ("bine", "recdoub", "ring", "xla", "bine_hier", "pallas_fused",
+            "auto")
 
 #: backends with an int8 wire-codec path
 _CODEC_BACKENDS = ("bine", "recdoub", "pallas_fused")
 
-_BINE_HIER = ("backend 'bine_hier' is not ported: ROADMAP.md queue A item 1 "
-              "(bine_hier, composed schedules, multi-axis DP)")
-
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """The reference's config less what the port does not run yet: one DP
-    axis (the stacked ranks), model axis 1, the packaged (analytic)
-    tables."""
-    backend: str = "bine"            # bine | recdoub | ring | xla
+    """The reference's config less what the port does not run yet: at most
+    two DP axes (stacked on one device), model axis 1, the packaged
+    (analytic) tables."""
+    backend: str = "bine"            # bine | recdoub | ring | xla | bine_hier
     #                                # | pallas_fused | auto
+    #: the DP axes, outermost first; their sizes come with the step's
+    #: ``dp`` argument
+    dp_axes: Tuple[str, ...] = ("data",)
     accum_steps: int = 1
     clip_norm: float = 1.0
     #: gradient/param wire: float32 | bfloat16 (cast) | int8 (pow2-scale
@@ -88,8 +100,11 @@ class TrainConfig:
             raise ValueError(
                 f"unsupported wire_dtype {self.wire_dtype!r}: expected one "
                 f"of {WIRE_DTYPES}")
-        if self.backend == "bine_hier":
-            raise NotImplementedError(_BINE_HIER)
+        if len(self.dp_axes) not in (1, 2) or \
+                len(set(self.dp_axes)) != len(self.dp_axes):
+            raise ValueError(
+                f"dp_axes {self.dp_axes!r}: the stacked ranks carry one or "
+                f"two distinct DP axes, such as ('pod', 'data')")
         if self.backend not in BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r}")
         if self.wire_dtype == "int8":
@@ -104,6 +119,34 @@ class TrainConfig:
 
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)
+
+    @property
+    def opt_dp_order(self) -> Tuple[str, ...]:
+        # bine_hier reduce-scatters data-first (intra-pod first), producing a
+        # data-major block layout along the zero dim.
+        if self.backend == "bine_hier" and len(self.dp_axes) > 1:
+            return tuple(reversed(self.dp_axes))
+        return self.dp_axes
+
+
+def dp_shape(tcfg: TrainConfig, dp) -> Tuple[int, ...]:
+    """The sizes of ``tcfg.dp_axes``: ``dp`` is their tuple, as the
+    reference's mesh gives them, or one int for one axis."""
+    shape = (int(dp),) if np.ndim(dp) == 0 else tuple(int(d) for d in dp)
+    if len(shape) != len(tcfg.dp_axes) or min(shape) < 1:
+        raise ValueError(f"DP sizes {shape} do not match dp_axes "
+                         f"{tcfg.dp_axes}")
+    return shape
+
+
+def shard_owner(tcfg: TrainConfig, shape: Tuple[int, ...]) -> np.ndarray:
+    """``owner[r]``: the ZeRO shard (block along a leaf's zero dim, row of a
+    bucket) stacked rank r holds: r's index in ``opt_dp_order``, which
+    is r itself but under two-axis ``bine_hier``."""
+    coords = np.unravel_index(np.arange(int(np.prod(shape))), shape)
+    axes = [tcfg.dp_axes.index(a) for a in tcfg.opt_dp_order]
+    return np.ravel_multi_index([coords[a] for a in axes],
+                                [shape[a] for a in axes])
 
 
 # ---------------------------------------------------------------------------
@@ -158,9 +201,16 @@ def _bucket_post(wire: str, n_dp: int) -> float:
     return 1.0 if wire in ("bfloat16", "int8") else float(n_dp)
 
 
-def _rs_leaf(tcfg: TrainConfig, g, zd: int, n_dp: int):
+def _two_tier(b: str, shape: Tuple[int, ...]) -> bool:
+    """Whether backend ``b`` runs the hierarchy: ``bine_hier`` over two
+    axes (over one it is flat bine)."""
+    return b == "bine_hier" and len(shape) > 1
+
+
+def _rs_leaf(tcfg: TrainConfig, g, zd: int, shape: Tuple[int, ...]):
     """Reduce ``g [p, ...]`` over the ranks; scatter along zd, or a full
     allreduce when zd < 0."""
+    n_dp = int(np.prod(shape))
     wire = _wire_cast(tcfg, g, n_dp)
     if zd < 0:
         b = _backend_for(tcfg, "allreduce", wire)
@@ -168,6 +218,8 @@ def _rs_leaf(tcfg: TrainConfig, g, zd: int, n_dp: int):
             return stacked.psum(wire)
         if b == "ring":
             return stacked.allreduce_ring(wire)
+        if _two_tier(b, shape):     # inner (data) RS, pod allreduce, AG
+            return stacked.allreduce_hierarchical(wire, shape, 1, 0, "bine")
         algo = "recdoub" if b == "recdoub" else "bine"
         per_rank = wire[0].numel() * wire.element_size()
         if per_rank <= tcfg.small_cutoff_bytes:    # inclusive boundary
@@ -178,42 +230,59 @@ def _rs_leaf(tcfg: TrainConfig, g, zd: int, n_dp: int):
     b = _backend_for(tcfg, "reduce_scatter", wire)
     if b == "xla":
         return stacked.psum_scatter(wire, zd)
+    if _two_tier(b, shape):         # intra-pod (data) first, then pod
+        out = stacked.over_axis(stacked.reduce_scatter_dim, wire, shape, 1,
+                                zd, "bine")
+        return stacked.over_axis(stacked.reduce_scatter_dim, out, shape, 0,
+                                 zd, "bine")
     if b == "pallas_fused":
         return fused.reduce_scatter_dim(wire, zd, "bine")
     return stacked.reduce_scatter_dim(wire, zd, _algo(b))
 
 
 def _algo(b: str) -> str:
-    if b == "bine_hier":
-        raise NotImplementedError(_BINE_HIER)
-    return {"bine": "bine", "recdoub": "recdoub", "ring": "ring"}[b]
+    return {"bine": "bine", "bine_hier": "bine", "recdoub": "recdoub",
+            "ring": "ring"}[b]
 
 
-def _ag_leaf(tcfg: TrainConfig, x, zd: int):
+def _ag_leaf(tcfg: TrainConfig, x, zd: int, shape: Tuple[int, ...]):
     if zd < 0:
         return x
     b = _backend_for(tcfg, "allgather", x, gathered=True)
     if b == "xla":
         return stacked.all_gather(x, zd)
+    if _two_tier(b, shape):         # pod, then data (the RS inverted)
+        out = stacked.over_axis(stacked.allgather_dim, x, shape, 0, zd,
+                                "bine")
+        return stacked.over_axis(stacked.allgather_dim, out, shape, 1, zd,
+                                 "bine")
     if b == "pallas_fused":
         return fused.allgather_dim(x, zd, "bine")
     return stacked.allgather_dim(x, zd, _algo(b))
 
 
-def _rs_bucket(b: str, v):
+def _rs_bucket(b: str, v, shape: Tuple[int, ...]):
     """One flat reduce-scatter of ``v [p, L]`` -> ``[p, L/p]`` on the
-    bucket's static backend decision."""
+    bucket's static backend decision; two-axis ``bine_hier`` runs the
+    per-leaf path's axis order, so rank r's row is block ``owner[r]``."""
     if b == "xla":
         return stacked.psum_scatter(v, 0)
+    if _two_tier(b, shape):
+        out = stacked.over_axis(stacked.reduce_scatter, v, shape, 1, "bine")
+        return stacked.over_axis(stacked.reduce_scatter, out, shape, 0,
+                                 "bine")
     if b == "pallas_fused":
         return fused.reduce_scatter(v, "bine")
     return stacked.reduce_scatter(v, _algo(b))
 
 
-def _ag_bucket(b: str, row):
+def _ag_bucket(b: str, row, shape: Tuple[int, ...]):
     """Inverse flat allgather: ``[p, L/p]`` -> the full bucket ``[p, L]``."""
     if b == "xla":
         return stacked.all_gather(row, 0)
+    if _two_tier(b, shape):
+        out = stacked.over_axis(stacked.allgather, row, shape, 0, "bine")
+        return stacked.over_axis(stacked.allgather, out, shape, 1, "bine")
     if b == "pallas_fused":
         return fused.allgather(row, "bine")
     return stacked.allgather(row, _algo(b))
@@ -324,16 +393,21 @@ def _ef_init(tcfg: TrainConfig, plan, device) -> Dict[str, torch.Tensor]:
             if d[1] == "int8"}
 
 
-def init_train_state(model_cfg, tcfg: TrainConfig, params: List[Any],
-                     n_dp: int):
+def init_train_state(model_cfg, tcfg: TrainConfig, params: List[Any], dp):
     """Optimizer state from the ranks' parameters: per leaf, every rank's
-    ``zero_dim`` slice stacked ``[p, ...]`` (the whole leaf if replicated)."""
+    ``zero_dim`` slice (block ``shard_owner[r]``) stacked ``[p, ...]`` (the
+    whole leaf if replicated).  ``dp``: the DP axes' sizes
+    (:func:`dp_shape`)."""
+    shape = dp_shape(tcfg, dp)
+    n_dp = int(np.prod(shape))
+    owner = shard_owner(tcfg, shape)
     layout = zero.zero_layout(model_cfg, params[0], n_dp)
     flats = [T.flatten(tr) for tr in params]
     opt = []
     for i, zd in enumerate(T.flatten(layout)):
         opt.append(adamw_init_leaf(torch.stack(
-            [zero.slice_leaf(flats[r][i], zd, n_dp, r) for r in range(n_dp)])))
+            [zero.slice_leaf(flats[r][i], zd, n_dp, int(owner[r]))
+             for r in range(n_dp)])))
     device = flats[0][0].device
     state = {"opt": T.unflatten(params[0], opt),
              "step": torch.zeros((), dtype=torch.int32, device=device)}
@@ -344,17 +418,19 @@ def init_train_state(model_cfg, tcfg: TrainConfig, params: List[Any],
     return state
 
 
-def make_init_fns(model_cfg, tcfg: TrainConfig, n_dp: int, device="cuda"):
+def make_init_fns(model_cfg, tcfg: TrainConfig, dp, device="cuda"):
     """(init_params(seed) -> p per-rank trees, init_state(params) -> state).
-    Every rank starts from the same weights, each in its own copy."""
+    Every rank starts from the same weights, each in its own copy.
+    ``dp``: the DP axes' sizes (:func:`dp_shape`)."""
     dev = resolve_device(device)
+    n_dp = int(np.prod(dp_shape(tcfg, dp)))
 
     def init_p(seed: int = 0):
         one = TF.init_params(model_cfg, seed, dev)
         return [one] + [T.tree_map(torch.clone, one) for _ in range(n_dp - 1)]
 
     def init_s(params):
-        return init_train_state(model_cfg, tcfg, params, n_dp)
+        return init_train_state(model_cfg, tcfg, params, dp)
 
     return init_p, init_s
 
@@ -386,10 +462,12 @@ def _rank_grads(model_cfg, tcfg: TrainConfig, params, batch):
     return [g / A for g in g_acc], {k: v / A for k, v in me_acc.items()}
 
 
-def make_train_step(model_cfg, tcfg: TrainConfig, n_dp: int, params_shapes,
+def make_train_step(model_cfg, tcfg: TrainConfig, dp, params_shapes,
                     device="cuda"):
     """Returns ``(step, info, layout)``.
 
+    ``dp`` gives the sizes of ``tcfg.dp_axes`` (:func:`dp_shape`: an int
+    for one axis); the ranks are stacked row-major over them.
     ``step(params, state, batch) -> (params, state, metrics)``: ``params`` a
     list of ``n_dp`` per-rank trees, ``batch`` the global batch (numpy or
     tensors, ``[B, T]``) split over the ranks along dim 0.  The step
@@ -397,6 +475,8 @@ def make_train_step(model_cfg, tcfg: TrainConfig, n_dp: int, params_shapes,
     the state over, as the reference step donates it.  ``info`` holds the
     static ``bucket_plan`` (None = per-leaf collectives)."""
     dev = resolve_device(device)
+    shape = dp_shape(tcfg, dp)
+    n_dp = int(np.prod(shape))
     if n_dp > 1 and not executable_at(tcfg.backend, n_dp):
         raise ValueError(
             f"backend={tcfg.backend!r} cannot execute at non-power-of-"
@@ -446,11 +526,11 @@ def make_train_step(model_cfg, tcfg: TrainConfig, n_dp: int, params_shapes,
         new_ef: Dict[str, torch.Tensor] = {}
         if plan is None:
             for i, zd in enumerate(flat_zd):
-                g_sh[i] = _rs_leaf(tcfg, take(i), zd, n_dp).to(
+                g_sh[i] = _rs_leaf(tcfg, take(i), zd, shape).to(
                     torch.float32) / post
         else:
             for i in plan.replicated:
-                g_sh[i] = _rs_leaf(tcfg, take(i), -1, n_dp).to(
+                g_sh[i] = _rs_leaf(tcfg, take(i), -1, shape).to(
                     torch.float32) / post
             for bucket, (rs_b, rs_w, _, _) in zip(plan.buckets, decisions):
                 v = None
@@ -474,7 +554,7 @@ def make_train_step(model_cfg, tcfg: TrainConfig, n_dp: int, params_shapes,
                                                       codec="wire_int8")
                     row = _rs_bucket_q(rs_b, v)
                 else:
-                    row = _rs_bucket(rs_b, v)
+                    row = _rs_bucket(rs_b, v, shape)
                 del v
                 row = row.to(torch.float32) / _bucket_post(rs_w, n_dp)
                 for s, view in zip(bucket.slots,
@@ -520,7 +600,7 @@ def make_train_step(model_cfg, tcfg: TrainConfig, n_dp: int, params_shapes,
 
         if plan is None:
             for i, zd in enumerate(flat_zd):
-                scatter_ranks(i, _ag_leaf(tcfg, upd(i), zd))
+                scatter_ranks(i, _ag_leaf(tcfg, upd(i), zd, shape))
         else:
             for i in plan.replicated:
                 scatter_ranks(i, upd(i))
@@ -531,7 +611,7 @@ def make_train_step(model_cfg, tcfg: TrainConfig, n_dp: int, params_shapes,
                     full = _ag_bucket_q(ag_b, packed).to(
                         getattr(torch, bucket.dtype))
                 else:
-                    full = _ag_bucket(ag_b, packed)
+                    full = _ag_bucket(ag_b, packed, shape)
                 del packed
                 for r in range(n_dp):
                     for s, leaf in zip(bucket.slots, buckets.unpack_bucket(

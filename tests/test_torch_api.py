@@ -373,12 +373,19 @@ def test_dispatch_predicates_match_jax(topology):
 
 
 def test_unported_options_name_their_roadmap_item():
-    x = torch.zeros(4, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        api.allreduce(x, api.CollectiveConfig(backend="bine_hier"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    """``bine_hier`` runs now (tests/test_torch_hier.py); what is still not
+    ported names its ROADMAP.md item: ``tuning="measured"`` raises, and the
+    module says the ``_obs_record`` hook waits for item 1c."""
+    x = torch.ones(4, 16)
+    for cfg in (api.CollectiveConfig(backend="bine_hier"),
+                api.CollectiveConfig(backend="bine_hier", dp_shape=(2, 2))):
+        assert torch.equal(api.allreduce(x, cfg), torch.full((4, 16), 4.0))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 1c"):
         api.allreduce(x, api.CollectiveConfig(backend="auto",
                                               tuning="measured"))
+    assert not hasattr(api, "_obs_record")
+    assert "``_obs_record``) is not ported" in api.__doc__.replace("\n", " ")
+    assert "queue A item 1c" in api.__doc__
     with pytest.raises(ValueError, match="not implemented for 'allreduce'"):
         api.allreduce(x, api.CollectiveConfig(wire_dtype="int8"))
     with pytest.raises(ValueError, match="unsupported wire_dtype"):

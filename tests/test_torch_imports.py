@@ -34,7 +34,7 @@ def test_every_module_imports_without_jax(subproc):
     n_files = sum(1 for p in PORT.rglob("*.py") if p.name != "__init__.py")
     n_pkgs = sum(1 for p in PORT.rglob("__init__.py")) - 1
     assert n == n_files + n_pkgs
-    for mod in SERVING_MODULES:
+    for mod in SERVING_MODULES + TWO_TIER_MODULES:
         assert (PORT / (mod.replace(".", "/") + ".py")).is_file(), mod
 
 
@@ -46,6 +46,13 @@ SERVING_MODULES = (
     "kernels.qdot.ops", "kernels.qdot.kernel", "kernels.qdot.ref",
     "serve.kvcache", "serve.sampling", "serve.engine", "serve.scheduler",
     "launch.serve")
+
+#: the two-tier slice's modules (the numpy side and the hierarchy), each
+#: imported above without jax
+TWO_TIER_MODULES = (
+    "core.simulate", "core.traffic", "topology.presets", "topology.cost",
+    "topology.table", "kernels.collectives.plan", "collectives.stacked",
+    "collectives.api", "train.step", "launch.train", "launch.cell")
 
 
 def _imports(tree):

@@ -3,12 +3,16 @@
 The reduced phi4-mini in float32 at p=4, ``bucket_bytes=1<<16``, 2 steps,
 for ``pallas_fused`` with the float32 and the int8 wire, for ``recdoub``,
 ``ring`` and ``xla``, for ``auto`` on the torus preset, and for
-``backend="auto", wire_dtype="auto"`` on tpu_multipod.  The JAX step runs
-once per configuration in 4-device subprocesses (three at once) and hands
+``backend="auto", wire_dtype="auto"`` on tpu_multipod; and over two DP
+axes, ``("pod", "data")`` of shape (2, 2), for ``bine_hier``, ``bine``,
+``pallas_fused`` and ``pallas_fused`` on the int8 wire.  The JAX step runs
+once per configuration in 4-device subprocesses (four at once) and hands
 over its initial params, per-step metrics, final params, optimizer state
 and error-feedback residuals as an ``.npz``; the port starts from the same
 params and runs the same batches.  The per-bucket decisions of the full
-phi4-mini equal the reference's for every preset.
+phi4-mini equal the reference's for every preset.  Bitwise, as the
+reference holds of itself: bucketed and per-leaf ``bine_hier``, and
+two-axis ``pallas_fused`` and ``bine``.
 
 Tolerances: the collectives are bitwise (test_torch_collectives), but the
 model's float32 gradients differ from JAX's in rounding (test_torch_model:
@@ -39,22 +43,31 @@ from repro_torch.models import transformer as TF
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train import zero
 from repro_torch.train.data import DataConfig, make_batch
-from repro_torch.train.step import TrainConfig, make_train_step
+from repro_torch.train.step import (TrainConfig, make_train_step,
+                                    shard_owner)
 
 STEPS, N_DP, BUCKET = 2, 4, 1 << 16
 WIRES = ("float32", "int8")
-#: run tag -> (backend, wire_dtype, topology); the JAX subprocess groups
+#: (pods, data) of the two-axis runs
+HIER = (2, 2)
+#: run tag -> (backend, wire_dtype, topology, DP sizes); the JAX
+#: subprocess groups
 RUNS = {
-    "float32": ("pallas_fused", "float32", "tpu_multipod"),
-    "int8": ("pallas_fused", "int8", "tpu_multipod"),
-    "recdoub": ("recdoub", "float32", "tpu_multipod"),
-    "ring": ("ring", "float32", "tpu_multipod"),
-    "xla": ("xla", "float32", "tpu_multipod"),
-    "auto_torus": ("auto", "float32", "torus"),
-    "wire_auto": ("auto", "auto", "tpu_multipod"),
+    "float32": ("pallas_fused", "float32", "tpu_multipod", (N_DP,)),
+    "int8": ("pallas_fused", "int8", "tpu_multipod", (N_DP,)),
+    "recdoub": ("recdoub", "float32", "tpu_multipod", (N_DP,)),
+    "ring": ("ring", "float32", "tpu_multipod", (N_DP,)),
+    "xla": ("xla", "float32", "tpu_multipod", (N_DP,)),
+    "auto_torus": ("auto", "float32", "torus", (N_DP,)),
+    "wire_auto": ("auto", "auto", "tpu_multipod", (N_DP,)),
+    "hier": ("bine_hier", "float32", "tpu_multipod", HIER),
+    "hier_bine": ("bine", "float32", "tpu_multipod", HIER),
+    "hier_fused": ("pallas_fused", "float32", "tpu_multipod", HIER),
+    "hier_int8": ("pallas_fused", "int8", "tpu_multipod", HIER),
 }
 GROUPS = (("float32", "int8"), ("recdoub", "ring", "xla"),
-          ("auto_torus", "wire_auto"))
+          ("auto_torus", "wire_auto"), ("hier", "hier_bine"),
+          ("hier_fused", "hier_int8"))
 #: (tight, loose) absolute bounds; see the module docstring
 BOUNDS = {"param": (1e-5, 1e-3), "master": (1e-5, 1e-3), "m": (1e-7, 1e-4),
           "v": (1e-9, 1e-7), "ef": (1e-6, 1e-3)}
@@ -75,10 +88,12 @@ cfg = base.reduced(base.get_config("phi4-mini-3.8b")).replace(dtype="float32")
 key = jax.random.key(0)
 shapes = jax.eval_shape(lambda k: T.init_params(k, cfg), key)
 dcfg = DataConfig(global_batch=8, seq_len=64, vocab_size=cfg.vocab_size)
-mesh = Mesh(np.asarray(jax.devices()[:4]).reshape(4, 1), ("data", "model"))
 out = {{}}
-for wire, (backend, wire_dtype, topology) in {runs!r}.items():
-    tcfg = TrainConfig(backend=backend, dp_axes=("data",),
+for wire, (backend, wire_dtype, topology, dp) in {runs!r}.items():
+    axes = ("data",) if len(dp) == 1 else ("pod", "data")
+    mesh = Mesh(np.asarray(jax.devices()[:4]).reshape(dp + (1,)),
+                axes + ("model",))
+    tcfg = TrainConfig(backend=backend, dp_axes=axes,
                        wire_dtype=wire_dtype, topology=topology,
                        bucket_bytes={bucket},
                        adamw=AdamWConfig(lr=3e-3, warmup_steps=1,
@@ -143,23 +158,30 @@ def _cfg():
         dtype="float32")
 
 
-def _run(jax_run, tag, backend=None):
-    """The port's run of ``RUNS[tag]`` (``backend`` overriding its backend)
-    from JAX's initial params: (metrics, params, state, layout)."""
+def _tcfg(tag, backend=None, bucket_bytes=BUCKET):
+    b, wire, topology, dp = RUNS[tag]
+    return TrainConfig(backend=backend or b, wire_dtype=wire,
+                       topology=topology, bucket_bytes=bucket_bytes,
+                       dp_axes=("data",) if len(dp) == 1 else ("pod", "data"),
+                       adamw=AdamWConfig(lr=3e-3, warmup_steps=1,
+                                         total_steps=100))
+
+
+def _run(jax_run, tag, backend=None, bucket_bytes=BUCKET):
+    """The port's run of ``RUNS[tag]`` (``backend`` and ``bucket_bytes``
+    overriding its own) from JAX's initial params: (metrics, params,
+    state, layout)."""
     cfg = _cfg()
     shapes = TF.param_shapes(cfg)
     n_init = len(T.flatten(shapes))
     init = T.unflatten(shapes, [jax_run[f"{tag}_init_{i}"]
                                 for i in range(n_init)])
-    b, wire, topology = RUNS[tag]
-    tcfg = TrainConfig(backend=backend or b, wire_dtype=wire,
-                       topology=topology, bucket_bytes=BUCKET,
-                       adamw=AdamWConfig(lr=3e-3, warmup_steps=1,
-                                         total_steps=100))
-    step, info, layout = make_train_step(cfg, tcfg, N_DP, shapes, "cpu")
+    dp = RUNS[tag][3]
+    tcfg = _tcfg(tag, backend, bucket_bytes)
+    step, info, layout = make_train_step(cfg, tcfg, dp, shapes, "cpu")
     from repro_torch.train.step import init_train_state
     params = [params_from_numpy(init, cfg, "cpu") for _ in range(N_DP)]
-    state = init_train_state(cfg, tcfg, params, N_DP)
+    state = init_train_state(cfg, tcfg, params, dp)
     dcfg = DataConfig(global_batch=8, seq_len=64, vocab_size=cfg.vocab_size)
     metrics = []
     for s in range(STEPS):
@@ -180,6 +202,8 @@ def test_backend_step_matches_jax(jax_run, tag):
 
 def _check_against_jax(jax_run, wire):
     metrics, params, state, layout = _run(jax_run, wire)
+    # rank r holds ZeRO block owner[r]: the JAX leaf's block order
+    order = np.argsort(shard_owner(_tcfg(wire), RUNS[wire][3]))
     for s, m in enumerate(metrics):
         np.testing.assert_allclose(float(m["loss"]),
                                    jax_run[f"{wire}_loss_{s}"], rtol=1e-4)
@@ -196,14 +220,15 @@ def _check_against_jax(jax_run, wire):
     i = 0
     for zd, st in zip(zds, T.flatten_up_to(params[0], state["opt"])):
         for k in sorted(st):              # m, master, v: the JAX leaf order
-            full = torch.cat(list(st[k]), dim=zd) if zd >= 0 else st[k][0]
+            full = (torch.cat([st[k][r] for r in order], dim=zd)
+                    if zd >= 0 else st[k][0])
             pairs[k].append((full.numpy(), jax_run[f"{wire}_opt_{i}"]))
             i += 1
     ef = {k[len(f"{wire}_ef_"):]: v for k, v in jax_run.items()
           if k.startswith(f"{wire}_ef_")}
     assert sorted(state.get("ef", {})) == sorted(ef)
-    if wire in WIRES:
-        assert bool(ef) == (wire == "int8")
+    if RUNS[wire][1] != "auto":
+        assert bool(ef) == (RUNS[wire][1] == "int8")
     for bid, v in ef.items():
         assert tuple(state["ef"][bid].shape) == v.shape
     pairs["ef"] = [(state["ef"][b].numpy(), v) for b, v in ef.items()]
@@ -222,14 +247,60 @@ def test_bine_and_pallas_fused_bitwise(jax_run):
         assert torch.equal(a, b)
 
 
+def _same_state(a, b):
+    (pa, sa), (pb, sb) = a, b
+    for x, y in zip(T.flatten(pa[0]), T.flatten(pb[0])):
+        assert torch.equal(x, y)
+    for x, y in zip(T.flatten(sa["opt"]), T.flatten(sb["opt"])):
+        assert torch.equal(x, y)
+
+
+def test_bine_hier_bucketed_and_per_leaf_bitwise(jax_run):
+    """Bucketed and per-leaf two-axis ``bine_hier`` give the same bits: the
+    bucket's data-first RS scatters rows to the ranks the per-leaf
+    sequence does (``opt_dp_order``), as the reference holds of itself."""
+    _, pb, sb, _ = _run(jax_run, "hier")
+    _, pl, sl, _ = _run(jax_run, "hier", bucket_bytes=0)
+    _same_state((pb, sb), (pl, sl))
+
+
+def test_two_axis_pallas_fused_and_bine_bitwise(jax_run):
+    """Over two axes the fused kernels' path gives the plain stacked
+    executor's bits, as over one."""
+    _, pb, sb, _ = _run(jax_run, "hier_fused", backend="bine")
+    _, pf, sf, _ = _run(jax_run, "hier_fused")
+    _same_state((pb, sb), (pf, sf))
+
+
+def test_shard_owner_follows_opt_dp_order():
+    two = TrainConfig(backend="bine_hier", dp_axes=("pod", "data"))
+    assert two.opt_dp_order == ("data", "pod")
+    # rank (pod, d) owns block d * pods + pod
+    assert shard_owner(two, (2, 4)).tolist() == [0, 2, 4, 6, 1, 3, 5, 7]
+    flat = TrainConfig(backend="bine", dp_axes=("pod", "data"))
+    assert flat.opt_dp_order == ("pod", "data")
+    assert shard_owner(flat, (2, 4)).tolist() == list(range(8))
+    assert shard_owner(TrainConfig(backend="bine_hier"), (4,)).tolist() == \
+        list(range(4))
+
+
 def test_unported_backends_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TrainConfig(backend="bine_hier")
+    """``bine_hier`` runs now, over one or two DP axes; what is still not
+    ported names its ROADMAP.md item: ``tuning="measured"`` (item 1c), as
+    does the API's ``_obs_record`` hook (tests/test_torch_api.py)."""
     cfg = _cfg()
     shapes = TF.param_shapes(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    for dp_axes, dp in ((("data",), N_DP), (("pod", "data"), HIER)):
+        make_train_step(cfg, TrainConfig(backend="bine_hier",
+                                         dp_axes=dp_axes), dp, shapes, "cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 1c"):
         make_train_step(cfg, TrainConfig(backend="auto", tuning="measured"),
                         N_DP, shapes, "cpu")
+    with pytest.raises(ValueError, match="dp_axes"):
+        TrainConfig(dp_axes=("pod", "data", "x"))
+    with pytest.raises(ValueError, match="do not match dp_axes"):
+        make_train_step(cfg, TrainConfig(dp_axes=("pod", "data")), N_DP,
+                        shapes, "cpu")
     with pytest.raises(ValueError, match="bucket_bytes=0"):
         TrainConfig(wire_dtype="int8", bucket_bytes=0)
     with pytest.raises(ValueError, match="codec-capable backend"):
@@ -309,3 +380,21 @@ def test_tree_walks_keep_no_leaf_alive():
         assert ref() is None
     finally:
         gc.enable()
+
+
+def test_train_cli_takes_two_dp_axes(capsys):
+    """``--mesh pod,data,model`` names the DP axes as the reference's mesh
+    does; a model axis above 1 is still queue A item 3."""
+    from repro_torch.launch import train as L
+    assert L.parse_mesh("2,2,1") == (("pod", "data"), (2, 2))
+    assert L.parse_mesh("1,4,1") == (("pod", "data"), (1, 4))
+    assert L.parse_mesh("4,1") == (("data",), (4,))
+    with pytest.raises(NotImplementedError, match="queue A item 3"):
+        L.parse_mesh("2,2,2")
+    with pytest.raises(ValueError, match="pod,data,model"):
+        L.parse_mesh("8")
+    L.main(["--reduced", "--mesh", "2,2,1", "--backend", "bine_hier",
+            "--device", "cpu", "--steps", "2", "--batch", "4", "--seq", "16"])
+    out = capsys.readouterr().out
+    assert "dp={'pod': 2, 'data': 2} backend=bine_hier" in out
+    assert "done: 2 steps" in out
