@@ -79,11 +79,31 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
              decode step's ops differ between a row alone and in a batch
              of 8, reported).  Prints prefill ms per insert, decode ms
              per step, tokens/s, p50/p99 time to first token and peak
-             memory.
+             memory;
+8. runtime — on the train cell (``pallas_fused``, float32 wire): the
+             obs summary of the step's bucket plan against
+             ``core.traffic``'s closed forms (rel 1e-12), the API hook's
+             cost on phase 4's xla, fused and bine calls at 64 MiB (one
+             call's ms and host us with the hook on and off in turns,
+             and the hook alone); 3 steps with an
+             ``AsyncCheckpointer`` save of the global state after step 1
+             (step 2 timed with the save in flight, step 3 without), a
+             restore into a fresh build whose step 2 must equal the
+             uninterrupted step 2 bitwise (loss and params), the save's
+             and the restore's wall times and GB/s; a ``TrainLoop`` with a
+             transient failure injected at step 3 (its losses the
+             uninterrupted ones, one restart); the train CLI saved at 2
+             and 4 and resumed to 6 on the card; a measured table for the
+             torus preset naming ``pallas_fused`` for the step's bucket
+             cells, under which the ``auto`` step launches rs_step and
+             ag_step where the analytic one launches neither.  The
+             checkpoints go to a directory under ``build/`` that the
+             phase removes; it fails if the disk lacks room for two.
 
-The kernels line's launches of rs_step, ag_step and rs_step_q count the
-train step's main path and its two-axis path.  Prints a ``kernels:``
-summary, one JSON line of per-kernel numbers, the
+The kernels line's launches of rs_step, ag_step and rs_step_q sum the
+train step's main path, its two-axis path and phase 8's runs; the
+``step kernels by path:`` line gives each path's own counts, each of which
+must be above 0.  Prints a ``kernels:`` summary, one JSON line of per-kernel numbers, the
 card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``.  Exits 2 without a result when there is
 no CUDA device or no ``src/repro_torch`` beside this file.
@@ -1579,6 +1599,329 @@ def phase_serve(dev):
     return launches, nums
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 8: checkpoint, resume, measured tables, obs
+# ---------------------------------------------------------------------------
+
+def checkpoint_bytes(cfg) -> int:
+    """Bytes of the train cell's global state: params in their dtype plus
+    float32 master, m and v (and the int32 step)."""
+    from repro_torch.models import transformer as TF
+    n = TF.param_count(TF.param_shapes(cfg))
+    itemsize = {"bfloat16": 2, "float32": 4}[cfg.dtype]
+    return n * (itemsize + 3 * 4) + 4
+
+
+def bucket_closed_forms(plan, decisions, topology: str):
+    """``core.traffic``'s (global, local) bytes per (backend, topology) of
+    a bucket plan's reduce-scatters and allgathers: the closed forms the
+    obs summary must equal."""
+    import torch
+    from repro_torch.collectives.compression import wire_factor
+    from repro_torch.core import traffic
+    from repro_torch.core.schedules import get_schedule
+    from repro_torch.topology import get_topology, schedule_algo
+    p = plan.n_dp
+    topo = get_topology(topology, p)
+    want = {}
+    for b, (rs_b, rs_w, ag_b, ag_w) in zip(plan.buckets, decisions):
+        for coll, be, w, nbytes in (
+                ("reduce_scatter", rs_b, rs_w,
+                 b.nbytes(plan.wire_itemsize, p)),
+                ("allgather", ag_b, ag_w,
+                 b.nbytes(getattr(torch, b.dtype).itemsize, p))):
+            sched = get_schedule(*schedule_algo(coll, be, nbytes), p)
+            scale = 1.0 if w == "float32" else wire_factor(w)
+            g = traffic.global_bytes(sched, p, float(nbytes), topo) * scale
+            t = traffic.total_bytes(sched, p, float(nbytes)) * scale
+            row = want.setdefault((be, topology),
+                                  {"global": 0.0, "local": 0.0})
+            row["global"] += g
+            row["local"] += t - g
+    return want
+
+
+def phase_runtime(dev):
+    """Phase 8 on the train cell (``launch/cell.py``, pallas_fused,
+    float32 wire).  Returns (the step kernels' launches of its runs, the
+    numbers it logs)."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.collectives import api
+    from repro_torch.kernels import build as KB
+    from repro_torch.launch import cell
+    from repro_torch.models import transformer as TF
+    from repro_torch.obs import collect, metrics
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.data import make_batch
+    from repro_torch.train.runtime import (FailureInjector, TrainLoop,
+                                           TrainLoopConfig, train_build)
+    from repro_torch.train.step import (bucket_report, from_global,
+                                        make_init_fns, make_train_step,
+                                        to_global)
+
+    cfg = cell.model_config()
+    shapes = TF.param_shapes(cfg)
+    dcfg = cell.data_config(cfg)
+    tcfg = cell.train_config("pallas_fused", "float32")
+    P = cell.N_DP
+    out = {}
+
+    # (a) obs: the build records its bucket plan; the summary's link bytes
+    # are the closed forms of the plan's schedules
+    metrics.set_enabled(True)
+    reg = metrics.get_registry()
+    reg.reset()
+    step, info, _ = make_train_step(cfg, tcfg, P, shapes, dev)
+    got = collect.global_local_summary(reg)
+    want = bucket_closed_forms(info["bucket_plan"], info["decisions"],
+                               tcfg.topology)
+    check(sorted(got) == sorted(want) and all(
+        math.isclose(got[k][g], want[k][g], rel_tol=1e-12, abs_tol=0.0)
+        for k in want for g in ("global", "local")),
+        f"obs link bytes {got} != core.traffic's {want}")
+    log(f"  obs: {len(info['bucket_plan'].buckets)} buckets recorded at "
+        f"build; link bytes (global, local) {got} == core.traffic's closed "
+        f"forms (rel 1e-12)")
+
+    # the API hook's cost: phase 4's calls at 64 MiB a rank, p = 4, with
+    # the hook on and off in turns (one call's CUDA-event ms as phase 4
+    # times it, and the host's us until the call returns), then the hook
+    # alone (each median of 20)
+    x = torch.randn((P, 64 * MiB // 4), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(8))
+    hook = {}
+    for name in ("xla", "pallas_fused", "bine"):
+        c = api.CollectiveConfig(backend=name)
+        rs = api.reduce_scatter(x, c)
+        for coll, fn, inp, gathered in (
+                ("reduce_scatter", lambda: api.reduce_scatter(x, c), x,
+                 False),
+                ("allgather", lambda: api.allgather(rs, c), rs, True),
+                ("allreduce", lambda: api.allreduce(x, c), x, False)):
+            fn()
+            ts = {(on, k): [] for on in (True, False)
+                  for k in ("ms", "host_us")}
+            for i in range(40):
+                on = i % 2 == 0
+                metrics.set_enabled(on)
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                a.record()
+                fn()
+                b.record()
+                ts[on, "host_us"].append((time.perf_counter() - t0) * 1e6)
+                b.synchronize()
+                ts[on, "ms"].append(a.elapsed_time(b))
+            metrics.set_enabled(True)
+            alone = []
+            for i in range(21):
+                t0 = time.perf_counter()
+                api._obs_record(coll, inp, c, gathered=gathered)
+                alone.append((time.perf_counter() - t0) * 1e6)
+            row = {f"{k}_{'on' if on else 'off'}": statistics.median(v)
+                   for (on, k), v in ts.items()}
+            row["hook_us"] = statistics.median(alone[1:])
+            hook[f"{name}_{coll}"] = row
+            log(f"  obs hook, {name} {coll} 64 MiB p={P}: ms on "
+                f"{row['ms_on']:.4f} / off {row['ms_off']:.4f}, host us on "
+                f"{row['host_us_on']:.1f} / off {row['host_us_off']:.1f}, "
+                f"hook alone {row['hook_us']:.1f} us (medians of 20, on "
+                f"and off in turns)")
+        del rs
+    del x
+    out["obs_hook"] = hook
+
+    need = checkpoint_bytes(cfg)
+    tmp_root = ROOT / "build"
+    tmp_root.mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="ckpt_smoke_", dir=tmp_root))
+    free = shutil.disk_usage(root).free
+    log(f"  checkpoint {need / 1e9:.2f} GB a step; {free / 1e9:.1f} GB "
+        f"free under {root}")
+    # the loop keeps one step, so at most two are on disk (the new one
+    # written beside the old before the old goes)
+    check(free >= 2.2 * need, f"only {free / 1e9:.1f} GB free for "
+          f"checkpoints of {need / 1e9:.2f} GB (need 2.2x)")
+    torch.cuda.synchronize()
+    KB.reset_launches()
+    try:
+        # (b) 1 step, async save, step 2 with the save in flight, step 3
+        init_p, init_s = make_init_fns(cfg, tcfg, P, dev)
+        params = init_p(0)
+        state = init_s(params)
+        losses, times = [], []
+        cpr = ckpt.AsyncCheckpointer(str(root / "b"), keep=1)
+        for s in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, make_batch(dcfg, s))
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if s == 0:
+                t0 = time.perf_counter()
+                glob = to_global(cfg, tcfg, params, state, P)
+                cpr.save(1, glob)
+                del glob
+                d2h = time.perf_counter() - t0
+            if s == 1:
+                cpr.wait()
+                write = cpr.last_write_s
+                params1 = [x.cpu() for x in T.flatten(params[0])]
+        check(all(math.isfinite(v) for v in losses), f"losses {losses}")
+        del params, state
+        torch.cuda.empty_cache()
+        log(f"  steps 1-3 losses {losses}; step 2 with the save in flight "
+            f"{times[1] * 1e3:.1f} ms, step 3 without {times[2] * 1e3:.1f} "
+            f"ms")
+        log(f"  save: to_global + device->host {d2h:.2f} s "
+            f"({need / d2h / 1e9:.2f} GB/s), write {write:.2f} s "
+            f"({need / write / 1e9:.2f} GB/s)")
+        # restore into a freshly built step and run step 2
+        step2, _, _ = make_train_step(cfg, tcfg, P, shapes, dev)
+        init_p, init_s = make_init_fns(cfg, tcfg, P, dev)
+        params = init_p(1)
+        state = init_s(params)
+        like = to_global(cfg, tcfg, params, state, P, device="meta")
+        del params, state
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        tree = ckpt.restore(str(root / "b"), 1, like, device="cpu")
+        read = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        params, state = from_global(cfg, tcfg, tree, P, dev)
+        torch.cuda.synchronize()
+        h2d = time.perf_counter() - t0
+        del tree
+        check(all(x.device.type == dev.type
+                  for x in T.flatten(state) + T.flatten(params)),
+              "the restored state is not on the card")
+        check(int(state["step"]) == 1, f"restored step {state['step']}")
+        params, state, m = step2(params, state, make_batch(dcfg, 1))
+        loss = float(m["loss"])
+        check(loss == losses[1], f"resumed step 2 loss {loss!r} != "
+              f"uninterrupted {losses[1]!r}")
+        flats = [T.flatten(pr) for pr in params]
+        check(all(torch.equal(a.cpu(), b)
+                  for a, b in zip(flats[0], params1)) and
+              all(torch.equal(flats[0][i], flats[r][i])
+                  for r in range(1, P) for i in range(len(params1))),
+              "resumed step 2 params differ from the uninterrupted run's")
+        del params, state, flats, params1
+        torch.cuda.empty_cache()
+        shutil.rmtree(root / "b")
+        log(f"  restore: read {read:.2f} s ({need / read / 1e9:.2f} GB/s), "
+            f"host->device {h2d:.2f} s ({need / h2d / 1e9:.2f} GB/s); "
+            f"resumed step 2 == uninterrupted step 2 (loss and params, "
+            f"bitwise)")
+        out.update(save_d2h_s=d2h, save_write_s=write, restore_read_s=read,
+                   restore_h2d_s=h2d, ckpt_gb=need / 1e9,
+                   step_with_save_ms=times[1] * 1e3,
+                   step_without_ms=times[2] * 1e3)
+
+        # (c) TrainLoop: a transient failure at step 3 resumes from step 2
+        loop = TrainLoop(TrainLoopConfig(total_steps=3, ckpt_every=2, keep=1,
+                                         ckpt_dir=str(root / "loop")),
+                         train_build(cfg, tcfg, dcfg, P, dev),
+                         FailureInjector({2: False}))
+        t0 = time.perf_counter()
+        res = loop.run(0)
+        hist = [(h["step"], h["loss"]) for h in res["history"]]
+        check(res["restarts"] == 1 and hist == list(enumerate(losses)),
+              f"TrainLoop history {hist}, restarts {res['restarts']}; "
+              f"uninterrupted {losses}")
+        log(f"  TrainLoop, failure injected at step 3: restarts 1, losses "
+            f"== the uninterrupted run's ({time.perf_counter() - t0:.1f} s)")
+        del loop, res
+        torch.cuda.empty_cache()
+        shutil.rmtree(root / "loop")
+        launches = {k: KB.LAUNCHES[k] for k in ("rs_step", "ag_step")}
+        for k, v in launches.items():
+            check(v > 0, f"{k} was not launched by the resumed runs")
+
+        # (d) the train CLI on the card: save at 2 and 4, resume to 6
+        env = dict(os.environ, PYTHONPATH=str(SRC))
+        cli = [sys.executable, "-m", "repro_torch.launch.train", "--reduced",
+               "--backend", "pallas_fused", "--ckpt-dir", str(root / "cli"),
+               "--ckpt-every", "2", "--log-every", "1"]
+        runs = []
+        for extra in (["--steps", "4"], ["--steps", "6", "--resume"]):
+            r = subprocess.run(cli + extra, capture_output=True, text=True,
+                               env=env, timeout=300)
+            check(r.returncode == 0, f"train CLI {extra}: {r.stderr[-2000:]}")
+            runs.append(r.stdout)
+        check("device=cuda" in runs[1] and
+              "[train] resumed from step 4" in runs[1] and
+              "step     5" in runs[1] and "step     3" not in runs[1],
+              f"the CLI did not resume on the card:\n{runs[1]}")
+        check(ckpt.all_steps(str(root / "cli"))[-1] == 6,
+              "the CLI's final save is missing")
+        log("  train CLI: --steps 4 saved steps 2, 4; --resume --steps 6 "
+            "resumed from step 4 on the card: " +
+            " | ".join(line for line in runs[1].splitlines()
+                       if line.startswith("step")))
+
+        # (e) a measured table steers auto: torus's analytic pick at p = 4
+        # is recdoub (no kernel); measured cells name pallas_fused
+        from repro_torch import topology as TP
+        auto = cell.train_config("auto", "float32", "torus")
+        _, ainfo, _ = make_train_step(cfg, auto, P, shapes, dev)
+        check(all(d[0] == d[2] == "recdoub" for d in ainfo["decisions"]),
+              f"torus analytic decisions {ainfo['decisions']}")
+        plan, base = ainfo["bucket_plan"], TP.load_table("torus")
+        cells = {}
+        for b in plan.buckets:
+            cells[("reduce_scatter", P, base.bucket_of(
+                b.nbytes(plan.wire_itemsize, P)))] = "pallas_fused"
+            cells[("allgather", P, base.bucket_of(
+                b.nbytes(getattr(torch, b.dtype).itemsize, P)))] = \
+                "pallas_fused"
+        os.environ["REPRO_MEASURED_TABLE_DIR"] = str(root / "measured")
+        TP.with_measured_cells(base, cells).save(
+            TP.measured_table_path("torus"))
+        TP.invalidate_tables()
+        measured = auto.replace(tuning="measured")
+        steered = {}
+        for tag, t in (("analytic", auto), ("measured", measured)):
+            st, inf, _ = make_train_step(cfg, t, P, shapes, dev)
+            init_p, init_s = make_init_fns(cfg, t, P, dev)
+            params = init_p(0)
+            state = init_s(params)
+            torch.cuda.synchronize()
+            before = dict(KB.LAUNCHES)
+            params, state, m = st(params, state, make_batch(dcfg, 0))
+            check(float(m["loss"]) == losses[0],
+                  f"{tag} step 1 loss {float(m['loss'])} != {losses[0]}")
+            steered[tag] = {k: KB.LAUNCHES[k] - before[k]
+                            for k in ("rs_step", "ag_step")}
+            if tag == "measured":
+                rep = bucket_report(t, inf["bucket_plan"])
+                check(all(r["rs_provenance"] == r["ag_provenance"] ==
+                          "measured" and r["rs_backend"] == "pallas_fused"
+                          for r in rep), f"measured report {rep}")
+            del params, state
+            torch.cuda.empty_cache()
+        check(sum(steered["analytic"].values()) == 0 and
+              all(v > 0 for v in steered["measured"].values()),
+              f"launches {steered}: the measured table did not steer")
+        log(f"  measured table (torus, p={P}): step kernels launched "
+            f"analytic {steered['analytic']}, measured "
+            f"{steered['measured']}; every bucket 'measured' -> "
+            f"pallas_fused")
+        del os.environ["REPRO_MEASURED_TABLE_DIR"]
+        TP.invalidate_tables()
+        launches = {k: KB.LAUNCHES[k] for k in ("rs_step", "ag_step")}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches, out
+
+
 def main() -> int:
     # one 9.8 GB bucket buffer after another: keep the allocator's segments
     # growable so freed ones are reused (set before CUDA starts)
@@ -1602,7 +1945,7 @@ def main() -> int:
     from repro_torch.kernels.rmsnorm import kernel as RK
 
     t_all = time.perf_counter()
-    log("[1/7] build")
+    log("[1/8] build")
     t0 = time.perf_counter()
     libs = KB.build()
     for src in K.SOURCES:
@@ -1612,28 +1955,42 @@ def main() -> int:
     log(f"  built {', '.join(p.name for p in libs.values())} in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    log("[2/7] kernels vs plain versions")
+    log("[2/8] kernels vs plain versions")
     rows, qacc_launches = phase_kernels(dev)
     torch.cuda.empty_cache()
 
-    log("[3/7] fused collectives vs stacked (bitwise)")
+    log("[3/8] fused collectives vs stacked (bitwise)")
     phase_collectives(dev)
 
-    log("[4/7] collectives API")
+    log("[4/8] collectives API")
     api_launches = phase_api(dev)
 
-    log("[5/7] two-tier (bine_hier)")
+    log("[5/8] two-tier (bine_hier)")
     hier_launches, two_tier = phase_two_tier(dev)
     torch.cuda.empty_cache()
 
-    log("[6/7] train")
+    log("[6/8] train")
     phase_small_reference(dev)
     launches, train = phase_train(dev)
     torch.cuda.empty_cache()
 
-    log("[7/7] serve")
+    log("[7/8] serve")
     phase_serve_small_reference(dev)
     serve_launches, serve = phase_serve(dev)
+    torch.cuda.empty_cache()
+
+    log("[8/8] checkpoint, resume, measured tables, obs")
+    run_launches, runtime = phase_runtime(dev)
+    # each path's own step-kernel launches, read around that path alone
+    by_path = {"train": dict(launches), "two-axis": hier_launches,
+               "runtime": run_launches}
+    for path, counts in by_path.items():
+        for name, n in counts.items():
+            check(n > 0, f"kernel {name} was not launched on the {path} "
+                  f"path")
+    log("step kernels by path: " + "; ".join(
+        f"{path} " + ", ".join(f"{k} x{v}" for k, v in counts.items())
+        for path, counts in by_path.items()))
     # the step kernels' counts from the train step's main path and its
     # two-axis path, the ring and matmul kernels' from the API run, the
     # norm and attention
@@ -1642,6 +1999,8 @@ def main() -> int:
     # *_wgmma rows the tensor-core kernel's; flash's row is bf16, all of
     # whose serve launches are wgmma ones)
     for name, n in hier_launches.items():
+        launches[name] += n
+    for name, n in run_launches.items():
         launches[name] += n
     for name in ("ring_update", "matmul_pack_wgmma", "gather_matmul_wgmma"):
         launches[name] = api_launches[name]
@@ -1658,6 +2017,7 @@ def main() -> int:
         + "]")
     log(f"two-tier: {json.dumps(two_tier)}")
     log(f"serve: {json.dumps(serve)}")
+    log(f"runtime: {json.dumps(runtime)}")
     log(f"train: {json.dumps(train)}; total {time.perf_counter() - t_all:.0f} s")
     print(json.dumps({"kernels": list(rows.values())}))
     smi = subprocess.run(

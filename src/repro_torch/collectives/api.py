@@ -37,8 +37,16 @@ Backends
                  all_to_all run bine.
 
 The allreduce switches small/large at ``small_cutoff_bytes``, inclusive.
-The reference's trace-time telemetry hook (``_obs_record``) is not ported:
-it comes with ``repro.obs`` (ROADMAP.md queue A item 1c).
+
+Telemetry: every collective records its resolved dispatch (``p``, one
+rank's payload bytes, backend, wire) into ``obs.metrics`` through
+``_obs_record`` (``obs.collect.record_api``), at the reference's call
+sites and with its payload rules (allgather and gather count the gathered
+vector, the rooted collectives pass their root).  The reference records
+while the shard_map body is traced, so once per compile; the port runs
+eagerly, so it records once per CALL.  After one call of each collective
+the two packages' registries are equal (tests/test_torch_api.py).
+``REPRO_OBS=0`` or ``obs.metrics.set_enabled(False)`` turns it off.
 """
 
 from __future__ import annotations
@@ -51,6 +59,7 @@ import torch
 
 from repro_torch.collectives import stacked
 from repro_torch.kernels.collectives import ops as fused
+from repro_torch.obs import collect, metrics
 
 #: the fused-kernel backend's name
 PALLAS_FUSED_BACKEND = "pallas_fused"
@@ -74,8 +83,9 @@ class CollectiveConfig:
     #: tier stack
     topology: str = "tpu_multipod"
     fused_algo: str = "bine"          # schedule family pallas_fused executes
-    #: decision-table provenance: "analytic" (the packaged tables);
-    #: "measured" is not ported and raises at lookup
+    #: decision-table provenance: "analytic" (the packaged tables) or
+    #: "measured" (a tuner's measured table merged over them,
+    #: ``topology.table.measured_dir``)
     tuning: str = "analytic"
     #: what travels on the wire for reduce_scatter/allgather: "float32",
     #: "bfloat16" (cast), "int8" (pow2-scale codec) or "auto" (joint
@@ -100,7 +110,7 @@ PALLAS_FUSED = CollectiveConfig(backend=PALLAS_FUSED_BACKEND)
 
 def _nbytes(x: torch.Tensor) -> int:
     """One rank's payload: the stacked rank dim is not payload."""
-    return x[0].numel() * x.element_size()
+    return x.numel() // x.shape[0] * x.element_size()
 
 
 def resolve_backend(collective: str, p: int, nbytes: int,
@@ -155,6 +165,19 @@ def _resolve(cfg: CollectiveConfig, collective: str, x: torch.Tensor,
     if auto_b:
         kw["backend"] = resolve_backend(collective, p, nbytes, cfg)
     return cfg.replace(**kw)
+
+
+def _obs_record(collective: str, x: torch.Tensor, cfg: CollectiveConfig,
+                gathered: bool = False, root: int = 0) -> None:
+    """Telemetry (``obs``): the dispatch's host facts — rank count, one
+    rank's payload bytes (times p where ``x`` is one rank's block),
+    resolved backend and wire — go into the metrics registry.  Reads no
+    tensor values, so it never waits for the device."""
+    if not metrics.enabled():
+        return
+    p = x.shape[0]
+    collect.record_api(cfg, collective, p,
+                       _nbytes(x) * (p if gathered else 1), root=root)
 
 
 def allreduce_uses_small(nbytes: int, cfg: CollectiveConfig) -> bool:
@@ -258,6 +281,7 @@ def _dp_shape(cfg: CollectiveConfig, p: int) -> Optional[Tuple[int, int]]:
 def allreduce(x: torch.Tensor, cfg: CollectiveConfig = BINE) -> torch.Tensor:
     """``x [p, ...]`` -> the rank sum on every rank, same shape."""
     cfg = _resolve(cfg, "allreduce", x)
+    _obs_record("allreduce", x, cfg)
     _check_wire_plain(cfg, "allreduce")
     b = cfg.backend
     if b == "xla":
@@ -299,6 +323,7 @@ def reduce_scatter(x: torch.Tensor,
     allgather (outer first) inverts.  The one-axis composed path keeps
     the flat convention: rank r ends with block r."""
     cfg = _resolve(cfg, "reduce_scatter", x)
+    _obs_record("reduce_scatter", x, cfg)
     if cfg.wire_dtype != "float32":
         out = _wire_rs_ag("reduce_scatter", x, cfg)
         if out is not None:
@@ -333,6 +358,7 @@ def allgather(x: torch.Tensor, cfg: CollectiveConfig = BINE) -> torch.Tensor:
     order, on every rank (two-axis ``bine_hier``: inner-major, inverting
     this module's two-axis ``bine_hier`` reduce_scatter)."""
     cfg = _resolve(cfg, "allgather", x, gathered=True)
+    _obs_record("allgather", x, cfg, gathered=True)
     if cfg.wire_dtype != "float32":
         out = _wire_rs_ag("allgather", x, cfg)
         if out is not None:
@@ -362,6 +388,7 @@ def all_to_all(x: torch.Tensor, cfg: CollectiveConfig = BINE) -> torch.Tensor:
     """``x [p, p, ...]`` (rank r's row d goes to rank d) -> rank r's row o
     came from rank o."""
     cfg = _resolve(cfg, "alltoall", x)
+    _obs_record("alltoall", x, cfg)
     _check_wire_plain(cfg, "alltoall")
     b = cfg.backend
     if b == "xla":
@@ -399,6 +426,7 @@ def broadcast(x: torch.Tensor, root: int = 0,
               cfg: CollectiveConfig = BINE) -> torch.Tensor:
     """Rank ``root``'s ``x`` on every rank."""
     cfg = _resolve(cfg, "broadcast", x)
+    _obs_record("broadcast", x, cfg, root=root)
     _check_wire_plain(cfg, "broadcast")
     if cfg.backend == "xla":
         if _psum_exact(x.dtype):
@@ -411,6 +439,7 @@ def reduce(x: torch.Tensor, root: int = 0,
            cfg: CollectiveConfig = BINE) -> torch.Tensor:
     """The rank sum at ``root`` (``xla``: on every rank)."""
     cfg = _resolve(cfg, "reduce", x)
+    _obs_record("reduce", x, cfg, root=root)
     _check_wire_plain(cfg, "reduce")
     if cfg.backend == "xla":
         return stacked.psum(x)
@@ -422,6 +451,7 @@ def gather(x: torch.Tensor, root: int = 0,
     """``x [p, ...]`` (rank r's block) -> ``[p, p*blk]``, valid at ``root``
     (``xla``: on every rank)."""
     cfg = _resolve(cfg, "gather", x, gathered=True)
+    _obs_record("gather", x, cfg, gathered=True, root=root)
     _check_wire_plain(cfg, "gather")
     p = x.shape[0]
     if cfg.backend == "xla":
@@ -434,6 +464,7 @@ def scatter(x: torch.Tensor, root: int = 0,
     """``x [p, ...]`` (significant at ``root``) -> ``[p, n/p]``: rank r's
     block r of root's vector."""
     cfg = _resolve(cfg, "scatter", x)
+    _obs_record("scatter", x, cfg, root=root)
     _check_wire_plain(cfg, "scatter")
     p = x.shape[0]
     if cfg.backend == "xla":

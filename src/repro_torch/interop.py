@@ -4,6 +4,10 @@ Both packages keep one tree layout — nested dicts, ``segments[i]`` leaves
 stacked ``[n_layers, ...]`` — and flatten it in one order (dict keys
 sorted), so a tree crosses leaf for leaf.  bfloat16 leaves cross as
 float32 numpy arrays (exact widening), since numpy has no bfloat16.
+The train state crosses as its global (logical) arrays
+(``train_state_to_numpy`` / ``train_state_from_numpy``, on
+``train.step.to_global`` / ``from_global``); checkpoints carry bfloat16
+bit for bit (``train.checkpoint``).
 """
 
 from __future__ import annotations
@@ -41,3 +45,44 @@ def params_to_numpy(tree: Any) -> Any:
         return x.numpy()
 
     return T.tree_map(one, tree)
+
+
+def _np_leaf(x: torch.Tensor) -> np.ndarray:
+    x = x.detach().cpu()
+    if x.dtype == torch.bfloat16:
+        x = x.to(torch.float32)
+    return x.numpy()
+
+
+def train_state_to_numpy(model_cfg, tcfg, params, state, dp) -> Any:
+    """The stacked per-rank ``params`` and ``state`` as the global numpy
+    tree ``{"params", "state"}`` (``train.step.to_global``), which the
+    reference's step holds as its global arrays; bfloat16 leaves as
+    float32."""
+    from repro_torch.train.step import to_global
+    return T.tree_map(_np_leaf, to_global(model_cfg, tcfg, params, state,
+                                          dp, device="cpu"))
+
+
+def train_state_from_numpy(model_cfg, tcfg, tree: Any, dp, device="cuda"):
+    """Inverse of :func:`train_state_to_numpy` at the DP sizes ``dp``:
+    ``(params, state)`` stacked on ``device``.  Params take ``cfg.dtype``,
+    the optimizer state and residuals float32, the step int32."""
+    from repro_torch.train.step import from_global
+    dt = getattr(torch, model_cfg.dtype)
+
+    def one(dtype):
+        def conv(x):
+            a = np.asarray(x)
+            if a.dtype.name == "bfloat16":
+                a = a.astype(np.float32)
+            return torch.from_numpy(np.array(a, copy=True)).to(dtype)
+        return conv
+
+    st = tree["state"]
+    glob = {"params": T.tree_map(one(dt), tree["params"]),
+            "state": {"opt": T.tree_map(one(torch.float32), st["opt"]),
+                      "step": one(torch.int32)(st["step"])}}
+    if "ef" in st:
+        glob["state"]["ef"] = T.tree_map(one(torch.float32), st["ef"])
+    return from_global(model_cfg, tcfg, glob, dp, device)

@@ -1,13 +1,18 @@
 """End-to-end training driver of the PyTorch port.
 
-Port of ``repro.launch.train`` (checkpointing is not ported yet).  The DP
-ranks run stacked on one device (``train.step``):
+Port of ``repro.launch.train``: synthetic data through the ``Prefetcher``,
+the Bine gradient collectives, ZeRO-1 AdamW, async checkpointing and the
+straggler monitor.  The DP ranks run stacked on one device
+(``train.step``):
 
   python -m repro_torch.launch.train --arch phi4-mini-3.8b --reduced \\
       --mesh 4,1 --steps 20 --batch 8 --seq 64 --backend pallas_fused
 
 ``--mesh pod,data,model`` stacks two DP axes, as the reference's mesh has
 them (``--mesh 2,2,1 --backend bine_hier`` runs the two-tier hierarchy).
+``--ckpt-dir D --ckpt-every N`` saves the global train state every N steps
+and after the last, in the reference's format; ``--resume`` continues from
+the latest step in ``D`` (a checkpoint of either package, at any DP size).
 Runs on CUDA unless ``--device cpu`` is given.
 """
 
@@ -23,8 +28,11 @@ from repro_torch import resolve_device
 from repro_torch.configs import base as cfgbase
 from repro_torch.models import transformer as TF
 from repro_torch.optim.adamw import AdamWConfig
-from repro_torch.train.data import DataConfig, make_batch
-from repro_torch.train.step import TrainConfig, make_init_fns, make_train_step
+from repro_torch.train import checkpoint as ckpt
+from repro_torch.train.data import DataConfig, Prefetcher
+from repro_torch.train.runtime import StragglerMonitor
+from repro_torch.train.step import (TrainConfig, from_global, make_init_fns,
+                                    make_train_step, to_global)
 
 
 def parse_mesh(mesh: str) -> Tuple[Tuple[str, ...], Tuple[int, ...]]:
@@ -67,6 +75,9 @@ def main(argv=None):
     ap.add_argument("--accum", type=int, default=1)
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--warmup", type=int, default=20)
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--resume", action="store_true")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -95,19 +106,48 @@ def main(argv=None):
     dcfg = DataConfig(global_batch=args.batch, seq_len=args.seq,
                       vocab_size=cfg.vocab_size, seed=args.seed + 1)
 
-    t_all = time.time()
-    for s in range(args.steps):
-        t0 = time.time()
-        params, state, metrics = step_fn(params, state, make_batch(dcfg, s))
-        loss = float(metrics["loss"])     # waits for the device
-        dt = time.time() - t0
-        if s % args.log_every == 0 or s == args.steps - 1:
-            print(f"step {s:5d} loss {loss:.4f} "
-                  f"gnorm {float(metrics['grad_norm']):.3f} "
-                  f"lr {float(metrics['lr']):.2e} {dt * 1e3:.0f}ms")
-    total = time.time() - t_all
-    print(f"[train] done: {args.steps} steps in {total:.1f}s "
-          f"({args.steps / max(total, 1e-9):.2f} it/s)")
+    def global_state():
+        return to_global(cfg, tcfg, params, state, dp)
+
+    cpr = ckpt.AsyncCheckpointer(args.ckpt_dir) if args.ckpt_dir else None
+    monitor = StragglerMonitor()
+    start = 0
+    if args.resume and args.ckpt_dir:
+        latest = ckpt.latest_step(args.ckpt_dir)
+        if latest is not None:
+            like = to_global(cfg, tcfg, params, state, dp, device="meta")
+            tree = ckpt.restore(args.ckpt_dir, latest, like, device="cpu")
+            params, state = from_global(cfg, tcfg, tree, dp, dev)
+            del tree
+            start = latest
+            print(f"[train] resumed from step {start}")
+
+    pf = Prefetcher(dcfg, start_step=start)
+    try:
+        t_all = time.time()
+        for s in range(start, args.steps):
+            t0 = time.time()
+            _, b = pf.next()
+            params, state, metrics = step_fn(params, state, b)
+            loss = float(metrics["loss"])     # waits for the device
+            dt = time.time() - t0
+            if monitor.observe(s, dt):
+                print(f"[straggler] step {s} took {dt:.3f}s "
+                      f"(ewma {monitor.ewma:.3f}s)")
+            if s % args.log_every == 0 or s == args.steps - 1:
+                print(f"step {s:5d} loss {loss:.4f} "
+                      f"gnorm {float(metrics['grad_norm']):.3f} "
+                      f"lr {float(metrics['lr']):.2e} {dt * 1e3:.0f}ms")
+            if cpr and (s + 1) % args.ckpt_every == 0:
+                cpr.save(s + 1, global_state())
+        if cpr:
+            cpr.save(args.steps, global_state(), block=True)
+        total = time.time() - t_all
+        print(f"[train] done: {args.steps - start} steps in {total:.1f}s "
+              f"({(args.steps - start) / max(total, 1e-9):.2f} it/s); "
+              f"stragglers flagged: {len(monitor.flagged)}")
+    finally:
+        pf.close()
 
 
 if __name__ == "__main__":

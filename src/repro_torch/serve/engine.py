@@ -8,8 +8,10 @@ their norms and prefill attention run on the hand-written kernels
 counterpart: ``cache_specs`` (the pool's ``PartitionSpec``s) and
 ``trace_counts`` (the no-retrace guarantee of ``jit``; the serve CLI
 prints the kernel launch counts instead).  Tensor parallelism and the
-multi-GPU executor are ROADMAP.md queue A items 3 and 7; the plan's
-observability record is item 6.
+multi-GPU executor are ROADMAP.md queue A items 3 and 7.  The plan's
+observability record (``obs.collect.record_serve_plan``) fires where the
+plan prices a collective, which on one card (``n_tp = n_dp = 1``) it
+never does, as in the reference.
 """
 
 from __future__ import annotations
@@ -31,16 +33,13 @@ class ServeConfig:
     #: collective plan; "xla" pins the defaults (no plan)
     backend: str = "auto"
     topology: str = "tpu_multipod"
-    #: table provenance for the plan lookups; "measured" is not ported
+    #: table provenance for the plan lookups: "analytic" or "measured"
     tuning: str = TB.ANALYTIC
 
     def __post_init__(self):
         if self.tuning not in TB.TUNINGS:
             raise ValueError(f"unknown tuning {self.tuning!r}; expected one "
                              f"of {TB.TUNINGS}")
-        if self.tuning == TB.MEASURED:
-            raise NotImplementedError(
-                f"tuning='measured' is not ported: {TB._MEASURED_ITEM}")
 
 
 def collective_plan(model_cfg, scfg: ServeConfig, n_tp: int, n_dp: int,
@@ -55,16 +54,21 @@ def collective_plan(model_cfg, scfg: ServeConfig, n_tp: int, n_dp: int,
     itemsize = torch.empty((), dtype=getattr(torch, model_cfg.dtype)
                            ).element_size()
     plan: Dict[str, str] = {}
+    priced = []  # (collective, backend, p, nbytes) for obs attribution
     kw = dict(topology=scfg.topology, tuning=scfg.tuning)
     if n_tp > 1:
         # flash-decoding partial-softmax combine over the model axis
         attn_bytes = B * model_cfg.n_heads * model_cfg.head_dim * itemsize
         plan["decode_attn_allreduce"] = TB.select_backend(
             "allreduce", n_tp, attn_bytes, **kw)
+        priced.append(("allreduce", plan["decode_attn_allreduce"], n_tp,
+                       attn_bytes))
         # vocab-sharded logits re-assembly for sampling
         logit_bytes = B * model_cfg.vocab_size * 4
         plan["logits_allgather"] = TB.select_backend(
             "allgather", n_tp, logit_bytes, **kw)
+        priced.append(("allgather", plan["logits_allgather"], n_tp,
+                       logit_bytes))
     if n_dp > 1:
         # batched token scatter/gather between the frontend and the mesh
         tok_bytes = B * 4
@@ -72,6 +76,11 @@ def collective_plan(model_cfg, scfg: ServeConfig, n_tp: int, n_dp: int,
             "scatter", n_dp, tok_bytes, **kw)
         plan["token_gather"] = TB.select_backend(
             "gather", n_dp, tok_bytes, **kw)
+        priced.append(("scatter", plan["token_scatter"], n_dp, tok_bytes))
+        priced.append(("gather", plan["token_gather"], n_dp, tok_bytes))
+    if priced:
+        from repro_torch.obs import collect
+        collect.record_serve_plan(priced, scfg.topology)
     return plan
 
 

@@ -24,8 +24,10 @@ clock, which keeps every run exactly reproducible.  Beside the virtual
 times each request also records host-clock stamps (``*_wall``, seconds):
 when the clock first reached its arrival, and when its first and last
 tokens were sampled — the serve CLI and ``chip_smoke.py`` turn them into
-milliseconds.  The reference's ``obs_metrics`` counters are not ported
-(ROADMAP.md queue A item 6).
+milliseconds.  Each retirement records, as the reference does,
+``serve_requests_retired`` (by reason) and the virtual-tick
+``serve_request_ttft_ticks`` / ``serve_request_e2e_ticks`` histograms into
+``obs.metrics``.
 
 Because pages are computationally independent and sampling streams are
 per request, a request's output is the same whether it runs alone in a
@@ -42,6 +44,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.serve import sampling as S
 from repro_torch.serve.kvcache import SlotAllocator
 
@@ -149,6 +152,12 @@ class ContinuousBatchingScheduler:
             "e2e": self.clock - req.arrival,
             "tokens": float(len(req.generated)),
         })
+        if obs_metrics.enabled():
+            reg = obs_metrics.get_registry()
+            reg.inc("serve_requests_retired", 1.0, reason=reason)
+            reg.observe("serve_request_ttft_ticks",
+                        req.first_token_at - req.arrival)
+            reg.observe("serve_request_e2e_ticks", self.clock - req.arrival)
         self.pool = self.fns.evict(self.pool, np.int32(slot))
         self.alloc.release(slot)
         self._active[slot] = 0

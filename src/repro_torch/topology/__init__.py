@@ -6,7 +6,8 @@ Port of ``repro.topology``: the presets (``presets``), the α-β cost model
 ``select_wire`` behind ``wire_dtype="auto"`` and ``select_bucket_bytes``
 behind ``TrainConfig(bucket_bytes=-1)``, all reading the five preset
 tables the JAX package ships (byte copies under ``tables/``), which
-``build_table`` rebuilds.
+``build_table`` rebuilds, with a tuner's measured table merged over them
+under ``tuning="measured"`` (``table.measured_dir``).
 """
 
 from .cost import (BUCKET_SIZE_CANDIDATES, CANDIDATES, HBM_BW,
@@ -18,7 +19,8 @@ from .presets import (PRESETS, get_topology, tier_split, tier_split_or_none,
                       torus_dims)
 from .table import (ANALYTIC, MEASURED, P_GRID, SIZE_BUCKETS, TUNINGS,
                     DecisionTable, build_table, decision_provenance,
-                    load_table, merge_measured, select_backend,
+                    invalidate_tables, load_table, measured_dir,
+                    measured_table_path, merge_measured, select_backend,
                     select_bucket_bytes, select_wire, table_path,
                     wire_decision_provenance, with_measured_cells)
 
@@ -31,8 +33,9 @@ __all__ = [
     "PRESETS", "get_topology", "tier_split", "tier_split_or_none",
     "torus_dims",
     "ANALYTIC", "MEASURED", "P_GRID", "SIZE_BUCKETS", "TUNINGS",
-    "DecisionTable", "build_table", "decision_provenance", "load_table",
-    "merge_measured", "select_backend", "select_bucket_bytes",
+    "DecisionTable", "build_table", "decision_provenance",
+    "invalidate_tables", "load_table", "measured_dir",
+    "measured_table_path", "merge_measured", "select_backend", "select_bucket_bytes",
     "select_wire", "table_path", "wire_decision_provenance",
     "with_measured_cells",
 ]

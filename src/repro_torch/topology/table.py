@@ -7,7 +7,8 @@ to JSON.  The five preset tables the JAX package ships are copied byte for
 byte into ``tables/``; ``build_table`` with the reference's constants
 rebuilds each of them byte for byte, and with ``hbm_bw`` set builds one
 for another card's local memory beside them.  ``load_table`` reads the
-packaged presets only (a built table is saved and loaded by the caller).
+packaged presets as the analytic base (a built table is saved and loaded
+by the caller).
 
 ``entries[collective][p][i]`` is the backend for payloads in bucket ``i``
 (``nbytes <= size_buckets[i]``, first match; larger payloads use the last
@@ -15,7 +16,18 @@ bucket).  A rank count off the grid snaps to the nearest grid point in
 log-space.  ``wire_entries`` (format 3) holds the joint
 ``(backend, wire_dtype)`` decision for reduce_scatter and allgather.
 ``with_measured_cells`` and ``merge_measured`` overlay a tuner's measured
-cells; reading measured tables (``tuning="measured"``) is not ported yet.
+cells.
+
+Measured tables live in their own directory (``REPRO_MEASURED_TABLE_DIR``,
+default ``<cache>/measured`` with ``<cache>`` = ``REPRO_TABLE_DIR`` or
+``~/.cache/repro-bine/tables``, the reference's paths), one
+``<topology>.json`` each, written by the reference's tuner (writing them
+in the port is ROADMAP.md queue A item 6).  ``tuning="measured"`` merges
+their measured cells over the analytic base at load time; a missing,
+grid-stale, truncated or hand-edited file warns once per ``(topology, p,
+tuning)`` and falls back to the analytic decisions, as in the reference.
+The ``select_*`` lookups cache each loaded table per process
+(``invalidate_tables`` drops them).
 """
 
 from __future__ import annotations
@@ -23,9 +35,9 @@ from __future__ import annotations
 import json
 import math
 import os
+import warnings
 from bisect import bisect_left
 from dataclasses import dataclass, field
-from functools import lru_cache
 from typing import Dict, List, Optional, Tuple
 
 from .cost import (CANDIDATES, HBM_BW, SMALL_CUTOFF_BYTES,
@@ -52,10 +64,6 @@ P_GRID: Tuple[int, ...] = (4, 8, 16, 32, 64, 128)
 SIZE_BUCKETS: Tuple[int, ...] = tuple(1 << k for k in range(8, 29, 2))
 
 _PACKAGED_DIR = os.path.join(os.path.dirname(__file__), "tables")
-
-#: where ``tuning="measured"`` is queued
-_MEASURED_ITEM = ("ROADMAP.md queue A item 1c (the tuner's measured "
-                  "tables, tuning='measured')")
 
 
 @dataclass(frozen=True)
@@ -346,40 +354,120 @@ def merge_measured(base: DecisionTable,
 
 
 # ---------------------------------------------------------------------------
-# The packaged tables
+# The packaged tables, the measured tables and the process cache
 # ---------------------------------------------------------------------------
 
+_LOADED: Dict[Tuple[str, str], DecisionTable] = {}
+
+#: warning keys already emitted this process (see ``_warn_once``)
+_WARNED: set = set()
+
+
+def _warn_once(key, msg: str) -> None:
+    """Emit ``msg`` at most once per process for ``key``: a bucketed train
+    step alone makes dozens of lookups."""
+    if key in _WARNED:
+        return
+    _WARNED.add(key)
+    warnings.warn(msg, stacklevel=3)
+
+
+def _cache_dir() -> str:
+    env = os.environ.get("REPRO_TABLE_DIR")
+    if env:
+        return env
+    return os.path.join(os.path.expanduser("~"), ".cache", "repro-bine",
+                        "tables")
+
+
+def measured_dir() -> str:
+    """Where measured tables live (``REPRO_MEASURED_TABLE_DIR``
+    overrides)."""
+    env = os.environ.get("REPRO_MEASURED_TABLE_DIR")
+    if env:
+        return env
+    return os.path.join(_cache_dir(), "measured")
+
+
+def measured_table_path(topology: str) -> str:
+    return os.path.join(measured_dir(), f"{topology}.json")
+
+
 def table_path(topology: str) -> str:
+    """The packaged (analytic) table of a preset."""
     return os.path.join(_PACKAGED_DIR, f"{topology}.json")
 
 
-@lru_cache(maxsize=None)
-def load_table(topology: str, tuning: str = ANALYTIC) -> DecisionTable:
-    """A packaged preset's table, parsed once per process."""
+def load_table(topology: str, tuning: str = ANALYTIC,
+               p: Optional[int] = None) -> DecisionTable:
+    """A packaged preset's table, with ``tuning="measured"`` the measured
+    table's cells merged over it.
+
+    A missing or unusable measured file (grid-stale, truncated,
+    hand-edited) warns once per ``(topology, p, tuning)`` and returns the
+    analytic table: auto-dispatch never fails because a machine was not
+    tuned.  ``p`` only scopes that warning (the ``select_*`` lookups pass
+    their rank count), so after ``invalidate_tables`` a run at a new rank
+    count warns again."""
     if tuning not in TUNINGS:
         raise ValueError(f"unknown tuning {tuning!r}; expected one of "
                          f"{TUNINGS}")
-    if tuning == MEASURED:
-        raise NotImplementedError(
-            f"tuning='measured' is not ported: {_MEASURED_ITEM}")
     if topology not in PRESETS:
         raise ValueError(f"unknown topology {topology!r}; known: "
                          f"{list(PRESETS)}")
-    return DecisionTable.load(table_path(topology))
+    base = DecisionTable.load(table_path(topology))
+    if tuning != MEASURED:
+        return base
+    mpath = measured_table_path(topology)
+    if not os.path.exists(mpath):
+        _warn_once(("no-measured-table", topology, p, tuning),
+                   f"tuning='measured' for topology {topology!r} but no "
+                   f"measured table at {mpath}; falling back to analytic "
+                   f"decisions")
+        return base
+    try:
+        return merge_measured(base, DecisionTable.load(mpath))
+    except (ValueError, KeyError, TypeError, OSError,
+            json.JSONDecodeError) as e:
+        _warn_once(("stale-measured-table", topology, p, tuning),
+                   f"measured table {mpath} unusable ({e!r}); falling "
+                   f"back to analytic decisions")
+        return base
+
+
+def _table_for(topology: str, tuning: str,
+               p: Optional[int] = None) -> DecisionTable:
+    key = (topology, tuning)
+    table = _LOADED.get(key)
+    if table is None:
+        table = _LOADED[key] = load_table(topology, tuning, p)
+    return table
+
+
+def invalidate_tables(topology: Optional[str] = None) -> None:
+    """Drop the per-process table cache (all presets, or one): the next
+    lookup re-loads (and re-merges the measured cells of) the table, and a
+    measured-table fallback warns again for a new rank count."""
+    if topology is None:
+        _LOADED.clear()
+        return
+    for key in [k for k in _LOADED if k[0] == topology]:
+        del _LOADED[key]
 
 
 def select_backend(collective: str, p: int, nbytes: float,
                    topology: str = "tpu_multipod",
                    tuning: str = ANALYTIC) -> str:
     """The ``backend="auto"`` lookup: the table's backend for this cell."""
-    return load_table(topology, tuning).lookup(collective, p, nbytes)
+    return _table_for(topology, tuning, p).lookup(collective, p, nbytes)
 
 
 def decision_provenance(collective: str, p: int, nbytes: float,
                         topology: str = "tpu_multipod",
                         tuning: str = ANALYTIC) -> str:
     """"measured" | "analytic" for the cell ``select_backend`` would use."""
-    return load_table(topology, tuning).provenance_of(collective, p, nbytes)
+    return _table_for(topology, tuning, p).provenance_of(
+        collective, p, nbytes)
 
 
 def select_wire(collective: str, p: int, nbytes: float,
@@ -387,14 +475,15 @@ def select_wire(collective: str, p: int, nbytes: float,
                 tuning: str = ANALYTIC) -> Tuple[str, str]:
     """The ``wire_dtype="auto"`` lookup: joint ``(backend, wire)``.
     ``nbytes`` is the float32 full-vector payload, not pre-scaled."""
-    return load_table(topology, tuning).lookup_wire(collective, p, nbytes)
+    return _table_for(topology, tuning, p).lookup_wire(
+        collective, p, nbytes)
 
 
 def wire_decision_provenance(collective: str, p: int, nbytes: float,
                              topology: str = "tpu_multipod",
                              tuning: str = ANALYTIC) -> str:
     """"measured" | "analytic" for the cell ``select_wire`` would use."""
-    return load_table(topology, tuning).wire_provenance_of(
+    return _table_for(topology, tuning, p).wire_provenance_of(
         collective, p, nbytes)
 
 
@@ -403,6 +492,6 @@ def select_bucket_bytes(p: int, topology: str = "tpu_multipod",
     """Gradient-bucket capacity in bytes for ``p`` DP ranks: the table's
     ``bucket_bytes`` entry at the nearest grid point (every packaged table
     carries the entry)."""
-    table = load_table(topology, tuning)
+    table = _table_for(topology, tuning, p)
     q = p if p in table.bucket_bytes else table.nearest_p(p)
     return table.bucket_bytes[q]

@@ -1,6 +1,6 @@
 """Deterministic synthetic LM data pipeline.
 
-The port's copy of ``DataConfig`` and ``make_batch`` from
+The port's copy of ``DataConfig``, ``make_batch`` and ``Prefetcher`` from
 ``repro.train.data`` (numpy; the same seed gives the same batch in both
 packages).  Stateless per-step generation (seed ⊕ step) so restarts resume
 exactly.  Token streams follow a Zipf-ish unigram mixture with
@@ -10,6 +10,8 @@ end-to-end examples, rather than pinning at ln(V).
 
 from __future__ import annotations
 
+import queue
+import threading
 from dataclasses import dataclass
 from typing import Dict
 
@@ -56,3 +58,39 @@ def make_batch(cfg: DataConfig, step: int) -> Dict[str, np.ndarray]:
     else:
         out["inputs"] = toks[:, :-1].astype(np.int32)
     return out
+
+
+class Prefetcher:
+    """Background-thread prefetch of make_batch results."""
+
+    def __init__(self, cfg: DataConfig, start_step: int = 0, depth: int = 2):
+        self.cfg = cfg
+        self.q: "queue.Queue" = queue.Queue(maxsize=depth)
+        self._stop = threading.Event()
+        self._step = start_step
+        self._t = threading.Thread(target=self._run, daemon=True)
+        self._t.start()
+
+    def _run(self):
+        s = self._step
+        while not self._stop.is_set():
+            b = make_batch(self.cfg, s)
+            while not self._stop.is_set():
+                try:
+                    self.q.put((s, b), timeout=0.1)
+                    break
+                except queue.Full:
+                    continue
+            s += 1
+
+    def next(self):
+        return self.q.get()
+
+    def close(self):
+        self._stop.set()
+        try:
+            while True:
+                self.q.get_nowait()
+        except queue.Empty:
+            pass
+        self._t.join(timeout=2)

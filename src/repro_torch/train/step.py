@@ -27,6 +27,14 @@ says so, and the optimizer shards are cut that way.  On one axis
 ``bine_hier`` is flat ``bine``, as in the reference's bucketed path (its
 per-leaf path raises ``KeyError`` there).
 
+The global layout (``to_global`` / ``from_global``): a checkpoint holds
+the logical arrays, as the reference's does (its arrays are global):
+``{"params": one rank's tree, "state": {"opt": each leaf whole, "step",
+"ef": [n_dp, L] residuals}}``.  Stacked rank r's optimizer shard is block
+``shard_owner[r]`` of the global leaf along its zero dim, so the two
+functions invert each other for any DP shape, and a restore at another
+``n_dp`` re-slices by that ``n_dp``'s ZeRO layout.
+
 The bucketed step: pack each bucket's gradients (f32, bf16 or int8 wire,
 pre-scaled as the reference does), one reduce-scatter per bucket (int8
 buckets through error feedback), ONE small allreduce of grad-norm and
@@ -70,8 +78,7 @@ _CODEC_BACKENDS = ("bine", "recdoub", "pallas_fused")
 @dataclass(frozen=True)
 class TrainConfig:
     """The reference's config less what the port does not run yet: at most
-    two DP axes (stacked on one device), model axis 1, the packaged
-    (analytic) tables."""
+    two DP axes (stacked on one device), model axis 1."""
     backend: str = "bine"            # bine | recdoub | ring | xla | bine_hier
     #                                # | pallas_fused | auto
     #: the DP axes, outermost first; their sizes come with the step's
@@ -87,8 +94,8 @@ class TrainConfig:
     #: decision-table preset for backend="auto", wire_dtype="auto" and
     #: bucket_bytes=-1
     topology: str = "tpu_multipod"
-    #: table provenance: "analytic" (the packaged tables); "measured" is
-    #: not ported and raises at lookup
+    #: table provenance: "analytic" (the packaged tables) or "measured" (a
+    #: tuner's measured table merged over them, ``topology.table``)
     tuning: str = "analytic"
     #: small/large allreduce switch (inclusive), bytes of the wire dtype
     small_cutoff_bytes: int = 16384
@@ -379,6 +386,47 @@ def bucket_decisions(tcfg: TrainConfig, plan: buckets.BucketPlan):
     return out
 
 
+def bucket_report(tcfg: TrainConfig, plan: Optional[buckets.BucketPlan]):
+    """Per-bucket dispatch report (the reference's ``bucket_report``): the
+    resolved backends and wires with their payloads and where each
+    decision came from — ``"measured"`` or ``"analytic"`` table cells
+    under ``auto``, ``"fixed"`` where the config pins it."""
+    if plan is None:
+        return []
+    from repro_torch.topology import (decision_provenance,
+                                      wire_decision_provenance)
+    rows = []
+    for i, (b, (rs_b, rs_w, ag_b, ag_w)) in enumerate(
+            zip(plan.buckets, bucket_decisions(tcfg, plan))):
+        rs_bytes = b.nbytes(plan.wire_itemsize, plan.n_dp)
+        ag_bytes = b.nbytes(getattr(torch, b.dtype).itemsize, plan.n_dp)
+        if tcfg.backend == "auto":
+            rs_src = decision_provenance("reduce_scatter", plan.n_dp,
+                                         rs_bytes, tcfg.topology,
+                                         tuning=tcfg.tuning)
+            ag_src = decision_provenance("allgather", plan.n_dp, ag_bytes,
+                                         tcfg.topology, tuning=tcfg.tuning)
+        else:
+            rs_src = ag_src = "fixed"
+        if tcfg.wire_dtype == "auto":
+            rs_wsrc = wire_decision_provenance(
+                "reduce_scatter", plan.n_dp, b.nbytes(4.0, plan.n_dp),
+                tcfg.topology, tuning=tcfg.tuning)
+            ag_wsrc = wire_decision_provenance(
+                "allgather", plan.n_dp, ag_bytes, tcfg.topology,
+                tuning=tcfg.tuning)
+        else:
+            rs_wsrc = ag_wsrc = "fixed"
+        rows.append({
+            "bucket": i, "n_leaves": len(b.slots),
+            "rs_backend": rs_b, "rs_bytes": rs_bytes, "rs_provenance": rs_src,
+            "rs_wire": rs_w, "rs_wire_provenance": rs_wsrc,
+            "ag_backend": ag_b, "ag_bytes": ag_bytes, "ag_provenance": ag_src,
+            "ag_wire": ag_w, "ag_wire_provenance": ag_wsrc,
+        })
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # Train state
 # ---------------------------------------------------------------------------
@@ -433,6 +481,118 @@ def make_init_fns(model_cfg, tcfg: TrainConfig, dp, device="cuda"):
         return init_train_state(model_cfg, tcfg, params, dp)
 
     return init_p, init_s
+
+
+# ---------------------------------------------------------------------------
+# The global layout of a train state (checkpoints)
+# ---------------------------------------------------------------------------
+
+def to_global(model_cfg, tcfg: TrainConfig, params: List[Any], state: Dict,
+              dp, device=None) -> Dict:
+    """The stacked per-rank ``params`` and ``state`` as the logical arrays
+    a checkpoint holds: ``{"params": tree, "state": {"opt": tree of
+    {"m", "master", "v"}, "step": scalar, ["ef": {bid: [n_dp, L]}]}}``.
+
+    Params are one rank's tree; every rank must hold the same bits.  A
+    ZeRO-sharded optimizer leaf is whole: stacked rank r's slice is block
+    ``shard_owner[r]`` along the leaf's zero dim; a replicated one is
+    rank 0's copy, every rank's checked equal.  The error-feedback rows
+    are per rank in ``dp_axes`` order, which is the stacking order, so the
+    stacked ``[p, L]`` is already the global array.  ``device``: where each
+    leaf lands as it is built ("cpu" streams a state larger than the
+    card's free memory to the host, leaf by leaf; "meta" gives shapes and
+    dtypes only); None keeps the params' device.  Every leaf is a new
+    tensor or a rank's params, never a view of the state the step
+    updates in place."""
+    shape = dp_shape(tcfg, dp)
+    n_dp = int(np.prod(shape))
+    if len(params) != n_dp:
+        raise ValueError(f"{len(params)} rank trees for DP sizes {shape}")
+    meta = device is not None and torch.device(device).type == "meta"
+    order = [int(r) for r in np.argsort(shard_owner(tcfg, shape))]
+
+    def put(t: torch.Tensor) -> torch.Tensor:
+        return t if device is None else t.to(device)
+
+    flats = [T.flatten_with_path(tr) for tr in params]
+    glob_p = []
+    for i, (path, leaf) in enumerate(flats[0]):
+        if not meta:
+            for r in range(1, n_dp):
+                if not torch.equal(flats[r][i][1], leaf):
+                    raise ValueError(
+                        f"{T.keystr(('params',) + path)}: rank {r}'s "
+                        f"parameter differs from rank 0's")
+        glob_p.append(put(leaf))
+    layout = zero.zero_layout(model_cfg, params[0], n_dp)
+    opt = []
+    for (path, _), zd, st in zip(flats[0], T.flatten(layout),
+                                 T.flatten_up_to(params[0], state["opt"])):
+        one = {}
+        for k in sorted(st):
+            x = st[k]
+            if meta:
+                full = list(x.shape[1:])
+                if zd >= 0:
+                    full[zd] *= n_dp
+                one[k] = torch.empty(full, dtype=x.dtype, device="meta")
+            elif zd >= 0:
+                one[k] = put(torch.cat([x[r] for r in order], dim=zd))
+            else:
+                for r in range(1, n_dp):
+                    if not torch.equal(x[r], x[0]):
+                        raise ValueError(
+                            f"{T.keystr(('state', 'opt') + path + (k,))}: "
+                            f"rank {r}'s replicated copy differs")
+                one[k] = put(x[0].clone())
+        opt.append(one)
+    out_state = {"opt": T.unflatten(params[0], opt),
+                 "step": put(state["step"].clone())}
+    if "ef" in state:
+        out_state["ef"] = {k: put(v.clone()) for k, v in state["ef"].items()}
+    return {"params": T.unflatten(params[0], glob_p), "state": out_state}
+
+
+def from_global(model_cfg, tcfg: TrainConfig, tree: Dict, dp,
+                device="cuda") -> Tuple[List[Any], Dict]:
+    """Inverse of :func:`to_global` for the DP sizes ``dp`` (any, not only
+    the ones the tree was saved at): ``(params, state)`` stacked on
+    ``device``.  The optimizer leaves are cut by ``zero.zero_layout`` at
+    this ``n_dp`` and handed out by ``shard_owner``; the error-feedback
+    rows must match this config's int8 buckets at this ``n_dp`` (they are
+    per-rank residuals and cannot be re-sliced), as the reference's
+    restore asserts their global shape."""
+    dev = resolve_device(device)
+    shape = dp_shape(tcfg, dp)
+    n_dp = int(np.prod(shape))
+    owner = shard_owner(tcfg, shape)
+    one = T.tree_map(lambda x: x.to(dev), tree["params"])
+    params = [one] + [T.tree_map(torch.clone, one) for _ in range(n_dp - 1)]
+    layout = zero.zero_layout(model_cfg, one, n_dp)
+    opt = []
+    for zd, st in zip(T.flatten(layout),
+                      T.flatten_up_to(one, tree["state"]["opt"])):
+        opt.append({k: torch.stack([
+            zero.slice_leaf(v, zd, n_dp, int(owner[r])) for r in range(n_dp)
+        ]).to(dev) if zd >= 0 else v.to(dev).expand(
+            (n_dp,) + tuple(v.shape)).clone() for k, v in st.items()})
+    state = {"opt": T.unflatten(one, opt),
+             "step": tree["state"]["step"].to(dev, torch.int32)}
+    plan = resolve_bucket_plan(tcfg, n_dp, one, layout)
+    want = _ef_init(tcfg, plan, "meta")
+    got = tree["state"].get("ef", {})
+    if sorted(want) != sorted(got):
+        raise ValueError(
+            f"['state']['ef']: the checkpoint's int8 buckets {sorted(got)} "
+            f"are not this config's {sorted(want)} at n_dp={n_dp}")
+    for bid, v in got.items():
+        if tuple(v.shape) != tuple(want[bid].shape):
+            raise ValueError(
+                f"['state']['ef'][{bid!r}]: ckpt {tuple(v.shape)} vs "
+                f"expected {tuple(want[bid].shape)} at n_dp={n_dp}")
+    if want:
+        state["ef"] = {k: v.to(dev, torch.float32) for k, v in got.items()}
+    return params, state
 
 
 # ---------------------------------------------------------------------------
@@ -494,6 +654,10 @@ def make_train_step(model_cfg, tcfg: TrainConfig, dp, params_shapes,
                              "this model has no bucketable (ZeRO-sharded) "
                              "leaves")
     decisions = None if plan is None else bucket_decisions(tcfg, plan)
+    if decisions is not None:
+        # telemetry: the step's static per-bucket dispatches, once per build
+        from repro_torch.obs import collect
+        collect.record_bucket_plan(tcfg, plan, decisions, n_dp)
     flat_zd = T.flatten(layout)
 
     def step(params, state, batch):

@@ -35,6 +35,13 @@ def flatten_with_path(tree) -> List[Tuple[Tuple, Any]]:
     return out
 
 
+def keystr(path: Tuple) -> str:
+    """``("params", "segments", 0)`` -> ``['params']['segments'][0]``,
+    ``jax.tree_util.keystr``'s form of the same path."""
+    return "".join(f"[{k!r}]" if isinstance(k, str) else f"[{k}]"
+                   for k in path)
+
+
 def flatten(tree) -> List[Any]:
     return [leaf for _, leaf in flatten_with_path(tree)]
 

@@ -16,7 +16,12 @@ same per-rank inputs:
     reference's ``ValueError``;
   * the fused matmul collectives within rtol = atol = 1e-5, as the
     reference's own test holds its kernels: the matmul sums in another
-    order than the reference's tiled dot.
+    order than the reference's tiled dot;
+  * the telemetry hook: one call of each of the eight collectives under
+    ``bine``, ``recdoub``, ``ring``, ``xla``, ``pallas_fused`` and
+    ``bine_hier`` at p in {4, 8} leaves a metrics registry (calls,
+    payload and link bytes) equal to the one the reference's API records
+    while tracing the same calls.
 
 The JAX side runs once, on 8 forced host devices in a subprocess, and
 hands its outputs over as an ``.npz``.
@@ -68,6 +73,12 @@ COLLECTIVES = {
     "gather": "blk", "scatter": "vec", "all_to_all": "a2a",
 }
 ROOTED = ("broadcast", "reduce", "gather", "scatter")
+#: the telemetry hook's runs: backends, and the eight collectives each
+#: called once (allreduce on the large vector)
+OBS_BACKENDS = ("bine", "recdoub", "ring", "xla", "pallas_fused",
+                "bine_hier")
+OBS_COLLECTIVES = ("reduce_scatter", "allgather", "allreduce", "broadcast",
+                   "reduce", "gather", "scatter", "all_to_all")
 #: the rooted collectives on int32 and bool, under these configurations
 DTYPE_CONFIGS = ("bine", "recdoub", "xla", "fused_bine")
 MATMUL_ALGOS = ("bine", "recdoub", "ring")
@@ -124,7 +135,7 @@ def cases(p):
 
 
 JAX_CODE = r"""
-import os, sys
+import json, os, sys
 os.environ["REPRO_OBS"] = "0"
 # bf16 adds round to bf16 after every op, as the reference's code says and
 # the port does (XLA on the CPU otherwise keeps float32 excess precision)
@@ -134,8 +145,10 @@ from jax.sharding import Mesh, PartitionSpec as P
 from repro.collectives import api
 from repro.compat import shard_map
 from repro.kernels import collectives as fused
+from repro.obs import metrics
 sys.path.insert(0, {tests!r})
-from test_torch_api import cases, call, inputs, MATMUL_ALGOS
+from test_torch_api import (cases, call, inputs, MATMUL_ALGOS, COLLECTIVES,
+                            OBS_BACKENDS, OBS_COLLECTIVES)
 
 out = {{}}
 for p in {ps!r}:
@@ -180,6 +193,18 @@ for p in {ps!r}:
             rs(jnp.asarray(xs["mm_x"]), jnp.asarray(xs["mm_w"])))
         out[f"p{{p}}|mm_ag|{{algo}}"] = np.asarray(
             ag(jnp.asarray(xs["mm_xb"]), jnp.asarray(xs["mm_w"])))
+    # the telemetry hook records while a call is traced: one trace each
+    for b in OBS_BACKENDS:
+        metrics.get_registry().reset()
+        metrics.set_enabled(True)
+        cfg = api.CollectiveConfig(backend=b)
+        for coll in OBS_COLLECTIVES:
+            key = COLLECTIVES[coll]
+            jax.eval_shape(smap(lambda v, c=coll: call(api, c, v, cfg, "x"),
+                                1), jnp.asarray(xs[key]))
+        metrics.set_enabled(False)
+        out[f"obs|p{{p}}|{{b}}"] = np.asarray(
+            json.dumps(metrics.get_registry().snapshot()))
 np.savez({path!r}, **out)
 print("JAX_OK", len(out))
 """
@@ -372,20 +397,64 @@ def test_dispatch_predicates_match_jax(topology):
                             coll, p, nbytes, japi.CollectiveConfig(**kw))
 
 
-def test_unported_options_name_their_roadmap_item():
-    """``bine_hier`` runs now (tests/test_torch_hier.py); what is still not
-    ported names its ROADMAP.md item: ``tuning="measured"`` raises, and the
-    module says the ``_obs_record`` hook waits for item 1c."""
+@pytest.mark.parametrize("p", PS)
+@pytest.mark.parametrize("backend", OBS_BACKENDS)
+def test_obs_registry_matches_jax(jax_out, backend, p, monkeypatch):
+    """One call of each collective records, per call, what the reference
+    records per trace: the same registry snapshot, link bytes included."""
+    import json
+    from repro_torch.obs import metrics
+    reg = metrics.Registry()
+    monkeypatch.setattr(metrics, "_REGISTRY", reg)
+    monkeypatch.setattr(metrics, "_ENABLED", True)
+    xs = inputs(p)
+    cfg = api.CollectiveConfig(backend=backend)
+    for coll in OBS_COLLECTIVES:
+        call(api, coll, torch.from_numpy(xs[COLLECTIVES[coll]]), cfg)
+    exp = json.loads(str(jax_out[f"obs|p{p}|{backend}"]))
+    assert reg.snapshot() == exp
+    assert reg.series("link_local_bytes") or reg.series("link_global_bytes")
+
+
+def test_unported_options_name_their_roadmap_item(tmp_path, monkeypatch):
+    """``bine_hier`` runs; ``tuning="measured"`` runs and, with no measured
+    table, falls back to the analytic decision with one warning; the
+    ``_obs_record`` hook records every call; what is still not ported
+    names its ROADMAP.md item (the other architectures, item 5)."""
+    import warnings
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.obs import metrics
+    from repro_torch.topology import table
     x = torch.ones(4, 16)
     for cfg in (api.CollectiveConfig(backend="bine_hier"),
                 api.CollectiveConfig(backend="bine_hier", dp_shape=(2, 2))):
         assert torch.equal(api.allreduce(x, cfg), torch.full((4, 16), 4.0))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 1c"):
-        api.allreduce(x, api.CollectiveConfig(backend="auto",
-                                              tuning="measured"))
-    assert not hasattr(api, "_obs_record")
-    assert "``_obs_record``) is not ported" in api.__doc__.replace("\n", " ")
-    assert "queue A item 1c" in api.__doc__
+    monkeypatch.setenv("REPRO_MEASURED_TABLE_DIR", str(tmp_path))
+    monkeypatch.setattr(table, "_WARNED", set())
+    monkeypatch.setattr(table, "_LOADED", {})
+    measured = api.CollectiveConfig(backend="auto", tuning="measured")
+    with pytest.warns(UserWarning, match="no measured table"):
+        got = api.allreduce(x, measured)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")      # once per (topology, p, tuning)
+        assert torch.equal(api.allreduce(x, measured), got)
+    assert torch.equal(got, api.allreduce(x, api.AUTO))
+    reg = metrics.Registry()
+    monkeypatch.setattr(metrics, "_REGISTRY", reg)
+    monkeypatch.setattr(metrics, "_ENABLED", True)
+    api.allreduce(x, api.BINE)
+    api.allreduce(x, api.BINE)
+    assert reg.counter_value(
+        "collective_calls", collective="allreduce", backend="bine",
+        algo="bine_small", wire_dtype="float32", topology="tpu_multipod",
+        p=4, source="api") == 2.0
+    with metrics.disabled():
+        api.allreduce(x, api.BINE)
+    assert len(reg.series("collective_calls")) == 1
+    assert "once per CALL" in api.__doc__
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md queue A item 5"):
+        cfgbase.get_config("mixtral-8x7b")
     with pytest.raises(ValueError, match="not implemented for 'allreduce'"):
         api.allreduce(x, api.CollectiveConfig(wire_dtype="int8"))
     with pytest.raises(ValueError, match="unsupported wire_dtype"):

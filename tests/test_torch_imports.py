@@ -34,7 +34,7 @@ def test_every_module_imports_without_jax(subproc):
     n_files = sum(1 for p in PORT.rglob("*.py") if p.name != "__init__.py")
     n_pkgs = sum(1 for p in PORT.rglob("__init__.py")) - 1
     assert n == n_files + n_pkgs
-    for mod in SERVING_MODULES + TWO_TIER_MODULES:
+    for mod in SERVING_MODULES + TWO_TIER_MODULES + RUNTIME_MODULES:
         assert (PORT / (mod.replace(".", "/") + ".py")).is_file(), mod
 
 
@@ -53,6 +53,14 @@ TWO_TIER_MODULES = (
     "core.simulate", "core.traffic", "topology.presets", "topology.cost",
     "topology.table", "kernels.collectives.plan", "collectives.stacked",
     "collectives.api", "train.step", "launch.train", "launch.cell")
+
+#: the checkpoint, runtime, measured-table and obs slice's modules, each
+#: imported above without jax
+RUNTIME_MODULES = (
+    "obs.metrics", "obs.collect", "obs.timeline", "tuner.trace",
+    "topology.table", "collectives.api", "train.checkpoint", "train.data",
+    "train.runtime", "train.step", "interop", "serve.engine",
+    "serve.scheduler", "launch.train")
 
 
 def _imports(tree):

@@ -380,9 +380,49 @@ def test_scheduler_greedy_streams_match_jax(jax_out, params):
         jax_out["sched_stats"])
 
 
-def test_serve_config_measured_raises():
-    with pytest.raises(NotImplementedError, match="queue A item 1"):
-        E.ServeConfig(tuning="measured")
+def test_serve_config_measured_raises(tmp_path, monkeypatch):
+    """``tuning="measured"`` is accepted: a deployment's plan (n_tp = 4,
+    n_dp = 2) and its observability record equal the reference's, with
+    the reference tuner's measured table and, without one, as the
+    analytic plan after one warning; on one card nothing is priced or
+    recorded, as in the reference.  An unknown tuning raises."""
+    from types import SimpleNamespace
+    from repro.obs import metrics as jm
+    from repro.serve import engine as JE
+    from repro.topology import table as jtable
+    from repro_torch.obs import metrics
+    from repro_torch.topology import table
+    from test_torch_tables import measured_table
+    monkeypatch.setenv("REPRO_MEASURED_TABLE_DIR", str(tmp_path))
+    for mod in (table, jtable):
+        monkeypatch.setattr(mod, "_WARNED", set())
+        monkeypatch.setattr(mod, "_LOADED", {})
+    regs = (metrics.Registry(), jm.Registry())
+    for mod, reg in zip((metrics, jm), regs):
+        monkeypatch.setattr(mod, "_REGISTRY", reg)
+        monkeypatch.setattr(mod, "_ENABLED", True)
+    cfg = tbase.reduced(tbase.get_config("phi4-mini-3.8b"))
+    mesh = SimpleNamespace(shape={"data": 2, "model": 4})
+    scfg, jscfg = (E.ServeConfig(tuning="measured"),
+                   JE.ServeConfig(tuning="measured"))
+    with pytest.warns(UserWarning, match="no measured table"):
+        plan = E.collective_plan(cfg, scfg, 4, 2, 8)
+    assert plan == E.collective_plan(cfg, E.ServeConfig(), 4, 2, 8)
+    measured_table("tpu_multipod", seed=3).save(
+        table.measured_table_path("tpu_multipod"))
+    table.invalidate_tables()
+    regs[0].reset()
+    assert E.collective_plan(cfg, scfg, 4, 2, 8) == \
+        JE.collective_plan(cfg, jscfg, mesh, 8)
+    assert regs[0].snapshot() == regs[1].snapshot()
+    rows = {lab["collective"]: lab for lab, _ in regs[0].series(
+        "collective_calls")}
+    assert sorted(rows) == ["allgather", "allreduce", "gather", "scatter"]
+    assert all(lab["source"] == "serve_plan" for lab in rows.values())
+    regs[0].reset()
+    assert E.collective_plan(cfg, scfg, 1, 1, 8) == {}
+    E.make_serve_fns(cfg, scfg, 2, 64, device="cpu")
+    assert regs[0].counters == {}
     with pytest.raises(ValueError, match="unknown tuning"):
         E.ServeConfig(tuning="guess")
 

@@ -1,5 +1,9 @@
 """The port's own copies of the schedules, the schedule tables and the
-packaged decision tables equal the JAX package's."""
+packaged decision tables equal the JAX package's; so do its decisions
+under ``tuning="measured"``, against measured tables the reference's
+tuner writes (``tuner.refresh.refresh_table`` over seeded synthetic
+timings), and its fallbacks when such a table is missing, stale, truncated
+or hand-edited."""
 
 import filecmp
 import os
@@ -198,7 +202,189 @@ def test_table_constants_match():
             assert getattr(got, f) == getattr(exp, f), (topology, f)
 
 
-def test_format_checks_and_measured_tuning():
+@pytest.fixture
+def measured_env(tmp_path, monkeypatch):
+    """A fresh measured-table directory and empty table caches and
+    warn-once keys in both packages (restored afterwards)."""
+    from repro.topology import table as jtable
+    from repro_torch.topology import table as ttable
+    monkeypatch.setenv("REPRO_MEASURED_TABLE_DIR", str(tmp_path))
+    for mod in (jtable, ttable):
+        monkeypatch.setattr(mod, "_LOADED", {})
+        monkeypatch.setattr(mod, "_WARNED", set())
+    return tmp_path
+
+
+def measured_table(topology: str, seed: int = 0):
+    """The reference tuner's measured table for ``topology``: synthetic
+    seeded timings covering about half of the (collective, p, bucket)
+    cells with every candidate backend, and half of the wire cells with
+    every (backend, wire) pair."""
+    from repro.topology import cost as jcost
+    from repro.tuner.refresh import refresh_table
+    from repro.tuner.store import Measurement
+    base = jtopo.load_table(topology)
+    rng = np.random.RandomState(seed)
+    ms = []
+    for coll, cands in sorted(jcost.CANDIDATES.items()):
+        for p in base.ps:
+            for nbytes in base.size_buckets:
+                if rng.rand() < 0.5:
+                    ms += [Measurement(coll, b, p, nbytes, float(rng.rand()))
+                           for b in cands]
+                if coll in base.wire_entries and rng.rand() < 0.5:
+                    ms += [Measurement(coll, b, p, nbytes, float(rng.rand()),
+                                       wire_dtype=w)
+                           for b, w in jcost.wire_candidates(coll, topology)]
+    return refresh_table(topology, ms)
+
+
+def _same_decisions(topology, tuning="measured"):
+    for collective in sorted(jtopo.CANDIDATES):
+        for p in TABLE_PS:
+            for n in SIZES:
+                args = (collective, p, n, topology)
+                kw = dict(tuning=tuning)
+                assert ttopo.select_backend(*args, **kw) == \
+                    jtopo.select_backend(*args, **kw), args
+                assert ttopo.decision_provenance(*args, **kw) == \
+                    jtopo.decision_provenance(*args, **kw), args
+                assert ttopo.select_wire(*args, **kw) == \
+                    jtopo.select_wire(*args, **kw), args
+                assert ttopo.wire_decision_provenance(*args, **kw) == \
+                    jtopo.wire_decision_provenance(*args, **kw), args
+    for p in TABLE_PS:
+        assert ttopo.select_bucket_bytes(p, topology, tuning) == \
+            jtopo.select_bucket_bytes(p, topology, tuning), (topology, p)
+
+
+@pytest.mark.parametrize("topology", sorted(PRESETS))
+def test_measured_decisions_match_jax(topology, measured_env):
+    """Every cell of every preset, with the reference's measured table in
+    ``REPRO_MEASURED_TABLE_DIR``: the same backend, wire and provenance,
+    and at least one measured cell that overrides the analytic pick."""
+    import warnings
+    table = measured_table(topology)
+    table.save(jtopo.measured_table_path(topology))
+    assert ttopo.measured_table_path(topology) == \
+        jtopo.measured_table_path(topology)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")      # a usable table never warns
+        _same_decisions(topology)
+    flips = [(c, p, i) for c, per_p in table.provenance.items()
+             for p, row in per_p.items() for i, src in enumerate(row)
+             if src == "measured" and table.entries[c][p][i] !=
+             jtopo.load_table(topology).entries[c][p][i]]
+    assert flips, "the synthetic timings override no analytic cell"
+    c, p, i = flips[0]
+    n = table.size_buckets[i]
+    assert ttopo.select_backend(c, p, n, topology, tuning="measured") != \
+        ttopo.select_backend(c, p, n, topology)
+
+
+def _corrupt(kind: str, text: str) -> str:
+    import json
+    if kind == "truncated":
+        return text[: len(text) // 2]
+    d = json.loads(text)
+    if kind == "stale":              # another grid: an older tune run
+        d["size_buckets"] = d["size_buckets"][:-1]
+    elif kind == "hand_edited":      # a cell off the grid
+        d["entries"]["allreduce"]["3"] = d["entries"]["allreduce"]["4"]
+        d["provenance"]["allreduce"]["3"] = d["provenance"]["allreduce"]["4"]
+    return json.dumps(d)
+
+
+@pytest.mark.parametrize("kind", ["missing", "stale", "truncated",
+                                  "hand_edited"])
+def test_measured_fallback_warns_once(kind, measured_env):
+    """An unusable measured table warns once per (topology, p, tuning) and
+    falls back to the analytic decisions, in both packages alike."""
+    import warnings
+    topology = "lumi"
+    if kind != "missing":
+        path = jtopo.measured_table_path(topology)
+        measured_table(topology).save(path)
+        with open(path) as f:
+            text = f.read()
+        with open(path, "w") as f:
+            f.write(_corrupt(kind, text))
+    match = "no measured table" if kind == "missing" else "unusable"
+    with pytest.warns(UserWarning, match=match) as rec:
+        got = ttopo.select_backend("allreduce", 8, 1 << 20, topology,
+                                   tuning="measured")
+    assert len([w for w in rec if match in str(w.message)]) == 1
+    assert got == ttopo.select_backend("allreduce", 8, 1 << 20, topology)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        ttopo.select_wire("reduce_scatter", 8, 1 << 20, topology,
+                          tuning="measured")
+    with pytest.warns(UserWarning, match=match):
+        _same_decisions(topology)           # the reference warns too
+    for p in (8, 64):
+        for n in (1 << 10, 1 << 20):
+            assert ttopo.decision_provenance(
+                "allreduce", p, n, topology, tuning="measured") == "analytic"
+
+
+def test_invalidate_tables_rewarns_at_a_new_p(measured_env):
+    """After ``invalidate_tables`` a lookup at a new rank count (an
+    elastic restart) warns again; at the same count it stays quiet."""
+    import warnings
+    with pytest.warns(UserWarning, match="no measured table"):
+        ttopo.select_backend("allreduce", 8, 4096, "lumi", tuning="measured")
+    ttopo.invalidate_tables("lumi")
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        ttopo.select_backend("allreduce", 8, 4096, "lumi", tuning="measured")
+    ttopo.invalidate_tables()
+    with pytest.warns(UserWarning, match="no measured table") as rec:
+        ttopo.select_backend("allreduce", 4, 4096, "lumi", tuning="measured")
+    assert "lumi" in str(rec[0].message)
+    # a table written after the first lookup is read once invalidated
+    measured_table("lumi").save(ttopo.measured_table_path("lumi"))
+    assert ttopo.decision_provenance("allgather", 4, 4096, "lumi",
+                                     tuning="measured") == "analytic"
+    ttopo.invalidate_tables("lumi")
+    _same_decisions("lumi")
+
+
+@pytest.mark.parametrize("wire", ["float32", "auto"])
+def test_measured_train_step_buckets_match_jax(wire, measured_env):
+    """``make_train_step(..., TrainConfig(backend="auto",
+    tuning="measured"))`` resolves its buckets as the reference does, and
+    reports the same provenance per bucket."""
+    import jax
+    from repro.configs import base as jbase
+    from repro.models import transformer as JT
+    from repro.train import step as jstep
+    from repro.train import zero as jzero
+    from repro_torch.configs import base as tbase
+    from repro_torch.models import transformer as TF
+    from repro_torch.train import step as tstep
+    topology, p = "tpu_multipod", 4
+    measured_table(topology).save(jtopo.measured_table_path(topology))
+    jcfg = jbase.reduced(jbase.get_config("phi4-mini-3.8b"))
+    jshapes = jax.eval_shape(lambda k: JT.init_params(k, jcfg),
+                             jax.random.key(0))
+    tcfg = tbase.reduced(tbase.get_config("phi4-mini-3.8b"))
+    kw = dict(backend="auto", wire_dtype=wire, topology=topology,
+              tuning="measured", bucket_bytes=1 << 12)
+    jt, tt = jstep.TrainConfig(**kw), tstep.TrainConfig(**kw)
+    jplan = jstep.resolve_bucket_plan(jt, p, jshapes,
+                                      jzero.zero_layout(jcfg, jshapes, p))
+    _, info, _ = tstep.make_train_step(tcfg, tt, p, TF.param_shapes(tcfg),
+                                       "cpu")
+    assert info["decisions"] == jstep.bucket_decisions(jt, jplan)
+    report = tstep.bucket_report(tt, info["bucket_plan"])
+    assert report == jstep.bucket_report(jt, jplan)
+    assert any(r["rs_provenance"] == "measured" or
+               r["rs_wire_provenance"] == "measured" for r in report)
+
+
+def test_format_checks_and_measured_tuning(measured_env):
+    """Format checks; ``tuning="measured"`` with no measured table is the
+    analytic decision (after one warning)."""
     d = {"format": 9, "topology": "x", "small_cutoff_bytes": 1, "ps": [4],
          "size_buckets": [256], "entries": {}}
     with pytest.raises(ValueError, match="unsupported decision-table format"):
@@ -208,5 +394,8 @@ def test_format_checks_and_measured_tuning():
     t = ttopo.DecisionTable.from_json_dict(d)
     assert t.lookup_wire("allreduce", 4, 10) == ("bine", "float32")
     assert t.provenance_of("allreduce", 4, 10) == "analytic"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
-        ttopo.select_backend("allreduce", 4, 10, tuning="measured")
+    with pytest.warns(UserWarning, match="falling back to analytic"):
+        assert ttopo.select_backend("allreduce", 4, 10, tuning="measured") \
+            == ttopo.select_backend("allreduce", 4, 10)
+    with pytest.raises(ValueError, match="unknown tuning"):
+        ttopo.select_backend("allreduce", 4, 10, tuning="guess")

@@ -12,7 +12,12 @@ and error-feedback residuals as an ``.npz``; the port starts from the same
 params and runs the same batches.  The per-bucket decisions of the full
 phi4-mini equal the reference's for every preset.  Bitwise, as the
 reference holds of itself: bucketed and per-leaf ``bine_hier``, and
-two-axis ``pallas_fused`` and ``bine``.
+two-axis ``pallas_fused`` and ``bine``.  The optimizer state is compared
+as its global arrays (``interop.train_state_to_numpy``).  For the
+float32, int8 and two-axis ``bine_hier`` runs the reference also saves its
+state after step 2 with its ``checkpoint.save`` and takes a third step:
+the port restores that checkpoint bit for bit and its third step is held
+to the same bounds.
 
 Tolerances: the collectives are bitwise (test_torch_collectives), but the
 model's float32 gradients differ from JAX's in rounding (test_torch_model:
@@ -37,7 +42,7 @@ import torch
 
 from repro_torch import tree as T
 from repro_torch.configs import base
-from repro_torch.interop import params_from_numpy
+from repro_torch.interop import params_from_numpy, train_state_to_numpy
 from repro_torch.kernels import build as KB
 from repro_torch.models import transformer as TF
 from repro_torch.optim.adamw import AdamWConfig
@@ -47,6 +52,10 @@ from repro_torch.train.step import (TrainConfig, make_train_step,
                                     shard_owner)
 
 STEPS, N_DP, BUCKET = 2, 4, 1 << 16
+#: runs whose reference state is checkpointed after STEPS steps and then
+#: stepped once more: one axis f32 and int8 (error feedback), and
+#: two-axis bine_hier, whose shard owners are not the stacking order
+CKPT_RUNS = ("float32", "int8", "hier")
 WIRES = ("float32", "int8")
 #: (pods, data) of the two-axis runs
 HIER = (2, 2)
@@ -82,6 +91,7 @@ from repro.configs import base
 from repro.models import transformer as T
 from repro.optim.adamw import AdamWConfig
 from repro.train.data import DataConfig, make_batch
+from repro.train import checkpoint as ckpt
 from repro.train.step import TrainConfig, make_train_step, make_init_fns
 
 cfg = base.reduced(base.get_config("phi4-mini-3.8b")).replace(dtype="float32")
@@ -118,6 +128,18 @@ for wire, (backend, wire_dtype, topology, dp) in {runs!r}.items():
             out[f"{{wire}}_opt_{{i}}"] = np.asarray(x)
         for bid, x in state.get("ef", {{}}).items():
             out[f"{{wire}}_ef_{{bid}}"] = np.asarray(x)
+        if wire in {ckpt_runs!r}:
+            # save the global state after the last step, then one more
+            ckpt.save(os.path.join({ckpt_dir!r}, wire), {steps},
+                      {{"params": params, "state": state}})
+            b = make_batch(dcfg, {steps})
+            batch = {{k: jax.device_put(v, sh["batch"][k])
+                     for k, v in b.items()}}
+            params, state, m = step(params, state, batch)
+            out[f"{{wire}}_loss_{steps}"] = np.asarray(m["loss"])
+            out[f"{{wire}}_gnorm_{steps}"] = np.asarray(m["grad_norm"])
+            for i, x in enumerate(jax.tree.leaves(params)):
+                out[f"{{wire}}_after_{{i}}"] = np.asarray(x)
 np.savez({path!r}, **out)
 print("JAX_OK")
 """
@@ -129,12 +151,14 @@ def jax_run(subproc, tmp_path_factory):
     tmp = tmp_path_factory.mktemp("jax_train")
     jobs = {str(tmp / f"out{i}.npz"): {t: RUNS[t] for t in g}
             for i, g in enumerate(GROUPS)}
+    ckpt_dir = str(tmp / "ckpt")
     with ThreadPoolExecutor(len(jobs)) as pool:
         for f in [pool.submit(subproc, JAX_CODE.format(
-                runs=runs, bucket=BUCKET, steps=STEPS, path=path), N_DP, 600)
+                runs=runs, bucket=BUCKET, steps=STEPS, path=path,
+                ckpt_runs=CKPT_RUNS, ckpt_dir=ckpt_dir), N_DP, 600)
                 for path, runs in jobs.items()]:
             f.result()
-    out = {}
+    out = {"ckpt_dir": ckpt_dir}
     for path in jobs:
         out.update(np.load(path))
     return out
@@ -212,17 +236,17 @@ def _check_against_jax(jax_run, wire):
     flat = [T.flatten(p) for p in params]
     for r in range(1, N_DP):        # every rank trains on the same values
         assert all(torch.equal(a, b) for a, b in zip(flat[0], flat[r]))
-    pairs = {"param": [(x.numpy(), jax_run[f"{wire}_param_{i}"])
-                       for i, x in enumerate(flat[0])],
+    # the global arrays (train.step.to_global): rank r's optimizer shard is
+    # block owner[r] of the JAX leaf
+    glob = train_state_to_numpy(_cfg(), _tcfg(wire), params, state,
+                                RUNS[wire][3])
+    pairs = {"param": [(x, jax_run[f"{wire}_param_{i}"])
+                       for i, x in enumerate(T.flatten(glob["params"]))],
              "master": [], "m": [], "v": []}
-    # optimizer state: rank r's stacked shard is block r of the JAX leaf
-    zds = T.flatten(layout)
     i = 0
-    for zd, st in zip(zds, T.flatten_up_to(params[0], state["opt"])):
+    for st in T.flatten_up_to(glob["params"], glob["state"]["opt"]):
         for k in sorted(st):              # m, master, v: the JAX leaf order
-            full = (torch.cat([st[k][r] for r in order], dim=zd)
-                    if zd >= 0 else st[k][0])
-            pairs[k].append((full.numpy(), jax_run[f"{wire}_opt_{i}"]))
+            pairs[k].append((st[k], jax_run[f"{wire}_opt_{i}"]))
             i += 1
     ef = {k[len(f"{wire}_ef_"):]: v for k, v in jax_run.items()
           if k.startswith(f"{wire}_ef_")}
@@ -231,9 +255,43 @@ def _check_against_jax(jax_run, wire):
         assert bool(ef) == (RUNS[wire][1] == "int8")
     for bid, v in ef.items():
         assert tuple(state["ef"][bid].shape) == v.shape
-    pairs["ef"] = [(state["ef"][b].numpy(), v) for b, v in ef.items()]
+    pairs["ef"] = [(glob["state"]["ef"][b], v) for b, v in ef.items()]
     for k, (tight, loose) in BOUNDS.items():
         _mostly_close(pairs[k], tight, loose, f"{wire} {k}")
+
+
+@pytest.mark.parametrize("tag", CKPT_RUNS)
+def test_jax_checkpoint_resumes_in_port(jax_run, tag):
+    """The reference's state after STEPS steps, saved by its
+    ``checkpoint.save``, restores in the port (``train.checkpoint`` and
+    ``step.from_global``) bit for bit, and the port's next step from it
+    matches the reference's next step within this file's bounds."""
+    import os
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.step import (from_global, make_init_fns,
+                                        to_global)
+    cfg, dp, tcfg = _cfg(), RUNS[tag][3], _tcfg(tag)
+    step, _, _ = make_train_step(cfg, tcfg, dp, TF.param_shapes(cfg), "cpu")
+    init_p, init_s = make_init_fns(cfg, tcfg, dp, "cpu")
+    fresh = init_p(0)
+    like = to_global(cfg, tcfg, fresh, init_s(fresh), dp, device="meta")
+    tree = ckpt.restore(os.path.join(jax_run["ckpt_dir"], tag), STEPS, like,
+                        device="cpu")
+    for i, x in enumerate(T.flatten(tree["params"])):
+        np.testing.assert_array_equal(x.numpy(), jax_run[f"{tag}_param_{i}"])
+    params, state = from_global(cfg, tcfg, tree, dp, "cpu")
+    back = to_global(cfg, tcfg, params, state, dp)
+    assert all(torch.equal(a, b) for a, b in zip(T.flatten(back),
+                                                  T.flatten(tree)))
+    dcfg = DataConfig(global_batch=8, seq_len=64, vocab_size=cfg.vocab_size)
+    params, state, m = step(params, state, make_batch(dcfg, STEPS))
+    np.testing.assert_allclose(float(m["loss"]),
+                               jax_run[f"{tag}_loss_{STEPS}"], rtol=1e-4)
+    np.testing.assert_allclose(float(m["grad_norm"]),
+                               jax_run[f"{tag}_gnorm_{STEPS}"], rtol=1e-4)
+    _mostly_close([(x.numpy(), jax_run[f"{tag}_after_{i}"])
+                   for i, x in enumerate(T.flatten(params[0]))],
+                  *BOUNDS["param"], f"{tag} step {STEPS} params")
 
 
 def test_bine_and_pallas_fused_bitwise(jax_run):
@@ -284,18 +342,38 @@ def test_shard_owner_follows_opt_dp_order():
         list(range(4))
 
 
-def test_unported_backends_name_their_roadmap_item():
-    """``bine_hier`` runs now, over one or two DP axes; what is still not
-    ported names its ROADMAP.md item: ``tuning="measured"`` (item 1c), as
-    does the API's ``_obs_record`` hook (tests/test_torch_api.py)."""
+def test_unported_backends_name_their_roadmap_item(tmp_path, monkeypatch):
+    """``bine_hier`` runs over one or two DP axes; ``tuning="measured"``
+    builds (with no measured table: the analytic decisions after one
+    warning) and the build records its bucket plan into ``obs``; what is
+    still not ported names its ROADMAP.md item (a model axis above 1,
+    item 3); bad configurations raise."""
+    from repro_torch.launch.train import parse_mesh
+    from repro_torch.obs import metrics
+    from repro_torch.topology import table
     cfg = _cfg()
     shapes = TF.param_shapes(cfg)
     for dp_axes, dp in ((("data",), N_DP), (("pod", "data"), HIER)):
         make_train_step(cfg, TrainConfig(backend="bine_hier",
                                          dp_axes=dp_axes), dp, shapes, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 1c"):
-        make_train_step(cfg, TrainConfig(backend="auto", tuning="measured"),
-                        N_DP, shapes, "cpu")
+    monkeypatch.setenv("REPRO_MEASURED_TABLE_DIR", str(tmp_path))
+    monkeypatch.setattr(table, "_WARNED", set())
+    monkeypatch.setattr(table, "_LOADED", {})
+    reg = metrics.Registry()
+    monkeypatch.setattr(metrics, "_REGISTRY", reg)
+    monkeypatch.setattr(metrics, "_ENABLED", True)
+    with pytest.warns(UserWarning, match="no measured table"):
+        _, info, _ = make_train_step(
+            cfg, TrainConfig(backend="auto", tuning="measured"), N_DP,
+            shapes, "cpu")
+    _, ref, _ = make_train_step(cfg, TrainConfig(backend="auto"), N_DP,
+                                shapes, "cpu")
+    assert info["decisions"] == ref["decisions"]
+    n = len(info["bucket_plan"].buckets)
+    calls = sum(v for _, v in reg.series("collective_calls"))
+    assert calls == 2 * 2 * n          # an RS and an AG a bucket, 2 builds
+    with pytest.raises(NotImplementedError, match="queue A item 3"):
+        parse_mesh("1,4,2")
     with pytest.raises(ValueError, match="dp_axes"):
         TrainConfig(dp_axes=("pod", "data", "x"))
     with pytest.raises(ValueError, match="do not match dp_axes"):
