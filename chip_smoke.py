@@ -98,12 +98,24 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
              cells, under which the ``auto`` step launches rs_step and
              ag_step where the analytic one launches neither.  The
              checkpoints go to a directory under ``build/`` that the
-             phase removes; it fails if the disk lacks room for two.
+             phase removes; it fails if the disk lacks room for two;
+9. tensor parallelism — the small megatron_sp and the reduced-width
+             pure_sp configs of ``launch/cell.py`` at (dp, tp) = (2, 2),
+             2 float32 steps, the card against the CPU (phase 6's
+             bounds); then full-width phi4-mini (2 layers) at
+             ``cell.TP_SHAPE`` = (2, 2) under megatron_sp and
+             ``pallas_fused``: 3 float32-wire and 2 int8-wire steps
+             (loss, grad norm, ms, peak GiB each), the launches read
+             around them, step 0 gated against (2, 1) on the same weights
+             and batch (``TP_LOSS_RTOL``, ``TP_GNORM_RTOL``), and the
+             step's device groups and idle share from
+             ``launch/profile_step.py`` at ``--mesh 2,2`` (a ``tp:`` JSON
+             line).
 
 The kernels line's launches of rs_step, ag_step and rs_step_q sum the
-train step's main path, its two-axis path and phase 8's runs; the
-``step kernels by path:`` line gives each path's own counts, each of which
-must be above 0.  Prints a ``kernels:`` summary, one JSON line of per-kernel numbers, the
+train step's main path, its two-axis path, phase 8's runs and the TP
+path's; the ``step kernels by path:`` line gives each path's own counts,
+each of which must be above 0.  Prints a ``kernels:`` summary, one JSON line of per-kernel numbers, the
 card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``.  Exits 2 without a result when there is
 no CUDA device or no ``src/repro_torch`` beside this file.
@@ -278,7 +290,7 @@ def phase_kernels(dev):
             f"bound {ms(bound)} ms ({bound_by}), library "
             f"{'none' if lib_ms is None else ms(lib_ms) + ' ms'}")
 
-    def entry(name, kernel_fn, plain_fn, nbytes, variants):
+    def entry(name, kernel_fn, plain_fn, nbytes, variants, library_fn=None):
         got, exp = as_tuple(kernel_fn()), as_tuple(plain_fn())
         same_bits(got, exp, name)
         err = max_abs_err(got, exp)
@@ -287,7 +299,7 @@ def phase_kernels(dev):
         log(f"  {name}: bitwise OK ({1 + len(variants)} variants), "
             f"{nbytes / MiB:.0f} MiB moved")
         row(name, err, kernel_fn, plain_fn, nbytes / HBM_BYTES_PER_S * 1e3,
-            "bytes", device=name)
+            "bytes", library_fn, device=name)
 
     # rs_step, f32 with the next send: reads the kept half and recv, writes
     # new and send
@@ -316,7 +328,9 @@ def phase_kernels(dev):
             lambda: R.ag_step_ref(qa, qb, c)),
            ("int8 odd h", lambda: K.ag_step(qa[:, :999].contiguous(),
                                             qb[:, :999].contiguous(), c),
-            lambda: R.ag_step_ref(qa[:, :999], qb[:, :999], c))])
+            lambda: R.ag_step_ref(qa[:, :999], qb[:, :999], c))],
+          # the library call: every rank's [buf, recv] (the c = 0 order)
+          library_fn=lambda: torch.cat([a, b], dim=1))
 
     # rs_step_q with the next send: f32 kept half, int8 recv + scales in;
     # f32 new, int8 send + scales out
@@ -677,7 +691,7 @@ def phase_serve_kernels(dev, randn, row):
     row("qacc", 0.0, lambda: QK.qacc_kernel(q, sc, acc),
         lambda: QR.dequant_accumulate_ref(q, sc, acc),
         (C * chunk * 9 + 4 * C) / HBM_BYTES_PER_S * 1e3, "bytes",
-        device="qacc")
+        lambda: torch.addcmul(acc, q, sc), device="qacc")
     # the qdot op's path, counted
     recvs = [payload() for _ in range(4)]
     torch.cuda.synchronize()
@@ -1091,9 +1105,10 @@ def phase_two_tier(dev):
 
 
 def train_runs(dev):
-    """A runner of the train cell's steps: ``run(tcfg, dp, steps)`` ->
-    (launch counts read around the steps, losses, step seconds, peak GiB,
-    params after step 1 on rank 0)."""
+    """A runner of the train cell's steps: ``run(tcfg, dp, steps, tag,
+    tp=1)`` -> (launch counts read around the steps, losses, step seconds,
+    peak GiB, params after step 1 on rank 0); ``run.gnorms[tag]`` keeps
+    the grad norms."""
     import torch
     from repro_torch import tree as T
     from repro_torch.kernels import build as KB
@@ -1106,9 +1121,9 @@ def train_runs(dev):
     shapes = TF.param_shapes(cfg)
     dcfg = cell.data_config(cfg)
 
-    def run(tcfg, dp, steps, tag):
-        step, info, _ = make_train_step(cfg, tcfg, dp, shapes, dev)
-        init_p, init_s = make_init_fns(cfg, tcfg, dp, dev)
+    def run(tcfg, dp, steps, tag, tp=1):
+        step, info, _ = make_train_step(cfg, tcfg, dp, shapes, dev, tp=tp)
+        init_p, init_s = make_init_fns(cfg, tcfg, dp, dev, tp=tp)
         params = init_p(0)
         state = init_s(params)
         torch.cuda.synchronize()
@@ -1123,6 +1138,7 @@ def train_runs(dev):
             times.append(time.perf_counter() - t0)
             peaks.append(torch.cuda.max_memory_allocated() / 2**30)
             losses.append(loss)
+            run.gnorms.setdefault(tag, []).append(float(m["grad_norm"]))
             check(math.isfinite(loss), f"{tag} step {s}: loss {loss}")
             if s == 0:
                 first = [x.clone() for x in T.flatten(params[0])]
@@ -1139,6 +1155,7 @@ def train_runs(dev):
         torch.cuda.empty_cache()
         return dict(KB.LAUNCHES), losses, times, max(peaks), first
 
+    run.gnorms = {}     # each tag's grad norms, step by step
     return cfg, dcfg, run
 
 
@@ -1922,6 +1939,151 @@ def phase_runtime(dev):
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: tensor parallelism
+# ---------------------------------------------------------------------------
+
+#: the loss gate of the full-width TP step against (dp, tp) = (2, 1) on the
+#: same weights and global batch.  Both run phi4-mini in bf16; the TP step
+#: adds one bf16 rounding (unit roundoff 2^-8) to each row-parallel partial
+#: sum before the ranks' reduce-scatter (2 a layer) and sums the vocab
+#: shards' exponentials in another order.  Those are unbiased rounding
+#: errors in activations, and the loss and the grad norm each average over
+#: 8192 tokens, so both move by far less than one ulp of bf16: 1e-3
+#: relative on the loss (a quarter of bf16's unit roundoff) and 1% on the
+#: grad norm (a sum of squares of bf16 gradients, each within 2^-8).
+TP_LOSS_RTOL, TP_GNORM_RTOL = 1e-3, 1e-2
+
+
+def phase_tp_small_reference(dev):
+    """The small megatron_sp config and the reduced-width pure_sp config
+    (``launch/cell.py``) at (dp, tp) = (2, 2), float32, 2 pallas_fused
+    steps: the card against the CPU.  Loss and grad norm rtol 1e-4, as in
+    phase 6.  Params: all but 0.1% within 1e-5, every one within two
+    AdamW steps (2.5 lr): AdamW's first steps normalise each gradient
+    element (m / sqrt(v) ~ sign(g)), so an element whose gradient is near
+    zero can move by up to lr a step when its sign differs between the
+    devices' float32 sums (tests/test_torch_train_step.py's reasoning;
+    the megatron_sp config's million-element weights hold a few)."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.launch import cell
+    from repro_torch.models import sharding as SH
+    from repro_torch.models import transformer as TF
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.data import DataConfig, make_batch
+    from repro_torch.train.step import (TrainConfig, init_train_state,
+                                        make_train_step)
+
+    dp, tp = cell.TP_SHAPE
+    tcfg = TrainConfig(backend="pallas_fused", bucket_bytes=1 << 16,
+                       adamw=AdamWConfig(lr=3e-3, warmup_steps=1,
+                                         total_steps=100))
+    for cfg in (cell.tp_small_config(), cell.tp_pure_sp_config()):
+        dcfg = DataConfig(global_batch=8, seq_len=64,
+                          vocab_size=cfg.vocab_size)
+        init = SH.shard_params(cfg, TF.init_params(cfg, 0, "cpu"), tp)
+        out = {}
+        for where in ("cpu", dev):
+            step, _, _ = make_train_step(cfg, tcfg, dp, TF.param_shapes(cfg),
+                                         where, tp=tp)
+            params = [T.tree_map(lambda x: x.to(where), init)
+                      for _ in range(dp)]
+            state = init_train_state(cfg, tcfg, params, dp, tp)
+            ms_ = []
+            for s in range(2):
+                params, state, m = step(params, state, make_batch(dcfg, s))
+                ms_.append((float(m["loss"]), float(m["grad_norm"])))
+            out[str(where)] = (ms_, [x.cpu() for x in T.flatten(params[0])])
+        (mc, pc), (mg, pg) = out["cpu"], out[str(dev)]
+        strat = SH.strategy(cfg, tp)
+        for (lc, gc), (lg, gg) in zip(mc, mg):
+            check(math.isclose(lc, lg, rel_tol=1e-4)
+                  and math.isclose(gc, gg, rel_tol=1e-4),
+                  f"tp small reference ({strat}): card {mg} vs cpu {mc}")
+        diffs = [(a - b).abs() for a, b in zip(pc, pg)]
+        perr = max(float(d.max()) for d in diffs)
+        n_all = sum(d.numel() for d in diffs)
+        n_out = sum(int((d > 1e-5).sum()) for d in diffs)
+        lr = tcfg.adamw.lr
+        check(perr <= 2.5 * lr and n_out <= 1e-3 * n_all,
+              f"tp small reference ({strat}): params differ by {perr} "
+              f"(> {2.5 * lr}), {n_out} of {n_all} beyond 1e-5")
+        log(f"  small {strat} (d_model {cfg.d_model}) at (dp, tp) = "
+            f"{cell.TP_SHAPE}: card losses {[round(l, 6) for l, _ in mg]} "
+            f"vs cpu {[round(l, 6) for l, _ in mc]}, params max |diff| "
+            f"{perr:.2e}, {n_out} of {n_all} beyond 1e-5")
+
+
+def phase_tp(dev):
+    """Full-width phi4-mini (``cell.model_config``) at (dp, tp) =
+    ``cell.TP_SHAPE`` under megatron_sp and pallas_fused: 3 float32-wire
+    and 2 int8-wire steps with the launches read around them (the DP
+    collectives of every bucket run over dp within each TP column, so
+    rs_step, ag_step and rs_step_q must run); the loss gate of step 0
+    against (2, 1); the step's device-time groups and idle share from
+    ``launch/profile_step.py`` at ``--mesh 2,2``."""
+    import torch
+    from repro_torch.launch import cell
+    from repro_torch.launch import profile_step as PS
+    from repro_torch.models import sharding as SH
+
+    cfg, dcfg, run = train_runs(dev)
+    dp, tp = cell.TP_SHAPE
+    tokens = dcfg.global_batch * dcfg.seq_len
+    strat = SH.strategy(cfg, tp)
+    check(strat == "megatron_sp", f"the TP cell runs {strat}")
+    mesh = f"{dp},{tp}"
+    c32, l32, t32, p32, _ = run(cell.train_config("pallas_fused", "float32"),
+                                dp, 3, f"tp {mesh} pallas_fused/float32",
+                                tp=tp)
+    c8, l8, t8, p8, _ = run(cell.train_config("pallas_fused", "int8"), dp, 2,
+                            f"tp {mesh} pallas_fused/int8", tp=tp)
+    launches = {k: c32[k] + c8[k] for k in ("rs_step", "ag_step",
+                                             "rs_step_q")}
+    for k, v in launches.items():
+        check(v > 0, f"kernel {k} was not launched on the TP path")
+    check(c8["rs_step_q"] > 0, "the TP int8 steps did not run rs_step_q")
+    # the loss gate: step 0 without TP, same weights and global batch
+    _, l21, _, _, _ = run(cell.train_config("pallas_fused", "float32"), dp,
+                          1, f"no-TP ({dp},1) pallas_fused/float32")
+    rel = abs(l32[0] - l21[0]) / abs(l21[0])
+    check(rel <= TP_LOSS_RTOL, f"TP step-0 loss {l32[0]!r} vs (2,1) "
+          f"{l21[0]!r}: rel {rel:.2e} > {TP_LOSS_RTOL}")
+    g = run.gnorms
+    grel = abs(g[f"tp {mesh} pallas_fused/float32"][0]
+               - g[f"no-TP ({dp},1) pallas_fused/float32"][0]) / \
+        g[f"no-TP ({dp},1) pallas_fused/float32"][0]
+    check(grel <= TP_GNORM_RTOL, f"TP step-0 grad norm rel {grel:.2e} > "
+          f"{TP_GNORM_RTOL}")
+    log(f"  loss gate: TP step-0 loss {l32[0]:.6f} vs (2,1) {l21[0]:.6f} "
+        f"(rel {rel:.2e} <= {TP_LOSS_RTOL}), grad norm rel {grel:.2e} <= "
+        f"{TP_GNORM_RTOL}")
+    torch.cuda.empty_cache()
+    prof = PS.profile(cfg, "pallas_fused", "float32", dev, mesh)
+    torch.cuda.empty_cache()
+    warm = statistics.median(t32[1:])
+    nums = {"mesh": mesh, "strategy": strat,
+            "f32_losses": l32, "int8_losses": l8,
+            "f32_step_ms": [t * 1e3 for t in t32],
+            "int8_step_ms": [t * 1e3 for t in t8],
+            "f32_warm_step_ms": warm * 1e3,
+            "f32_tokens_per_s": tokens / warm,
+            "int8_warm_step_ms": t8[1] * 1e3,
+            "int8_tokens_per_s": tokens / t8[1],
+            "peak_gib": {"f32": p32, "int8": p8},
+            "loss_rel_vs_dp2_tp1": rel, "gnorm_rel_vs_dp2_tp1": grel,
+            "profile": {k: prof[k] for k in ("wall_ms", "busy_ms",
+                                             "idle_share", "tokens_per_s",
+                                             "groups_ms")}}
+    log(f"  TP warm step: float32 {warm * 1e3:.1f} ms ({tokens / warm:.0f} "
+        f"tokens/s, peak {p32:.1f} GiB), int8 {t8[1] * 1e3:.1f} ms "
+        f"({tokens / t8[1]:.0f} tokens/s, peak {p8:.1f} GiB); profiled "
+        f"{prof['wall_ms']:.1f} ms, idle share {prof['idle_share']:.3f}; "
+        f"launches {launches}")
+    return launches, nums
+
+
 def main() -> int:
     # one 9.8 GB bucket buffer after another: keep the allocator's segments
     # growable so freed ones are reused (set before CUDA starts)
@@ -1945,7 +2107,7 @@ def main() -> int:
     from repro_torch.kernels.rmsnorm import kernel as RK
 
     t_all = time.perf_counter()
-    log("[1/8] build")
+    log("[1/9] build")
     t0 = time.perf_counter()
     libs = KB.build()
     for src in K.SOURCES:
@@ -1955,35 +2117,41 @@ def main() -> int:
     log(f"  built {', '.join(p.name for p in libs.values())} in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    log("[2/8] kernels vs plain versions")
+    log("[2/9] kernels vs plain versions")
     rows, qacc_launches = phase_kernels(dev)
     torch.cuda.empty_cache()
 
-    log("[3/8] fused collectives vs stacked (bitwise)")
+    log("[3/9] fused collectives vs stacked (bitwise)")
     phase_collectives(dev)
 
-    log("[4/8] collectives API")
+    log("[4/9] collectives API")
     api_launches = phase_api(dev)
 
-    log("[5/8] two-tier (bine_hier)")
+    log("[5/9] two-tier (bine_hier)")
     hier_launches, two_tier = phase_two_tier(dev)
     torch.cuda.empty_cache()
 
-    log("[6/8] train")
+    log("[6/9] train")
     phase_small_reference(dev)
     launches, train = phase_train(dev)
     torch.cuda.empty_cache()
 
-    log("[7/8] serve")
+    log("[7/9] serve")
     phase_serve_small_reference(dev)
     serve_launches, serve = phase_serve(dev)
     torch.cuda.empty_cache()
 
-    log("[8/8] checkpoint, resume, measured tables, obs")
+    log("[8/9] checkpoint, resume, measured tables, obs")
     run_launches, runtime = phase_runtime(dev)
+    torch.cuda.empty_cache()
+
+    log("[9/9] tensor parallelism")
+    phase_tp_small_reference(dev)
+    tp_launches, tp = phase_tp(dev)
+    torch.cuda.empty_cache()
     # each path's own step-kernel launches, read around that path alone
     by_path = {"train": dict(launches), "two-axis": hier_launches,
-               "runtime": run_launches}
+               "runtime": run_launches, "tp": tp_launches}
     for path, counts in by_path.items():
         for name, n in counts.items():
             check(n > 0, f"kernel {name} was not launched on the {path} "
@@ -2002,6 +2170,8 @@ def main() -> int:
         launches[name] += n
     for name, n in run_launches.items():
         launches[name] += n
+    for name, n in tp_launches.items():
+        launches[name] += n
     for name in ("ring_update", "matmul_pack_wgmma", "gather_matmul_wgmma"):
         launches[name] = api_launches[name]
     for name in ("matmul_pack", "gather_matmul"):
@@ -2018,6 +2188,7 @@ def main() -> int:
     log(f"two-tier: {json.dumps(two_tier)}")
     log(f"serve: {json.dumps(serve)}")
     log(f"runtime: {json.dumps(runtime)}")
+    log(f"tp: {json.dumps(tp)}")
     log(f"train: {json.dumps(train)}; total {time.perf_counter() - t_all:.0f} s")
     print(json.dumps({"kernels": list(rows.values())}))
     smi = subprocess.run(

@@ -6,6 +6,11 @@ with a 2-step warm-up.  ``chip_smoke.py`` and ``launch/profile_step.py``
 both build their step from here, so the profiled step is the smoked one.
 ``hier_train_config`` stacks the same 4 ranks as two DP axes,
 ``("pod", "data")`` of shape ``HIER_DP`` = (2, 2), for the two-tier path.
+Tensor parallelism: the same model and batch at ``TP_SHAPE`` = (dp, tp) =
+(2, 2), under megatron_sp (24 heads, d_model 3072); its small
+counterparts are ``tp_small_config`` (megatron_sp: d_model 1024, 8/4
+heads) and ``tp_pure_sp_config`` (the reduced width, d_model 64:
+pure_sp), float32.
 
 Serve (``SERVE_CELL``): phi4-mini at full width and full depth, an 8-page
 pool, a Poisson trace of 16 greedy requests at 0.5 per decode step with
@@ -29,12 +34,30 @@ N_LAYERS = 2
 N_DP = 4
 #: the 4 ranks as (pods, data) for the two-tier (bine_hier) path
 HIER_DP = (2, 2)
+#: the 4 ranks as (dp, tp): 2 DP ranks of 2 tensor-parallel ranks each
+TP_SHAPE = (2, 2)
 GLOBAL_BATCH = 8
 SEQ_LEN = 1024
 
 
 def model_config() -> ModelConfig:
     return base.get_config(ARCH).replace(n_layers=N_LAYERS)
+
+
+def tp_small_config() -> ModelConfig:
+    """A small megatron_sp model (the reference's test_parallel_equiv
+    cfgA widths: d_model 1024, 8/4 heads, qk_norm, an untied head),
+    float32."""
+    return base.get_config(ARCH).replace(
+        n_layers=2, d_model=1024, n_heads=8, n_kv_heads=4, head_dim=32,
+        d_ff=256, vocab_size=128, attn_chunk=32, qk_norm=True,
+        tie_embeddings=False, rope_theta=1e6, dtype="float32")
+
+
+def tp_pure_sp_config() -> ModelConfig:
+    """phi4-mini at the reduced width (d_model 64 < 1024: pure_sp),
+    float32."""
+    return base.reduced(base.get_config(ARCH)).replace(dtype="float32")
 
 
 def data_config(cfg: ModelConfig) -> DataConfig:

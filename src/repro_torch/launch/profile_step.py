@@ -7,9 +7,12 @@ stacked on one GPU, batch 8 x 1024), warms up, then profiles 2 steps with
 butterfly step kernels ``rs_step``, ``rs_step_q`` and ``ag_step`` each a
 group of its own), the wall time and the device's idle share, as text and
 as one JSON line, for each wire dtype in turn (by default the float32 and
-the int8 wire, so both steps' kernels are read in one call):
+the int8 wire, so both steps' kernels are read in one call).  ``--mesh``
+stacks the ranks as the train CLI's does: ``2,2`` is the tensor-parallel
+cell (2 DP ranks of 2 TP ranks, ``cell.TP_SHAPE``):
 
-  python -m repro_torch.launch.profile_step [--wire-dtype float32 int8]
+  python -m repro_torch.launch.profile_step [--wire-dtype float32 int8] \
+      [--mesh 2,2]
 
 It uses only the port's public entry points, so the same file runs
 against an older tree (``PYTHONPATH=<tree>/src python
@@ -57,13 +60,17 @@ def group_of(name: str) -> str:
     return "elementwise/other"
 
 
-def profile(cfg, backend: str, wire_dtype: str, dev) -> dict:
-    """Warm up, then profile ``STEPS`` steps of one wire dtype; prints the
-    breakdown and returns its JSON record."""
-    tcfg = cell.train_config(backend, wire_dtype)
-    step, _, _ = make_train_step(cfg, tcfg, cell.N_DP, TF.param_shapes(cfg),
-                                 dev)
-    init_p, init_s = make_init_fns(cfg, tcfg, cell.N_DP, dev)
+def profile(cfg, backend: str, wire_dtype: str, dev, mesh: str = "4,1"
+            ) -> dict:
+    """Warm up, then profile ``STEPS`` steps of one wire dtype over the
+    ranks of ``mesh`` (``launch.train.parse_mesh``); prints the breakdown
+    and returns its JSON record."""
+    from repro_torch.launch.train import parse_mesh
+    axes, dp, tp = parse_mesh(mesh)
+    tcfg = cell.train_config(backend, wire_dtype).replace(dp_axes=axes)
+    step, _, _ = make_train_step(cfg, tcfg, dp, TF.param_shapes(cfg), dev,
+                                 tp=tp)
+    init_p, init_s = make_init_fns(cfg, tcfg, dp, dev, tp=tp)
     params = init_p(0)
     state = init_s(params)
     dcfg = cell.data_config(cfg)
@@ -95,7 +102,7 @@ def profile(cfg, backend: str, wire_dtype: str, dev) -> dict:
                           ev.key))
     busy_ms = sum(by_group.values())
     tokens = dcfg.global_batch * dcfg.seq_len
-    print(f"{cfg.name} x{cfg.n_layers} layers, dp={cell.N_DP}, batch "
+    print(f"{cfg.name} x{cfg.n_layers} layers, mesh {mesh} (tp={tp}), batch "
           f"{dcfg.global_batch}x{dcfg.seq_len}, {backend}/"
           f"{wire_dtype} on {torch.cuda.get_device_name(0)}")
     print(f"step wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, "
@@ -106,7 +113,8 @@ def profile(cfg, backend: str, wire_dtype: str, dev) -> dict:
     print("top kernels (ms per step, launches per step):")
     for ms, n, name in sorted(by_kernel, reverse=True)[:TOP]:
         print(f"  {ms:9.3f} ms  x{n:<5d} {name[:90]}")
-    rec = {"backend": backend, "wire_dtype": wire_dtype, "wall_ms": wall_ms,
+    rec = {"backend": backend, "wire_dtype": wire_dtype, "mesh": mesh,
+           "wall_ms": wall_ms,
            "busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
            "groups_ms": dict(by_group), "group_launches": dict(launches),
            "tokens_per_s": tokens / wall_ms * 1e3}
@@ -120,13 +128,15 @@ def main(argv=None):
                     choices=["bine", "pallas_fused"])
     ap.add_argument("--wire-dtype", nargs="+", default=["float32", "int8"],
                     choices=["float32", "bfloat16", "int8"])
+    ap.add_argument("--mesh", default="4,1",
+                    help="data,model or pod,data,model (the train CLI's)")
     args = ap.parse_args(argv)
 
     dev = resolve_device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = cell.model_config()
     for wire_dtype in args.wire_dtype:
-        profile(cfg, args.backend, wire_dtype, dev)
+        profile(cfg, args.backend, wire_dtype, dev, args.mesh)
         gc.collect()
         torch.cuda.empty_cache()
 

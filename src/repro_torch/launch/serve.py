@@ -12,8 +12,8 @@ whatever else is running, and retires on EOS or its token budget,
 recycling the page.  In place of the reference's ``traces:`` line (jit
 retraces) it prints the kernel launch counts of the run.  Runs on CUDA
 unless ``--device cpu`` is given.  There is no ``--mesh`` and no
-``--backend``: on one card the collective plan is empty (tensor
-parallelism is ROADMAP.md queue A item 3).  Only dense ``attn`` models are
+``--backend``: on one card the collective plan is empty (serving under
+tensor parallelism is ROADMAP.md queue A item 3b).  Only dense ``attn`` models are
 served; the reference's fixed-batch loop for the architectures its pool
 cannot serve has no counterpart (queue A item 5).
 """

@@ -9,7 +9,11 @@ straggler monitor.  The DP ranks run stacked on one device
       --mesh 4,1 --steps 20 --batch 8 --seq 64 --backend pallas_fused
 
 ``--mesh pod,data,model`` stacks two DP axes, as the reference's mesh has
-them (``--mesh 2,2,1 --backend bine_hier`` runs the two-tier hierarchy).
+them (``--mesh 2,2,1 --backend bine_hier`` runs the two-tier hierarchy);
+a model axis above 1 (``--mesh 2,2``: data 2, model 2) stacks each DP
+rank's TP ranks too, under the strategy ``models.sharding.strategy``
+picks: ``megatron_sp`` where the heads divide over the model axis and
+d_model >= 1024, else ``pure_sp``.
 ``--ckpt-dir D --ckpt-every N`` saves the global train state every N steps
 and after the last, in the reference's format; ``--resume`` continues from
 the latest step in ``D`` (a checkpoint of either package, at any DP size).
@@ -27,6 +31,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import base as cfgbase
 from repro_torch.models import transformer as TF
+from repro_torch.models.sharding import strategy
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.data import DataConfig, Prefetcher
@@ -35,20 +40,15 @@ from repro_torch.train.step import (TrainConfig, from_global, make_init_fns,
                                     make_train_step, to_global)
 
 
-def parse_mesh(mesh: str) -> Tuple[Tuple[str, ...], Tuple[int, ...]]:
-    """``pod,data,model`` or ``data,model`` -> (dp_axes, their sizes), as
-    the reference names a mesh's axes; the model axis must be 1."""
+def parse_mesh(mesh: str) -> Tuple[Tuple[str, ...], Tuple[int, ...], int]:
+    """``pod,data,model`` or ``data,model`` -> (dp_axes, their sizes, the
+    model axis's size), as the reference names a mesh's axes."""
     shape = tuple(int(x) for x in mesh.split(","))
-    if len(shape) not in (2, 3):
+    if len(shape) not in (2, 3) or min(shape) < 1:
         raise ValueError(f"mesh {mesh!r}: expected pod,data,model or "
                          "data,model")
-    if shape[-1] != 1:
-        raise NotImplementedError(
-            f"mesh {mesh!r}: this port runs model axis 1; tensor "
-            "parallelism (a model axis above 1) is ROADMAP.md queue A "
-            "item 3")
     axes = ("pod", "data", "model")[-len(shape):]
-    return axes[:-1], shape[:-1]
+    return axes[:-1], shape[:-1], shape[-1]
 
 
 def main(argv=None):
@@ -57,7 +57,7 @@ def main(argv=None):
     ap.add_argument("--reduced", action="store_true",
                     help="tiny same-family config")
     ap.add_argument("--mesh", default="4,1",
-                    help="pod,data,model or data,model (model 1)")
+                    help="pod,data,model or data,model")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
@@ -88,7 +88,7 @@ def main(argv=None):
     cfg = cfgbase.get_config(args.arch)
     if args.reduced:
         cfg = cfgbase.reduced(cfg)
-    dp_axes, dp = parse_mesh(args.mesh)
+    dp_axes, dp, tp = parse_mesh(args.mesh)
 
     acfg = AdamWConfig(lr=args.lr, warmup_steps=args.warmup,
                        total_steps=args.steps)
@@ -97,17 +97,18 @@ def main(argv=None):
                        wire_dtype=args.wire_dtype, topology=args.topology)
     shapes = TF.param_shapes(cfg)
     print(f"[train] arch={cfg.name} params={TF.param_count(shapes):,} "
-          f"dp={dict(zip(dp_axes, dp))} backend={args.backend} "
-          f"wire={args.wire_dtype} topology={args.topology} device={dev}")
-    step_fn, info, _ = make_train_step(cfg, tcfg, dp, shapes, dev)
-    init_p, init_s = make_init_fns(cfg, tcfg, dp, dev)
+          f"dp={dict(zip(dp_axes, dp))} tp={tp} ({strategy(cfg, tp)}) "
+          f"backend={args.backend} wire={args.wire_dtype} "
+          f"topology={args.topology} device={dev}")
+    step_fn, info, _ = make_train_step(cfg, tcfg, dp, shapes, dev, tp=tp)
+    init_p, init_s = make_init_fns(cfg, tcfg, dp, dev, tp=tp)
     params = init_p(args.seed)
     state = init_s(params)
     dcfg = DataConfig(global_batch=args.batch, seq_len=args.seq,
                       vocab_size=cfg.vocab_size, seed=args.seed + 1)
 
     def global_state():
-        return to_global(cfg, tcfg, params, state, dp)
+        return to_global(cfg, tcfg, params, state, dp, tp=tp)
 
     cpr = ckpt.AsyncCheckpointer(args.ckpt_dir) if args.ckpt_dir else None
     monitor = StragglerMonitor()
@@ -115,9 +116,10 @@ def main(argv=None):
     if args.resume and args.ckpt_dir:
         latest = ckpt.latest_step(args.ckpt_dir)
         if latest is not None:
-            like = to_global(cfg, tcfg, params, state, dp, device="meta")
+            like = to_global(cfg, tcfg, params, state, dp, device="meta",
+                             tp=tp)
             tree = ckpt.restore(args.ckpt_dir, latest, like, device="cpu")
-            params, state = from_global(cfg, tcfg, tree, dp, dev)
+            params, state = from_global(cfg, tcfg, tree, dp, dev, tp=tp)
             del tree
             start = latest
             print(f"[train] resumed from step {start}")

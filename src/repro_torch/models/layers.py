@@ -1,10 +1,14 @@
 """Core layers: RMSNorm, RoPE, GQA attention (query-chunked), SwiGLU MLP.
 
-Port of ``repro.models.layers`` for the ``single`` strategy (no tensor
-parallelism).  Plain functions over dicts of tensors, mirroring the JAX
-math op for op so float32 results agree within rounding.  Attention is
-the reference's query-chunked online softmax written with plain torch
-ops; a later slice replaces it with the flash-attention kernel.
+Port of ``repro.models.layers``.  Plain functions over dicts of tensors,
+mirroring the JAX math op for op so float32 results agree within
+rounding.  Attention is the reference's query-chunked online softmax
+written with plain torch ops, in its three strategies: ``attention`` (the
+``single`` path), ``_attn_head_parallel`` (``megatron_sp``: each TP rank's
+heads, exact-causal triangular tiles) and ``_attn_seq_parallel``
+(``pure_sp``: each TP rank's query chunks, vectorized over chunks).  The
+TP ranks run stacked (``models.transformer``); ``dense_tp`` is one
+plain matmul per rank on its weight shard.
 """
 
 from __future__ import annotations
@@ -48,6 +52,15 @@ def rope(x, positions, theta: float):
 
 def dense(x, w):
     return torch.matmul(x, w)
+
+
+def dense_tp(x, w):
+    """Stacked TP ranks: ``x [n, ..., d_in]`` times each rank's own
+    ``w [n, d_in, d_out]``, one matmul per rank (a column- or
+    row-parallel product on the rank's shard)."""
+    n = x.shape[0]
+    y = torch.bmm(x.reshape(n, -1, x.shape[-1]), w)
+    return y.reshape(tuple(x.shape[:-1]) + (w.shape[-1],))
 
 
 # ---------------------------------------------------------------------------
@@ -137,6 +150,134 @@ def attention(p, cfg, x, positions, window=None):
     out = torch.stack(outs, 0)                        # [nC,B,nkv,C,g,hd]
     out = out.permute(1, 0, 3, 2, 4, 5).reshape(B, T, nh * hd)
     return dense(out.to(x.dtype), p["wo"])
+
+
+def _masked_tile(s, mask):
+    """The reference's tile softmax pieces: ``s`` masked to -inf, its
+    finite row max, the exponentials and their row sum."""
+    s = torch.where(mask, s, torch.full((), -math.inf, device=s.device))
+    m = torch.amax(s, dim=-1)
+    m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    e = torch.where(torch.isfinite(s), torch.exp(s - m_safe[..., None]),
+                    torch.zeros((), device=s.device))
+    return e, m_safe, e.sum(dim=-1)
+
+
+def _attn_head_parallel(q, k, v, positions, window, scale, C):
+    """megatron_sp attention over one TP rank's heads: ``q``, ``k``, ``v``
+    ``[B, T, h, hd]`` (K/V already repeated to the query heads), the
+    exact-causal triangular (q-chunk, kv-chunk) tile walk, or for a window
+    shorter than T one static KV slice per query chunk.  The stacked TP
+    ranks ride in ``B``.  Returns ``[B, T, h, hd]`` float32."""
+    B, T, nh, hd = q.shape
+    nC = T // C
+    kpos_all = torch.arange(T, dtype=positions.dtype, device=q.device)
+
+    def tile(qs, ks_, W):
+        qp, kp = positions[qs:qs + C], kpos_all[ks_:ks_ + W]
+        s = torch.einsum("bqnh,bknh->bnqk",
+                         q[:, qs:qs + C].to(torch.float32),
+                         k[:, ks_:ks_ + W].to(torch.float32)) * scale
+        mask = kp[None, :] <= qp[:, None]
+        if window is not None:
+            mask &= (qp[:, None] - kp[None, :]) < window
+        e, m, dn = _masked_tile(s, mask[None, None])
+        o = torch.einsum("bnqk,bknh->bnqh", e,
+                         v[:, ks_:ks_ + W].to(torch.float32))
+        return o, m, dn                       # [B,nh,C,hd], [B,nh,C]
+
+    outs = []
+    if window is not None and window < T:
+        W = min(((window + C - 1) // C) * C + C, T)
+        for i in range(nC):
+            o, _, dn = tile(i * C, max(i * C + C - W, 0), W)
+            outs.append(o / torch.clamp(dn[..., None], min=1e-30))
+    else:
+        for i in range(nC):
+            for j in range(i + 1):
+                o, m, dn = tile(i * C, j * C, C)
+                if j == 0:
+                    o_a = torch.zeros_like(o)
+                    m_a = torch.full_like(m, -math.inf)
+                    d_a = torch.zeros_like(dn)
+                m_new = torch.maximum(m_a, m)
+                r_a = torch.exp(torch.clamp(m_a - m_new, min=-80.0))
+                r_b = torch.exp(torch.clamp(m - m_new, min=-80.0))
+                o_a = o_a * r_a[..., None] + o * r_b[..., None]
+                d_a = d_a * r_a + dn * r_b
+                m_a = m_new
+            outs.append(o_a / torch.clamp(d_a[..., None], min=1e-30))
+    out = torch.stack(outs, 0)                          # [nC,B,nh,C,hd]
+    return out.permute(1, 0, 3, 2, 4).reshape(B, T, nh, hd)
+
+
+def _attn_seq_parallel(q, k, v, qpos, window, scale, C):
+    """pure_sp attention, the TP ranks stacked: rank t's query chunks
+    ``q [n, B, Tl, nh, hd]`` at positions ``qpos [n, Tl]`` against every
+    key, ``k``/``v [n, B, T, nkv, hd]`` (each rank's gathered copy),
+    vectorized over chunks of ``C``: for a window with ``window + C < T``
+    the static KV band ending at each chunk, else every KV chunk in turn
+    with an online softmax (block-masked tiles: the full T^2 work, as in
+    the reference).  Returns ``[n, B, Tl, nh, hd]`` float32."""
+    n, B, Tl, nh, hd = q.shape
+    T, nkv = k.shape[2], k.shape[3]
+    g = nh // nkv
+    nCl = Tl // C
+    qg = q.reshape(n, B, nCl, C, nkv, g, hd).to(torch.float32)
+    qp = qpos.reshape(n, nCl, C)
+    ninf = torch.full((), -math.inf, device=q.device)
+
+    if window is not None and window + C < T:
+        Wb = min(((window + C - 1) // C) * C + C, T)
+        starts = np.clip(np.arange(T // C) * C + C - Wb, 0, T - Wb)
+        starts = starts.reshape(n, nCl)
+        idx = torch.as_tensor(starts[..., None] + np.arange(Wb),
+                              device=q.device)            # [n, nCl, Wb]
+
+        def band(x):             # [n,B,nCl,Wb,nkv,hd]: static slices
+            return torch.stack([torch.stack(
+                [x[t, :, a:a + Wb] for a in starts[t].tolist()], 1)
+                for t in range(n)])
+
+        kband, vband = band(k), band(v)
+        kp = idx.to(qpos.dtype)                           # [n, nCl, Wb]
+        s = torch.einsum("tbicngh,tbijnh->tbincgj", qg,
+                         kband.to(torch.float32)) * scale
+        mask = (kp[:, :, None, :] <= qp[:, :, :, None]) & \
+            (qp[:, :, :, None] - kp[:, :, None, :] < window)  # [n,nCl,C,Wb]
+        e, _, dn = _masked_tile(s, mask[:, None, :, None, :, None, :])
+        o = torch.einsum("tbincgj,tbijnh->tbincgh", e,
+                         vband.to(torch.float32))
+        out = o / torch.clamp(dn, min=1e-30)[..., None]
+    else:
+        o_a = torch.zeros((n, B, nCl, nkv, C, g, hd), device=q.device)
+        m_a = torch.full((n, B, nCl, nkv, C, g), -math.inf, device=q.device)
+        d_a = torch.zeros((n, B, nCl, nkv, C, g), device=q.device)
+        for j in range(T // C):
+            kp = torch.arange(j * C, j * C + C, dtype=qpos.dtype,
+                              device=q.device)
+            s = torch.einsum("tbicngh,tbjnh->tbincgj", qg,
+                             k[:, :, j * C:j * C + C].to(torch.float32)) * scale
+            mask = kp <= qp[..., None]                    # [n,nCl,C,Ck]
+            if window is not None:
+                mask &= (qp[..., None] - kp) < window
+            s = torch.where(mask[:, None, :, None, :, None, :], s, ninf)
+            m = torch.amax(s, dim=-1)
+            m_new = torch.maximum(m_a, m)
+            m_sub = torch.where(torch.isfinite(m_new), m_new,
+                                torch.zeros_like(m_new))
+            e = torch.where(torch.isfinite(s), torch.exp(s - m_sub[..., None]),
+                            torch.zeros((), device=q.device))
+            o = torch.einsum("tbincgj,tbjnh->tbincgh", e,
+                             v[:, :, j * C:j * C + C].to(torch.float32))
+            r = torch.exp(torch.clamp(m_a - m_new, min=-80.0))
+            r = torch.where(torch.isfinite(m_a), r, torch.zeros_like(r))
+            o_a = o_a * r[..., None] + o
+            d_a = d_a * r + e.sum(dim=-1)
+            m_a = m_new
+        out = o_a / torch.clamp(d_a[..., None], min=1e-30)
+    # [n,B,nCl,nkv,C,g,hd] -> [n,B,Tl,nh,hd]
+    return out.permute(0, 1, 2, 4, 3, 5, 6).reshape(n, B, Tl, nh, hd)
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,9 @@ in a Python loop over the stacked leaves (the reference's ``lax.scan``).
 
 Two paths, as in the reference: ``forward``/``loss_fn`` (training, through
 autograd) keep the plain ``layers.rmsnorm`` and the query-chunked
-``layers.attention``; the serving half (``prefill``, ``decode_step``) puts
+``layers.attention`` — with ``n_model > 1`` the TP ranks of one DP rank
+run stacked, ``megatron_sp`` or ``pure_sp`` (section "Tensor
+parallelism" below); the serving half (``prefill``, ``decode_step``) puts
 every norm on the RMSNorm kernel and prefill's attention core on the
 flash-attention kernel, which have no backward.  Decode attention stays
 plain torch: each slot sits at its own position, which the flash kernel's
@@ -31,11 +33,13 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch import tree as T
+from repro_torch.collectives import stacked
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.rmsnorm.ops import rmsnorm as fused_rmsnorm
 
 from . import layers as L
+from . import sharding as SH
 
 
 @dataclass(frozen=True)
@@ -169,8 +173,17 @@ def _layer(seg_p, l: int):
     return seg_p[l]
 
 
-def forward(params, cfg, inputs, positions=None):
-    """inputs: [B,T] int tokens.  Returns (logits [B,T,V], aux_loss)."""
+def forward(params, cfg, inputs, positions=None, n_model: int = 1):
+    """inputs: [B,T] int tokens.  Returns (logits [B,T,V], aux_loss).
+
+    ``n_model > 1``: ``params`` stacked over the TP ranks
+    (``sharding.shard_params``), every rank given the same ``inputs``;
+    returns the vocab-sharded logits ``[n, B, T, V/n]`` and ``aux [n]``
+    (:func:`forward_tp`)."""
+    if n_model > 1:
+        if positions is not None:
+            raise ValueError("the TP forward runs positions 0..T-1")
+        return forward_tp(params, cfg, inputs, n_model)
     _check_dense(cfg)
     B, T = inputs.shape[:2]
     if positions is None:
@@ -185,10 +198,15 @@ def forward(params, cfg, inputs, positions=None):
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-def loss_fn(params, cfg, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def loss_fn(params, cfg, batch, n_model: int = 1
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """batch: dict(inputs [B,T], targets [B,T], optional mask [B,T]).
 
-    Cross entropy in fp32 with z-loss; returns (loss, metrics)."""
+    Cross entropy in fp32 with z-loss; returns (loss, metrics).  With
+    ``n_model > 1`` every value is per TP rank, ``[n]`` (all equal):
+    :func:`loss_fn_tp`."""
+    if n_model > 1:
+        return loss_fn_tp(params, cfg, batch, n_model)
     logits, aux = forward(params, cfg, batch["inputs"])
     logits = logits.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
@@ -205,6 +223,253 @@ def loss_fn(params, cfg, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     loss = ce + zl + al
     metrics = {"loss": loss, "ce": ce, "z_loss": zl, "aux_loss": al,
                "tokens": denom}
+    return loss, metrics
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism: the TP ranks of one DP rank stacked [n, ...]
+# ---------------------------------------------------------------------------
+# The reference's TP is GSPMD's: one program on global arrays, laid out by
+# the specs of ``sharding``.  Here each rank's share is explicit and the
+# collectives GSPMD inserts are the rank-dim built-ins of
+# ``collectives.stacked``, which autograd differentiates like any tensor
+# op.  Weights are held as ``sharding.shard_params`` stacks them; each
+# contraction runs on the rank's Megatron block of its weight: the column
+# block of wq/wk/wv/wi/wg and the vocab-sharded head, the row block of wo.
+# Where the specs shard a weight on another dim (a segment's wi/wg/wo
+# take the layer dim) it is all-gathered over the ranks first, as GSPMD
+# must.  The residual stream between blocks is sequence-sharded
+# ``[n, B, T/n, d]`` when T divides by n, else every rank holds it whole.
+
+class _TP:
+    """The layout of one TP forward: ``n`` ranks, its strategy, and
+    whether the residual stream is sequence-sharded."""
+
+    def __init__(self, cfg, n: int, T: int):
+        self.n, self.strat, self.sp = n, SH.strategy(cfg, n), T % n == 0
+
+    def gather(self, x):
+        """The residual stream -> the whole sequence on every rank."""
+        return SH.seq_gather(x) if self.sp else x
+
+    def reduce(self, x):
+        """Partial sums over the ranks -> the residual stream."""
+        return SH.seq_reduce_scatter(x) if self.sp else stacked.psum(x)
+
+
+#: per-rank dim of each weight's Megatron block in a segment leaf
+#: ``[n_layers, d_in, d_out]``: the column block of the input projections,
+#: the row block of the output ones
+_MEGATRON_DIM = {"wq": 2, "wk": 2, "wv": 2, "wi": 2, "wg": 2, "wo": 1}
+
+
+def _bw(w, x):
+    """A stacked norm gain ``w [n, d]`` broadcast against ``x [n, ..., d]``."""
+    return w.reshape((w.shape[0],) + (1,) * (x.dim() - 2) + (w.shape[-1],))
+
+
+def _block_of(w, md: int, dim: int):
+    """Each rank's block of per-rank dim ``dim`` of weight ``w``, held as
+    ``sharding.shard_params`` stacks it on ``md``: the rank's own shard
+    when that is the dim, else (``md >= 0``) all-gathered over the ranks
+    first, then split."""
+    if md == dim:
+        return w
+    if md >= 0:
+        w = stacked.all_gather(w, md)
+    return SH.rank_block(w, dim)
+
+
+def _megatron_layout(params, cfg, tp: _TP):
+    """``params`` as the contractions read them: the vocab block of the
+    embedding (and head); under megatron_sp also each weight's Megatron
+    block (``_MEGATRON_DIM``), where K/V stay whole under the GQA rule
+    (``n_kv_heads % n != 0``: the heads split after the repeat)."""
+    mds = SH.model_dims(cfg, param_shapes(cfg), tp.n)
+    out = dict(params)
+    out["embed"] = _block_of(params["embed"], mds["embed"], 0)
+    if "lm_head" in params:
+        out["lm_head"] = _block_of(params["lm_head"], mds["lm_head"], 1)
+    if tp.strat != "megatron_sp":
+        return out
+    kv_whole = cfg.n_kv_heads % tp.n != 0
+    segs = []
+    for seg, md in zip(params["segments"], mds["segments"]):
+        seg = dict(seg)
+        for sub in ("attn", "mlp"):
+            seg[sub] = {k: w if (k not in _MEGATRON_DIM or
+                                 (kv_whole and k in ("wk", "wv")))
+                        else _block_of(w, md[sub][k], _MEGATRON_DIM[k])
+                        for k, w in seg[sub].items()}
+        segs.append(seg)
+    out["segments"] = segs
+    return out
+
+
+def _embed_tp(E, cfg, tokens, tp: _TP):
+    """The vocab-sharded lookup of ``E [n, V/n, d]``: each rank gathers the
+    rows of its vocab block (zeros elsewhere), reduced over the ranks into
+    the residual stream (exact: one non-zero term per token)."""
+    n, Vl = E.shape[0], E.shape[1]
+    off = (torch.arange(n, device=E.device) * Vl)[:, None, None]
+    ids = tokens.long()[None] - off                              # [n, B, T]
+    ok = (ids >= 0) & (ids < Vl)
+    # an embedding lookup into the ranks' stacked rows: its backward
+    # accumulates in a fixed order (advanced indexing's does not, on the
+    # CPU)
+    rows = torch.nn.functional.embedding(torch.clamp(ids, 0, Vl - 1) + off,
+                                         E.reshape(n * Vl, -1))
+    x = tp.reduce(torch.where(ok[..., None], rows,
+                              torch.zeros((), dtype=rows.dtype,
+                                          device=rows.device)))
+    if cfg.embed_scale:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+    return x
+
+
+def _attn_tp(p, cfg, block: Block, h, pos, tp: _TP):
+    """One attention sublayer on the normed residual stream ``h``."""
+    n = tp.n
+    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    T = pos.shape[0]
+    C = min(cfg.attn_chunk, T)
+    if T % C:
+        raise ValueError(f"sequence {T} is not a multiple of attn_chunk {C}")
+    scale = 1.0 / math.sqrt(hd)
+    if tp.strat == "megatron_sp":
+        hf = tp.gather(h)                                     # [n,B,T,d]
+        B = hf.shape[1]
+        q = L.dense_tp(hf, p["wq"]).reshape(n, B, T, nh // n, hd)
+        k = L.dense_tp(hf, p["wk"])
+        v = L.dense_tp(hf, p["wv"])
+        k = k.reshape(n, B, T, k.shape[-1] // hd, hd)
+        v = v.reshape(n, B, T, v.shape[-1] // hd, hd)
+        if cfg.qk_norm:
+            q = L.rmsnorm(q, _bw(p["q_norm"], q), cfg.norm_eps)
+            k = L.rmsnorm(k, _bw(p["k_norm"], k), cfg.norm_eps)
+        q = L.rope(q, pos, cfg.rope_theta)
+        k = L.rope(k, pos, cfg.rope_theta)
+        g = nh // nkv
+        kf = k.repeat_interleave(g, dim=3)
+        vf = v.repeat_interleave(g, dim=3)
+        if kf.shape[3] != nh // n:   # GQA: K/V whole, the heads split now
+            kf, vf = SH.rank_block(kf, 2), SH.rank_block(vf, 2)
+        out = L._attn_head_parallel(q.flatten(0, 1), kf.flatten(0, 1),
+                                    vf.flatten(0, 1), pos, block.window,
+                                    scale, C)
+        out = out.reshape(n, B, T, (nh // n) * hd).to(h.dtype)
+        return tp.reduce(L.dense_tp(out, p["wo"]))
+    if not tp.sp:
+        # pure_sp with T % n != 0: the reference falls through to the
+        # single path; every rank runs it on its own copies
+        return torch.stack([L.attention({k: v[t] for k, v in p.items()},
+                                        cfg, h[t], pos, window=block.window)
+                            for t in range(n)])
+    B, Tl = h.shape[1], h.shape[2]
+    q = L.dense_tp(h, p["wq"]).reshape(n, B, Tl, nh, hd)
+    k = L.dense_tp(h, p["wk"]).reshape(n, B, Tl, nkv, hd)
+    v = L.dense_tp(h, p["wv"]).reshape(n, B, Tl, nkv, hd)
+    if cfg.qk_norm:
+        q = L.rmsnorm(q, _bw(p["q_norm"], q), cfg.norm_eps)
+        k = L.rmsnorm(k, _bw(p["k_norm"], k), cfg.norm_eps)
+    qpos = pos.reshape(n, Tl)
+    q = L.rope(q, qpos[:, None], cfg.rope_theta)
+    k = L.rope(k, qpos[:, None], cfg.rope_theta)
+    # the q-chunk grid must split over the ranks: grow chunks if it does not
+    Cq = C if (T // C) % n == 0 else T // n
+    out = L._attn_seq_parallel(q, SH.seq_gather(k), SH.seq_gather(v), qpos,
+                               block.window, scale, Cq)
+    return L.dense_tp(out.reshape(n, B, Tl, nh * hd).to(h.dtype), p["wo"])
+
+
+def _mlp_tp(p, cfg, y, tp: _TP):
+    """The MLP: column-parallel wi/wg and row-parallel wo under
+    megatron_sp; under pure_sp each rank's tokens through its own copy."""
+    mega = tp.strat == "megatron_sp"
+    if mega:
+        y = tp.gather(y)
+    h, gate = L.dense_tp(y, p["wi"]), L.dense_tp(y, p["wg"])
+    if cfg.act == "geglu":
+        h = torch.nn.functional.gelu(gate, approximate="tanh") * h
+    else:  # swiglu
+        h = torch.nn.functional.silu(gate) * h
+    out = L.dense_tp(h, p["wo"])
+    return tp.reduce(out) if mega else out
+
+
+def _layer_tp(seg, l: int):
+    """Layer ``l`` of a stacked segment (leaves ``[n, n_layers, ...]``)."""
+    if isinstance(seg, dict):
+        return {k: _layer_tp(v, l) for k, v in seg.items()}
+    return seg[:, l]
+
+
+def forward_tp(params, cfg, inputs, n_model: int):
+    """The TP forward of one DP rank: ``params`` from
+    ``sharding.shard_params``, ``inputs [B, T]`` (every TP rank reads the
+    same tokens).  Returns the vocab-sharded logits ``[n, B, T, V/n]`` and
+    ``aux [n]``."""
+    _check_dense(cfg)
+    T_ = inputs.shape[1]
+    tp = _TP(cfg, n_model, T_)
+    params = _megatron_layout(params, cfg, tp)
+    pos = torch.arange(T_, dtype=torch.int32, device=inputs.device)
+    x = _embed_tp(params["embed"], cfg, inputs, tp)
+    for (block, nl), seg in zip(segments(cfg), params["segments"]):
+        for l in range(nl):
+            p = _layer_tp(seg, l)
+            x = x + _attn_tp(p["attn"], cfg, block,
+                             L.rmsnorm(x, _bw(p["ln1"], x), cfg.norm_eps),
+                             pos, tp)
+            x = x + _mlp_tp(p["mlp"], cfg,
+                            L.rmsnorm(x, _bw(p["ln2"], x), cfg.norm_eps), tp)
+    x = tp.gather(L.rmsnorm(x, _bw(params["final_norm"], x), cfg.norm_eps))
+    head = params["embed"].transpose(1, 2) if cfg.tie_embeddings \
+        else params["lm_head"]
+    logits = L.dense_tp(x, head)
+    return logits, torch.zeros(n_model, dtype=torch.float32, device=x.device)
+
+
+def loss_fn_tp(params, cfg, batch, n_model: int):
+    """:func:`loss_fn` over the vocab-sharded logits: the logsumexp from
+    the ranks' maxima (all-gathered) and their sums of exponentials
+    (psum), the target logit picked by the rank whose block holds it
+    (psum), and the token mean of the sequence shards' sums (psum).
+    Every value is ``[n]``, the same on every rank."""
+    logits, aux = forward_tp(params, cfg, batch["inputs"], n_model)
+    logits = logits.to(torch.float32)                    # [n,B,T,V/n]
+    n, B, T_, Vl = logits.shape
+    mx = stacked.all_gather(torch.amax(logits, dim=-1, keepdim=True), -1)
+    mx = torch.amax(mx, dim=-1).detach()                 # [n,B,T]
+    se = stacked.psum(torch.exp(logits - mx[..., None]).sum(dim=-1))
+    lse = mx + torch.log(se)
+    ids = batch["targets"].long()[None] - (
+        torch.arange(n, device=logits.device) * Vl)[:, None, None]
+    ok = (ids >= 0) & (ids < Vl)
+    pick = torch.gather(logits, -1, torch.clamp(ids, 0, Vl - 1)[..., None])
+    tgt = stacked.psum(torch.where(ok, pick[..., 0],
+                                   torch.zeros((), device=logits.device)))
+    nll = lse - tgt
+    del logits, pick
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones((B, T_), dtype=torch.float32, device=nll.device)
+    mask = mask.to(torch.float32)
+    denom = torch.clamp(mask.sum(), min=1.0)
+
+    def token_sum(v):
+        """Sum over the tokens: each rank its sequence shard, then psum."""
+        if T_ % n:
+            return (v * mask).sum(dim=(1, 2))
+        ms = SH.seq_shard(mask, n)
+        return stacked.psum((SH.rank_block(v, 1) * ms).sum(dim=(1, 2)))
+
+    ce = token_sum(nll) / denom
+    zl = cfg.z_loss * token_sum(lse * lse) / denom
+    al = cfg.aux_loss_weight * aux
+    loss = ce + zl + al
+    metrics = {"loss": loss, "ce": ce, "z_loss": zl, "aux_loss": al,
+               "tokens": denom.expand(n)}
     return loss, metrics
 
 

@@ -7,8 +7,9 @@ their norms and prefill attention run on the hand-written kernels
 (``models.transformer``).  Not ported, because eager PyTorch has no
 counterpart: ``cache_specs`` (the pool's ``PartitionSpec``s) and
 ``trace_counts`` (the no-retrace guarantee of ``jit``; the serve CLI
-prints the kernel launch counts instead).  Tensor parallelism and the
-multi-GPU executor are ROADMAP.md queue A items 3 and 7.  The plan's
+prints the kernel launch counts instead).  Serving under tensor
+parallelism and the multi-GPU executor are ROADMAP.md queue A items 3b
+and 7.  The plan's
 observability record (``obs.collect.record_serve_plan``) fires where the
 plan prices a collective, which on one card (``n_tp = n_dp = 1``) it
 never does, as in the reference.

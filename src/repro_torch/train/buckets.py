@@ -7,6 +7,12 @@ hands rank ``r`` exactly row ``r``, bitwise what the per-leaf dim-general
 reduce-scatter gives it.  The plan depends only on static shapes: leaves
 are numbered in ``jax.tree.flatten`` order (``repro_torch.tree``), sorted by
 (size desc, index), and packed first-fit into buckets of one dtype.
+
+Under tensor parallelism the plan is the reference's, made from the
+global leaves; each TP rank packs its own shard of every leaf into its
+column of the bucket (:func:`local_plan`): column t's block r holds the
+elements of the reference's row r that rank t holds, in the row's
+order, so each element is reduced in its reference block.
 """
 
 from __future__ import annotations
@@ -128,27 +134,33 @@ def plan_buckets(params_shapes: Any, layout: Any, n_dp: int,
 # the stacked step runs them over all ranks' rows at once.
 # ---------------------------------------------------------------------------
 
-def _leaf_rows(x, zero_dim: int, n_dp: int):
-    """[d0,..,p*k @zd,..] -> [p, size/p]: row r = flat slice r along zd."""
-    k = x.shape[zero_dim] // n_dp
-    split = tuple(x.shape[:zero_dim]) + (n_dp, k) + tuple(x.shape[zero_dim + 1:])
-    return torch.movedim(x.reshape(split), zero_dim, 0).reshape(n_dp, -1)
+def _leaf_rows(x, zero_dim: int, n_dp: int, lead: int = 0):
+    """[*lead, d0,..,p*k @zd,..] -> [*lead, p, size/p]: row r = flat
+    slice r along zd."""
+    zd = zero_dim + lead
+    k = x.shape[zd] // n_dp
+    split = tuple(x.shape[:zd]) + (n_dp, k) + tuple(x.shape[zd + 1:])
+    return torch.movedim(x.reshape(split), zd, lead).reshape(
+        tuple(x.shape[:lead]) + (n_dp, -1))
 
 
-def _rows_to_leaf(rows, slot: LeafSlot, n_dp: int):
-    """Inverse of ``_leaf_rows``: [p, size/p] -> the full leaf."""
-    seg = rows.reshape((n_dp,) + slot.shard_shape(n_dp))
-    return torch.movedim(seg, 0, slot.zero_dim).reshape(slot.shape)
+def _rows_to_leaf(rows, slot: LeafSlot, n_dp: int, lead: int = 0):
+    """Inverse of ``_leaf_rows``: [*lead, p, size/p] -> the full leaf."""
+    ld = tuple(rows.shape[:lead])
+    seg = rows.reshape(ld + (n_dp,) + slot.shard_shape(n_dp))
+    return torch.movedim(seg, lead, lead + slot.zero_dim).reshape(
+        ld + slot.shape)
 
 
-def pack_bucket(bucket: Bucket, leaves: Sequence[Any], n_dp: int):
+def pack_bucket(bucket: Bucket, leaves: Sequence[Any], n_dp: int,
+                lead: int = 0):
     """Full leaves (bucket order) -> the flat bucket vector, length
-    ``n_dp * bucket.row_elems``; block ``r`` is the row rank ``r`` owns."""
-    rows = [_leaf_rows(x, s.zero_dim, n_dp)
+    ``n_dp * bucket.row_elems``; block ``r`` is the row rank ``r`` owns.
+    ``lead`` leading dims (the stacked TP ranks) are kept."""
+    rows = [_leaf_rows(x, s.zero_dim, n_dp, lead)
             for x, s in zip(leaves, bucket.slots)]
-    if len(rows) == 1:
-        return rows[0].reshape(-1)
-    return torch.cat(rows, dim=1).reshape(-1)
+    full = rows[0] if len(rows) == 1 else torch.cat(rows, dim=lead + 1)
+    return full.reshape(tuple(full.shape[:lead]) + (-1,))
 
 
 def shard_views(bucket: Bucket, shard, n_dp: int):
@@ -168,8 +180,35 @@ def pack_shards(bucket: Bucket, shards: Sequence[Any], lead: int = 0):
     return torch.cat(flats, dim=-1)
 
 
-def unpack_bucket(bucket: Bucket, full, n_dp: int):
-    """Flat allgather output (rank-order rows) -> full leaves, exactly."""
-    rows = full.reshape(n_dp, bucket.row_elems)
-    return [_rows_to_leaf(rows[:, s.offset:s.offset + s.row_elems(n_dp)],
-                          s, n_dp) for s in bucket.slots]
+def unpack_bucket(bucket: Bucket, full, n_dp: int, lead: int = 0):
+    """Flat allgather output (rank-order rows) -> full leaves, exactly.
+    ``lead`` leading dims (the stacked TP ranks) are kept."""
+    ld = tuple(full.shape[:lead])
+    rows = full.reshape(ld + (n_dp, bucket.row_elems))
+    return [_rows_to_leaf(rows[..., s.offset:s.offset + s.row_elems(n_dp)],
+                          s, n_dp, lead) for s in bucket.slots]
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism: each TP rank's column of the reference's buckets
+# ---------------------------------------------------------------------------
+
+def local_plan(plan: BucketPlan, local_shapes: Sequence[Tuple[int, ...]]
+               ) -> BucketPlan:
+    """``plan``'s buckets over one TP rank's leaves: the same slots, zero
+    dims and order, each slot ``local_shapes[index]`` (the rank's shard),
+    the offsets packed anew.  ``pack_bucket`` with it gives the rank's
+    column of the bucket."""
+    out = []
+    for b in plan.buckets:
+        off, slots = 0, []
+        for s in b.slots:
+            ls = LeafSlot(index=s.index, shape=tuple(local_shapes[s.index]),
+                          zero_dim=s.zero_dim, offset=off)
+            slots.append(ls)
+            off += ls.row_elems(plan.n_dp)
+        out.append(Bucket(bid=b.bid, dtype=b.dtype, slots=tuple(slots),
+                          row_elems=off))
+    return BucketPlan(n_dp=plan.n_dp, capacity_bytes=plan.capacity_bytes,
+                      wire_itemsize=plan.wire_itemsize, buckets=tuple(out),
+                      replicated=plan.replicated)

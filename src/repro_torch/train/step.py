@@ -1,12 +1,12 @@
 """The training step: DP ranks stacked on one device, Bine gradient
 collectives, ZeRO-1 AdamW.
 
-Port of ``repro.train.step`` (model axis 1).  The reference runs the step
-body under ``shard_map`` on p devices; here the p ranks run on one device:
+Port of ``repro.train.step``.  The reference runs the step body under
+``shard_map`` on p devices; here the p ranks run on one device:
 
-  * every rank holds its own parameters — ``params`` is a list of p trees —
-    and runs forward and backward on its own batch shard, one rank after
-    another;
+  * every DP rank holds its own parameters — ``params`` is a list of
+    ``n_dp`` trees — and runs forward and backward on its own batch shard,
+    one rank after another;
   * gradients, optimizer shards, error-feedback residuals and collective
     buffers are stacked ``[p, ...]``, and every collective runs over that
     rank axis: ``collectives.stacked`` for ``bine`` / ``recdoub`` /
@@ -26,6 +26,20 @@ stay inside a pod), then over ``pod``; the allgather the other way.  Rank
 says so, and the optimizer shards are cut that way.  On one axis
 ``bine_hier`` is flat ``bine``, as in the reference's bucketed path (its
 per-leaf path raises ``KeyError`` there).
+
+Tensor parallelism (a model axis of ``tp > 1``): the reference's step is
+manual over the DP axes and leaves the model axis to GSPMD.  Here each DP
+rank's tree is stacked over its TP ranks (``models.sharding``), its
+forward and backward run the whole TP group at once (the TP collectives
+sit mid-forward), a leaf every TP rank holds whole has its gradient
+summed over them (GSPMD's implicit reduction), and every DP collective
+runs over the DP ranks within each TP column (:class:`Ranks`): the
+bucket plan is the reference's, over the global leaves, and TP rank t
+packs its shards into column t (``buckets.local_plan``), so each element
+is reduced in its reference block.  An int8-wire bucket is coded whole
+on every TP rank instead, as the reference's compiled step does: the
+codec's chunks are then the reference's.  Optimizer shards are cut from
+each TP rank's weight shard; the grad norm counts every element once.
 
 The global layout (``to_global`` / ``from_global``): a checkpoint holds
 the logical arrays, as the reference's does (its arrays are global):
@@ -58,6 +72,7 @@ from repro_torch.collectives import compression as comp
 from repro_torch.collectives import stacked
 from repro_torch.collectives.api import executable_at
 from repro_torch.kernels.collectives import ops as fused
+from repro_torch.models import sharding as SH
 from repro_torch.models import transformer as TF
 from repro_torch.optim.adamw import (AdamWConfig, adamw_init_leaf,
                                      adamw_update_leaf, lr_at)
@@ -78,7 +93,8 @@ _CODEC_BACKENDS = ("bine", "recdoub", "pallas_fused")
 @dataclass(frozen=True)
 class TrainConfig:
     """The reference's config less what the port does not run yet: at most
-    two DP axes (stacked on one device), model axis 1."""
+    two DP axes (stacked on one device); the model axis's size comes with
+    the step's ``tp`` argument, as the DP axes' come with ``dp``."""
     backend: str = "bine"            # bine | recdoub | ring | xla | bine_hier
     #                                # | pallas_fused | auto
     #: the DP axes, outermost first; their sizes come with the step's
@@ -157,6 +173,52 @@ def shard_owner(tcfg: TrainConfig, shape: Tuple[int, ...]) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
+# The stacked ranks
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class Ranks:
+    """The ranks one step stacks: the DP axes' sizes ``dp`` and the model
+    axis's ``tp``.  Row ``r * tp + t`` is TP rank t of DP rank r (row-major
+    over ``(*dp, tp)``, the reference's mesh order).  The DP collectives
+    run over the DP ranks within each TP column; at ``tp == 1`` they run
+    over the whole stack, as before tensor parallelism."""
+    dp: Tuple[int, ...]
+    tp: int = 1
+
+    @property
+    def n_dp(self) -> int:
+        return int(np.prod(self.dp))
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return self.dp + ((self.tp,) if self.tp > 1 else ())
+
+    def over_dp(self, fn, x, *args):
+        """``fn`` over all the DP ranks (the flattened DP axes)."""
+        if self.tp == 1:
+            return fn(x, *args)
+        return stacked.over_axis(fn, x, (self.n_dp, self.tp), 0, *args)
+
+    def over_dp_axis(self, fn, x, axis: int, *args):
+        """``fn`` over DP axis ``axis`` alone (the two-tier hierarchy)."""
+        return stacked.over_axis(fn, x, self.shape, axis, *args)
+
+    def psum_tp(self, x):
+        """The sum over the TP ranks of each DP rank, on every one."""
+        return x if self.tp == 1 else self.over_tp(stacked.psum, x)
+
+    def over_tp(self, fn, x, *args):
+        """``fn`` over the TP ranks of each DP rank."""
+        return stacked.over_axis(fn, x, (self.n_dp, self.tp), 1, *args)
+
+    def per_dp(self, x, r: int):
+        """DP rank r's rows of a stacked ``x [n_dp * tp, ...]``: ``[tp, ...]``
+        (the bare row at ``tp == 1``)."""
+        return x[r] if self.tp == 1 else x[r * self.tp:(r + 1) * self.tp]
+
+
+# ---------------------------------------------------------------------------
 # Gradient collectives (bucketed flat + per-leaf dim-general), stacked
 # ---------------------------------------------------------------------------
 
@@ -171,15 +233,20 @@ def _backend_for_bytes(tcfg: TrainConfig, collective: str, p: int,
                           tuning=tcfg.tuning)
 
 
+def _nbytes(arr: torch.Tensor, scale: int = 1) -> int:
+    """One rank's bytes of ``arr [p, ...]``, times ``scale``."""
+    return arr[0].numel() * arr.element_size() * scale
+
+
 def _backend_for(tcfg: TrainConfig, collective: str, arr: torch.Tensor,
-                 gathered: bool = False) -> str:
-    """``_backend_for_bytes`` for one stacked ``arr [p, ...]``: one rank's
-    bytes, scaled by p where ``arr`` is one rank's shard (``gathered``)."""
+                 rk: Ranks, scale: int = 1) -> str:
+    """``_backend_for_bytes`` for one stacked ``arr [p, ...]`` over the DP
+    ranks: one rank's bytes times ``scale`` — the DP size where ``arr`` is
+    one rank's shard (the allgather input), times the TP size where it is
+    a TP shard: the reference prices the leaf it sees, the global one."""
     if tcfg.backend != "auto":
         return tcfg.backend
-    p = arr.shape[0]
-    nbytes = arr[0].numel() * arr.element_size() * (p if gathered else 1)
-    return _backend_for_bytes(tcfg, collective, p, nbytes)
+    return _backend_for_bytes(tcfg, collective, rk.n_dp, _nbytes(arr, scale))
 
 
 def _wire_cast(tcfg: TrainConfig, g, n_dp: int):
@@ -208,43 +275,41 @@ def _bucket_post(wire: str, n_dp: int) -> float:
     return 1.0 if wire in ("bfloat16", "int8") else float(n_dp)
 
 
-def _two_tier(b: str, shape: Tuple[int, ...]) -> bool:
+def _two_tier(b: str, rk: Ranks) -> bool:
     """Whether backend ``b`` runs the hierarchy: ``bine_hier`` over two
     axes (over one it is flat bine)."""
-    return b == "bine_hier" and len(shape) > 1
+    return b == "bine_hier" and len(rk.dp) > 1
 
 
-def _rs_leaf(tcfg: TrainConfig, g, zd: int, shape: Tuple[int, ...]):
-    """Reduce ``g [p, ...]`` over the ranks; scatter along zd, or a full
-    allreduce when zd < 0."""
-    n_dp = int(np.prod(shape))
-    wire = _wire_cast(tcfg, g, n_dp)
+def _rs_leaf(tcfg: TrainConfig, g, zd: int, rk: Ranks, scale: int = 1):
+    """Reduce ``g [p, ...]`` over the DP ranks; scatter along zd, or a full
+    allreduce when zd < 0.  ``scale``: the TP size for a TP-sharded leaf
+    (see ``_backend_for``)."""
+    wire = _wire_cast(tcfg, g, rk.n_dp)
     if zd < 0:
-        b = _backend_for(tcfg, "allreduce", wire)
+        b = _backend_for(tcfg, "allreduce", wire, rk, scale)
         if b == "xla":
-            return stacked.psum(wire)
+            return rk.over_dp(stacked.psum, wire)
         if b == "ring":
-            return stacked.allreduce_ring(wire)
-        if _two_tier(b, shape):     # inner (data) RS, pod allreduce, AG
-            return stacked.allreduce_hierarchical(wire, shape, 1, 0, "bine")
+            return rk.over_dp(stacked.allreduce_ring, wire)
+        if _two_tier(b, rk):         # inner (data) RS, pod allreduce, AG
+            return stacked.allreduce_hierarchical(wire, rk.shape, 1, 0,
+                                                  "bine")
         algo = "recdoub" if b == "recdoub" else "bine"
-        per_rank = wire[0].numel() * wire.element_size()
-        if per_rank <= tcfg.small_cutoff_bytes:    # inclusive boundary
-            return stacked.allreduce_small(wire, algo)
+        if _nbytes(wire, scale) <= tcfg.small_cutoff_bytes:   # inclusive
+            return rk.over_dp(stacked.allreduce_small, wire, algo)
         if b == "pallas_fused":
-            return fused.allreduce(wire, "bine")
-        return stacked.allreduce_butterfly(wire, algo)
-    b = _backend_for(tcfg, "reduce_scatter", wire)
+            return rk.over_dp(fused.allreduce, wire, "bine")
+        return rk.over_dp(stacked.allreduce_butterfly, wire, algo)
+    b = _backend_for(tcfg, "reduce_scatter", wire, rk, scale)
     if b == "xla":
-        return stacked.psum_scatter(wire, zd)
-    if _two_tier(b, shape):         # intra-pod (data) first, then pod
-        out = stacked.over_axis(stacked.reduce_scatter_dim, wire, shape, 1,
-                                zd, "bine")
-        return stacked.over_axis(stacked.reduce_scatter_dim, out, shape, 0,
-                                 zd, "bine")
+        return rk.over_dp(stacked.psum_scatter, wire, zd)
+    if _two_tier(b, rk):             # intra-pod (data) first, then pod
+        out = rk.over_dp_axis(stacked.reduce_scatter_dim, wire, 1, zd, "bine")
+        return rk.over_dp_axis(stacked.reduce_scatter_dim, out, 0, zd, "bine")
     if b == "pallas_fused":
-        return fused.reduce_scatter_dim(wire, zd, "bine")
-    return stacked.reduce_scatter_dim(wire, zd, _algo(b))
+        return rk.over_dp(fused.reduce_scatter_dim, wire, zd, "bine")
+    return rk.over_dp(stacked.reduce_scatter_dim, wire, zd, _algo(b))
 
 
 def _algo(b: str) -> str:
@@ -252,72 +317,70 @@ def _algo(b: str) -> str:
             "ring": "ring"}[b]
 
 
-def _ag_leaf(tcfg: TrainConfig, x, zd: int, shape: Tuple[int, ...]):
+def _ag_leaf(tcfg: TrainConfig, x, zd: int, rk: Ranks, scale: int = 1):
     if zd < 0:
         return x
-    b = _backend_for(tcfg, "allgather", x, gathered=True)
+    b = _backend_for(tcfg, "allgather", x, rk, scale * rk.n_dp)
     if b == "xla":
-        return stacked.all_gather(x, zd)
-    if _two_tier(b, shape):         # pod, then data (the RS inverted)
-        out = stacked.over_axis(stacked.allgather_dim, x, shape, 0, zd,
-                                "bine")
-        return stacked.over_axis(stacked.allgather_dim, out, shape, 1, zd,
-                                 "bine")
+        return rk.over_dp(stacked.all_gather, x, zd)
+    if _two_tier(b, rk):             # pod, then data (the RS inverted)
+        out = rk.over_dp_axis(stacked.allgather_dim, x, 0, zd, "bine")
+        return rk.over_dp_axis(stacked.allgather_dim, out, 1, zd, "bine")
     if b == "pallas_fused":
-        return fused.allgather_dim(x, zd, "bine")
-    return stacked.allgather_dim(x, zd, _algo(b))
+        return rk.over_dp(fused.allgather_dim, x, zd, "bine")
+    return rk.over_dp(stacked.allgather_dim, x, zd, _algo(b))
 
 
-def _rs_bucket(b: str, v, shape: Tuple[int, ...]):
-    """One flat reduce-scatter of ``v [p, L]`` -> ``[p, L/p]`` on the
+def _rs_bucket(b: str, v, rk: Ranks):
+    """One flat reduce-scatter of ``v [p, L]`` -> ``[p, L/n_dp]`` on the
     bucket's static backend decision; two-axis ``bine_hier`` runs the
     per-leaf path's axis order, so rank r's row is block ``owner[r]``."""
     if b == "xla":
-        return stacked.psum_scatter(v, 0)
-    if _two_tier(b, shape):
-        out = stacked.over_axis(stacked.reduce_scatter, v, shape, 1, "bine")
-        return stacked.over_axis(stacked.reduce_scatter, out, shape, 0,
-                                 "bine")
+        return rk.over_dp(stacked.psum_scatter, v, 0)
+    if _two_tier(b, rk):
+        out = rk.over_dp_axis(stacked.reduce_scatter, v, 1, "bine")
+        return rk.over_dp_axis(stacked.reduce_scatter, out, 0, "bine")
     if b == "pallas_fused":
-        return fused.reduce_scatter(v, "bine")
-    return stacked.reduce_scatter(v, _algo(b))
+        return rk.over_dp(fused.reduce_scatter, v, "bine")
+    return rk.over_dp(stacked.reduce_scatter, v, _algo(b))
 
 
-def _ag_bucket(b: str, row, shape: Tuple[int, ...]):
-    """Inverse flat allgather: ``[p, L/p]`` -> the full bucket ``[p, L]``."""
+def _ag_bucket(b: str, row, rk: Ranks):
+    """Inverse flat allgather: ``[p, L/n_dp]`` -> the full bucket."""
     if b == "xla":
-        return stacked.all_gather(row, 0)
-    if _two_tier(b, shape):
-        out = stacked.over_axis(stacked.allgather, row, shape, 0, "bine")
-        return stacked.over_axis(stacked.allgather, out, shape, 1, "bine")
+        return rk.over_dp(stacked.all_gather, row, 0)
+    if _two_tier(b, rk):
+        out = rk.over_dp_axis(stacked.allgather, row, 0, "bine")
+        return rk.over_dp_axis(stacked.allgather, out, 1, "bine")
     if b == "pallas_fused":
-        return fused.allgather(row, "bine")
-    return stacked.allgather(row, _algo(b))
+        return rk.over_dp(fused.allgather, row, "bine")
+    return rk.over_dp(stacked.allgather, row, _algo(b))
 
 
-def _rs_bucket_q(backend: str, v):
+def _rs_bucket_q(backend: str, v, rk: Ranks):
     """int8-wire flat reduce-scatter; the stacked and fused twins decode
     bit-identically, so the backend changes speed, never the result."""
     if backend == "pallas_fused":
-        return fused.reduce_scatter_q(v, "bine")
-    return stacked.reduce_scatter_q(v, backend)
+        return rk.over_dp(fused.reduce_scatter_q, v, "bine")
+    return rk.over_dp(stacked.reduce_scatter_q, v, backend)
 
 
-def _ag_bucket_q(backend: str, row):
+def _ag_bucket_q(backend: str, row, rk: Ranks):
     if backend == "pallas_fused":
-        return fused.allgather_q(row, "bine")
-    return stacked.allgather_q(row, backend)
+        return rk.over_dp(fused.allgather_q, row, "bine")
+    return rk.over_dp(stacked.allgather_q, row, backend)
 
 
-def _small_allreduce(tcfg: TrainConfig, x):
+def _small_allreduce(tcfg: TrainConfig, x, rk: Ranks):
     """The grad-norm and metrics vector: the small full-vector path
     (pallas_fused shares bine's tree: nothing to fuse)."""
-    b = _backend_for(tcfg, "allreduce", x)
+    b = _backend_for(tcfg, "allreduce", x, rk)
     if b == "xla":
-        return stacked.psum(x)
+        return rk.over_dp(stacked.psum, x)
     if b == "ring":
-        return stacked.allreduce_ring(x)
-    return stacked.allreduce_small(x, "recdoub" if b == "recdoub" else "bine")
+        return rk.over_dp(stacked.allreduce_ring, x)
+    return rk.over_dp(stacked.allreduce_small, x,
+                      "recdoub" if b == "recdoub" else "bine")
 
 
 def resolve_bucket_plan(tcfg: TrainConfig, n_dp: int, params_shapes,
@@ -431,54 +494,125 @@ def bucket_report(tcfg: TrainConfig, plan: Optional[buckets.BucketPlan]):
 # Train state
 # ---------------------------------------------------------------------------
 
-def _ef_init(tcfg: TrainConfig, plan, device) -> Dict[str, torch.Tensor]:
-    """Zero error-feedback residuals ``[p, L]`` f32, one per int8 bucket."""
+@dataclass(frozen=True)
+class Layout:
+    """The static layout of a step over ``ranks``: per leaf (flatten
+    order) its zero dim and, under TP, its model dim (-1: every TP rank
+    holds it whole) and one TP rank's shape; the bucket plan (the
+    reference's, over the global leaves) and its TP columns."""
+    ranks: Ranks
+    zero_dims: Tuple[int, ...]
+    model_dims: Tuple[int, ...]
+    local_shapes: Tuple[Tuple[int, ...], ...]
+    plan: Optional[buckets.BucketPlan]
+    local_plan: Optional[buckets.BucketPlan]
+
+
+def _global_shapes(model_cfg, params_or_shapes, tp: int):
+    """Global shapes: the tree itself at ``tp == 1`` (a rank's tree),
+    the model's ``meta`` shapes under TP."""
+    return params_or_shapes if tp == 1 else TF.param_shapes(model_cfg)
+
+
+def step_layout(model_cfg, tcfg: TrainConfig, dp, params_shapes,
+                tp: int = 1) -> Layout:
+    """The :class:`Layout` of ``params_shapes`` (global) over the DP sizes
+    ``dp`` and a model axis of ``tp``."""
+    rk = Ranks(dp_shape(tcfg, dp), int(tp))
+    zd_tree = zero.zero_layout(model_cfg, params_shapes, rk.n_dp, rk.tp)
+    shapes = [tuple(x.shape) for x in T.flatten(params_shapes)]
+    if rk.tp > 1:
+        mds = tuple(T.flatten(SH.model_dims(model_cfg, params_shapes,
+                                            rk.tp)))
+    else:
+        mds = (-1,) * len(shapes)
+    local = tuple(SH.local_shape(sh, md, rk.tp) for sh, md in zip(shapes,
+                                                                   mds))
+    plan = resolve_bucket_plan(tcfg, rk.n_dp, params_shapes, zd_tree)
+    lplan = plan if plan is None or rk.tp == 1 else \
+        buckets.local_plan(plan, local)
+    return Layout(rk, tuple(T.flatten(zd_tree)), mds, local, plan, lplan)
+
+
+def _tp_gather(x: torch.Tensor, md: int) -> torch.Tensor:
+    """``x [tp, *shard]`` -> the whole ``[tp, *leaf]`` on every TP rank (an
+    all-gather over them along ``md``); a leaf each rank holds whole
+    stays."""
+    return stacked.all_gather(x, md) if md >= 0 else x
+
+
+def _tp_own(x: torch.Tensor, md: int, rk: Ranks) -> torch.Tensor:
+    """``x [p, *leaf block]``, whole on every TP rank -> each TP rank's
+    own shard along ``md`` (a leaf each rank holds whole stays)."""
+    if md < 0:
+        return x
+    return torch.cat([SH.rank_block(rk.per_dp(x, r), md)
+                      for r in range(rk.n_dp)])
+
+
+def _int8_buckets(tcfg: TrainConfig, plan) -> List[buckets.Bucket]:
+    """The buckets whose reduce-scatter wire is int8 (error feedback)."""
     if plan is None:
-        return {}
-    return {str(b.bid): torch.zeros((plan.n_dp, b.row_elems * plan.n_dp),
+        return []
+    return [b for b, d in zip(plan.buckets, bucket_decisions(tcfg, plan))
+            if d[1] == "int8"]
+
+
+def _ef_init(tcfg: TrainConfig, lay: Layout, device) -> Dict[str, torch.Tensor]:
+    """Zero error-feedback residuals ``[p, L]`` f32, one per int8 bucket
+    (``L``: the global bucket's length; under TP every TP rank codes the
+    whole bucket, see ``make_train_step``)."""
+    rk = lay.ranks
+    return {str(b.bid): torch.zeros((rk.n_dp * rk.tp, b.row_elems * rk.n_dp),
                                     dtype=torch.float32, device=device)
-            for b, d in zip(plan.buckets, bucket_decisions(tcfg, plan))
-            if d[1] == "int8"}
+            for b in _int8_buckets(tcfg, lay.plan)}
 
 
-def init_train_state(model_cfg, tcfg: TrainConfig, params: List[Any], dp):
+def init_train_state(model_cfg, tcfg: TrainConfig, params: List[Any], dp,
+                     tp: int = 1):
     """Optimizer state from the ranks' parameters: per leaf, every rank's
     ``zero_dim`` slice (block ``shard_owner[r]``) stacked ``[p, ...]`` (the
-    whole leaf if replicated).  ``dp``: the DP axes' sizes
-    (:func:`dp_shape`)."""
-    shape = dp_shape(tcfg, dp)
-    n_dp = int(np.prod(shape))
-    owner = shard_owner(tcfg, shape)
-    layout = zero.zero_layout(model_cfg, params[0], n_dp)
+    whole leaf if replicated); under TP, of each TP rank's shard, in
+    ``Ranks``' row order.  ``dp``: the DP axes' sizes (:func:`dp_shape`),
+    ``tp``: the model axis's."""
+    lay = step_layout(model_cfg, tcfg, dp,
+                      _global_shapes(model_cfg, params[0], tp), tp)
+    rk = lay.ranks
+    owner = shard_owner(tcfg, rk.dp)
     flats = [T.flatten(tr) for tr in params]
     opt = []
-    for i, zd in enumerate(T.flatten(layout)):
+    for i, zd in enumerate(lay.zero_dims):
         opt.append(adamw_init_leaf(torch.stack(
-            [zero.slice_leaf(flats[r][i], zd, n_dp, int(owner[r]))
-             for r in range(n_dp)])))
+            [zero.slice_leaf(x, zd, rk.n_dp, int(owner[r]))
+             for r in range(rk.n_dp)
+             for x in ([flats[r][i]] if rk.tp == 1 else flats[r][i])])))
     device = flats[0][0].device
     state = {"opt": T.unflatten(params[0], opt),
              "step": torch.zeros((), dtype=torch.int32, device=device)}
-    ef = _ef_init(tcfg, resolve_bucket_plan(tcfg, n_dp, params[0], layout),
-                  device)
+    ef = _ef_init(tcfg, lay, device)
     if ef:
         state["ef"] = ef
     return state
 
 
-def make_init_fns(model_cfg, tcfg: TrainConfig, dp, device="cuda"):
-    """(init_params(seed) -> p per-rank trees, init_state(params) -> state).
-    Every rank starts from the same weights, each in its own copy.
-    ``dp``: the DP axes' sizes (:func:`dp_shape`)."""
+def make_init_fns(model_cfg, tcfg: TrainConfig, dp, device="cuda",
+                  tp: int = 1):
+    """(init_params(seed) -> one tree per DP rank, init_state(params) ->
+    state).  Every rank starts from the same weights, each in its own
+    copy; under TP (``tp > 1``) each DP rank's tree is stacked over its TP
+    ranks (``sharding.shard_params``).  ``dp``: the DP axes' sizes
+    (:func:`dp_shape`)."""
     dev = resolve_device(device)
     n_dp = int(np.prod(dp_shape(tcfg, dp)))
 
     def init_p(seed: int = 0):
         one = TF.init_params(model_cfg, seed, dev)
+        if tp > 1:
+            one = SH.shard_params(model_cfg, one, tp)
         return [one] + [T.tree_map(torch.clone, one) for _ in range(n_dp - 1)]
 
     def init_s(params):
-        return init_train_state(model_cfg, tcfg, params, dp)
+        return init_train_state(model_cfg, tcfg, params, dp, tp)
 
     return init_p, init_s
 
@@ -488,28 +622,35 @@ def make_init_fns(model_cfg, tcfg: TrainConfig, dp, device="cuda"):
 # ---------------------------------------------------------------------------
 
 def to_global(model_cfg, tcfg: TrainConfig, params: List[Any], state: Dict,
-              dp, device=None) -> Dict:
+              dp, device=None, tp: int = 1) -> Dict:
     """The stacked per-rank ``params`` and ``state`` as the logical arrays
     a checkpoint holds: ``{"params": tree, "state": {"opt": tree of
     {"m", "master", "v"}, "step": scalar, ["ef": {bid: [n_dp, L]}]}}``.
+    The global layout has no model axis: under TP each leaf is its TP
+    ranks' shards joined, so a state saved at one ``(dp, tp)`` restores at
+    any other, and a checkpoint of the reference's TP run (whose arrays
+    are global) restores too.
 
-    Params are one rank's tree; every rank must hold the same bits.  A
-    ZeRO-sharded optimizer leaf is whole: stacked rank r's slice is block
-    ``shard_owner[r]`` along the leaf's zero dim; a replicated one is
+    Params are one DP rank's tree; every DP rank must hold the same bits,
+    and every TP rank the same bits of a leaf it holds whole.  A
+    ZeRO-sharded optimizer leaf is whole: stacked DP rank r's slice is
+    block ``shard_owner[r]`` along the leaf's zero dim; a replicated one is
     rank 0's copy, every rank's checked equal.  The error-feedback rows
-    are per rank in ``dp_axes`` order, which is the stacking order, so the
-    stacked ``[p, L]`` is already the global array.  ``device``: where each
-    leaf lands as it is built ("cpu" streams a state larger than the
-    card's free memory to the host, leaf by leaf; "meta" gives shapes and
-    dtypes only); None keeps the params' device.  Every leaf is a new
-    tensor or a rank's params, never a view of the state the step
-    updates in place."""
+    are per DP rank in ``dp_axes`` order, which is the stacking order;
+    under TP each row is rebuilt from the TP columns in the reference's
+    bucket order.  ``device``: where each leaf lands as it is built
+    ("cpu" streams a state larger than the card's free memory to the
+    host, leaf by leaf; "meta" gives shapes and dtypes only); None keeps
+    the params' device.  Every leaf is a new tensor or a rank's params,
+    never a view of the state the step updates in place."""
     shape = dp_shape(tcfg, dp)
     n_dp = int(np.prod(shape))
     if len(params) != n_dp:
         raise ValueError(f"{len(params)} rank trees for DP sizes {shape}")
     meta = device is not None and torch.device(device).type == "meta"
     order = [int(r) for r in np.argsort(shard_owner(tcfg, shape))]
+    lay = step_layout(model_cfg, tcfg, dp,
+                      _global_shapes(model_cfg, params[0], tp), tp)
 
     def put(t: torch.Tensor) -> torch.Tensor:
         return t if device is None else t.to(device)
@@ -523,14 +664,24 @@ def to_global(model_cfg, tcfg: TrainConfig, params: List[Any], state: Dict,
                     raise ValueError(
                         f"{T.keystr(('params',) + path)}: rank {r}'s "
                         f"parameter differs from rank 0's")
+        if tp > 1:
+            leaf = SH.join_leaf(leaf, lay.model_dims[i],
+                                T.keystr(("params",) + path))
         glob_p.append(put(leaf))
-    layout = zero.zero_layout(model_cfg, params[0], n_dp)
     opt = []
-    for (path, _), zd, st in zip(flats[0], T.flatten(layout),
-                                 T.flatten_up_to(params[0], state["opt"])):
+    for i, ((path, _), zd, st) in enumerate(zip(
+            flats[0], lay.zero_dims,
+            T.flatten_up_to(params[0], state["opt"]))):
+        md = lay.model_dims[i]
         one = {}
         for k in sorted(st):
             x = st[k]
+            what = T.keystr(("state", "opt") + path + (k,))
+            if tp > 1:        # join the TP shards of each DP rank's block
+                x = x.unflatten(0, (n_dp, tp))
+                x = torch.cat(list(x.unbind(1)), dim=md + 1) if md >= 0 \
+                    else torch.stack([SH.join_leaf(x[r], -1, what)
+                                      for r in range(n_dp)])
             if meta:
                 full = list(x.shape[1:])
                 if zd >= 0:
@@ -541,57 +692,90 @@ def to_global(model_cfg, tcfg: TrainConfig, params: List[Any], state: Dict,
             else:
                 for r in range(1, n_dp):
                     if not torch.equal(x[r], x[0]):
-                        raise ValueError(
-                            f"{T.keystr(('state', 'opt') + path + (k,))}: "
-                            f"rank {r}'s replicated copy differs")
+                        raise ValueError(f"{what}: rank {r}'s replicated "
+                                         f"copy differs")
                 one[k] = put(x[0].clone())
         opt.append(one)
     out_state = {"opt": T.unflatten(params[0], opt),
                  "step": put(state["step"].clone())}
     if "ef" in state:
-        out_state["ef"] = {k: put(v.clone()) for k, v in state["ef"].items()}
-    return {"params": T.unflatten(params[0], glob_p), "state": out_state}
+        out_state["ef"] = {k: put(_ef_to_global(lay, k, v, meta))
+                           for k, v in state["ef"].items()}
+    out_params = T.unflatten(params[0], glob_p)
+    return {"params": out_params, "state": out_state}
+
+
+def _ef_to_global(lay: Layout, bid: str, v: torch.Tensor, meta: bool):
+    """One bucket's residual ``[p, L]`` -> the global ``[n_dp, L]``: under
+    TP every TP rank of a DP rank holds the same row (checked)."""
+    rk = lay.ranks
+    if rk.tp == 1:
+        return v.clone()
+    v = v.unflatten(0, (rk.n_dp, rk.tp))
+    if meta:
+        return torch.empty_like(v[:, 0], device="meta")
+    for t in range(1, rk.tp):
+        if not torch.equal(v[:, t], v[:, 0]):
+            raise ValueError(f"['state']['ef'][{bid!r}]: TP rank {t}'s "
+                             f"residual differs")
+    return v[:, 0].clone()
 
 
 def from_global(model_cfg, tcfg: TrainConfig, tree: Dict, dp,
-                device="cuda") -> Tuple[List[Any], Dict]:
-    """Inverse of :func:`to_global` for the DP sizes ``dp`` (any, not only
-    the ones the tree was saved at): ``(params, state)`` stacked on
-    ``device``.  The optimizer leaves are cut by ``zero.zero_layout`` at
-    this ``n_dp`` and handed out by ``shard_owner``; the error-feedback
-    rows must match this config's int8 buckets at this ``n_dp`` (they are
-    per-rank residuals and cannot be re-sliced), as the reference's
-    restore asserts their global shape."""
+                device="cuda", tp: int = 1) -> Tuple[List[Any], Dict]:
+    """Inverse of :func:`to_global` for the DP sizes ``dp`` and the model
+    axis ``tp`` (any, not only the ones the tree was saved at):
+    ``(params, state)`` stacked on ``device``.  The optimizer leaves are
+    cut by ``zero.zero_layout`` at this ``n_dp`` (and ``tp``), handed out
+    by ``shard_owner`` and, under TP, split over the TP ranks as their
+    params are; the error-feedback rows must match this config's int8
+    buckets at this ``n_dp`` (they are per-rank residuals and cannot be
+    re-sliced), as the reference's restore asserts their global shape."""
     dev = resolve_device(device)
-    shape = dp_shape(tcfg, dp)
-    n_dp = int(np.prod(shape))
-    owner = shard_owner(tcfg, shape)
     one = T.tree_map(lambda x: x.to(dev), tree["params"])
-    params = [one] + [T.tree_map(torch.clone, one) for _ in range(n_dp - 1)]
-    layout = zero.zero_layout(model_cfg, one, n_dp)
-    opt = []
-    for zd, st in zip(T.flatten(layout),
-                      T.flatten_up_to(one, tree["state"]["opt"])):
-        opt.append({k: torch.stack([
-            zero.slice_leaf(v, zd, n_dp, int(owner[r])) for r in range(n_dp)
-        ]).to(dev) if zd >= 0 else v.to(dev).expand(
-            (n_dp,) + tuple(v.shape)).clone() for k, v in st.items()})
+    lay = step_layout(model_cfg, tcfg, dp, _global_shapes(model_cfg, one, tp),
+                      tp)
+    rk = lay.ranks
+    owner = shard_owner(tcfg, rk.dp)
+    if tp > 1:
+        one = SH.shard_params(model_cfg, one, tp)
+    params = [one] + [T.tree_map(torch.clone, one)
+                      for _ in range(rk.n_dp - 1)]
+
+    def cut(v, zd, md):
+        """A global optimizer leaf -> ``[p, ...]`` in ``Ranks``' order."""
+        v = v.to(dev)
+        if zd < 0:
+            rows = [v] * rk.n_dp
+        else:
+            rows = [zero.slice_leaf(v, zd, rk.n_dp, int(owner[r]))
+                    for r in range(rk.n_dp)]
+        if tp > 1:
+            return torch.cat([SH.split_leaf(x, md, tp) for x in rows])
+        return torch.stack(rows) if zd >= 0 else v.expand(
+            (rk.n_dp,) + tuple(v.shape)).clone()
+
+    opt = [{k: cut(v, zd, md) for k, v in st.items()}
+           for zd, md, st in zip(lay.zero_dims, lay.model_dims,
+                                 T.flatten_up_to(tree["params"],
+                                                 tree["state"]["opt"]))]
     state = {"opt": T.unflatten(one, opt),
              "step": tree["state"]["step"].to(dev, torch.int32)}
-    plan = resolve_bucket_plan(tcfg, n_dp, one, layout)
-    want = _ef_init(tcfg, plan, "meta")
+    want = {str(b.bid): (rk.n_dp, b.row_elems * rk.n_dp)
+            for b in _int8_buckets(tcfg, lay.plan)}
     got = tree["state"].get("ef", {})
     if sorted(want) != sorted(got):
         raise ValueError(
             f"['state']['ef']: the checkpoint's int8 buckets {sorted(got)} "
-            f"are not this config's {sorted(want)} at n_dp={n_dp}")
+            f"are not this config's {sorted(want)} at n_dp={rk.n_dp}")
     for bid, v in got.items():
-        if tuple(v.shape) != tuple(want[bid].shape):
+        if tuple(v.shape) != want[bid]:
             raise ValueError(
                 f"['state']['ef'][{bid!r}]: ckpt {tuple(v.shape)} vs "
-                f"expected {tuple(want[bid].shape)} at n_dp={n_dp}")
+                f"expected {want[bid]} at n_dp={rk.n_dp}")
     if want:
-        state["ef"] = {k: v.to(dev, torch.float32) for k, v in got.items()}
+        state["ef"] = {k: v.to(dev, torch.float32).repeat_interleave(
+            rk.tp, dim=0) for k, v in got.items()}
     return params, state
 
 
@@ -599,13 +783,22 @@ def from_global(model_cfg, tcfg: TrainConfig, tree: Dict, dp,
 # The step
 # ---------------------------------------------------------------------------
 
-def _rank_grads(model_cfg, tcfg: TrainConfig, params, batch):
-    """One rank's (flat grads, metrics) on its batch shard."""
+def _rank_grads(model_cfg, tcfg: TrainConfig, params, batch, tp: int = 1):
+    """One DP rank's (flat grads, metrics) on its batch shard.  Under TP
+    its whole TP group runs at once (collectives sit mid-forward): leaves
+    and grads are ``[tp, ...]``, every metric ``[tp]``, and the scalar
+    differentiated is the ranks' mean loss (each rank's loss is the same
+    function of all ranks' values)."""
     leaves = [x.detach().requires_grad_(True) for x in T.flatten(params)]
     tree = T.unflatten(params, leaves)
+
+    def lossf(mb):
+        loss, metrics = TF.loss_fn(tree, model_cfg, mb, n_model=tp)
+        return (loss.mean() if tp > 1 else loss), metrics
+
     A = tcfg.accum_steps
     if A == 1:
-        loss, metrics = TF.loss_fn(tree, model_cfg, batch)
+        loss, metrics = lossf(batch)
         grads = list(torch.autograd.grad(loss, leaves))
         return grads, {k: v.detach() for k, v in metrics.items()}
     mbs = {k: v.reshape((A, v.shape[0] // A) + tuple(v.shape[1:]))
@@ -614,7 +807,7 @@ def _rank_grads(model_cfg, tcfg: TrainConfig, params, batch):
              for x in leaves]
     me_acc: Dict[str, torch.Tensor] = {}
     for a in range(A):
-        loss, me = TF.loss_fn(tree, model_cfg, {k: v[a] for k, v in mbs.items()})
+        loss, me = lossf({k: v[a] for k, v in mbs.items()})
         for acc, g in zip(g_acc, torch.autograd.grad(loss, leaves)):
             acc += g.to(torch.float32)
         for k, v in me.items():
@@ -623,27 +816,32 @@ def _rank_grads(model_cfg, tcfg: TrainConfig, params, batch):
 
 
 def make_train_step(model_cfg, tcfg: TrainConfig, dp, params_shapes,
-                    device="cuda"):
+                    device="cuda", tp: int = 1):
     """Returns ``(step, info, layout)``.
 
     ``dp`` gives the sizes of ``tcfg.dp_axes`` (:func:`dp_shape`: an int
-    for one axis); the ranks are stacked row-major over them.
-    ``step(params, state, batch) -> (params, state, metrics)``: ``params`` a
-    list of ``n_dp`` per-rank trees, ``batch`` the global batch (numpy or
-    tensors, ``[B, T]``) split over the ranks along dim 0.  The step
-    updates ``state``'s optimizer and error-feedback buffers in place: hand
-    the state over, as the reference step donates it.  ``info`` holds the
-    static ``bucket_plan`` (None = per-leaf collectives)."""
+    for one axis), ``tp`` the model axis's; the ranks are stacked
+    row-major over ``(*dp, tp)`` (:class:`Ranks`).  ``params_shapes``: the
+    global parameter tree (or its shapes).  ``step(params, state, batch)
+    -> (params, state, metrics)``: ``params`` a list of ``n_dp`` per-rank
+    trees (under TP each stacked over its TP ranks,
+    ``sharding.shard_params``), ``batch`` the global batch (numpy or
+    tensors, ``[B, T]``) split over the DP ranks along dim 0, every TP
+    rank of a DP rank reading its shard.  The step updates ``state``'s
+    optimizer and error-feedback buffers in place: hand the state over,
+    as the reference step donates it.  ``info`` holds the static
+    ``bucket_plan`` (None = per-leaf collectives), its ``decisions`` and
+    the step's :class:`Layout`."""
     dev = resolve_device(device)
-    shape = dp_shape(tcfg, dp)
-    n_dp = int(np.prod(shape))
+    lay = step_layout(model_cfg, tcfg, dp, params_shapes, tp)
+    rk = lay.ranks
+    n_dp = rk.n_dp
     if n_dp > 1 and not executable_at(tcfg.backend, n_dp):
         raise ValueError(
             f"backend={tcfg.backend!r} cannot execute at non-power-of-"
             f"two n_dp={n_dp} (butterfly schedules need pow2 rank counts); "
             f"use backend='ring' or 'xla'")
-    layout = zero.zero_layout(model_cfg, params_shapes, n_dp)
-    plan = resolve_bucket_plan(tcfg, n_dp, params_shapes, layout)
+    plan = lay.plan
     if tcfg.wire_dtype == "int8":
         if n_dp & (n_dp - 1):
             raise ValueError(
@@ -658,7 +856,12 @@ def make_train_step(model_cfg, tcfg: TrainConfig, dp, params_shapes,
         # telemetry: the step's static per-bucket dispatches, once per build
         from repro_torch.obs import collect
         collect.record_bucket_plan(tcfg, plan, decisions, n_dp)
-    flat_zd = T.flatten(layout)
+    flat_zd = list(lay.zero_dims)
+    mds = lay.model_dims
+    lead = 1 if rk.tp > 1 else 0     # a DP rank's leaves: [tp, ...] under TP
+    p_all = n_dp * rk.tp
+    #: pricing scale of each leaf: the reference sees the global leaf
+    tp_scale = [rk.tp if md >= 0 else 1 for md in mds]
 
     def step(params, state, batch):
         flat_p = [T.flatten(tr) for tr in params]
@@ -666,14 +869,20 @@ def make_train_step(model_cfg, tcfg: TrainConfig, dp, params_shapes,
         step_no = state["step"]
         nleaf = len(flat_zd)
 
-        # ---- forward/backward, one rank after another ----
+        # ---- forward/backward, one DP rank (and its TP group) at a time ----
         grads: List[List[Optional[torch.Tensor]]] = []
         mets = []
         shards = {k: torch.as_tensor(np.asarray(v)).to(dev).chunk(n_dp)
                   for k, v in batch.items()}
         for r in range(n_dp):
             g, m = _rank_grads(model_cfg, tcfg, params[r],
-                               {k: v[r] for k, v in shards.items()})
+                               {k: v[r] for k, v in shards.items()}, rk.tp)
+            if rk.tp > 1:
+                # a leaf each TP rank holds whole saw only that rank's
+                # share of the work: sum over the TP ranks (GSPMD's
+                # implicit reduction) before the DP collectives
+                g = [stacked.psum(x) if md < 0 else x
+                     for x, md in zip(g, mds)]
             grads.append(g)
             mets.append(m)
 
@@ -682,7 +891,7 @@ def make_train_step(model_cfg, tcfg: TrainConfig, dp, params_shapes,
             g = torch.stack([grads[r][i] for r in range(n_dp)])
             for r in range(n_dp):
                 grads[r][i] = None
-            return g
+            return g.flatten(0, 1) if rk.tp > 1 else g
 
         # ---- DP gradient reduce-scatter ----
         post = _post_reduce_div(tcfg, n_dp)
@@ -690,19 +899,27 @@ def make_train_step(model_cfg, tcfg: TrainConfig, dp, params_shapes,
         new_ef: Dict[str, torch.Tensor] = {}
         if plan is None:
             for i, zd in enumerate(flat_zd):
-                g_sh[i] = _rs_leaf(tcfg, take(i), zd, shape).to(
+                g_sh[i] = _rs_leaf(tcfg, take(i), zd, rk, tp_scale[i]).to(
                     torch.float32) / post
         else:
             for i in plan.replicated:
-                g_sh[i] = _rs_leaf(tcfg, take(i), -1, shape).to(
+                g_sh[i] = _rs_leaf(tcfg, take(i), -1, rk, tp_scale[i]).to(
                     torch.float32) / post
-            for bucket, (rs_b, rs_w, _, _) in zip(plan.buckets, decisions):
+            for gb, lb, (rs_b, rs_w, _, _) in zip(
+                    plan.buckets, lay.local_plan.buckets, decisions):
+                # the int8 codec runs on the global bucket on every TP
+                # rank, as GSPMD lays it out (each rank's column would
+                # quantize other chunks); the other wires on the columns
+                whole = rk.tp > 1 and rs_w == "int8"
+                bucket = gb if whole else lb
                 v = None
                 for r in range(n_dp):
                     row = buckets.pack_bucket(
-                        bucket, [_bucket_wire_cast(rs_w, grads[r][s.index],
-                                                   n_dp)
-                                 for s in bucket.slots], n_dp)
+                        bucket, [_bucket_wire_cast(
+                            rs_w, _tp_gather(grads[r][s.index],
+                                             mds[s.index]) if whole
+                            else grads[r][s.index], n_dp)
+                            for s in bucket.slots], n_dp, lead)
                     if v is None:
                         v = torch.empty((n_dp,) + tuple(row.shape),
                                         dtype=row.dtype, device=row.device)
@@ -710,35 +927,41 @@ def make_train_step(model_cfg, tcfg: TrainConfig, dp, params_shapes,
                     del row
                     for s in bucket.slots:   # this rank's grads are packed
                         grads[r][s.index] = None
+                v = v.view(p_all, -1)
                 if rs_w == "int8":
                     # error feedback: the codec's quantization error rides
                     # into next step's gradient
                     bid = str(bucket.bid)
                     v, new_ef[bid] = comp.ef_compress(v, state["ef"][bid],
                                                       codec="wire_int8")
-                    row = _rs_bucket_q(rs_b, v)
+                    row = _rs_bucket_q(rs_b, v, rk)
                 else:
-                    row = _rs_bucket(rs_b, v, shape)
+                    row = _rs_bucket(rs_b, v, rk)
                 del v
                 row = row.to(torch.float32) / _bucket_post(rs_w, n_dp)
                 for s, view in zip(bucket.slots,
                                    buckets.shard_views(bucket, row, n_dp)):
-                    g_sh[s.index] = view
+                    g_sh[s.index] = _tp_own(view, mds[s.index], rk) \
+                        if whole else view
 
         # ---- grad-norm + metrics: ONE stacked small allreduce ----
-        def sq(g):
-            return torch.sum(torch.square(g), dim=tuple(range(1, g.dim())))
+        def sq(i):
+            """Leaf i's sum of squares per rank: under TP the whole
+            block's, each element counted once."""
+            g = g_sh[i]
+            out = torch.sum(torch.square(g), dim=tuple(range(1, g.dim())))
+            return rk.psum_tp(out) if mds[i] >= 0 else out
 
-        zeros = torch.zeros(n_dp, dtype=torch.float32, device=dev)
-        sq_shard = sum((sq(g) for g, zd in zip(g_sh, flat_zd) if zd >= 0),
+        zeros = torch.zeros(p_all, dtype=torch.float32, device=dev)
+        sq_shard = sum((sq(i) for i, zd in enumerate(flat_zd) if zd >= 0),
                        zeros)
-        sq_repl = sum((sq(g) for g, zd in zip(g_sh, flat_zd) if zd < 0),
+        sq_repl = sum((sq(i) for i, zd in enumerate(flat_zd) if zd < 0),
                       zeros)
         mkeys = sorted(mets[0])
         vec = torch.stack(
-            [sq_shard] + [torch.stack([m[k] for m in mets]).to(torch.float32)
-                          for k in mkeys], dim=1)
-        red = _small_allreduce(tcfg, vec)
+            [sq_shard] + [torch.stack([m[k] for m in mets]).to(
+                torch.float32).reshape(-1) for k in mkeys], dim=1)
+        red = _small_allreduce(tcfg, vec, rk)
         gnorm = torch.sqrt(red[:, 0] + sq_repl)
         if tcfg.clip_norm > 0:
             scale = torch.clamp(tcfg.clip_norm / (gnorm + 1e-9), max=1.0)
@@ -760,27 +983,36 @@ def make_train_step(model_cfg, tcfg: TrainConfig, dp, params_shapes,
 
         def scatter_ranks(i, stacked_leaf):
             for r in range(n_dp):
-                new_p[r][i] = stacked_leaf[r]
+                new_p[r][i] = rk.per_dp(stacked_leaf, r)
 
         if plan is None:
             for i, zd in enumerate(flat_zd):
-                scatter_ranks(i, _ag_leaf(tcfg, upd(i), zd, shape))
+                scatter_ranks(i, _ag_leaf(tcfg, upd(i), zd, rk, tp_scale[i]))
         else:
             for i in plan.replicated:
                 scatter_ranks(i, upd(i))
-            for bucket, (_, _, ag_b, ag_w) in zip(plan.buckets, decisions):
-                packed = buckets.pack_shards(
-                    bucket, [upd(s.index) for s in bucket.slots], lead=1)
+            for gb, lb, (_, _, ag_b, ag_w) in zip(
+                    plan.buckets, lay.local_plan.buckets, decisions):
+                whole = rk.tp > 1 and ag_w == "int8"
+                bucket = gb if whole else lb
+                masters = [upd(s.index) for s in bucket.slots]
+                if whole:
+                    masters = [rk.over_tp(_tp_gather, x, mds[s.index])
+                               for x, s in zip(masters, bucket.slots)]
+                packed = buckets.pack_shards(bucket, masters, lead=1)
+                del masters
                 if ag_w == "int8":
-                    full = _ag_bucket_q(ag_b, packed).to(
+                    full = _ag_bucket_q(ag_b, packed, rk).to(
                         getattr(torch, bucket.dtype))
                 else:
-                    full = _ag_bucket(ag_b, packed, shape)
+                    full = _ag_bucket(ag_b, packed, rk)
                 del packed
                 for r in range(n_dp):
                     for s, leaf in zip(bucket.slots, buckets.unpack_bucket(
-                            bucket, full[r], n_dp)):
-                        new_p[r][s.index] = leaf
+                            bucket, rk.per_dp(full, r), n_dp, lead)):
+                        md = mds[s.index]
+                        new_p[r][s.index] = SH.rank_block(leaf, md) \
+                            if whole and md >= 0 else leaf
                 del full
 
         out_params = [T.unflatten(params[0], new_p[r]) for r in range(n_dp)]
@@ -793,4 +1025,6 @@ def make_train_step(model_cfg, tcfg: TrainConfig, dp, params_shapes,
             new_state["ef"] = new_ef
         return out_params, new_state, metrics
 
-    return step, {"bucket_plan": plan, "decisions": decisions}, layout
+    layout = T.unflatten(params_shapes, list(flat_zd))
+    return step, {"bucket_plan": plan, "decisions": decisions,
+                  "layout": lay}, layout

@@ -5,6 +5,10 @@ Port of ``zero_layout`` and ``slice_leaf`` of ``repro.train.zero``.  Rules
 per leaf: candidate dims are not model-sharded (``models.sharding``) and
 divide by ``n_dp``; the largest wins; no candidate -> ``-1``, the leaf
 joins the replicated group (allreduced, optimizer state replicated).
+The specs are those of the model axis's size ``n_model`` (pure_sp
+replicates its weights, so their zero dims move), and the zero dim is
+never the one a TP rank's shard is cut on: stacked TP rank t of DP rank
+r holds block r along the zero dim of its own weight shard.
 """
 
 from __future__ import annotations
@@ -25,9 +29,10 @@ def _choose_dim(shape, spec, n_dp: int) -> int:
     return best
 
 
-def zero_layout(cfg, params_shapes, n_dp: int):
-    """Tree of zero_dim ints (-1 = replicated) mirroring the params."""
-    specs = param_specs(cfg, params_shapes)
+def zero_layout(cfg, params_shapes, n_dp: int, n_model: int = 1):
+    """Tree of zero_dim ints (-1 = replicated) mirroring the (global)
+    params, for a model axis of ``n_model``."""
+    specs = param_specs(cfg, params_shapes, n_model)
     return T.tree_map(
         lambda leaf, spec: _choose_dim(tuple(leaf.shape), spec, n_dp),
         params_shapes, specs)

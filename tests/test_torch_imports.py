@@ -34,7 +34,8 @@ def test_every_module_imports_without_jax(subproc):
     n_files = sum(1 for p in PORT.rglob("*.py") if p.name != "__init__.py")
     n_pkgs = sum(1 for p in PORT.rglob("__init__.py")) - 1
     assert n == n_files + n_pkgs
-    for mod in SERVING_MODULES + TWO_TIER_MODULES + RUNTIME_MODULES:
+    for mod in SERVING_MODULES + TWO_TIER_MODULES + RUNTIME_MODULES + \
+            TP_MODULES:
         assert (PORT / (mod.replace(".", "/") + ".py")).is_file(), mod
 
 
@@ -61,6 +62,13 @@ RUNTIME_MODULES = (
     "topology.table", "collectives.api", "train.checkpoint", "train.data",
     "train.runtime", "train.step", "interop", "serve.engine",
     "serve.scheduler", "launch.train")
+
+
+#: the tensor-parallel slice's modules, each imported above without jax
+TP_MODULES = (
+    "models.sharding", "models.layers", "models.transformer",
+    "collectives.stacked", "train.zero", "train.buckets", "train.step",
+    "interop", "launch.train", "launch.cell", "launch.profile_step")
 
 
 def _imports(tree):

@@ -345,9 +345,9 @@ def test_shard_owner_follows_opt_dp_order():
 def test_unported_backends_name_their_roadmap_item(tmp_path, monkeypatch):
     """``bine_hier`` runs over one or two DP axes; ``tuning="measured"``
     builds (with no measured table: the analytic decisions after one
-    warning) and the build records its bucket plan into ``obs``; what is
-    still not ported names its ROADMAP.md item (a model axis above 1,
-    item 3); bad configurations raise."""
+    warning) and the build records its bucket plan into ``obs``; a model
+    axis above 1 parses (tensor parallelism, tests/test_torch_tp.py); bad
+    configurations raise."""
     from repro_torch.launch.train import parse_mesh
     from repro_torch.obs import metrics
     from repro_torch.topology import table
@@ -372,8 +372,9 @@ def test_unported_backends_name_their_roadmap_item(tmp_path, monkeypatch):
     n = len(info["bucket_plan"].buckets)
     calls = sum(v for _, v in reg.series("collective_calls"))
     assert calls == 2 * 2 * n          # an RS and an AG a bucket, 2 builds
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
-        parse_mesh("1,4,2")
+    assert parse_mesh("1,4,2") == (("pod", "data"), (1, 4), 2)
+    with pytest.raises(ValueError, match="pod,data,model"):
+        parse_mesh("1,4,0")
     with pytest.raises(ValueError, match="dp_axes"):
         TrainConfig(dp_axes=("pod", "data", "x"))
     with pytest.raises(ValueError, match="do not match dp_axes"):
@@ -462,17 +463,17 @@ def test_tree_walks_keep_no_leaf_alive():
 
 def test_train_cli_takes_two_dp_axes(capsys):
     """``--mesh pod,data,model`` names the DP axes as the reference's mesh
-    does; a model axis above 1 is still queue A item 3."""
+    does, and the model axis's size (tensor parallelism above 1,
+    tests/test_torch_tp.py)."""
     from repro_torch.launch import train as L
-    assert L.parse_mesh("2,2,1") == (("pod", "data"), (2, 2))
-    assert L.parse_mesh("1,4,1") == (("pod", "data"), (1, 4))
-    assert L.parse_mesh("4,1") == (("data",), (4,))
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
-        L.parse_mesh("2,2,2")
+    assert L.parse_mesh("2,2,1") == (("pod", "data"), (2, 2), 1)
+    assert L.parse_mesh("1,4,1") == (("pod", "data"), (1, 4), 1)
+    assert L.parse_mesh("4,1") == (("data",), (4,), 1)
+    assert L.parse_mesh("2,2,2") == (("pod", "data"), (2, 2), 2)
     with pytest.raises(ValueError, match="pod,data,model"):
         L.parse_mesh("8")
     L.main(["--reduced", "--mesh", "2,2,1", "--backend", "bine_hier",
             "--device", "cpu", "--steps", "2", "--batch", "4", "--seq", "16"])
     out = capsys.readouterr().out
-    assert "dp={'pod': 2, 'data': 2} backend=bine_hier" in out
+    assert "dp={'pod': 2, 'data': 2} tp=1 (single) backend=bine_hier" in out
     assert "done: 2 steps" in out
