@@ -10,24 +10,25 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
 2. kernels — each kernel against its plain PyTorch version on the card at
              its path's shapes, with its median time, the plain
              version's, a library call's where one computes the same
-             function, and its bound: rs_step, ag_step, rs_step_q and
+             function, and its bound; every row also records the
+             wrapper's host us per call, and a row with a library call
+             that call's device ms (torch.profiler) and host us:
+             rs_step, ag_step, rs_step_q and
              ring_update BITWISE (one 64 MiB f32 bucket at p=4; rs_step_q
              also with NaN, inf, subnormal and FLT_MAX codec chunks in
              the send half; their rows and qacc's add the kernel's own
-             device ms from torch.profiler, and the log each collectives
-             wrapper's host us per call), the
+             device ms from torch.profiler), the
              matmul_pack / gather_matmul directions of perm_matmul within a
              bound stated from k (phi4-mini's tensor-parallel MLP shapes;
              float32 on the CUDA-core kernel, bf16 on the tensor-core
              ``wgmma`` kernel, the launch counts saying which ran);
              rmsnorm (rtol 1e-6 / one bf16 ulp; its row adds the
-             kernel's and F.rms_norm's device ms per call from
-             torch.profiler, and the log the wrapper's host us per call)
+             kernel's device ms per call from torch.profiler)
              and flash_attention (2e-5 float32 on the CUDA cores / 3e-2
              bf16 on wgmma) at the serve
              cell's insert and decode shapes, qacc BITWISE on a 64 MiB
-             accumulator, then the qdot op's own path (four int8 payloads
-             accumulated, launches counted);
+             accumulator (and at chunks 100 and 99), then the qdot op's
+             own path (four int8 payloads accumulated, launches counted);
 3. collectives — fused ``ops`` reduce-scatter / allgather / allreduce and
              the int8-wire pair against the plain ``stacked`` executor,
              bitwise, at p in {4, 8} on 64 MiB f32 vectors;
@@ -60,7 +61,10 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
              layers, 4 DP ranks stacked on the card, global batch 8 x 1024
              tokens, ``backend="pallas_fused"``, table bucket size (64 MiB),
              3 float32-wire steps and 2 int8-wire steps, with the kernel
-             launch counts read around each run; then one ``bine`` float32
+             launch counts read around each run (the ``train:`` JSON
+             line carries their losses as ``float.hex`` and a sha256 of
+             the params after each, which two trees share when they
+             train to the same bits); then one ``bine`` float32
              step from the same start must give the same bits, one
              ``auto`` step on the torus preset the bits of the explicit
              ``recdoub`` step, and one ``wire_dtype="auto"`` step those of
@@ -105,7 +109,9 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
              bounds); then full-width phi4-mini (2 layers) at
              ``cell.TP_SHAPE`` = (2, 2) under megatron_sp and
              ``pallas_fused``: 3 float32-wire and 2 int8-wire steps
-             (loss, grad norm, ms, peak GiB each), the launches read
+             (loss, grad norm, ms, peak GiB each; losses as
+             ``float.hex`` and every rank's params sha256 after each
+             run in the ``tp:`` line), the launches read
              around them, step 0 gated against (2, 1) on the same weights
              and batch (``TP_LOSS_RTOL``, ``TP_GNORM_RTOL``), and the
              step's device groups and idle share from
@@ -226,6 +232,22 @@ def as_tuple(x):
     return x if isinstance(x, tuple) else (x,)
 
 
+def params_sha256(params) -> str:
+    """sha256 of the given ranks' every leaf, raw bytes in tree order:
+    two trees of the port train to the same bits when it is equal."""
+    import hashlib
+    import torch
+    from repro_torch import tree as T
+
+    h = hashlib.sha256()
+    for rank in params:
+        for x in T.flatten(rank):
+            t = x.detach().contiguous().cpu()
+            h.update(str(t.dtype).encode())
+            h.update(t.reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
 def mm_bound(x, w, k: int):
     """Elementwise bound on two float32 sums of k products taken in
     different orders: 2 k 2**-24 (|x| @ |w|) (each order is within
@@ -268,16 +290,25 @@ def phase_kernels(dev):
     rows = {}
 
     def row(name, err, kernel_fn, plain_fn, bound, bound_by,
-            library_fn=None, device=None, **extra):
+            library_fn=None, device=None, host_calls=100, **extra):
         """One kernels-line row; ``device``: the kernel's name (a
         substring) whose own time under torch.profiler goes into
-        ``device_ms`` beside the host-inclusive ``ms``."""
+        ``device_ms`` beside the host-inclusive ``ms``.  Every row also
+        records the wrapper's host us per call (``host_us``: host_calls
+        calls, no sync), and a row with a library call that call's
+        device time (``library_device_ms``: every kernel it launches,
+        under torch.profiler) and host us per call."""
         torch.cuda.synchronize()
         k_ms = time_ms(kernel_fn)
         plain_ms = time_ms(plain_fn)
         lib_ms = None if library_fn is None else time_ms(library_fn)
         if device is not None:
             extra["device_ms"] = PR.device_ms_per_call(kernel_fn, device)
+        extra["host_us"] = PR.host_us_per_call(kernel_fn, host_calls)
+        if library_fn is not None:
+            extra["library_device_ms"] = PR.device_ms_per_call(library_fn)
+            extra["library_host_us"] = PR.host_us_per_call(library_fn,
+                                                           host_calls)
         rows[name] = {"name": name, "route": "cuda", "source": SOURCE[name],
                       "replaces": REPLACES[name], "launches": 0,
                       "max_abs_err": err, "ms": k_ms, "plain_ms": plain_ms,
@@ -286,9 +317,14 @@ def phase_kernels(dev):
         dev_note = ("" if device is None else
                     f", device {ms(extra['device_ms'])} ms "
                     f"({bound / extra['device_ms']:.0%} of the bound)")
-        log(f"  {name}: {ms(k_ms)} ms{dev_note}, plain {ms(plain_ms)} ms, "
-            f"bound {ms(bound)} ms ({bound_by}), library "
-            f"{'none' if lib_ms is None else ms(lib_ms) + ' ms'}")
+        lib_note = ("none" if lib_ms is None else
+                    f"{ms(lib_ms)} ms, device "
+                    f"{ms(extra['library_device_ms'])} ms, host "
+                    f"{extra['library_host_us']:.2f} us")
+        log(f"  {name}: {ms(k_ms)} ms{dev_note}, host "
+            f"{extra['host_us']:.2f} us per call ({host_calls} calls, no "
+            f"sync), plain {ms(plain_ms)} ms, bound {ms(bound)} ms "
+            f"({bound_by}), library {lib_note}")
 
     def entry(name, kernel_fn, plain_fn, nbytes, variants, library_fn=None):
         got, exp = as_tuple(kernel_fn()), as_tuple(plain_fn())
@@ -362,15 +398,8 @@ def phase_kernels(dev):
     check(bool((ss == 2.0 ** -126).any() and (ss == 2.0 ** 122).any()
                and ss.isinf().any() and (ss == 1.0).any()),
           "rs_step_q's edge chunks did not reach the send half")
-    # each collectives wrapper's host time, at the shapes above
-    kh = {"rs_step": lambda: K.rs_step(buf, recv, c, cn),
-          "ag_step": lambda: K.ag_step(a, b, c),
-          "rs_step_q": lambda: K.rs_step_q(buf, rq, rs, c, cn)}
-    for name, fn in kh.items():
-        log(f"  {name} wrapper: host {PR.host_us_per_call(fn, 100):.2f} us "
-            f"per call (100 calls, no sync)")
     del buf, recv, b16, r16, a, b, a16, b16_, qa, qb, rq, rs, rq2, rs2, buf2
-    del bufn, rqn, ss, kh
+    del bufn, rqn, ss
     torch.cuda.empty_cache()
     phase_ring_update(dev, randn, entry, row)
     phase_perm_matmul(dev, randn, row)
@@ -430,10 +459,6 @@ def phase_ring_update(dev, randn, entry, row):
         lambda: K.ring_update(v, recv, ridx, True, True),
         lambda: R.ring_update_ref(v, recv, ridx, True, True),
         nbytes / HBM_BYTES_PER_S * 1e3, "bytes", device="ring_")
-    host_us = PR.host_us_per_call(
-        lambda: K.ring_update(v, recv, ridx, True, True), 100)
-    log(f"  ring_update wrapper: host {host_us:.2f} us per call (100 calls, "
-        f"no sync)")
     # every other variant: kernel, plain version, bound (and the library
     # call, beside its device time, where it computes the same function)
     for tag, vv, rr, acc, upd in (
@@ -471,7 +496,6 @@ def phase_perm_matmul(dev, randn, row):
     from repro_torch.kernels import build as KB
     from repro_torch.kernels.collectives import kernel as K
     from repro_torch.kernels.collectives import ref as R
-    from repro_torch.launch import profile_rmsnorm as PR
 
     perm = torch.tensor([2, 0, 3, 1], dtype=torch.int32, device=dev)
     for name, (p, m, k, n), lhs in (("matmul_pack", MM_RS, False),
@@ -512,11 +536,7 @@ def phase_perm_matmul(dev, randn, row):
                 lambda: K.perm_matmul(xd, wd, perm, lhs),
                 lambda: plain(xd, wd, perm),
                 flops / (BF16_FLOPS if wgmma else F32_FLOPS) * 1e3,
-                "operations", lambda: torch.matmul(xd, wd))
-            host_us = PR.host_us_per_call(
-                lambda: K.perm_matmul(xd, wd, perm, lhs), 10)
-            log(f"  perm_matmul wrapper ({name}, {str(dt)[6:]}): host "
-                f"{host_us:.2f} us per call (10 calls, no sync)")
+                "operations", lambda: torch.matmul(xd, wd), host_calls=10)
             del xd, wd
         del x, w
         torch.cuda.empty_cache()
@@ -557,7 +577,6 @@ def phase_serve_kernels(dev, randn, row):
     from repro_torch.kernels.qdot import ops as QO
     from repro_torch.kernels.qdot import ref as QR
     from repro_torch.kernels.rmsnorm import kernel as RK
-    from repro_torch.kernels.rmsnorm import ops as RO
     from repro_torch.kernels.rmsnorm import ref as RR
     from repro_torch.launch import cell
     from repro_torch.launch import profile_rmsnorm as PR
@@ -595,16 +614,9 @@ def phase_serve_kernels(dev, randn, row):
     lib = lambda: F.rms_norm(x, (d,), w1, eps)
     # the single-call time (ms) holds the host's part; the kernel's own
     # device time, and the library's (the sum of its kernels), apart
-    dev_ms = PR.device_ms_per_call(kern, "rmsnorm_kernel")
-    lib_dev_ms = PR.device_ms_per_call(lib)
     row("rmsnorm", err, kern, lambda: RR.rmsnorm_ref(x, w, eps),
-        nbytes / HBM_BYTES_PER_S * 1e3, "bytes", lib, device_ms=dev_ms,
-        library_device_ms=lib_dev_ms)
-    host_us = PR.host_us_per_call(lambda: RO.rmsnorm(x, w, eps))
-    log(f"  rmsnorm [1024, {d}] bfloat16: device {ms(dev_ms)} ms per call "
-        f"(F.rms_norm {ms(lib_dev_ms)} ms; torch.profiler over "
-        f"{PR.PROFILED} calls); ops.rmsnorm host {host_us:.2f} us per call "
-        f"({PR.CALLS} calls, no sync)")
+        nbytes / HBM_BYTES_PER_S * 1e3, "bytes", lib,
+        device="rmsnorm_kernel", host_calls=PR.CALLS)
     del variants, x, w, w1, kern, lib
 
     # flash attention at the prefill of one insert (a 1024-token page)
@@ -686,8 +698,12 @@ def phase_serve_kernels(dev, randn, row):
     same_bits([QK.qacc_kernel(q[:, :100].contiguous(), sc,
                               acc[:, :100].contiguous())],
               [QR.dequant_accumulate_ref(q[:, :100], sc, acc[:, :100])],
-              "qacc chunk 100 (scalar path)")
-    log("  qacc: bitwise OK (2 variants)")
+              "qacc chunk 100 (the scale's row a division)")
+    same_bits([QK.qacc_kernel(q[:, :99].contiguous(), sc,
+                              acc[:, :99].contiguous())],
+              [QR.dequant_accumulate_ref(q[:, :99], sc, acc[:, :99])],
+              "qacc chunk 99 (element-wise kernel)")
+    log("  qacc: bitwise OK (3 variants: chunk 256, 100, 99)")
     row("qacc", 0.0, lambda: QK.qacc_kernel(q, sc, acc),
         lambda: QR.dequant_accumulate_ref(q, sc, acc),
         (C * chunk * 9 + 4 * C) / HBM_BYTES_PER_S * 1e3, "bytes",
@@ -1106,9 +1122,11 @@ def phase_two_tier(dev):
 
 def train_runs(dev):
     """A runner of the train cell's steps: ``run(tcfg, dp, steps, tag,
-    tp=1)`` -> (launch counts read around the steps, losses, step seconds,
-    peak GiB, params after step 1 on rank 0); ``run.gnorms[tag]`` keeps
-    the grad norms."""
+    tp=1, digest=False)`` -> (launch counts read around the steps, losses,
+    step seconds, peak GiB, params after step 1 on rank 0);
+    ``run.gnorms[tag]`` keeps the grad norms, and with ``digest``
+    ``run.digests[tag]`` the sha256 of every rank's params after the last
+    step."""
     import torch
     from repro_torch import tree as T
     from repro_torch.kernels import build as KB
@@ -1121,7 +1139,7 @@ def train_runs(dev):
     shapes = TF.param_shapes(cfg)
     dcfg = cell.data_config(cfg)
 
-    def run(tcfg, dp, steps, tag, tp=1):
+    def run(tcfg, dp, steps, tag, tp=1, digest=False):
         step, info, _ = make_train_step(cfg, tcfg, dp, shapes, dev, tp=tp)
         init_p, init_s = make_init_fns(cfg, tcfg, dp, dev, tp=tp)
         params = init_p(0)
@@ -1151,11 +1169,14 @@ def train_runs(dev):
                  else f"{len(plan.buckets)} buckets")
         log(f"  {tag}: {where}, launches {counts}, peak {max(peaks):.1f} "
             f"GiB")
+        if digest:
+            run.digests[tag] = params_sha256(params)
         del params, state
         torch.cuda.empty_cache()
         return dict(KB.LAUNCHES), losses, times, max(peaks), first
 
     run.gnorms = {}     # each tag's grad norms, step by step
+    run.digests = {}    # each digested tag's params sha256
     return cfg, dcfg, run
 
 
@@ -1307,6 +1328,8 @@ def phase_train(dev):
     def flat_eq(a, b):
         return all(torch.equal(x, y) for x, y in zip(a, b))
 
+    digests = {}     # wire -> params sha256 after the pallas_fused run
+
     def run(backend, wire, steps, snapshot=False, topology="tpu_multipod",
             **overrides):
         tcfg = cell.train_config(backend, wire, topology).replace(
@@ -1345,6 +1368,9 @@ def phase_train(dev):
         if backend == "auto" or wire == "auto":
             log(f"  {backend}/{wire} ({topology}) per-bucket (rs backend, "
                 f"rs wire, ag backend, ag wire): {info['decisions']}")
+        if backend == "pallas_fused":
+            # every rank's params are checked equal above: rank 0's hash
+            digests[wire] = params_sha256(params[:1])
         del params, state
         torch.cuda.empty_cache()
         return counts, losses, times, first, info
@@ -1356,7 +1382,7 @@ def phase_train(dev):
     steady = statistics.median(times[1:])
     log(f"  pallas_fused/float32 steady step {steady * 1e3:.1f} ms, "
         f"{B * S / steady:.0f} tokens/s")
-    c8, _, t8, _, _ = run("pallas_fused", "int8", 2)
+    c8, losses8, t8, _, _ = run("pallas_fused", "int8", 2)
     log(f"  pallas_fused/int8 warm step {t8[1] * 1e3:.1f} ms, "
         f"{B * S / t8[1]:.0f} tokens/s")
     launches = {k: c32[k] + c8[k] for k in ("rs_step", "ag_step",
@@ -1410,7 +1436,11 @@ def phase_train(dev):
     # steps after the first of each run: warm, so the wires compare
     return launches, {"f32_step_ms": steady * 1e3,
                       "tokens_per_s": B * S / steady,
-                      "int8_step_ms": t8[1] * 1e3}
+                      "int8_step_ms": t8[1] * 1e3,
+                      "f32_losses_hex": [x.hex() for x in losses],
+                      "int8_losses_hex": [x.hex() for x in losses8],
+                      "f32_params_sha256": digests["float32"],
+                      "int8_params_sha256": digests["int8"]}
 
 
 # ---------------------------------------------------------------------------
@@ -2036,9 +2066,10 @@ def phase_tp(dev):
     mesh = f"{dp},{tp}"
     c32, l32, t32, p32, _ = run(cell.train_config("pallas_fused", "float32"),
                                 dp, 3, f"tp {mesh} pallas_fused/float32",
-                                tp=tp)
+                                tp=tp, digest=True)
     c8, l8, t8, p8, _ = run(cell.train_config("pallas_fused", "int8"), dp, 2,
-                            f"tp {mesh} pallas_fused/int8", tp=tp)
+                            f"tp {mesh} pallas_fused/int8", tp=tp,
+                            digest=True)
     launches = {k: c32[k] + c8[k] for k in ("rs_step", "ag_step",
                                              "rs_step_q")}
     for k, v in launches.items():
@@ -2065,6 +2096,12 @@ def phase_tp(dev):
     warm = statistics.median(t32[1:])
     nums = {"mesh": mesh, "strategy": strat,
             "f32_losses": l32, "int8_losses": l8,
+            "f32_losses_hex": [x.hex() for x in l32],
+            "int8_losses_hex": [x.hex() for x in l8],
+            "f32_params_sha256":
+                run.digests[f"tp {mesh} pallas_fused/float32"],
+            "int8_params_sha256":
+                run.digests[f"tp {mesh} pallas_fused/int8"],
             "f32_step_ms": [t * 1e3 for t in t32],
             "int8_step_ms": [t * 1e3 for t in t8],
             "f32_warm_step_ms": warm * 1e3,

@@ -43,6 +43,8 @@ LAUNCHES: Dict[str, int] = dict.fromkeys(
 
 #: source path -> loaded library
 _LIBS: Dict[str, ctypes.CDLL] = {}
+#: (kernel key, device index) -> one wave: resident blocks per SM x SMs
+_WAVES: Dict[tuple, int] = {}
 
 
 def reset_launches() -> None:
@@ -181,3 +183,17 @@ def stream(t) -> int:
 def raise_on(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+
+
+def wave(key: tuple, dev: int, blocks_per_sm) -> int:
+    """One wave of a kernel's resident blocks on CUDA device ``dev``: its
+    blocks per SM, which ``blocks_per_sm(ctypes.byref(blocks))`` (the
+    kernel's C occupancy entry point, returning a cudaError) writes, times
+    the device's SMs; cached per ``(key, dev)``."""
+    w = _WAVES.get((key, dev))
+    if w is None:
+        blocks = ctypes.c_int(0)
+        raise_on(blocks_per_sm(ctypes.byref(blocks)), f"{key} occupancy")
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        w = _WAVES[(key, dev)] = max(1, blocks.value) * sms
+    return w

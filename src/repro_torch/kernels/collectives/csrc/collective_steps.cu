@@ -4,7 +4,8 @@
 // Every kernel takes the stacked form of one schedule step over all p
 // ranks at once: buf [p, 2h], recv [p, h], per-rank c / c_next int32 [p]
 // on the device.  Grid: blockIdx.y = rank, a grid-stride loop over the
-// row in x.  Each rank's kept half is read at its dynamic offset c[r]*h
+// row in x (ag_step: one row of blocks over the tiles of every rank's
+// output row).  Each rank's kept half is read at its dynamic offset c[r]*h
 // inside the kernel, so no slice is ever materialised.  Kernels launch on
 // the caller's stream and allocate nothing; each C entry point returns
 // cudaGetLastError() so the wrapper can raise on a refused launch.
@@ -16,23 +17,28 @@
 // next step's send half are written from the same registers, so neither
 // makes a separate round trip through device memory.
 //
-// rs_step and rs_step_q (TPU kernels 1 and 3) are laid out for the card's
-// memory system:
+// rs_step, ag_step and rs_step_q (TPU kernels 1-3) are laid out for the
+// card's memory system:
 // - rs_step moves 16-byte vectors (4 float32 or 8 bf16) of the kept half,
 //   recv, new and send, kUnroll of them a thread in flight: every load is
 //   issued before any add.  The send window starts at a whole vector when
 //   h/2 is a multiple of the lanes, so it is tested per vector.  Rows or
 //   pointers off that rule take the element-wise kernel.
+// - ag_step copies tiles that each lie in one half of one rank's output
+//   row, so a block reads one source with no per-element select, in the
+//   widest unit (16, 4, 2 or 1 bytes) the row and the pointers allow,
+//   kUnroll units a thread in flight, 32-bit offsets, a block a tile in
+//   output order.
 // - rs_step_q gives one warp to each 256-element codec chunk, 8
 //   consecutive elements a lane (two float4 of the kept half, one 8-byte
 //   int8 load, the chunk's one scale), and reduces the chunk's max-abs
 //   with shuffles alone.  The scale index is a shift (the codec chunk is
 //   a power of two); codec chunks under 8 elements take the element-wise
 //   kernel.  Quantizing multiplies by the scale's exact reciprocal.
-// - The wrapper sizes each grid to a few waves of resident blocks (the
-//   occupancy from repro_step_blocks_per_sm), and the loads stream
-//   (evict-first): at the train step's 64 MiB buckets nothing a call reads
-//   is read again from the 50 MB L2.
+// - The wrapper sizes the grids of rs_step and rs_step_q to a few waves
+//   of resident blocks (the occupancy from repro_step_blocks_per_sm), and
+//   their loads stream (evict-first): at the train step's 64 MiB buckets
+//   nothing a call reads is read again from the 50 MB L2.
 //
 // Bitwise parity with the plain versions rests on: no fast-math flags
 // (no flush to zero), rintf rounding half to even as torch.round does,
@@ -50,23 +56,15 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr long long kMaxBlocksX = 1LL << 20;
 
-// 16-byte vectors a thread of the rs_step vector kernel holds per stream
-// (kernel.py RS_UNROLL)
+// 16-byte vectors a thread of the rs_step vector kernel holds per stream,
+// and units a thread of ag_step holds (kernel.py RS_UNROLL)
 constexpr int kUnroll = 4;
 
 // Codec chunk of the send half; rs_step_q's warp kernel gives each warp
 // one chunk of the row at a time, 8 elements a lane.
 constexpr int kWireChunk = 256;
 constexpr int kLaneElems = kWireChunk / 32;
-
-dim3 grid_for(long long n, long long p) {
-  long long bx = (n + kThreads - 1) / kThreads;
-  if (bx > kMaxBlocksX) bx = kMaxBlocksX;
-  if (bx < 1) bx = 1;
-  return dim3(static_cast<unsigned>(bx), static_cast<unsigned>(p));
-}
 
 __device__ __forceinline__ long long first_index() {
   return static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -229,31 +227,76 @@ int launch_rs_step(const void* buf, const void* recv, void* out, void* send,
 // ---------------------------------------------------------------------------
 // ag_step: out[2h] = [buf, recv] if c == 0 else [recv, buf]
 // Replaces repro/kernels/collectives/kernel.py:258 (ag_step_kernel).
-// A pure placement pass over raw bytes, in 16-byte units where the row and
-// the pointers allow it, so one kernel serves f32, bf16 and int8.
+// A pure placement pass over raw bytes, so one kernel serves f32, bf16 and
+// int8.  The output [p, 2, n] (n units a row half) is cut into tiles of
+// kThreads * kUnroll units, each inside one row half, so a block copies a
+// tile from one source and no element carries a select.  The blocks take
+// the tiles in output order (tile t, t + gridDim.x, ...), so the blocks
+// resident at once cover one stretch of the output and of each source.
+// The wrapper launches a block a tile (kernel.py ag_step_launch): a grid
+// of a few waves of resident blocks, as rs_step's, ran 3% slower on an
+// H100 on this pure copy, its last pass leaving SMs idle.  U is the unit
+// the row and every pointer allow: a 16-byte vector on the main path,
+// else 4, 2 or 1 bytes.  kUnroll units a thread in flight, every load
+// issued before any store, neighbouring threads on neighbouring units;
+// I the index type (32 bits below 2**31 units and tiles).  Plain loads
+// and stores: below the L2's size the next step reads this step's output
+// from the L2, and at 64 MiB streaming hints moved the step by less than
+// a run's spread on an H100.
 // ---------------------------------------------------------------------------
 
-template <typename U>
-__global__ void ag_step_kernel(const U* __restrict__ buf,
-                               const U* __restrict__ recv,
-                               U* __restrict__ out,
-                               const int* __restrict__ c, long long hu) {
-  const long long r = blockIdx.y;
-  const bool own_first = c[r] == 0;
-  const U* first = (own_first ? buf : recv) + r * hu;
-  const U* second = (own_first ? recv : buf) + r * hu;
-  U* o = out + r * 2 * hu;
-  for (long long j = first_index(); j < 2 * hu; j += stride()) {
-    o[j] = j < hu ? first[j] : second[j - hu];
+constexpr int kTile = kThreads * kUnroll;
+
+template <typename U, typename I>
+__global__ void __launch_bounds__(kThreads)
+ag_step_kernel(const U* __restrict__ buf, const U* __restrict__ recv,
+               U* __restrict__ out, const int* __restrict__ c, I n,
+               I tiles, I total) {
+  for (I t = blockIdx.x; t < total; t += gridDim.x) {
+    const I rh = t / tiles;      // the row half: rank rh / 2, half rh % 2
+    const I i0 = (t - rh * tiles) * kTile + threadIdx.x;
+    const long long r = static_cast<long long>(rh >> 1);
+    // half 0 takes buf when c == 0, half 1 takes it when c == 1
+    const bool from_buf = (c[r] == 0) == ((rh & 1) == 0);
+    const U* src = (from_buf ? buf : recv) + r * static_cast<long long>(n);
+    U* dst = out + static_cast<long long>(rh) * static_cast<long long>(n);
+    U v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {   // every load before any store
+      const I i = i0 + u * kThreads;
+      if (i < n) v[u] = src[i];
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const I i = i0 + u * kThreads;
+      if (i < n) dst[i] = v[u];
+    }
   }
 }
 
-template <typename U>
+template <typename U, typename I>
 void launch_ag(const void* buf, const void* recv, void* out, const void* c,
-               long long p, long long hu, cudaStream_t stream) {
-  ag_step_kernel<U><<<grid_for(2 * hu, p), kThreads, 0, stream>>>(
+               long long p, long long n, long long tiles, int grid,
+               cudaStream_t st) {
+  ag_step_kernel<U, I><<<grid, kThreads, 0, st>>>(
       static_cast<const U*>(buf), static_cast<const U*>(recv),
-      static_cast<U*>(out), static_cast<const int*>(c), hu);
+      static_cast<U*>(out), static_cast<const int*>(c), static_cast<I>(n),
+      static_cast<I>(tiles), static_cast<I>(2 * p * tiles));
+}
+
+template <typename U>
+void launch_ag_unit(const void* buf, const void* recv, void* out,
+                    const void* c, long long p, long long n, int grid,
+                    cudaStream_t st) {
+  // one row of blocks walks the tiles of all p ranks; 32-bit indices
+  // while every unit index and tile index, plus one step of the loop,
+  // stays below 2**32
+  const long long tiles = (n + kTile - 1) / kTile;
+  if (n >= (1LL << 31) || 2 * p * tiles >= (1LL << 31)) {
+    launch_ag<U, long long>(buf, recv, out, c, p, n, tiles, grid, st);
+  } else {
+    launch_ag<U, unsigned>(buf, recv, out, c, p, n, tiles, grid, st);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -464,23 +507,24 @@ int repro_rs_step_bf16(const void* buf, const void* recv, void* out,
                                        vec, grid, stream);
 }
 
+// n units of `unit` bytes (16, 4, 2 or 1) a row half: kernel.py
+// ag_step_launch picks the unit from the row and the pointers; grid: the
+// blocks walking the 2p ceil(n / kTile) tiles.
 int repro_ag_step(const void* buf, const void* recv, void* out,
-                  const void* c, long long p, long long h,
-                  long long elem_bytes, void* stream) {
-  const long long nbytes = h * elem_bytes;
-  if (p > 0 && nbytes > 0) {
-    const uintptr_t a = reinterpret_cast<uintptr_t>(buf) |
-                        reinterpret_cast<uintptr_t>(recv) |
-                        reinterpret_cast<uintptr_t>(out);
+                  const void* c, long long p, long long n, int unit,
+                  int grid, void* stream) {
+  if (p > 0 && n > 0) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (nbytes % 16 == 0 && a % 16 == 0) {
-      launch_ag<uint4>(buf, recv, out, c, p, nbytes / 16, st);
-    } else if (nbytes % 4 == 0 && a % 4 == 0) {
-      launch_ag<uint32_t>(buf, recv, out, c, p, nbytes / 4, st);
-    } else if (nbytes % 2 == 0 && a % 2 == 0) {
-      launch_ag<uint16_t>(buf, recv, out, c, p, nbytes / 2, st);
-    } else {
-      launch_ag<uint8_t>(buf, recv, out, c, p, nbytes, st);
+    switch (unit) {
+      case 16: launch_ag_unit<uint4>(buf, recv, out, c, p, n, grid, st);
+        break;
+      case 4: launch_ag_unit<uint32_t>(buf, recv, out, c, p, n, grid, st);
+        break;
+      case 2: launch_ag_unit<uint16_t>(buf, recv, out, c, p, n, grid, st);
+        break;
+      case 1: launch_ag_unit<uint8_t>(buf, recv, out, c, p, n, grid, st);
+        break;
+      default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
   return static_cast<int>(cudaGetLastError());

@@ -41,7 +41,7 @@ _SIGNATURES = {
     "collective_steps.cu": {
         "repro_rs_step_f32": [_VP] * 6 + [_LL, _LL, _INT, _INT, _VP],
         "repro_rs_step_bf16": [_VP] * 6 + [_LL, _LL, _INT, _INT, _VP],
-        "repro_ag_step": [_VP] * 4 + [_LL, _LL, _LL, _VP],
+        "repro_ag_step": [_VP] * 4 + [_LL, _LL, _INT, _INT, _VP],
         "repro_rs_step_q": [_VP] * 8 + [_LL, _LL] + [_INT] * 3 + [_VP],
         "repro_step_blocks_per_sm": [_INT, ctypes.POINTER(ctypes.c_int)],
     },
@@ -57,8 +57,13 @@ _SIGNATURES = {
 }
 
 
+#: source -> its path (joined once: a Path join costs microseconds of the
+#: wrappers' host time)
+_PATHS = {source: CSRC / source for source in SOURCES}
+
+
 def _lib(source: str = "collective_steps.cu"):
-    return B.load(CSRC / source, _SIGNATURES[source])
+    return B.load(_PATHS[source], _SIGNATURES[source])
 
 
 def _check_bits(c: torch.Tensor, p: int, name: str) -> None:
@@ -69,13 +74,13 @@ def _check_bits(c: torch.Tensor, p: int, name: str) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Launch rules of rs_step and rs_step_q
+# Launch rules of rs_step, ag_step and rs_step_q
 # ---------------------------------------------------------------------------
 
 #: threads a block of every step kernel (``collective_steps.cu`` kThreads)
 STEP_THREADS = 256
-#: 16-byte vectors a thread of rs_step's vector kernel holds per stream
-#: (kUnroll)
+#: 16-byte vectors a thread of rs_step's vector kernel holds per stream,
+#: and units a thread of ag_step holds (kUnroll)
 RS_UNROLL = 4
 #: waves of resident blocks (blocks per SM x SMs) a grid spans at most
 RS_WAVES = 2
@@ -84,6 +89,9 @@ RS_WAVES = 2
 Q_WARP_ELEMS = 256
 #: the smallest codec chunk the warp kernel takes (a lane's 8 elements)
 Q_LANE_ELEMS = 8
+#: ag_step's units (bytes), widest first: a 16-byte vector, else the widest
+#: the row and the pointers allow
+AG_UNITS = (16, 4, 2, 1)
 
 #: kernel -> id of ``repro_step_blocks_per_sm`` (``step_kernel`` in the
 #: source): rs_step (dtype, vector kernel); rs_step_q (path, send)
@@ -93,10 +101,9 @@ _KERNEL_ID = {
     ("q", 0, False): 4, ("q", 0, True): 5, ("q", 1, False): 6,
     ("q", 1, True): 7, ("q", 2, False): 8,
 }
-#: (kernel key, device index) -> resident blocks per SM x SMs
-_WAVES: dict = {}
 #: call key -> launch shape, for each wrapper
 _RS_PLANS: dict = {}
+_AG_PLANS: dict = {}
 _Q_PLANS: dict = {}
 
 
@@ -124,6 +131,23 @@ def rs_step_launch(p: int, h: int, itemsize: int, send: bool,
     return False, step_grid(p, h, STEP_THREADS, wave)
 
 
+def ag_step_launch(p: int, h: int, itemsize: int, aligned: int):
+    """ag_step's launch of ``p`` rows of ``h`` elements of ``itemsize``
+    bytes, every pointer a multiple of ``aligned`` bytes (16 or more: any
+    unit): ``(unit, n, grid)``.  ``unit``: the widest of ``AG_UNITS``
+    that divides both the row's bytes and ``aligned``, ``n`` the units of
+    a row half; ``grid``: one block for each tile of ``STEP_THREADS *
+    RS_UNROLL`` units, ``ceil(n / tile)`` in each of the ``2p`` row
+    halves (at least 1).  On an H100 a grid of a few waves of resident
+    blocks walking the tiles, as ``rs_step``'s, ran 3% slower on this
+    pure copy (its last pass leaves SMs idle; PERF.md section 6)."""
+    nbytes = h * itemsize
+    unit = next(u for u in AG_UNITS if nbytes % u == 0 and aligned % u == 0)
+    n = nbytes // unit
+    tiles = 2 * p * -(-n // (STEP_THREADS * RS_UNROLL))
+    return unit, n, max(1, min(tiles, 2 ** 31 - 1))
+
+
 def rs_step_q_launch(p: int, h: int, aligned: bool, wave: int):
     """rs_step_q's launch of ``p`` rows of ``h`` elements: ``(path,
     shift, grid)``.  ``shift`` is log2 of the codec chunk
@@ -142,15 +166,9 @@ def rs_step_q_launch(p: int, h: int, aligned: bool, wave: int):
 
 
 def _wave(kernel, dev: int) -> int:
-    wave = _WAVES.get((kernel, dev))
-    if wave is None:
-        blocks = ctypes.c_int(0)
-        B.raise_on(_lib().repro_step_blocks_per_sm(_KERNEL_ID[kernel],
-                                                   ctypes.byref(blocks)),
-                   "step kernel occupancy")
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        wave = _WAVES[(kernel, dev)] = max(1, blocks.value) * sms
-    return wave
+    """One wave of ``kernel``'s (a ``_KERNEL_ID`` key) resident blocks."""
+    return B.wave(kernel, dev, lambda blocks: _lib().repro_step_blocks_per_sm(
+        _KERNEL_ID[kernel], blocks))
 
 
 # ---------------------------------------------------------------------------
@@ -210,22 +228,39 @@ def rs_step(buf, recv, c, c_next=None):
 
 def ag_step(buf, recv, c):
     """``buf, recv [p, h]`` (any of f32, bf16, int8) -> ``[p, 2h]``: each
-    row ``[buf, recv]`` if ``c == 0`` else ``[recv, buf]``."""
+    row ``[buf, recv]`` if ``c == 0`` else ``[recv, buf]``.  The launch
+    (``ag_step_launch``) is cached per shape, dtype and alignment; check
+    messages are built only on failure."""
     if not B.on_cuda(buf, recv, c):
         return R.ag_step_ref(buf, recv, c)
-    B.check(buf.dtype in (torch.float32, torch.bfloat16, torch.int8),
-           f"ag_step takes float32, bfloat16 or int8, got {buf.dtype}")
-    B.check(recv.dtype == buf.dtype and recv.shape == buf.shape
-           and buf.dim() == 2, "ag_step needs buf and recv of one [p, h] "
-           "shape and dtype")
-    B.check(buf.is_contiguous() and recv.is_contiguous(),
-           "ag_step needs contiguous buf and recv")
+    dtype = buf.dtype
+    if not (dtype == torch.float32 or dtype == torch.bfloat16
+            or dtype == torch.int8):
+        raise ValueError(f"ag_step takes float32, bfloat16 or int8, got "
+                         f"{dtype}")
+    if not (recv.dtype == dtype and recv.shape == buf.shape
+            and buf.dim() == 2):
+        raise ValueError(f"ag_step needs buf and recv of one [p, h] shape "
+                         f"and dtype, got {dtype}{tuple(buf.shape)} and "
+                         f"{recv.dtype}{tuple(recv.shape)}")
+    if not (buf.is_contiguous() and recv.is_contiguous()):
+        raise ValueError("ag_step needs contiguous buf and recv")
     p, h = buf.shape
     _check_bits(c, p, "c")
-    out = torch.empty((p, 2 * h), dtype=buf.dtype, device=buf.device)
-    B.raise_on(_lib().repro_ag_step(
-        buf.data_ptr(), recv.data_ptr(), out.data_ptr(), c.data_ptr(), p, h,
-        buf.element_size(), B.stream(buf)), "ag_step")
+    out = torch.empty((p, 2 * h), dtype=dtype, device=buf.device)
+    bp, rp = buf.data_ptr(), recv.data_ptr()
+    # out is fresh: 16-byte aligned; the lowest set bit of the pointers
+    # (16 when both are 16-byte aligned)
+    low = (bp | rp | 16) & 31
+    aligned = low & -low
+    key = (p, h, dtype, aligned)
+    plan = _AG_PLANS.get(key)
+    if plan is None:
+        plan = _AG_PLANS[key] = ag_step_launch(p, h, buf.element_size(),
+                                               aligned)
+    B.raise_on(_lib().repro_ag_step(bp, rp, out.data_ptr(), c.data_ptr(), p,
+                                    plan[1], plan[0], plan[2],
+                                    B.stream(buf)), "ag_step")
     B.LAUNCHES["ag_step"] += 1
     return out
 

@@ -280,16 +280,31 @@ def _block_of(w, md: int, dim: int):
     return SH.rank_block(w, dim)
 
 
+def _vocab_block(w, md: int, dim: int):
+    """Each rank's vocab block of the embedding ``[n, V, d]`` (``dim`` 0)
+    or the head ``[n, d, V]`` (1), as :func:`_block_of`.  A vocab that
+    does not divide the ranks is held whole (``md < 0``, as the
+    reference's GSPMD step replicates it) and zero-padded at its end to
+    ``n * ceil(V / n)`` first: no token looks up a padded row, and
+    :func:`loss_fn_tp` leaves the padded logits out."""
+    n, V = w.shape[0], w.shape[dim + 1]
+    if md < 0 and V % n:
+        after = w.dim() - 2 - dim          # dims after the vocab dim
+        w = torch.nn.functional.pad(w, (0, 0) * after + (0, -V % n))
+    return _block_of(w, md, dim)
+
+
 def _megatron_layout(params, cfg, tp: _TP):
     """``params`` as the contractions read them: the vocab block of the
-    embedding (and head); under megatron_sp also each weight's Megatron
-    block (``_MEGATRON_DIM``), where K/V stay whole under the GQA rule
-    (``n_kv_heads % n != 0``: the heads split after the repeat)."""
+    embedding (and head, :func:`_vocab_block`); under megatron_sp also
+    each weight's Megatron block (``_MEGATRON_DIM``), where K/V stay whole
+    under the GQA rule (``n_kv_heads % n != 0``: the heads split after the
+    repeat)."""
     mds = SH.model_dims(cfg, param_shapes(cfg), tp.n)
     out = dict(params)
-    out["embed"] = _block_of(params["embed"], mds["embed"], 0)
+    out["embed"] = _vocab_block(params["embed"], mds["embed"], 0)
     if "lm_head" in params:
-        out["lm_head"] = _block_of(params["lm_head"], mds["lm_head"], 1)
+        out["lm_head"] = _vocab_block(params["lm_head"], mds["lm_head"], 1)
     if tp.strat != "megatron_sp":
         return out
     kv_whole = cfg.n_kv_heads % tp.n != 0
@@ -408,7 +423,9 @@ def forward_tp(params, cfg, inputs, n_model: int):
     """The TP forward of one DP rank: ``params`` from
     ``sharding.shard_params``, ``inputs [B, T]`` (every TP rank reads the
     same tokens).  Returns the vocab-sharded logits ``[n, B, T, V/n]`` and
-    ``aux [n]``."""
+    ``aux [n]``; for a vocab that does not divide n, ``[n, B, T,
+    ceil(V/n)]`` with zeros in the last rank's padded columns (the
+    logits of vocab ids ``>= V``)."""
     _check_dense(cfg)
     T_ = inputs.shape[1]
     tp = _TP(cfg, n_model, T_)
@@ -435,10 +452,16 @@ def loss_fn_tp(params, cfg, batch, n_model: int):
     the ranks' maxima (all-gathered) and their sums of exponentials
     (psum), the target logit picked by the rank whose block holds it
     (psum), and the token mean of the sequence shards' sums (psum).
-    Every value is ``[n]``, the same on every rank."""
+    The padded logits of a vocab that does not divide n are -inf, out of
+    the logsumexp.  Every value is ``[n]``, the same on every rank."""
     logits, aux = forward_tp(params, cfg, batch["inputs"], n_model)
     logits = logits.to(torch.float32)                    # [n,B,T,V/n]
     n, B, T_, Vl = logits.shape
+    if n * Vl != cfg.vocab_size:
+        ids = torch.arange(n * Vl, device=logits.device).view(n, 1, 1, Vl)
+        logits = torch.where(ids < cfg.vocab_size, logits,
+                             torch.full((), float("-inf"),
+                                        device=logits.device))
     mx = stacked.all_gather(torch.amax(logits, dim=-1, keepdim=True), -1)
     mx = torch.amax(mx, dim=-1).detach()                 # [n,B,T]
     se = stacked.psum(torch.exp(logits - mx[..., None]).sum(dim=-1))

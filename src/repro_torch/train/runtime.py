@@ -185,11 +185,14 @@ def shrunk_dp(dp, shrink: int) -> Tuple[int, ...]:
     return shape[:-1] + (data,)
 
 
-def train_build(model_cfg, tcfg, dcfg, dp, device="cuda") -> Callable:
+def train_build(model_cfg, tcfg, dcfg, dp, device="cuda",
+                tp: int = 1) -> Callable:
     """The port's ``build`` for :class:`TrainLoop`: the train step, init
     and global-layout functions of ``train.step`` for the DP sizes ``dp``
-    with the data axis halved ``shrink`` times, and the batches of
-    ``make_batch(dcfg, step)``."""
+    with the data axis halved ``shrink`` times and the model axis ``tp``
+    (each DP rank's TP ranks stacked, ``sharding.shard_params``), and the
+    batches of ``make_batch(dcfg, step)``.  A checkpoint holds the global
+    layout, so a restore at any (dp, tp) reads it."""
     from repro_torch.models import transformer as TF
     from repro_torch.train.data import make_batch
     from repro_torch.train.step import (from_global, make_init_fns,
@@ -199,13 +202,14 @@ def train_build(model_cfg, tcfg, dcfg, dp, device="cuda") -> Callable:
 
     def build(shrink: int):
         dps = shrunk_dp(dp, shrink)
-        step_fn, _, _ = make_train_step(model_cfg, tcfg, dps, shapes, device)
-        init_p, init_s = make_init_fns(model_cfg, tcfg, dps, device)
+        step_fn, _, _ = make_train_step(model_cfg, tcfg, dps, shapes, device,
+                                        tp=tp)
+        init_p, init_s = make_init_fns(model_cfg, tcfg, dps, device, tp=tp)
         return (step_fn, init_p, init_s, lambda b: b,
                 lambda s: make_batch(dcfg, s),
                 lambda params, state, device=None: to_global(
-                    model_cfg, tcfg, params, state, dps, device),
+                    model_cfg, tcfg, params, state, dps, device, tp=tp),
                 lambda tree: from_global(model_cfg, tcfg, tree, dps,
-                                         device))
+                                         device, tp=tp))
 
     return build

@@ -422,6 +422,43 @@ def test_rs_step_q_launch_rule(case, path):
     assert got[2] == K.step_grid(4, h, per, 1056)
 
 
+#: (p, h, itemsize, pointer alignment) -> ag_step's unit (bytes)
+AG_RULE = [
+    ((4, 8 << 20, 4, 16), 16),     # the smoke's last AG step, f32
+    ((4, 8 << 20, 2, 16), 16),     # bf16
+    ((4, 8 << 20, 1, 16), 16),     # the int8 wire
+    ((4, 128 << 10, 4, 16), 16),   # 1 MiB a rank
+    ((1, 1000, 4, 16), 16),        # a row half ends mid-tile
+    ((6, 1000, 1, 16), 4),         # 1000 bytes: not a 16-byte multiple
+    ((8, 1001, 2, 16), 2),         # 2002 bytes
+    ((4, 999, 1, 16), 1),          # int8, odd h
+    ((4, 1001, 4, 16), 4),         # 4004 bytes
+    ((4, 512, 4, 4), 4),           # a pointer 4 bytes off
+    ((4, 512, 4, 8), 4),           # 8 bytes off: no 8-byte unit
+    ((4, 512, 2, 2), 2),
+    ((4, 512, 1, 1), 1),
+    ((4, 0, 4, 16), 16),           # an empty row
+]
+
+
+@pytest.mark.parametrize("case,unit", AG_RULE,
+                         ids=[f"p{c[0]}-h{c[1]}-{c[2]}B-al{c[3]}"
+                              for c, _ in AG_RULE])
+def test_ag_step_launch_rule(case, unit):
+    """The widest unit dividing the row's bytes and the pointers' alignment;
+    the units of a row half; a block for each tile of STEP_THREADS *
+    RS_UNROLL units, each tile inside one of the 2p row halves."""
+    p, h, itemsize, aligned = case
+    got = K.ag_step_launch(p, h, itemsize, aligned)
+    assert got[0] == unit and unit in K.AG_UNITS
+    assert (h * itemsize) % unit == 0 and aligned % unit == 0
+    assert got[1] * unit == h * itemsize
+    tile = K.STEP_THREADS * K.RS_UNROLL
+    assert got[2] == max(1, 2 * p * -(-got[1] // tile))
+    # no tile of a row half is empty
+    assert got[1] == 0 or (got[2] // (2 * p) - 1) * tile < got[1]
+
+
 @pytest.mark.parametrize("p", [1, 4, 8, 6])
 def test_step_grid_covers_the_row_within_the_waves(p):
     """A rank's blocks cover its row in one iteration where RS_WAVES waves
@@ -469,13 +506,20 @@ def test_cuda_wrapper_raises_without_library(cuda_device, monkeypatch,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("h", [512, 4096, 6, 12, 96, 1000, 1002, 1001])
+@pytest.mark.parametrize("h", [512, 4096, 6, 12, 96, 1000, 1002, 1001,
+                               (1 << 20) + 12])
 def test_cuda_kernels_match_plain(cuda_device, h):
     """Bitwise, f32 and bf16, with and without send, every path of the
     launch rules: h a multiple of the vector lanes (512, 4096) or not (6,
     1002, 1001), h/2 not (12 f32, 1000 bf16); rs_step_q's codec chunks 256
     (512, 4096), 32 (96), 8 (1000: the warp kernel, one scale a lane) and
-    2 and 1 (6, 1002, 1001: the element-wise kernel)."""
+    2 and 1 (6, 1002, 1001: the element-wise kernel); ag_step at p = 1, 4,
+    6 and 8 in f32, bf16 and int8, every unit of ``ag_step_launch`` (16,
+    4, 2 and 1 bytes across these h and dtypes: int8 at 1000, 1002 and
+    1001 takes 4, 2 and 1), row halves that end mid-block, at 2**20 + 12
+    more units than one pass of the grid covers, and through its C entry
+    point at grids of 1 and 7 blocks, where each block walks many
+    tiles."""
     dev = cuda_device
     buf = rng.randn(P, 2 * h).astype(np.float32)
     recv = rng.randn(P, h).astype(np.float32)
@@ -500,6 +544,31 @@ def test_cuda_kernels_match_plain(cuda_device, h):
         for a, e in zip(K.rs_step_q(*(a.to(dev) for a in args), c, cn),
                         R.rs_step_ref_q(*args, _t(C), _t(CN))):
             _same(a.cpu(), e)
+    # ag_step at p = 1, 4, 6, 8 with distinct inputs and random bits, f32,
+    # bf16 and int8 (the int8 row of odd h takes the byte kernel)
+    for p in (1, 4, 6, 8):
+        bits = _t(rng.randint(0, 2, p).astype(np.int32))
+        x = rng.randn(2, p, h).astype(np.float32)
+        for dt in (torch.float32, torch.bfloat16, torch.int8):
+            a, b = (_t(np.clip(v * 50, -127, 127), dt) if dt == torch.int8
+                    else _t(v, dt) for v in x)
+            before = KB.LAUNCHES["ag_step"]
+            got = K.ag_step(a.to(dev), b.to(dev), bits.to(dev)).cpu()
+            assert KB.LAUNCHES["ag_step"] == before + 1
+            exp = R.ag_step_ref(a, b, bits)
+            _same(got, exp)
+            if p != 4:
+                continue
+            # grids of 1 and 7 blocks walking the tiles
+            ad, bd, cd = a.to(dev), b.to(dev), bits.to(dev)
+            unit, n, _ = K.ag_step_launch(p, h, a.element_size(), 16)
+            for grid in (1, 7):
+                out = torch.empty((p, 2 * h), dtype=dt, device=dev)
+                KB.raise_on(K._lib().repro_ag_step(
+                    ad.data_ptr(), bd.data_ptr(), out.data_ptr(),
+                    cd.data_ptr(), p, n, unit, grid, KB.stream(ad)),
+                    "ag_step")
+                _same(out.cpu(), exp, f"{dt} grid {grid}")
 
 
 def _q_inputs_edges(h):
@@ -568,7 +637,8 @@ def test_cuda_step_kernels_unaligned_views_match_plain(cuda_device, h):
     """Contiguous views 4 bytes into their storage: rs_step runs its
     element-wise kernel, rs_step_q its warp kernel element by element
     (``rs_step_q_launch`` path 1); both bitwise the plain version, with and
-    without send."""
+    without send.  ag_step through views 4, 2 and 1 bytes off takes the
+    unit of that many bytes, bitwise."""
     dev = cuda_device
     c, cn = _t(C).to(dev), _t(CN).to(dev)
     buf = rng.randn(P, 2 * h).astype(np.float32)
@@ -582,6 +652,17 @@ def test_cuda_step_kernels_unaligned_views_match_plain(cuda_device, h):
         for a, e in zip(K.rs_step(ob, ov, c, cn),
                         R.rs_step_ref(b, v, _t(C), _t(CN))):
             _same(a.cpu(), e)
+    # ag_step through views 4, 2 and 1 bytes off: the 4-, 2- and 1-byte
+    # units
+    bits = _t(C).to(dev)
+    for dt, off in ((torch.float32, 4), (torch.bfloat16, 4),
+                    (torch.bfloat16, 2), (torch.int8, 1), (torch.int8, 2)):
+        a, b = (_t(np.clip(x * 50, -127, 127), dt) if dt == torch.int8
+                else _t(x, dt) for x in (recv, recv[::-1].copy()))
+        oa, ob = _offset_view(a, dev, off), _offset_view(b, dev, off)
+        unit = K.ag_step_launch(P, h, a.element_size(), off)[0]
+        assert unit == off
+        _same(K.ag_step(oa, ob, bits).cpu(), R.ag_step_ref(a, b, _t(C)))
     args = tuple(_t(a) for a in _q_inputs(h))
     offs = tuple(_offset_view(a, dev) for a in args)
     assert K.rs_step_q_launch(P, h, False, 1)[0] == 1
@@ -596,8 +677,8 @@ def test_cuda_step_kernels_unaligned_views_match_plain(cuda_device, h):
 def test_cuda_step_kernels_at_the_smoke_shape(cuda_device):
     """p = 4, h = 8 Mi (one 64 MiB f32 bucket's first step, the vector and
     warp kernels at ``chip_smoke.py``'s shape): rs_step f32 / bf16 with and
-    without send, rs_step_q with and without send, bitwise the plain
-    versions run on the card."""
+    without send, ag_step f32 / bf16 / int8, rs_step_q with and without
+    send, bitwise the plain versions run on the card."""
     dev = cuda_device
     h = 8 << 20
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -620,6 +701,15 @@ def test_cuda_step_kernels_at_the_smoke_shape(cuda_device):
         same(K.rs_step(b, v, c), R.rs_step_ref(b, v, c))
         same(K.rs_step(b, v, c, cn), R.rs_step_ref(b, v, c, cn))
         del b, v
+    # ag_step at the bucket's last AG step: out [4, 16 Mi]
+    a, b = recv, torch.randn((P, h), generator=gen, device=dev)
+    for dt in (torch.float32, torch.bfloat16):
+        same(K.ag_step(a.to(dt), b.to(dt), c),
+             R.ag_step_ref(a.to(dt), b.to(dt), c))
+    qa_, _ = tcomp.quantize_wire(a)
+    qb_, _ = tcomp.quantize_wire(b)
+    same(K.ag_step(qa_, qb_, c), R.ag_step_ref(qa_, qb_, c))
+    del a, b, qa_, qb_
     rq, rs = tcomp.quantize_wire(recv)
     assert K.rs_step_q_launch(P, h, True, 1)[0] == 0
     same(K.rs_step_q(buf, rq, rs, c), R.rs_step_ref_q(buf, rq, rs, c))

@@ -267,6 +267,38 @@ def test_permanent_failure_halves_p(tmp_path):
         shrunk_dp(2, 2)
 
 
+def test_transient_failure_resumes_bitwise_under_tp(tmp_path):
+    """``train_build`` at (dp, tp) = (2, 2) on ``cell.tp_small_config()``
+    (megatron_sp): a failure at step 3 restores step 2's global
+    checkpoint into the stacked TP ranks and replays step 2; every loss
+    equals the uninterrupted loop's, bit for bit."""
+    from repro_torch.launch import cell
+    from repro_torch.models import sharding as SH
+
+    cfg = cell.tp_small_config()
+    assert SH.strategy(cfg, 2) == "megatron_sp"
+    tcfg = TrainConfig(backend="pallas_fused", bucket_bytes=1 << 20)
+    dcfg = DataConfig(global_batch=8, seq_len=32, vocab_size=cfg.vocab_size)
+    build = train_build(cfg, tcfg, dcfg, 2, device="cpu", tp=2)
+    # each DP rank's tree is stacked over its 2 TP ranks: the vocab split
+    emb = build(0)[1](0)[0]["embed"]
+    assert tuple(emb.shape) == (2, cfg.vocab_size // 2, cfg.d_model)
+    clean = TrainLoop(TrainLoopConfig(total_steps=4, ckpt_every=2,
+                                      ckpt_dir=str(tmp_path / "a")),
+                      build).run(0)
+    hit = TrainLoop(TrainLoopConfig(total_steps=4, ckpt_every=2,
+                                    ckpt_dir=str(tmp_path / "b")),
+                    build, FailureInjector({3: False})).run(0)
+    assert hit["restarts"] == 1 and hit["shrink"] == 0
+    want = dict(_losses(clean))
+    assert [s for s, _ in _losses(hit)] == [0, 1, 2, 2, 3]
+    assert all(loss == want[s] for s, loss in _losses(hit))
+    # the checkpoint is the global layout: whole leaves, no model axis
+    with np.load(str(tmp_path / "b" / "step_00000004" / "arrays.npz")) as z:
+        assert any(z[k].shape == (cfg.vocab_size, cfg.d_model)
+                   for k in z.files)
+
+
 def _cli(argv):
     from repro_torch.launch import train
     buf = io.StringIO()

@@ -358,6 +358,47 @@ def test_rmsnorm_launch_shape_covers_every_d(dtype):
                 assert nv > RK.MAX_THREADS * RK.MAX_VPT, d
 
 
+#: (C, chunk, aligned) -> (vector kernel, log2 of chunk or -1)
+QACC_RULE = [
+    ((65536, 256, True), (True, 8)),    # the smoke's 64 MiB accumulator
+    ((65536, 256, False), (False, 8)),  # a pointer off its vector
+    ((1000, 128, True), (True, 7)),
+    ((7, 100, True), (True, -1)),       # not a power of two: a division
+    ((5, 96, True), (True, -1)),
+    ((10, 4, True), (True, 2)),         # one vector a row
+    ((3, 7, True), (False, -1)),        # chunk % 4 != 0: element-wise
+    ((4, 2, True), (False, 1)),
+    ((4, 1, True), (False, 0)),
+    ((37, 256, True), (True, 8)),       # C * chunk not a block's multiple
+]
+
+
+@pytest.mark.parametrize("case,path", QACC_RULE,
+                         ids=[f"C{c[0]}-chunk{c[1]}-{'al' if c[2] else 'off'}"
+                              for c, _ in QACC_RULE])
+def test_qacc_launch_rule(case, path):
+    """The vector kernel for chunk % 4 == 0 on aligned pointers (a float4
+    never straddles two rows), else the element-wise one; the scale's row
+    a shift for a power-of-two chunk, else a division; a grid that covers
+    the work in one pass where QACC_WAVES waves allow it, never more, and
+    at least one block."""
+    C, chunk, aligned = case
+    for wave in (1, 1056):
+        vec, shift, grid = QK.qacc_launch(C, chunk, aligned, wave)
+        assert (vec, shift) == path
+        if vec:
+            assert chunk % 4 == 0
+        units, per = ((C * chunk // 4, QK.QACC_THREADS * QK.QACC_UNROLL)
+                      if vec else (C * chunk, QK.QACC_THREADS))
+        assert 1 <= grid <= max(1, QK.QACC_WAVES * wave)
+        assert grid * per >= units or grid == QK.QACC_WAVES * wave
+        assert (grid - 1) * per < max(units, 1)
+    # the row of element e: the shift where there is one, the division's
+    e = np.arange(0, C * chunk, max(1, C * chunk // 997))
+    rows = e >> shift if shift >= 0 else e // chunk
+    np.testing.assert_array_equal(rows, e // chunk)
+
+
 def test_every_kernel_source_is_built():
     """The build module finds one source per kernel file of every package
     (the smoke's build phase starts one nvcc for each)."""
@@ -596,13 +637,61 @@ def test_cuda_flash_attention_bf16_off_tma_matches_plain(cuda_device, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("C,chunk", QACC_CASES + [(65536, 256), (7, 100)])
+@pytest.mark.parametrize("C,chunk", QACC_CASES + [
+    (65536, 256), (7, 100), (300, 96), (41, 100), (37, 256), (13, 7),
+    (3000, 1)])
 def test_cuda_qacc_matches_plain_bitwise(cuda_device, C, chunk):
+    """Every path of ``qacc_launch``: the vector kernel with a shift (256,
+    128, 64) or a division (96, 100: not powers of two), C * chunk not a
+    multiple of a block's 4096 elements (37 x 256, 41 x 100), and the
+    element-wise kernel (7, 1); the launch counted."""
     q, s, a = (torch.from_numpy(t).to(cuda_device)
                for t in _qacc_inputs(C, chunk))
+    before = B.LAUNCHES["qacc"]
     got = QK.qacc_kernel(q, s, a)
+    assert B.LAUNCHES["qacc"] == before + 1
     exp = QR.dequant_accumulate_ref(q, s, a)
     assert torch.equal(got.view(torch.int32), exp.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [256, 100, 7])
+def test_cuda_qacc_non_finite_matches_plain_bitwise(cuda_device, chunk):
+    """NaN, +inf and -inf in acc, and q = +-127 at the codec's largest
+    scale (2**122) and at FLT_MAX (the product overflows to +-inf, and
+    inf + -inf is NaN), bitwise the plain version run on the card, on the
+    vector kernel's shift (256) and division (100) and the element-wise
+    kernel (7)."""
+    C = 64
+    q, s, a = (torch.from_numpy(t) for t in _qacc_inputs(C, chunk))
+    a[0, 0], a[1, 1], a[2, 2] = float("nan"), float("inf"), float("-inf")
+    big = torch.finfo(torch.float32).max
+    s[3, 0], s[4, 0], s[5, 0] = 2.0 ** 122, big, big
+    q[3:6, :] = 127
+    q[3:6, 1::2] = -127
+    a[5, 0], a[5, 1] = float("-inf"), float("inf")   # inf - inf, -inf + inf
+    q, s, a = q.to(cuda_device), s.to(cuda_device), a.to(cuda_device)
+    got = QK.qacc_kernel(q, s, a)
+    exp = QR.dequant_accumulate_ref(q, s, a)
+    assert bool(exp.isnan().any()) and bool(exp.isinf().any())
+    assert torch.equal(got.view(torch.int32), exp.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_cuda_qacc_unaligned_views_match_plain_bitwise(cuda_device):
+    """q and acc 4 bytes into their storage: the element-wise kernel
+    (``qacc_launch`` says so), bitwise."""
+    C, chunk = 33, 256
+    q, s, a = (torch.from_numpy(t) for t in _qacc_inputs(C, chunk))
+    fq = torch.zeros(C * chunk + 4, dtype=torch.int8, device=cuda_device)
+    fa = torch.zeros(C * chunk + 1, dtype=torch.float32, device=cuda_device)
+    vq, va = fq[4:].view(C, chunk), fa[1:].view(C, chunk)
+    vq.copy_(q)
+    va.copy_(a)
+    assert not QK.qacc_launch(C, chunk, va.data_ptr() % 16 == 0, 1)[0]
+    got = QK.qacc_kernel(vq, s.to(cuda_device), va)
+    exp = QR.dequant_accumulate_ref(q, s, a)
+    assert torch.equal(got.cpu().view(torch.int32), exp.view(torch.int32))
 
 
 @pytest.mark.cuda

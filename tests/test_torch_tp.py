@@ -13,12 +13,19 @@ inputs and JAX's initial parameters.
 Cases: megatron_sp on test_parallel_equiv's cfgA (d_model 1024, 8/4
 heads, qk_norm, untied head; float32) at tp = 2 and 4, the GQA rule at
 tp = 4 with 2 KV heads, pure_sp on the reduced phi4-mini with a window
-of 16 and with ``local_global_ratio=3``: logits, loss and every leaf's
-gradient; then 2 train steps at (dp, tp) = (2, 2) on the float32,
-bfloat16 and int8 wires, bucketed and per-leaf, ``auto`` per-leaf,
-megatron_sp (cfgA) on the float32 and int8 wires, and (pod, data,
-model) = (2, 2, 2) with ``bine_hier``, with the reference's checkpoint
-at (2, 2) resumed.
+of 16 and with ``local_global_ratio=3``, both strategies at a vocab of
+130 over tp = 4: logits, loss and every leaf's gradient; then 2 train
+steps at (dp, tp) = (2, 2) on the float32, bfloat16 and int8 wires,
+bucketed and per-leaf, ``auto`` per-leaf, megatron_sp (cfgA) on the
+float32 and int8 wires, a vocab of 131 (an untied head; a tied one at
+three seeds), and (pod, data, model) = (2, 2, 2) with ``bine_hier``,
+with the reference's checkpoint at (2, 2) resumed.
+
+A vocab that does not divide tp: the reference's TP step computes (GSPMD
+holds the embedding and head whole and pads inside the step); only its
+jitted ``init_params`` under ``constrain_params`` fails at 130 over 4
+(jax 0.9 cannot name the padded sharding it chose), so the forward here
+starts from an unconstrained init, as every case does.
 
 Bounds.  Forward: logits atol 2e-5 of max |logit| ~ 1-3 (cfgA's row
 parallel sums over 4 ranks round in another order than GSPMD's), loss
@@ -43,6 +50,12 @@ such boundaries, so the int8 wire's second step is held to the loss and
 grad-norm bounds only.  The bounds of a flipped element: master lr,
 param lr + 2^-7, within the 0.1% of the elements allowed past the tight
 bound; every other quantity keeps its bounds.
+
+The tied head at a vocab of 131 is held after both steps, its tied
+embedding's Adam m and v apart under a count of their own
+(``TIED_EMBED_OUT``; see ``_tied_head``): a step-1 gradient of the
+order of AdamW's eps rounds to a different first update, as the int8
+codec's boundary does above.
 """
 
 import numpy as np
@@ -77,6 +90,11 @@ FWD = {
     "window": (REDUCED, dict(window=16), 2, 2, 64),
     "local_global": (REDUCED, dict(local_global_ratio=3, n_layers=5,
                                    local_window=16), 2, 2, 64),
+    # a vocab that does not divide tp: the reference's GSPMD step computes
+    # with the embedding and head held whole; the port pads their vocab
+    # block and leaves the padded logits out of the loss
+    "vocab_mega4": (CFG_A, dict(vocab_size=130), 4, 2, 64),
+    "vocab_pure4": (REDUCED, dict(vocab_size=130), 4, 2, 64),
 }
 STEPS = 2
 #: train runs: tag -> (config, backend, wire, bucket_bytes, DP sizes, tp)
@@ -92,14 +110,36 @@ RUNS = {
     # auto prices each leaf's collective at its global bytes, as the
     # reference does (per-leaf: one decision a leaf)
     "auto_leaf": (REDUCED, "auto", "float32", 0, (2,), 2),
+    # a vocab that does not divide tp (131 at tp = 2), an untied head: the
+    # embedding and the head each held whole and padded
+    "vocab131": (("reduced", dict(dtype="float32", vocab_size=131,
+                                  tie_embeddings=False)),
+                 "pallas_fused", "float32", 1 << 16, (2,), 2),
 }
+#: the tied head at a vocab of 131 over tp = 2
+#: (test_tp_vocab_not_dividing_tp_tied_head) at three seeds, each (the
+#: init key, the first batch): the reference's (2, 2) run, which the
+#: port's is held to, and its (2, 1) run beside it
+TIED_131 = ("reduced", dict(dtype="float32", vocab_size=131))
+TIED_SEEDS = ((0, 0), (1, 10), (2, 20))
+VOCAB_TIED = {f"tied{k}_tp{tp}": (TIED_131, "pallas_fused", "float32",
+                                  1 << 16, (2,), tp, (k, b0))
+              for k, b0 in TIED_SEEDS for tp in (2, 1)}
+#: elements of the tied embedding's ([131, 64], 8384) Adam m and v past
+#: BOUNDS' tight bounds that the port's (2, 2) run may have against the
+#: reference's in that test: 1.5 x the largest of the three seeds'
+#: readings (m 175, 9, 0; v 381, 52, 19)
+TIED_EMBED_OUT = {"m": 263, "v": 572}
+ALL_RUNS = {**RUNS, **VOCAB_TIED}
 #: the JAX subprocesses, run at once: the forward cases in two, then
 #: (devices, train runs)
-FWD_GROUPS = (("mega2", "mega4", "gqa4"), ("window", "local_global"))
-GROUPS = ((4, ("f32", "bf16")), (4, ("f32_leaf",)),
+FWD_GROUPS = (("mega2", "mega4", "gqa4"), ("window", "local_global"),
+              ("vocab_mega4", "vocab_pure4"))
+GROUPS = ((4, ("f32", "bf16")), (4, ("f32_leaf", "vocab131")),
           (4, ("bf16_leaf", "auto_leaf")),
           (4, ("int8",)), (4, ("mega_f32",)), (4, ("mega_int8",)),
-          (8, ("hier",)))
+          (8, ("hier",)),
+          *((4, (f"tied{k}_tp2", f"tied{k}_tp1")) for k, _ in TIED_SEEDS))
 #: the run whose state the reference checkpoints after STEPS steps
 CKPT_RUN = "f32"
 #: (tight, loose) absolute bounds, as in tests/test_torch_train_step.py
@@ -115,7 +155,7 @@ BOUNDS_INT8 = dict(BOUNDS, param=(1e-5, LR + 2.0 ** -7), master=(1e-5, LR))
 def _state_at(tag):
     """The step after which the state is compared: the first on the int8
     wire, else the last."""
-    return 1 if RUNS[tag][2] == "int8" else STEPS
+    return 1 if ALL_RUNS[tag][2] == "int8" else STEPS
 
 JAX_PRELUDE = r"""
 import os
@@ -178,9 +218,10 @@ from repro.train import checkpoint as ckpt
 from repro.train.step import TrainConfig, make_train_step, make_init_fns
 
 out = {{}}
-for tag, (spec, backend, wire, bb, dp, tp) in {runs!r}.items():
+for tag, (spec, backend, wire, bb, dp, tp, *seed) in {runs!r}.items():
     cfg = config(spec, {{}})
-    key = jax.random.key(0)
+    k0, b0 = seed[0] if seed else (0, 0)      # the init key, first batch
+    key = jax.random.key(k0)
     shapes = jax.eval_shape(lambda k: T.init_params(k, cfg), key)
     dcfg = DataConfig(global_batch=8, seq_len=64, vocab_size=cfg.vocab_size)
     axes = ("data",) if len(dp) == 1 else ("pod", "data")
@@ -199,20 +240,24 @@ for tag, (spec, backend, wire, bb, dp, tp) in {runs!r}.items():
         for i, x in enumerate(jax.tree.leaves(params)):
             out[f"{{tag}}_init_{{i}}"] = np.asarray(x)
         for s in range({steps}):
-            b = make_batch(dcfg, s)
+            b = make_batch(dcfg, b0 + s)
             batch = {{k: jax.device_put(v, sh["batch"][k])
                      for k, v in b.items()}}
             params, state, m = step(params, state, batch)
             out[f"{{tag}}_loss_{{s}}"] = np.asarray(m["loss"])
             out[f"{{tag}}_gnorm_{{s}}"] = np.asarray(m["grad_norm"])
-            if s + 1 != {state_at!r}[tag]:
+            if s + 1 == {state_at!r}[tag]:
+                sfx = ""
+            elif s + 1 == {also_at!r}.get(tag):    # an earlier state too
+                sfx = str(s + 1)
+            else:
                 continue
             for i, x in enumerate(jax.tree.leaves(params)):
-                out[f"{{tag}}_param_{{i}}"] = np.asarray(x)
+                out[f"{{tag}}_param{{sfx}}_{{i}}"] = np.asarray(x)
             for i, x in enumerate(jax.tree.leaves(state["opt"])):
-                out[f"{{tag}}_opt_{{i}}"] = np.asarray(x)
+                out[f"{{tag}}_opt{{sfx}}_{{i}}"] = np.asarray(x)
             for bid, x in state.get("ef", {{}}).items():
-                out[f"{{tag}}_ef_{{bid}}"] = np.asarray(x)
+                out[f"{{tag}}_ef{{sfx}}_{{bid}}"] = np.asarray(x)
         if tag == {ckpt_run!r}:
             ckpt.save({ckpt_dir!r}, {steps}, {{"params": params,
                                                "state": state}})
@@ -248,8 +293,10 @@ def jax_run(subproc, tmp_path_factory):
             for i, g in enumerate(FWD_GROUPS)]
     for i, (devices, runs) in enumerate(GROUPS):
         jobs.append((STEP_CODE.format(
-            runs={t: RUNS[t] for t in runs}, steps=STEPS, ckpt_run=CKPT_RUN,
+            runs={t: ALL_RUNS[t] for t in runs}, steps=STEPS,
+            ckpt_run=CKPT_RUN,
             state_at={t: _state_at(t) for t in runs},
+            also_at={t: 1 for t in runs if t in VOCAB_TIED},
             ckpt_dir=ckpt_dir, path=str(tmp / f"step{i}.npz")), devices))
     with ThreadPoolExecutor(len(jobs)) as pool:
         for f in [pool.submit(subproc, code, dev, 600) for code, dev in jobs]:
@@ -315,7 +362,12 @@ def test_tp_forward_and_grads_match_jax(jax_run, tag):
                     T.flatten(_init(jax_run, tag, cfg))):
         np.testing.assert_array_equal(a, b)              # and back, exactly
     logits, _ = TF.forward(sp, cfg, batch["inputs"], n_model=n)
-    got = torch.cat(list(logits), dim=-1).numpy()      # the vocab shards
+    got = torch.cat(list(logits), dim=-1)              # the vocab shards
+    # the padding of a vocab that does not divide n: zeros past V
+    V = cfg.vocab_size
+    assert got.shape[-1] == -(-V // n) * n
+    assert not bool(got[..., V:].any())
+    got = got[..., :V].numpy()
     exp = jax_run[f"{tag}_logits"]
     np.testing.assert_allclose(got, exp, rtol=0,
                                atol=2e-5 * np.abs(exp).max())
@@ -334,13 +386,16 @@ def test_tp_forward_equals_single_path_float32():
     and pure_sp at tp = 2 and 4 against the port's single path on the
     same weights, and T % tp != 0, where the residual stream stays whole
     on every rank and pure_sp's attention falls through to the single
-    path, as the reference's does (``layers.py:140``)."""
+    path, as the reference's does (``layers.py:140``); a vocab that does
+    not divide tp (130 at 4, 131 at 2 with a tied head)."""
     a = _cfg(CFG_A)
     r = _cfg(REDUCED)
     cases = [(a, 2, 64), (a, 4, 64), (r, 2, 64), (r, 4, 32),
              (r, 2, 96),                       # nC = 3: the Cq growth
              (r.replace(attn_chunk=64), 2, 33),   # T % tp != 0
-             (a.replace(attn_chunk=64), 2, 33)]
+             (a.replace(attn_chunk=64), 2, 33),
+             (a.replace(vocab_size=130), 4, 64),   # V % tp != 0: padded
+             (r.replace(vocab_size=131, tie_embeddings=True), 2, 64)]
     for cfg, n, S in cases:
         params = TF.init_params(cfg, 0, "cpu")
         toks = torch.from_numpy(np.random.default_rng(S).integers(
@@ -348,7 +403,7 @@ def test_tp_forward_equals_single_path_float32():
         ref, _ = TF.forward(params, cfg, toks)
         got, _ = TF.forward(SH.shard_params(cfg, params, n), cfg, toks,
                             n_model=n)
-        got = torch.cat(list(got), dim=-1)
+        got = torch.cat(list(got), dim=-1)[..., :cfg.vocab_size]
         assert float((got - ref).abs().max()) <= 2e-5 * float(
             ref.abs().max()), (SH.strategy(cfg, n), n, S)
 
@@ -558,18 +613,24 @@ def test_tp_bucket_report_matches_jax():
 # Train steps against the reference
 # ---------------------------------------------------------------------------
 
+def _seed(tag):
+    """The run's (init key, first batch): (0, 0) unless it names one."""
+    return ALL_RUNS[tag][6] if len(ALL_RUNS[tag]) > 6 else (0, 0)
+
+
 def _tcfg(tag):
-    _, backend, wire, bb, dp, _ = RUNS[tag]
+    _, backend, wire, bb, dp = ALL_RUNS[tag][:5]
     return TrainConfig(backend=backend, wire_dtype=wire, bucket_bytes=bb,
                        dp_axes=("data",) if len(dp) == 1 else ("pod", "data"),
                        adamw=AdamWConfig(lr=LR, warmup_steps=1,
                                          total_steps=100))
 
 
-def _run(jax_run, tag, steps=STEPS):
-    """The port's run of ``RUNS[tag]`` from JAX's initial params: (metrics,
-    params, state, the global numpy state after ``_state_at(tag)``)."""
-    spec, _, _, _, dp, tp = RUNS[tag]
+def _run(jax_run, tag, steps=STEPS, globs=None):
+    """The port's run of ``ALL_RUNS[tag]`` from JAX's initial params: (metrics,
+    params, state, the global numpy state after ``_state_at(tag)``).
+    ``globs``, a dict, gets the global numpy state after every step."""
+    spec, _, _, _, dp, tp = ALL_RUNS[tag][:6]
     cfg, tcfg = _cfg(spec), _tcfg(tag)
     step, _, _ = make_train_step(cfg, tcfg, dp, TF.param_shapes(cfg), "cpu",
                                  tp=tp)
@@ -580,11 +641,49 @@ def _run(jax_run, tag, steps=STEPS):
     dcfg = DataConfig(global_batch=8, seq_len=64, vocab_size=cfg.vocab_size)
     metrics, glob = [], None
     for s in range(steps):
-        params, state, m = step(params, state, make_batch(dcfg, s))
+        params, state, m = step(params, state,
+                                make_batch(dcfg, _seed(tag)[1] + s))
         metrics.append(m)
-        if s + 1 == _state_at(tag):
-            glob = train_state_to_numpy(cfg, tcfg, params, state, dp, tp=tp)
+        if s + 1 == _state_at(tag) or globs is not None:
+            g = train_state_to_numpy(cfg, tcfg, params, state, dp, tp=tp)
+            glob = g if s + 1 == _state_at(tag) else glob
+            if globs is not None:
+                globs[s + 1] = g
     return metrics, params, state, glob
+
+
+def _check_state(glob, jax_run, tag, apart=None, at=""):
+    """The port's global state of run ``tag`` against the reference's
+    (after step ``at`` where given, else after ``_state_at(tag)``) within
+    BOUNDS (BOUNDS_INT8 on the int8 wire).  ``apart``: (kind, leaf
+    path) -> the count of that leaf's elements allowed past the tight
+    bound; such a leaf is held to it alone, out of the shared count.
+    Returns each such leaf's count."""
+    pairs = {"param": [(x, jax_run[f"{tag}_param{at}_{i}"])
+                       for i, x in enumerate(T.flatten(glob["params"]))],
+             "master": [], "m": [], "v": []}
+    i = 0
+    for st in T.flatten_up_to(glob["params"], glob["state"]["opt"]):
+        for k in sorted(st):              # m, master, v: the JAX leaf order
+            pairs[k].append((st[k], jax_run[f"{tag}_opt{at}_{i}"]))
+            i += 1
+    ef = {k[len(f"{tag}_ef{at}_"):]: v for k, v in jax_run.items()
+          if k.startswith(f"{tag}_ef{at}_")}
+    assert sorted(glob["state"].get("ef", {})) == sorted(ef)
+    assert bool(ef) == (ALL_RUNS[tag][2] == "int8")
+    pairs["ef"] = [(glob["state"]["ef"][b], v) for b, v in ef.items()]
+    bounds = BOUNDS_INT8 if ALL_RUNS[tag][2] == "int8" else BOUNDS
+    counts = {}
+    for (k, path), n_out in (apart or {}).items():
+        tight, loose = bounds[k]
+        got, exp = pairs[k].pop(_leaf_index(glob["params"], path))
+        d = np.abs(got.astype(np.float64) - exp)
+        assert d.max() <= loose, (tag, k, path, float(d.max()))
+        counts[k, path] = int((d > tight).sum())
+        assert counts[k, path] <= n_out, (tag, k, path, counts[k, path])
+    for k, (tight, loose) in bounds.items():
+        _mostly_close(pairs[k], tight, loose, f"{tag} {k}")
+    return counts
 
 
 @pytest.mark.parametrize("tag", list(RUNS))
@@ -595,22 +694,66 @@ def test_tp_train_steps_match_jax(jax_run, tag):
                                    jax_run[f"{tag}_loss_{s}"], rtol=1e-4)
         np.testing.assert_allclose(float(m["grad_norm"]),
                                    jax_run[f"{tag}_gnorm_{s}"], rtol=1e-4)
-    pairs = {"param": [(x, jax_run[f"{tag}_param_{i}"])
-                       for i, x in enumerate(T.flatten(glob["params"]))],
-             "master": [], "m": [], "v": []}
-    i = 0
-    for st in T.flatten_up_to(glob["params"], glob["state"]["opt"]):
-        for k in sorted(st):              # m, master, v: the JAX leaf order
-            pairs[k].append((st[k], jax_run[f"{tag}_opt_{i}"]))
-            i += 1
-    ef = {k[len(f"{tag}_ef_"):]: v for k, v in jax_run.items()
-          if k.startswith(f"{tag}_ef_")}
-    assert sorted(glob["state"].get("ef", {})) == sorted(ef)
-    assert bool(ef) == (RUNS[tag][2] == "int8")
-    pairs["ef"] = [(glob["state"]["ef"][b], v) for b, v in ef.items()]
-    bounds = BOUNDS_INT8 if RUNS[tag][2] == "int8" else BOUNDS
-    for k, (tight, loose) in bounds.items():
-        _mostly_close(pairs[k], tight, loose, f"{tag} {k}")
+    _check_state(glob, jax_run, tag)
+
+
+def test_tp_vocab_not_dividing_tp_tied_head(jax_run):
+    """``_tied_head`` at the first of ``TIED_SEEDS``."""
+    _tied_head(jax_run, TIED_SEEDS[0][0])
+
+
+@pytest.mark.parametrize("key", [k for k, _ in TIED_SEEDS[1:]])
+def test_tp_vocab_not_dividing_tp_tied_head_at_seed(jax_run, key):
+    """``_tied_head`` at the other seeds of ``TIED_SEEDS``."""
+    _tied_head(jax_run, key)
+
+
+def _tied_head(jax_run, key):
+    """The tied head at a vocab of 131 over tp = 2, the port's (2, 2) run
+    against the reference's, at seed ``key``: the loss and grad norm of
+    both steps (rtol 1e-4); the whole state after step 1 within BOUNDS;
+    after step 2 within BOUNDS, where the tied embedding's Adam m and v
+    are held apart, each to ``TIED_EMBED_OUT`` elements past its tight
+    bound (every one within the loose bound).
+
+    Why apart: the weights that differ past the tight bound after step 1
+    all have a step-1 gradient below 100 x AdamW's eps (asserted).  At
+    that size rounding moves a gradient by a large share of itself, and
+    the first update ``lr g / (|g| + eps)`` with it.  Step 2's gradients
+    then differ a little everywhere; the tied embedding, which sums every
+    position's head and lookup gradients, shows it most.  The reference's
+    own (2, 2) and (2, 1) runs differ so too: the test prints their
+    counts beside the port's."""
+    tag = f"tied{key}_tp2"
+    globs = {}
+    metrics, _, _, glob = _run(jax_run, tag, globs=globs)
+    for s, m in enumerate(metrics):
+        np.testing.assert_allclose(float(m["loss"]),
+                                   jax_run[f"{tag}_loss_{s}"], rtol=1e-4)
+        np.testing.assert_allclose(float(m["grad_norm"]),
+                                   jax_run[f"{tag}_gnorm_{s}"], rtol=1e-4)
+    _check_state(globs[1], jax_run, tag, at="1")
+    adamw = _tcfg(tag).adamw
+    p1 = globs[1]["params"]
+    g1 = []          # |step-1 gradient| of each weight past the tight bound
+    for i, (x, st) in enumerate(zip(T.flatten(p1), T.flatten_up_to(
+            p1, globs[1]["state"]["opt"]))):
+        d = np.abs(x.astype(np.float64) - jax_run[f"{tag}_param1_{i}"])
+        g1 += (np.abs(st["m"][d > BOUNDS["param"][0]]) /
+               (1 - adamw.b1)).tolist()
+    assert max(g1, default=0.0) < 100 * adamw.eps, (key, max(g1))
+    print(f"seed {key}: after step 1, {len(g1)} weights past "
+          f"{BOUNDS['param'][0]:g}, step-1 |gradient| at most "
+          f"{max(g1, default=0.0):.2e}")
+    counts = _check_state(glob, jax_run, tag, apart={
+        (k, ("embed",)): n for k, n in TIED_EMBED_OUT.items()})
+    e = _leaf_index(glob["params"], ("embed",))
+    for j, k in ((0, "m"), (2, "v")):      # m, master, v: the JAX order
+        a, b = (jax_run[f"tied{key}_tp{t}_opt_{3 * e + j}"] for t in (2, 1))
+        own = int((np.abs(a.astype(np.float64) - b) > BOUNDS[k][0]).sum())
+        print(f"seed {key}: tied embedding {k} past {BOUNDS[k][0]:g} after "
+              f"step 2: port (2, 2) vs reference (2, 2) "
+              f"{counts[k, ('embed',)]}, reference (2, 2) vs (2, 1) {own}")
 
 
 def test_tp_bucketed_and_per_leaf_bitwise(jax_run):
@@ -657,7 +800,7 @@ def test_jax_tp_checkpoint_resumes_in_port(jax_run):
     ``checkpoint.save`` (global arrays), restores in the port at (2, 2)
     bit for bit, and the port's next step matches the reference's."""
     from repro_torch.train import checkpoint as ckpt
-    spec, _, _, _, dp, tp = RUNS[CKPT_RUN]
+    spec, _, _, _, dp, tp = ALL_RUNS[CKPT_RUN]
     cfg, tcfg = _cfg(spec), _tcfg(CKPT_RUN)
     step, _, _ = make_train_step(cfg, tcfg, dp, TF.param_shapes(cfg), "cpu",
                                  tp=tp)
