@@ -116,13 +116,30 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
              and batch (``TP_LOSS_RTOL``, ``TP_GNORM_RTOL``), and the
              step's device groups and idle share from
              ``launch/profile_step.py`` at ``--mesh 2,2`` (a ``tp:`` JSON
-             line).
+             line);
+10. serving under TP — the small megatron_sp config at (dp, tp) =
+             (1, 2) and the reduced-width pure_sp one at (2, 2), float32:
+             insert and decode logits within 2e-5 of max |logit| and 6
+             greedy streams equal, the card against the CPU; then the
+             serve cell at ``cell.SERVE_TP_SHAPE`` = (2, 2) (megatron_sp,
+             phase 7's weights, prompts and trace; each page's 1024 slots
+             512 a TP rank): every request retires with its tokens, every
+             logit is finite, 65 rmsnorm per insert and per decode step
+             and 32 flash_attention per insert, all on wgmma, request 0's
+             insert within ``SERVE_TP_ULPS`` bf16 ulps of max |logit| of
+             phase 7's with its first token equal, the peak within phase
+             7's plus the pool's bytes; the later tokens' agreement with
+             phase 7, the serve numbers beside phase 7's and
+             ``launch/profile_serve.py``'s breakdown and idle share at
+             (1, 1) and (2, 2) (a ``serve-tp:`` JSON line).
 
 The kernels line's launches of rs_step, ag_step and rs_step_q sum the
 train step's main path, its two-axis path, phase 8's runs and the TP
-path's; the ``step kernels by path:`` line gives each path's own counts,
-each of which must be above 0.  Prints a ``kernels:`` summary, one JSON line of per-kernel numbers, the
-card's name and power limit, and as its last line
+path's, and those of rmsnorm and flash_attention the serve path's and
+the serve-TP path's; the ``kernels by path:`` line gives each path's own
+counts, each of which must be above 0.  Prints a ``kernels:`` summary,
+one JSON line of per-kernel numbers, the card's name and power limit,
+and as its last line
 ``{"ok": true, "device": {...}}``.  Exits 2 without a result when there is
 no CUDA device or no ``src/repro_torch`` beside this file.
 """
@@ -491,7 +508,8 @@ def phase_perm_matmul(dev, randn, row):
     plain version (plus one bf16 rounding, 2**-7 |y|, for a bf16 result),
     with both held against a float64 product; the launch counts say which
     kernel ran.  Library call: ``torch.matmul`` of the same shapes and
-    dtype (TF32 off)."""
+    dtype (TF32 off).  Each row adds the kernel's own device ms per call
+    under torch.profiler (``device_ms``)."""
     import torch
     from repro_torch.kernels import build as KB
     from repro_torch.kernels.collectives import kernel as K
@@ -536,7 +554,9 @@ def phase_perm_matmul(dev, randn, row):
                 lambda: K.perm_matmul(xd, wd, perm, lhs),
                 lambda: plain(xd, wd, perm),
                 flops / (BF16_FLOPS if wgmma else F32_FLOPS) * 1e3,
-                "operations", lambda: torch.matmul(xd, wd), host_calls=10)
+                "operations", lambda: torch.matmul(xd, wd),
+                device="perm_matmul_wgmma" if wgmma else "perm_matmul_kernel",
+                host_calls=10)
             del xd, wd
         del x, w
         torch.cuda.empty_cache()
@@ -558,7 +578,8 @@ def phase_serve_kernels(dev, randn, row):
     host-inclusive ``ms``, and the wrapper's host us per call; flash
     attention on one insert's prefill (q [1, 1024, 24, 128], k/v [1, 1024,
     8, 128], bf16, causal), a window-256, a T = 1000
-    (padded) and a T = 4096 variant, within 3e-2 (bf16,
+    (padded) and a T = 4096 variant and the serve-TP insert's shape (the 2
+    TP ranks in the batch, 12 / 4 heads each), within 3e-2 (bf16,
     the tensor-core kernel)
     and float32 (the CUDA-core kernel) within 2e-5, the launch counts
     saying which kernel ran;
@@ -622,14 +643,15 @@ def phase_serve_kernels(dev, randn, row):
     # flash attention at the prefill of one insert (a 1024-token page)
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
-    def flash_case(T, window, dt):
-        q, k, v = (randn(1, T, n, hd, dtype=dt) for n in (nh, nkv, nkv))
+    def flash_case(T, window, dt, b=1, tp=1):
+        hq, hk = nh // tp, nkv // tp           # a TP rank's heads
+        q, k, v = (randn(b, T, n, hd, dtype=dt) for n in (hq, hk, hk))
         qpos = torch.arange(T, device=dev)
         mask = qpos[None, :] <= qpos[:, None]
         if window is not None:
             mask &= (qpos[:, None] - qpos[None, :]) < window
-        live = int(mask.sum())
-        qg = q.reshape(1, T, nkv, nh // nkv, hd).permute(0, 2, 3, 1, 4)
+        live = b * hq * int(mask.sum())
+        qg = q.reshape(b, T, hk, hq // hk, hd).permute(0, 2, 3, 1, 4)
         kg, vg = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
         kern = lambda: FO.flash_attention(q, k, v, window=window)
         plain = lambda: FR.flash_attention_ref(qg, kg, vg, window=window)
@@ -649,7 +671,7 @@ def phase_serve_kernels(dev, randn, row):
         check(KB.LAUNCHES["flash_attention_wgmma"] - before == wgmma,
               f"flash_attention T={T} {dt}: the "
               f"{'wgmma' if wgmma else 'CUDA-core'} kernel did not run")
-        exp = plain().float().permute(0, 3, 1, 2, 4).reshape(1, T, nh, hd)
+        exp = plain().float().permute(0, 3, 1, 2, 4).reshape(b, T, hq, hd)
         ref = lib().float().transpose(1, 2)
         err = float((got - exp).abs().max())
         tol = 2e-5 if dt == torch.float32 else 3e-2
@@ -657,28 +679,32 @@ def phase_serve_kernels(dev, randn, row):
               f"off by {err} (tolerance {tol})")
         # q, k and v read once, o written once
         nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
-        flops = 4 * nh * hd * live
+        flops = 4 * hd * live
         peak = F32_FLOPS if dt == torch.float32 else BF16_FLOPS
         bound = max(nbytes / HBM_BYTES_PER_S, flops / peak) * 1e3
         by = "bytes" if nbytes / HBM_BYTES_PER_S > flops / peak \
             else "operations"
-        log(f"    flash_attention T={T} window={window} {str(dt)[6:]} "
+        log(f"    flash_attention B={b} T={T} heads {hq}/{hk} "
+            f"window={window} {str(dt)[6:]} "
             f"({'wgmma' if wgmma else 'CUDA cores'}): "
             f"{ms(time_ms(kern))} ms, plain {ms(time_ms(plain, reps=5))} ms, "
             f"library {ms(time_ms(lib))} ms, bound {ms(bound)} ms ({by}, "
-            f"{live} live pairs); max |diff| {err:.3e} (vs SDPA "
+            f"{live} live query-key pairs over its heads); max |diff| "
+            f"{err:.3e} (vs SDPA "
             f"{float((got - ref).abs().max()):.3e})")
         return kern, plain, lib, err, bound, by
 
-    for T, window, dt in ((1024, 256, torch.bfloat16),
-                          (1000, None, torch.bfloat16),
-                          (4096, None, torch.bfloat16),
-                          (1024, None, torch.float32)):
-        flash_case(T, window, dt)
+    for T, window, dt, b, tp in ((1024, 256, torch.bfloat16, 1, 1),
+                                 (1000, None, torch.bfloat16, 1, 1),
+                                 (4096, None, torch.bfloat16, 1, 1),
+                                 (1024, None, torch.bfloat16, 2, 2),
+                                 (1024, None, torch.float32, 1, 1)):
+        flash_case(T, window, dt, b, tp)
     kern, plain, lib, err, bound, by = flash_case(1024, None, torch.bfloat16)
     log("  flash_attention: within 3e-2 (bf16, tensor cores) / 2e-5 "
-        "(float32, CUDA cores) of plain (5 variants)")
-    row("flash_attention", err, kern, plain, bound, by, lib)
+        "(float32, CUDA cores) of plain (6 variants)")
+    row("flash_attention", err, kern, plain, bound, by, lib,
+        device="flash_kernel_wgmma")
     del kern, plain, lib
     torch.cuda.empty_cache()
 
@@ -1500,6 +1526,100 @@ def phase_serve_small_reference(dev):
         f"(card vs cpu)")
 
 
+def serve_run(cfg, params, dev, reqs, slots: int, S: int, seed: int,
+              dp=1, tp: int = 1) -> dict:
+    """Serve ``reqs`` through ``slots`` pages of ``S`` tokens at (dp, tp)
+    on the card, each insert and decode step timed (synced) and its
+    logits checked finite, the launch counts set to 0 just before the
+    scheduler runs and read just after.  Returns the stats, the wall s,
+    the times, the counts, whether every logit was finite and the first
+    insert's logits (float32 ``[V]``, on the host)."""
+    import torch
+    from repro_torch.kernels import build as KB
+    from repro_torch.serve import engine as E
+    from repro_torch.serve.sampling import gather_vocab
+    from repro_torch.serve.scheduler import ContinuousBatchingScheduler
+
+    finite = []
+    times = {"insert": [], "decode_slots": []}
+    first = []
+
+    def timed(name, fn):
+        def wrapped(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, pool = fn(*args)
+            finite.append(torch.isfinite(logits).all())
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+            if name == "insert" and not first:
+                first.append(gather_vocab(logits, cfg.vocab_size)[0]
+                             .float().cpu())
+            return logits, pool
+        return wrapped
+
+    fns = E.make_serve_fns(cfg, E.ServeConfig(), slots, S, dev, dp=dp, tp=tp)
+    fns.insert = timed("insert", fns.insert)
+    fns.decode_slots = timed("decode_slots", fns.decode_slots)
+    sched = ContinuousBatchingScheduler(cfg, fns, params, slots, S, seed=seed)
+    for r in reqs:
+        sched.submit(r)
+    torch.cuda.synchronize()
+    KB.reset_launches()
+    t0 = time.perf_counter()
+    stats = sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: KB.LAUNCHES[k] for k in ("rmsnorm", "flash_attention",
+                                             "flash_attention_wgmma")}
+    return {"stats": stats, "wall": wall, "times": times,
+            "launches": launches, "finite": bool(torch.stack(finite).all()),
+            "insert0": first[0]}
+
+
+def serve_checks(cfg, run, reqs, max_new: int, what: str) -> dict:
+    """The checks a serve run of the cell must pass: every request retires
+    with its tokens, every logit is finite, the launch counts are
+    2 L + 1 rmsnorm per insert and per decode step and L flash_attention
+    per insert, every one on the wgmma kernel.  Returns the numbers."""
+    import torch
+    from repro_torch.serve.scheduler import wall_ttft_ms
+
+    stats, wall = run["stats"], run["wall"]
+    check(all(r.finished and len(r.generated) == max_new for r in reqs),
+          f"{what}: not every request retired with its tokens")
+    check(run["finite"], f"{what}: non-finite logits")
+    L, n_ins, n_dec = cfg.n_layers, stats["inserts"], stats["decode_steps"]
+    want = {"rmsnorm": (2 * L + 1) * (n_ins + n_dec),
+            "flash_attention": L * n_ins, "flash_attention_wgmma": L * n_ins}
+    check(run["launches"] == want, f"{what}: launch counts "
+          f"{run['launches']}, expected {want} ({n_ins} inserts, {n_dec} "
+          f"decode steps)")
+    ttft = wall_ttft_ms(reqs)
+    nums = {"prefill_ms_per_insert":
+            statistics.median(run["times"]["insert"]) * 1e3,
+            "decode_ms_per_step":
+            statistics.median(run["times"]["decode_slots"]) * 1e3,
+            "mean_occupancy": stats["mean_occupancy"],
+            "tokens_per_s": stats["tokens_out"] / wall,
+            "ttft_ms_p50": ttft["ttft_ms_p50"],
+            "ttft_ms_p99": ttft["ttft_ms_p99"],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "wall_s": wall}
+    log(f"  {what}: served {len(reqs)} requests: {stats['tokens_out']} "
+        f"tokens, {n_ins} inserts, {n_dec} decode steps (occupancy mean "
+        f"{stats['mean_occupancy']:.2f}, peak {stats['peak_occupancy']}), "
+        f"all logits finite; launches {run['launches']} == {2 * L + 1} x "
+        f"(inserts + steps) and {L} x inserts, every flash launch on wgmma")
+    log(f"  {what}: prefill {nums['prefill_ms_per_insert']:.2f} ms per "
+        f"insert (median of {n_ins}), decode {nums['decode_ms_per_step']:.2f}"
+        f" ms per step (median of {n_dec}), {nums['tokens_per_s']:.1f} "
+        f"tokens/s over {wall:.2f} s, ttft p50 {ttft['ttft_ms_p50']:.1f} ms "
+        f"/ p99 {ttft['ttft_ms_p99']:.1f} ms, peak {nums['peak_gib']:.2f} "
+        f"GiB")
+    return nums
+
+
 def phase_serve(dev):
     """The serve cell (repro_torch/launch/cell.py SERVE_CELL): phi4-mini at
     full width and depth, random weights from the port's init_params, an
@@ -1509,17 +1629,15 @@ def phase_serve(dev):
     attention per insert, and request 0 served alone in a 1-page pool gets
     the same first token; reports how many of its later tokens agree, and
     which of one decode step's ops give a row alone other bits than the
-    same row in a batch of 8.  Returns the launch counts and the
-    numbers."""
+    same row in a batch of 8.  Returns the launch counts, the numbers and
+    what phase 10 compares with: request 0's insert logits and every
+    request's tokens."""
     import torch
-    from repro_torch.kernels import build as KB
     from repro_torch.kernels.rmsnorm import ops as RO
     from repro_torch.launch import cell
     from repro_torch.models import transformer as TF
     from repro_torch.serve import engine as E
-    from repro_torch.serve.scheduler import (ContinuousBatchingScheduler,
-                                             Request, poisson_trace,
-                                             wall_ttft_ms)
+    from repro_torch.serve.scheduler import Request, poisson_trace
 
     c = cell.SERVE_CELL
     cfg = cell.serve_model_config()
@@ -1531,75 +1649,18 @@ def phase_serve(dev):
         f"({cfg.cache_dtype} cache), {c.requests} requests at "
         f"{c.rate}/step, prompts {c.prompt_len_min}-{c.prompt_len_max}, "
         f"{c.max_new} new tokens each")
-    finite = []
-    times = {"insert": [], "decode_slots": []}
-
-    def timed(name, fn):
-        def wrapped(*args):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            logits, pool = fn(*args)
-            finite.append(torch.isfinite(logits).all())
-            torch.cuda.synchronize()
-            times[name].append(time.perf_counter() - t0)
-            return logits, pool
-        return wrapped
-
-    def serve(reqs, slots):
-        fns = E.make_serve_fns(cfg, E.ServeConfig(), slots, S, dev)
-        fns.insert = timed("insert", fns.insert)
-        fns.decode_slots = timed("decode_slots", fns.decode_slots)
-        sched = ContinuousBatchingScheduler(cfg, fns, params, slots, S,
-                                            seed=c.seed)
-        for r in reqs:
-            sched.submit(r)
-        return sched
-
     trace = poisson_trace(c.requests, c.rate,
                           (c.prompt_len_min, c.prompt_len_max), c.max_new,
                           cfg.vocab_size, seed=c.seed,
                           temperature=c.temperature)
-    sched = serve(trace, c.slots)
-    torch.cuda.synchronize()
-    KB.reset_launches()
-    t0 = time.perf_counter()
-    stats = sched.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {k: KB.LAUNCHES[k] for k in ("rmsnorm", "flash_attention",
-                                             "flash_attention_wgmma")}
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    check(all(r.finished and len(r.generated) == c.max_new for r in trace),
-          "not every request retired with its tokens")
-    check(bool(torch.stack(finite).all()), "non-finite logits")
-    L, n_ins, n_dec = cfg.n_layers, stats["inserts"], stats["decode_steps"]
-    want = {"rmsnorm": (2 * L + 1) * (n_ins + n_dec),
-            "flash_attention": L * n_ins, "flash_attention_wgmma": L * n_ins}
-    check(launches == want, f"launch counts {launches}, expected {want} "
-          f"({n_ins} inserts, {n_dec} decode steps)")
-    ins_ms = statistics.median(times["insert"]) * 1e3
-    dec_ms = statistics.median(times["decode_slots"]) * 1e3
-    ttft = wall_ttft_ms(trace)
-    nums = {"prefill_ms_per_insert": ins_ms,
-            "decode_ms_per_step": dec_ms,
-            "mean_occupancy": stats["mean_occupancy"],
-            "tokens_per_s": stats["tokens_out"] / wall,
-            "ttft_ms_p50": ttft["ttft_ms_p50"],
-            "ttft_ms_p99": ttft["ttft_ms_p99"],
-            "peak_gib": peak, "wall_s": wall}
-    log(f"  served {len(trace)} requests: {stats['tokens_out']} tokens, "
-        f"{n_ins} inserts, {n_dec} decode steps (occupancy mean "
-        f"{stats['mean_occupancy']:.2f}, peak {stats['peak_occupancy']}), "
-        f"all logits finite; launches {launches} == {2 * L + 1} x (inserts "
-        f"+ steps) and {L} x inserts, every flash launch on wgmma")
-    log(f"  prefill {ins_ms:.2f} ms per insert (median of {n_ins}), decode "
-        f"{dec_ms:.2f} ms per step (median of {n_dec}), "
-        f"{nums['tokens_per_s']:.1f} tokens/s over {wall:.2f} s, ttft p50 "
-        f"{ttft['ttft_ms_p50']:.1f} ms / p99 {ttft['ttft_ms_p99']:.1f} ms, "
-        f"peak {peak:.2f} GiB")
+    run = serve_run(cfg, params, dev, trace, c.slots, S, c.seed)
+    launches = run["launches"]
+    nums = serve_checks(cfg, run, trace, c.max_new, "one card")
+    ref = {"insert0": run["insert0"],
+           "tokens": [list(r.generated) for r in trace]}
     # request 0 alone in a 1-page pool: its insert is the same B=1 work
     solo = Request(rid=0, prompt=trace[0].prompt, max_new_tokens=c.max_new)
-    serve([solo], 1).run()
+    serve_run(cfg, params, dev, [solo], 1, S, c.seed)
     check(solo.generated[0] == trace[0].generated[0],
           f"request 0's first token alone {solo.generated[0]} vs pooled "
           f"{trace[0].generated[0]}")
@@ -1641,9 +1702,9 @@ def phase_serve(dev):
     log(f"  row 0 alone vs in a batch of 8 ({cfg.dtype}, layer 0's "
         f"weights): rmsnorm bitwise {'equal' if norm_same else 'DIFFERENT'}"
         f"; outputs that differ: {differ}")
-    del params, sched, x, xi, seg, head, mats, qg, ck
+    del params, x, xi, seg, head, mats, qg, ck
     torch.cuda.empty_cache()
-    return launches, nums
+    return launches, nums, ref
 
 
 
@@ -2121,6 +2182,193 @@ def phase_tp(dev):
     return launches, nums
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: serving under tensor parallelism
+# ---------------------------------------------------------------------------
+
+#: the serve-TP cell's gate: request 0's insert logits within this many bf16
+#: ulps of max |logit| of phase 7's one-card insert (same weights, prompt
+#: and page).  Both run phi4-mini's 32 layers in bf16; under megatron_sp
+#: each layer rounds the two row-parallel partial sums (attention wo, MLP
+#: wo) to bf16 before the ranks' reduce-scatter, and the column blocks'
+#: products may take other cuBLAS kernels, so every layer adds rounding
+#: the one-card path does not have.  The reference's own GSPMD prefill at
+#: phi4-mini's pattern (d_model 1024, 2 layers) lands 2 ulps from its
+#: single-device one; grown linearly (the worst case: every layer's
+#: rounding of one sign) to 32 layers that is 32 ulps.  A wrong layout or
+#: head would move logits by their own size (hundreds of ulps).
+SERVE_TP_ULPS = 32
+
+
+def phase_serve_tp_small_reference(dev):
+    """(a) Two small references, the card against the CPU on the same
+    weights: ``launch/cell.py``'s small megatron_sp config at (dp, tp) =
+    (1, 2) (its prefill on the flash kernel, float32 on the CUDA cores)
+    and the reduced-width pure_sp one at (2, 2), float32 with a float32
+    cache: two inserts and three decode steps (one page inactive) within
+    2e-5 of max |logit| (tests/test_torch_serve_tp.py's float32 bound
+    against the reference), and 6 greedy requests through 3 pages equal."""
+    import numpy as np
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.launch import cell
+    from repro_torch.models import sharding as SH
+    from repro_torch.models import transformer as TF
+    from repro_torch.serve import engine as E
+    from repro_torch.serve.sampling import gather_vocab
+    from repro_torch.serve.scheduler import (ContinuousBatchingScheduler,
+                                             poisson_trace)
+
+    S, n_new = 64, 6
+    for cfg, (dp, tp) in ((cell.tp_small_config(), (1, 2)),
+                          (cell.tp_pure_sp_config(), (2, 2))):
+        cfg = cfg.replace(cache_dtype="float32")
+        init = TF.init_params(cfg, 0, "cpu")
+        rng = np.random.RandomState(1)
+        toks = rng.randint(0, cfg.vocab_size, (6, S)).astype(np.int32)
+        out, streams = {}, {}
+        for where in ("cpu", dev):
+            params = T.tree_map(lambda x: x.to(where), init)
+            fns = E.make_serve_fns(cfg, E.ServeConfig(), 4, S, where, dp=dp,
+                                   tp=tp)
+            pool, logits = fns.init_pool(), []
+            for i, (L, slot) in enumerate(((37, 1), (10, 3))):
+                lg, pool = fns.insert(params, pool, toks[i:i + 1], L, slot)
+                logits.append(lg)
+            for t in range(3):
+                lg, pool = fns.decode_slots(params, pool,
+                                            toks[2:, t:t + 1],
+                                            np.asarray([1, 1, 0, 1],
+                                                       np.int32))
+                logits.append(lg)
+            out[str(where)] = [gather_vocab(x, cfg.vocab_size).float().cpu()
+                               for x in logits]
+            fns = E.make_serve_fns(cfg, E.ServeConfig(), 3, S, where, dp=dp,
+                                   tp=tp)
+            reqs = poisson_trace(6, 0.8, (5, 40), n_new, cfg.vocab_size,
+                                 seed=5)
+            sched = ContinuousBatchingScheduler(cfg, fns, params, 3, S,
+                                                seed=11)
+            for r in reqs:
+                sched.submit(r)
+            sched.run()
+            streams[str(where)] = [r.generated for r in reqs]
+        strat = SH.strategy(cfg, tp)
+        rel = 0.0
+        for a, b in zip(out["cpu"], out[str(dev)]):
+            d = float((a - b).abs().max()) / float(a.abs().max())
+            check(d <= 2e-5, f"serve-TP small reference ({strat}): logits "
+                  f"differ by {d:.2e} of max |logit|")
+            rel = max(rel, d)
+        check(streams["cpu"] == streams[str(dev)],
+              f"serve-TP small reference ({strat}): card streams "
+              f"{streams[str(dev)]} vs cpu {streams['cpu']}")
+        log(f"  small {strat} (d_model {cfg.d_model}) at (dp, tp) = "
+            f"{(dp, tp)}: 2 inserts + 3 decode steps, logits max |diff| "
+            f"{rel:.2e} of max |logit| (card vs cpu); 6 greedy streams "
+            f"through 3 pages equal")
+
+
+def phase_serve_tp(dev, one_card):
+    """(b) The serve cell at ``cell.SERVE_TP_SHAPE`` = (dp, tp) = (2, 2):
+    phi4-mini at full width and depth under megatron_sp, phase 7's weights
+    (drawn again from the cell's seed on the card: torch's generator is
+    deterministic), prompts and trace; 4 pages a DP rank, each page's
+    1024 slots 512 a TP rank.  Predicted launches, as on one card: every
+    insert 2 L + 1 = 65 rmsnorm (the TP ranks' stacked rows, one gain)
+    and L = 32 flash_attention, one a layer with the 2 ranks' 12 query / 4
+    KV heads in its batch, each on wgmma; every decode step 65 rmsnorm
+    (the projections and MLP run once on the replicated stream) and no
+    flash.  Checks (``serve_checks``) every request retires with its 32
+    tokens, every logit is finite, those launch counts, request 0's insert
+    logits within ``SERVE_TP_ULPS`` bf16 ulps of max |logit| of phase 7's
+    and its first token equal, and the peak within phase 7's plus the
+    pool's bytes.  Reports the later tokens' agreement with phase 7 (not
+    gated: near-ties move bf16 greedy tokens), the serve numbers beside
+    phase 7's and ``launch/profile_serve.py``'s breakdown of one insert
+    and 5 decode steps at (1, 1) and (2, 2) on the same weights."""
+    import torch
+    from repro_torch.launch import cell
+    from repro_torch.launch import profile_serve as PSV
+    from repro_torch.models import sharding as SH
+    from repro_torch.models import transformer as TF
+    from repro_torch.serve import engine as E
+    from repro_torch.serve.scheduler import poisson_trace
+
+    c = cell.SERVE_CELL
+    cfg = cell.serve_model_config()
+    dp, tp = cell.SERVE_TP_SHAPE
+    strat = SH.strategy(cfg, tp)
+    check(strat == "megatron_sp", f"the serve-TP cell runs {strat}")
+    S = E.page_len(cfg, c.prompt_len_max, c.max_new)
+    lay = E.cache_layout(cfg, c.slots, S, dp, tp)
+    check([(x.kv, x.batch_split) for x in lay] == [("seq", True)],
+          f"the serve-TP cell's pool layout {lay}")
+    torch.cuda.reset_peak_memory_stats()
+    params = TF.init_params(cfg, c.seed, dev)
+    trace = poisson_trace(c.requests, c.rate,
+                          (c.prompt_len_min, c.prompt_len_max), c.max_new,
+                          cfg.vocab_size, seed=c.seed,
+                          temperature=c.temperature)
+    run = serve_run(cfg, params, dev, trace, c.slots, S, c.seed, dp, tp)
+    what = f"(dp, tp) = {cell.SERVE_TP_SHAPE}"
+    nums = serve_checks(cfg, run, trace, c.max_new, what)
+    launches = run["launches"]
+    # request 0's insert against the one-card insert
+    got, exp = run["insert0"], one_card["ref"]["insert0"]
+    m = float(exp.abs().max())
+    ulp = 2.0 ** (math.floor(math.log2(m)) - 7)
+    err = float((got - exp).abs().max())
+    check(err <= SERVE_TP_ULPS * ulp,
+          f"serve-TP insert of request 0: max |diff| {err} from the one-card "
+          f"insert ({err / ulp:.1f} bf16 ulps of max |logit| {m:.4f}; bound "
+          f"{SERVE_TP_ULPS})")
+    tok0 = one_card["ref"]["tokens"]
+    check(trace[0].generated[0] == tok0[0][0],
+          f"serve-TP request 0's first token {trace[0].generated[0]} vs one "
+          f"card {tok0[0][0]}")
+    first = sum(r.generated[0] == t[0] for r, t in zip(trace, tok0))
+    later = sum(a == b for r, t in zip(trace, tok0)
+                for a, b in zip(r.generated[1:], t[1:]))
+    n_later = sum(len(t) - 1 for t in tok0)
+    itemsize = torch.empty((), dtype=getattr(torch, cfg.cache_dtype)
+                           ).element_size()
+    pool_gib = sum(2 * n * c.slots * S * cfg.n_kv_heads * cfg.head_dim
+                   for _, n in TF.segments(cfg)) * itemsize / 2 ** 30
+    one = one_card["nums"]
+    check(nums["peak_gib"] <= one["peak_gib"] + pool_gib,
+          f"serve-TP peak {nums['peak_gib']:.2f} GiB > one card's "
+          f"{one['peak_gib']:.2f} + the pool's {pool_gib:.2f}")
+    log(f"  request 0's insert: max |diff| {err:.4f} = {err / ulp:.1f} bf16 "
+        f"ulps of max |logit| {m:.4f} from the one-card insert (bound "
+        f"{SERVE_TP_ULPS}); first token equal; first tokens equal "
+        f"{first}/{len(trace)}, later tokens {later}/{n_later} (reported, "
+        f"not gated)")
+    for k in ("prefill_ms_per_insert", "decode_ms_per_step", "tokens_per_s",
+              "ttft_ms_p50", "ttft_ms_p99", "peak_gib"):
+        log(f"    {k}: {nums[k]:.2f} at (2, 2), {one[k]:.2f} on one card")
+    nums.update({"mesh": f"{dp},{tp}", "strategy": strat,
+                 "insert0_max_abs_diff": err, "insert0_ulps": err / ulp,
+                 "first_tokens_agree": first / len(trace),
+                 "later_tokens_agree": later / n_later,
+                 "pool_gib": pool_gib})
+    nums["profile"] = {}
+    for mesh in ("1,1", f"{dp},{tp}"):
+        torch.cuda.empty_cache()
+        prof = PSV.profile(cfg, params, dev, mesh)
+        nums["profile"][mesh] = prof
+        log(f"  profile_serve --mesh {mesh}: insert wall "
+            f"{prof['insert']['wall_ms']:.2f} ms, busy "
+            f"{prof['insert']['busy_ms']:.2f} (idle "
+            f"{prof['insert']['idle_share']:.3f}); decode step wall "
+            f"{prof['decode_step']['wall_ms']:.2f} ms, busy "
+            f"{prof['decode_step']['busy_ms']:.2f} (idle "
+            f"{prof['decode_step']['idle_share']:.3f})")
+    del params
+    torch.cuda.empty_cache()
+    return launches, nums
+
+
 def main() -> int:
     # one 9.8 GB bucket buffer after another: keep the allocator's segments
     # growable so freed ones are reused (set before CUDA starts)
@@ -2144,7 +2392,7 @@ def main() -> int:
     from repro_torch.kernels.rmsnorm import kernel as RK
 
     t_all = time.perf_counter()
-    log("[1/9] build")
+    log("[1/10] build")
     t0 = time.perf_counter()
     libs = KB.build()
     for src in K.SOURCES:
@@ -2154,52 +2402,59 @@ def main() -> int:
     log(f"  built {', '.join(p.name for p in libs.values())} in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    log("[2/9] kernels vs plain versions")
+    log("[2/10] kernels vs plain versions")
     rows, qacc_launches = phase_kernels(dev)
     torch.cuda.empty_cache()
 
-    log("[3/9] fused collectives vs stacked (bitwise)")
+    log("[3/10] fused collectives vs stacked (bitwise)")
     phase_collectives(dev)
 
-    log("[4/9] collectives API")
+    log("[4/10] collectives API")
     api_launches = phase_api(dev)
 
-    log("[5/9] two-tier (bine_hier)")
+    log("[5/10] two-tier (bine_hier)")
     hier_launches, two_tier = phase_two_tier(dev)
     torch.cuda.empty_cache()
 
-    log("[6/9] train")
+    log("[6/10] train")
     phase_small_reference(dev)
     launches, train = phase_train(dev)
     torch.cuda.empty_cache()
 
-    log("[7/9] serve")
+    log("[7/10] serve")
     phase_serve_small_reference(dev)
-    serve_launches, serve = phase_serve(dev)
+    serve_launches, serve, serve_ref = phase_serve(dev)
     torch.cuda.empty_cache()
 
-    log("[8/9] checkpoint, resume, measured tables, obs")
+    log("[8/10] checkpoint, resume, measured tables, obs")
     run_launches, runtime = phase_runtime(dev)
     torch.cuda.empty_cache()
 
-    log("[9/9] tensor parallelism")
+    log("[9/10] tensor parallelism")
     phase_tp_small_reference(dev)
     tp_launches, tp = phase_tp(dev)
     torch.cuda.empty_cache()
-    # each path's own step-kernel launches, read around that path alone
+
+    log("[10/10] serving under TP")
+    phase_serve_tp_small_reference(dev)
+    stp_launches, serve_tp = phase_serve_tp(
+        dev, {"nums": serve, "ref": serve_ref})
+    torch.cuda.empty_cache()
+    # each path's own kernel launches, read around that path alone
     by_path = {"train": dict(launches), "two-axis": hier_launches,
-               "runtime": run_launches, "tp": tp_launches}
+               "runtime": run_launches, "tp": tp_launches,
+               "serve": serve_launches, "serve-tp": stp_launches}
     for path, counts in by_path.items():
         for name, n in counts.items():
             check(n > 0, f"kernel {name} was not launched on the {path} "
                   f"path")
-    log("step kernels by path: " + "; ".join(
+    log("kernels by path: " + "; ".join(
         f"{path} " + ", ".join(f"{k} x{v}" for k, v in counts.items())
         for path, counts in by_path.items()))
     # the step kernels' counts from the train step's main path and its
     # two-axis path, the ring and matmul kernels' from the API run, the
-    # norm and attention
-    # kernels' from the serve run, qacc's from the qdot op's path
+    # norm and attention kernels' from the serve and serve-TP runs, qacc's
+    # from the qdot op's path
     # (the float32 matmul rows count the CUDA-core kernel's launches, the
     # *_wgmma rows the tensor-core kernel's; flash's row is bf16, all of
     # whose serve launches are wgmma ones)
@@ -2213,7 +2468,8 @@ def main() -> int:
         launches[name] = api_launches[name]
     for name in ("matmul_pack", "gather_matmul"):
         launches[name] = api_launches[name] - api_launches[name + "_wgmma"]
-    launches.update(serve_launches)
+    for name in serve_launches:
+        launches[name] = serve_launches[name] + stp_launches[name]
     launches["flash_attention"] = launches.pop("flash_attention_wgmma")
     launches["qacc"] = qacc_launches
     for name, n in launches.items():
@@ -2226,6 +2482,7 @@ def main() -> int:
     log(f"serve: {json.dumps(serve)}")
     log(f"runtime: {json.dumps(runtime)}")
     log(f"tp: {json.dumps(tp)}")
+    log(f"serve-tp: {json.dumps(serve_tp)}")
     log(f"train: {json.dumps(train)}; total {time.perf_counter() - t_all:.0f} s")
     print(json.dumps({"kernels": list(rows.values())}))
     smi = subprocess.run(

@@ -16,7 +16,9 @@ Serve (``SERVE_CELL``): phi4-mini at full width and full depth, an 8-page
 pool, a Poisson trace of 16 greedy requests at 0.5 per decode step with
 prompts of 64-512 tokens and 32 new tokens each (a page of 1024 tokens).
 ``launch/serve.py`` takes its defaults from here and ``chip_smoke.py``
-serves it.
+serves it, on one rank and at ``SERVE_TP_SHAPE`` = (dp, tp) = (2, 2):
+the same model, weights and trace, 4 pages a DP rank, each page's 1024
+slots split 512 a TP rank (megatron_sp prefill).
 """
 
 from __future__ import annotations
@@ -94,6 +96,8 @@ class ServeCell:
 
 
 SERVE_CELL = ServeCell()
+#: the serve cell's ranks under tensor parallelism: (dp, tp)
+SERVE_TP_SHAPE = (2, 2)
 
 
 def serve_model_config() -> ModelConfig:

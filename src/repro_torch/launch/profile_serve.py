@@ -9,10 +9,15 @@ prints for each the wall time, the device time by kernel group and the
 device's idle share, as text and as one JSON line:
 
   python -m repro_torch.launch.profile_serve
+  python -m repro_torch.launch.profile_serve --mesh 2,2   # dp 2 x tp 2
+
+``--mesh data,model`` serves the cell over that many DP and TP ranks
+stacked on the card (``launch/cell.py`` ``SERVE_TP_SHAPE``).
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import time
 from collections import defaultdict
@@ -23,8 +28,10 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.launch import cell
 from repro_torch.launch.profile_step import TOP, group_of
+from repro_torch.launch.train import parse_mesh
 from repro_torch.models import transformer as TF
 from repro_torch.serve.engine import ServeConfig, make_serve_fns, page_len
+from repro_torch.serve.sampling import gather_vocab
 from repro_torch.serve.scheduler import poisson_trace
 
 #: profiled decode steps
@@ -53,14 +60,15 @@ def _profile(fn, reps: int):
     return wall_ms, dict(by_group), sorted(by_kernel, reverse=True)[:TOP]
 
 
-def main(argv=None):
-    dev = resolve_device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False
+def profile(cfg, params, dev, mesh: str = "1,1") -> dict:
+    """Profile one insert and ``STEPS`` decode steps of the serve cell at
+    ``mesh`` (``data,model``) on the card; prints the breakdown and
+    returns ``{"insert": ..., "decode_step": ...}``, each with its wall
+    and busy ms, idle share and device ms by group."""
     c = cell.SERVE_CELL
-    cfg = cell.serve_model_config()
+    _, dp, tp = parse_mesh(mesh)
     S = page_len(cfg, c.prompt_len_max, c.max_new)
-    fns = make_serve_fns(cfg, ServeConfig(), c.slots, S, dev)
-    params = TF.init_params(cfg, c.seed, dev)
+    fns = make_serve_fns(cfg, ServeConfig(), c.slots, S, dev, dp=dp, tp=tp)
     pool = fns.init_pool()
     reqs = poisson_trace(c.slots, c.rate, (c.prompt_len_min,
                                            c.prompt_len_max), c.max_new,
@@ -80,13 +88,14 @@ def main(argv=None):
     def decode():
         logits, state["pool"] = fns.decode_slots(params, state["pool"],
                                                  tokens, active)
-        tokens[:, 0] = torch.argmax(logits, -1).cpu().numpy()
+        tokens[:, 0] = torch.argmax(gather_vocab(logits, cfg.vocab_size),
+                                    -1).cpu().numpy()
 
     insert()
     decode()                                                 # warm-up
     out = {}
     print(f"{cfg.name} x{cfg.n_layers} layers, {c.slots} pages x {S} "
-          f"tokens on {torch.cuda.get_device_name(0)}")
+          f"tokens, mesh {mesh}, on {torch.cuda.get_device_name(0)}")
     for name, fn, reps in (("insert", insert, 2),
                            ("decode_step", decode, STEPS)):
         wall_ms, groups, top = _profile(fn, reps)
@@ -100,7 +109,19 @@ def main(argv=None):
         print("  top kernels (ms per call, launches per call):")
         for ms, n, kname in top:
             print(f"    {ms:9.3f} ms  x{n:<5d} {kname[:90]}")
-    print(json.dumps(out))
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--mesh", default="1,1",
+                    help="data,model or pod,data,model")
+    args = ap.parse_args(argv)
+    dev = resolve_device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = cell.serve_model_config()
+    params = TF.init_params(cfg, cell.SERVE_CELL.seed, dev)
+    print(json.dumps(profile(cfg, params, dev, args.mesh)))
 
 
 if __name__ == "__main__":

@@ -1,21 +1,24 @@
 """Continuous-batching serving CLI of the PyTorch port: a Poisson
 arrival trace of mixed-length requests through the paged-KV scheduler.
 
-Port of ``repro.launch.serve`` for one device.  Its defaults are the serve
-cell of ``launch/cell.py`` (phi4-mini at full depth, 8 pages, 16 requests):
+Port of ``repro.launch.serve``.  Its defaults are the serve cell of
+``launch/cell.py`` (phi4-mini at full depth, 8 pages, 16 requests):
 
   python -m repro_torch.launch.serve                       # on the card
   python -m repro_torch.launch.serve --reduced --device cpu
+  python -m repro_torch.launch.serve --reduced --device cpu --mesh 2,2
 
 Each request prefills into a free KV page, decodes interleaved with
 whatever else is running, and retires on EOS or its token budget,
-recycling the page.  In place of the reference's ``traces:`` line (jit
-retraces) it prints the kernel launch counts of the run.  Runs on CUDA
-unless ``--device cpu`` is given.  There is no ``--mesh`` and no
-``--backend``: on one card the collective plan is empty (serving under
-tensor parallelism is ROADMAP.md queue A item 3b).  Only dense ``attn`` models are
-served; the reference's fixed-batch loop for the architectures its pool
-cannot serve has no counterpart (queue A item 5).
+recycling the page.  ``--mesh data,model`` (or ``pod,data,model``) serves
+over that many DP and TP ranks, stacked on the one device
+(``serve.engine``); ``--backend auto`` prints the collective plan the
+decision table picks for it, as the reference's CLI does, ``--backend
+xla`` pins the defaults (no plan).  In place of the reference's
+``traces:`` line (jit retraces) it prints the kernel launch counts of the
+run.  Runs on CUDA unless ``--device cpu`` is given.  Only dense ``attn``
+models are served; the reference's fixed-batch loop for the
+architectures its pool cannot serve has no counterpart (queue A item 5).
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from repro_torch import resolve_device
 from repro_torch.configs import base as cfgbase
 from repro_torch.kernels import build as KB
 from repro_torch.launch.cell import SERVE_CELL
+from repro_torch.launch.train import parse_mesh
 from repro_torch.models import transformer as TF
 from repro_torch.serve.engine import ServeConfig, make_serve_fns, page_len
 from repro_torch.serve.scheduler import (ContinuousBatchingScheduler,
@@ -46,6 +50,8 @@ def main(argv=None):
     ap.add_argument("--arch", default=c.arch)
     ap.add_argument("--reduced", action="store_true",
                     help="tiny same-family config")
+    ap.add_argument("--mesh", default="1,1",
+                    help="data,model or pod,data,model")
     ap.add_argument("--slots", type=int, default=c.slots)
     ap.add_argument("--requests", type=int, default=c.requests)
     ap.add_argument("--rate", type=float, default=c.rate,
@@ -57,6 +63,7 @@ def main(argv=None):
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--top-p", type=float, default=0.0,
                     help="pool-global nucleus sampling threshold")
+    ap.add_argument("--backend", default="auto", choices=("auto", "xla"))
     ap.add_argument("--seed", type=int, default=c.seed)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
@@ -66,9 +73,15 @@ def main(argv=None):
     if args.reduced:
         cfg = cfgbase.reduced(cfg)
 
+    _, dp, tp = parse_mesh(args.mesh)
     S = page_len(cfg, args.prompt_len_max, args.max_new)
-    fns = make_serve_fns(cfg, ServeConfig(), args.slots, S, dev)
+    scfg = ServeConfig(backend=args.backend)
+    fns = make_serve_fns(cfg, scfg, args.slots, S, dev, dp=dp, tp=tp)
     params = TF.init_params(cfg, args.seed, dev)
+    if fns.plan:
+        print(f"[serve] collective plan ({scfg.topology}):")
+        for k, v in sorted(fns.plan.items()):
+            print(f"[serve]   {k:24s} -> {v}")
 
     trace = poisson_trace(
         args.requests, args.rate, (args.prompt_len_min, args.prompt_len_max),
@@ -87,7 +100,8 @@ def main(argv=None):
     dt = time.perf_counter() - t0
 
     print(f"[serve] {cfg.name} ({cfg.n_layers} layers) on {dev}: "
-          f"{args.requests} requests, {args.slots} pages x {S} tokens")
+          f"{args.requests} requests, {args.slots} pages x {S} tokens, "
+          f"mesh {args.mesh}, backend={args.backend}")
     print(f"[serve] {stats['tokens_out']} tokens in {dt * 1e3:.0f}ms "
           f"({stats['tokens_out'] / max(dt, 1e-9):.1f} tok/s), "
           f"{stats['decode_steps']} decode steps, "

@@ -17,7 +17,11 @@ rank run stacked on one device, so the layouts are explicit:
     ``[n, B, T, d]``, through the rank-dim built-ins of
     ``collectives.stacked`` (GSPMD's all-gather and reduce-scatter);
   * ``rank_block`` is the head and ffn split: each rank's block of a
-    value it holds whole.
+    value it holds whole; ``rank_view`` takes the same blocks of one
+    tensor held once (serving's whole weights) as a view;
+  * ``KVLayout`` is one segment's serving KV pool over the DP and TP
+    ranks (``serve.engine.cache_layout`` picks it by the reference's
+    ``cache_specs`` rule).
 
 ``n_model`` is passed explicitly (the reference's ``set_model_parallel``
 global has no counterpart).  A spec is a tuple with ``"model"`` or
@@ -27,6 +31,7 @@ specs mark, whatever ``n_model`` is.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Any, Dict, Tuple
 
 import torch
@@ -224,3 +229,61 @@ def rank_block(x: torch.Tensor, dim: int) -> torch.Tensor:
         raise ValueError(f"dim {dim} of {tuple(x.shape[1:])} does not split "
                          f"over {n} ranks")
     return torch.stack([x[t].narrow(dim, t * k, k) for t in range(n)])
+
+
+def rank_view(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """``x``, held once, -> ``[n, ...]`` whose rank t is block t of
+    ``dim``: :func:`rank_block` of ``x`` on every rank, as a view (no
+    copy)."""
+    k = x.shape[dim] // n
+    if k * n != x.shape[dim]:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                         f"over {n} ranks")
+    return x.unflatten(dim, (n, k)).movedim(dim, 0)
+
+
+#: how a KV leaf splits over the TP ranks: its sequence (page width), its
+#: KV heads, or not at all
+KV_SPLITS = ("seq", "heads", "whole")
+
+
+@dataclass(frozen=True)
+class KVLayout:
+    """One segment's KV pool over ``n_dp`` DP ranks of ``n_tp`` TP ranks,
+    stacked on one device.
+
+    A leaf is ``[n_layers, rows, B_local, W_local, nkv_local, hd]``, row
+    ``r * rtp + t`` holding DP rank r's pages (all ``B`` of them when
+    ``batch_split`` is false) and TP rank t's shard: ``W / n_tp`` slots of
+    each page (``"seq"``, slot ``s`` on rank ``s // (W / n_tp)``), or
+    ``nkv / n_tp`` KV heads (``"heads"``).  A leaf that does not split
+    (``"whole"``, or the pages over DP) is held once, not once a rank."""
+    n_dp: int
+    n_tp: int
+    batch_split: bool
+    kv: str
+    width: int
+
+    def __post_init__(self):
+        if self.kv not in KV_SPLITS:
+            raise ValueError(f"unknown KV split {self.kv!r}")
+
+    @property
+    def rdp(self) -> int:
+        """DP rows: ``n_dp`` when the pages split over DP, else 1."""
+        return self.n_dp if self.batch_split else 1
+
+    @property
+    def rtp(self) -> int:
+        """TP rows: ``n_tp`` unless the leaf is held whole."""
+        return 1 if self.kv == "whole" else self.n_tp
+
+    @property
+    def rows(self) -> int:
+        return self.rdp * self.rtp
+
+    def local_shape(self, B: int, nkv: int) -> Tuple[int, int, int]:
+        """``(B_local, W_local, nkv_local)`` of a pool of ``B`` pages."""
+        return (B // self.rdp,
+                self.width // self.n_tp if self.kv == "seq" else self.width,
+                nkv // self.n_tp if self.kv == "heads" else nkv)

@@ -12,10 +12,12 @@ autograd) keep the plain ``layers.rmsnorm`` and the query-chunked
 run stacked, ``megatron_sp`` or ``pure_sp`` (section "Tensor
 parallelism" below); the serving half (``prefill``, ``decode_step``) puts
 every norm on the RMSNorm kernel and prefill's attention core on the
-flash-attention kernel, which have no backward.  Decode attention stays
-plain torch: each slot sits at its own position, which the flash kernel's
-``qpos = q_start + row`` cannot express (the reference computes it outside
-any Pallas kernel too).
+flash-attention kernel, which have no backward; ``prefill_tp`` and
+``decode_step_tp`` serve over stacked TP ranks (section "Serving under
+tensor parallelism" below).  Decode attention stays plain torch: each
+slot sits at its own position, which the flash kernel's
+``qpos = q_start + row`` cannot express (the reference computes it
+outside any Pallas kernel too).
 
 Decode caches are updated IN PLACE (the reference returns new arrays): a
 page pool holds every layer's K/V, and copying it per token would move
@@ -342,6 +344,36 @@ def _embed_tp(E, cfg, tokens, tp: _TP):
     return x
 
 
+def _qkv_tp(p, cfg, h, pos, tp: _TP):
+    """Each rank's rotated Q, K and V of the normed residual stream ``h``:
+    under megatron_sp the whole sequence's heads of the rank's column
+    blocks (``[n, B, T, heads, hd]``; K/V whole under the GQA rule, when
+    ``p``'s wk/wv are), under pure_sp every head of the rank's own tokens
+    (``[n, B, T/n, heads, hd]``)."""
+    n = tp.n
+    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if tp.strat == "megatron_sp":
+        hf = tp.gather(h)                                     # [n,B,T,d]
+        B, T = hf.shape[1], pos.shape[0]
+        q = L.dense_tp(hf, p["wq"]).reshape(n, B, T, nh // n, hd)
+        k = L.dense_tp(hf, p["wk"])
+        v = L.dense_tp(hf, p["wv"])
+        k = k.reshape(n, B, T, k.shape[-1] // hd, hd)
+        v = v.reshape(n, B, T, v.shape[-1] // hd, hd)
+        qpos = pos
+    else:
+        B, Tl = h.shape[1], h.shape[2]
+        q = L.dense_tp(h, p["wq"]).reshape(n, B, Tl, nh, hd)
+        k = L.dense_tp(h, p["wk"]).reshape(n, B, Tl, nkv, hd)
+        v = L.dense_tp(h, p["wv"]).reshape(n, B, Tl, nkv, hd)
+        qpos = pos.reshape(n, Tl)[:, None]
+    if cfg.qk_norm:
+        q = L.rmsnorm(q, _bw(p["q_norm"], q), cfg.norm_eps)
+        k = L.rmsnorm(k, _bw(p["k_norm"], k), cfg.norm_eps)
+    return (L.rope(q, qpos, cfg.rope_theta), L.rope(k, qpos, cfg.rope_theta),
+            v)
+
+
 def _attn_tp(p, cfg, block: Block, h, pos, tp: _TP):
     """One attention sublayer on the normed residual stream ``h``."""
     n = tp.n
@@ -352,18 +384,8 @@ def _attn_tp(p, cfg, block: Block, h, pos, tp: _TP):
         raise ValueError(f"sequence {T} is not a multiple of attn_chunk {C}")
     scale = 1.0 / math.sqrt(hd)
     if tp.strat == "megatron_sp":
-        hf = tp.gather(h)                                     # [n,B,T,d]
-        B = hf.shape[1]
-        q = L.dense_tp(hf, p["wq"]).reshape(n, B, T, nh // n, hd)
-        k = L.dense_tp(hf, p["wk"])
-        v = L.dense_tp(hf, p["wv"])
-        k = k.reshape(n, B, T, k.shape[-1] // hd, hd)
-        v = v.reshape(n, B, T, v.shape[-1] // hd, hd)
-        if cfg.qk_norm:
-            q = L.rmsnorm(q, _bw(p["q_norm"], q), cfg.norm_eps)
-            k = L.rmsnorm(k, _bw(p["k_norm"], k), cfg.norm_eps)
-        q = L.rope(q, pos, cfg.rope_theta)
-        k = L.rope(k, pos, cfg.rope_theta)
+        q, k, v = _qkv_tp(p, cfg, h, pos, tp)
+        B = q.shape[1]
         g = nh // nkv
         kf = k.repeat_interleave(g, dim=3)
         vf = v.repeat_interleave(g, dim=3)
@@ -380,21 +402,24 @@ def _attn_tp(p, cfg, block: Block, h, pos, tp: _TP):
         return torch.stack([L.attention({k: v[t] for k, v in p.items()},
                                         cfg, h[t], pos, window=block.window)
                             for t in range(n)])
-    B, Tl = h.shape[1], h.shape[2]
-    q = L.dense_tp(h, p["wq"]).reshape(n, B, Tl, nh, hd)
-    k = L.dense_tp(h, p["wk"]).reshape(n, B, Tl, nkv, hd)
-    v = L.dense_tp(h, p["wv"]).reshape(n, B, Tl, nkv, hd)
-    if cfg.qk_norm:
-        q = L.rmsnorm(q, _bw(p["q_norm"], q), cfg.norm_eps)
-        k = L.rmsnorm(k, _bw(p["k_norm"], k), cfg.norm_eps)
-    qpos = pos.reshape(n, Tl)
-    q = L.rope(q, qpos[:, None], cfg.rope_theta)
-    k = L.rope(k, qpos[:, None], cfg.rope_theta)
+    q, k, v = _qkv_tp(p, cfg, h, pos, tp)
+    out = _seq_parallel_attn(cfg, block, q, SH.seq_gather(k),
+                             SH.seq_gather(v), pos, n)
+    return L.dense_tp(out.to(h.dtype), p["wo"])
+
+
+def _seq_parallel_attn(cfg, block: Block, q, k, v, pos, n: int):
+    """pure_sp attention: each rank's query chunks ``q [n, B, T/n, nh,
+    hd]`` against the whole sequence's ``k``/``v`` (each rank's gathered
+    copy) -> ``[n, B, T/n, nh * hd]`` float32."""
+    B, Tl, nh, hd = q.shape[1:]
+    T = pos.shape[0]
+    C = min(cfg.attn_chunk, T)
     # the q-chunk grid must split over the ranks: grow chunks if it does not
     Cq = C if (T // C) % n == 0 else T // n
-    out = L._attn_seq_parallel(q, SH.seq_gather(k), SH.seq_gather(v), qpos,
-                               block.window, scale, Cq)
-    return L.dense_tp(out.reshape(n, B, Tl, nh * hd).to(h.dtype), p["wo"])
+    out = L._attn_seq_parallel(q, k, v, pos.reshape(n, Tl), block.window,
+                               1.0 / math.sqrt(hd), Cq)
+    return out.reshape(n, B, Tl, nh * hd)
 
 
 def _mlp_tp(p, cfg, y, tp: _TP):
@@ -681,6 +706,14 @@ def _prefill_block(p, cfg, block: Block, x, positions, length=None):
     o = flash_attention(q, k, v, window=block.window, causal=True)
     x = x + L.dense(o.reshape(B, T, nh * hd).to(x.dtype), p["attn"]["wo"])
     x = x + L.mlp(p["mlp"], cfg, fused_rmsnorm(x, p["ln2"], cfg.norm_eps))
+    return x, _page_cache(cfg, block, k, v, length)
+
+
+def _page_cache(cfg, block: Block, k, v, length=None) -> dict:
+    """A layer's decode cache from its prefill K/V ``[B, T, nkv, hd]``:
+    the whole run, or under a window shorter than T the ring of the last
+    ``window`` positions, slot ``q % window`` holding position q."""
+    T = k.shape[1]
     dt = getattr(torch, cfg.cache_dtype)
     if block.window is not None and block.window < T:
         W = block.window
@@ -693,14 +726,265 @@ def _prefill_block(p, cfg, block: Block, x, positions, length=None):
             # dynamic-length ring: slot s holds the newest real position
             # congruent to s mod W, q(s) = (L-1) - ((L-1-s) mod W); slots
             # with q(s) < 0 (short prompts) stay zero
-            s_idx = torch.arange(W, device=x.device)
+            s_idx = torch.arange(W, device=k.device)
             last = length - 1
             q_idx = last - torch.remainder(last - s_idx, W)
             ok = (q_idx >= 0)[None, :, None, None]
             qc = torch.clamp(q_idx, 0, T - 1).long()
-            zero = torch.zeros((), dtype=k.dtype, device=x.device)
+            zero = torch.zeros((), dtype=k.dtype, device=k.device)
             ck = torch.where(ok, k.index_select(1, qc), zero).to(dt)
             cv = torch.where(ok, v.index_select(1, qc), zero).to(dt)
     else:
         ck, cv = k.to(dt), v.to(dt)
-    return x, {"k": ck, "v": cv}
+    return {"k": ck, "v": cv}
+
+
+# ---------------------------------------------------------------------------
+# Serving under tensor parallelism
+# ---------------------------------------------------------------------------
+# The reference serves on a (data, model) mesh through GSPMD with its
+# weights replicated (its serve CLI initialises them unsharded) and each
+# KV leaf laid out by ``cache_specs``: the pages over DP, each page's
+# slots over the model axis where its width divides it, else its KV
+# heads, else whole (``sharding.KVLayout``).  Here the ranks run stacked
+# and the weights are held once: each TP rank contracts a view of them
+# (``sharding.rank_view``, ``Tensor.expand``).
+#
+# Prefill runs the TP forward's layers on the sequence-sharded stream:
+# under megatron_sp each rank's heads go through the flash-attention
+# kernel, the ranks flattened into its batch (one launch a layer); under
+# pure_sp each rank's query chunks through ``layers._attn_seq_parallel``,
+# as the reference's GSPMD prefill runs them (the flash kernel takes no
+# query offset, so on the card only megatron_sp prefill launches it).
+# Its K/V are gathered to the page's global layout, which
+# ``serve.kvcache.write_slot`` splits over the ranks.
+#
+# Decode runs the projections and the MLP once on the replicated stream;
+# each rank scores only the keys it holds, and a sequence-sharded page's
+# partial softmax is combined over the ranks in float32 (flash decoding).
+# Logits leave both as the ranks' vocab blocks ``[n, B, 1, ceil(V/n)]``,
+# the last zero-padded past V, which the sampler gathers.
+
+#: the per-rank dim of each layer weight's Megatron block (``[d_in,
+#: d_out]``): the column block of the input projections, the row block of
+#: the output ones
+_SERVE_DIM = {"wq": 1, "wk": 1, "wv": 1, "wi": 1, "wg": 1, "wo": 0}
+
+
+def _rank_layer(p, cfg, tp: _TP):
+    """Layer ``p``'s attention and MLP weights, held once, as the TP
+    ranks contract them: views ``[n, ...]`` of each weight's Megatron
+    block under megatron_sp (K/V whole under the GQA rule), of the whole
+    weight under pure_sp."""
+    n = tp.n
+    kv_whole = cfg.n_kv_heads % n != 0
+    out = {}
+    for sub in ("attn", "mlp"):
+        out[sub] = {}
+        for k, w in p[sub].items():
+            if tp.strat == "megatron_sp" and k in _SERVE_DIM and not (
+                    kv_whole and sub == "attn" and k in ("wk", "wv")):
+                out[sub][k] = SH.rank_view(w, _SERVE_DIM[k], n)
+            else:
+                out[sub][k] = w.expand((n,) + tuple(w.shape))
+    return out
+
+
+def _vocab_blocks(logits, n: int):
+    """``[..., V]`` logits -> the ranks' vocab blocks ``[n, ..., Vl]``,
+    ``Vl = ceil(V / n)``, zero past V (the logits of ``forward_tp``'s
+    padded vocab rows)."""
+    pad = -logits.shape[-1] % n
+    if pad:
+        logits = torch.nn.functional.pad(logits, (0, pad))
+    return logits.unflatten(-1, (n, logits.shape[-1] // n)).movedim(-2, 0)
+
+
+def _prefill_block_tp(p, cfg, block: Block, x, pos, tp: _TP, length):
+    """:func:`_prefill_block` on the stacked TP ranks: ``x`` is the
+    residual stream (``[n, B, T/n, d]``, or ``[n, B, T, d]`` when T does
+    not divide n); the cache comes back in the page's global layout."""
+    n = tp.n
+    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    T = pos.shape[0]
+    rp = _rank_layer(p, cfg, tp)
+    q, k, v = _qkv_tp(rp["attn"], cfg,
+                      fused_rmsnorm(x, p["ln1"], cfg.norm_eps), pos, tp)
+    if tp.strat == "megatron_sp":
+        kf, vf = k, v
+        if nkv % n:     # the GQA rule: K/V whole, the heads split now
+            g = nh // nkv
+            kf = SH.rank_block(k.repeat_interleave(g, dim=3), 2)
+            vf = SH.rank_block(v.repeat_interleave(g, dim=3), 2)
+            kg, vg = k[0], v[0]
+        else:
+            kg, vg = stacked.all_gather(k, 2)[0], stacked.all_gather(v, 2)[0]
+        o = flash_attention(q.flatten(0, 1), kf.flatten(0, 1),
+                            vf.flatten(0, 1), window=block.window,
+                            causal=True)
+        o = o.reshape(n, q.shape[1], T, (nh // n) * hd).to(x.dtype)
+        x = x + tp.reduce(L.dense_tp(o, rp["attn"]["wo"]))
+    else:
+        kw, vw = SH.seq_gather(k), SH.seq_gather(v)
+        o = _seq_parallel_attn(cfg, block, q, kw, vw, pos, n)
+        x = x + L.dense_tp(o.to(x.dtype), rp["attn"]["wo"])
+        kg, vg = kw[0], vw[0]
+    x = x + _mlp_tp(rp["mlp"], cfg,
+                    fused_rmsnorm(x, p["ln2"], cfg.norm_eps), tp)
+    return x, _page_cache(cfg, block, kg, vg, length)
+
+
+def prefill_tp(params, cfg, inputs, n_model: int, length=None):
+    """:func:`prefill` over ``n_model`` stacked TP ranks, ``params`` the
+    global tree held once.  Returns the last-token logits as vocab blocks
+    ``[n, B, 1, ceil(V/n)]`` and the decode state in its global layout
+    (every rank's K/V gathered).  pure_sp with T % n != 0 falls through to
+    the single path, as the reference's attention does; every rank would
+    run it on the same values."""
+    _check_dense(cfg)
+    B, T_ = inputs.shape[:2]
+    tp = _TP(cfg, n_model, T_)
+    if tp.strat == "pure_sp" and not tp.sp:
+        logits, state = prefill(params, cfg, inputs, length)
+        return _vocab_blocks(logits, n_model), state
+    dev = inputs.device
+    pos = torch.arange(T_, dtype=torch.int32, device=dev)
+    if length is not None:
+        length = torch.as_tensor(length, device=dev).to(torch.int32)
+    x = _embed(params, cfg, inputs)
+    x = SH.seq_shard(x, n_model) if tp.sp else \
+        x.expand((n_model,) + tuple(x.shape))
+    segs = []
+    for (block, n), seg_p in zip(segments(cfg), params["segments"]):
+        caches = []
+        for l in range(n):
+            x, c = _prefill_block_tp(_layer(seg_p, l), cfg, block, x, pos,
+                                     tp, length)
+            caches.append(c)
+        segs.append({k: torch.stack([c[k] for c in caches])
+                     for k in caches[0]})
+    x = tp.gather(x)[0]                                  # [B, T, d]
+    if length is None:
+        xl = x[:, -1:]
+        pos_out = torch.tensor(T_, dtype=torch.int32, device=dev)
+    else:
+        last = torch.clamp(length - 1, 0, T_ - 1).long().reshape(1)
+        xl = x.index_select(1, last)
+        pos_out = length.reshape(())
+    return (_vocab_blocks(_logits(params, cfg, xl), n_model),
+            {"segments": segs, "pos": pos_out})
+
+
+def _decode_attn_tp(p, cfg, block: Block, x, cache, pos, lay):
+    """:func:`_decode_attn` over a KV pool laid out by ``lay``
+    (``sharding.KVLayout``; ``cache`` leaves ``[rows, B_local, W_local,
+    nkv_local, hd]``), ``pos [B]``.  Q, K and V come from the replicated
+    stream ``x [B, 1, d]``; the new K/V land on the rank whose shard holds
+    slot ``pos % W`` (``pos``), a slot past its page dropping its write.
+    Each rank scores its own keys, their positions decoded from global
+    slot indices.  A sequence-sharded page combines the ranks' partial
+    softmax in float32; a head-sharded one gathers the ranks' heads."""
+    ck, cv = cache["k"], cache["v"]
+    _, Bl, Wl, nkvl, hd = ck.shape
+    rdp, rt = lay.rdp, lay.rtp
+    W = lay.width
+    B = x.shape[0]
+    nh, nkv = cfg.n_heads, cfg.n_kv_heads
+    g = nh // nkv
+    dev = x.device
+    ring = block.window is not None and block.window <= W
+    slot = torch.remainder(pos, W) if ring else pos
+    q, k, v = L._qkv(p["attn"], cfg,
+                     fused_rmsnorm(x, p["ln1"], cfg.norm_eps),
+                     pos[:, None].to(torch.int32))
+    b = torch.arange(B, device=dev)
+    r, bl = b // Bl, b % Bl                 # each page's DP rank and row
+    ok = slot < W
+    sc = torch.clamp(slot, max=W - 1).long()
+    heads = lay.kv == "heads"
+    if heads:       # every rank writes its heads
+        idx = ((r * rt)[:, None] + torch.arange(rt, device=dev),
+               bl[:, None], sc[:, None])
+        shape = (B, rt, nkvl, hd)
+    else:           # the rank holding the slot (one row when whole)
+        idx = (r * rt + sc // Wl, bl, sc % Wl)
+        shape = (B, nkv, hd)
+    okb = ok.view((B,) + (1,) * (len(shape) - 1))
+    for c, new in ((ck, k), (cv, v)):
+        c[idx] = torch.where(okb, new[:, 0].reshape(shape).to(c.dtype),
+                             c[idx])
+    qg = q.reshape(B, nkv, g, hd).to(torch.float32)
+    if heads:
+        qr = qg.view(rdp, Bl, rt, nkvl, g, hd).transpose(1, 2)
+        kpos = torch.arange(Wl, device=dev).view(1, 1, 1, Wl)
+    else:
+        qr = qg.view(rdp, 1, Bl, nkv, g, hd).expand(rdp, rt, Bl, nkv, g, hd)
+        kpos = (torch.arange(rt, device=dev)[:, None] * Wl
+                + torch.arange(Wl, device=dev)).view(1, rt, 1, Wl)
+    posb, slotb = pos.view(rdp, 1, Bl, 1), slot.view(rdp, 1, Bl, 1)
+    if ring:
+        # ring slots hold positions pos-W+1..pos; valid if <= pos and fresh
+        abs_pos = posb - torch.remainder(slotb - kpos, W)
+        valid = (abs_pos >= 0) & (abs_pos <= posb) & (
+            posb - abs_pos < block.window)
+    else:
+        valid = kpos <= posb
+        if block.window is not None:
+            valid &= (posb - kpos) < block.window
+    kc = ck.view(rdp, rt, Bl, Wl, nkvl, hd).to(torch.float32)
+    vc = cv.view(rdp, rt, Bl, Wl, nkvl, hd).to(torch.float32)
+    s = torch.einsum("rtbkgh,rtbskh->rtbkgs", qr, kc) / math.sqrt(hd)
+    vmask = valid[:, :, :, None, None, :]
+    if heads:
+        s = torch.where(vmask, s, torch.full((), -math.inf, device=dev))
+        o = torch.einsum("rtbkgs,rtbskh->rtbkgh", torch.softmax(s, dim=-1),
+                         vc)
+        # the ranks' heads gathered before wo
+        o = stacked.all_gather(o.transpose(0, 1), 2)[0]
+    else:
+        e, m, d = L._masked_tile(s, vmask)
+        o = _combine_partial(torch.einsum("rtbkgs,rtbskh->rtbkgh", e, vc),
+                             m, d, valid.any(dim=-1))
+    o = o.reshape(B, 1, nh * hd).to(x.dtype)
+    return L.dense(o, p["attn"]["wo"])
+
+
+def _combine_partial(o, m, d, has):
+    """The flash-decoding combine over the TP ranks (dim 1) of the partial
+    softmax ``o [rdp, rt, B, nkv, g, hd]``, its row max ``m`` and sum
+    ``d`` (``[rdp, rt, B, nkv, g]``), in float32: with ``M`` the ranks'
+    largest max (an all-gather, then ``amax``), ``o = sum_t o_t
+    e^(m_t - M) / sum_t d_t e^(m_t - M)`` (two psums).  A rank with no
+    valid key (``has [rdp, rt, B]`` false) contributes zero."""
+    ninf = torch.full((), -math.inf, device=o.device)
+    m = torch.where(has[..., None, None], m, ninf).transpose(0, 1)
+    M = torch.amax(stacked.all_gather(m.unsqueeze(-1), -1), dim=-1)
+    f = torch.where(torch.isfinite(m),
+                    torch.exp(m - torch.where(torch.isfinite(M), M,
+                                              torch.zeros_like(M))),
+                    torch.zeros_like(m))
+    num = stacked.psum(o.transpose(0, 1) * f[..., None])
+    den = stacked.psum(d.transpose(0, 1) * f)
+    return (num / den[..., None])[0]
+
+
+def decode_step_tp(params, cfg, state, tokens, layout, active=None):
+    """:func:`decode_step` over a KV pool laid out per segment by
+    ``layout`` (``sharding.KVLayout``s; ``state["pos"]`` is ``[B]``).
+    Returns the logits as vocab blocks ``[n_tp, B, 1, ceil(V/n_tp)]`` and
+    the state, its caches written in place."""
+    _check_dense(cfg)
+    pos = state["pos"]
+    x = _embed(params, cfg, tokens)
+    for (block, n), seg_p, seg_c, lay in zip(
+            segments(cfg), params["segments"], state["segments"], layout):
+        for l in range(n):
+            p = _layer(seg_p, l)
+            x = x + _decode_attn_tp(p, cfg, block, x, _layer(seg_c, l), pos,
+                                    lay)
+            x = x + L.mlp(p["mlp"], cfg,
+                          fused_rmsnorm(x, p["ln2"], cfg.norm_eps))
+    logits = _vocab_blocks(_logits(params, cfg, x), layout[0].n_tp)
+    adv = 1 if active is None else torch.as_tensor(
+        active, device=pos.device).to(torch.int32)
+    return logits, {"segments": state["segments"], "pos": pos + adv}

@@ -1,28 +1,35 @@
 """Serving entry points: padded prefill + single-token decode over a paged
-KV pool, on one device.
+KV pool, on one device, optionally over ``dp x tp`` stacked ranks.
 
-Port of ``repro.serve.engine`` for one card.  The reference compiles each
-entry point once under GSPMD; here they are eager PyTorch functions, and
-their norms and prefill attention run on the hand-written kernels
-(``models.transformer``).  Not ported, because eager PyTorch has no
-counterpart: ``cache_specs`` (the pool's ``PartitionSpec``s) and
-``trace_counts`` (the no-retrace guarantee of ``jit``; the serve CLI
-prints the kernel launch counts instead).  Serving under tensor
-parallelism and the multi-GPU executor are ROADMAP.md queue A items 3b
-and 7.  The plan's
-observability record (``obs.collect.record_serve_plan``) fires where the
-plan prices a collective, which on one card (``n_tp = n_dp = 1``) it
-never does, as in the reference.
+Port of ``repro.serve.engine``.  The reference compiles each entry point
+once under GSPMD on a ``(data, model)`` mesh; here they are eager PyTorch
+functions, their norms and prefill attention on the hand-written kernels
+(``models.transformer``).  Under tensor parallelism (``tp > 1``) the DP
+and TP ranks run stacked on the one device as the train side stacks them
+(rows ``r * tp + t``): the pages split over DP and each KV leaf over the
+model axis by the reference's ``cache_specs`` rule (:func:`cache_layout`),
+prefill runs the TP layers, decode combines each page's partial softmax
+over the ranks, and the logits leave as the ranks' vocab blocks, which
+the sampler gathers.  The weights are held once, as the reference's serve
+holds them (unsharded).  Not ported, because eager PyTorch has no
+counterpart: ``trace_counts`` (the no-retrace guarantee of ``jit``; the
+serve CLI prints the kernel launch counts instead).  The multi-GPU
+executor is ROADMAP.md queue A item 7.  The plan's observability record
+(``obs.collect.record_serve_plan``) fires where the plan prices a
+collective, which on one rank (``tp = dp = 1``) it never does, as in the
+reference.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
-from typing import Callable, Dict
+from typing import Callable, Dict, List, Optional
 
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.models import sharding as SH
 from repro_torch.models import transformer as T
 from repro_torch.serve import kvcache as KV
 from repro_torch.topology import table as TB
@@ -49,7 +56,7 @@ def collective_plan(model_cfg, scfg: ServeConfig, n_tp: int, n_dp: int,
     of an ``n_tp`` x ``n_dp`` deployment at pool size ``B`` (the
     reference reads the two from its mesh): per decode-step collective,
     the backend the decision table picks at that payload.  Advisory, as in
-    the reference.  On one card (``n_tp = n_dp = 1``) the plan is empty."""
+    the reference.  On one rank (``n_tp = n_dp = 1``) the plan is empty."""
     if scfg.backend != "auto":
         return {}
     itemsize = torch.empty((), dtype=getattr(torch, model_cfg.dtype)
@@ -98,17 +105,24 @@ class ServeFns:
         inactive pages hold their position
       * ``evict(pool, slot) -> pool`` — retire a page
 
-    Pools are updated in place and returned.  ``plan`` is the serving
-    collective plan.  The reference's legacy fixed-batch pair, for the
-    architectures its pool cannot serve, has no counterpart: the port
-    serves dense ``attn`` models only (``models.transformer`` raises for
-    the others, ROADMAP.md queue A item 5).
+    Under tensor parallelism the logits are the ranks' vocab blocks
+    ``[tp, B, ceil(V/tp)]`` (``sampling.gather_vocab`` joins them) and
+    the pool is rank-stacked by ``layout`` (one ``sharding.KVLayout`` a
+    segment; ``None`` on one TP rank, where the pool is the global one:
+    with ``tp = 1`` the DP ranks' rows ``r`` hold pages ``r * B/dp ...``,
+    which is the global pool's own order).  Pools are updated in place
+    and returned.  ``plan`` is the serving collective plan.  The
+    reference's legacy fixed-batch pair, for the architectures its pool
+    cannot serve, has no counterpart: the port serves dense ``attn``
+    models only (``models.transformer`` raises for the others, ROADMAP.md
+    queue A item 5).
     """
     init_pool: Callable
     insert: Callable
     decode_slots: Callable
     evict: Callable
     plan: Dict[str, str] = field(default_factory=dict)
+    layout: Optional[List[SH.KVLayout]] = None
 
 
 def page_len(model_cfg, prompt_max: int, max_new: int) -> int:
@@ -118,27 +132,62 @@ def page_len(model_cfg, prompt_max: int, max_new: int) -> int:
     return ((prompt_max + max_new + C - 1) // C) * C
 
 
+def cache_layout(model_cfg, B: int, S_len: int, dp=1,
+                 tp: int = 1) -> List[SH.KVLayout]:
+    """The counterpart of the reference's ``cache_specs``: per segment,
+    whether the ``B`` pages split over the ``dp`` DP ranks (``dp`` an int
+    or a DP shape; they split when ``B % n_dp == 0 and B >= n_dp``) and
+    how its K/V split over the ``tp`` TP ranks, by the reference's rule in
+    its order: over the page's slots (``"seq"``) when the cache width W
+    divides by tp, else over the KV heads (``"heads"``) when they do, else
+    not at all (``"whole"``)."""
+    n_dp = _ranks(dp)
+    split = B % n_dp == 0 and B >= n_dp
+    out = []
+    for block, _ in T.segments(model_cfg):
+        W = S_len if block.window is None else min(block.window, S_len)
+        if W % tp == 0:
+            kv = "seq"
+        elif model_cfg.n_kv_heads % tp == 0:
+            kv = "heads"
+        else:
+            kv = "whole"
+        out.append(SH.KVLayout(n_dp, tp, split, kv, W))
+    return out
+
+
 def make_serve_fns(model_cfg, scfg: ServeConfig, B: int, S_len: int,
-                   device="cuda") -> ServeFns:
+                   device="cuda", dp=1, tp: int = 1) -> ServeFns:
     """The serving entry points for a ``B``-page pool of length ``S_len``
-    (page = prompt + decode budget) on one ``device``.  See
-    :class:`ServeFns`."""
+    (page = prompt + decode budget) over ``dp`` DP ranks (an int or a DP
+    shape, as ``train.step.make_train_step`` takes it) of ``tp`` TP
+    ranks, stacked on one ``device``.  See :class:`ServeFns`."""
     dev = resolve_device(device)
+    layout = cache_layout(model_cfg, B, S_len, dp, tp) if tp > 1 else None
 
     def init_pool_fn():
-        return KV.init_pool_state(model_cfg, B, S_len, dev)
+        return KV.init_pool_state(model_cfg, B, S_len, dev, layout)
 
     def insert_fn(params, pool, tokens, length, slot):
-        logits, one = T.prefill(params, model_cfg,
-                                torch.as_tensor(tokens, device=dev),
-                                length=int(length))
-        return logits[:, 0], KV.write_slot(pool, one, slot)
+        tokens = torch.as_tensor(tokens, device=dev)
+        if layout is None:
+            logits, one = T.prefill(params, model_cfg, tokens,
+                                    length=int(length))
+        else:
+            logits, one = T.prefill_tp(params, model_cfg, tokens, tp,
+                                       length=int(length))
+        return logits[..., 0, :], KV.write_slot(pool, one, slot, layout)
 
     def decode_slots_fn(params, pool, tokens, active):
-        logits, pool = T.decode_step(
-            params, model_cfg, pool, torch.as_tensor(tokens, device=dev),
-            active=torch.as_tensor(active, device=dev))
-        return logits[:, 0], pool
+        tokens = torch.as_tensor(tokens, device=dev)
+        active = torch.as_tensor(active, device=dev)
+        if layout is None:
+            logits, pool = T.decode_step(params, model_cfg, pool, tokens,
+                                         active=active)
+        else:
+            logits, pool = T.decode_step_tp(params, model_cfg, pool, tokens,
+                                            layout, active=active)
+        return logits[..., 0, :], pool
 
     def evict_fn(pool, slot):
         return KV.reset_slot(pool, slot)
@@ -146,4 +195,10 @@ def make_serve_fns(model_cfg, scfg: ServeConfig, B: int, S_len: int,
     return ServeFns(
         init_pool=init_pool_fn, insert=insert_fn,
         decode_slots=decode_slots_fn, evict=evict_fn,
-        plan=collective_plan(model_cfg, scfg, 1, 1, B))
+        plan=collective_plan(model_cfg, scfg, tp, _ranks(dp), B),
+        layout=layout)
+
+
+def _ranks(dp) -> int:
+    """The DP ranks of ``dp``, an int or a DP shape."""
+    return math.prod(dp) if isinstance(dp, (tuple, list)) else int(dp)

@@ -15,6 +15,13 @@ per request would move all of it):
   * :func:`write_slot`       — copy a single-request (B=1) state into a page;
   * :func:`reset_slot`       — retire a page (position back to 0).
 
+Under tensor parallelism (``layout``: one ``models.sharding.KVLayout`` a
+segment) the pool is rank-stacked: a leaf is ``[n_layers, rows, B_local,
+W_local, nkv_local, hd]``, row ``r * rtp + t`` holding DP rank r's pages
+and TP rank t's slots or KV heads, a leaf that does not split held once.
+:func:`pool_to_global` and :func:`pool_from_global` convert it to and
+from the reference's global pool ``[n_layers, B, W, nkv, hd]``.
+
 Host-side bookkeeping lives in :class:`SlotAllocator`: a FIFO free list
 plus occupancy accounting, free of torch, so the scheduler's admission
 logic is unit-testable without a device.
@@ -27,28 +34,48 @@ from typing import List, Optional
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.models import transformer as T
 
 
 def init_pool_state(model_cfg, n_slots: int, max_seq_len: int,
-                    device="cuda") -> dict:
-    """Zeroed pool: per-segment stacked caches + per-slot positions."""
-    state = T.init_decode_state(model_cfg, n_slots, max_seq_len, device)
+                    device="cuda", layout=None) -> dict:
+    """Zeroed pool: per-segment stacked caches + per-slot positions; with
+    a ``layout``, each segment's leaves rank-stacked by it."""
+    if layout is None:
+        state = T.init_decode_state(model_cfg, n_slots, max_seq_len, device)
+    else:
+        dev = resolve_device(device)
+        meta = T.init_decode_state(model_cfg, n_slots, max_seq_len, "meta")
+        state = {"segments": [
+            {k: torch.zeros(_stacked_shape(x.shape, lay), dtype=x.dtype,
+                            device=dev) for k, x in seg.items()}
+            for seg, lay in zip(meta["segments"], layout)],
+            "pos": torch.zeros((), dtype=torch.int32, device=dev)}
     state["pos"] = torch.zeros((n_slots,), dtype=torch.int32,
                                device=state["pos"].device)
     return state
 
 
-def write_slot(pool: dict, one: dict, slot) -> dict:
+def write_slot(pool: dict, one: dict, slot, layout=None) -> dict:
     """Install a single-request decode state (batch 1) into page ``slot``.
 
     ``one`` is a ``prefill``/``init_decode_state`` state with B=1 and a
     0-dim ``pos``; cache leaves are ``[n_layers, 1, ...]`` and land at
-    ``pool_leaf[:, slot]``.  ``slot`` may be an int or a 0-dim tensor."""
+    ``pool_leaf[:, slot]``, or with a ``layout`` split over the rows of
+    the DP rank holding the page.  ``slot`` may be an int or a 0-dim
+    tensor."""
     slot = _check_slot(pool, slot)
-    for dseg, sseg in zip(pool["segments"], one["segments"]):
+    for i, (dseg, sseg) in enumerate(zip(pool["segments"], one["segments"])):
         for k, dst in dseg.items():
-            dst[:, slot] = sseg[k][:, 0].to(dst.dtype)
+            src = sseg[k][:, 0].to(dst.dtype)
+            if layout is None:
+                dst[:, slot] = src
+                continue
+            lay = layout[i]
+            Bl = dst.shape[2]
+            r, rt = slot // Bl, lay.rtp
+            dst[:, r * rt:(r + 1) * rt, slot % Bl] = _split(src, lay)
     pool["pos"][slot] = torch.as_tensor(one["pos"]).to(torch.int32)
     return pool
 
@@ -58,6 +85,61 @@ def reset_slot(pool: dict, slot) -> dict:
     place — ``write_slot`` overwrites the whole page on reuse)."""
     pool["pos"][_check_slot(pool, slot)] = 0
     return pool
+
+
+def pool_to_global(pool: dict, layout) -> dict:
+    """A pool -> the reference's global layout: leaves ``[n_layers, B, W,
+    nkv, hd]``, a copy (the one-card pool, ``layout`` None, is returned
+    as it is)."""
+    if layout is None:
+        return pool
+    segs = []
+    for seg, lay in zip(pool["segments"], layout):
+        out = {}
+        for k, x in seg.items():
+            n, _, Bl, Wl, nl, hd = x.shape
+            x = x.view(n, lay.rdp, lay.rtp, Bl, Wl, nl, hd)
+            x = x.permute(0, 1, 3, 4, 2, 5, 6) if lay.kv == "heads" else \
+                x.permute(0, 1, 3, 2, 4, 5, 6)
+            out[k] = x.clone(memory_format=torch.contiguous_format).view(
+                n, lay.rdp * Bl, lay.width, -1, hd)
+        segs.append(out)
+    return {"segments": segs, "pos": pool["pos"].clone()}
+
+
+def pool_from_global(pool: dict, layout) -> dict:
+    """Inverse of :func:`pool_to_global`: a global pool split by
+    ``layout`` (a copy)."""
+    if layout is None:
+        return pool
+    segs = []
+    for seg, lay in zip(pool["segments"], layout):
+        out = {}
+        for k, x in seg.items():
+            n, B, _, _, hd = x.shape
+            x = x.unflatten(1, (lay.rdp, B // lay.rdp))
+            x = x.unflatten(4, (lay.rtp, -1)).permute(0, 1, 4, 2, 3, 5, 6) \
+                if lay.kv == "heads" else \
+                x.unflatten(3, (lay.rtp, -1)).permute(0, 1, 3, 2, 4, 5, 6)
+            out[k] = x.clone(memory_format=torch.contiguous_format).view(
+                (n, lay.rows) + tuple(x.shape[3:]))
+        segs.append(out)
+    return {"segments": segs, "pos": pool["pos"].clone()}
+
+
+def _split(x, lay):
+    """One page ``[n_layers, W, nkv, hd]`` -> its TP rows ``[n_layers,
+    rtp, W_local, nkv_local, hd]``."""
+    if lay.kv == "heads":
+        return x.unflatten(2, (lay.rtp, -1)).movedim(2, 1)
+    return x.unflatten(1, (lay.rtp, -1))
+
+
+def _stacked_shape(shape, lay):
+    """A global leaf's shape ``[n_layers, B, W, nkv, hd]`` -> its
+    rank-stacked one."""
+    n, B, _, nkv, hd = shape
+    return (n, lay.rows) + lay.local_shape(B, nkv) + (hd,)
 
 
 def _check_slot(pool: dict, slot) -> int:

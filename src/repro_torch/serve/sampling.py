@@ -16,16 +16,27 @@ draw, as ``jax.random.categorical`` makes).  ``jax.random``'s bits cannot
 be reproduced, so sampled streams match the reference only in
 distribution; greedy streams and the kept sets match it exactly.
 
-The reference takes the serving collective plan and pins the logits'
-vocab re-assembly where it recommends one; on one card the logits are
-whole and the plan is empty, so the port's sampler takes no plan.
+Under tensor parallelism the engine's logits are the TP ranks' vocab
+blocks ``[tp, B, ceil(V/tp)]``; the sampler gathers them
+(:func:`gather_vocab`: ``stacked.all_gather`` over the ranks, the padded
+columns dropped) before any reduction.  The reference takes the serving
+collective plan and, where it names ``logits_allgather``, pins GSPMD's
+re-assembly before sampling; without a plan GSPMD reduces over the
+sharded vocab instead.  The ranks here are stacked on one device, where
+a reduction over the stacked blocks is a gather followed by the
+reduction, so the port gathers with or without a plan: ``plan`` is taken
+for the reference's signature and changes no token.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Dict, Optional
+
 import numpy as np
 import torch
+
+from repro_torch.collectives import stacked
 
 _MASK64 = (1 << 64) - 1
 
@@ -79,18 +90,33 @@ def filter_logits(logits, temperature, top_k: int = 0, top_p: float = 0.0):
     return scaled
 
 
-def make_sampler(top_k: int = 0, top_p: float = 0.0):
-    """A pooled sampler ``(logits [B,V], temperature [B], rids [B],
-    steps [B], seed) -> tokens [B]`` (int32 numpy).
+def gather_vocab(logits, vocab_size: Optional[int] = None):
+    """The TP ranks' vocab blocks ``[tp, B, Vl]`` -> ``[B, V]``: the blocks
+    all-gathered over the ranks (rank 0's copy), the padded columns past
+    ``vocab_size`` dropped.  Whole logits ``[B, V]`` come back as they
+    are."""
+    if logits.dim() != 3:
+        return logits
+    full = stacked.all_gather(logits, -1)[0]
+    return full if vocab_size is None else full[..., :vocab_size]
+
+
+def make_sampler(top_k: int = 0, top_p: float = 0.0,
+                 plan: Optional[Dict[str, str]] = None,
+                 vocab_size: Optional[int] = None):
+    """A pooled sampler ``(logits [B,V] or [tp,B,Vl], temperature [B],
+    rids [B], steps [B], seed) -> tokens [B]`` (int32 numpy).
 
     ``top_k`` and ``top_p`` are pool-global (see :class:`SamplingParams`);
-    per-slot ``temperature`` and the stream ids are per call.
+    per-slot ``temperature`` and the stream ids are per call.  Vocab
+    blocks are gathered first (:func:`gather_vocab`, ``vocab_size`` the
+    model's), whatever ``plan`` says (see the module docstring).
     """
     if not 0.0 <= top_p <= 1.0:
         raise ValueError(f"top_p must be in [0, 1], got {top_p}")
 
     def sample(logits, temperature, rids, steps, seed: int):
-        logits = torch.as_tensor(logits)
+        logits = gather_vocab(torch.as_tensor(logits), vocab_size)
         temps = np.asarray(temperature, np.float32).reshape(-1)
         greedy = torch.argmax(logits.to(torch.float32), dim=-1)
         hot = np.flatnonzero(temps > 0.0)

@@ -90,7 +90,8 @@ class ContinuousBatchingScheduler:
         self.top_p = top_p
         self.alloc = SlotAllocator(n_slots)
         self.pool = fns.init_pool()
-        self.sampler = S.make_sampler(top_k, top_p)
+        self.sampler = S.make_sampler(top_k, top_p, plan=fns.plan,
+                                      vocab_size=model_cfg.vocab_size)
         self.seed = seed
         self.clock = 0.0
         self.tokens_out = 0

@@ -713,3 +713,50 @@ def test_cuda_wrapper_raises_without_library(cuda_device, monkeypatch,
     q = torch.zeros((1, 1, 1, 8, 16), device=cuda_device)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         FK.flash_attention_kernel(q, q[0], q[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_tp_serve_launches(cuda_device, dtype):
+    """Serving under tensor parallelism on the card: ``launch/cell.py``'s
+    small megatron_sp model at (dp, tp) = (2, 2).  An insert launches the
+    RMSNorm kernel 2 L + 1 times and the flash kernel L times (the TP
+    ranks in its batch; on wgmma in bf16), a decode step RMSNorm 2 L + 1
+    times and no flash; in float32 the logits are within 2e-5 of
+    max |logit| of the CPU's run on the same weights (the bound
+    tests/test_torch_serve_tp.py holds the port to the reference with)."""
+    from repro_torch import tree as T
+    from repro_torch.launch import cell
+    from repro_torch.models import transformer as TF
+    from repro_torch.serve import engine as E
+    from repro_torch.serve.sampling import gather_vocab
+    cfg = cell.tp_small_config().replace(dtype=dtype)
+    L, n_pages, S = cfg.n_layers, 4, 128
+    init = TF.init_params(cfg, 0, "cpu")
+    tok = np.random.RandomState(2).randint(0, cfg.vocab_size, (1, S))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        fns = E.make_serve_fns(cfg, E.ServeConfig(), n_pages, S, dev, dp=2,
+                               tp=2)
+        params = T.tree_map(lambda x: x.to(dev), init)
+        pool = fns.init_pool()
+        B.reset_launches()
+        ins, pool = fns.insert(params, pool, tok, 77, 1)
+        ins_counts = dict(B.LAUNCHES)
+        B.reset_launches()
+        dec, pool = fns.decode_slots(params, pool, tok[:, :n_pages].T,
+                                     np.ones(n_pages, np.int32))
+        dec_counts = dict(B.LAUNCHES)
+        out[str(dev)] = [gather_vocab(x, cfg.vocab_size).float().cpu()
+                         for x in (ins, dec)]
+    wg = int(dtype == "bfloat16")
+    assert {k: v for k, v in ins_counts.items() if v} == {
+        "rmsnorm": 2 * L + 1, "flash_attention": L,
+        **({"flash_attention_wgmma": L} if wg else {})}
+    assert {k: v for k, v in dec_counts.items() if v} == {
+        "rmsnorm": 2 * L + 1}
+    for got, exp in zip(out[str(cuda_device)], out["cpu"]):
+        assert bool(torch.isfinite(got).all())
+        if dtype == "float32":
+            assert float((got - exp).abs().max()) <= 2e-5 * float(
+                exp.abs().max())
