@@ -131,15 +131,42 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
              7's plus the pool's bytes; the later tokens' agreement with
              phase 7, the serve numbers beside phase 7's and
              ``launch/profile_serve.py``'s breakdown and idle share at
-             (1, 1) and (2, 2) (a ``serve-tp:`` JSON line).
+             (1, 1) and (2, 2) (a ``serve-tp:`` JSON line);
+11. dense configs — (a) the flash kernel at head_dim 256 against its
+             plain version (bf16 within 3e-2 on wgmma, float32 within 2e-5
+             on the CUDA cores) at gemma3-4b's insert (q [1, 2048, 8,
+             256], causal and with its 1024-token window), its serve-TP
+             insert and gemma-7b's (q [1, 1024, 16, 256]), with a
+             ``flash_attention_hd256`` row (gemma3's causal bf16 shape,
+             SDPA beside it and the SDPA backend named); flash at
+             qwen3-32b's insert (64/8 heads of 128, bf16) and rmsnorm at
+             the three cells' insert and decode rows (d_model 2560,
+             3072, 5120; bf16 within one ulp, float32 within rtol 1e-6);
+             (b) the three
+             dense serve cells of ``launch/cell.py`` one after another
+             (gemma3-4b and gemma-7b at full depth, qwen3-32b at 16 of 64
+             layers), each through ``serve_checks`` (every request
+             retired, finite logits, 2 L + 1 rmsnorm per insert and per
+             step, L flash per insert, all on wgmma) with request 0 alone
+             in a 1-page pool giving the same first token; (c) gemma3-4b
+             at (dp, tp) = (2, 2), megatron_sp, request 0's insert within
+             ``SERVE_TP_ULPS`` bf16 ulps of max |logit| of (b)'s; (d) one
+             float32 step of the gemma3-4b train cell (2 layers, p = 4)
+             under ``pallas_fused`` and ``bine``: params bitwise equal,
+             the loss within ``G3_LOSS_ATOL`` of the plain float32 loss
+             of the same weights and batch, as are the bf16 forward's
+             losses on three seeds, while each fault of ``G3_FAULTS``
+             lands outside it (a ``dense:`` JSON line).
 
 The kernels line's launches of rs_step, ag_step and rs_step_q sum the
-train step's main path, its two-axis path, phase 8's runs and the TP
-path's, and those of rmsnorm and flash_attention the serve path's and
-the serve-TP path's; the ``kernels by path:`` line gives each path's own
-counts, each of which must be above 0.  Prints a ``kernels:`` summary,
-one JSON line of per-kernel numbers, the card's name and power limit,
-and as its last line
+train step's main path, its two-axis path, phase 8's runs, the TP path's
+and the gemma3 train step's; those of rmsnorm the serve, serve-TP and
+dense serve paths'; flash_attention's (head_dim 128) the serve, serve-TP
+and qwen3-32b paths', flash_attention_hd256's the gemma3-4b, gemma-7b and
+gemma3-4b serve-TP paths'; the ``kernels by path:`` line gives each
+path's own counts, each of which must be above 0.  Prints a ``kernels:``
+summary, one JSON line of per-kernel numbers, the card's name and power
+limit, and as its last line
 ``{"ok": true, "device": {...}}``.  Exits 2 without a result when there is
 no CUDA device or no ``src/repro_torch`` beside this file.
 """
@@ -176,6 +203,8 @@ SOURCE = {"rs_step": CSRC + "collective_steps.cu",
           "gather_matmul_wgmma": CSRC + "perm_matmul.cu",
           "rmsnorm": KSRC + "rmsnorm/csrc/rmsnorm.cu",
           "flash_attention": KSRC + "flash_attention/csrc/flash_attention.cu",
+          "flash_attention_hd256":
+          KSRC + "flash_attention/csrc/flash_attention.cu",
           "qacc": KSRC + "qdot/csrc/qacc.cu"}
 REPLACES = {
     "rs_step": "src/repro/kernels/collectives/kernel.py:78",
@@ -188,6 +217,7 @@ REPLACES = {
     "gather_matmul_wgmma": "src/repro/kernels/collectives/kernel.py:426",
     "rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:26",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:91",
+    "flash_attention_hd256": "src/repro/kernels/flash_attention/kernel.py:91",
     "qacc": "src/repro/kernels/qdot/kernel.py:27",
 }
 #: phi4-mini's tensor-parallel MLP at p=4 (d_model 3072, d_ff 8192): the
@@ -421,7 +451,7 @@ def phase_kernels(dev):
     phase_ring_update(dev, randn, entry, row)
     phase_perm_matmul(dev, randn, row)
     qacc_launches = phase_serve_kernels(dev, randn, row)
-    return rows, qacc_launches
+    return rows, qacc_launches, row, randn
 
 
 def phase_ring_update(dev, randn, entry, row):
@@ -569,6 +599,107 @@ def bf16_ulp(x):
     return torch.pow(2.0, e - 7)
 
 
+def flash_case(dev, randn, heads, T, window, dt, b=1, tp=1):
+    """One flash-attention call on the card at the model's layout (q
+    ``[b, T, nh / tp, hd]``, k and v ``[b, T, nkv / tp, hd]`` from
+    ``randn``; ``heads`` = (nh, nkv, hd)), causal, optionally windowed:
+    held to the plain version (bf16 within 3e-2 on the tensor cores,
+    float32 within 2e-5 on the CUDA cores, the launch counts saying which
+    ran), timed beside the plain version and SDPA, with its bound by
+    operations or bytes.  Returns (kernel fn, plain fn, SDPA fn, max
+    |diff|, bound ms, what bounds it)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import build as KB
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ops as FO
+    from repro_torch.kernels.flash_attention import ref as FR
+
+    nh, nkv, hd = heads
+    hq, hk = nh // tp, nkv // tp           # a TP rank's heads
+    q, k, v = (randn(b, T, n, hd, dtype=dt) for n in (hq, hk, hk))
+    qpos = torch.arange(T, device=dev)
+    mask = qpos[None, :] <= qpos[:, None]
+    if window is not None:
+        mask &= (qpos[:, None] - qpos[None, :]) < window
+    live = b * hq * int(mask.sum())
+    qg = q.reshape(b, T, hk, hq // hk, hd).permute(0, 2, 3, 1, 4)
+    kg, vg = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+    kern = lambda: FO.flash_attention(q, k, v, window=window)
+    plain = lambda: FR.flash_attention_ref(qg, kg, vg, window=window)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if window is None:
+        lib = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+    else:
+        lib = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    wgmma = dt == torch.bfloat16
+    check(FK.flash_uses_wgmma(qg, kg, vg) == wgmma,
+          f"flash_attention {dt}: the dispatch rule sends it to the "
+          f"wrong kernel")
+    before = KB.LAUNCHES["flash_attention_wgmma"]
+    got = kern().float()
+    check(KB.LAUNCHES["flash_attention_wgmma"] - before == wgmma,
+          f"flash_attention T={T} {dt}: the "
+          f"{'wgmma' if wgmma else 'CUDA-core'} kernel did not run")
+    exp = plain().float().permute(0, 3, 1, 2, 4).reshape(b, T, hq, hd)
+    ref = lib().float().transpose(1, 2)
+    err = float((got - exp).abs().max())
+    tol = 2e-5 if dt == torch.float32 else 3e-2
+    check(err < tol, f"flash_attention T={T} window={window} {dt}: "
+          f"off by {err} (tolerance {tol})")
+    # q, k and v read once, o written once
+    nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
+    flops = 4 * hd * live
+    peak = F32_FLOPS if dt == torch.float32 else BF16_FLOPS
+    bound = max(nbytes / HBM_BYTES_PER_S, flops / peak) * 1e3
+    by = "bytes" if nbytes / HBM_BYTES_PER_S > flops / peak \
+        else "operations"
+    log(f"    flash_attention B={b} T={T} heads {hq}/{hk} "
+        f"window={window} {str(dt)[6:]} "
+        f"({'wgmma' if wgmma else 'CUDA cores'}): "
+        f"{ms(time_ms(kern))} ms, plain {ms(time_ms(plain, reps=5))} ms, "
+        f"library {ms(time_ms(lib))} ms, bound {ms(bound)} ms ({by}, "
+        f"{live} live query-key pairs over its heads); max |diff| "
+        f"{err:.3e} (vs SDPA "
+        f"{float((got - ref).abs().max()):.3e})")
+    return kern, plain, lib, err, bound, by
+
+
+def rmsnorm_case(randn, rows_, d, eps, dt):
+    """One rmsnorm call on the card, x [rows_, d] and w [d] from
+    ``randn``, held to the plain version (float32 within rtol 1e-6, bf16
+    within one bf16 ulp) and timed beside it and ``F.rms_norm``.  Returns
+    (x, w, the library's weight 1 + w, max |diff|, bytes moved)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import build as KB
+    from repro_torch.kernels.rmsnorm import kernel as RK
+    from repro_torch.kernels.rmsnorm import ref as RR
+
+    x, w = randn(rows_, d, dtype=dt), (0.1 * randn(d)).to(dt)
+    w1 = 1.0 + w        # the library's weight, made outside the timing
+    before = KB.LAUNCHES["rmsnorm"]
+    got = RK.rmsnorm_kernel(x, w, eps).float()
+    check(KB.LAUNCHES["rmsnorm"] == before + 1,
+          f"rmsnorm [{rows_}, {d}] {dt}: the kernel did not run")
+    exp = RR.rmsnorm_ref(x, w, eps).float()
+    diff = (got - exp).abs()
+    lim = (1e-6 * exp.abs() if dt == torch.float32 else bf16_ulp(exp))
+    check(bool((diff <= lim).all()),
+          f"rmsnorm [{rows_}, {d}] {dt}: off by {float(diff.max())}")
+    nbytes = (2 * rows_ * d + d) * x.element_size()
+    t = time_ms(lambda: RK.rmsnorm_kernel(x, w, eps))
+    tp = time_ms(lambda: RR.rmsnorm_ref(x, w, eps))
+    tl = time_ms(lambda: F.rms_norm(x, (d,), w1, eps))
+    log(f"    rmsnorm [{rows_}, {d}] {str(dt)[6:]}: {ms(t)} ms, plain "
+        f"{ms(tp)} ms, library {ms(tl)} ms, bound "
+        f"{ms(nbytes / HBM_BYTES_PER_S * 1e3)} ms; max |diff| "
+        f"{float(diff.max()):.3e}")
+    return x, w, w1, float(diff.max()), nbytes
+
+
 def phase_serve_kernels(dev, randn, row):
     """The serving kernels at the serve cell's shapes: rmsnorm on one
     insert's rows [1024, 3072] and one decode step's [8, 3072], bf16 and
@@ -591,9 +722,6 @@ def phase_serve_kernels(dev, randn, row):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import build as KB
-    from repro_torch.kernels.flash_attention import kernel as FK
-    from repro_torch.kernels.flash_attention import ops as FO
-    from repro_torch.kernels.flash_attention import ref as FR
     from repro_torch.kernels.qdot import kernel as QK
     from repro_torch.kernels.qdot import ops as QO
     from repro_torch.kernels.qdot import ref as QR
@@ -605,29 +733,11 @@ def phase_serve_kernels(dev, randn, row):
     cfg = cell.serve_model_config()
     d, eps = cfg.d_model, cfg.norm_eps
     # rmsnorm
-    variants = {}
-    for rows_, dt in ((1024, torch.bfloat16), (8, torch.bfloat16),
-                      (1024, torch.float32), (8, torch.float32)):
-        x, w = randn(rows_, d, dtype=dt), (0.1 * randn(d)).to(dt)
-        w1 = 1.0 + w        # the library's weight, made outside the timing
-        before = KB.LAUNCHES["rmsnorm"]
-        got = RK.rmsnorm_kernel(x, w, eps).float()
-        check(KB.LAUNCHES["rmsnorm"] == before + 1,
-              f"rmsnorm [{rows_}, {d}] {dt}: the kernel did not run")
-        exp = RR.rmsnorm_ref(x, w, eps).float()
-        diff = (got - exp).abs()
-        lim = (1e-6 * exp.abs() if dt == torch.float32 else bf16_ulp(exp))
-        check(bool((diff <= lim).all()),
-              f"rmsnorm [{rows_}, {d}] {dt}: off by {float(diff.max())}")
-        nbytes = (2 * rows_ * d + d) * x.element_size()
-        variants[(rows_, dt)] = (x, w, w1, float(diff.max()), nbytes)
-        t = time_ms(lambda: RK.rmsnorm_kernel(x, w, eps))
-        tp = time_ms(lambda: RR.rmsnorm_ref(x, w, eps))
-        tl = time_ms(lambda: F.rms_norm(x, (d,), w1, eps))
-        log(f"    rmsnorm [{rows_}, {d}] {str(dt)[6:]}: {ms(t)} ms, plain "
-            f"{ms(tp)} ms, library {ms(tl)} ms, bound "
-            f"{ms(nbytes / HBM_BYTES_PER_S * 1e3)} ms; max |diff| "
-            f"{float(diff.max()):.3e}")
+    variants = {(rows_, dt): rmsnorm_case(randn, rows_, d, eps, dt)
+                for rows_, dt in ((1024, torch.bfloat16),
+                                  (8, torch.bfloat16),
+                                  (1024, torch.float32),
+                                  (8, torch.float32))}
     x, w, w1, err, nbytes = variants[(1024, torch.bfloat16)]
     log("  rmsnorm: within rtol 1e-6 (float32) / one bf16 ulp of plain "
         "(4 variants)")
@@ -641,66 +751,15 @@ def phase_serve_kernels(dev, randn, row):
     del variants, x, w, w1, kern, lib
 
     # flash attention at the prefill of one insert (a 1024-token page)
-    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-
-    def flash_case(T, window, dt, b=1, tp=1):
-        hq, hk = nh // tp, nkv // tp           # a TP rank's heads
-        q, k, v = (randn(b, T, n, hd, dtype=dt) for n in (hq, hk, hk))
-        qpos = torch.arange(T, device=dev)
-        mask = qpos[None, :] <= qpos[:, None]
-        if window is not None:
-            mask &= (qpos[:, None] - qpos[None, :]) < window
-        live = b * hq * int(mask.sum())
-        qg = q.reshape(b, T, hk, hq // hk, hd).permute(0, 2, 3, 1, 4)
-        kg, vg = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
-        kern = lambda: FO.flash_attention(q, k, v, window=window)
-        plain = lambda: FR.flash_attention_ref(qg, kg, vg, window=window)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        if window is None:
-            lib = lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True)
-        else:
-            lib = lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, enable_gqa=True)
-        wgmma = dt == torch.bfloat16
-        check(FK.flash_uses_wgmma(qg, kg, vg) == wgmma,
-              f"flash_attention {dt}: the dispatch rule sends it to the "
-              f"wrong kernel")
-        before = KB.LAUNCHES["flash_attention_wgmma"]
-        got = kern().float()
-        check(KB.LAUNCHES["flash_attention_wgmma"] - before == wgmma,
-              f"flash_attention T={T} {dt}: the "
-              f"{'wgmma' if wgmma else 'CUDA-core'} kernel did not run")
-        exp = plain().float().permute(0, 3, 1, 2, 4).reshape(b, T, hq, hd)
-        ref = lib().float().transpose(1, 2)
-        err = float((got - exp).abs().max())
-        tol = 2e-5 if dt == torch.float32 else 3e-2
-        check(err < tol, f"flash_attention T={T} window={window} {dt}: "
-              f"off by {err} (tolerance {tol})")
-        # q, k and v read once, o written once
-        nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
-        flops = 4 * hd * live
-        peak = F32_FLOPS if dt == torch.float32 else BF16_FLOPS
-        bound = max(nbytes / HBM_BYTES_PER_S, flops / peak) * 1e3
-        by = "bytes" if nbytes / HBM_BYTES_PER_S > flops / peak \
-            else "operations"
-        log(f"    flash_attention B={b} T={T} heads {hq}/{hk} "
-            f"window={window} {str(dt)[6:]} "
-            f"({'wgmma' if wgmma else 'CUDA cores'}): "
-            f"{ms(time_ms(kern))} ms, plain {ms(time_ms(plain, reps=5))} ms, "
-            f"library {ms(time_ms(lib))} ms, bound {ms(bound)} ms ({by}, "
-            f"{live} live query-key pairs over its heads); max |diff| "
-            f"{err:.3e} (vs SDPA "
-            f"{float((got - ref).abs().max()):.3e})")
-        return kern, plain, lib, err, bound, by
-
+    heads = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
     for T, window, dt, b, tp in ((1024, 256, torch.bfloat16, 1, 1),
                                  (1000, None, torch.bfloat16, 1, 1),
                                  (4096, None, torch.bfloat16, 1, 1),
                                  (1024, None, torch.bfloat16, 2, 2),
                                  (1024, None, torch.float32, 1, 1)):
-        flash_case(T, window, dt, b, tp)
-    kern, plain, lib, err, bound, by = flash_case(1024, None, torch.bfloat16)
+        flash_case(dev, randn, heads, T, window, dt, b, tp)
+    kern, plain, lib, err, bound, by = flash_case(dev, randn, heads, 1024,
+                                                  None, torch.bfloat16)
     log("  flash_attention: within 3e-2 (bf16, tensor cores) / 2e-5 "
         "(float32, CUDA cores) of plain (6 variants)")
     row("flash_attention", err, kern, plain, bound, by, lib,
@@ -1146,8 +1205,9 @@ def phase_two_tier(dev):
     return launches, nums
 
 
-def train_runs(dev):
-    """A runner of the train cell's steps: ``run(tcfg, dp, steps, tag,
+def train_runs(dev, cfg=None):
+    """A runner of the train cell's steps (``cfg``: the cell's model
+    unless given): ``run(tcfg, dp, steps, tag,
     tp=1, digest=False)`` -> (launch counts read around the steps, losses,
     step seconds, peak GiB, params after step 1 on rank 0);
     ``run.gnorms[tag]`` keeps the grad norms, and with ``digest``
@@ -1161,7 +1221,7 @@ def train_runs(dev):
     from repro_torch.train.data import make_batch
     from repro_torch.train.step import make_init_fns, make_train_step
 
-    cfg = cell.model_config()
+    cfg = cell.model_config() if cfg is None else cfg
     shapes = TF.param_shapes(cfg)
     dcfg = cell.data_config(cfg)
 
@@ -2269,6 +2329,41 @@ def phase_serve_tp_small_reference(dev):
             f"through 3 pages equal")
 
 
+def tp_against_one_rank(what, run, nums, trace, ref, one) -> dict:
+    """A TP serve run against the one-rank run of the same weights and
+    trace (``ref``: its request 0's insert logits and every request's
+    tokens; ``one``: its numbers): request 0's insert within
+    ``SERVE_TP_ULPS`` bf16 ulps of max |logit| and its first token equal
+    (gated); every request's first and later tokens' agreement and the
+    serve numbers beside one rank's (reported).  Returns those readings."""
+    got, exp = run["insert0"], ref["insert0"]
+    m = float(exp.abs().max())
+    ulp = 2.0 ** (math.floor(math.log2(m)) - 7)
+    err = float((got - exp).abs().max())
+    check(err <= SERVE_TP_ULPS * ulp,
+          f"{what}: request 0's insert off the one-rank insert by {err} "
+          f"({err / ulp:.1f} bf16 ulps of max |logit| {m:.4f}; bound "
+          f"{SERVE_TP_ULPS})")
+    tok0 = ref["tokens"]
+    check(trace[0].generated[0] == tok0[0][0],
+          f"{what}: request 0's first token {trace[0].generated[0]} vs one "
+          f"rank {tok0[0][0]}")
+    first = sum(r.generated[0] == t[0] for r, t in zip(trace, tok0))
+    later = sum(a == b for r, t in zip(trace, tok0)
+                for a, b in zip(r.generated[1:], t[1:]))
+    n_later = sum(len(t) - 1 for t in tok0)
+    log(f"  {what}: request 0's insert {err:.4f} = {err / ulp:.1f} bf16 "
+        f"ulps of max |logit| {m:.4f} from one rank's (bound "
+        f"{SERVE_TP_ULPS}); first tokens equal {first}/{len(trace)}, later "
+        f"tokens {later}/{n_later} (reported, not gated)")
+    for k in ("prefill_ms_per_insert", "decode_ms_per_step", "tokens_per_s",
+              "ttft_ms_p50", "ttft_ms_p99", "peak_gib"):
+        log(f"    {k}: {nums[k]:.2f} at (2, 2), {one[k]:.2f} on one rank")
+    return {"insert0_max_abs_diff": err, "insert0_ulps": err / ulp,
+            "first_tokens_agree": first / len(trace),
+            "later_tokens_agree": later / n_later}
+
+
 def phase_serve_tp(dev, one_card):
     """(b) The serve cell at ``cell.SERVE_TP_SHAPE`` = (dp, tp) = (2, 2):
     phi4-mini at full width and depth under megatron_sp, phase 7's weights
@@ -2314,43 +2409,17 @@ def phase_serve_tp(dev, one_card):
     what = f"(dp, tp) = {cell.SERVE_TP_SHAPE}"
     nums = serve_checks(cfg, run, trace, c.max_new, what)
     launches = run["launches"]
-    # request 0's insert against the one-card insert
-    got, exp = run["insert0"], one_card["ref"]["insert0"]
-    m = float(exp.abs().max())
-    ulp = 2.0 ** (math.floor(math.log2(m)) - 7)
-    err = float((got - exp).abs().max())
-    check(err <= SERVE_TP_ULPS * ulp,
-          f"serve-TP insert of request 0: max |diff| {err} from the one-card "
-          f"insert ({err / ulp:.1f} bf16 ulps of max |logit| {m:.4f}; bound "
-          f"{SERVE_TP_ULPS})")
-    tok0 = one_card["ref"]["tokens"]
-    check(trace[0].generated[0] == tok0[0][0],
-          f"serve-TP request 0's first token {trace[0].generated[0]} vs one "
-          f"card {tok0[0][0]}")
-    first = sum(r.generated[0] == t[0] for r, t in zip(trace, tok0))
-    later = sum(a == b for r, t in zip(trace, tok0)
-                for a, b in zip(r.generated[1:], t[1:]))
-    n_later = sum(len(t) - 1 for t in tok0)
+    one = one_card["nums"]
+    nums.update(tp_against_one_rank(what, run, nums, trace,
+                                    one_card["ref"], one))
     itemsize = torch.empty((), dtype=getattr(torch, cfg.cache_dtype)
                            ).element_size()
     pool_gib = sum(2 * n * c.slots * S * cfg.n_kv_heads * cfg.head_dim
                    for _, n in TF.segments(cfg)) * itemsize / 2 ** 30
-    one = one_card["nums"]
     check(nums["peak_gib"] <= one["peak_gib"] + pool_gib,
           f"serve-TP peak {nums['peak_gib']:.2f} GiB > one card's "
           f"{one['peak_gib']:.2f} + the pool's {pool_gib:.2f}")
-    log(f"  request 0's insert: max |diff| {err:.4f} = {err / ulp:.1f} bf16 "
-        f"ulps of max |logit| {m:.4f} from the one-card insert (bound "
-        f"{SERVE_TP_ULPS}); first token equal; first tokens equal "
-        f"{first}/{len(trace)}, later tokens {later}/{n_later} (reported, "
-        f"not gated)")
-    for k in ("prefill_ms_per_insert", "decode_ms_per_step", "tokens_per_s",
-              "ttft_ms_p50", "ttft_ms_p99", "peak_gib"):
-        log(f"    {k}: {nums[k]:.2f} at (2, 2), {one[k]:.2f} on one card")
     nums.update({"mesh": f"{dp},{tp}", "strategy": strat,
-                 "insert0_max_abs_diff": err, "insert0_ulps": err / ulp,
-                 "first_tokens_agree": first / len(trace),
-                 "later_tokens_agree": later / n_later,
                  "pool_gib": pool_gib})
     nums["profile"] = {}
     for mesh in ("1,1", f"{dp},{tp}"):
@@ -2367,6 +2436,324 @@ def phase_serve_tp(dev, one_card):
     del params
     torch.cuda.empty_cache()
     return launches, nums
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the dense configs (gemma3-4b, gemma-7b, qwen3-32b)
+# ---------------------------------------------------------------------------
+
+def sdpa_backend(fn) -> str:
+    """The SDPA backend that ran ``fn`` (an SDPA call): those of
+    ``torch.nn.attention.SDPBackend`` that, forced alone, give its output
+    bit for bit (a backend that refuses the call is passed over)."""
+    import warnings
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    want = fn()
+    same = []
+    for b in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+              SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([b]), warnings.catch_warnings():
+                warnings.simplefilter("ignore")   # why a backend refuses
+                got = fn()
+        except RuntimeError:
+            continue
+        if torch.equal(got, want):
+            same.append(b.name.lower())
+    return " or ".join(same) or "none alone"
+
+
+def phase_dense_flash(dev, randn, row):
+    """(a) The flash kernel at head_dim 256, the card against the plain
+    version (``flash_case``: bf16 within 3e-2 on the wgmma kernel,
+    float32 within 2e-5 on the CUDA-core kernel; phase 2 measured 3.9e-3
+    in bf16 at head_dim 128): gemma3-4b's insert, q [1, 2048, 8, 256]
+    against k/v [1, 2048, 4, 256], causal and with its 1024-token window,
+    in both dtypes; its serve-TP insert (the 2 TP ranks in the batch, 4/2
+    heads each); gemma-7b's, q [1, 1024, 16, 256] (g = 1), in both.  Each
+    reads the model's [B, T, heads, hd] tensors as strided views.  Adds
+    the ``flash_attention_hd256`` row at gemma3's causal bf16 shape (event
+    ms, device ms under torch.profiler, host us, the bound by operations
+    over 989 TFLOP/s, SDPA's times) and names the SDPA backend that ran.
+    Then the dense serve cells' other kernel shapes: flash at qwen3-32b's
+    insert (q [1, 1024, 64, 128] against k/v 8 heads, g = 8, bf16), and
+    rmsnorm (``rmsnorm_case``: bf16 within one ulp, float32 within rtol
+    1e-6) on each cell's insert rows [page, d_model] and decode rows
+    [pages, d_model] (d_model 2560, 3072 and 5120)."""
+    import torch
+    from repro_torch.launch import cell
+    from repro_torch.serve import engine as E
+
+    g3, g7, q3 = (cell.serve_model_config(c)
+                  for c in cell.DENSE_SERVE_CELLS)
+    h3 = (g3.n_heads, g3.n_kv_heads, g3.head_dim)
+    h7 = (g7.n_heads, g7.n_kv_heads, g7.head_dim)
+    hq = (q3.n_heads, q3.n_kv_heads, q3.head_dim)
+    W = g3.local_window
+    n = 0
+    for heads, T, window, dt, b, tp in (
+            (h3, 2048, W, torch.bfloat16, 1, 1),
+            (h3, 2048, None, torch.float32, 1, 1),
+            (h3, 2048, W, torch.float32, 1, 1),
+            (h3, 2048, None, torch.bfloat16, 2, 2),
+            (h3, 2048, W, torch.bfloat16, 2, 2),
+            (h7, 1024, None, torch.bfloat16, 1, 1),
+            (h7, 1024, None, torch.float32, 1, 1),
+            (hq, 1024, None, torch.bfloat16, 1, 1)):
+        flash_case(dev, randn, heads, T, window, dt, b, tp)
+        n += 1
+    n_rms = 0
+    for c in cell.DENSE_SERVE_CELLS:
+        cfg = cell.serve_model_config(c)
+        S = E.page_len(cfg, c.prompt_len_max, c.max_new)
+        for rows_ in (S, c.slots):
+            for dt in (torch.bfloat16, torch.float32):
+                rmsnorm_case(randn, rows_, cfg.d_model, cfg.norm_eps, dt)
+                n_rms += 1
+    log(f"  rmsnorm at the dense cells' rows: within one bf16 ulp / rtol "
+        f"1e-6 (float32) of plain ({n_rms} variants)")
+    kern, plain, lib, err, bound, by = flash_case(dev, randn, h3, 2048, None,
+                                                  torch.bfloat16)
+    log(f"  flash_attention at the dense cells' shapes (head_dim 256, "
+        f"qwen3-32b's 128): within 3e-2 (bf16, tensor cores) / 2e-5 "
+        f"(float32, CUDA cores) of plain ({n + 1} variants)")
+    backend = sdpa_backend(lib)
+    log(f"  SDPA at q [1, 2048, 8, 256] bf16 causal ran: {backend}")
+    row("flash_attention_hd256", err, kern, plain, bound, by, lib,
+        device="flash_kernel_wgmma", sdpa_backend=backend)
+    del kern, plain, lib
+    torch.cuda.empty_cache()
+
+
+def phase_dense_serve(dev):
+    """(b) The three dense serve cells of ``launch/cell.py``, one after
+    another on one rank (each model freed before the next): gemma3-4b at
+    full depth (prompts past its 1024-token window, pages of 2048),
+    gemma-7b at full depth, qwen3-32b at full width and 16 layers, random
+    weights from the port's ``init_params``.  ``serve_checks``: every
+    request retires with its tokens, every logit is finite, 2 L + 1
+    rmsnorm per insert and per decode step and L flash_attention per
+    insert, all on wgmma; request 0 alone in a 1-page pool gets the same
+    first token (gated; its later tokens' agreement reported).  Between
+    gemma3's run and the next model, (c) serves gemma3 at
+    ``SERVE_TP_SHAPE`` on the same weights (``phase_dense_serve_tp``).
+    Returns each cell's launch counts and numbers, and (c)'s."""
+    import torch
+    from repro_torch.launch import cell
+    from repro_torch.models import transformer as TF
+    from repro_torch.serve import engine as E
+    from repro_torch.serve.scheduler import Request, poisson_trace
+
+    launches, nums = {}, {}
+    tp_launches = tp_nums = None
+    for c in cell.DENSE_SERVE_CELLS:
+        cfg = cell.serve_model_config(c)
+        S = E.page_len(cfg, c.prompt_len_max, c.max_new)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = TF.init_params(cfg, c.seed, dev)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        widths = sorted({b.window or S for b, _ in TF.segments(cfg)})
+        log(f"  {cfg.name}: {cfg.n_layers} layers, "
+            f"{TF.param_count(params):,} params ({cfg.dtype}, init "
+            f"{t_init:.1f} s), head_dim {cfg.head_dim}, {cfg.n_heads}/"
+            f"{cfg.n_kv_heads} heads, {c.slots} pages x {S} tokens (cache "
+            f"widths {widths}), {c.requests} requests at {c.rate}/step, "
+            f"prompts {c.prompt_len_min}-{c.prompt_len_max}, {c.max_new} "
+            f"new tokens each")
+        trace = poisson_trace(c.requests, c.rate,
+                              (c.prompt_len_min, c.prompt_len_max),
+                              c.max_new, cfg.vocab_size, seed=c.seed,
+                              temperature=c.temperature)
+        run = serve_run(cfg, params, dev, trace, c.slots, S, c.seed)
+        got = serve_checks(cfg, run, trace, c.max_new, cfg.name)
+        solo = Request(rid=0, prompt=trace[0].prompt,
+                       max_new_tokens=c.max_new)
+        serve_run(cfg, params, dev, [solo], 1, S, c.seed)
+        check(solo.generated[0] == trace[0].generated[0],
+              f"{cfg.name}: request 0's first token alone "
+              f"{solo.generated[0]} vs pooled {trace[0].generated[0]}")
+        agree = sum(a == b for a, b in zip(solo.generated[1:],
+                                           trace[0].generated[1:]))
+        got["solo_later_tokens_agree"] = agree / (c.max_new - 1)
+        got["init_s"] = t_init
+        log(f"  {cfg.name}: request 0 alone in a 1-page pool: same first "
+            f"token; {agree}/{c.max_new - 1} later tokens agree (reported, "
+            f"not gated)")
+        launches[cfg.name], nums[cfg.name] = run["launches"], got
+        if c is cell.GEMMA3_SERVE_CELL:
+            ref = {"insert0": run["insert0"],
+                   "tokens": [list(r.generated) for r in trace]}
+            tp_launches, tp_nums = phase_dense_serve_tp(dev, c, cfg, params,
+                                                        ref, got)
+        del params, run
+        torch.cuda.empty_cache()
+    return launches, nums, tp_launches, tp_nums
+
+
+def phase_dense_serve_tp(dev, c, cfg, params, one_card, one_nums):
+    """(c) gemma3-4b's serve cell at ``cell.SERVE_TP_SHAPE`` = (2, 2),
+    megatron_sp (d_model 2560, 8/4 heads), (b)'s weights and trace: every
+    page's local (W = 1024) and global (W = 2048) caches sequence-sharded
+    over the 2 TP ranks.  ``serve_checks`` as in (b); request 0's insert
+    within ``SERVE_TP_ULPS`` bf16 ulps of max |logit| of (b)'s one-rank
+    insert and its first token equal, as phase 10 gates phi4-mini; the
+    later tokens' agreement and the serve numbers beside (b)'s reported."""
+    import torch
+    from repro_torch.launch import cell
+    from repro_torch.models import sharding as SH
+    from repro_torch.serve import engine as E
+    from repro_torch.serve.scheduler import poisson_trace
+
+    dp, tp = cell.SERVE_TP_SHAPE
+    strat = SH.strategy(cfg, tp)
+    check(strat == "megatron_sp", f"gemma3-4b at tp {tp} runs {strat}")
+    S = E.page_len(cfg, c.prompt_len_max, c.max_new)
+    lay = E.cache_layout(cfg, c.slots, S, dp, tp)
+    check(all((x.kv, x.batch_split) == ("seq", True) for x in lay),
+          f"gemma3-4b's serve-TP pool layout {lay}")
+    torch.cuda.reset_peak_memory_stats()
+    trace = poisson_trace(c.requests, c.rate,
+                          (c.prompt_len_min, c.prompt_len_max), c.max_new,
+                          cfg.vocab_size, seed=c.seed,
+                          temperature=c.temperature)
+    run = serve_run(cfg, params, dev, trace, c.slots, S, c.seed, dp, tp)
+    what = f"{cfg.name} at (dp, tp) = {(dp, tp)}"
+    nums = serve_checks(cfg, run, trace, c.max_new, what)
+    nums.update(tp_against_one_rank(what, run, nums, trace, one_card,
+                                    one_nums))
+    nums.update({"mesh": f"{dp},{tp}", "strategy": strat})
+    return run["launches"], nums
+
+
+#: the gemma3 train step's bf16 loss against the plain float32 loss of the
+#: same weights and batch, and each sound forward's (``g3_loss_readings``).
+#: Set from readings on an H100 (``PERF.md``): the sound bf16 forward reads
+#: 0.035-0.037 below float32 on seeds 0-4, the faults below 1.4 and more
+#: away; the bound is under 3x the sound gap
+G3_LOSS_ATOL = 0.1
+#: the forward's faults that the gate must see: each config change, in bf16
+#: on seed 0's weights and batch, lands further than G3_LOSS_ATOL from the
+#: sound float32 loss.  Dropping qk_norm moves the loss by less than the
+#: bf16 gap at random weights (0.039 against 0.037), so the loss cannot
+#: see it; the CPU tests hold qk_norm to the reference
+G3_FAULTS = {"embed_scale dropped": {"embed_scale": False},
+             "SwiGLU for GeGLU": {"act": "swiglu"}}
+
+
+def g3_loss_readings(cfg, dcfg, dev, seeds=(0, 1, 2)):
+    """The gemma3 train cell's loss gap, forward only: for each seed, the
+    port's bf16 ``loss_fn`` of ``init_params(cfg, seed)`` on
+    ``make_batch(dcfg, seed)`` less the plain float32 ``loss_fn`` of the
+    same weights (upcast); on seed 0, each fault of ``G3_FAULTS`` in bf16
+    less the sound float32 loss.  Returns ({seed: (bf16, f32)},
+    {fault: loss})."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.models import transformer as TF
+    from repro_torch.train.data import make_batch
+
+    f32 = cfg.replace(dtype="float32")
+    sound, faulty = {}, {}
+    with torch.no_grad():
+        for seed in seeds:
+            batch = {k: torch.as_tensor(v, device=dev)
+                     for k, v in make_batch(dcfg, seed).items()}
+            params = TF.init_params(cfg, seed, dev)
+            p32 = T.tree_map(lambda x: x.float(), params)
+            sound[seed] = (float(TF.loss_fn(params, cfg, batch)[0]),
+                           float(TF.loss_fn(p32, f32, batch)[0]))
+            del p32
+            if seed == seeds[0]:
+                for name, kw in G3_FAULTS.items():
+                    faulty[name] = float(
+                        TF.loss_fn(params, cfg.replace(**kw), batch)[0])
+            del params, batch
+            torch.cuda.empty_cache()
+    return sound, faulty
+
+
+def phase_dense_train(dev):
+    """(d) One train step of the gemma3-4b train cell
+    (``cell.model_config("gemma3-4b")``: full width, 2 layers, p = 4,
+    batch 8 x 1024, float32 wire) under ``pallas_fused`` and under
+    ``bine`` from the same start: rank 0's params after the step bitwise
+    equal, as phase 6 holds phi4-mini (the gate on rs_step and ag_step);
+    rs_step and ag_step launched by the fused step; the step's loss finite
+    and within ``G3_LOSS_ATOL`` of the plain float32 ``loss_fn`` of the
+    same initial weights (upcast) on the same global batch.  The loss
+    comes before any collective, so it checks the forward: the bf16
+    forward's gap on three seeds (``g3_loss_readings``) must lie within
+    the bound and each fault of ``G3_FAULTS`` outside it.  Not near ln V:
+    gemma3 ties its head to an embedding of std 0.02 scaled by
+    sqrt(d_model) on the way in, so at random weights each token's own
+    logit is about sqrt(d) |e|^2 / rms(x) ~ 37 and dominates the
+    logsumexp (the reference's loss at d_model 2560 is as far above ln V;
+    ``PERF.md``).  Returns the fused step's launch counts and the
+    numbers."""
+    import torch
+    from repro_torch.launch import cell
+    from repro_torch.models import transformer as TF
+
+    cfg, dcfg, run = train_runs(dev, cell.model_config("gemma3-4b"))
+    log(f"  {cfg.name} cut to {cfg.n_layers} layers: "
+        f"{TF.param_count(TF.param_shapes(cfg)):,} params, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.head_dim}, vocab {cfg.vocab_size}; dp={cell.N_DP}, batch "
+        f"{dcfg.global_batch}x{dcfg.seq_len}")
+    counts, losses, times, peak, first = run(
+        cell.train_config("pallas_fused", "float32"), cell.N_DP, 1,
+        "gemma3 pallas_fused/float32", digest=True)
+    launches = {k: counts[k] for k in ("rs_step", "ag_step")}
+    for k, v in launches.items():
+        check(v > 0, f"the gemma3 train step did not launch {k}")
+    sound, faulty = g3_loss_readings(cfg, dcfg, dev)
+    ref_loss = sound[0][1]
+    ln_v = math.log(cfg.vocab_size)
+    check(math.isfinite(losses[0]) and
+          abs(losses[0] - ref_loss) <= G3_LOSS_ATOL,
+          f"gemma3 first loss {losses[0]} vs the plain float32 loss "
+          f"{ref_loss} (bound {G3_LOSS_ATOL})")
+    for seed, (b16, f32) in sound.items():
+        log(f"  gemma3 seed {seed}: bf16 forward loss {b16:.6f}, plain "
+            f"float32 {f32:.6f}, gap {b16 - f32:+.6f}")
+    for name, loss in faulty.items():
+        log(f"  gemma3 seed 0, {name}: bf16 loss {loss:.6f}, gap "
+            f"{loss - ref_loss:+.6f} to the sound float32 loss")
+    for seed, (b16, f32) in sound.items():
+        check(abs(b16 - f32) <= G3_LOSS_ATOL,
+              f"gemma3 seed {seed}: bf16 loss {b16} vs float32 {f32}")
+    for name, loss in faulty.items():
+        check(abs(loss - ref_loss) > G3_LOSS_ATOL,
+              f"gemma3 with {name}: loss {loss} within {G3_LOSS_ATOL} of "
+              f"the sound {ref_loss}; the loss gate cannot see that fault")
+    cb, lb, tb, peak_b, bine_first = run(
+        cell.train_config("bine", "float32"), cell.N_DP, 1,
+        "gemma3 bine/float32")
+    check(sum(cb.values()) == 0, f"the bine path launched kernels: {cb}")
+    check(all(torch.equal(a, b) for a, b in zip(first, bine_first)),
+          "gemma3: bine and pallas_fused params differ after one float32 "
+          "step")
+    check(lb[0] == losses[0], f"gemma3: bine loss {lb[0]} vs pallas_fused "
+          f"{losses[0]}")
+    log(f"  gemma3 bine float32 step == pallas_fused float32 step, bitwise; "
+        f"loss {losses[0]:.6f}, plain float32 {ref_loss:.6f} (bound "
+        f"{G3_LOSS_ATOL}; ln V {ln_v:.4f}); step {times[0] * 1e3:.1f} ms "
+        f"(cold), peak {peak:.1f} GiB")
+    del first, bine_first
+    torch.cuda.empty_cache()
+    return launches, {"loss_hex": losses[0].hex(), "f32_loss": ref_loss,
+                      "forward_losses": {s: list(v)
+                                         for s, v in sound.items()},
+                      "fault_losses": faulty,
+                      "step_ms_cold": times[0] * 1e3,
+                      "bine_step_ms_cold": tb[0] * 1e3, "peak_gib": peak,
+                      "bine_peak_gib": peak_b,
+                      "params_sha256": run.digests[
+                          "gemma3 pallas_fused/float32"]}
 
 
 def main() -> int:
@@ -2392,7 +2779,7 @@ def main() -> int:
     from repro_torch.kernels.rmsnorm import kernel as RK
 
     t_all = time.perf_counter()
-    log("[1/10] build")
+    log("[1/11] build")
     t0 = time.perf_counter()
     libs = KB.build()
     for src in K.SOURCES:
@@ -2402,48 +2789,61 @@ def main() -> int:
     log(f"  built {', '.join(p.name for p in libs.values())} in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    log("[2/10] kernels vs plain versions")
-    rows, qacc_launches = phase_kernels(dev)
+    log("[2/11] kernels vs plain versions")
+    rows, qacc_launches, row, randn = phase_kernels(dev)
     torch.cuda.empty_cache()
 
-    log("[3/10] fused collectives vs stacked (bitwise)")
+    log("[3/11] fused collectives vs stacked (bitwise)")
     phase_collectives(dev)
 
-    log("[4/10] collectives API")
+    log("[4/11] collectives API")
     api_launches = phase_api(dev)
 
-    log("[5/10] two-tier (bine_hier)")
+    log("[5/11] two-tier (bine_hier)")
     hier_launches, two_tier = phase_two_tier(dev)
     torch.cuda.empty_cache()
 
-    log("[6/10] train")
+    log("[6/11] train")
     phase_small_reference(dev)
     launches, train = phase_train(dev)
     torch.cuda.empty_cache()
 
-    log("[7/10] serve")
+    log("[7/11] serve")
     phase_serve_small_reference(dev)
     serve_launches, serve, serve_ref = phase_serve(dev)
     torch.cuda.empty_cache()
 
-    log("[8/10] checkpoint, resume, measured tables, obs")
+    log("[8/11] checkpoint, resume, measured tables, obs")
     run_launches, runtime = phase_runtime(dev)
     torch.cuda.empty_cache()
 
-    log("[9/10] tensor parallelism")
+    log("[9/11] tensor parallelism")
     phase_tp_small_reference(dev)
     tp_launches, tp = phase_tp(dev)
     torch.cuda.empty_cache()
 
-    log("[10/10] serving under TP")
+    log("[10/11] serving under TP")
     phase_serve_tp_small_reference(dev)
     stp_launches, serve_tp = phase_serve_tp(
         dev, {"nums": serve, "ref": serve_ref})
     torch.cuda.empty_cache()
+
+    log("[11/11] dense configs (gemma3-4b, gemma-7b, qwen3-32b)")
+    t11 = time.perf_counter()
+    phase_dense_flash(dev, randn, row)
+    del row, randn
+    dense_launches, dense, g3tp_launches, g3tp = phase_dense_serve(dev)
+    g3train_launches, g3train = phase_dense_train(dev)
+    torch.cuda.empty_cache()
+    dense_s = time.perf_counter() - t11
+    log(f"  phase 11: {dense_s:.0f} s")
     # each path's own kernel launches, read around that path alone
     by_path = {"train": dict(launches), "two-axis": hier_launches,
                "runtime": run_launches, "tp": tp_launches,
-               "serve": serve_launches, "serve-tp": stp_launches}
+               "serve": serve_launches, "serve-tp": stp_launches,
+               **{f"serve {a}": n for a, n in dense_launches.items()},
+               "serve-tp gemma3-4b": g3tp_launches,
+               "train gemma3-4b": g3train_launches}
     for path, counts in by_path.items():
         for name, n in counts.items():
             check(n > 0, f"kernel {name} was not launched on the {path} "
@@ -2464,13 +2864,26 @@ def main() -> int:
         launches[name] += n
     for name, n in tp_launches.items():
         launches[name] += n
+    for name, n in g3train_launches.items():
+        launches[name] += n
     for name in ("ring_update", "matmul_pack_wgmma", "gather_matmul_wgmma"):
         launches[name] = api_launches[name]
     for name in ("matmul_pack", "gather_matmul"):
         launches[name] = api_launches[name] - api_launches[name + "_wgmma"]
     for name in serve_launches:
         launches[name] = serve_launches[name] + stp_launches[name]
+    # the dense serve paths: every norm on the rmsnorm row; flash at head
+    # dim 128 (qwen3-32b) on the flash_attention row, at 256 (gemma3-4b,
+    # gemma-7b, gemma3-4b under TP) on the flash_attention_hd256 row
+    hd256 = [dense_launches["gemma3-4b"], dense_launches["gemma-7b"],
+             g3tp_launches]
+    launches["rmsnorm"] += sum(n["rmsnorm"] for n in hd256) + \
+        dense_launches["qwen3-32b"]["rmsnorm"]
+    launches["flash_attention_wgmma"] += \
+        dense_launches["qwen3-32b"]["flash_attention_wgmma"]
     launches["flash_attention"] = launches.pop("flash_attention_wgmma")
+    launches["flash_attention_hd256"] = sum(n["flash_attention_wgmma"]
+                                            for n in hd256)
     launches["qacc"] = qacc_launches
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched on its path")
@@ -2483,6 +2896,9 @@ def main() -> int:
     log(f"runtime: {json.dumps(runtime)}")
     log(f"tp: {json.dumps(tp)}")
     log(f"serve-tp: {json.dumps(serve_tp)}")
+    log("dense: " + json.dumps({
+        "serve": dense, "serve-tp gemma3-4b": g3tp,
+        "train gemma3-4b": g3train, "seconds": dense_s}))
     log(f"train: {json.dumps(train)}; total {time.perf_counter() - t_all:.0f} s")
     print(json.dumps({"kernels": list(rows.values())}))
     smi = subprocess.run(

@@ -2,7 +2,8 @@
 
 Port of ``repro.configs.base``.  The dataclass keeps every field of the
 reference so configs carry over unchanged; the registry holds the
-architectures the port can run (the dense phi4-mini in this slice).
+architectures the port can run: the four dense ones (phi4-mini,
+gemma3-4b, gemma-7b, qwen3-32b).
 """
 
 from __future__ import annotations
@@ -75,13 +76,14 @@ def get_config(name: str) -> ModelConfig:
         _load_all()
     if name not in _REGISTRY:
         raise NotImplementedError(
-            f"arch {name!r} is not ported (ROADMAP.md queue A item 5); "
-            f"ported: {sorted(_REGISTRY)}")
+            f"arch {name!r} is not ported (ROADMAP.md queue A item 5, "
+            f"5b-5d: the MoE, recurrent and frontend configs); ported: "
+            f"{sorted(_REGISTRY)}")
     return _REGISTRY[name]
 
 
 def _load_all():
-    from . import phi4_mini  # noqa: F401
+    from . import gemma3_4b, gemma_7b, phi4_mini, qwen3_32b  # noqa: F401
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:

@@ -18,7 +18,7 @@
 // retrying:
 //
 // 1. flash_kernel_wgmma, on the tensor cores, for bf16 q, k, v with
-//    head_dim % 16 == 0 (16, 32, 64, 128) whose strides and base addresses
+//    head_dim in (16, 32, 64, 128, 256) whose strides and base addresses
 //    TMA can take (multiples of 16 bytes).  Bound: operations, 4 hd flops
 //    per live (query head, query, key) pair over the H100's 989 TFLOP/s
 //    bf16 tensor-core peak (0.0065 ms at q [1, 1024, 24, 128] causal).
@@ -52,9 +52,11 @@
 //        significant bits, so PV's error stays near the float32
 //        sum-order error, far below the output's one bf16 rounding.  The
 //        split doubles PV's tensor-core work (under 10 us at T = 1024).
-//    Registers: hd/2 accumulators (64 at hd 128), 32 scores and 8 packed
-//    P words a thread, no spills.  Shared memory: 5 tiles of 64 x hd bf16
-//    (Q and the K/V ring; 80 KB at hd 128, so two blocks fit an SM).
+//    Registers: hd/2 accumulators (64 at hd 128, 128 at hd 256), 32
+//    scores and 8 packed P words a thread.  Shared memory: 5 tiles of
+//    64 x hd bf16 (Q and the K/V ring; 80 KB at hd 128, so two blocks fit
+//    an SM; 160 KB at hd 256, one).  At hd 256 PV is two m64n128k16 a
+//    16-key step, over V's column halves of two 128-byte panels each.
 // 2. flash_kernel, on the CUDA cores, for float32 (where it beats SDPA)
 //    and any other call: one block of 256 threads per (batch, query head,
 //    64-row query tile); GQA maps the query head to its kv head.  The Q
@@ -66,8 +68,10 @@
 //    tx + 16j (j < 4) and the accumulator of those rows for columns
 //    tx + 16c (c < hd/16); the row max and sum are reduced across the 16
 //    threads of a row by shuffles.  Shared rows are padded so the reads
-//    are free of bank conflicts.  Bound: operations, over 67 TFLOP/s
-//    float32.
+//    are free of bank conflicts.  Shared memory is
+//    BQ (hd+1) + 2 BK (hd+1) + BQ (BK+4) floats: 210 KB at hd 256, under
+//    the 227 KB a block may opt into, so one block an SM.  Bound:
+//    operations, over 67 TFLOP/s float32.
 //
 // Numerics: no fast math; expf (CUDA cores) or exp2f of log2(e)-scaled
 // scores (tensor cores), IEEE division; sums in another order than the
@@ -284,6 +288,9 @@ int dispatch(int hd, const void* q, const void* k, const void* v, void* o,
     case 128:
       return launch<T, 128>(q, k, v, o, B, nkv, g, Tq, Tk, st, window,
                             causal, scale, s);
+    case 256:
+      return launch<T, 256>(q, k, v, o, B, nkv, g, Tq, Tk, st, window,
+                            causal, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -328,11 +335,22 @@ __device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int kk) {
                    8 * G::SW, G::LAYOUT);
 }
 
+// O += P V for one 16-key step, V's rows at shared address ``vaddr``
 template <int HD>
 __device__ __forceinline__ void pv_wgmma(float (&o)[HD / 2],
                                          const uint32_t (&a)[4],
-                                         uint64_t db) {
-  if constexpr (HD == 128) {
+                                         uint32_t vaddr) {
+  using G = Geo<HD>;
+  const uint64_t db = make_desc(vaddr, G::PANEL, 8 * G::SW, G::LAYOUT);
+  if constexpr (HD == 256) {
+    // two m64n128 over V's column halves (two panels each): an n = 256
+    // accumulator holds columns 0-127 in registers 0-63 as n = 128 does
+    using Half = float[64];
+    const uint64_t db2 =
+        make_desc(vaddr + 2 * G::PANEL, G::PANEL, 8 * G::SW, G::LAYOUT);
+    wgmma_rs_m64n128(*reinterpret_cast<Half*>(o), a, db, 1);
+    wgmma_rs_m64n128(*reinterpret_cast<Half*>(o + 64), a, db2, 1);
+  } else if constexpr (HD == 128) {
     wgmma_rs_m64n128(o, a, db, 1);
   } else if constexpr (HD == 64) {
     wgmma_rs_m64n64(o, a, db, 1);
@@ -517,10 +535,8 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
         lo[t] = pack_bf16(x0 - __bfloat162float(hb.x),
                           x1 - __bfloat162float(hb.y));
       }
-      const uint64_t db =
-          make_desc(vtile + kk * 16 * G::SW, G::PANEL, 8 * G::SW, G::LAYOUT);
-      pv_wgmma<HD>(acc, hi, db);
-      pv_wgmma<HD>(acc, lo, db);
+      pv_wgmma<HD>(acc, hi, vtile + kk * 16 * G::SW);
+      pv_wgmma<HD>(acc, lo, vtile + kk * 16 * G::SW);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -612,7 +628,7 @@ extern "C" {
 
 // q, k, v, o: device pointers; strides in elements (the head dim has
 // stride 1): q and o [B, nkv, g, T, hd] as (b, n, g, t), k and v
-// [B, nkv, Tk, hd] as (b, n, t); hd in {16, 32, 64, 128}; window <= 0
+// [B, nkv, Tk, hd] as (b, n, t); hd in {16, 32, 64, 128, 256}; window <= 0
 // for none; bf16 selects __nv_bfloat16 inputs and output (else float32).
 int repro_flash_attention(const void* q, const void* k, const void* v,
                           void* o, int B, int nkv, int g, int Tq, int Tk,
@@ -633,8 +649,8 @@ int repro_flash_attention(const void* q, const void* k, const void* v,
 }
 
 // the same arguments for bf16 on the tensor cores (the wrapper's
-// predicate: hd % 16 == 0, strides multiples of 8 elements, 16-byte
-// aligned q, k, v)
+// predicate: bf16, strides multiples of 8 elements, 16-byte aligned q, k,
+// v; hd in {16, 32, 64, 128, 256})
 int repro_flash_attention_wgmma(const void* q, const void* k, const void* v,
                                 void* o, int B, int nkv, int g, int Tq,
                                 int Tk, int hd, long long qb, long long qn,
@@ -658,6 +674,9 @@ int repro_flash_attention_wgmma(const void* q, const void* k, const void* v,
                          scale, s);
     case 128:
       return wg::run<128>(q, k, v, o, B, nkv, g, Tq, Tk, st, window, causal,
+                          scale, s);
+    case 256:
+      return wg::run<256>(q, k, v, o, B, nkv, g, Tq, Tk, st, window, causal,
                           scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -34,7 +34,7 @@ _SIGNATURES = {
     "repro_flash_attention_wgmma": [B.VP] * 4 + [B.INT] * 6 + [B.LL] * 14
     + [B.INT, B.INT, B.FLOAT, B.VP],
 }
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 
 
 def _lib():

@@ -19,11 +19,19 @@ prompts of 64-512 tokens and 32 new tokens each (a page of 1024 tokens).
 serves it, on one rank and at ``SERVE_TP_SHAPE`` = (dp, tp) = (2, 2):
 the same model, weights and trace, 4 pages a DP rank, each page's 1024
 slots split 512 a TP rank (megatron_sp prefill).
+
+The dense configs (``DENSE_SERVE_CELLS``): gemma3-4b at full depth
+(``GEMMA3_SERVE_CELL``: prompts past its 1024-token local window, pages
+of 2048), gemma-7b at full depth (``GEMMA7B_SERVE_CELL``) and qwen3-32b at
+full width cut to 16 of its 64 layers (``QWEN3_SERVE_CELL``); the
+gemma3-4b train cell (``model_config("gemma3-4b")``) is the phi4-mini
+one's cut at a second arch.  Each cell's docstring says why.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 from repro_torch.configs import base
 from repro_torch.configs.base import ModelConfig
@@ -42,8 +50,14 @@ GLOBAL_BATCH = 8
 SEQ_LEN = 1024
 
 
-def model_config() -> ModelConfig:
-    return base.get_config(ARCH).replace(n_layers=N_LAYERS)
+def model_config(arch: str = ARCH) -> ModelConfig:
+    """The train cell's model: ``arch`` at full width cut to
+    ``N_LAYERS``.  Its second arch is gemma3-4b (d_model 2560, 8/4 heads
+    of 256, d_ff 10240, a tied vocabulary of 262144): 859,846,144 params,
+    both layers local, their 1024-token window the whole sequence, at the
+    same p = 4, batch 8 x 1024 and buckets; its head and loss carry 1.31x
+    phi4-mini's vocabulary."""
+    return base.get_config(arch).replace(n_layers=N_LAYERS)
 
 
 def tp_small_config() -> ModelConfig:
@@ -85,6 +99,8 @@ def hier_train_config(backend: str, wire_dtype: str) -> TrainConfig:
 @dataclass(frozen=True)
 class ServeCell:
     arch: str = ARCH
+    #: layers kept (None: the config's full depth)
+    n_layers: Optional[int] = None
     slots: int = 8
     requests: int = 16
     rate: float = 0.5            # Poisson arrivals per decode step
@@ -100,6 +116,37 @@ SERVE_CELL = ServeCell()
 SERVE_TP_SHAPE = (2, 2)
 
 
-def serve_model_config() -> ModelConfig:
-    """The serve cell's model: full depth."""
-    return base.get_config(SERVE_CELL.arch)
+#: gemma3-4b at full width and full depth (34 layers: 29 local with a
+#: 1024-token window, 5 global; 3,879,925,248 params, 7.8 GB bf16), 4
+#: pages, 8 greedy Poisson requests at 0.5 per decode step with prompts of
+#: 1088-1984 tokens and 32 new tokens each, so pages of 2048 tokens.  Every
+#: prompt passes the local window: the local layers' prefill runs the
+#: windowed flash with its dead key tiles skipped and their 1024-slot ring
+#: caches wrap, while the global layers hold all 2048 slots.  Users send
+#: such traffic when they serve gemma3 at a context past its local window,
+#: which is what the 5:1 pattern is for.
+GEMMA3_SERVE_CELL = ServeCell(arch="gemma3-4b", slots=4, requests=8,
+                              prompt_len_min=1088, prompt_len_max=1984)
+#: gemma-7b at full width and full depth (28 layers, 8,537,680,896 params,
+#: 17.1 GB bf16): multi-head attention (16 query and 16 KV heads, g = 1)
+#: at head_dim 256, on SERVE_CELL's trace shape (prompts of 64-512
+#: tokens, 32 new, pages of 1024) cut to 8 requests.
+GEMMA7B_SERVE_CELL = ServeCell(arch="gemma-7b", requests=8)
+#: qwen3-32b at full width (d_model 5120, 64/8 heads, d_ff 25600, an
+#: untied head of 151936) cut to 16 of its 64 layers (9,357,403,136
+#: params, 18.7 GB bf16), on SERVE_CELL's trace shape cut to 8 requests.
+#: Depth cut because ``models.transformer.init_params`` draws each stacked
+#: leaf whole in float32 before the cast: at 64 layers ``wi`` alone is a
+#: 33.6 GB draw beside 65.5 GB of bf16 weights, more than the card holds;
+#: at 16 the largest draw is 8.4 GB, and the three dense cells serve
+#: within the smoke's time.
+QWEN3_SERVE_CELL = ServeCell(arch="qwen3-32b", n_layers=16, requests=8)
+DENSE_SERVE_CELLS = (GEMMA3_SERVE_CELL, GEMMA7B_SERVE_CELL, QWEN3_SERVE_CELL)
+#: each served arch's cell (``launch/profile_serve.py --arch``)
+SERVE_CELLS = {c.arch: c for c in (SERVE_CELL,) + DENSE_SERVE_CELLS}
+
+
+def serve_model_config(c: ServeCell = SERVE_CELL) -> ModelConfig:
+    """A serve cell's model: full depth unless the cell cuts it."""
+    cfg = base.get_config(c.arch)
+    return cfg if c.n_layers is None else cfg.replace(n_layers=c.n_layers)

@@ -10,9 +10,12 @@ device's idle share, as text and as one JSON line:
 
   python -m repro_torch.launch.profile_serve
   python -m repro_torch.launch.profile_serve --mesh 2,2   # dp 2 x tp 2
+  python -m repro_torch.launch.profile_serve --arch gemma3-4b
 
 ``--mesh data,model`` serves the cell over that many DP and TP ranks
-stacked on the card (``launch/cell.py`` ``SERVE_TP_SHAPE``).
+stacked on the card (``launch/cell.py`` ``SERVE_TP_SHAPE``); ``--arch``
+profiles that arch's serve cell (``cell.SERVE_CELLS``: phi4-mini,
+gemma3-4b, gemma-7b, qwen3-32b) in place of ``SERVE_CELL``.
 """
 
 from __future__ import annotations
@@ -60,12 +63,12 @@ def _profile(fn, reps: int):
     return wall_ms, dict(by_group), sorted(by_kernel, reverse=True)[:TOP]
 
 
-def profile(cfg, params, dev, mesh: str = "1,1") -> dict:
-    """Profile one insert and ``STEPS`` decode steps of the serve cell at
-    ``mesh`` (``data,model``) on the card; prints the breakdown and
-    returns ``{"insert": ..., "decode_step": ...}``, each with its wall
-    and busy ms, idle share and device ms by group."""
-    c = cell.SERVE_CELL
+def profile(cfg, params, dev, mesh: str = "1,1",
+            c: cell.ServeCell = cell.SERVE_CELL) -> dict:
+    """Profile one insert and ``STEPS`` decode steps of the serve cell
+    ``c`` at ``mesh`` (``data,model``) on the card; prints the breakdown
+    and returns ``{"insert": ..., "decode_step": ...}``, each with its
+    wall and busy ms, idle share and device ms by group."""
     _, dp, tp = parse_mesh(mesh)
     S = page_len(cfg, c.prompt_len_max, c.max_new)
     fns = make_serve_fns(cfg, ServeConfig(), c.slots, S, dev, dp=dp, tp=tp)
@@ -116,12 +119,15 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--mesh", default="1,1",
                     help="data,model or pod,data,model")
+    ap.add_argument("--arch", default=cell.SERVE_CELL.arch,
+                    choices=sorted(cell.SERVE_CELLS))
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = cell.serve_model_config()
-    params = TF.init_params(cfg, cell.SERVE_CELL.seed, dev)
-    print(json.dumps(profile(cfg, params, dev, args.mesh)))
+    c = cell.SERVE_CELLS[args.arch]
+    cfg = cell.serve_model_config(c)
+    params = TF.init_params(cfg, c.seed, dev)
+    print(json.dumps(profile(cfg, params, dev, args.mesh, c)))
 
 
 if __name__ == "__main__":

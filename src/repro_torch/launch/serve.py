@@ -2,10 +2,15 @@
 arrival trace of mixed-length requests through the paged-KV scheduler.
 
 Port of ``repro.launch.serve``.  Its defaults are the serve cell of
-``launch/cell.py`` (phi4-mini at full depth, 8 pages, 16 requests):
+``launch/cell.py`` (phi4-mini at full depth, 8 pages, 16 requests);
+``--arch`` serves any registered dense config (phi4-mini-3.8b,
+gemma3-4b, gemma-7b, qwen3-32b) on that trace:
 
   python -m repro_torch.launch.serve                       # on the card
+  python -m repro_torch.launch.serve --arch gemma3-4b --prompt-len-min 1088 \
+      --prompt-len-max 1984 --slots 4 --requests 8         # past its window
   python -m repro_torch.launch.serve --reduced --device cpu
+  python -m repro_torch.launch.serve --arch gemma3-4b --reduced --device cpu
   python -m repro_torch.launch.serve --reduced --device cpu --mesh 2,2
 
 Each request prefills into a free KV page, decodes interleaved with
@@ -16,9 +21,10 @@ over that many DP and TP ranks, stacked on the one device
 decision table picks for it, as the reference's CLI does, ``--backend
 xla`` pins the defaults (no plan).  In place of the reference's
 ``traces:`` line (jit retraces) it prints the kernel launch counts of the
-run.  Runs on CUDA unless ``--device cpu`` is given.  Only dense ``attn``
-models are served; the reference's fixed-batch loop for the
-architectures its pool cannot serve has no counterpart (queue A item 5).
+run.  Runs on CUDA unless ``--device cpu`` is given.  Only the dense
+``attn`` configs are served; the reference's fixed-batch loop for the
+architectures its pool cannot serve has no counterpart (queue A item
+5e).
 """
 
 from __future__ import annotations

@@ -87,7 +87,8 @@ def _check_dense(cfg) -> None:
     if bad or cfg.frontend is not None:
         raise NotImplementedError(
             f"blocks {bad or [cfg.frontend]} are not ported (ROADMAP.md "
-            f"queue A item 5: MoE and recurrent models); dense 'attn' only")
+            f"queue A item 5, 5b-5d: MoE, recurrent and frontend models); "
+            f"dense 'attn' only")
 
 
 # ---------------------------------------------------------------------------

@@ -113,9 +113,10 @@ class ServeFns:
     which is the global pool's own order).  Pools are updated in place
     and returned.  ``plan`` is the serving collective plan.  The
     reference's legacy fixed-batch pair, for the architectures its pool
-    cannot serve, has no counterpart: the port serves dense ``attn``
-    models only (``models.transformer`` raises for the others, ROADMAP.md
-    queue A item 5).
+    cannot serve, has no counterpart: the port serves the dense ``attn``
+    configs (phi4-mini, gemma3-4b, gemma-7b, qwen3-32b; gemma3's local
+    layers on ring caches) and ``models.transformer`` raises for the
+    others (ROADMAP.md queue A items 5b-5e).
     """
     init_pool: Callable
     insert: Callable

@@ -35,7 +35,7 @@ def test_every_module_imports_without_jax(subproc):
     n_pkgs = sum(1 for p in PORT.rglob("__init__.py")) - 1
     assert n == n_files + n_pkgs
     for mod in SERVING_MODULES + TWO_TIER_MODULES + RUNTIME_MODULES + \
-            TP_MODULES:
+            TP_MODULES + DENSE_CONFIG_MODULES:
         assert (PORT / (mod.replace(".", "/") + ".py")).is_file(), mod
 
 
@@ -69,6 +69,13 @@ TP_MODULES = (
     "models.sharding", "models.layers", "models.transformer",
     "collectives.stacked", "train.zero", "train.buckets", "train.step",
     "interop", "launch.train", "launch.cell", "launch.profile_step")
+
+
+#: the dense configs' slice: the three config copies, each imported above
+#: without jax
+DENSE_CONFIG_MODULES = (
+    "configs.gemma3_4b", "configs.gemma_7b", "configs.qwen3_32b",
+    "configs.base", "launch.cell", "launch.profile_serve")
 
 
 def _imports(tree):

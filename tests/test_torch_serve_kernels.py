@@ -58,6 +58,14 @@ FLASH_CASES = [
     (1, 1000, 6, 2, 128, None, "bfloat16", 3e-2),
     (1, 130, 8, 1, 128, None, "bfloat16", 3e-2),
     (1, 257, 2, 1, 16, None, "bfloat16", 3e-2),
+    # head_dim 256 (gemma3-4b, gemma-7b): both kernels, g = 1, 2, 8,
+    # windows, T not a multiple of 64
+    (1, 320, 8, 4, 256, None, "bfloat16", 3e-2),
+    (1, 256, 2, 2, 256, 100, "bfloat16", 3e-2),
+    (1, 130, 8, 1, 256, None, "bfloat16", 3e-2),
+    (1, 192, 4, 2, 256, 64, "float32", 2e-5),
+    (2, 130, 2, 2, 256, None, "float32", 2e-5),
+    (1, 128, 8, 1, 256, 48, "float32", 2e-5),
 ]
 QACC_CASES = [(64, 128), (100, 256), (1, 64)]
 
@@ -279,6 +287,10 @@ FLASH_RULE = [
     ((1, 257, 2, 1, 16, "bfloat16"), True),
     ((1, 256, 8, 8, 64, "bfloat16"), True),
     ((2, 256, 4, 2, 64, "float32"), False),
+    # gemma3-4b's and gemma-7b's inserts (head_dim 256)
+    ((1, 2048, 8, 4, 256, "bfloat16"), True),
+    ((1, 1024, 16, 16, 256, "bfloat16"), True),
+    ((1, 2048, 8, 4, 256, "float32"), False),
 ]
 
 
@@ -458,7 +470,10 @@ def _rms_check(got, exp, dtype):
 #: 16392 and MAX_D (the loop over the row, in both dtypes or in float32)
 RMS_CUDA_SHAPES = RMS_SHAPES + [(1024, 3072), (8, 3072), (10000, 3072),
                                 (3, 1), (5, 7), (16, 3080), (2, 4097),
-                                (3, 16392), (4, RK.MAX_D)]
+                                (3, 16392), (4, RK.MAX_D),
+                                # gemma3-4b's and qwen3-32b's rows: the
+                                # last thread's vectors partly filled
+                                (1024, 2560), (8, 5120)]
 
 
 @pytest.mark.cuda
@@ -558,6 +573,22 @@ def test_cuda_flash_attention_matches_plain(cuda_device, i):
     exp = exp.permute(0, 3, 1, 2, 4).reshape(Bn, T, nh, hd)
     err = float((got.float() - exp.float()).abs().max())
     assert err < tol, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [48, 80, 160, 512])
+def test_cuda_flash_attention_refuses_other_head_dims(cuda_device, hd,
+                                                      dtype):
+    """A head dim outside ``HEAD_DIMS`` raises on the card, whichever
+    kernel its dtype would take: there is no fallback."""
+    tdt = getattr(torch, dtype)
+    q = torch.zeros((1, 1, 2, 64, hd), dtype=tdt, device=cuda_device)
+    k = torch.zeros((1, 1, 64, hd), dtype=tdt, device=cuda_device)
+    before = dict(B.LAUNCHES)
+    with pytest.raises(ValueError, match="head_dim"):
+        FK.flash_attention_kernel(q, k, k)
+    assert B.LAUNCHES == before
 
 
 #: bf16 GQA grids that fill an H100's 132 SMs several times over
