@@ -156,14 +156,32 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
              the loss within ``G3_LOSS_ATOL`` of the plain float32 loss
              of the same weights and batch, as are the bf16 forward's
              losses on three seeds, while each fault of ``G3_FAULTS``
-             lands outside it (a ``dense:`` JSON line).
+             lands outside it (a ``dense:`` JSON line);
+12. MoE train — (a) reduced mixtral-8x7b and phi3.5-moe (float32) at
+             (dp, tp) = (2, 1) and (2, 2), one pallas_fused step, the
+             card against the CPU (phase 9's bounds); (b)-(c)
+             ``cell.MOE_TRAIN_CELL``, mixtral-8x7b at full width cut to 1
+             layer (1.71 B params), batch 8 x 1024, bf16, float32 wire,
+             at (2, 1) (the dense capacity dispatch) and (2, 2)
+             (megatron_sp with expert parallelism): 2 pallas_fused steps
+             and 1 bine step from the same start, params bitwise equal
+             after the first, rs_step and ag_step launched, the step-0
+             loss within ``MOE_LOSS_ATOL`` of the plain float32 forward
+             of the same weights (at (2, 2) the EP forward) and its
+             tokens' NLL within ``MOE_TOKEN_ATOL`` on average, three
+             seeds' bf16 forwards within both at (2, 1) and two faults
+             of ``MOE_FAULTS`` outside the token gate; at (2, 2) the EP
+             all_to_all's calls, backend and global-link bytes from the
+             obs record; (d) step ms, peak GiB, and the (2, 2) step's
+             device groups, its MoE layer by phase and idle share from
+             ``launch/profile_step.py`` (a ``moe:`` JSON line).
 
 The kernels line's launches of rs_step, ag_step and rs_step_q sum the
-train step's main path, its two-axis path, phase 8's runs, the TP path's
-and the gemma3 train step's; those of rmsnorm the serve, serve-TP and
-dense serve paths'; flash_attention's (head_dim 128) the serve, serve-TP
-and qwen3-32b paths', flash_attention_hd256's the gemma3-4b, gemma-7b and
-gemma3-4b serve-TP paths'; the ``kernels by path:`` line gives each
+train step's main path, its two-axis path, phase 8's runs, the TP path's,
+the gemma3 train step's and the MoE train steps'; those of rmsnorm the
+serve, serve-TP and dense serve paths'; flash_attention's (head_dim 128)
+the serve, serve-TP and qwen3-32b paths', flash_attention_hd256's the
+gemma3-4b, gemma-7b and gemma3-4b serve-TP paths'; the ``kernels by path:`` line gives each
 path's own counts, each of which must be above 0.  Prints a ``kernels:``
 summary, one JSON line of per-kernel numbers, the card's name and power
 limit, and as its last line
@@ -1210,7 +1228,8 @@ def train_runs(dev, cfg=None):
     unless given): ``run(tcfg, dp, steps, tag,
     tp=1, digest=False)`` -> (launch counts read around the steps, losses,
     step seconds, peak GiB, params after step 1 on rank 0);
-    ``run.gnorms[tag]`` keeps the grad norms, and with ``digest``
+    ``run.gnorms[tag]`` keeps the grad norms, ``run.aux[tag]`` the
+    weighted aux losses, and with ``digest``
     ``run.digests[tag]`` the sha256 of every rank's params after the last
     step."""
     import torch
@@ -1243,6 +1262,7 @@ def train_runs(dev, cfg=None):
             peaks.append(torch.cuda.max_memory_allocated() / 2**30)
             losses.append(loss)
             run.gnorms.setdefault(tag, []).append(float(m["grad_norm"]))
+            run.aux.setdefault(tag, []).append(float(m["aux_loss"]))
             check(math.isfinite(loss), f"{tag} step {s}: loss {loss}")
             if s == 0:
                 first = [x.clone() for x in T.flatten(params[0])]
@@ -1262,6 +1282,7 @@ def train_runs(dev, cfg=None):
         return dict(KB.LAUNCHES), losses, times, max(peaks), first
 
     run.gnorms = {}     # each tag's grad norms, step by step
+    run.aux = {}        # each tag's weighted aux losses, step by step
     run.digests = {}    # each digested tag's params sha256
     return cfg, dcfg, run
 
@@ -2756,6 +2777,300 @@ def phase_dense_train(dev):
                           "gemma3 pallas_fused/float32"]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the MoE block with expert parallelism (mixtral-8x7b)
+# ---------------------------------------------------------------------------
+
+#: phase 12's loss gates, set from ``moe_loss_readings`` on an H100
+#: (PERF.md, section 6).  The bf16 step's loss within MOE_LOSS_ATOL of
+#: the plain float32 ``loss_fn`` of the same weights (upcast) on the same
+#: batch shards, at (2, 1) (the dense dispatch) and at (2, 2) (expert
+#: parallelism at n_model = 2): the gaps read +0.0003, -0.0002, +0.0013
+#: on three seeds at (2, 1) and +0.0010 at (2, 2), so 0.005 is 3.8x the
+#: largest.  At random weights the mean loss is ln V plus half the
+#: logits' variance, which the final norm fixes whatever the layer
+#: computes, so no fault of the MoE layer moves it far (top-1 routing
+#: -0.0039, GeGLU -0.0010): the forward is also gated token by token, the
+#: mean over tokens of |NLL - the plain float32 NLL| within
+#: MOE_TOKEN_ATOL.  It read 0.0119-0.0128 sound (both meshes), 0.504 with
+#: top-1 routing and 0.102 with GeGLU experts: 0.03 is 2.3x the sound
+#: reading and 3.4x under the nearer fault.
+MOE_LOSS_ATOL = 0.005
+MOE_TOKEN_ATOL = 0.03
+#: forward faults the token gate must see: the router's top-1 in place of
+#: its top-2, GeGLU experts in place of SwiGLU ones
+MOE_FAULTS = {"top-1 routing": {"top_k": 1},
+              "GeGLU for SwiGLU": {"act": "geglu"}}
+
+
+def phase_moe_small_reference(dev):
+    """(a) Reduced mixtral-8x7b and phi3.5-moe (float32) at (dp, tp) =
+    (2, 1) and (2, 2), one pallas_fused step: the card against the CPU,
+    as phase 9 holds its small configs (loss, aux loss and grad norm rtol
+    1e-4; params all but 0.1% within 1e-5, every one within 2.5 lr).
+    Both reduced configs run pure_sp at (2, 2): the expert blocks are
+    held whole and each TP rank takes its own."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.configs import base
+    from repro_torch.models import sharding as SH
+    from repro_torch.models import transformer as TF
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.data import DataConfig, make_batch
+    from repro_torch.train.step import (TrainConfig, init_train_state,
+                                        make_train_step)
+
+    tcfg = TrainConfig(backend="pallas_fused", bucket_bytes=1 << 16,
+                       adamw=AdamWConfig(lr=3e-3, warmup_steps=1,
+                                         total_steps=100))
+    for arch in ("mixtral-8x7b", "phi3.5-moe-42b-a6.6b"):
+        cfg = base.reduced(base.get_config(arch)).replace(dtype="float32")
+        dcfg = DataConfig(global_batch=8, seq_len=64,
+                          vocab_size=cfg.vocab_size)
+        for dp, tp in ((2, 1), (2, 2)):
+            init = TF.init_params(cfg, 0, "cpu")
+            if tp > 1:
+                init = SH.shard_params(cfg, init, tp)
+            out = {}
+            for where in ("cpu", dev):
+                step, _, _ = make_train_step(cfg, tcfg, dp,
+                                             TF.param_shapes(cfg), where,
+                                             tp=tp)
+                params = [T.tree_map(lambda x: x.to(where), init)
+                          for _ in range(dp)]
+                state = init_train_state(cfg, tcfg, params, dp, tp)
+                params, state, m = step(params, state, make_batch(dcfg, 0))
+                out[str(where)] = ([float(m[k]) for k in
+                                    ("loss", "aux_loss", "grad_norm")],
+                                   [x.cpu() for x in T.flatten(params[0])])
+            (mc, pc), (mg, pg) = out["cpu"], out[str(dev)]
+            what = f"moe small reference {arch} ({dp}, {tp})"
+            check(all(math.isclose(a, b, rel_tol=1e-4)
+                      for a, b in zip(mc, mg)),
+                  f"{what}: card {mg} vs cpu {mc}")
+            diffs = [(a - b).abs() for a, b in zip(pc, pg)]
+            perr = max(float(d.max()) for d in diffs)
+            n_all = sum(d.numel() for d in diffs)
+            n_out = sum(int((d > 1e-5).sum()) for d in diffs)
+            lr = tcfg.adamw.lr
+            check(perr <= 2.5 * lr and n_out <= 1e-3 * n_all,
+                  f"{what}: params differ by {perr} (> {2.5 * lr}), "
+                  f"{n_out} of {n_all} beyond 1e-5")
+            log(f"  small {arch} at (dp, tp) = ({dp}, {tp}) "
+                f"({SH.strategy(cfg, tp)}): card loss / aux / gnorm "
+                f"{[round(v, 6) for v in mg]} vs cpu "
+                f"{[round(v, 6) for v in mc]}, params max |diff| "
+                f"{perr:.2e}, {n_out} of {n_all} beyond 1e-5")
+
+
+def moe_loss_readings(cfg, dcfg, dev, tp: int, seeds=(0,), faults=None):
+    """The MoE train cell's forward, as the step reports its loss: the
+    mean over the DP ranks (``cell.MOE_TRAIN_CELL``'s dp of 2) of
+    ``loss_fn`` on each rank's batch shard, the weights stacked over
+    ``tp`` TP ranks where it is above 1 (expert parallelism), and each
+    token's NLL.  For each seed: the bf16 loss of ``init_params(cfg,
+    seed)`` on ``make_batch(dcfg, seed)``, the plain float32 loss of the
+    same weights (upcast), and the token gap, the mean over tokens of
+    |bf16 NLL - float32 NLL|; on the first seed each fault of ``faults``
+    in bf16, its loss and token gap to the sound float32 run.  Returns
+    ({seed: (bf16, f32, token gap)}, {fault: (loss, token gap)})."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.models import sharding as SH
+    from repro_torch.models import transformer as TF
+    from repro_torch.train.data import make_batch
+
+    dp = 2
+    f32 = cfg.replace(dtype="float32")
+
+    def fwd(params, c, shards):
+        """(the loss, every token's NLL [dp * B/dp * T])"""
+        tot, nll = 0.0, []
+        for sh in shards:
+            loss = TF.loss_fn(params, c, sh, n_model=tp)[0]
+            tot += float(loss[0] if tp > 1 else loss)
+            logits, _ = TF.forward(params, c, sh["inputs"], n_model=tp)
+            if tp > 1:
+                logits = torch.cat(list(logits), dim=-1)[..., :c.vocab_size]
+            logits = logits.float()
+            nll.append((torch.logsumexp(logits, dim=-1) - torch.gather(
+                logits, -1, sh["targets"][..., None].long())[..., 0]
+                        ).reshape(-1))
+            del logits
+        return tot / dp, torch.cat(nll)
+
+    def gap(a, b):
+        return float((a - b).abs().mean())
+
+    sound, faulty = {}, {}
+    with torch.no_grad():
+        for seed in seeds:
+            batch = {k: torch.as_tensor(v, device=dev)
+                     for k, v in make_batch(dcfg, seed).items()}
+            shards = [{k: v.chunk(dp)[r] for k, v in batch.items()}
+                      for r in range(dp)]
+            params = TF.init_params(cfg, seed, dev)
+            if tp > 1:
+                params = SH.shard_params(cfg, params, tp)
+            b16 = fwd(params, cfg, shards)
+            bad = {name: fwd(params, cfg.replace(**kw), shards)
+                   for name, kw in (faults or {}).items()} \
+                if seed == seeds[0] else {}
+            p32 = T.tree_map(lambda x: x.float(), params)
+            del params
+            torch.cuda.empty_cache()
+            ref = fwd(p32, f32, shards)
+            sound[seed] = (b16[0], ref[0], gap(b16[1], ref[1]))
+            faulty.update({k: (v[0], gap(v[1], ref[1]))
+                           for k, v in bad.items()})
+            del p32, batch, shards, b16, bad, ref
+            torch.cuda.empty_cache()
+    return sound, faulty
+
+
+def a2a_record():
+    """The EP all_to_all calls in the obs registry since its last reset:
+    {backend: (calls, payload bytes, global-link bytes)}."""
+    from repro_torch.obs import metrics as OM
+    reg = OM.get_registry()
+    out = {}
+    for i, name in enumerate(("collective_calls", "collective_payload_bytes",
+                              "link_global_bytes")):
+        for labels, value in reg.series(name):
+            if labels.get("collective") != "alltoall":
+                continue
+            row = out.setdefault(labels.get("backend", "?"), [0.0] * 3)
+            row[i] += value
+    return {b: tuple(v) for b, v in out.items()}
+
+
+def phase_moe_train(dev):
+    """(b)-(d) ``cell.MOE_TRAIN_CELL``: mixtral-8x7b at full width, one
+    layer, batch 8 x 1024, bf16, the float32 wire.  At each of its meshes
+    ((2, 1): the dense dispatch on each DP rank; (2, 2): megatron_sp with
+    expert parallelism) two pallas_fused steps then one bine step from the
+    same start: rank 0's params after the first step bitwise equal (and
+    the losses), rs_step and ag_step launched by the fused steps, the
+    step-0 loss finite, the bf16 forward's, and within ``MOE_LOSS_ATOL``
+    of the plain float32 forward of the same weights (at (2, 2) the EP
+    forward at n_model = 2), its tokens' NLL within ``MOE_TOKEN_ATOL`` on
+    average, as are the bf16 forward's on three seeds at (2, 1), while
+    each fault of ``MOE_FAULTS`` lands outside the token gate.  At (2, 2)
+    the EP all_to_all's calls, backend and global-link bytes from the obs
+    record (three calls a layer a DP rank a step: the dispatch, its block
+    ids, the combine).  Then the (2, 2) step's device groups, its MoE
+    layer's phases and idle share from ``launch/profile_step.py``.
+    Returns the fused steps' launches by mesh and the numbers."""
+    import torch
+    from repro_torch.launch import cell
+    from repro_torch.launch import profile_step as PS
+    from repro_torch.models import sharding as SH
+    from repro_torch.models import transformer as TF
+    from repro_torch.obs import metrics as OM
+
+    mc = cell.MOE_TRAIN_CELL
+    cfg, dcfg, run = train_runs(dev, mc.model_config())
+    tokens = dcfg.global_batch * dcfg.seq_len
+    log(f"  {cfg.name} cut to {cfg.n_layers} layer(s): "
+        f"{TF.param_count(TF.param_shapes(cfg)):,} params, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.head_dim}, {cfg.n_experts} experts x {cfg.ep_blocks} blocks "
+        f"of {cfg.d_ff // cfg.ep_blocks}, top-{cfg.top_k}, vocab "
+        f"{cfg.vocab_size}; batch {dcfg.global_batch}x{dcfg.seq_len}")
+    launches, nums = {}, {"meshes": {}}
+    for dp, tp in mc.meshes:
+        mesh = f"{dp},{tp}"
+        tag = f"moe {mesh} pallas_fused/float32"
+        OM.get_registry().reset()
+        counts, losses, times, peak, first = run(
+            cell.train_config("pallas_fused", "float32"), dp, 2, tag, tp=tp,
+            digest=True)
+        a2a = a2a_record()
+        launches[mesh] = {k: counts[k] for k in ("rs_step", "ag_step")}
+        for k, v in launches[mesh].items():
+            check(v > 0, f"the MoE train step at ({mesh}) did not launch {k}")
+        cb, lb, tb, peak_b, bine_first = run(
+            cell.train_config("bine", "float32"), dp, 1,
+            f"moe {mesh} bine/float32", tp=tp)
+        check(sum(cb.values()) == 0, f"the bine path launched kernels: {cb}")
+        check(all(torch.equal(a, b) for a, b in zip(first, bine_first)),
+              f"moe ({mesh}): bine and pallas_fused params differ after one "
+              f"float32 step")
+        check(lb[0] == losses[0], f"moe ({mesh}): bine loss {lb[0]} vs "
+              f"pallas_fused {losses[0]}")
+        del first, bine_first
+        torch.cuda.empty_cache()
+        ep = tp > 1
+        sound, faulty = moe_loss_readings(
+            cfg, dcfg, dev, tp, seeds=(0,) if ep else (0, 1, 2),
+            faults=None if ep else MOE_FAULTS)
+        ref = sound[0][1]
+        for seed, (b16, f32, tg) in sound.items():
+            log(f"  moe ({mesh}) seed {seed}: bf16 forward loss {b16:.6f}, "
+                f"plain float32 {f32:.6f}, gap {b16 - f32:+.6f}; token gap "
+                f"{tg:.6f}")
+        for name, (loss, tg) in faulty.items():
+            log(f"  moe ({mesh}) seed 0, {name}: bf16 loss {loss:.6f}, gap "
+                f"{loss - ref:+.6f} to the sound float32 loss; token gap "
+                f"{tg:.6f}")
+        check(math.isfinite(losses[0]) and
+              abs(losses[0] - ref) <= MOE_LOSS_ATOL,
+              f"moe ({mesh}) step-0 loss {losses[0]} vs the plain float32 "
+              f"loss {ref} (bound {MOE_LOSS_ATOL})")
+        # the step's loss is the bf16 forward's that the token gate reads
+        check(math.isclose(losses[0], sound[0][0], rel_tol=1e-6),
+              f"moe ({mesh}) step-0 loss {losses[0]} vs its bf16 forward "
+              f"{sound[0][0]}")
+        for seed, (b16, f32, tg) in sound.items():
+            check(abs(b16 - f32) <= MOE_LOSS_ATOL and tg <= MOE_TOKEN_ATOL,
+                  f"moe ({mesh}) seed {seed}: bf16 loss {b16} vs float32 "
+                  f"{f32}, token gap {tg} (bounds {MOE_LOSS_ATOL}, "
+                  f"{MOE_TOKEN_ATOL})")
+        for name, (loss, tg) in faulty.items():
+            check(tg > MOE_TOKEN_ATOL,
+                  f"moe with {name}: token gap {tg} within {MOE_TOKEN_ATOL} "
+                  f"of the sound float32 run; the gate cannot see that "
+                  f"fault")
+        if ep:
+            want = 3 * dp * cfg.n_layers * 2          # 2 fused steps
+            calls = sum(v[0] for v in a2a.values())
+            check(set(a2a) == {"bine"} and calls == want,
+                  f"moe ({mesh}): EP all_to_all record {a2a}, expected "
+                  f"{want} bine calls")
+            log(f"  moe ({mesh}) EP all_to_all (obs record, 2 steps): "
+                + ", ".join(f"{b} x{int(c)}, payload {pb / 1e6:.1f} MB, "
+                            f"global-link {gb / 1e6:.1f} MB"
+                            for b, (c, pb, gb) in a2a.items()))
+        else:
+            check(not a2a, f"moe ({mesh}) ran an all_to_all: {a2a}")
+        aux = run.aux.get(tag, [])
+        log(f"  moe ({mesh}) bine float32 step == pallas_fused float32 step, "
+            f"bitwise; loss {losses[0]:.6f}, plain float32 {ref:.6f} (bound "
+            f"{MOE_LOSS_ATOL}), aux loss {aux}; warm step "
+            f"{times[1] * 1e3:.1f} ms ({tokens / times[1]:.0f} tokens/s), "
+            f"peak {peak:.1f} GiB ({SH.strategy(cfg, tp)})")
+        nums["meshes"][mesh] = {
+            "strategy": SH.strategy(cfg, tp), "loss_hex": losses[0].hex(),
+            "losses": losses, "aux_loss": aux, "f32_loss": ref,
+            "forward_losses": {s: list(v) for s, v in sound.items()},
+            "fault_losses": faulty, "step_ms": [t * 1e3 for t in times],
+            "warm_step_ms": times[1] * 1e3,
+            "tokens_per_s": tokens / times[1], "peak_gib": peak,
+            "bine_step_ms_cold": tb[0] * 1e3, "bine_peak_gib": peak_b,
+            "params_sha256": run.digests[tag],
+            "all_to_all": {b: list(v) for b, v in a2a.items()}}
+    torch.cuda.empty_cache()
+    prof = PS.profile(cfg, "pallas_fused", "float32", dev, "2,2")
+    torch.cuda.empty_cache()
+    nums["profile_2,2"] = {k: prof[k] for k in (
+        "wall_ms", "busy_ms", "idle_share", "tokens_per_s", "groups_ms",
+        "moe_phases_ms")}
+    check(prof["moe_phases_ms"], "the (2, 2) profile saw no MoE phase")
+    log(f"  moe (2,2) profiled {prof['wall_ms']:.1f} ms, idle share "
+        f"{prof['idle_share']:.3f}")
+    return launches, nums
+
+
 def main() -> int:
     # one 9.8 GB bucket buffer after another: keep the allocator's segments
     # growable so freed ones are reused (set before CUDA starts)
@@ -2779,7 +3094,7 @@ def main() -> int:
     from repro_torch.kernels.rmsnorm import kernel as RK
 
     t_all = time.perf_counter()
-    log("[1/11] build")
+    log("[1/12] build")
     t0 = time.perf_counter()
     libs = KB.build()
     for src in K.SOURCES:
@@ -2789,46 +3104,46 @@ def main() -> int:
     log(f"  built {', '.join(p.name for p in libs.values())} in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    log("[2/11] kernels vs plain versions")
+    log("[2/12] kernels vs plain versions")
     rows, qacc_launches, row, randn = phase_kernels(dev)
     torch.cuda.empty_cache()
 
-    log("[3/11] fused collectives vs stacked (bitwise)")
+    log("[3/12] fused collectives vs stacked (bitwise)")
     phase_collectives(dev)
 
-    log("[4/11] collectives API")
+    log("[4/12] collectives API")
     api_launches = phase_api(dev)
 
-    log("[5/11] two-tier (bine_hier)")
+    log("[5/12] two-tier (bine_hier)")
     hier_launches, two_tier = phase_two_tier(dev)
     torch.cuda.empty_cache()
 
-    log("[6/11] train")
+    log("[6/12] train")
     phase_small_reference(dev)
     launches, train = phase_train(dev)
     torch.cuda.empty_cache()
 
-    log("[7/11] serve")
+    log("[7/12] serve")
     phase_serve_small_reference(dev)
     serve_launches, serve, serve_ref = phase_serve(dev)
     torch.cuda.empty_cache()
 
-    log("[8/11] checkpoint, resume, measured tables, obs")
+    log("[8/12] checkpoint, resume, measured tables, obs")
     run_launches, runtime = phase_runtime(dev)
     torch.cuda.empty_cache()
 
-    log("[9/11] tensor parallelism")
+    log("[9/12] tensor parallelism")
     phase_tp_small_reference(dev)
     tp_launches, tp = phase_tp(dev)
     torch.cuda.empty_cache()
 
-    log("[10/11] serving under TP")
+    log("[10/12] serving under TP")
     phase_serve_tp_small_reference(dev)
     stp_launches, serve_tp = phase_serve_tp(
         dev, {"nums": serve, "ref": serve_ref})
     torch.cuda.empty_cache()
 
-    log("[11/11] dense configs (gemma3-4b, gemma-7b, qwen3-32b)")
+    log("[11/12] dense configs (gemma3-4b, gemma-7b, qwen3-32b)")
     t11 = time.perf_counter()
     phase_dense_flash(dev, randn, row)
     del row, randn
@@ -2837,13 +3152,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     dense_s = time.perf_counter() - t11
     log(f"  phase 11: {dense_s:.0f} s")
+
+    log("[12/12] MoE train (mixtral-8x7b, expert parallelism)")
+    t12 = time.perf_counter()
+    phase_moe_small_reference(dev)
+    moe_launches, moe = phase_moe_train(dev)
+    torch.cuda.empty_cache()
+    moe["seconds"] = time.perf_counter() - t12
+    log(f"  phase 12: {moe['seconds']:.0f} s")
     # each path's own kernel launches, read around that path alone
     by_path = {"train": dict(launches), "two-axis": hier_launches,
                "runtime": run_launches, "tp": tp_launches,
                "serve": serve_launches, "serve-tp": stp_launches,
                **{f"serve {a}": n for a, n in dense_launches.items()},
                "serve-tp gemma3-4b": g3tp_launches,
-               "train gemma3-4b": g3train_launches}
+               "train gemma3-4b": g3train_launches,
+               **{f"train mixtral-8x7b ({m})": n
+                  for m, n in moe_launches.items()}}
     for path, counts in by_path.items():
         for name, n in counts.items():
             check(n > 0, f"kernel {name} was not launched on the {path} "
@@ -2866,6 +3191,9 @@ def main() -> int:
         launches[name] += n
     for name, n in g3train_launches.items():
         launches[name] += n
+    for counts in moe_launches.values():
+        for name, n in counts.items():
+            launches[name] += n
     for name in ("ring_update", "matmul_pack_wgmma", "gather_matmul_wgmma"):
         launches[name] = api_launches[name]
     for name in ("matmul_pack", "gather_matmul"):
@@ -2899,6 +3227,7 @@ def main() -> int:
     log("dense: " + json.dumps({
         "serve": dense, "serve-tp gemma3-4b": g3tp,
         "train gemma3-4b": g3train, "seconds": dense_s}))
+    log(f"moe: {json.dumps(moe)}")
     log(f"train: {json.dumps(train)}; total {time.perf_counter() - t_all:.0f} s")
     print(json.dumps({"kernels": list(rows.values())}))
     smi = subprocess.run(

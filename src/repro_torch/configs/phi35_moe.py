@@ -1,0 +1,23 @@
+"""phi3.5-moe-42b-a6.6b [moe]: 32L d_model=4096 32H (GQA kv=8) d_ff=6400
+vocab=32064, MoE 16 experts top-2.  [hf:microsoft/Phi-3.5-MoE-instruct; hf]
+"""
+
+from .base import ModelConfig, register
+
+CONFIG = register(ModelConfig(
+    name="phi3.5-moe-42b-a6.6b",
+    family="moe",
+    n_layers=32,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=6400,
+    vocab_size=32064,
+    act="swiglu",
+    rope_theta=1e4,
+    n_experts=16,
+    top_k=2,
+    expert_shard="expert",       # true EP: 16 experts over the 16-wide axis
+    tie_embeddings=False,
+))

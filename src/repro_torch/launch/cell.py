@@ -20,6 +20,11 @@ serves it, on one rank and at ``SERVE_TP_SHAPE`` = (dp, tp) = (2, 2):
 the same model, weights and trace, 4 pages a DP rank, each page's 1024
 slots split 512 a TP rank (megatron_sp prefill).
 
+MoE (``MOE_TRAIN_CELL``): mixtral-8x7b at full width cut to 1 of its 32
+layers, batch 8 x 1024, the float32 wire, at (dp, tp) = (2, 1) (the dense
+capacity dispatch on each DP rank) and (2, 2) (megatron_sp with expert
+parallelism: the dispatch and combine on the paper's all_to_all).
+
 The dense configs (``DENSE_SERVE_CELLS``): gemma3-4b at full depth
 (``GEMMA3_SERVE_CELL``: prompts past its 1024-token local window, pages
 of 2048), gemma-7b at full depth (``GEMMA7B_SERVE_CELL``) and qwen3-32b at
@@ -31,7 +36,7 @@ one's cut at a second arch.  Each cell's docstring says why.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 from repro_torch.configs import base
 from repro_torch.configs.base import ModelConfig
@@ -58,6 +63,33 @@ def model_config(arch: str = ARCH) -> ModelConfig:
     same p = 4, batch 8 x 1024 and buckets; its head and loss carry 1.31x
     phi4-mini's vocabulary."""
     return base.get_config(arch).replace(n_layers=N_LAYERS)
+
+
+@dataclass(frozen=True)
+class TrainCell:
+    """A train cell: ``arch`` at full width cut to ``n_layers``, run at
+    each (dp, tp) of ``meshes`` on ``data_config``'s batch."""
+    arch: str
+    n_layers: int
+    meshes: Tuple[Tuple[int, int], ...]
+
+    def model_config(self) -> ModelConfig:
+        return base.get_config(self.arch).replace(n_layers=self.n_layers)
+
+
+#: mixtral-8x7b (arXiv:2401.04088) at full width: d_model 4096, 32/8 heads
+#: of 128, 8 experts of d_ff 14336 in 2 blocks each (16 expert blocks),
+#: top-2, capacity factor 1.25, an untied vocabulary of 32000; cut to 1 of
+#: its 32 layers, 1,713,418,240 params (3.4 GB bf16): embedding and head
+#: 2 x 131.07 M, attention 41.94 M, experts 3 x 469.76 M, router 32,768.
+#: At (2, 1) each DP rank runs the dense capacity dispatch over its 4096
+#: tokens; at (2, 2) the model axis runs megatron_sp attention and expert
+#: parallelism, 8 expert blocks a TP rank, each rank's 2048 tokens sent to
+#: the blocks' ranks and back by the collectives API's all_to_all (the
+#: decision table's ``bine``).  Users train mixtral so, its experts over
+#: the model axis; one layer keeps the step's weights, optimizer state and
+#: EP activations on one card for both meshes.
+MOE_TRAIN_CELL = TrainCell("mixtral-8x7b", 1, ((2, 1), (2, 2)))
 
 
 def tp_small_config() -> ModelConfig:

@@ -9,10 +9,15 @@ group of its own), the wall time and the device's idle share, as text and
 as one JSON line, for each wire dtype in turn (by default the float32 and
 the int8 wire, so both steps' kernels are read in one call).  ``--mesh``
 stacks the ranks as the train CLI's does: ``2,2`` is the tensor-parallel
-cell (2 DP ranks of 2 TP ranks, ``cell.TP_SHAPE``):
+cell (2 DP ranks of 2 TP ranks, ``cell.TP_SHAPE``).  ``--arch`` takes
+another arch's train cell (``cell.model_config(arch)``; mixtral-8x7b's
+is ``cell.MOE_TRAIN_CELL``, one layer); for a MoE arch it also splits
+the MoE layer's device time by phase, forward and backward
+(:func:`moe_split`: routing, dispatch, the all_to_all, the experts, the
+combine):
 
   python -m repro_torch.launch.profile_step [--wire-dtype float32 int8] \
-      [--mesh 2,2]
+      [--mesh 2,2] [--arch mixtral-8x7b]
 
 It uses only the port's public entry points, so the same file runs
 against an older tree (``PYTHONPATH=<tree>/src python
@@ -60,6 +65,34 @@ def group_of(name: str) -> str:
     return "elementwise/other"
 
 
+def moe_split(events, attr: str = "device_time_total") -> dict:
+    """The MoE layers' time by phase (``models.moe.PHASES``), ms summed
+    over ``events`` (``prof.events()``), as ``"<phase> fwd"`` and
+    ``"<phase> bwd"``: a phase's forward is its range's time (the kernels
+    of every op under it); a backward op (``autograd::engine::
+    evaluate_function: ...``) counts to the phase whose range ran its
+    forward op, matched by the autograd sequence number.  ``attr`` is the
+    event's time to read (device time; ``cpu_time_total`` on the CPU)."""
+    from repro_torch.models.moe import PHASES
+    cpu = torch.autograd.DeviceType.CPU
+    seq_phase, out = {}, defaultdict(float)
+    for ev in events:
+        if ev.name not in PHASES or ev.device_type != cpu:
+            continue
+        out[f"{ev.name} fwd"] += getattr(ev, attr) / 1e3
+        stack = list(ev.cpu_children)
+        while stack:
+            ch = stack.pop()
+            if ch.sequence_nr >= 0:
+                seq_phase[ch.sequence_nr] = ev.name
+            stack.extend(ch.cpu_children)
+    for ev in events:
+        if ev.name.startswith("autograd::engine::evaluate_function") and \
+                ev.sequence_nr in seq_phase:
+            out[f"{seq_phase[ev.sequence_nr]} bwd"] += getattr(ev, attr) / 1e3
+    return dict(out)
+
+
 def profile(cfg, backend: str, wire_dtype: str, dev, mesh: str = "4,1"
             ) -> dict:
     """Warm up, then profile ``STEPS`` steps of one wire dtype over the
@@ -92,9 +125,11 @@ def profile(cfg, backend: str, wire_dtype: str, dev, mesh: str = "4,1"
     by_group = defaultdict(float)
     launches = defaultdict(int)
     by_kernel = []
+    from repro_torch.models.moe import PHASES
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total", 0.0) or 0.0
-        if dev_us <= 0 or ev.device_type != torch.autograd.DeviceType.CUDA:
+        if dev_us <= 0 or ev.device_type != torch.autograd.DeviceType.CUDA \
+                or ev.key in PHASES:      # a range's device span: no kernel
             continue
         by_group[group_of(ev.key)] += dev_us / 1e3 / STEPS
         launches[group_of(ev.key)] += ev.count // STEPS
@@ -113,7 +148,13 @@ def profile(cfg, backend: str, wire_dtype: str, dev, mesh: str = "4,1"
     print("top kernels (ms per step, launches per step):")
     for ms, n, name in sorted(by_kernel, reverse=True)[:TOP]:
         print(f"  {ms:9.3f} ms  x{n:<5d} {name[:90]}")
+    moe = {k: v / STEPS for k, v in moe_split(prof.events()).items()}
+    if moe:
+        print("MoE layer by phase (device ms per step):")
+        for k, v in sorted(moe.items(), key=lambda t: -t[1]):
+            print(f"  {k:22s} {v:9.3f} ms  {v / wall_ms:6.1%} of the step")
     rec = {"backend": backend, "wire_dtype": wire_dtype, "mesh": mesh,
+           "arch": cfg.name, "moe_phases_ms": moe,
            "wall_ms": wall_ms,
            "busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
            "groups_ms": dict(by_group), "group_launches": dict(launches),
@@ -130,11 +171,15 @@ def main(argv=None):
                     choices=["float32", "bfloat16", "int8"])
     ap.add_argument("--mesh", default="4,1",
                     help="data,model or pod,data,model (the train CLI's)")
+    ap.add_argument("--arch", default=cell.ARCH,
+                    help="the train cell of this arch")
     args = ap.parse_args(argv)
 
     dev = resolve_device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = cell.model_config()
+    moe = cell.MOE_TRAIN_CELL
+    cfg = moe.model_config() if args.arch == moe.arch else \
+        cell.model_config(args.arch)
     for wire_dtype in args.wire_dtype:
         profile(cfg, args.backend, wire_dtype, dev, args.mesh)
         gc.collect()

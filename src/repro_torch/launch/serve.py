@@ -22,9 +22,10 @@ decision table picks for it, as the reference's CLI does, ``--backend
 xla`` pins the defaults (no plan).  In place of the reference's
 ``traces:`` line (jit retraces) it prints the kernel launch counts of the
 run.  Runs on CUDA unless ``--device cpu`` is given.  Only the dense
-``attn`` configs are served; the reference's fixed-batch loop for the
-architectures its pool cannot serve has no counterpart (queue A item
-5e).
+``attn`` configs are served; for the architectures the pool cannot serve
+(``serve.engine.pool_supported``: the MoE configs mixtral-8x7b and
+phi3.5-moe-42b-a6.6b) it raises, since the reference's fixed-batch loop
+for them has no counterpart (queue A item 5e).
 """
 
 from __future__ import annotations

@@ -13,7 +13,14 @@ them (``--mesh 2,2,1 --backend bine_hier`` runs the two-tier hierarchy);
 a model axis above 1 (``--mesh 2,2``: data 2, model 2) stacks each DP
 rank's TP ranks too, under the strategy ``models.sharding.strategy``
 picks: ``megatron_sp`` where the heads divide over the model axis and
-d_model >= 1024, else ``pure_sp``.
+d_model >= 1024, else ``pure_sp``.  The MoE configs (``--arch
+mixtral-8x7b``, ``phi3.5-moe-42b-a6.6b``) put their experts on the model
+axis (``models.moe``: the dispatch and combine on the collectives API's
+all_to_all) and log the weighted aux loss (at full depth, 46.7 B params,
+mixtral does not fit one card):
+
+  python -m repro_torch.launch.train --arch mixtral-8x7b --reduced --mesh 2,2
+
 ``--ckpt-dir D --ckpt-every N`` saves the global train state every N steps
 and after the last, in the reference's format; ``--resume`` continues from
 the latest step in ``D`` (a checkpoint of either package, at any DP size).
@@ -137,7 +144,9 @@ def main(argv=None):
                 print(f"[straggler] step {s} took {dt:.3f}s "
                       f"(ewma {monitor.ewma:.3f}s)")
             if s % args.log_every == 0 or s == args.steps - 1:
-                print(f"step {s:5d} loss {loss:.4f} "
+                aux = (f"aux {float(metrics['aux_loss']):.4f} "
+                       if cfg.n_experts else "")
+                print(f"step {s:5d} loss {loss:.4f} {aux}"
                       f"gnorm {float(metrics['grad_norm']):.3f} "
                       f"lr {float(metrics['lr']):.2e} {dt * 1e3:.0f}ms")
             if cpr and (s + 1) % args.ckpt_every == 0:

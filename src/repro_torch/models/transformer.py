@@ -1,7 +1,9 @@
 """Decoder LM backbone: pattern-segmented layer stack.
 
-Port of ``repro.models.transformer`` for dense ``attn`` blocks.  The
-parameter tree keeps the reference's layout — ``segments[i]`` leaves are
+Port of ``repro.models.transformer`` for the ``attn`` and ``moe``
+blocks (``moe`` on the training path only: the reference serves MoE
+through its fixed-batch loop, queue A item 5e).  The parameter tree
+keeps the reference's layout — ``segments[i]`` leaves are
 stacked ``[n_layers_in_segment, ...]`` — so trees cross between the
 packages leaf for leaf (``repro_torch.interop``).  Layers of a segment run
 in a Python loop over the stacked leaves (the reference's ``lax.scan``).
@@ -41,6 +43,7 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.rmsnorm.ops import rmsnorm as fused_rmsnorm
 
 from . import layers as L
+from . import moe as M
 from . import sharding as SH
 
 
@@ -82,13 +85,21 @@ def segments(cfg) -> List[Tuple[Block, int]]:
     return out
 
 
-def _check_dense(cfg) -> None:
-    bad = sorted({b.kind for b, _ in segments(cfg) if b.kind != "attn"})
+def _check_ported(cfg, serve: bool = False) -> None:
+    """Raise for blocks the port lacks: the recurrent and frontend ones
+    everywhere, ``moe`` on the serving path (``serve``)."""
+    kinds = {b.kind for b, _ in segments(cfg)}
+    bad = sorted(kinds - {"attn", "moe"})
     if bad or cfg.frontend is not None:
         raise NotImplementedError(
             f"blocks {bad or [cfg.frontend]} are not ported (ROADMAP.md "
-            f"queue A item 5, 5b-5d: MoE, recurrent and frontend models); "
-            f"dense 'attn' only")
+            f"queue A item 5, 5c-5d: recurrent and frontend models); "
+            f"'attn' and 'moe' only")
+    if serve and "moe" in kinds:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE prefill and decode are not ported (ROADMAP.md "
+            f"queue A item 5e: the reference serves MoE only through its "
+            f"fixed-batch loop, run_fixed_batch; its pool refuses it)")
 
 
 # ---------------------------------------------------------------------------
@@ -98,7 +109,7 @@ def _check_dense(cfg) -> None:
 def _param_tree(cfg, make) -> Dict[str, Any]:
     """The parameter tree, each leaf ``make(shape, init)`` with init one of
     ``("normal", std)`` or ``("zeros",)``."""
-    _check_dense(cfg)
+    _check_ported(cfg)
     d, nh, nkv, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                          cfg.head_dim, cfg.d_ff)
 
@@ -114,13 +125,14 @@ def _param_tree(cfg, make) -> Dict[str, Any]:
         if cfg.qk_norm:
             attn["q_norm"] = make((n, hd), ("zeros",))
             attn["k_norm"] = make((n, hd), ("zeros",))
-        segs.append({
-            "ln1": make((n, d), ("zeros",)),
-            "attn": attn,
-            "ln2": make((n, d), ("zeros",)),
-            "mlp": {"wi": dense(n, d, f), "wg": dense(n, d, f),
-                    "wo": dense(n, f, d)},
-        })
+        seg = {"ln1": make((n, d), ("zeros",)), "attn": attn,
+               "ln2": make((n, d), ("zeros",))}
+        if block.kind == "moe":
+            seg["moe"] = M.init_moe(cfg, make, (n,))
+        else:
+            seg["mlp"] = {"wi": dense(n, d, f), "wg": dense(n, d, f),
+                          "wo": dense(n, f, d)}
+        segs.append(seg)
     params["segments"] = segs
     params["final_norm"] = make((d,), ("zeros",))
     if not cfg.tie_embeddings:
@@ -163,10 +175,15 @@ def param_count(params) -> int:
 # ---------------------------------------------------------------------------
 
 def _apply_block(p, cfg, block: Block, x, positions):
+    """One layer forward: (x', its MoE aux, or None for a dense layer)."""
     h = L.attention(p["attn"], cfg, L.rmsnorm(x, p["ln1"], cfg.norm_eps),
                     positions, window=block.window)
     x = x + h
-    return x + L.mlp(p["mlp"], cfg, L.rmsnorm(x, p["ln2"], cfg.norm_eps))
+    y = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
+    if block.kind == "moe":
+        m, aux = M.moe(p["moe"], cfg, y)
+        return x + m, aux
+    return x + L.mlp(p["mlp"], cfg, y), None
 
 
 def _layer(seg_p, l: int):
@@ -177,7 +194,8 @@ def _layer(seg_p, l: int):
 
 
 def forward(params, cfg, inputs, positions=None, n_model: int = 1):
-    """inputs: [B,T] int tokens.  Returns (logits [B,T,V], aux_loss).
+    """inputs: [B,T] int tokens.  Returns (logits [B,T,V], aux_loss: the
+    MoE layers' aux summed, 0 for a dense model).
 
     ``n_model > 1``: ``params`` stacked over the TP ranks
     (``sharding.shard_params``), every rank given the same ``inputs``;
@@ -187,18 +205,21 @@ def forward(params, cfg, inputs, positions=None, n_model: int = 1):
         if positions is not None:
             raise ValueError("the TP forward runs positions 0..T-1")
         return forward_tp(params, cfg, inputs, n_model)
-    _check_dense(cfg)
+    _check_ported(cfg)
     B, T = inputs.shape[:2]
     if positions is None:
         positions = torch.arange(T, dtype=torch.int32, device=inputs.device)
     x = _embed(params, cfg, inputs)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for (block, n), seg_p in zip(segments(cfg), params["segments"]):
         for l in range(n):
-            x = _apply_block(_layer(seg_p, l), cfg, block, x, positions)
+            x, aux = _apply_block(_layer(seg_p, l), cfg, block, x, positions)
+            if aux is not None:
+                aux_total = aux_total + aux
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
     logits = torch.matmul(x, head)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux_total
 
 
 def loss_fn(params, cfg, batch, n_model: int = 1
@@ -302,7 +323,10 @@ def _megatron_layout(params, cfg, tp: _TP):
     embedding (and head, :func:`_vocab_block`); under megatron_sp also
     each weight's Megatron block (``_MEGATRON_DIM``), where K/V stay whole
     under the GQA rule (``n_kv_heads % n != 0``: the heads split after the
-    repeat)."""
+    repeat).  The expert blocks of a ``moe`` sublayer stay each rank's
+    shard for expert parallelism; where the stream is not
+    sequence-sharded (T % n != 0) ``moe.moe`` runs the dense path, and a
+    sharded expert leaf is all-gathered over the ranks first."""
     mds = SH.model_dims(cfg, param_shapes(cfg), tp.n)
     out = dict(params)
     out["embed"] = _vocab_block(params["embed"], mds["embed"], 0)
@@ -315,10 +339,15 @@ def _megatron_layout(params, cfg, tp: _TP):
     for seg, md in zip(params["segments"], mds["segments"]):
         seg = dict(seg)
         for sub in ("attn", "mlp"):
-            seg[sub] = {k: w if (k not in _MEGATRON_DIM or
-                                 (kv_whole and k in ("wk", "wv")))
-                        else _block_of(w, md[sub][k], _MEGATRON_DIM[k])
-                        for k, w in seg[sub].items()}
+            if sub in seg:
+                seg[sub] = {k: w if (k not in _MEGATRON_DIM or
+                                     (kv_whole and k in ("wk", "wv")))
+                            else _block_of(w, md[sub][k], _MEGATRON_DIM[k])
+                            for k, w in seg[sub].items()}
+        if "moe" in seg and not tp.sp:
+            seg["moe"] = {k: w if md["moe"][k] < 0 else
+                          stacked.all_gather(w, md["moe"][k])
+                          for k, w in seg["moe"].items()}
         segs.append(seg)
     out["segments"] = segs
     return out
@@ -449,28 +478,34 @@ def forward_tp(params, cfg, inputs, n_model: int):
     """The TP forward of one DP rank: ``params`` from
     ``sharding.shard_params``, ``inputs [B, T]`` (every TP rank reads the
     same tokens).  Returns the vocab-sharded logits ``[n, B, T, V/n]`` and
-    ``aux [n]``; for a vocab that does not divide n, ``[n, B, T,
-    ceil(V/n)]`` with zeros in the last rank's padded columns (the
-    logits of vocab ids ``>= V``)."""
-    _check_dense(cfg)
+    ``aux [n]`` (the MoE layers' aux summed, the same on every rank); for
+    a vocab that does not divide n, ``[n, B, T, ceil(V/n)]`` with zeros in
+    the last rank's padded columns (the logits of vocab ids ``>= V``)."""
+    _check_ported(cfg)
     T_ = inputs.shape[1]
     tp = _TP(cfg, n_model, T_)
     params = _megatron_layout(params, cfg, tp)
     pos = torch.arange(T_, dtype=torch.int32, device=inputs.device)
     x = _embed_tp(params["embed"], cfg, inputs, tp)
+    aux_total = torch.zeros(n_model, dtype=torch.float32, device=x.device)
     for (block, nl), seg in zip(segments(cfg), params["segments"]):
         for l in range(nl):
             p = _layer_tp(seg, l)
             x = x + _attn_tp(p["attn"], cfg, block,
                              L.rmsnorm(x, _bw(p["ln1"], x), cfg.norm_eps),
                              pos, tp)
-            x = x + _mlp_tp(p["mlp"], cfg,
-                            L.rmsnorm(x, _bw(p["ln2"], x), cfg.norm_eps), tp)
+            y = L.rmsnorm(x, _bw(p["ln2"], x), cfg.norm_eps)
+            if block.kind == "moe":
+                m, aux = M.moe(p["moe"], cfg, y, n_model, tp.sp)
+                aux_total = aux_total + aux
+                x = x + m
+            else:
+                x = x + _mlp_tp(p["mlp"], cfg, y, tp)
     x = tp.gather(L.rmsnorm(x, _bw(params["final_norm"], x), cfg.norm_eps))
     head = params["embed"].transpose(1, 2) if cfg.tie_embeddings \
         else params["lm_head"]
     logits = L.dense_tp(x, head)
-    return logits, torch.zeros(n_model, dtype=torch.float32, device=x.device)
+    return logits, aux_total
 
 
 def loss_fn_tp(params, cfg, batch, n_model: int):
@@ -530,8 +565,8 @@ def _init_block_cache(cfg, block: Block, B: int, S_len: int,
                       device) -> dict:
     if block.kind != "attn":
         raise NotImplementedError(
-            f"block {block.kind!r} is not ported (ROADMAP.md queue A item "
-            f"5: MoE and recurrent models); dense 'attn' only")
+            f"block {block.kind!r} has no decode cache in the port "
+            f"(ROADMAP.md queue A items 5c and 5e)")
     dt = getattr(torch, cfg.cache_dtype)
     W = S_len if block.window is None else min(block.window, S_len)
     shape = (B, W, cfg.n_kv_heads, cfg.head_dim)
@@ -541,7 +576,7 @@ def _init_block_cache(cfg, block: Block, B: int, S_len: int,
 
 def init_decode_state(cfg, B: int, S_len: int, device="cuda") -> dict:
     """Per-segment stacked caches mirroring ``params['segments']``."""
-    _check_dense(cfg)
+    _check_ported(cfg, serve=True)
     dev = resolve_device(device)
     segs = []
     for block, n in segments(cfg):
@@ -642,7 +677,7 @@ def decode_step(params, cfg, state, tokens, active=None):
     them.
 
     Returns (logits [B,1,V], state)."""
-    _check_dense(cfg)
+    _check_ported(cfg, serve=True)
     pos = state["pos"]
     x = _embed(params, cfg, tokens)
     for (block, n), seg_p, seg_c in zip(
@@ -669,7 +704,7 @@ def prefill(params, cfg, inputs, length=None):
     beyond ``length`` stays in full caches but is masked by ``kpos <= pos``
     until decode overwrites it in place.
     """
-    _check_dense(cfg)
+    _check_ported(cfg, serve=True)
     B, T = inputs.shape[:2]
     dev = inputs.device
     positions = torch.arange(T, dtype=torch.int32, device=dev)
@@ -842,7 +877,7 @@ def prefill_tp(params, cfg, inputs, n_model: int, length=None):
     (every rank's K/V gathered).  pure_sp with T % n != 0 falls through to
     the single path, as the reference's attention does; every rank would
     run it on the same values."""
-    _check_dense(cfg)
+    _check_ported(cfg, serve=True)
     B, T_ = inputs.shape[:2]
     tp = _TP(cfg, n_model, T_)
     if tp.strat == "pure_sp" and not tp.sp:
@@ -974,7 +1009,7 @@ def decode_step_tp(params, cfg, state, tokens, layout, active=None):
     ``layout`` (``sharding.KVLayout``s; ``state["pos"]`` is ``[B]``).
     Returns the logits as vocab blocks ``[n_tp, B, 1, ceil(V/n_tp)]`` and
     the state, its caches written in place."""
-    _check_dense(cfg)
+    _check_ported(cfg, serve=True)
     pos = state["pos"]
     x = _embed(params, cfg, tokens)
     for (block, n), seg_p, seg_c, lay in zip(

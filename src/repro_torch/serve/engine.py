@@ -115,8 +115,9 @@ class ServeFns:
     reference's legacy fixed-batch pair, for the architectures its pool
     cannot serve, has no counterpart: the port serves the dense ``attn``
     configs (phi4-mini, gemma3-4b, gemma-7b, qwen3-32b; gemma3's local
-    layers on ring caches) and ``models.transformer`` raises for the
-    others (ROADMAP.md queue A items 5b-5e).
+    layers on ring caches), and :func:`make_serve_fns` raises for the
+    ones :func:`pool_supported` refuses (the MoE configs among them;
+    ROADMAP.md queue A item 5e).
     """
     init_pool: Callable
     insert: Callable
@@ -157,12 +158,40 @@ def cache_layout(model_cfg, B: int, S_len: int, dp=1,
     return out
 
 
+def pool_supported(model_cfg) -> bool:
+    """Can the continuous-batching pool serve this architecture?  The
+    reference's rule, which excludes, loudly rather than subtly wrong:
+
+      * modality frontends: no token stream to schedule;
+      * recurrent blocks (Mamba2/xLSTM): their state would integrate the
+        prompt padding;
+      * MoE: expert *capacity* dispatch couples batch rows (a token's
+        keep or drop depends on what else routed to its expert), which
+        breaks both padded prefill (pad tokens compete for capacity) and
+        the continuous-batching equivalence guarantee.
+    """
+    if model_cfg.frontend is not None or model_cfg.n_experts > 0:
+        return False
+    return all(b.kind in ("attn", "shared_attn")
+               for b, _ in T.segments(model_cfg))
+
+
 def make_serve_fns(model_cfg, scfg: ServeConfig, B: int, S_len: int,
                    device="cuda", dp=1, tp: int = 1) -> ServeFns:
     """The serving entry points for a ``B``-page pool of length ``S_len``
     (page = prompt + decode budget) over ``dp`` DP ranks (an int or a DP
     shape, as ``train.step.make_train_step`` takes it) of ``tp`` TP
-    ranks, stacked on one ``device``.  See :class:`ServeFns`."""
+    ranks, stacked on one ``device``.  See :class:`ServeFns`.  Raises
+    for an architecture the pool cannot serve (:func:`pool_supported`),
+    which the reference serves through its fixed-batch loop instead."""
+    if not pool_supported(model_cfg):
+        raise NotImplementedError(
+            f"{model_cfg.name}: the continuous-batching pool cannot serve "
+            f"this architecture (pool_supported: MoE capacity dispatch "
+            f"couples batch rows, recurrent state would integrate the "
+            f"prompt padding); the reference serves it through its "
+            f"fixed-batch loop run_fixed_batch, not ported (ROADMAP.md "
+            f"queue A item 5e)")
     dev = resolve_device(device)
     layout = cache_layout(model_cfg, B, S_len, dp, tp) if tp > 1 else None
 

@@ -35,7 +35,7 @@ def test_every_module_imports_without_jax(subproc):
     n_pkgs = sum(1 for p in PORT.rglob("__init__.py")) - 1
     assert n == n_files + n_pkgs
     for mod in SERVING_MODULES + TWO_TIER_MODULES + RUNTIME_MODULES + \
-            TP_MODULES + DENSE_CONFIG_MODULES:
+            TP_MODULES + DENSE_CONFIG_MODULES + MOE_MODULES:
         assert (PORT / (mod.replace(".", "/") + ".py")).is_file(), mod
 
 
@@ -76,6 +76,14 @@ TP_MODULES = (
 DENSE_CONFIG_MODULES = (
     "configs.gemma3_4b", "configs.gemma_7b", "configs.qwen3_32b",
     "configs.base", "launch.cell", "launch.profile_serve")
+
+
+#: the MoE slice: the block, its two config copies and the modules it
+#: changed, each imported above without jax
+MOE_MODULES = (
+    "models.moe", "configs.mixtral_8x7b", "configs.phi35_moe",
+    "models.transformer", "serve.engine", "launch.cell",
+    "launch.profile_step")
 
 
 def _imports(tree):

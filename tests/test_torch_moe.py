@@ -1,0 +1,738 @@
+"""The MoE block with expert parallelism on the port, against the JAX
+package, on the CPU.
+
+The port's ``models/moe.py`` (the router, the dense capacity dispatch and
+the expert-parallel path over stacked TP ranks, whose dispatch and
+combine are the collectives API's ``all_to_all``), the two MoE configs
+(mixtral-8x7b, phi3.5-moe-42b-a6.6b) and the train step over stacked
+``[dp, tp]`` ranks.  The JAX side runs in subprocesses on 8 or 16 CPU
+devices under a plain ``jax.sharding.Mesh`` entered with
+``compat.set_mesh`` (its axes Auto: on jax 0.9 ``jax.make_mesh`` gives
+Explicit ones, under which the reference's own
+``tests/models/test_moe_ep.py`` stops at ``jnp.repeat``).  Inputs are
+numpy arrays from a seed; weights cross through ``interop``.
+
+Held against ``repro``:
+
+  * ``_route``, ``_moe_dense`` and ``moe``'s dispatch choice at (E, nb,
+    K) = (8, 2, 2), (16, 1, 2), (8, 1, 1): float32 within atol 1e-5
+    (routing exactly); bf16 to the reference test's own criterion
+    (p98 |diff| < 0.15 and under 2% of rows past 0.15: near-tie router
+    logits may flip a token's experts);
+  * ``_moe_ep`` at n = 2 and 4, float32, in the drop regime (capacity
+    factor 1.25: capacity per (source, destination) rank, so other
+    tokens drop than on the dense path) and out of it (8), its per-shard
+    aux included; the EP output and its gradients bitwise equal across the
+    ``xla``, ``bine``, ``bruck`` and ``recdoub`` all_to_alls;
+  * a top-k tie: both packages pick the lower expert index;
+  * two train steps of reduced mixtral and phi3.5 (float32) at (dp, tp)
+    = (2, 1), (2, 2) and (2, 4), the port's ``pallas_fused``, ``bine``
+    and ``auto`` each against the reference's ``pallas_fused`` (whose
+    float32 backends are bitwise alike), plus the int8 wire at (2, 2), a
+    megatron_sp width (d_model 1024) at (2, 2) and phi3.5 at (2, 8),
+    where its 4 expert blocks do not divide the ranks and the dense path
+    runs: loss, ``aux_loss`` and grad norm rtol 1e-4 at both steps, the
+    state after step 1 within ``tests/test_torch_tp.py``'s ``BOUNDS``
+    (``BOUNDS_INT8`` on the int8 wire), and the port's ``bine`` step
+    bitwise its ``pallas_fused`` step;
+  * the specs and the (2, 2) bucket plan and report of both configs,
+    full width and reduced; the config fields and full-size parameter
+    counts.
+
+Serving refuses MoE, as the reference's pool does (``pool_supported``),
+naming queue A item 5e.
+"""
+
+from concurrent.futures import ThreadPoolExecutor
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import base as jbase
+from repro.models import sharding as jsh
+from repro.models import transformer as JT
+from repro_torch import tree as TR
+from repro_torch.configs import base as tbase
+from repro_torch.interop import params_from_numpy, train_state_to_numpy
+from repro_torch.models import moe as M
+from repro_torch.models import sharding as SH
+from repro_torch.models import transformer as TF
+from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.train.data import DataConfig, make_batch
+from repro_torch.train.step import (TrainConfig, bucket_report,
+                                    make_init_fns, make_train_step)
+from test_torch_tp import BOUNDS, BOUNDS_INT8, _mostly_close
+
+torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The port's MoE steps are many small ops: on a CPU that other test
+    workers and the JAX subprocesses share, intra-op threads only wait on
+    each other (a step took minutes so).  One thread for this module,
+    restored after it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+ARCHS = ["mixtral-8x7b", "phi3.5-moe-42b-a6.6b"]
+#: full-size parameter counts (the port's and the reference's)
+N_PARAMS = {"mixtral-8x7b": 46_702_792_704,
+            "phi3.5-moe-42b-a6.6b": 41_872_527_360}
+#: the unit cases: (E, nb, K); each in float32 and bf16
+UNITS = ((8, 2, 2), (16, 1, 2), (8, 1, 1))
+DTYPES = ("float32", "bfloat16")
+#: EP rank counts and capacity factors (1.25: the drop regime)
+EP_N = (2, 4)
+EP_CF = (1.25, 8.0)
+#: moe's dispatch choice at n = 8: (tag, (E, nb, K), T); dense where the
+#: expert blocks (4) or the sequence (60) do not divide the ranks
+CHOICE = (("blocks", (4, 1, 2), 64), ("seq", (8, 2, 2), 60),
+          ("ep", (8, 1, 2), 64))
+B_UNIT, T_UNIT, D_UNIT = 2, 64, 64
+A2AS = ("xla", "bine", "bruck", "recdoub")
+
+MIX = ("mixtral-8x7b", dict(dtype="float32"))
+PHI = ("phi3.5-moe-42b-a6.6b", dict(dtype="float32"))
+#: a megatron_sp width (d_model 1024, heads dividing tp), 8 expert blocks
+MEGA = ("mixtral-8x7b", dict(
+    n_layers=1, d_model=1024, n_heads=8, n_kv_heads=4, head_dim=32,
+    d_ff=256, n_experts=4, vocab_size=128, attn_chunk=32, remat=False,
+    dtype="float32"))
+STEPS = 2
+LR = 3e-3
+#: JAX train runs: tag -> (config spec, reduced?, wire, DP sizes, tp)
+RUNS = {
+    "mix21": (MIX, True, "float32", (2,), 1),
+    "mix22": (MIX, True, "float32", (2,), 2),
+    "mix24": (MIX, True, "float32", (2,), 4),
+    "phi21": (PHI, True, "float32", (2,), 1),
+    "phi22": (PHI, True, "float32", (2,), 2),
+    "phi24": (PHI, True, "float32", (2,), 4),
+    "mix22_int8": (MIX, True, "int8", (2,), 2),
+    "mega22": (MEGA, False, "float32", (2,), 2),
+    # 4 expert blocks over 8 ranks: the dense path on the whole stream
+    "phi28": (PHI, True, "float32", (2,), 8),
+}
+#: the JAX subprocesses, run at once: (devices, runs)
+GROUPS = ((2, ("mix21", "phi21")), (4, ("mix22", "phi22", "mix22_int8")),
+          (4, ("mega22",)), (8, ("mix24", "phi24")), (16, ("phi28",)))
+#: the runs the port also takes under backend="auto" (every run takes
+#: pallas_fused and bine)
+AUTO_RUNS = ("mix21", "mix22", "mix24", "phi21", "phi22", "phi24")
+
+PRELUDE = r"""
+import os
+os.environ["REPRO_OBS"] = "0"
+import jax, jax.numpy as jnp, numpy as np
+from jax.sharding import Mesh
+from repro.compat import set_mesh
+from repro.configs import base
+
+def f32(x):
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+out = {{}}
+"""
+
+UNIT_CODE = PRELUDE + r"""
+from repro.models import moe as M, sharding as sh
+devs = np.asarray(jax.devices())
+
+def unit_cfg(E, nb, K, dtype, cf=1.25):
+    return base.get_config("mixtral-8x7b").replace(
+        d_model={d!r}, d_ff=128, n_experts=E, ep_blocks=nb, top_k=K,
+        dtype=dtype, capacity_factor=cf)
+
+def run(cfg, p, x, n, tag):
+    sh.set_model_parallel(n)
+    mesh = Mesh(devs[:n].reshape(1, n), ("data", "model"))
+    with set_mesh(mesh):
+        y, aux = jax.jit(lambda p, x: M.moe(p, cfg, x))(p, x)
+    sh.set_model_parallel(1)
+    out[tag + "_out"], out[tag + "_aux"] = f32(y), f32(aux)
+
+rng = np.random.default_rng(0)
+cases = [(f"u{{i}}_{{dt}}", E, nb, K, dt, {T!r})
+         for i, (E, nb, K) in enumerate({units!r}) for dt in {dtypes!r}]
+cases += [(f"choice_{{tag}}", E, nb, K, "float32", T)
+          for tag, (E, nb, K), T in {choice!r}]
+for i, (tag, E, nb, K, dt, T) in enumerate(cases):
+    cfg = unit_cfg(E, nb, K, dt)
+    p = M.init_moe(jax.random.key(i), cfg)
+    x = jnp.asarray(rng.standard_normal(({B!r}, T, {d!r})), dt)
+    out[tag + "_x"] = f32(x)
+    for k, v in p.items():
+        out[f"{{tag}}_p_{{k}}"] = f32(v)
+    if tag.startswith("choice"):
+        run(cfg, p, x, 8, tag)
+        continue
+    gv, gi, aux = jax.jit(lambda w, x: M._route(w, cfg, x))(
+        p["router"], x.reshape(-1, {d!r}))
+    out[tag + "_gv"], out[tag + "_gi"] = f32(gv), np.asarray(gi)
+    out[tag + "_raux"] = f32(aux)
+    run(cfg, p, x, 1, tag + "_dense")
+    if dt != "float32":
+        continue
+    run(unit_cfg(E, nb, K, dt, 8.0), p, x, 1, tag + "_dense_8.0")
+    for n in {ep_n!r}:
+        for cf in {ep_cf!r}:
+            run(unit_cfg(E, nb, K, dt, cf), p, x, n, f"{{tag}}_ep{{n}}_{{cf}}")
+# a top-k tie: experts 1 and 3 (and 0 and 2) share their router columns
+cfg = unit_cfg(4, 1, 2, "float32")
+w = rng.standard_normal(({d!r}, 2)).astype(np.float32)
+w = np.concatenate([w[:, :1], w[:, 1:], w[:, :1], w[:, 1:]], axis=1)
+xt = rng.standard_normal((16, {d!r})).astype(np.float32)
+gv, gi, aux = M._route(jnp.asarray(w), cfg, jnp.asarray(xt))
+out["tie_w"], out["tie_x"] = w, xt
+out["tie_gv"], out["tie_gi"] = f32(gv), np.asarray(gi)
+out["tie_aux"] = f32(aux)
+np.savez({path!r}, **out)
+print("JAX_OK")
+"""
+
+STEP_CODE = PRELUDE + r"""
+from repro.models import transformer as T
+from repro.optim.adamw import AdamWConfig
+from repro.train.data import DataConfig, make_batch
+from repro.train.step import TrainConfig, make_train_step, make_init_fns
+
+for tag, ((arch, kw), red, wire, dp, tp) in {runs!r}.items():
+    cfg = base.get_config(arch)
+    cfg = (base.reduced(cfg) if red else cfg).replace(**kw)
+    key = jax.random.key(0)
+    shapes = jax.eval_shape(lambda k: T.init_params(k, cfg), key)
+    dcfg = DataConfig(global_batch=8, seq_len=64, vocab_size=cfg.vocab_size)
+    n = int(np.prod(dp)) * tp
+    mesh = Mesh(np.asarray(jax.devices()[:n]).reshape(tuple(dp) + (tp,)),
+                ("data", "model"))
+    tcfg = TrainConfig(backend="pallas_fused", wire_dtype=wire,
+                       bucket_bytes=1 << 16,
+                       adamw=AdamWConfig(lr={lr!r}, warmup_steps=1,
+                                         total_steps=100))
+    step, sh, _ = make_train_step(cfg, tcfg, mesh, shapes)
+    ip, is_ = make_init_fns(cfg, tcfg, mesh, shapes)
+    with set_mesh(mesh):
+        params = ip(key)
+        state = is_(params)
+        for i, x in enumerate(jax.tree.leaves(params)):
+            out[f"{{tag}}_init_{{i}}"] = f32(x)
+        for s in range({steps}):
+            b = make_batch(dcfg, s)
+            batch = {{k: jax.device_put(v, sh["batch"][k])
+                     for k, v in b.items()}}
+            params, state, m = step(params, state, batch)
+            for k in ("loss", "aux_loss", "grad_norm"):
+                out[f"{{tag}}_{{k}}_{{s}}"] = np.asarray(m[k])
+            if s == 0:
+                for i, x in enumerate(jax.tree.leaves(params)):
+                    out[f"{{tag}}_param_{{i}}"] = f32(x)
+                for i, x in enumerate(jax.tree.leaves(state["opt"])):
+                    out[f"{{tag}}_opt_{{i}}"] = np.asarray(x)
+                for bid, x in state.get("ef", {{}}).items():
+                    out[f"{{tag}}_ef_{{bid}}"] = np.asarray(x)
+np.savez({path!r}, **out)
+print("JAX_OK")
+"""
+
+
+def _cfg(spec, reduced=True):
+    arch, kw = spec
+    cfg = tbase.get_config(arch)
+    return (tbase.reduced(cfg) if reduced else cfg).replace(**kw)
+
+
+def _unit_cfg(E, nb, K, dt, cf=1.25):
+    return tbase.get_config("mixtral-8x7b").replace(
+        d_model=D_UNIT, d_ff=128, n_experts=E, ep_blocks=nb, top_k=K,
+        dtype=dt, capacity_factor=cf)
+
+
+@pytest.fixture(scope="module")
+def jax_out(subproc, tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("jax_moe")
+    jobs = [(UNIT_CODE.format(units=UNITS, dtypes=DTYPES, choice=CHOICE,
+                              B=B_UNIT, T=T_UNIT, d=D_UNIT, ep_n=EP_N,
+                              ep_cf=EP_CF, path=str(tmp / "unit.npz")), 8)]
+    for i, (devices, runs) in enumerate(GROUPS):
+        jobs.append((STEP_CODE.format(
+            runs={t: RUNS[t] for t in runs}, steps=STEPS, lr=LR,
+            path=str(tmp / f"step{i}.npz")), devices))
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        for f in [pool.submit(subproc, code, dev, 600) for code, dev in jobs]:
+            f.result()
+    out = dict(np.load(tmp / "unit.npz"))
+    for i in range(len(GROUPS)):
+        out.update(np.load(tmp / f"step{i}.npz"))
+    return out
+
+
+def _t(a, dt="float32"):
+    return torch.from_numpy(np.array(a)).to(getattr(torch, dt))
+
+
+def _unit(out, tag, dt):
+    """The unit case's weights and input, in ``dt``."""
+    p = {k: _t(out[f"{tag}_p_{k}"], dt) for k in ("router", "wi", "wg",
+                                                   "wo")}
+    return p, _t(out[f"{tag}_x"], dt)
+
+
+def _bf16_close(got, exp, what):
+    """The reference test's criterion for bf16 MoE outputs: p98 |diff|
+    below 0.15 and under 2% of the rows past 0.15 (near-tie router logits
+    flip a token's experts between two computations)."""
+    diff = np.abs(got.astype(np.float32) - exp.astype(np.float32))
+    flips = float((diff.max(-1) > 0.15).mean())
+    assert float(np.quantile(diff, 0.98)) < 0.15, what
+    assert flips < 0.02, (what, flips)
+
+
+def _close(got, exp, dt, what, atol=1e-5):
+    got = got.detach().to(torch.float32).numpy()
+    if dt == "float32":
+        np.testing.assert_allclose(got, exp, rtol=0, atol=atol, err_msg=what)
+    else:
+        _bf16_close(got, exp, what)
+
+
+def _ep_params(p, n, whole):
+    """A single rank's MoE leaves over ``n`` stacked TP ranks: the router
+    on every rank, the expert blocks each rank's own (megatron_sp's
+    sharded leaves) or whole on every rank (pure_sp's)."""
+    out = {"router": SH.split_leaf(p["router"], -1, n)}
+    for k in ("wi", "wg", "wo"):
+        out[k] = SH.split_leaf(p[k], -1 if whole else 0, n)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The router, the dense path, the EP path
+# ---------------------------------------------------------------------------
+
+UNIT_TAGS = [(f"u{i}_{dt}", e, dt) for i, e in enumerate(UNITS)
+             for dt in DTYPES]
+
+
+@pytest.mark.parametrize("tag,e,dt", UNIT_TAGS)
+def test_route_matches_jax(jax_out, tag, e, dt):
+    cfg = _unit_cfg(*e, dt)
+    p, x = _unit(jax_out, tag, dt)
+    gv, gi, aux = M._route(p["router"], cfg, x.reshape(-1, D_UNIT))
+    if dt == "float32":
+        np.testing.assert_array_equal(gi.numpy(), jax_out[tag + "_gi"])
+        np.testing.assert_allclose(gv.numpy(), jax_out[tag + "_gv"],
+                                   rtol=0, atol=1e-6)
+    else:       # bf16 logits: a near tie may flip
+        assert (gi.numpy() == jax_out[tag + "_gi"]).all(-1).mean() > 0.98
+    np.testing.assert_allclose(float(aux), float(jax_out[tag + "_raux"]),
+                               rtol=1e-5 if dt == "float32" else 2e-2)
+
+
+@pytest.mark.parametrize("tag,e,dt", UNIT_TAGS)
+def test_moe_dense_matches_jax(jax_out, tag, e, dt):
+    cfg = _unit_cfg(*e, dt)
+    p, x = _unit(jax_out, tag, dt)
+    out, aux = M.moe(p, cfg, x)
+    assert out.dtype == x.dtype
+    _close(out, jax_out[tag + "_dense_out"], dt, tag)
+    np.testing.assert_allclose(float(aux), float(jax_out[tag + "_dense_aux"]),
+                               rtol=1e-5 if dt == "float32" else 2e-2)
+
+
+@pytest.mark.parametrize("whole", [False, True], ids=["sharded", "whole"])
+@pytest.mark.parametrize("cf", EP_CF)
+@pytest.mark.parametrize("n", EP_N)
+@pytest.mark.parametrize("tag,e,dt", [u for u in UNIT_TAGS
+                                      if u[2] == "float32"])
+def test_moe_ep_matches_jax(jax_out, tag, e, dt, n, cf, whole):
+    """The port's EP path over ``n`` stacked ranks (the expert blocks
+    sharded, or held whole and sliced per rank) against the reference's
+    ``_moe_ep``, its per-shard aux (pmean) included, float32 (the bf16
+    routing is held on the dense path and in the bitwise backend test)."""
+    cfg = _unit_cfg(*e, dt, cf)
+    p, x = _unit(jax_out, tag, dt)
+    assert M.use_ep(cfg, n, T_UNIT)
+    out, aux = M.moe(_ep_params(p, n, whole), cfg, SH.seq_shard(x, n), n)
+    assert torch.equal(aux, aux[:1].expand(n))
+    got = torch.cat(list(out), dim=1)                 # the sequence shards
+    what = f"{tag}_ep{n}_{cf}"
+    _close(got, jax_out[what + "_out"], dt, what)
+    np.testing.assert_allclose(float(aux[0]), float(jax_out[what + "_aux"]),
+                               rtol=1e-5 if dt == "float32" else 2e-2)
+
+
+@pytest.mark.parametrize("n", EP_N)
+@pytest.mark.parametrize("tag,e,dt", [u for u in UNIT_TAGS
+                                      if u[2] == "float32"])
+def test_ep_equals_dense_out_of_the_drop_regime(jax_out, tag, e, dt, n):
+    """At capacity factor 8 nothing drops, and the EP path computes the
+    dense path's function, in the reference (under a plain Auto-typed
+    mesh; its own tests/models/test_moe_ep.py fails only on
+    ``jax.make_mesh``'s Explicit axes) and in the port, within 1e-5."""
+    cfg = _unit_cfg(*e, dt, 8.0)
+    ref = jax_out[f"{tag}_ep{n}_8.0_out"]
+    np.testing.assert_allclose(ref, jax_out[f"{tag}_dense_8.0_out"],
+                               rtol=0, atol=1e-5)
+    p, x = _unit(jax_out, tag, dt)
+    dense, _ = M.moe(p, cfg, x)
+    out, _ = M.moe(_ep_params(p, n, False), cfg, SH.seq_shard(x, n), n)
+    np.testing.assert_allclose(torch.cat(list(out), dim=1).numpy(),
+                               dense.numpy(), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("tag,moe_e,T", CHOICE, ids=[c[0] for c in CHOICE])
+def test_moe_dispatch_choice_matches_jax(jax_out, tag, moe_e, T):
+    """At n = 8: the dense path on the whole stream where the 4 expert
+    blocks or the 60-token sequence do not divide the ranks (its global
+    aux on every rank), EP where both do."""
+    cfg = _unit_cfg(*moe_e, "float32")
+    n, what = 8, f"choice_{tag}"
+    p, x = _unit(jax_out, what, "float32")
+    ep = M.use_ep(cfg, n, T)
+    assert ep == (tag == "ep")
+    sp = T % n == 0
+    xs = SH.seq_shard(x, n) if sp else x.expand((n,) + tuple(x.shape))
+    out, aux = M.moe(_ep_params(p, n, whole=not ep), cfg, xs, n, sp)
+    got = torch.cat(list(out), dim=1) if sp else out[0]
+    if not sp:
+        assert all(torch.equal(o, out[0]) for o in out)
+    _close(got, jax_out[what + "_out"], "float32", what)
+    np.testing.assert_allclose(aux.numpy(),
+                               np.full(n, float(jax_out[what + "_aux"])),
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("n", EP_N)
+def test_moe_ep_bitwise_across_all_to_alls(n, monkeypatch):
+    """An all_to_all only moves data: the EP output, aux and every
+    gradient are the same bits whichever algorithm runs the dispatch and
+    combine (the drop regime, float32 and bf16; ``a2a_backend`` made to
+    pick each in turn)."""
+    for dt in DTYPES:
+        cfg = _unit_cfg(8, 2, 2, dt)
+        rng = np.random.default_rng(n)
+        p = {k: _t(rng.standard_normal(s) * 0.1, dt) for k, s in (
+            ("router", (D_UNIT, 8)), ("wi", (16, D_UNIT, 64)),
+            ("wg", (16, D_UNIT, 64)), ("wo", (16, 64, D_UNIT)))}
+        x = SH.seq_shard(_t(rng.standard_normal((2, 64, D_UNIT)), dt), n)
+        res = {}
+        for a2a in A2AS:
+            monkeypatch.setattr(M, "a2a_backend", lambda *_, b=a2a: b)
+            leaves = [v.requires_grad_(True) for v in
+                      _ep_params(p, n, False).values()] + \
+                [x.clone().requires_grad_(True)]
+            q = dict(zip(("router", "wi", "wg", "wo"), leaves[:4]))
+            out, aux = M._moe_ep(q, cfg, leaves[4])
+            grads = torch.autograd.grad(
+                (out.float() * torch.arange(out.numel()).reshape(
+                    out.shape).float().sin()).sum() + aux.sum(), leaves)
+            res[a2a] = [out, aux] + list(grads)
+        for a2a in A2AS[1:]:
+            for a, b in zip(res[a2a], res["xla"]):
+                assert torch.equal(a, b), (dt, a2a)
+
+
+def test_a2a_backend_reads_the_table():
+    """The decision table names the paper's bine all_to_all for the EP
+    buffers of the train cells (n = 2, 4, 8; KiB to hundreds of MiB)."""
+    for n in (2, 4, 8):
+        for nbytes in (1 << 12, 1 << 20, 80 << 20, 1 << 29):
+            assert M.a2a_backend(n, nbytes) == "bine"
+
+
+def test_top_k_tie_matches_jax(jax_out):
+    """Exact ties in the router's probabilities go to the lower expert
+    index in both packages (``lax.top_k``; a stable sort here)."""
+    cfg = _unit_cfg(4, 1, 2, "float32")
+    gv, gi, aux = M._route(_t(jax_out["tie_w"]), cfg, _t(jax_out["tie_x"]))
+    np.testing.assert_array_equal(gi.numpy(), jax_out["tie_gi"])
+    assert set(map(tuple, gi.numpy().tolist())) <= {(0, 2), (1, 3)}
+    np.testing.assert_allclose(gv.numpy(), jax_out["tie_gv"], atol=1e-7)
+    np.testing.assert_allclose(float(aux), float(jax_out["tie_aux"]),
+                               rtol=1e-6)
+
+
+def test_moe_backward_deterministic():
+    """Two backward passes of the dense and the EP path give the same
+    bits: no index step accumulates more than one non-zero term in an
+    order of its own."""
+    cfg = _unit_cfg(8, 2, 2, "float32")
+    rng = np.random.default_rng(7)
+    p = {k: _t(rng.standard_normal(s) * 0.1) for k, s in (
+        ("router", (D_UNIT, 8)), ("wi", (16, D_UNIT, 64)),
+        ("wg", (16, D_UNIT, 64)), ("wo", (16, 64, D_UNIT)))}
+    x = _t(rng.standard_normal((2, 64, D_UNIT)))
+    for n in (1, 4):
+        runs = []
+        for _ in range(2):
+            q = {k: v.clone().requires_grad_(True) for k, v in (
+                p.items() if n == 1 else _ep_params(p, n, False).items())}
+            xi = (x if n == 1 else SH.seq_shard(x, n)).clone(
+            ).requires_grad_(True)
+            out, aux = M.moe(q, cfg, xi, n)
+            runs.append(torch.autograd.grad(
+                out.square().sum() + aux.sum(), list(q.values()) + [xi]))
+        assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+# ---------------------------------------------------------------------------
+# Train steps against the reference
+# ---------------------------------------------------------------------------
+
+def _tcfg(backend, wire):
+    return TrainConfig(backend=backend, wire_dtype=wire, bucket_bytes=1 << 16,
+                       adamw=AdamWConfig(lr=LR, warmup_steps=1,
+                                         total_steps=100))
+
+
+def _run(jax_out, tag, backend):
+    """The port's run of ``RUNS[tag]`` under ``backend`` from JAX's initial
+    params: (metrics of each step, the global numpy state after step 1,
+    rank 0's params after the last step)."""
+    spec, red, wire, dp, tp = RUNS[tag]
+    cfg, tcfg = _cfg(spec, red), _tcfg(backend, wire)
+    shapes = TF.param_shapes(cfg)
+    init = TR.unflatten(shapes, [jax_out[f"{tag}_init_{i}"] for i in
+                                 range(len(TR.flatten(shapes)))])
+    step, _, _ = make_train_step(cfg, tcfg, dp, shapes, "cpu", tp=tp)
+    one = params_from_numpy(init, cfg, "cpu", n_model=tp)
+    params = [TR.tree_map(torch.clone, one) for _ in range(int(np.prod(dp)))]
+    state = make_init_fns(cfg, tcfg, dp, "cpu", tp=tp)[1](params)
+    dcfg = DataConfig(global_batch=8, seq_len=64, vocab_size=cfg.vocab_size)
+    metrics, glob = [], None
+    for s in range(STEPS):
+        params, state, m = step(params, state, make_batch(dcfg, s))
+        metrics.append(m)
+        if s == 0:
+            glob = train_state_to_numpy(cfg, tcfg, params, state, dp, tp=tp)
+    return metrics, glob, TR.flatten(params[0])
+
+
+def _check_state(glob, jax_out, tag):
+    """The global state after step 1 within BOUNDS (BOUNDS_INT8 on the
+    int8 wire), as tests/test_torch_tp.py holds it, but for one stated
+    allowance: a weight whose step-1 gradient is of the order of AdamW's
+    eps (below 100 eps, by the port's m) takes a first update ``lr g /
+    (|g| + eps)`` that float32 rounding of g moves by a large share of
+    itself (ROADMAP.md section C, the tied head at a vocab of 131), so its
+    param and master are held to one AdamW step, lr, in place of the
+    loose bound; they still count toward the 0.1% past the tight bound.
+    (The megatron_sp run has such an embedding element, its gradient
+    4.8e-9, which moves by 2e-3.)"""
+    pairs = {"param": [(x, jax_out[f"{tag}_param_{i}"])
+                       for i, x in enumerate(TR.flatten(glob["params"]))],
+             "master": [], "m": [], "v": []}
+    i = 0
+    opt = TR.flatten_up_to(glob["params"], glob["state"]["opt"])
+    for st in opt:
+        for k in sorted(st):              # m, master, v: the JAX leaf order
+            pairs[k].append((st[k], jax_out[f"{tag}_opt_{i}"]))
+            i += 1
+    ef = {k[len(f"{tag}_ef_"):]: v for k, v in jax_out.items()
+          if k.startswith(f"{tag}_ef_")}
+    assert sorted(glob["state"].get("ef", {})) == sorted(ef)
+    pairs["ef"] = [(glob["state"]["ef"][b], v) for b, v in ef.items()]
+    bounds = BOUNDS_INT8 if RUNS[tag][2] == "int8" else BOUNDS
+    adamw = _tcfg("pallas_fused", "float32").adamw
+    tiny = [np.abs(st["m"]) / (1 - adamw.b1) < 100 * adamw.eps for st in opt]
+    for k, (tight, loose) in bounds.items():
+        if k not in ("param", "master"):
+            _mostly_close(pairs[k], tight, loose, f"{tag} {k}")
+            continue
+        n = n_out = 0
+        for (got, exp), t in zip(pairs[k], tiny):
+            d = np.abs(got.astype(np.float64) - exp)
+            assert d[~t].max(initial=0.0) <= loose, (tag, k, float(d.max()))
+            assert d[t].max(initial=0.0) <= max(loose, LR), (tag, k)
+            n += d.size
+            n_out += int((d > tight).sum())
+        assert n_out <= 1e-3 * n, (tag, k, n_out, n)
+
+
+@pytest.mark.parametrize("tag", list(RUNS))
+def test_moe_train_steps_match_jax(jax_out, tag):
+    """The port's pallas_fused run against the reference's, and its bine
+    run bitwise the pallas_fused one (the step kernels' plain versions
+    are the stacked executor's bits)."""
+    metrics, glob, last = _run(jax_out, tag, "pallas_fused")
+    _check_metrics(metrics, jax_out, tag)
+    _check_state(glob, jax_out, tag)
+    bm, bglob, blast = _run(jax_out, tag, "bine")
+    for a, b in zip(blast, last):
+        assert torch.equal(a, b), tag
+    for a, b in zip(bm, metrics):
+        assert float(a["loss"]) == float(b["loss"])
+
+
+@pytest.mark.parametrize("tag", AUTO_RUNS)
+def test_moe_train_steps_auto_match_jax(jax_out, tag):
+    """``backend="auto"`` resolves each call site through the packaged
+    decision table; held to the reference's pallas_fused run (its float32
+    backends give the same bits)."""
+    metrics, glob, _ = _run(jax_out, tag, "auto")
+    _check_metrics(metrics, jax_out, tag)
+    _check_state(glob, jax_out, tag)
+
+
+def _check_metrics(metrics, jax_out, tag):
+    for s, m in enumerate(metrics):
+        for k in ("loss", "aux_loss", "grad_norm"):
+            np.testing.assert_allclose(float(m[k]),
+                                       jax_out[f"{tag}_{k}_{s}"], rtol=1e-4,
+                                       err_msg=f"{tag} step {s} {k}")
+
+
+def test_tp_moves_the_loss(jax_out):
+    """Expert parallelism drops other tokens than the dense path and
+    averages the aux per shard, so the reference's step-0 losses differ
+    at tp = 1, 2 and 4: the train steps above hold the port's EP path,
+    not the dense math alone."""
+    for arch in ("mix", "phi"):
+        losses = [float(jax_out[f"{arch}2{tp}_loss_0"]) for tp in (1, 2, 4)]
+        assert len(set(losses)) == 3, (arch, losses)
+
+
+# ---------------------------------------------------------------------------
+# Specs, the bucket plan, the configs
+# ---------------------------------------------------------------------------
+
+def _jax_specs(jc, n):
+    jsh.set_model_parallel(n)
+    js = jax.eval_shape(lambda k: JT.init_params(k, jc), jax.random.key(0))
+    specs = [tuple(s) + (None,) * (x.ndim - len(tuple(s)))
+             for s, x in zip(jax.tree.leaves(
+                 jsh.param_specs(jc, js),
+                 is_leaf=lambda s: isinstance(s, jax.sharding.PartitionSpec)),
+                 jax.tree.leaves(js))]
+    return js, specs
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_moe_specs_match_jax(arch, n):
+    """``param_specs`` of both MoE configs equal the reference's (full
+    width with 2 layers: megatron_sp, the stacked expert leaves
+    ``[L, EB, ...]`` sharded on dim 1; reduced: pure_sp, all whole but
+    the vocab leaves), and ``shard_params`` cuts each leaf so."""
+    try:
+        for red in (False, True):
+            jc = jbase.get_config(arch).replace(n_layers=2)
+            tc = tbase.get_config(arch).replace(n_layers=2)
+            if red:
+                jc, tc = jbase.reduced(jc), tbase.reduced(tc)
+            _, jspecs = _jax_specs(jc, n)
+            assert jsh.strategy(jc) == SH.strategy(tc, n)
+            shapes = TF.param_shapes(tc)
+            assert TR.flatten(SH.param_specs(tc, shapes, n)) == jspecs
+            mds = TR.flatten(SH.model_dims(tc, shapes, n))
+            for (path, x), md in zip(TR.flatten_with_path(shapes), mds):
+                if "moe" in path and path[-1] != "router":
+                    assert md == (-1 if red else 1), (path, md)
+            if red:
+                params = TF.init_params(tc.replace(dtype="float32"), 0, "cpu")
+                back = SH.unshard_params(tc, SH.shard_params(tc, params, n),
+                                         n, shapes)
+                assert all(torch.equal(a, b) for a, b in zip(
+                    TR.flatten(back), TR.flatten(params)))
+    finally:
+        jsh.set_model_parallel(1)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_moe_bucket_report_matches_jax(arch):
+    """The (2, 2) bucket plan and report of both MoE configs equal the
+    reference's at model axis 2 (full width with 2 layers and reduced,
+    float32 and int8 wires): the expert leaves' zero dims skip their
+    model dim as the reference's do."""
+    from repro.train import step as jstep
+    from repro.train import zero as jzero
+    try:
+        for red in (False, True):
+            jc = jbase.get_config(arch).replace(n_layers=2)
+            tc = tbase.get_config(arch).replace(n_layers=2)
+            if red:
+                jc, tc = jbase.reduced(jc), tbase.reduced(tc)
+            js, _ = _jax_specs(jc, 2)
+            for wire in ("float32", "int8"):
+                kw = dict(backend="auto", wire_dtype=wire)
+                jt = jstep.TrainConfig(**kw)
+                jplan = jstep.resolve_bucket_plan(
+                    jt, 2, js, jzero.zero_layout(jc, js, 2))
+                tt = TrainConfig(**kw)
+                info = make_train_step(tc, tt, 2, TF.param_shapes(tc), "cpu",
+                                       tp=2)[1]
+                assert bucket_report(tt, info["bucket_plan"]) == \
+                    jstep.bucket_report(jt, jplan)
+                assert [[(s.index, s.zero_dim, s.offset) for s in b.slots]
+                        for b in info["bucket_plan"].buckets] == \
+                    [[(s.index, s.zero_dim, s.offset) for s in b.slots]
+                     for b in jplan.buckets]
+    finally:
+        jsh.set_model_parallel(1)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_moe_config_copy_matches(arch):
+    j, t = jbase.get_config(arch), tbase.get_config(arch)
+    assert t.family == "moe"
+    assert {f: getattr(t, f) for f in t.__dataclass_fields__} == \
+        {f: getattr(j, f) for f in t.__dataclass_fields__}
+    assert tbase.reduced(t).__dict__ == jbase.reduced(j).__dict__
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_moe_full_size_parameter_count(arch):
+    t = tbase.get_config(arch)
+    js = jax.eval_shape(lambda k: JT.init_params(k, jbase.get_config(arch)),
+                        jax.random.key(0))
+    assert TF.param_count(TF.param_shapes(t)) == sum(
+        int(np.prod(x.shape)) for x in jax.tree.leaves(js)) == N_PARAMS[arch]
+    assert [(b.kind, b.window) for b in TF.layer_pattern(t)] == [
+        (b.kind, b.window) for b in JT.layer_pattern(jbase.get_config(arch))]
+
+
+# ---------------------------------------------------------------------------
+# Serving refuses MoE; the train CLI runs it
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_serving_refuses_moe(arch):
+    """The pool refuses MoE as the reference's does (``pool_supported``),
+    and the serve CLI, ``prefill``, ``decode_step`` and
+    ``init_decode_state`` raise naming queue A item 5e."""
+    from repro.serve import engine as jeng
+    from repro_torch.launch import serve as LS
+    from repro_torch.serve import engine as E
+    cfg = tbase.reduced(tbase.get_config(arch)).replace(dtype="float32")
+    assert not E.pool_supported(cfg)
+    assert E.pool_supported(cfg) == jeng.pool_supported(
+        jbase.reduced(jbase.get_config(arch)))
+    assert E.pool_supported(tbase.get_config("gemma3-4b"))
+    with pytest.raises(NotImplementedError, match="5e"):
+        LS.main(["--arch", arch, "--reduced", "--device", "cpu"])
+    params = TF.init_params(cfg, 0, "cpu")
+    toks = torch.zeros((1, 32), dtype=torch.int64)
+    with pytest.raises(NotImplementedError, match="5e"):
+        TF.prefill(params, cfg, toks)
+    with pytest.raises(NotImplementedError, match="5e"):
+        TF.init_decode_state(cfg, 1, 32, "cpu")
+    with pytest.raises(NotImplementedError, match="5e"):
+        TF.decode_step(params, cfg, {"segments": [], "pos": torch.zeros(
+            (), dtype=torch.int32)}, toks[:, :1])
+
+
+def test_train_cli_runs_moe_expert_parallel(capsys):
+    """``--arch mixtral-8x7b --mesh 2,2`` trains on the CPU, its aux in
+    the metrics."""
+    from repro_torch.launch import train as LT
+    LT.main(["--arch", "mixtral-8x7b", "--reduced", "--mesh", "2,2",
+             "--device", "cpu", "--steps", "2", "--batch", "4", "--seq",
+             "16", "--backend", "pallas_fused", "--log-every", "1"])
+    out = capsys.readouterr().out
+    assert "arch=mixtral-8x7b" in out and "tp=2 (pure_sp)" in out
+    assert "aux" in out and "done: 2 steps" in out
