@@ -175,13 +175,42 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
              obs record; (d) step ms, peak GiB, and the (2, 2) step's
              device groups, its MoE layer by phase and idle share from
              ``launch/profile_step.py`` (a ``moe:`` JSON line).
+13. recurrent blocks — (a) reduced xlstm-125m and zamba2-2.7b
+             (float32, float32 caches), the card against the CPU: two
+             pallas_fused train steps at p = 2 (losses and step 1's grad
+             norm rtol 1e-4, params after step 1 as 12a) and prefill + 4
+             decode steps (logits within 1e-4 of max |logit|); (b) the
+             flash kernel at head_dim 80, zamba2's insert q [4, 1024, 32,
+             80] causal (bf16 on wgmma within 3e-2, float32 on the CUDA
+             cores within 2e-5; a ``flash_attention_hd80`` row beside
+             SDPA); (c) ``cell.SSM_TRAIN_CELLS``: zamba2-2.7b at full
+             width cut to 12 of 54 Mamba2 blocks (two firings of its tied
+             shared block) and xlstm-125m at full depth, p = 4, batch 8 x
+             1024, float32 wire: two pallas_fused steps and a bine step,
+             params bitwise equal after the first, rs_step and ag_step
+             launched, the loss and each token's NLL within
+             ``SSM_GATES`` of the plain float32 forward (three seeds'
+             bf16 forwards inside, two faults an arch outside), step ms,
+             tokens/s, peak, and the idle share from
+             ``launch/profile_step.py``; (d) ``cell.SSM_SERVE_CELLS``
+             through ``launch.serve.run_fixed_batch``: zamba2-2.7b at full
+             depth (4 x 1024 prompts) and xlstm-125m (8 x 1024), 32 greedy
+             tokens each, 2 rmsnorm a block and the final norm per prefill
+             and per decode step (each rmsnorm shape of the loop then held
+             to the plain version, bf16 within one ulp), zamba2's 9 flash
+             launches all on wgmma,
+             its bf16 prefill logits within ``SSM_LOGIT_ULPS`` of the
+             float32 prefill on three seeds and a planted flash fault
+             outside (an ``ssm:`` JSON line).
 
 The kernels line's launches of rs_step, ag_step and rs_step_q sum the
 train step's main path, its two-axis path, phase 8's runs, the TP path's,
-the gemma3 train step's and the MoE train steps'; those of rmsnorm the
-serve, serve-TP and dense serve paths'; flash_attention's (head_dim 128)
-the serve, serve-TP and qwen3-32b paths', flash_attention_hd256's the
-gemma3-4b, gemma-7b and gemma3-4b serve-TP paths'; the ``kernels by path:`` line gives each
+the gemma3 train step's, the MoE train steps' and the recurrent train
+cells'; those of rmsnorm the serve, serve-TP, dense serve and fixed-batch
+paths'; flash_attention's (head_dim 128) the serve, serve-TP and
+qwen3-32b paths', flash_attention_hd256's the gemma3-4b, gemma-7b and
+gemma3-4b serve-TP paths', flash_attention_hd80's zamba2's fixed-batch
+path's; the ``kernels by path:`` line gives each
 path's own counts, each of which must be above 0.  Prints a ``kernels:``
 summary, one JSON line of per-kernel numbers, the card's name and power
 limit, and as its last line
@@ -223,6 +252,8 @@ SOURCE = {"rs_step": CSRC + "collective_steps.cu",
           "flash_attention": KSRC + "flash_attention/csrc/flash_attention.cu",
           "flash_attention_hd256":
           KSRC + "flash_attention/csrc/flash_attention.cu",
+          "flash_attention_hd80":
+          KSRC + "flash_attention/csrc/flash_attention.cu",
           "qacc": KSRC + "qdot/csrc/qacc.cu"}
 REPLACES = {
     "rs_step": "src/repro/kernels/collectives/kernel.py:78",
@@ -236,6 +267,7 @@ REPLACES = {
     "rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:26",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:91",
     "flash_attention_hd256": "src/repro/kernels/flash_attention/kernel.py:91",
+    "flash_attention_hd80": "src/repro/kernels/flash_attention/kernel.py:91",
     "qacc": "src/repro/kernels/qdot/kernel.py:27",
 }
 #: phi4-mini's tensor-parallel MLP at p=4 (d_model 3072, d_ff 8192): the
@@ -405,6 +437,7 @@ def phase_kernels(dev):
     # rs_step, f32 with the next send: reads the kept half and recv, writes
     # new and send
     buf, recv = randn(p, 2 * h), randn(p, h)
+    kept = R.take_half(buf, c)
     b16, r16 = buf.to(torch.bfloat16), recv.to(torch.bfloat16)
     entry("rs_step", lambda: K.rs_step(buf, recv, c, cn),
           lambda: R.rs_step_ref(buf, recv, c, cn),
@@ -414,7 +447,17 @@ def phase_kernels(dev):
            ("bf16 send", lambda: K.rs_step(b16, r16, c, cn),
             lambda: R.rs_step_ref(b16, r16, c, cn)),
            ("bf16 no-send", lambda: K.rs_step(b16, r16, c),
-            lambda: R.rs_step_ref(b16, r16, c))])
+            lambda: R.rs_step_ref(b16, r16, c))],
+          # the library call: torch.add of the kept half and recv, the
+          # no-send variant's function (timed beside it below)
+          library_fn=lambda: torch.add(kept, recv))
+    rows["rs_step"]["no_send_ms"] = time_ms(lambda: K.rs_step(buf, recv, c))
+    rows["rs_step"]["no_send_device_ms"] = PR.device_ms_per_call(
+        lambda: K.rs_step(buf, recv, c), "rs_step")
+    log(f"  rs_step no-send (the library call's function): "
+        f"{ms(rows['rs_step']['no_send_ms'])} ms, device "
+        f"{ms(rows['rs_step']['no_send_device_ms'])} ms; rs_step_q has no "
+        f"single-call library counterpart (decode, add, re-quantize)")
 
     # ag_step, f32 at the last AG step of the bucket (out [p, 2h])
     a, b = randn(p, h), randn(p, h)
@@ -463,7 +506,8 @@ def phase_kernels(dev):
     check(bool((ss == 2.0 ** -126).any() and (ss == 2.0 ** 122).any()
                and ss.isinf().any() and (ss == 1.0).any()),
           "rs_step_q's edge chunks did not reach the send half")
-    del buf, recv, b16, r16, a, b, a16, b16_, qa, qb, rq, rs, rq2, rs2, buf2
+    del buf, recv, kept, b16, r16, a, b, a16, b16_, qa, qb, rq, rs, rq2, rs2
+    del buf2
     del bufn, rqn, ss
     torch.cuda.empty_cache()
     phase_ring_update(dev, randn, entry, row)
@@ -2959,8 +3003,11 @@ def phase_moe_train(dev):
     the EP all_to_all's calls, backend and global-link bytes from the obs
     record (three calls a layer a DP rank a step: the dispatch, its block
     ids, the combine).  Then the (2, 2) step's device groups, its MoE
-    layer's phases and idle share from ``launch/profile_step.py``.
-    Returns the fused steps' launches by mesh and the numbers."""
+    layer's phases and idle share from ``launch/profile_step.py``, its
+    busy ms and launches (each group's over the profiled steps) read from
+    the raw kineto events equal to ``key_averages``' reading of the same
+    profile.  Returns the fused
+    steps' launches by mesh and the numbers."""
     import torch
     from repro_torch.launch import cell
     from repro_torch.launch import profile_step as PS
@@ -3060,14 +3107,522 @@ def phase_moe_train(dev):
             "params_sha256": run.digests[tag],
             "all_to_all": {b: list(v) for b, v in a2a.items()}}
     torch.cuda.empty_cache()
-    prof = PS.profile(cfg, "pallas_fused", "float32", dev, "2,2")
+    prof = PS.profile(cfg, "pallas_fused", "float32", dev, "2,2",
+                      compare=True)
     torch.cuda.empty_cache()
     nums["profile_2,2"] = {k: prof[k] for k in (
         "wall_ms", "busy_ms", "idle_share", "tokens_per_s", "groups_ms",
-        "moe_phases_ms")}
+        "group_counts", "moe_phases_ms", "key_averages")}
     check(prof["moe_phases_ms"], "the (2, 2) profile saw no MoE phase")
+    # the raw kineto events and key_averages (the older accounting)
+    # account the same kernels
+    old = prof["key_averages"]
+    check(math.isclose(old["busy_ms"], prof["busy_ms"], rel_tol=1e-6) and
+          old["group_counts"] == prof["group_counts"],
+          f"the (2, 2) profile's raw events (busy {prof['busy_ms']} ms, "
+          f"{prof['group_counts']}) and key_averages ({old}) disagree")
     log(f"  moe (2,2) profiled {prof['wall_ms']:.1f} ms, idle share "
         f"{prof['idle_share']:.3f}")
+    return launches, nums
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: the recurrent blocks (xlstm-125m, zamba2-2.7b)
+# ---------------------------------------------------------------------------
+
+#: phase 13's train-cell gates, per arch: (loss, token), set from
+#: ``ssm_loss_readings`` on an H100 (PERF.md, section 6).  The bf16
+#: step's loss within the first of the plain float32 loss of the same
+#: weights (upcast) on the same batch, and the mean over tokens of |bf16
+#: NLL - float32 NLL| within the second, as phase 12 gates the MoE cell;
+#: each fault of ``SSM_FAULTS`` must land outside the token gate.  zamba2
+#: x12 read loss gaps +0.00051, +0.00003, +0.00011 and token gaps
+#: 0.0256-0.0264 on seeds 0-2 (its GeGLU fault 0.061); xlstm-125m -0.0006,
+#: -0.0020, -0.000001 and 0.0474-0.0500 (its mLSTM fault 0.544): each
+#: gate is about 1.5x its largest token reading and 3-4x its largest loss
+#: gap
+SSM_GATES = {"zamba2-2.7b": (0.002, 0.04), "xlstm-125m": (0.006, 0.075)}
+#: phase 13's serve gate: zamba2's bf16 prefill logits against the
+#: float32 prefill of the same weights (upcast, float32 caches), the mean
+#: of |bf16 - float32| over the batch's last-token logits in bf16 ulps of
+#: max |logit|, within SSM_LOGIT_ULPS on three seeds, while the flash
+#: kernel with its last 16 head columns zeroed lands outside it on each.
+#: Set from readings on an H100 (PERF.md, section 6): sound 2.11, 2.14,
+#: 2.11, the fault 3.74, 3.61, 3.63; the max over the logits separated
+#: them less (sound 11.5-12.8, the fault 18.6-23.6)
+SSM_LOGIT_ULPS = 2.8
+
+
+def _zero_leaf(name):
+    """A fault: every stacked leaf called ``name`` zeroed."""
+    def fault(cfg, params):
+        import torch
+        from repro_torch import tree as T
+        return cfg, T.map_with_path(
+            lambda p, x: torch.zeros_like(x) if p and p[-1] == name else x,
+            params)
+    return fault
+
+
+def _replace_cfg(**kw):
+    def fault(cfg, params):
+        return cfg.replace(**kw), params
+    return fault
+
+
+#: forward faults the token gate must see, per arch: (name, fault(cfg,
+#: params) -> (cfg, params))
+SSM_FAULTS = {
+    "zamba2-2.7b": {"Mamba2's D skip dropped": _zero_leaf("D"),
+                    "GeGLU for SwiGLU (shared block)":
+                    _replace_cfg(act="geglu")},
+    "xlstm-125m": {"sLSTM blocks' output projection zeroed":
+                   _zero_leaf("out"),
+                   "mLSTM's input gate weights zeroed": _zero_leaf("wgi")},
+}
+
+
+def phase_ssm_small_reference(dev):
+    """(a) Reduced xlstm-125m and zamba2-2.7b (float32, float32 caches),
+    the same weights on the card and on the CPU: two pallas_fused train
+    steps at p = 2 (the losses and step 1's grad norm within rtol 1e-4;
+    params after step 1 all but 0.1% within 1e-5, every one within 2.5 lr,
+    as phase 12a), then ``prefill`` of 64 tokens and 4 ``decode_step``s
+    (logits within 1e-4 of max |logit|).  Step 2's grad norm is reported:
+    a weight whose step-1 gradient is of the order of AdamW's eps moves by
+    up to 2 lr between two float32 sums (tests/test_torch_ssm.py)."""
+    import numpy as np
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.configs import base
+    from repro_torch.models import transformer as TF
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.data import DataConfig, make_batch
+    from repro_torch.train.step import (TrainConfig, init_train_state,
+                                        make_train_step)
+
+    tcfg = TrainConfig(backend="pallas_fused", bucket_bytes=1 << 16,
+                       adamw=AdamWConfig(lr=3e-3, warmup_steps=1,
+                                         total_steps=100))
+    dp = 2
+    for arch in ("xlstm-125m", "zamba2-2.7b"):
+        cfg = base.reduced(base.get_config(arch)).replace(
+            dtype="float32", cache_dtype="float32")
+        dcfg = DataConfig(global_batch=8, seq_len=64,
+                          vocab_size=cfg.vocab_size)
+        init = TF.init_params(cfg, 0, "cpu")
+        tok = torch.as_tensor(np.random.RandomState(2).randint(
+            0, cfg.vocab_size, (2, 68)), dtype=torch.int32)
+        out = {}
+        for where in ("cpu", dev):
+            step, _, _ = make_train_step(cfg, tcfg, dp, TF.param_shapes(cfg),
+                                         where)
+            params = [T.tree_map(lambda x: x.to(where), init)
+                      for _ in range(dp)]
+            state = init_train_state(cfg, tcfg, params, dp)
+            mets, first = [], None
+            for s in range(2):
+                params, state, m = step(params, state, make_batch(dcfg, s))
+                mets.append([float(m["loss"]), float(m["grad_norm"])])
+                if s == 0:
+                    first = [x.cpu() for x in T.flatten(params[0])]
+            p1 = T.tree_map(lambda x: x.to(where), init)
+            with torch.no_grad():
+                lg, st = TF.prefill(p1, cfg, tok[:, :64].to(where))
+                logits = [lg.cpu()]
+                for t in range(4):
+                    lg, st = TF.decode_step(p1, cfg, st,
+                                            tok[:, 64 + t:65 + t].to(where))
+                    logits.append(lg.cpu())
+            out[str(where)] = (mets, first, logits)
+        (mc, pc, lc), (mg, pg, lgd) = out["cpu"], out[str(dev)]
+        what = f"ssm small reference {arch}"
+        for (a, b), (c, d_) in zip(mc, mg):
+            check(math.isclose(a, c, rel_tol=1e-4),
+                  f"{what}: card loss {c} vs cpu {a}")
+        check(math.isclose(mc[0][1], mg[0][1], rel_tol=1e-4),
+              f"{what}: card step-1 grad norm {mg[0][1]} vs cpu {mc[0][1]}")
+        diffs = [(a - b).abs() for a, b in zip(pc, pg)]
+        perr = max(float(d.max()) for d in diffs)
+        n_all = sum(d.numel() for d in diffs)
+        n_out = sum(int((d > 1e-5).sum()) for d in diffs)
+        lr = tcfg.adamw.lr
+        check(perr <= 2.5 * lr and n_out <= 1e-3 * n_all,
+              f"{what}: params differ by {perr} (> {2.5 * lr}), {n_out} of "
+              f"{n_all} beyond 1e-5")
+        lerr = max(float((a - b).abs().max() / a.abs().max())
+                   for a, b in zip(lc, lgd))
+        check(lerr <= 1e-4, f"{what}: prefill/decode logits differ by "
+              f"{lerr} of max |logit|")
+        log(f"  small {arch} (f32): card loss / gnorm {mg} vs cpu {mc} "
+            f"(step 2's gnorm reported); params max |diff| {perr:.2e}, "
+            f"{n_out} of {n_all} beyond 1e-5; prefill + 4 decode logits "
+            f"{lerr:.2e} of max |logit|")
+
+
+def phase_ssm_flash(dev, randn, row):
+    """(b) The flash kernel at head_dim 80, zamba2-2.7b's shared attention
+    at its serve cell's prefill, q, k, v [4, 1024, 32, 80] causal (g = 1):
+    bf16 on the wgmma kernel (head_dim 128's tiles, columns 80-127
+    zero-filled by TMA) within 3e-2 of the plain version, float32 on the
+    CUDA cores within 2e-5 (``flash_case``); the ``flash_attention_hd80``
+    row (event ms, device ms under torch.profiler, host us, the bound by
+    operations over 989 TFLOP/s against bytes over 3.35 TB/s, SDPA's
+    times, its backend named)."""
+    import torch
+    from repro_torch.launch import cell
+
+    cfg = cell.serve_model_config(cell.ZAMBA2_SERVE_CELL)
+    heads = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+    B = cell.ZAMBA2_SERVE_CELL.slots
+    T_ = cell.ZAMBA2_SERVE_CELL.prompt_len_max
+    flash_case(dev, randn, heads, T_, None, torch.float32, B)
+    kern, plain, lib, err, bound, by = flash_case(dev, randn, heads, T_,
+                                                  None, torch.bfloat16, B)
+    backend = sdpa_backend(lib)
+    log(f"  SDPA at q [{B}, {T_}, 32, 80] bf16 causal ran: {backend}")
+    row("flash_attention_hd80", err, kern, plain, bound, by, lib,
+        device="flash_kernel_wgmma", sdpa_backend=backend)
+    del kern, plain, lib
+    torch.cuda.empty_cache()
+
+
+def ssm_loss_readings(cfg, dcfg, dev, seeds=(0,), faults=None):
+    """A recurrent train cell's forward on its whole global batch (one
+    forward: the sLSTM scan costs launches a call, not a row): ``loss_fn``'s
+    cross entropy and z-loss, and each token's NLL.  For each seed the
+    bf16 loss of ``init_params(cfg, seed)`` on ``make_batch(dcfg, seed)``,
+    the plain float32 loss of the same weights (upcast) and the token gap,
+    the mean over tokens of |bf16 NLL - float32 NLL|; on the first seed
+    each fault of ``faults`` (name -> fault(cfg, params)) in bf16, its
+    loss and token gap to the sound float32 run.  Returns ({seed: (bf16,
+    f32, token gap)}, {fault: (loss, token gap)})."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.models import transformer as TF
+    from repro_torch.train.data import make_batch
+
+    f32 = cfg.replace(dtype="float32")
+
+    def fwd(params, c, batch):
+        """(the loss, every token's NLL)"""
+        logits = TF.forward(params, c, batch["inputs"])[0].float()
+        lse = torch.logsumexp(logits, dim=-1)
+        tok = lse - torch.gather(logits, -1,
+                                 batch["targets"][..., None].long())[..., 0]
+        del logits
+        return float(tok.mean() + c.z_loss * (lse * lse).mean()), \
+            tok.reshape(-1)
+
+    def gap(a, b):
+        return float((a - b).abs().mean())
+
+    sound, faulty = {}, {}
+    with torch.no_grad():
+        for seed in seeds:
+            batch = {k: torch.as_tensor(v, device=dev)
+                     for k, v in make_batch(dcfg, seed).items()}
+            params = TF.init_params(cfg, seed, dev)
+            b16 = fwd(params, cfg, batch)
+            bad = {}
+            if seed == seeds[0]:
+                for name, fault in (faults or {}).items():
+                    c2, p2 = fault(cfg, params)
+                    bad[name] = fwd(p2, c2, batch)
+                    del p2
+            p32 = T.tree_map(lambda x: x.float(), params)
+            del params
+            torch.cuda.empty_cache()
+            ref = fwd(p32, f32, batch)
+            sound[seed] = (b16[0], ref[0], gap(b16[1], ref[1]))
+            faulty.update({k: (v[0], gap(v[1], ref[1]))
+                           for k, v in bad.items()})
+            del p32, batch, b16, bad, ref
+            torch.cuda.empty_cache()
+    return sound, faulty
+
+
+def phase_ssm_train(dev):
+    """(c) ``cell.SSM_TRAIN_CELLS``: zamba2-2.7b at full width cut to 12
+    of 54 Mamba2 blocks (two firings of the tied shared block) and
+    xlstm-125m at full depth, p = 4, batch 8 x 1024, bf16, float32 wire:
+    two pallas_fused steps and one bine step from the same start, rank
+    0's params after the first bitwise equal (and the losses), rs_step
+    and ag_step launched by the fused steps; the step-0 loss within its
+    ``SSM_GATES`` loss bound of the plain float32 forward of the same
+    weights and its tokens' NLL within its token bound on average, as are
+    three seeds' bf16 forwards, while each fault of ``SSM_FAULTS`` lands
+    outside the token gate.  Then each step's device groups under
+    ``launch/profile_step.py``, and its idle share against the step's
+    unprofiled wall time.  Returns the fused steps' launches by arch and
+    the numbers."""
+    import torch
+    from repro_torch.launch import cell
+    from repro_torch.launch import profile_step as PS
+    from repro_torch.models import transformer as TF
+
+    launches, nums = {}, {}
+    for tc in cell.SSM_TRAIN_CELLS:
+        cfg, dcfg, run = train_runs(dev, tc.model_config())
+        dp = tc.meshes[0][0]
+        tokens = dcfg.global_batch * dcfg.seq_len
+        n_params = TF.param_count(TF.param_shapes(cfg))
+        kinds = sorted({b.kind for b, _ in TF.segments(cfg)})
+        log(f"  {cfg.name}: {cfg.n_layers} blocks {kinds}, {n_params:,} "
+            f"params, d_model {cfg.d_model}; p = {dp}, batch "
+            f"{dcfg.global_batch}x{dcfg.seq_len}")
+        tag = f"{cfg.name} pallas_fused/float32"
+        counts, losses, times, peak, first = run(
+            cell.train_config("pallas_fused", "float32"), dp, 2, tag,
+            digest=True)
+        launches[cfg.name] = {k: counts[k] for k in ("rs_step", "ag_step")}
+        for k, v in launches[cfg.name].items():
+            check(v > 0, f"the {cfg.name} train step did not launch {k}")
+        cb, lb, tb, peak_b, bine_first = run(
+            cell.train_config("bine", "float32"), dp, 1,
+            f"{cfg.name} bine/float32")
+        check(sum(cb.values()) == 0, f"the bine path launched kernels: {cb}")
+        check(all(torch.equal(a, b) for a, b in zip(first, bine_first)),
+              f"{cfg.name}: bine and pallas_fused params differ after one "
+              f"float32 step")
+        check(lb[0] == losses[0], f"{cfg.name}: bine loss {lb[0]} vs "
+              f"pallas_fused {losses[0]}")
+        del first, bine_first
+        torch.cuda.empty_cache()
+        loss_atol, token_atol = SSM_GATES[cfg.name]
+        sound, faulty = ssm_loss_readings(cfg, dcfg, dev, (0, 1, 2),
+                                          SSM_FAULTS[cfg.name])
+        ref = sound[0][1]
+        for seed, (b16, f32, tg) in sound.items():
+            log(f"  {cfg.name} seed {seed}: bf16 forward loss {b16:.6f}, "
+                f"plain float32 {f32:.6f}, gap {b16 - f32:+.6f}; token gap "
+                f"{tg:.6f}")
+        for name, (loss, tg) in faulty.items():
+            log(f"  {cfg.name} seed 0, {name}: bf16 loss {loss:.6f}, gap "
+                f"{loss - ref:+.6f} to the sound float32 loss; token gap "
+                f"{tg:.6f}")
+        check(math.isfinite(losses[0]) and
+              abs(losses[0] - ref) <= loss_atol,
+              f"{cfg.name} step-0 loss {losses[0]} vs the plain float32 "
+              f"loss {ref} (bound {loss_atol})")
+        for seed, (b16, f32, tg) in sound.items():
+            check(abs(b16 - f32) <= loss_atol and tg <= token_atol,
+                  f"{cfg.name} seed {seed}: bf16 loss {b16} vs float32 "
+                  f"{f32}, token gap {tg} (bounds {loss_atol}, "
+                  f"{token_atol})")
+        for name, (loss, tg) in faulty.items():
+            check(tg > token_atol,
+                  f"{cfg.name} with {name}: token gap {tg} within "
+                  f"{token_atol} of the sound float32 run; the gate "
+                  f"cannot see that fault")
+        torch.cuda.empty_cache()
+        # one profiled step for xlstm: its sLSTM scans make every step
+        # hundreds of thousands of profiler events
+        prof = PS.profile(cfg, "pallas_fused", "float32", dev, f"{dp},1",
+                          steps=1 if cfg.name == "xlstm-125m" else 2)
+        torch.cuda.empty_cache()
+        warm = times[1]
+        idle = 1 - prof["busy_ms"] / (warm * 1e3)
+        log(f"  {cfg.name} bine float32 step == pallas_fused float32 step, "
+            f"bitwise; loss {losses[0]:.6f}, plain float32 {ref:.6f} "
+            f"(bounds {loss_atol} / token {token_atol}); warm step "
+            f"{warm * 1e3:.1f} ms ({tokens / warm:.0f} tokens/s), peak "
+            f"{peak:.1f} GiB; profiled {prof['wall_ms']:.1f} ms wall, "
+            f"{prof['busy_ms']:.1f} ms busy: idle share {idle:.3f} of the "
+            f"unprofiled step ({prof['idle_share']:.3f} under the profiler)")
+        nums[cfg.name] = {
+            "n_layers": cfg.n_layers, "params": n_params,
+            "loss_hex": losses[0].hex(), "losses": losses,
+            "gnorms": run.gnorms[tag], "f32_loss": ref,
+            "forward_losses": {s: list(v) for s, v in sound.items()},
+            "fault_losses": faulty, "step_ms": [t * 1e3 for t in times],
+            "warm_step_ms": warm * 1e3, "tokens_per_s": tokens / warm,
+            "peak_gib": peak, "bine_step_ms_cold": tb[0] * 1e3,
+            "bine_peak_gib": peak_b, "params_sha256": run.digests[tag],
+            "profile": {k: prof[k] for k in (
+                "wall_ms", "busy_ms", "idle_share", "groups_ms",
+                "group_launches")},
+            "idle_share_unprofiled": idle}
+    return launches, nums
+
+
+def _planted_flash_fault():
+    """The flash kernel's output with its last 16 head columns zeroed (a
+    kernel that dropped head_dim 80's second panel): a context manager
+    over ``models.transformer``'s flash_attention."""
+    import contextlib
+    from repro_torch.models import transformer as TF
+
+    @contextlib.contextmanager
+    def planted():
+        real = TF.flash_attention
+
+        def broken(q, k, v, **kw):
+            o = real(q, k, v, **kw).clone()
+            o[..., 64:] = 0
+            return o
+        TF.flash_attention = broken
+        try:
+            yield
+        finally:
+            TF.flash_attention = real
+    return planted()
+
+
+def ssm_logit_readings(cfg, dev, c, params, seeds, fault: bool) -> dict:
+    """The serve cell ``c``'s bf16 prefill (its batch of prompts from
+    ``np.random.RandomState(seed)``) against the float32 prefill of the
+    same weights (upcast; float32 caches), for each seed (``params``: the
+    first seed's weights, the others drawn from theirs), and with
+    ``fault`` the bf16 prefill with the planted flash fault: the max and
+    the mean of |bf16 - float32| over the batch's last-token logits, in
+    bf16 ulps of max |logit|."""
+    import numpy as np
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.models import transformer as TF
+
+    f32 = cfg.replace(dtype="float32", cache_dtype="float32")
+    out = {}
+    with torch.no_grad():
+        for seed in seeds:
+            if params is None:
+                params = TF.init_params(cfg, seed, dev)
+            prompt = torch.as_tensor(np.random.RandomState(seed).randint(
+                0, cfg.vocab_size, size=(c.slots, c.prompt_len_max)),
+                dtype=torch.int32, device=dev)
+            lb = TF.prefill(params, cfg, prompt)[0].float()
+            lf = None
+            if fault:
+                with _planted_flash_fault():
+                    lf = TF.prefill(params, cfg, prompt)[0].float()
+            p32 = T.tree_map(lambda x: x.float(), params)
+            params = None
+            torch.cuda.empty_cache()
+            l32 = TF.prefill(p32, f32, prompt)[0].float()
+            del p32
+            torch.cuda.empty_cache()
+            ulp = float(bf16_ulp(l32.abs().max()))
+            check(bool(torch.isfinite(lb).all()),
+                  f"{cfg.name} seed {seed}: non-finite logits")
+            r = {"max": float((lb - l32).abs().max()) / ulp,
+                 "mean": float((lb - l32).abs().mean()) / ulp,
+                 "max_abs_logit": float(l32.abs().max())}
+            if lf is not None:
+                r["fault_max"] = float((lf - l32).abs().max()) / ulp
+                r["fault_mean"] = float((lf - l32).abs().mean()) / ulp
+            out[seed] = r
+            del lb, lf, l32
+    return out
+
+
+def phase_ssm_serve(dev, randn):
+    """(d) ``cell.SSM_SERVE_CELLS`` through ``launch.serve.run_fixed_batch``
+    (the reference's loop for the configs its pool refuses): zamba2-2.7b
+    at full depth (54 Mamba2 blocks, 9 firings of the shared attention at
+    head_dim 80), 4 prompts of 1024 tokens, and xlstm-125m, 8 of 1024;
+    32 greedy tokens each.  The launch counts read around the loop: one
+    rmsnorm per norm of the path (ln1 and each block's gated norm, the
+    shared block's ln1 and ln2, the final norm) per prefill and per
+    decode step, and for zamba2 9 flash_attention launches, all on wgmma,
+    in the one prefill; every token in the vocabulary.  zamba2's bf16
+    prefill logits within ``SSM_LOGIT_ULPS`` bf16 ulps of max |logit| (the
+    mean of |bf16 - float32|) of the float32 prefill of the same weights
+    (upcast; float32 caches) on three seeds, and the planted flash fault
+    outside it on each (``ssm_logit_readings``); xlstm's reported in the
+    same units.  Every rmsnorm shape the loop gave the kernel (prefill rows
+    slots x prompt length and decode rows slots, at d_model and each
+    block's gated-norm width: zamba2 2560 and 5120, xlstm 768 and 1536)
+    is recorded and held to the plain version in bf16 within one ulp
+    (``rmsnorm_case``).  Reports prefill ms, decode tokens/s and the peak.
+    Returns the launches by arch and the numbers."""
+    import torch
+    from repro_torch.kernels import build as KB
+    from repro_torch.kernels.rmsnorm import ops as RO
+    from repro_torch.launch import cell
+    from repro_torch.launch.serve import run_fixed_batch
+    from repro_torch.models import transformer as TF
+
+    launches, nums = {}, {}
+    for c in cell.SSM_SERVE_CELLS:
+        cfg = cell.serve_model_config(c)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = TF.init_params(cfg, c.seed, dev)
+        segs = TF.segments(cfg)
+        n_attn = sum(n for b, n in segs if b.kind == "shared_attn")
+        # two norms a block (ln1 and the block's gated norm, or the shared
+        # block's ln1 and ln2) and the final norm
+        n_norm = 2 * sum(n for _, n in segs) + 1
+        B, Lp, new = c.slots, c.prompt_len_max, c.max_new
+        log(f"  {cfg.name}: {cfg.n_layers} blocks, {TF.param_count(params):,}"
+            f" params ({cfg.dtype}), fixed batch {B} x {Lp} tokens, {new} "
+            f"greedy tokens")
+        shapes, real = set(), RO.rmsnorm_kernel
+
+        def recorded(x, w, eps):
+            shapes.add((*x.shape, eps, x.dtype))
+            return real(x, w, eps)
+        torch.cuda.synchronize()
+        KB.reset_launches()
+        RO.rmsnorm_kernel = recorded
+        try:
+            toks, got = run_fixed_batch(cfg, params, B, Lp, new,
+                                        seed=c.seed, device=dev)
+        finally:
+            RO.rmsnorm_kernel = real
+        counts = {k: v for k, v in KB.LAUNCHES.items() if v}
+        want = {"rmsnorm": n_norm * new}
+        if n_attn:
+            want["flash_attention"] = want["flash_attention_wgmma"] = n_attn
+        check(counts == want, f"{cfg.name} fixed batch: launches {counts}, "
+              f"expected {want} ({n_norm} norms a call, {n_attn} flash in "
+              f"the prefill)")
+        check(toks.shape == (B, new) and int(toks.min()) >= 0 and
+              int(toks.max()) < cfg.vocab_size,
+              f"{cfg.name}: tokens {toks.shape} out of range")
+        launches[cfg.name] = counts
+        got["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        widths = sorted({d for _, d, _, _ in shapes})
+        check({n for n, _, _, _ in shapes} == {B * Lp, B} and
+              all(dt == torch.bfloat16 for *_, dt in shapes),
+              f"{cfg.name}: rmsnorm shapes {sorted(shapes, key=str)}")
+        for rows_, d, eps, dt in sorted(shapes, key=lambda t: t[:2]):
+            rmsnorm_case(randn, rows_, d, eps, dt)
+        log(f"  {cfg.name}: rmsnorm at the loop's {len(shapes)} shapes "
+            f"(rows {B * Lp} and {B}, d {widths}, bf16) within one bf16 "
+            f"ulp of plain")
+        got["rmsnorm_widths"] = widths
+        read = ssm_logit_readings(cfg, dev, c, params,
+                                  seeds=(c.seed, c.seed + 1, c.seed + 2),
+                                  fault=bool(n_attn))
+        del params
+        torch.cuda.empty_cache()
+        got["logit_readings"] = read
+        for seed, r in read.items():
+            planted = (f"; with the flash kernel's last 16 head columns "
+                       f"zeroed {r['fault_max']:.1f} / {r['fault_mean']:.3f}"
+                       if n_attn else "")
+            log(f"  {cfg.name} seed {seed}: bf16 prefill logits from "
+                f"float32, in bf16 ulps of max |logit| "
+                f"({r['max_abs_logit']:.3f}): max {r['max']:.1f}, mean "
+                f"{r['mean']:.3f}{planted}")
+        log(f"  {cfg.name}: launches {counts}; prefill "
+            f"{got['prefill_ms']:.1f} ms, decode "
+            f"{got['decode_tokens_per_s']:.1f} tokens/s, peak "
+            f"{got['peak_gib']:.2f} GiB")
+        if n_attn:
+            for seed, r in read.items():
+                check(r["mean"] <= SSM_LOGIT_ULPS,
+                      f"{cfg.name} seed {seed}: bf16 prefill mean "
+                      f"{r['mean']} (max {r['max']}) bf16 ulps from float32 "
+                      f"(gate {SSM_LOGIT_ULPS})")
+                check(r["fault_mean"] > SSM_LOGIT_ULPS,
+                      f"{cfg.name} seed {seed}: the planted flash fault "
+                      f"lands mean {r['fault_mean']} (max {r['fault_max']}) "
+                      f"ulps away, within the gate")
+        nums[cfg.name] = got
+        torch.cuda.empty_cache()
     return launches, nums
 
 
@@ -3094,7 +3649,7 @@ def main() -> int:
     from repro_torch.kernels.rmsnorm import kernel as RK
 
     t_all = time.perf_counter()
-    log("[1/12] build")
+    log("[1/13] build")
     t0 = time.perf_counter()
     libs = KB.build()
     for src in K.SOURCES:
@@ -3104,62 +3659,73 @@ def main() -> int:
     log(f"  built {', '.join(p.name for p in libs.values())} in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    log("[2/12] kernels vs plain versions")
+    log("[2/13] kernels vs plain versions")
     rows, qacc_launches, row, randn = phase_kernels(dev)
     torch.cuda.empty_cache()
 
-    log("[3/12] fused collectives vs stacked (bitwise)")
+    log("[3/13] fused collectives vs stacked (bitwise)")
     phase_collectives(dev)
 
-    log("[4/12] collectives API")
+    log("[4/13] collectives API")
     api_launches = phase_api(dev)
 
-    log("[5/12] two-tier (bine_hier)")
+    log("[5/13] two-tier (bine_hier)")
     hier_launches, two_tier = phase_two_tier(dev)
     torch.cuda.empty_cache()
 
-    log("[6/12] train")
+    log("[6/13] train")
     phase_small_reference(dev)
     launches, train = phase_train(dev)
     torch.cuda.empty_cache()
 
-    log("[7/12] serve")
+    log("[7/13] serve")
     phase_serve_small_reference(dev)
     serve_launches, serve, serve_ref = phase_serve(dev)
     torch.cuda.empty_cache()
 
-    log("[8/12] checkpoint, resume, measured tables, obs")
+    log("[8/13] checkpoint, resume, measured tables, obs")
     run_launches, runtime = phase_runtime(dev)
     torch.cuda.empty_cache()
 
-    log("[9/12] tensor parallelism")
+    log("[9/13] tensor parallelism")
     phase_tp_small_reference(dev)
     tp_launches, tp = phase_tp(dev)
     torch.cuda.empty_cache()
 
-    log("[10/12] serving under TP")
+    log("[10/13] serving under TP")
     phase_serve_tp_small_reference(dev)
     stp_launches, serve_tp = phase_serve_tp(
         dev, {"nums": serve, "ref": serve_ref})
     torch.cuda.empty_cache()
 
-    log("[11/12] dense configs (gemma3-4b, gemma-7b, qwen3-32b)")
+    log("[11/13] dense configs (gemma3-4b, gemma-7b, qwen3-32b)")
     t11 = time.perf_counter()
     phase_dense_flash(dev, randn, row)
-    del row, randn
     dense_launches, dense, g3tp_launches, g3tp = phase_dense_serve(dev)
     g3train_launches, g3train = phase_dense_train(dev)
     torch.cuda.empty_cache()
     dense_s = time.perf_counter() - t11
     log(f"  phase 11: {dense_s:.0f} s")
 
-    log("[12/12] MoE train (mixtral-8x7b, expert parallelism)")
+    log("[12/13] MoE train (mixtral-8x7b, expert parallelism)")
     t12 = time.perf_counter()
     phase_moe_small_reference(dev)
     moe_launches, moe = phase_moe_train(dev)
     torch.cuda.empty_cache()
     moe["seconds"] = time.perf_counter() - t12
     log(f"  phase 12: {moe['seconds']:.0f} s")
+
+    log("[13/13] recurrent blocks (xlstm-125m, zamba2-2.7b)")
+    t13 = time.perf_counter()
+    phase_ssm_small_reference(dev)
+    phase_ssm_flash(dev, randn, row)
+    del row
+    ssm_train_launches, ssm_train = phase_ssm_train(dev)
+    ssm_serve_launches, ssm_serve = phase_ssm_serve(dev, randn)
+    del randn
+    torch.cuda.empty_cache()
+    ssm_s = time.perf_counter() - t13
+    log(f"  phase 13: {ssm_s:.0f} s")
     # each path's own kernel launches, read around that path alone
     by_path = {"train": dict(launches), "two-axis": hier_launches,
                "runtime": run_launches, "tp": tp_launches,
@@ -3168,7 +3734,10 @@ def main() -> int:
                "serve-tp gemma3-4b": g3tp_launches,
                "train gemma3-4b": g3train_launches,
                **{f"train mixtral-8x7b ({m})": n
-                  for m, n in moe_launches.items()}}
+                  for m, n in moe_launches.items()},
+               **{f"train {a}": n for a, n in ssm_train_launches.items()},
+               **{f"serve {a} (fixed batch)": n
+                  for a, n in ssm_serve_launches.items()}}
     for path, counts in by_path.items():
         for name, n in counts.items():
             check(n > 0, f"kernel {name} was not launched on the {path} "
@@ -3191,7 +3760,8 @@ def main() -> int:
         launches[name] += n
     for name, n in g3train_launches.items():
         launches[name] += n
-    for counts in moe_launches.values():
+    for counts in list(moe_launches.values()) + list(
+            ssm_train_launches.values()):
         for name, n in counts.items():
             launches[name] += n
     for name in ("ring_update", "matmul_pack_wgmma", "gather_matmul_wgmma"):
@@ -3212,6 +3782,13 @@ def main() -> int:
     launches["flash_attention"] = launches.pop("flash_attention_wgmma")
     launches["flash_attention_hd256"] = sum(n["flash_attention_wgmma"]
                                             for n in hd256)
+    # the recurrent serve paths: their norms on the rmsnorm row, zamba2's
+    # shared attention (head_dim 80) on the flash_attention_hd80 row
+    launches["rmsnorm"] += sum(n["rmsnorm"]
+                               for n in ssm_serve_launches.values())
+    launches["flash_attention_hd80"] = sum(
+        n.get("flash_attention_wgmma", 0)
+        for n in ssm_serve_launches.values())
     launches["qacc"] = qacc_launches
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched on its path")
@@ -3228,6 +3805,8 @@ def main() -> int:
         "serve": dense, "serve-tp gemma3-4b": g3tp,
         "train gemma3-4b": g3train, "seconds": dense_s}))
     log(f"moe: {json.dumps(moe)}")
+    log("ssm: " + json.dumps({"train": ssm_train, "serve": ssm_serve,
+                              "seconds": ssm_s}))
     log(f"train: {json.dumps(train)}; total {time.perf_counter() - t_all:.0f} s")
     print(json.dumps({"kernels": list(rows.values())}))
     smi = subprocess.run(

@@ -3,8 +3,9 @@
 Port of ``repro.configs.base``.  The dataclass keeps every field of the
 reference so configs carry over unchanged; the registry holds the
 architectures the port can run: the four dense ones (phi4-mini,
-gemma3-4b, gemma-7b, qwen3-32b) and the two MoE ones (mixtral-8x7b,
-phi3.5-moe-42b-a6.6b; trained, not served).
+gemma3-4b, gemma-7b, qwen3-32b), the two MoE ones (mixtral-8x7b,
+phi3.5-moe-42b-a6.6b; trained, not served) and the two recurrent ones
+(xlstm-125m, zamba2-2.7b; on one TP rank).
 """
 
 from __future__ import annotations
@@ -77,15 +78,15 @@ def get_config(name: str) -> ModelConfig:
         _load_all()
     if name not in _REGISTRY:
         raise NotImplementedError(
-            f"arch {name!r} is not ported (ROADMAP.md queue A item 5, "
-            f"5c-5d: the recurrent and frontend configs); ported: "
+            f"arch {name!r} is not ported (ROADMAP.md queue A item 5d: "
+            f"the frontend configs); ported: "
             f"{sorted(_REGISTRY)}")
     return _REGISTRY[name]
 
 
 def _load_all():
     from . import (gemma3_4b, gemma_7b, mixtral_8x7b, phi35_moe,  # noqa
-                   phi4_mini, qwen3_32b)
+                   phi4_mini, qwen3_32b, xlstm_125m, zamba2_2p7b)
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:

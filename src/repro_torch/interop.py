@@ -27,18 +27,17 @@ from repro_torch import tree as T
 def params_from_numpy(tree: Any, cfg, device="cuda", n_model: int = 1
                       ) -> Any:
     """A numpy parameter tree (e.g. ``jax.tree.map(np.asarray, params)``)
-    -> the port's tree of ``cfg.dtype`` tensors on ``device``, stacked
+    -> the port's tree of tensors on ``device``, each leaf in its dtype
+    of ``models.transformer.param_shapes(cfg)`` (``cfg.dtype``, or
+    float32 for Mamba2's SSM leaves, as the reference keeps them), stacked
     over ``n_model`` TP ranks when it is above 1."""
+    from repro_torch.models.transformer import param_shapes
     dev = resolve_device(device)
-    dt = getattr(torch, cfg.dtype)
 
-    def one(x):
-        a = np.asarray(x)
-        if a.dtype.name == "bfloat16":   # ml_dtypes: widen exactly first
-            a = a.astype(np.float32)
-        return torch.from_numpy(np.array(a, copy=True)).to(dev, dt)
+    def one(x, like):
+        return _from_np(x).to(dev, like.dtype)
 
-    out = T.tree_map(one, tree)
+    out = T.tree_map(one, tree, param_shapes(cfg))
     if n_model > 1:
         from repro_torch.models.sharding import shard_params
         out = shard_params(cfg, out, n_model)
@@ -54,6 +53,13 @@ def params_to_numpy(tree: Any, cfg=None, n_model: int = 1) -> Any:
         from repro_torch.models.transformer import param_shapes
         tree = unshard_params(cfg, tree, n_model, param_shapes(cfg))
     return T.tree_map(_np_leaf, tree)
+
+
+def _from_np(x) -> torch.Tensor:
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":   # ml_dtypes: widen exactly first
+        a = a.astype(np.float32)
+    return torch.from_numpy(np.array(a, copy=True))
 
 
 def _np_leaf(x: torch.Tensor) -> np.ndarray:
@@ -78,21 +84,17 @@ def train_state_from_numpy(model_cfg, tcfg, tree: Any, dp, device="cuda",
                            tp: int = 1):
     """Inverse of :func:`train_state_to_numpy` at the DP sizes ``dp`` and
     model axis ``tp``: ``(params, state)`` stacked on ``device``.  Params
-    take ``cfg.dtype``, the optimizer state and residuals float32, the
-    step int32."""
+    take their dtypes of ``param_shapes`` (as :func:`params_from_numpy`),
+    the optimizer state and residuals float32, the step int32."""
+    from repro_torch.models.transformer import param_shapes
     from repro_torch.train.step import from_global
-    dt = getattr(torch, model_cfg.dtype)
 
     def one(dtype):
-        def conv(x):
-            a = np.asarray(x)
-            if a.dtype.name == "bfloat16":
-                a = a.astype(np.float32)
-            return torch.from_numpy(np.array(a, copy=True)).to(dtype)
-        return conv
+        return lambda x: _from_np(x).to(dtype)
 
     st = tree["state"]
-    glob = {"params": T.tree_map(one(dt), tree["params"]),
+    glob = {"params": T.tree_map(lambda x, like: _from_np(x).to(like.dtype),
+                                 tree["params"], param_shapes(model_cfg)),
             "state": {"opt": T.tree_map(one(torch.float32), st["opt"]),
                       "step": one(torch.int32)(st["step"])}}
     if "ef" in st:

@@ -18,8 +18,8 @@
 // retrying:
 //
 // 1. flash_kernel_wgmma, on the tensor cores, for bf16 q, k, v with
-//    head_dim in (16, 32, 64, 128, 256) whose strides and base addresses
-//    TMA can take (multiples of 16 bytes).  Bound: operations, 4 hd flops
+//    head_dim in (16, 32, 64, 80, 128, 256) whose strides and base
+//    addresses TMA can take (multiples of 16 bytes).  Bound: operations, 4 hd flops
 //    per live (query head, query, key) pair over the H100's 989 TFLOP/s
 //    bf16 tensor-core peak (0.0065 ms at q [1, 1024, 24, 128] causal).
 //    Design: one block of one consumer warpgroup (128 threads) per
@@ -57,6 +57,15 @@
 //    64 x hd bf16 (Q and the K/V ring; 80 KB at hd 128, so two blocks fit
 //    an SM; 160 KB at hd 256, one).  At hd 256 PV is two m64n128k16 a
 //    16-key step, over V's column halves of two 128-byte panels each.
+//    Head_dim 80 (zamba2's shared attention) keeps head_dim 128's tiles:
+//    two 64-column, 128-byte-swizzled panels, the tensor maps given the
+//    real inner dim 80, so TMA zero-fills columns 80-127 of Q, K and V
+//    (and counts them in the transaction bytes). QK^T runs its 5 k steps
+//    (columns 0-79: the fifth reads panel 1's first 16), PV the m64n128k16
+//    of head_dim 128 (columns 80-127 accumulate zeros, never stored): 1.6x
+//    PV's tensor-core work at 80, no new wgmma shape, no new swizzle. The
+//    same route takes 160 to head_dim 256's tiles (10 k steps, PV's
+//    second m64n128 over columns 128-255, three quarters zeros).
 // 2. flash_kernel, on the CUDA cores, for float32 (where it beats SDPA)
 //    and any other call: one block of 256 threads per (batch, query head,
 //    64-row query tile); GQA maps the query head to its kv head.  The Q
@@ -285,6 +294,9 @@ int dispatch(int hd, const void* q, const void* k, const void* v, void* o,
     case 64:
       return launch<T, 64>(q, k, v, o, B, nkv, g, Tq, Tk, st, window, causal,
                            scale, s);
+    case 80:
+      return launch<T, 80>(q, k, v, o, B, nkv, g, Tq, Tk, st, window, causal,
+                           scale, s);
     case 128:
       return launch<T, 128>(q, k, v, o, B, nkv, g, Tq, Tk, st, window,
                             causal, scale, s);
@@ -311,9 +323,11 @@ constexpr int kStages = 2;     // K/V tiles in flight
 
 template <int HD>
 struct Geo {
-  static constexpr int SW = HD * 2 < 128 ? HD * 2 : 128;  // swizzle, bytes
+  static constexpr int HDP = HD == 80 ? 128 : HD;   // the tiles' columns
+  static constexpr int SW = HDP * 2 < 128 ? HDP * 2 : 128;  // swizzle, bytes
   static constexpr int PW = SW / 2;          // bf16 per swizzled row
-  static constexpr int NP = HD / PW;         // panels a tile (2 at HD=128)
+  static constexpr int NP = HDP / PW;        // panels a tile (2 at HD=128)
+  static constexpr int NACC = HDP / 2;       // O accumulator registers
   static constexpr int PANEL = 64 * SW;      // one 64-row panel, bytes
   static constexpr int TILE = NP * PANEL;    // one 64 x HD tile, bytes
   static constexpr int LAYOUT = desc_layout(SW);
@@ -337,7 +351,7 @@ __device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int kk) {
 
 // O += P V for one 16-key step, V's rows at shared address ``vaddr``
 template <int HD>
-__device__ __forceinline__ void pv_wgmma(float (&o)[HD / 2],
+__device__ __forceinline__ void pv_wgmma(float (&o)[Geo<HD>::NACC],
                                          const uint32_t (&a)[4],
                                          uint32_t vaddr) {
   using G = Geo<HD>;
@@ -350,7 +364,7 @@ __device__ __forceinline__ void pv_wgmma(float (&o)[HD / 2],
         make_desc(vaddr + 2 * G::PANEL, G::PANEL, 8 * G::SW, G::LAYOUT);
     wgmma_rs_m64n128(*reinterpret_cast<Half*>(o), a, db, 1);
     wgmma_rs_m64n128(*reinterpret_cast<Half*>(o + 64), a, db2, 1);
-  } else if constexpr (HD == 128) {
+  } else if constexpr (HD == 128 || HD == 80) {
     wgmma_rs_m64n128(o, a, db, 1);
   } else if constexpr (HD == 64) {
     wgmma_rs_m64n64(o, a, db, 1);
@@ -441,9 +455,9 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
   const int lane = threadIdx.x % 32;
   const int ra = ((threadIdx.x / 32) % 4) * 16 + lane / 4;
   const int cq = 2 * (lane % 4);
-  float acc[HD / 2];
+  float acc[G::NACC];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < G::NACC; ++i) acc[i] = 0.0f;
   float mrow[2] = {NEG_INF, NEG_INF}, lrow[2] = {0.0f, 0.0f};
   const uint32_t qtile = smem_u32(Qs);
   const float scale_log2 = scale * 1.4426950408889634f;   // log2(e) folded in
@@ -453,7 +467,8 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
     const int s = j % kStages, k0 = (kt_begin + j) * 64;
     mbar_wait(&full[s], (j / kStages) & 1);
 
-    // S = Q K^T: m64n64k16 over head_dim, Q and K both K-major
+    // S = Q K^T: m64n64k16 over head_dim (not the padded columns), Q
+    // and K both K-major
     float sc[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) sc[i] = 0.0f;
@@ -516,7 +531,7 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
       mrow[h] = mx[h];
     }
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    for (int i = 0; i < G::NACC; ++i) acc[i] *= alpha[(i >> 1) & 1];
 
     // O += P V with P = p_hi + p_lo, two bf16 terms from the registers
     // (the accumulator layout of S is wgmma's register-A layout); V is
@@ -591,6 +606,7 @@ int run(const void* q, const void* k, const void* v, void* o, int B, int nkv,
   using G = Geo<HD>;
   // q [B, nkv, g, Tq, HD] and k, v [B, nkv, Tk, HD], innermost first, in
   // the caller's strides (bytes); a box is one head's 64 rows x one panel
+  // (past the real head_dim, at 80, zero-filled)
   const uint64_t dq[5] = {HD, static_cast<uint64_t>(Tq),
                           static_cast<uint64_t>(g),
                           static_cast<uint64_t>(nkv),
@@ -628,7 +644,7 @@ extern "C" {
 
 // q, k, v, o: device pointers; strides in elements (the head dim has
 // stride 1): q and o [B, nkv, g, T, hd] as (b, n, g, t), k and v
-// [B, nkv, Tk, hd] as (b, n, t); hd in {16, 32, 64, 128, 256}; window <= 0
+// [B, nkv, Tk, hd] as (b, n, t); hd in {16, 32, 64, 80, 128, 256}; window <= 0
 // for none; bf16 selects __nv_bfloat16 inputs and output (else float32).
 int repro_flash_attention(const void* q, const void* k, const void* v,
                           void* o, int B, int nkv, int g, int Tq, int Tk,
@@ -650,7 +666,7 @@ int repro_flash_attention(const void* q, const void* k, const void* v,
 
 // the same arguments for bf16 on the tensor cores (the wrapper's
 // predicate: bf16, strides multiples of 8 elements, 16-byte aligned q, k,
-// v; hd in {16, 32, 64, 128, 256})
+// v; hd in {16, 32, 64, 80, 128, 256})
 int repro_flash_attention_wgmma(const void* q, const void* k, const void* v,
                                 void* o, int B, int nkv, int g, int Tq,
                                 int Tk, int hd, long long qb, long long qn,
@@ -671,6 +687,9 @@ int repro_flash_attention_wgmma(const void* q, const void* k, const void* v,
                          scale, s);
     case 64:
       return wg::run<64>(q, k, v, o, B, nkv, g, Tq, Tk, st, window, causal,
+                         scale, s);
+    case 80:
+      return wg::run<80>(q, k, v, o, B, nkv, g, Tq, Tk, st, window, causal,
                          scale, s);
     case 128:
       return wg::run<128>(q, k, v, o, B, nkv, g, Tq, Tk, st, window, causal,

@@ -34,7 +34,9 @@ _SIGNATURES = {
     "repro_flash_attention_wgmma": [B.VP] * 4 + [B.INT] * 6 + [B.LL] * 14
     + [B.INT, B.INT, B.FLOAT, B.VP],
 }
-HEAD_DIMS = (16, 32, 64, 128, 256)
+#: head dims the kernels take (80: zamba2's shared attention, on the
+#: tensor cores in head_dim 128's tiles, columns 80-127 zero-filled)
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 
 
 def _lib():

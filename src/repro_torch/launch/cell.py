@@ -25,6 +25,13 @@ layers, batch 8 x 1024, the float32 wire, at (dp, tp) = (2, 1) (the dense
 capacity dispatch on each DP rank) and (2, 2) (megatron_sp with expert
 parallelism: the dispatch and combine on the paper's all_to_all).
 
+The recurrent configs (``SSM_TRAIN_CELLS``, ``SSM_SERVE_CELLS``):
+zamba2-2.7b at full width cut to 12 of its 54 Mamba2 blocks and
+xlstm-125m at full depth, trained at p = 4 on the train cell's batch;
+served through the fixed-batch loop (zamba2 at full depth, 4 x 1024-token
+prompts; xlstm 8 x 1024), 32 greedy tokens each.  Each cell's comment
+says why.
+
 The dense configs (``DENSE_SERVE_CELLS``): gemma3-4b at full depth
 (``GEMMA3_SERVE_CELL``: prompts past its 1024-token local window, pages
 of 2048), gemma-7b at full depth (``GEMMA7B_SERVE_CELL``) and qwen3-32b at
@@ -90,6 +97,29 @@ class TrainCell:
 #: the model axis; one layer keeps the step's weights, optimizer state and
 #: EP activations on one card for both meshes.
 MOE_TRAIN_CELL = TrainCell("mixtral-8x7b", 1, ((2, 1), (2, 2)))
+
+#: zamba2-2.7b (arXiv:2411.15242) at full width: d_model 2560, Mamba2
+#: blocks of d_inner 5120 (80 heads of 64, state 64, conv 4, chunk 128),
+#: the shared attention block (32/32 heads of 80, d_ff 10240) after every
+#: 6th, a tied vocabulary of 32000; cut to 12 of its 54 Mamba2 blocks, so
+#: two firings of the tied shared block (665,381,184 params, bf16; its
+#: Mamba2 A_log, D and dt_bias in float32).  Twelve keep both firings'
+#: gradient sum on the path and the 4 stacked ranks' weights, ZeRO state
+#: and SSD activations (intra-chunk tensors [2, 128, 128, 80] float32 per
+#: chunk and layer a rank) on one card.  Users train zamba2 so:
+#: data-parallel, its long-context state O(1) in the sequence.
+ZAMBA2_TRAIN_CELL = TrainCell("zamba2-2.7b", 12, ((4, 1),))
+#: xlstm-125m (arXiv:2405.04517) at full depth: 12 blocks of d_model 768,
+#: 9 mLSTM (4 heads in the 1536-wide inner dim, chunk 128) and 3 sLSTM
+#: (every 4th: a 1024-step scan over 768 units), a tied vocabulary of
+#: 50304 (95,402,496 params, bf16).  Full depth because it is small; the
+#: sLSTM scan is a Python loop of about 20 small launches a step, so this
+#: cell measures what the host costs a recurrent model.
+XLSTM_TRAIN_CELL = TrainCell("xlstm-125m", 12, ((4, 1),))
+SSM_TRAIN_CELLS = (ZAMBA2_TRAIN_CELL, XLSTM_TRAIN_CELL)
+#: each train cell by arch (``launch/profile_step.py --arch``; the others
+#: take ``model_config(arch)``)
+TRAIN_CELLS = {c.arch: c for c in (MOE_TRAIN_CELL,) + SSM_TRAIN_CELLS}
 
 
 def tp_small_config() -> ModelConfig:
@@ -174,8 +204,24 @@ GEMMA7B_SERVE_CELL = ServeCell(arch="gemma-7b", requests=8)
 #: within the smoke's time.
 QWEN3_SERVE_CELL = ServeCell(arch="qwen3-32b", n_layers=16, requests=8)
 DENSE_SERVE_CELLS = (GEMMA3_SERVE_CELL, GEMMA7B_SERVE_CELL, QWEN3_SERVE_CELL)
+#: the recurrent configs, served as the reference serves them: the pool
+#: refuses them (their state would integrate the padding), so one
+#: lock-step batch of ``slots`` prompts of ``prompt_len_max`` tokens
+#: through ``launch.serve.run_fixed_batch``, ``max_new`` greedy tokens.
+#: zamba2-2.7b at full width and full depth (54 Mamba2 blocks, 9 firings
+#: of the shared attention at head_dim 80; 2,340,466,848 params, 4.7 GB
+#: bf16), 4 prompts of 1024 tokens: a batch of long-context requests, what
+#: a hybrid is for; its prefill runs the flash kernel at head_dim 80.
+ZAMBA2_SERVE_CELL = ServeCell(arch="zamba2-2.7b", slots=4, requests=4,
+                              prompt_len_min=1024, prompt_len_max=1024)
+#: xlstm-125m at full depth, 8 prompts of 1024 tokens: a small model
+#: served in bulk, its decode state O(1) in the sequence.
+XLSTM_SERVE_CELL = ServeCell(arch="xlstm-125m", slots=8, requests=8,
+                             prompt_len_min=1024, prompt_len_max=1024)
+SSM_SERVE_CELLS = (ZAMBA2_SERVE_CELL, XLSTM_SERVE_CELL)
 #: each served arch's cell (``launch/profile_serve.py --arch``)
-SERVE_CELLS = {c.arch: c for c in (SERVE_CELL,) + DENSE_SERVE_CELLS}
+SERVE_CELLS = {c.arch: c for c in (SERVE_CELL,) + DENSE_SERVE_CELLS +
+               SSM_SERVE_CELLS}
 
 
 def serve_model_config(c: ServeCell = SERVE_CELL) -> ModelConfig:

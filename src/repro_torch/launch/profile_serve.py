@@ -15,7 +15,13 @@ device's idle share, as text and as one JSON line:
 ``--mesh data,model`` serves the cell over that many DP and TP ranks
 stacked on the card (``launch/cell.py`` ``SERVE_TP_SHAPE``); ``--arch``
 profiles that arch's serve cell (``cell.SERVE_CELLS``: phi4-mini,
-gemma3-4b, gemma-7b, qwen3-32b) in place of ``SERVE_CELL``.
+gemma3-4b, gemma-7b, qwen3-32b, zamba2-2.7b, xlstm-125m) in place of
+``SERVE_CELL``.  The recurrent configs, which the pool refuses, are
+profiled as ``launch.serve.run_fixed_batch`` serves them
+(:func:`profile_fixed`): one prefill of the cell's batch and ``STEPS``
+decode steps:
+
+  python -m repro_torch.launch.profile_serve --arch zamba2-2.7b
 """
 
 from __future__ import annotations
@@ -30,10 +36,12 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.launch import cell
+from repro_torch.launch.serve import fixed_batch_steps
 from repro_torch.launch.profile_step import TOP, group_of
 from repro_torch.launch.train import parse_mesh
 from repro_torch.models import transformer as TF
-from repro_torch.serve.engine import ServeConfig, make_serve_fns, page_len
+from repro_torch.serve.engine import (ServeConfig, make_serve_fns, page_len,
+                                      pool_supported)
 from repro_torch.serve.sampling import gather_vocab
 from repro_torch.serve.scheduler import poisson_trace
 
@@ -101,17 +109,41 @@ def profile(cfg, params, dev, mesh: str = "1,1",
           f"tokens, mesh {mesh}, on {torch.cuda.get_device_name(0)}")
     for name, fn, reps in (("insert", insert, 2),
                            ("decode_step", decode, STEPS)):
-        wall_ms, groups, top = _profile(fn, reps)
-        busy = sum(groups.values())
-        out[name] = {"wall_ms": wall_ms, "busy_ms": busy,
-                     "idle_share": 1 - busy / wall_ms, "groups_ms": groups}
-        print(f"{name}: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms, "
-              f"idle share {1 - busy / wall_ms:.3f}")
-        for g, ms in sorted(groups.items(), key=lambda t: -t[1]):
-            print(f"  {g:26s} {ms:9.3f} ms  {ms / wall_ms:6.1%}")
-        print("  top kernels (ms per call, launches per call):")
-        for ms, n, kname in top:
-            print(f"    {ms:9.3f} ms  x{n:<5d} {kname[:90]}")
+        out[name] = _report(name, fn, reps)
+    return out
+
+
+def _report(name, fn, reps: int) -> dict:
+    wall_ms, groups, top = _profile(fn, reps)
+    busy = sum(groups.values())
+    print(f"{name}: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms, "
+          f"idle share {1 - busy / wall_ms:.3f}")
+    for g, ms in sorted(groups.items(), key=lambda t: -t[1]):
+        print(f"  {g:26s} {ms:9.3f} ms  {ms / wall_ms:6.1%}")
+    print("  top kernels (ms per call, launches per call):")
+    for ms, n, kname in top:
+        print(f"    {ms:9.3f} ms  x{n:<5d} {kname[:90]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy,
+            "idle_share": 1 - busy / wall_ms, "groups_ms": groups}
+
+
+def profile_fixed(cfg, params, dev, c: cell.ServeCell) -> dict:
+    """The fixed-batch loop of the serve cell ``c`` (a recurrent config):
+    one prefill of ``c.slots`` prompts of ``c.prompt_len_max`` tokens and
+    ``STEPS`` greedy decode steps from it (``launch.serve``'s
+    ``fixed_batch_steps``), under torch.profiler; prints the breakdown and
+    returns ``{"prefill": ..., "decode_step": ...}``."""
+    prefill, decode = fixed_batch_steps(cfg, params, c.slots,
+                                        c.prompt_len_max, c.seed, dev)
+    with torch.no_grad():
+        prefill()
+        decode()                                              # warm-up
+        print(f"{cfg.name} x{cfg.n_layers} layers, fixed batch {c.slots} x "
+              f"{c.prompt_len_max} tokens, on "
+              f"{torch.cuda.get_device_name(0)}")
+        out = {"prefill": _report("prefill", prefill, 1)}
+        prefill()
+        out["decode_step"] = _report("decode_step", decode, STEPS)
     return out
 
 
@@ -127,6 +159,9 @@ def main(argv=None):
     c = cell.SERVE_CELLS[args.arch]
     cfg = cell.serve_model_config(c)
     params = TF.init_params(cfg, c.seed, dev)
+    if not pool_supported(cfg):
+        print(json.dumps(profile_fixed(cfg, params, dev, c)))
+        return
     print(json.dumps(profile(cfg, params, dev, args.mesh, c)))
 
 

@@ -10,14 +10,22 @@ as one JSON line, for each wire dtype in turn (by default the float32 and
 the int8 wire, so both steps' kernels are read in one call).  ``--mesh``
 stacks the ranks as the train CLI's does: ``2,2`` is the tensor-parallel
 cell (2 DP ranks of 2 TP ranks, ``cell.TP_SHAPE``).  ``--arch`` takes
-another arch's train cell (``cell.model_config(arch)``; mixtral-8x7b's
-is ``cell.MOE_TRAIN_CELL``, one layer); for a MoE arch it also splits
-the MoE layer's device time by phase, forward and backward
-(:func:`moe_split`: routing, dispatch, the all_to_all, the experts, the
-combine):
+another arch's train cell (``cell.model_config(arch)``, or its cell of
+``cell.TRAIN_CELLS``: mixtral-8x7b's ``MOE_TRAIN_CELL``, one layer;
+zamba2-2.7b's and xlstm-125m's ``SSM_TRAIN_CELLS``, at their mesh
+``4,1``); for a MoE arch it also splits the MoE layer's device time by
+phase, forward and backward (:func:`moe_split`: routing, dispatch, the
+all_to_all, the experts, the combine):
 
   python -m repro_torch.launch.profile_step [--wire-dtype float32 int8] \
       [--mesh 2,2] [--arch mixtral-8x7b]
+  python -m repro_torch.launch.profile_step --arch xlstm-125m \
+      --wire-dtype float32
+
+The device time is read from the profiler's raw kineto events
+(:func:`device_events`); ``--compare-accounting`` also reads the same
+profile through ``key_averages`` (:func:`key_average_groups`, the
+accounting of earlier readings) and prints both.
 
 It uses only the port's public entry points, so the same file runs
 against an older tree (``PYTHONPATH=<tree>/src python
@@ -65,6 +73,45 @@ def group_of(name: str) -> str:
     return "elementwise/other"
 
 
+def device_events(prof):
+    """(name, device ms) of every kernel, copy and set the profiler ``prof``
+    saw on the card, read from its raw kineto events (no event tree is
+    built: an xlstm step's million launches would take minutes), a
+    ``record_function`` range's device span left out (a torch without
+    ``is_user_annotation`` raises rather than count such spans as busy)."""
+    from repro_torch.models.moe import PHASES
+    cuda = torch.autograd.DeviceType.CUDA
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != cuda or ev.name() in PHASES or \
+                ev.is_user_annotation():
+            continue
+        yield ev.name(), ev.duration_ns() / 1e6
+
+
+def key_average_groups(prof, steps: int) -> dict:
+    """The accounting ``device_events`` replaced, for comparing the two on
+    one profile: each kernel's ``self_device_time_total`` of
+    ``prof.key_averages()`` (which builds the event tree) by group, ms a
+    step, its launches floored a kernel (``group_launches``, as earlier
+    readings floored them) and unfloored over the ``steps`` profiled
+    steps (``group_counts``, which the raw events' own must equal: where
+    a kernel's launches differ between steps, flooring a kernel and
+    flooring a group give different counts)."""
+    from repro_torch.models.moe import PHASES
+    by_group = defaultdict(float)
+    launches, counts = defaultdict(int), defaultdict(int)
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", 0.0) or 0.0
+        if dev_us <= 0 or ev.device_type != torch.autograd.DeviceType.CUDA \
+                or ev.key in PHASES:      # a range's device span: no kernel
+            continue
+        by_group[group_of(ev.key)] += dev_us / 1e3 / steps
+        launches[group_of(ev.key)] += ev.count // steps
+        counts[group_of(ev.key)] += ev.count
+    return {"busy_ms": sum(by_group.values()), "groups_ms": dict(by_group),
+            "group_launches": dict(launches), "group_counts": dict(counts)}
+
+
 def moe_split(events, attr: str = "device_time_total") -> dict:
     """The MoE layers' time by phase (``models.moe.PHASES``), ms summed
     over ``events`` (``prof.events()``), as ``"<phase> fwd"`` and
@@ -93,11 +140,12 @@ def moe_split(events, attr: str = "device_time_total") -> dict:
     return dict(out)
 
 
-def profile(cfg, backend: str, wire_dtype: str, dev, mesh: str = "4,1"
-            ) -> dict:
-    """Warm up, then profile ``STEPS`` steps of one wire dtype over the
+def profile(cfg, backend: str, wire_dtype: str, dev, mesh: str = "4,1",
+            steps: int = STEPS, compare: bool = False) -> dict:
+    """Warm up, then profile ``steps`` steps of one wire dtype over the
     ranks of ``mesh`` (``launch.train.parse_mesh``); prints the breakdown
-    and returns its JSON record."""
+    and returns its JSON record (with ``compare``, also the same profile
+    read by ``key_average_groups``, under ``"key_averages"``)."""
     from repro_torch.launch.train import parse_mesh
     axes, dp, tp = parse_mesh(mesh)
     tcfg = cell.train_config(backend, wire_dtype).replace(dp_axes=axes)
@@ -107,7 +155,7 @@ def profile(cfg, backend: str, wire_dtype: str, dev, mesh: str = "4,1"
     params = init_p(0)
     state = init_s(params)
     dcfg = cell.data_config(cfg)
-    batches = [make_batch(dcfg, s) for s in range(STEPS + 1)]
+    batches = [make_batch(dcfg, s) for s in range(steps + 1)]
 
     params, state, m = step(params, state, batches[0])     # warm-up
     float(m["loss"])
@@ -116,25 +164,23 @@ def profile(cfg, backend: str, wire_dtype: str, dev, mesh: str = "4,1"
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for s in range(1, STEPS + 1):
+        for s in range(1, steps + 1):
             params, state, m = step(params, state, batches[s])
             float(m["loss"])
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / STEPS
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
 
     by_group = defaultdict(float)
     launches = defaultdict(int)
-    by_kernel = []
-    from repro_torch.models.moe import PHASES
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", 0.0) or 0.0
-        if dev_us <= 0 or ev.device_type != torch.autograd.DeviceType.CUDA \
-                or ev.key in PHASES:      # a range's device span: no kernel
-            continue
-        by_group[group_of(ev.key)] += dev_us / 1e3 / STEPS
-        launches[group_of(ev.key)] += ev.count // STEPS
-        by_kernel.append((dev_us / 1e3 / STEPS, ev.count // STEPS,
-                          ev.key))
+    kernels = defaultdict(lambda: [0.0, 0])
+    for name, ms in device_events(prof):
+        by_group[group_of(name)] += ms / steps
+        launches[group_of(name)] += 1
+        kernels[name][0] += ms / steps
+        kernels[name][1] += 1
+    counts = dict(launches)                # over the profiled steps
+    launches = {g: n // steps for g, n in launches.items()}
+    by_kernel = [(ms, n // steps, name) for name, (ms, n) in kernels.items()]
     busy_ms = sum(by_group.values())
     tokens = dcfg.global_batch * dcfg.seq_len
     print(f"{cfg.name} x{cfg.n_layers} layers, mesh {mesh} (tp={tp}), batch "
@@ -148,7 +194,8 @@ def profile(cfg, backend: str, wire_dtype: str, dev, mesh: str = "4,1"
     print("top kernels (ms per step, launches per step):")
     for ms, n, name in sorted(by_kernel, reverse=True)[:TOP]:
         print(f"  {ms:9.3f} ms  x{n:<5d} {name[:90]}")
-    moe = {k: v / STEPS for k, v in moe_split(prof.events()).items()}
+    moe = {k: v / steps for k, v in moe_split(prof.events()).items()} \
+        if cfg.n_experts else {}
     if moe:
         print("MoE layer by phase (device ms per step):")
         for k, v in sorted(moe.items(), key=lambda t: -t[1]):
@@ -158,7 +205,17 @@ def profile(cfg, backend: str, wire_dtype: str, dev, mesh: str = "4,1"
            "wall_ms": wall_ms,
            "busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
            "groups_ms": dict(by_group), "group_launches": dict(launches),
+           "group_counts": counts,
            "tokens_per_s": tokens / wall_ms * 1e3}
+    if compare:
+        old = rec["key_averages"] = key_average_groups(prof, steps)
+        print(f"key_averages: device busy {old['busy_ms']:.1f} ms (raw "
+              f"events {busy_ms:.1f})")
+        for g, ms in sorted(by_group.items(), key=lambda t: -t[1]):
+            print(f"  {g:26s} {old['groups_ms'].get(g, 0.0):9.3f} ms "
+                  f"(raw events {ms:9.3f}), x"
+                  f"{old['group_counts'].get(g, 0)} (x{counts[g]}) over "
+                  f"{steps} steps")
     print(json.dumps(rec), flush=True)
     return rec
 
@@ -173,15 +230,17 @@ def main(argv=None):
                     help="data,model or pod,data,model (the train CLI's)")
     ap.add_argument("--arch", default=cell.ARCH,
                     help="the train cell of this arch")
+    ap.add_argument("--compare-accounting", action="store_true",
+                    help="also read the profile by key_averages")
     args = ap.parse_args(argv)
 
     dev = resolve_device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
-    moe = cell.MOE_TRAIN_CELL
-    cfg = moe.model_config() if args.arch == moe.arch else \
-        cell.model_config(args.arch)
+    c = cell.TRAIN_CELLS.get(args.arch)
+    cfg = c.model_config() if c else cell.model_config(args.arch)
     for wire_dtype in args.wire_dtype:
-        profile(cfg, args.backend, wire_dtype, dev, args.mesh)
+        profile(cfg, args.backend, wire_dtype, dev, args.mesh,
+                compare=args.compare_accounting)
         gc.collect()
         torch.cuda.empty_cache()
 

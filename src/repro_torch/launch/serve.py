@@ -1,16 +1,19 @@
-"""Continuous-batching serving CLI of the PyTorch port: a Poisson
-arrival trace of mixed-length requests through the paged-KV scheduler.
+"""Serving CLI of the PyTorch port: a Poisson arrival trace of
+mixed-length requests through the paged-KV scheduler, or for the
+architectures the pool cannot serve the reference's fixed-batch loop.
 
 Port of ``repro.launch.serve``.  Its defaults are the serve cell of
 ``launch/cell.py`` (phi4-mini at full depth, 8 pages, 16 requests);
-``--arch`` serves any registered dense config (phi4-mini-3.8b,
-gemma3-4b, gemma-7b, qwen3-32b) on that trace:
+``--arch`` serves any registered config:
 
   python -m repro_torch.launch.serve                       # on the card
   python -m repro_torch.launch.serve --arch gemma3-4b --prompt-len-min 1088 \
       --prompt-len-max 1984 --slots 4 --requests 8         # past its window
+  python -m repro_torch.launch.serve --arch zamba2-2.7b --slots 4 \
+      --prompt-len-max 1024                                # fixed batch
   python -m repro_torch.launch.serve --reduced --device cpu
   python -m repro_torch.launch.serve --arch gemma3-4b --reduced --device cpu
+  python -m repro_torch.launch.serve --arch xlstm-125m --reduced --device cpu
   python -m repro_torch.launch.serve --reduced --device cpu --mesh 2,2
 
 Each request prefills into a free KV page, decodes interleaved with
@@ -21,11 +24,16 @@ over that many DP and TP ranks, stacked on the one device
 decision table picks for it, as the reference's CLI does, ``--backend
 xla`` pins the defaults (no plan).  In place of the reference's
 ``traces:`` line (jit retraces) it prints the kernel launch counts of the
-run.  Runs on CUDA unless ``--device cpu`` is given.  Only the dense
-``attn`` configs are served; for the architectures the pool cannot serve
-(``serve.engine.pool_supported``: the MoE configs mixtral-8x7b and
-phi3.5-moe-42b-a6.6b) it raises, since the reference's fixed-batch loop
-for them has no counterpart (queue A item 5e).
+run.  Runs on CUDA unless ``--device cpu`` is given.
+
+The architectures the pool cannot serve (``serve.engine.pool_supported``:
+recurrent blocks, MoE capacity dispatch) go, as in the reference, to
+:func:`run_fixed_batch`: one lock-step batch of ``--slots`` prompts of
+``--prompt-len-max`` tokens, greedily decoded for ``--max-new`` tokens.
+It serves the recurrent configs (xlstm-125m, zamba2-2.7b) on one TP rank;
+the MoE configs still raise (their prefill and decode are ROADMAP.md
+queue A item 5e), as does a model axis above 1 for the recurrent ones
+(item 5f).
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ from __future__ import annotations
 import argparse
 import time
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
@@ -41,7 +50,8 @@ from repro_torch.kernels import build as KB
 from repro_torch.launch.cell import SERVE_CELL
 from repro_torch.launch.train import parse_mesh
 from repro_torch.models import transformer as TF
-from repro_torch.serve.engine import ServeConfig, make_serve_fns, page_len
+from repro_torch.serve.engine import (ServeConfig, make_serve_fns, page_len,
+                                      pool_supported)
 from repro_torch.serve.scheduler import (ContinuousBatchingScheduler,
                                          poisson_trace, wall_ttft_ms)
 
@@ -49,6 +59,66 @@ from repro_torch.serve.scheduler import (ContinuousBatchingScheduler,
 def _sync(dev) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def fixed_batch_steps(cfg, params, batch: int, prompt_len: int,
+                      seed: int = 0, device="cuda"):
+    """The fixed-batch loop's two steps, as closures over one cache:
+    ``prefill()`` runs ``prefill`` on ``batch`` prompts of ``prompt_len``
+    tokens drawn from ``np.random.RandomState(seed)`` as the reference
+    draws them (caches exactly ``prompt_len`` long, as the reference's
+    are), ``decode()`` one ``decode_step`` at the shared scalar position;
+    each returns its greedy tokens ``[batch, 1]``."""
+    dev = resolve_device(device)
+    rng = np.random.RandomState(seed)
+    prompt = torch.as_tensor(rng.randint(0, cfg.vocab_size,
+                                         size=(batch, prompt_len)),
+                             dtype=torch.int32, device=dev)
+    st = {}
+
+    def prefill():
+        logits, st["cache"] = TF.prefill(params, cfg, prompt)
+        st["tok"] = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+        return st["tok"]
+
+    def decode():
+        logits, st["cache"] = TF.decode_step(params, cfg, st["cache"],
+                                             st["tok"])
+        st["tok"] = torch.argmax(logits, dim=-1).to(torch.int32)
+        return st["tok"]
+    return prefill, decode
+
+
+def run_fixed_batch(cfg, params, batch: int, prompt_len: int, max_new: int,
+                    seed: int = 0, device="cuda"):
+    """The reference's legacy lock-step loop for the architectures the
+    pool cannot serve: one prefill and ``max_new - 1`` greedy decode steps
+    (``fixed_batch_steps``).  Prints the reference's lines; returns the
+    tokens ``[batch, max_new]`` (numpy) and the numbers: prefill and
+    decode ms (synced, host clock), decode tokens/s."""
+    dev = resolve_device(device)
+    B, Lp = batch, prompt_len
+    prefill, decode = fixed_batch_steps(cfg, params, B, Lp, seed, dev)
+    with torch.no_grad():
+        _sync(dev)
+        t0 = time.perf_counter()
+        outs = [prefill()]
+        _sync(dev)
+        pre_ms = (time.perf_counter() - t0) * 1e3
+        print(f"[serve] fixed-batch prefill {B}x{Lp}: {pre_ms:.0f}ms")
+        t0 = time.perf_counter()
+        for _ in range(max_new - 1):
+            outs.append(decode())
+        _sync(dev)
+        dt = time.perf_counter() - t0
+    n = max_new - 1
+    tps = B * max(n, 1) / max(dt, 1e-9)
+    print(f"[serve] fixed-batch decode {n} steps: {dt * 1e3:.0f}ms "
+          f"({tps:.1f} tok/s)")
+    tokens = torch.cat(outs, dim=1).cpu().numpy()
+    print("[serve] sample token ids:", tokens[0][:16].tolist())
+    return tokens, {"prefill_ms": pre_ms, "decode_ms": dt * 1e3,
+                    "decode_tokens_per_s": tps}
 
 
 def main(argv=None):
@@ -81,6 +151,20 @@ def main(argv=None):
         cfg = cfgbase.reduced(cfg)
 
     _, dp, tp = parse_mesh(args.mesh)
+    if not pool_supported(cfg):
+        TF._check_ported(cfg, serve=True, n_model=tp)
+        if int(np.prod(dp)) != 1:
+            raise ValueError(f"the fixed-batch loop runs on one rank, got "
+                             f"--mesh {args.mesh}")
+        params = TF.init_params(cfg, args.seed, dev)
+        print(f"[serve] {args.arch}: pool unsupported (recurrent blocks) — "
+              f"legacy fixed-batch loop")
+        KB.reset_launches()
+        run_fixed_batch(cfg, params, args.slots, args.prompt_len_max,
+                        args.max_new, seed=args.seed, device=dev)
+        print(f"[serve] kernel launches: "
+              f"{ {k: v for k, v in KB.LAUNCHES.items() if v} }")
+        return
     S = page_len(cfg, args.prompt_len_max, args.max_new)
     scfg = ServeConfig(backend=args.backend)
     fns = make_serve_fns(cfg, scfg, args.slots, S, dev, dp=dp, tp=tp)

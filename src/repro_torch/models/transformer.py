@@ -1,30 +1,40 @@
 """Decoder LM backbone: pattern-segmented layer stack.
 
-Port of ``repro.models.transformer`` for the ``attn`` and ``moe``
-blocks (``moe`` on the training path only: the reference serves MoE
-through its fixed-batch loop, queue A item 5e).  The parameter tree
-keeps the reference's layout — ``segments[i]`` leaves are
-stacked ``[n_layers_in_segment, ...]`` — so trees cross between the
-packages leaf for leaf (``repro_torch.interop``).  Layers of a segment run
-in a Python loop over the stacked leaves (the reference's ``lax.scan``).
+Port of ``repro.models.transformer``: the ``attn`` and ``moe`` blocks
+(``moe`` on the training path only: the reference serves MoE through its
+fixed-batch loop, queue A item 5e), and the recurrent ones, ``mamba2``,
+``mlstm`` and ``slstm`` (``models.ssm``), with zamba2's weight-tied
+``shared_attn`` block, on one TP rank (their tensor parallelism is queue
+A item 5f).  The parameter tree keeps the reference's layout —
+``segments[i]`` leaves are stacked ``[n_layers_in_segment, ...]``, a
+``shared_attn`` firing's segment is ``{}`` and its weights live once in
+``params["shared"]`` — and each leaf the reference's dtype (Mamba2's
+``A_log``, ``D`` and ``dt_bias`` are float32 in a bf16 model), so trees
+cross between the packages leaf for leaf (``repro_torch.interop``).
+Layers of a segment run in a Python loop over the stacked leaves (the
+reference's ``lax.scan``); the shared block's gradient sums over its
+firings, as autograd adds a reused leaf's.
 
 Two paths, as in the reference: ``forward``/``loss_fn`` (training, through
 autograd) keep the plain ``layers.rmsnorm`` and the query-chunked
 ``layers.attention`` — with ``n_model > 1`` the TP ranks of one DP rank
 run stacked, ``megatron_sp`` or ``pure_sp`` (section "Tensor
 parallelism" below); the serving half (``prefill``, ``decode_step``) puts
-every norm on the RMSNorm kernel and prefill's attention core on the
-flash-attention kernel, which have no backward; ``prefill_tp`` and
-``decode_step_tp`` serve over stacked TP ranks (section "Serving under
-tensor parallelism" below).  Decode attention stays plain torch: each
-slot sits at its own position, which the flash kernel's
-``qpos = q_start + row`` cannot express (the reference computes it
-outside any Pallas kernel too).
+every norm on the RMSNorm kernel (the recurrent blocks' gated norms
+among them) and prefill's attention core on the flash-attention kernel,
+which have no backward; ``prefill_tp`` and ``decode_step_tp`` serve over
+stacked TP ranks (section "Serving under tensor parallelism" below).
+Decode attention stays plain torch: each slot sits at its own position,
+which the flash kernel's ``qpos = q_start + row`` cannot express (the
+reference computes it outside any Pallas kernel too).
 
 Decode caches are updated IN PLACE (the reference returns new arrays): a
 page pool holds every layer's K/V, and copying it per token would move
 the whole pool each step.  ``decode_step`` returns the state it was given,
-with its caches written and a new ``pos``.
+with its K/V caches written and a new ``pos``; a recurrent segment's
+states are replaced by the step's new ones (the reference's dtypes: a
+float32 model's conv state leaves a bf16 cache as float32 after its first
+step, as the reference's concatenation promotes it).
 """
 
 from __future__ import annotations
@@ -45,6 +55,7 @@ from repro_torch.kernels.rmsnorm.ops import rmsnorm as fused_rmsnorm
 from . import layers as L
 from . import moe as M
 from . import sharding as SH
+from . import ssm as S
 
 
 @dataclass(frozen=True)
@@ -85,16 +96,28 @@ def segments(cfg) -> List[Tuple[Block, int]]:
     return out
 
 
-def _check_ported(cfg, serve: bool = False) -> None:
-    """Raise for blocks the port lacks: the recurrent and frontend ones
-    everywhere, ``moe`` on the serving path (``serve``)."""
+#: the blocks of the recurrent configs (xlstm-125m, zamba2-2.7b)
+RECURRENT = ("mamba2", "mlstm", "slstm", "shared_attn")
+#: the blocks whose prefill and decode hold K/V caches
+ATTN_KINDS = ("attn", "moe", "shared_attn")
+
+
+def _check_ported(cfg, serve: bool = False, n_model: int = 1) -> None:
+    """Raise for what the port lacks: the frontend models everywhere,
+    ``moe`` on the serving path (``serve``), the recurrent blocks over
+    more than one TP rank (``n_model > 1``)."""
     kinds = {b.kind for b, _ in segments(cfg)}
-    bad = sorted(kinds - {"attn", "moe"})
-    if bad or cfg.frontend is not None:
+    if cfg.frontend is not None:
         raise NotImplementedError(
-            f"blocks {bad or [cfg.frontend]} are not ported (ROADMAP.md "
-            f"queue A item 5, 5c-5d: recurrent and frontend models); "
-            f"'attn' and 'moe' only")
+            f"{cfg.name}: the {cfg.frontend!r} frontend is not ported "
+            f"(ROADMAP.md queue A item 5d: the frontend models)")
+    rec = sorted(kinds & set(RECURRENT))
+    if n_model > 1 and rec:
+        raise NotImplementedError(
+            f"{cfg.name}: tensor parallelism of blocks {rec} is not ported "
+            f"(ROADMAP.md queue A item 5f: the reference shards Mamba2's "
+            f"d_inner, mLSTM's inner dim and sLSTM's units); run it on one "
+            f"TP rank")
     if serve and "moe" in kinds:
         raise NotImplementedError(
             f"{cfg.name}: MoE prefill and decode are not ported (ROADMAP.md "
@@ -106,34 +129,62 @@ def _check_ported(cfg, serve: bool = False) -> None:
 # Parameter init
 # ---------------------------------------------------------------------------
 
-def _param_tree(cfg, make) -> Dict[str, Any]:
-    """The parameter tree, each leaf ``make(shape, init)`` with init one of
-    ``("normal", std)`` or ``("zeros",)``."""
-    _check_ported(cfg)
+def _block_tree(cfg, block: Block, make, lead: Tuple[int, ...]
+                ) -> Dict[str, Any]:
+    """One block's leaves, each ``make(lead + shape, init[, dtype])``."""
     d, nh, nkv, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                          cfg.head_dim, cfg.d_ff)
 
-    def dense(n, i, o):
-        return make((n, i, o), ("normal", 1.0 / math.sqrt(i)))
+    def dense(i, o):
+        return make(lead + (i, o), ("normal", 1.0 / math.sqrt(i)))
 
+    def gain(n):
+        return make(lead + (n,), ("zeros",))
+
+    def mlp():
+        return {"wi": dense(d, f), "wg": dense(d, f), "wo": dense(f, d)}
+
+    if block.kind in ATTN_KINDS:
+        attn = {"wq": dense(d, nh * hd), "wk": dense(d, nkv * hd),
+                "wv": dense(d, nkv * hd), "wo": dense(nh * hd, d)}
+        if cfg.qk_norm:
+            attn["q_norm"], attn["k_norm"] = gain(hd), gain(hd)
+        p = {"ln1": gain(d), "attn": attn, "ln2": gain(d)}
+        if block.kind == "moe":
+            p["moe"] = M.init_moe(cfg, make, lead)
+        else:
+            p["mlp"] = mlp()
+        return p
+    if block.kind == "mamba2":
+        p = {"ln1": gain(d), "mamba": S.init_mamba2(cfg, make, lead)}
+        # zamba2: Mamba blocks carry no FFN — d_ff is the shared block's
+        if cfg.block_pattern != "zamba":
+            p["ln2"], p["mlp"] = gain(d), mlp()
+        return p
+    if block.kind == "mlstm":
+        return {"ln1": gain(d), "mlstm": S.init_mlstm(cfg, make, lead)}
+    if block.kind == "slstm":
+        return {"ln1": gain(d), "slstm": S.init_slstm(cfg, make, lead)}
+    raise ValueError(block.kind)
+
+
+def _param_tree(cfg, make) -> Dict[str, Any]:
+    """The parameter tree, each leaf ``make(shape, init[, dtype])`` with
+    init one of ``("normal", std)``, ``("zeros",)`` or ``("ones",)`` and
+    dtype the leaf's where it is not ``cfg.dtype`` (Mamba2's float32 SSM
+    leaves)."""
+    _check_ported(cfg)
+    d = cfg.d_model
     params: Dict[str, Any] = {
         "embed": make((cfg.vocab_size, d), ("normal", 0.02))}
     segs = []
     for block, n in segments(cfg):
-        attn = {"wq": dense(n, d, nh * hd), "wk": dense(n, d, nkv * hd),
-                "wv": dense(n, d, nkv * hd), "wo": dense(n, nh * hd, d)}
-        if cfg.qk_norm:
-            attn["q_norm"] = make((n, hd), ("zeros",))
-            attn["k_norm"] = make((n, hd), ("zeros",))
-        seg = {"ln1": make((n, d), ("zeros",)), "attn": attn,
-               "ln2": make((n, d), ("zeros",))}
-        if block.kind == "moe":
-            seg["moe"] = M.init_moe(cfg, make, (n,))
-        else:
-            seg["mlp"] = {"wi": dense(n, d, f), "wg": dense(n, d, f),
-                          "wo": dense(n, f, d)}
-        segs.append(seg)
+        # a shared_attn firing: weight-tied, its leaves in params["shared"]
+        segs.append({} if block.kind == "shared_attn"
+                    else _block_tree(cfg, block, make, (n,)))
     params["segments"] = segs
+    if any(b.kind == "shared_attn" for b, _ in segments(cfg)):
+        params["shared"] = _block_tree(cfg, Block("shared_attn"), make, ())
     params["final_norm"] = make((d,), ("zeros",))
     if not cfg.tie_embeddings:
         params["lm_head"] = make((d, cfg.vocab_size),
@@ -143,23 +194,24 @@ def _param_tree(cfg, make) -> Dict[str, Any]:
 
 def param_shapes(cfg) -> Dict[str, Any]:
     """The parameter tree as ``meta`` tensors: shapes and dtypes only."""
-    dt = getattr(torch, cfg.dtype)
-    return _param_tree(cfg, lambda shape, init: torch.empty(
-        shape, dtype=dt, device="meta"))
+    return _param_tree(cfg, lambda shape, init, dtype=None: torch.empty(
+        shape, dtype=getattr(torch, dtype or cfg.dtype), device="meta"))
 
 
 def init_params(cfg, seed: int = 0, device="cuda") -> Dict[str, Any]:
     """Random parameters from ``seed``: the reference's distributions
     (normal weights scaled 1/sqrt(fan_in), embedding std 0.02, zero norm
-    gains), drawn in float32 and cast to ``cfg.dtype``.  The draws differ
-    from ``jax.random``'s; tests carry JAX's weights across instead."""
+    gains, the recurrent blocks' constants), drawn in float32 and cast to
+    each leaf's dtype.  The draws differ from ``jax.random``'s; tests
+    carry JAX's weights across instead."""
     dev = resolve_device(device)
-    dt = getattr(torch, cfg.dtype)
     gen = torch.Generator(device=dev).manual_seed(seed)
 
-    def make(shape, init):
-        if init[0] == "zeros":
-            return torch.zeros(shape, dtype=dt, device=dev)
+    def make(shape, init, dtype=None):
+        dt = getattr(torch, dtype or cfg.dtype)
+        if init[0] in ("zeros", "ones"):
+            fill = torch.zeros if init[0] == "zeros" else torch.ones
+            return fill(shape, dtype=dt, device=dev)
         w = torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
         return (w * init[1]).to(dt)
 
@@ -174,12 +226,32 @@ def param_count(params) -> int:
 # Forward
 # ---------------------------------------------------------------------------
 
+#: a recurrent block's sublayer key in its parameter tree
+_SUBLAYER = {"mamba2": "mamba", "mlstm": "mlstm", "slstm": "slstm"}
+
+
+def _recurrent(p, cfg, block: Block, x, norm, state=None):
+    """A recurrent block (``models.ssm``) with every norm ``norm``
+    (``layers.rmsnorm`` to train, the fused kernel to serve) over ``x``,
+    from ``state`` (decode) or none: (x', its state at the end of x)."""
+    h, st = getattr(S, block.kind)(
+        p[_SUBLAYER[block.kind]], cfg, norm(x, p["ln1"], cfg.norm_eps),
+        state=state, return_state=True, norm=norm)
+    x = x + h
+    if "mlp" in p:          # a Mamba2 block outside zamba
+        x = x + L.mlp(p["mlp"], cfg, norm(x, p["ln2"], cfg.norm_eps))
+    return x, st
+
+
 def _apply_block(p, cfg, block: Block, x, positions):
-    """One layer forward: (x', its MoE aux, or None for a dense layer)."""
-    h = L.attention(p["attn"], cfg, L.rmsnorm(x, p["ln1"], cfg.norm_eps),
+    """One layer forward: (x', its MoE aux, or None for another layer)."""
+    eps = cfg.norm_eps
+    if block.kind in _SUBLAYER:
+        return _recurrent(p, cfg, block, x, L.rmsnorm)[0], None
+    h = L.attention(p["attn"], cfg, L.rmsnorm(x, p["ln1"], eps),
                     positions, window=block.window)
     x = x + h
-    y = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
+    y = L.rmsnorm(x, p["ln2"], eps)
     if block.kind == "moe":
         m, aux = M.moe(p["moe"], cfg, y)
         return x + m, aux
@@ -212,6 +284,9 @@ def forward(params, cfg, inputs, positions=None, n_model: int = 1):
     x = _embed(params, cfg, inputs)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for (block, n), seg_p in zip(segments(cfg), params["segments"]):
+        if block.kind == "shared_attn":
+            x, _ = _apply_block(params["shared"], cfg, block, x, positions)
+            continue
         for l in range(n):
             x, aux = _apply_block(_layer(seg_p, l), cfg, block, x, positions)
             if aux is not None:
@@ -481,7 +556,7 @@ def forward_tp(params, cfg, inputs, n_model: int):
     ``aux [n]`` (the MoE layers' aux summed, the same on every rank); for
     a vocab that does not divide n, ``[n, B, T, ceil(V/n)]`` with zeros in
     the last rank's padded columns (the logits of vocab ids ``>= V``)."""
-    _check_ported(cfg)
+    _check_ported(cfg, n_model=n_model)
     T_ = inputs.shape[1]
     tp = _TP(cfg, n_model, T_)
     params = _megatron_layout(params, cfg, tp)
@@ -563,28 +638,55 @@ def loss_fn_tp(params, cfg, batch, n_model: int):
 
 def _init_block_cache(cfg, block: Block, B: int, S_len: int,
                       device) -> dict:
-    if block.kind != "attn":
-        raise NotImplementedError(
-            f"block {block.kind!r} has no decode cache in the port "
-            f"(ROADMAP.md queue A items 5c and 5e)")
+    """One layer's empty decode cache: K/V for the attention kinds, the
+    conv and SSM states for Mamba2, (C, n, m) for mLSTM, (c, n, h, m) for
+    sLSTM (m at -1e30)."""
     dt = getattr(torch, cfg.cache_dtype)
-    W = S_len if block.window is None else min(block.window, S_len)
-    shape = (B, W, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dt, device=device),
-            "v": torch.zeros(shape, dtype=dt, device=device)}
+    f32 = torch.float32
+
+    def zeros(*shape, dtype=f32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    if block.kind in ATTN_KINDS:
+        W = S_len if block.window is None else min(block.window, S_len)
+        shape = (B, W, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": zeros(*shape, dtype=dt), "v": zeros(*shape, dtype=dt)}
+    d = cfg.d_model
+    if block.kind == "mamba2":
+        din = cfg.ssm_expand * d
+        K1 = cfg.ssm_conv - 1
+        return {"conv": {"x": zeros(B, K1, din, dtype=dt),
+                         "B": zeros(B, K1, cfg.ssm_state, dtype=dt),
+                         "C": zeros(B, K1, cfg.ssm_state, dtype=dt)},
+                "ssm": zeros(B, din // cfg.ssm_head_dim, cfg.ssm_head_dim,
+                             cfg.ssm_state)}
+    if block.kind == "mlstm":
+        nh = cfg.n_heads
+        hd = 2 * d // nh            # proj_factor 2: the inner dim's heads
+        return {"C": zeros(B, nh, hd, hd), "n": zeros(B, nh, hd),
+                "m": torch.full((B, nh), -1e30, dtype=f32, device=device)}
+    if block.kind == "slstm":
+        return {"c": zeros(B, d), "n": zeros(B, d), "h": zeros(B, d),
+                "m": torch.full((B, d), -1e30, dtype=f32, device=device)}
+    raise ValueError(block.kind)
 
 
 def init_decode_state(cfg, B: int, S_len: int, device="cuda") -> dict:
-    """Per-segment stacked caches mirroring ``params['segments']``."""
+    """Per-segment stacked caches mirroring ``params['segments']`` (a
+    ``shared_attn`` firing's ``[1, ...]``)."""
     _check_ported(cfg, serve=True)
     dev = resolve_device(device)
     segs = []
     for block, n in segments(cfg):
         one = _init_block_cache(cfg, block, B, S_len, dev)
-        segs.append({k: x.expand(n, *x.shape).clone()
-                     for k, x in one.items()})
+        segs.append(T.tree_map(lambda x: x.expand(n, *x.shape).clone(), one))
     return {"segments": segs,
             "pos": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def _stack(caches):
+    """Layer caches (trees alike) -> one tree of stacked leaves."""
+    return T.tree_map(lambda *xs: torch.stack(xs), *caches)
 
 
 def _decode_attn(p, cfg, block: Block, x, cache, pos):
@@ -648,6 +750,10 @@ def _decode_attn(p, cfg, block: Block, x, cache, pos):
 
 
 def _decode_block(p, cfg, block: Block, x, cache, pos):
+    """One layer's decode step: (x', the layer's cache), a K/V cache
+    written in place, a recurrent layer's new state."""
+    if block.kind in _SUBLAYER:
+        return _recurrent(p, cfg, block, x, fused_rmsnorm, cache)
     h, cache = _decode_attn(p, cfg, block, x, cache, pos)
     x = x + h
     return x + L.mlp(p["mlp"], cfg,
@@ -680,15 +786,24 @@ def decode_step(params, cfg, state, tokens, active=None):
     _check_ported(cfg, serve=True)
     pos = state["pos"]
     x = _embed(params, cfg, tokens)
+    segs = []
     for (block, n), seg_p, seg_c in zip(
             segments(cfg), params["segments"], state["segments"]):
+        if block.kind == "shared_attn":
+            x, _ = _decode_block(params["shared"], cfg, block, x,
+                                 _layer(seg_c, 0), pos)
+            segs.append(seg_c)
+            continue
+        caches = []
         for l in range(n):
-            x, _ = _decode_block(_layer(seg_p, l), cfg, block, x,
+            x, c = _decode_block(_layer(seg_p, l), cfg, block, x,
                                  _layer(seg_c, l), pos)
+            caches.append(c)
+        segs.append(seg_c if block.kind in ATTN_KINDS else _stack(caches))
     logits = _logits(params, cfg, x)
     adv = 1 if active is None else torch.as_tensor(
         active, device=pos.device).to(torch.int32)
-    return logits, {"segments": state["segments"], "pos": pos + adv}
+    return logits, {"segments": segs, "pos": pos + adv}
 
 
 def prefill(params, cfg, inputs, length=None):
@@ -702,24 +817,36 @@ def prefill(params, cfg, inputs, length=None):
     position starts at ``length``, and windowed ring caches are laid out
     from the real tail so slot ``q % W`` holds position ``q``.  Padded K/V
     beyond ``length`` stays in full caches but is masked by ``kpos <= pos``
-    until decode overwrites it in place.
+    until decode overwrites it in place.  Recurrent layers carry their
+    final states (Mamba2's conv state cast to ``cfg.cache_dtype``); they
+    take no ``length``, as in the reference: their state would integrate
+    the padding.
     """
     _check_ported(cfg, serve=True)
     B, T = inputs.shape[:2]
     dev = inputs.device
     positions = torch.arange(T, dtype=torch.int32, device=dev)
     if length is not None:
+        bad = sorted({b.kind for b, _ in segments(cfg)} - set(ATTN_KINDS))
+        if bad:
+            raise NotImplementedError(
+                f"padded prefill (length=...) unsupported for blocks {bad}: "
+                f"recurrent state would integrate the padding")
         length = torch.as_tensor(length, device=dev).to(torch.int32)
     x = _embed(params, cfg, inputs)
     segs = []
     for (block, n), seg_p in zip(segments(cfg), params["segments"]):
+        if block.kind == "shared_attn":
+            x, c = _prefill_block(params["shared"], cfg, block, x, positions,
+                                  length)
+            segs.append(_stack([c]))
+            continue
         caches = []
         for l in range(n):
             x, c = _prefill_block(_layer(seg_p, l), cfg, block, x, positions,
                                   length)
             caches.append(c)
-        segs.append({k: torch.stack([c[k] for c in caches])
-                     for k in caches[0]})
+        segs.append(_stack(caches))
     if length is None:
         xl = x[:, -1:]
         pos_out = torch.tensor(T, dtype=torch.int32, device=dev)
@@ -734,6 +861,12 @@ def _prefill_block(p, cfg, block: Block, x, positions, length=None):
     """Forward one block over the full sequence, returning its decode
     cache.  Q, K and V are computed once, for the attention and the cache
     both (the reference computes them twice, to the same values)."""
+    if block.kind in _SUBLAYER:
+        x, st = _recurrent(p, cfg, block, x, fused_rmsnorm)
+        if block.kind == "mamba2":
+            dt = getattr(torch, cfg.cache_dtype)
+            st["conv"] = {k: v.to(dt) for k, v in st["conv"].items()}
+        return x, st
     T = x.shape[1]
     B = x.shape[0]
     nh, hd = cfg.n_heads, cfg.head_dim
@@ -877,7 +1010,7 @@ def prefill_tp(params, cfg, inputs, n_model: int, length=None):
     (every rank's K/V gathered).  pure_sp with T % n != 0 falls through to
     the single path, as the reference's attention does; every rank would
     run it on the same values."""
-    _check_ported(cfg, serve=True)
+    _check_ported(cfg, serve=True, n_model=n_model)
     B, T_ = inputs.shape[:2]
     tp = _TP(cfg, n_model, T_)
     if tp.strat == "pure_sp" and not tp.sp:
@@ -1009,7 +1142,7 @@ def decode_step_tp(params, cfg, state, tokens, layout, active=None):
     ``layout`` (``sharding.KVLayout``s; ``state["pos"]`` is ``[B]``).
     Returns the logits as vocab blocks ``[n_tp, B, 1, ceil(V/n_tp)]`` and
     the state, its caches written in place."""
-    _check_ported(cfg, serve=True)
+    _check_ported(cfg, serve=True, n_model=layout[0].n_tp)
     pos = state["pos"]
     x = _embed(params, cfg, tokens)
     for (block, n), seg_p, seg_c, lay in zip(

@@ -111,13 +111,14 @@ class ServeFns:
     segment; ``None`` on one TP rank, where the pool is the global one:
     with ``tp = 1`` the DP ranks' rows ``r`` hold pages ``r * B/dp ...``,
     which is the global pool's own order).  Pools are updated in place
-    and returned.  ``plan`` is the serving collective plan.  The
-    reference's legacy fixed-batch pair, for the architectures its pool
-    cannot serve, has no counterpart: the port serves the dense ``attn``
-    configs (phi4-mini, gemma3-4b, gemma-7b, qwen3-32b; gemma3's local
-    layers on ring caches), and :func:`make_serve_fns` raises for the
-    ones :func:`pool_supported` refuses (the MoE configs among them;
-    ROADMAP.md queue A item 5e).
+    and returned.  ``plan`` is the serving collective plan.  The pool
+    serves the dense ``attn`` configs (phi4-mini, gemma3-4b, gemma-7b,
+    qwen3-32b; gemma3's local layers on ring caches), and
+    :func:`make_serve_fns` raises for the ones :func:`pool_supported`
+    refuses.  The reference's legacy fixed-batch pair is
+    ``launch.serve.run_fixed_batch`` on ``models.transformer``'s
+    ``prefill`` and ``decode_step``: it serves the recurrent configs; the
+    MoE ones' prefill and decode are ROADMAP.md queue A item 5e.
     """
     init_pool: Callable
     insert: Callable
@@ -190,7 +191,8 @@ def make_serve_fns(model_cfg, scfg: ServeConfig, B: int, S_len: int,
             f"this architecture (pool_supported: MoE capacity dispatch "
             f"couples batch rows, recurrent state would integrate the "
             f"prompt padding); the reference serves it through its "
-            f"fixed-batch loop run_fixed_batch, not ported (ROADMAP.md "
+            f"fixed-batch loop, launch.serve.run_fixed_batch here (the "
+            f"recurrent configs; MoE prefill and decode are ROADMAP.md "
             f"queue A item 5e)")
     dev = resolve_device(device)
     layout = cache_layout(model_cfg, B, S_len, dp, tp) if tp > 1 else None

@@ -517,7 +517,10 @@ def _global_shapes(model_cfg, params_or_shapes, tp: int):
 def step_layout(model_cfg, tcfg: TrainConfig, dp, params_shapes,
                 tp: int = 1) -> Layout:
     """The :class:`Layout` of ``params_shapes`` (global) over the DP sizes
-    ``dp`` and a model axis of ``tp``."""
+    ``dp`` and a model axis of ``tp``.  Raises for the recurrent blocks
+    at ``tp > 1`` (ROADMAP.md queue A item 5f)."""
+    if tp > 1:
+        TF._check_ported(model_cfg, n_model=tp)
     rk = Ranks(dp_shape(tcfg, dp), int(tp))
     zd_tree = zero.zero_layout(model_cfg, params_shapes, rk.n_dp, rk.tp)
     shapes = [tuple(x.shape) for x in T.flatten(params_shapes)]

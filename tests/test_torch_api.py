@@ -454,7 +454,7 @@ def test_unported_options_name_their_roadmap_item(tmp_path, monkeypatch):
     assert "once per CALL" in api.__doc__
     with pytest.raises(NotImplementedError,
                        match="ROADMAP.md queue A item 5"):
-        cfgbase.get_config("zamba2-2.7b")
+        cfgbase.get_config("pixtral-12b")
     with pytest.raises(ValueError, match="not implemented for 'allreduce'"):
         api.allreduce(x, api.CollectiveConfig(wire_dtype="int8"))
     with pytest.raises(ValueError, match="unsupported wire_dtype"):

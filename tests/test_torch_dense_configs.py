@@ -321,8 +321,8 @@ def test_full_size_parameter_count(arch):
 def test_registry_lists_the_dense_configs():
     for arch in ARCHS + ["phi4-mini-3.8b"]:
         assert tbase.get_config(arch).family == "dense"
-    with pytest.raises(NotImplementedError, match="5c-5d"):
-        tbase.get_config("zamba2-2.7b")
+    with pytest.raises(NotImplementedError, match="5d"):
+        tbase.get_config("pixtral-12b")
 
 
 # ---------------------------------------------------------------------------

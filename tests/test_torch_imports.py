@@ -35,7 +35,8 @@ def test_every_module_imports_without_jax(subproc):
     n_pkgs = sum(1 for p in PORT.rglob("__init__.py")) - 1
     assert n == n_files + n_pkgs
     for mod in SERVING_MODULES + TWO_TIER_MODULES + RUNTIME_MODULES + \
-            TP_MODULES + DENSE_CONFIG_MODULES + MOE_MODULES:
+            TP_MODULES + DENSE_CONFIG_MODULES + MOE_MODULES + \
+            RECURRENT_MODULES:
         assert (PORT / (mod.replace(".", "/") + ".py")).is_file(), mod
 
 
@@ -84,6 +85,15 @@ MOE_MODULES = (
     "models.moe", "configs.mixtral_8x7b", "configs.phi35_moe",
     "models.transformer", "serve.engine", "launch.cell",
     "launch.profile_step")
+
+
+#: the recurrent slice: the blocks, the two config copies and the modules
+#: it changed, each imported above without jax
+RECURRENT_MODULES = (
+    "models.ssm", "configs.xlstm_125m", "configs.zamba2_2p7b",
+    "models.transformer", "interop", "train.step", "launch.serve",
+    "launch.cell", "launch.profile_step", "launch.profile_serve",
+    "kernels.flash_attention.kernel")
 
 
 def _imports(tree):

@@ -18,7 +18,9 @@ once, in a subprocess, and hands its outputs over as an ``.npz``.
 
 On a card (``cuda`` marker; skipped elsewhere) each kernel is held to its
 plain version: rmsnorm within float32 rtol 1e-6 or one bf16 ulp, flash
-attention within the tolerances above, qacc bitwise.
+attention within the tolerances above (at head_dim 80 too, the bf16 call
+on the tensor-core kernel, and at zamba2-2.7b's insert shape), qacc
+bitwise.
 """
 
 import math
@@ -66,6 +68,17 @@ FLASH_CASES = [
     (1, 192, 4, 2, 256, 64, "float32", 2e-5),
     (2, 130, 2, 2, 256, None, "float32", 2e-5),
     (1, 128, 8, 1, 256, 48, "float32", 2e-5),
+    # head_dim 80 (zamba2-2.7b's shared attention, g = 1): both kernels,
+    # T a multiple of 64 and not, a window, GQA
+    (1, 256, 4, 4, 80, None, "float32", 2e-5),
+    (2, 130, 4, 4, 80, None, "bfloat16", 3e-2),
+    (1, 320, 4, 2, 80, 100, "bfloat16", 3e-2),
+    (1, 200, 2, 1, 80, 64, "float32", 2e-5),
+]
+#: on the card also zamba2-2.7b's insert, q [4, 1024, 32, 80], both dtypes
+FLASH_CUDA_CASES = FLASH_CASES + [
+    (4, 1024, 32, 32, 80, None, "bfloat16", 3e-2),
+    (4, 1024, 32, 32, 80, None, "float32", 2e-5),
 ]
 QACC_CASES = [(64, 128), (100, 256), (1, 64)]
 
@@ -78,7 +91,7 @@ def _rms_inputs(shape):
 
 
 def _flash_inputs(i):
-    Bn, T, nh, nkv, hd = FLASH_CASES[i][:5]
+    Bn, T, nh, nkv, hd = FLASH_CUDA_CASES[i][:5]
     rng = np.random.RandomState(1000 + i)
     return tuple(rng.randn(Bn, T, n, hd).astype(np.float32)
                  for n in (nh, nkv, nkv))
@@ -473,7 +486,14 @@ RMS_CUDA_SHAPES = RMS_SHAPES + [(1024, 3072), (8, 3072), (10000, 3072),
                                 (3, 16392), (4, RK.MAX_D),
                                 # gemma3-4b's and qwen3-32b's rows: the
                                 # last thread's vectors partly filled
-                                (1024, 2560), (8, 5120)]
+                                (1024, 2560), (8, 5120),
+                                # the fixed-batch loop's: xlstm-125m's
+                                # prefill and decode rows at d_model 768
+                                # and the mLSTM norm's 1536 (one warp and
+                                # two a row), zamba2-2.7b's at 2560 and
+                                # 5120
+                                (8192, 768), (8, 768), (8192, 1536),
+                                (8, 1536), (4096, 5120), (4, 2560)]
 
 
 @pytest.mark.cuda
@@ -553,10 +573,10 @@ def test_cuda_rmsnorm_batch_invariant(cuda_device, d, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("i", range(len(FLASH_CASES)),
-                         ids=[f"{c[:6]}-{c[6]}" for c in FLASH_CASES])
+@pytest.mark.parametrize("i", range(len(FLASH_CUDA_CASES)),
+                         ids=[f"{c[:6]}-{c[6]}" for c in FLASH_CUDA_CASES])
 def test_cuda_flash_attention_matches_plain(cuda_device, i):
-    Bn, T, nh, nkv, hd, window, dtype, tol = FLASH_CASES[i]
+    Bn, T, nh, nkv, hd, window, dtype, tol = FLASH_CUDA_CASES[i]
     tdt = getattr(torch, dtype)
     q, k, v = (torch.from_numpy(a).to(cuda_device, tdt)
                for a in _flash_inputs(i))
@@ -577,7 +597,7 @@ def test_cuda_flash_attention_matches_plain(cuda_device, i):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("hd", [48, 80, 160, 512])
+@pytest.mark.parametrize("hd", [48, 96, 160, 512])
 def test_cuda_flash_attention_refuses_other_head_dims(cuda_device, hd,
                                                       dtype):
     """A head dim outside ``HEAD_DIMS`` raises on the card, whichever
