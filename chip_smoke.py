@@ -202,15 +202,46 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
              its bf16 prefill logits within ``SSM_LOGIT_ULPS`` of the
              float32 prefill on three seeds and a planted flash fault
              outside (an ``ssm:`` JSON line).
+14. frontend configs — (a) reduced pixtral-12b and musicgen-medium
+             (float32, float32 caches) on frames, the card against the
+             CPU, as 13a; (b) the flash kernel at head_dim 160, pixtral's
+             prefill q [4, 1024, 32, 160] over 8 K/V heads, causal: bf16
+             on wgmma within 3e-2 (``flash_attention_hd160``), float32 on
+             the CUDA cores within 2e-5 (``flash_attention_hd160_f32``,
+             the frames path's), each row beside SDPA with 50
+             back-to-back calls timed (``loop_ms``), and float32 at
+             musicgen's prefill (q [8, 1024, 24, 64]); (c)
+             ``cell.FRONTEND_SERVE_CELLS`` through
+             ``launch.serve.run_fixed_batch`` on float32 frames:
+             pixtral-12b at full depth (4 x 1024 patches) and
+             musicgen-medium (8 x 1024 frames), 32 greedy tokens, 2 L + 1
+             rmsnorm per prefill and per step and L float32 flash per
+             prefill (no wgmma), each rmsnorm shape of the loop held to
+             plain (float32, rtol 1e-6), the frames prefill's last-token
+             logits within ``FRAMES_LOGIT_RTOL`` of ``forward``'s (plain
+             attention), then pixtral's token prefill (L wgmma flash at
+             160) within ``PIXTRAL_LOGIT_ULPS`` of float32 on three seeds
+             with a planted panel fault outside; (d)
+             ``cell.FRONTEND_TRAIN_CELL``, musicgen-medium at full width
+             cut to 16 of 48 layers, p = 4, batch 8 x 1024 frames, at
+             (dp, tp) = (4, 1) and (2, 2): two pallas_fused steps (and a
+             bine step at (4, 1), bitwise), rs_step and ag_step launched,
+             the step-0 loss within ``FRONTEND_LOSS_RTOL`` of the plain
+             float32 forward while two faults land outside, step ms,
+             tokens/s, peak and idle share (a ``frontend:`` JSON line).
 
 The kernels line's launches of rs_step, ag_step and rs_step_q sum the
 train step's main path, its two-axis path, phase 8's runs, the TP path's,
-the gemma3 train step's, the MoE train steps' and the recurrent train
-cells'; those of rmsnorm the serve, serve-TP, dense serve and fixed-batch
-paths'; flash_attention's (head_dim 128) the serve, serve-TP and
-qwen3-32b paths', flash_attention_hd256's the gemma3-4b, gemma-7b and
-gemma3-4b serve-TP paths', flash_attention_hd80's zamba2's fixed-batch
-path's; the ``kernels by path:`` line gives each
+the gemma3 train step's, the MoE train steps', the recurrent train
+cells' and the frontend train cell's; those of rmsnorm the serve,
+serve-TP, dense serve and fixed-batch paths' (the frontend ones too);
+flash_attention's (head_dim 128) the serve, serve-TP and qwen3-32b
+paths', flash_attention_hd256's the gemma3-4b, gemma-7b and gemma3-4b
+serve-TP paths', flash_attention_hd80's zamba2's fixed-batch path's,
+flash_attention_hd160's pixtral's token prefill, and
+flash_attention_hd160_f32's pixtral's frames prefill (musicgen's float32
+flash at head_dim 64 counts in the by-path line only); the ``kernels by
+path:`` line gives each
 path's own counts, each of which must be above 0.  Prints a ``kernels:``
 summary, one JSON line of per-kernel numbers, the card's name and power
 limit, and as its last line
@@ -254,6 +285,10 @@ SOURCE = {"rs_step": CSRC + "collective_steps.cu",
           KSRC + "flash_attention/csrc/flash_attention.cu",
           "flash_attention_hd80":
           KSRC + "flash_attention/csrc/flash_attention.cu",
+          "flash_attention_hd160":
+          KSRC + "flash_attention/csrc/flash_attention.cu",
+          "flash_attention_hd160_f32":
+          KSRC + "flash_attention/csrc/flash_attention.cu",
           "qacc": KSRC + "qdot/csrc/qacc.cu"}
 REPLACES = {
     "rs_step": "src/repro/kernels/collectives/kernel.py:78",
@@ -268,6 +303,9 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:91",
     "flash_attention_hd256": "src/repro/kernels/flash_attention/kernel.py:91",
     "flash_attention_hd80": "src/repro/kernels/flash_attention/kernel.py:91",
+    "flash_attention_hd160": "src/repro/kernels/flash_attention/kernel.py:91",
+    "flash_attention_hd160_f32":
+    "src/repro/kernels/flash_attention/kernel.py:91",
     "qacc": "src/repro/kernels/qdot/kernel.py:27",
 }
 #: phi4-mini's tensor-parallel MLP at p=4 (d_model 3072, d_ff 8192): the
@@ -3131,7 +3169,7 @@ def phase_moe_train(dev):
 # ---------------------------------------------------------------------------
 
 #: phase 13's train-cell gates, per arch: (loss, token), set from
-#: ``ssm_loss_readings`` on an H100 (PERF.md, section 6).  The bf16
+#: ``train_loss_readings`` on an H100 (PERF.md, section 6).  The bf16
 #: step's loss within the first of the plain float32 loss of the same
 #: weights (upcast) on the same batch, and the mean over tokens of |bf16
 #: NLL - float32 NLL| within the second, as phase 12 gates the MoE cell;
@@ -3182,15 +3220,17 @@ SSM_FAULTS = {
 }
 
 
-def phase_ssm_small_reference(dev):
-    """(a) Reduced xlstm-125m and zamba2-2.7b (float32, float32 caches),
-    the same weights on the card and on the CPU: two pallas_fused train
-    steps at p = 2 (the losses and step 1's grad norm within rtol 1e-4;
-    params after step 1 all but 0.1% within 1e-5, every one within 2.5 lr,
-    as phase 12a), then ``prefill`` of 64 tokens and 4 ``decode_step``s
-    (logits within 1e-4 of max |logit|).  Step 2's grad norm is reported:
-    a weight whose step-1 gradient is of the order of AdamW's eps moves by
-    up to 2 lr between two float32 sums (tests/test_torch_ssm.py)."""
+def phase_model_small_reference(dev, archs):
+    """13a and 14a: reduced ``archs`` (float32, float32 caches), the same
+    weights on the card and on the CPU: two pallas_fused train steps at p
+    = 2 (the losses and step 1's grad norm within rtol 1e-4; params after
+    step 1 all but 0.1% within 1e-5, every one within 2.5 lr, as phase
+    12a), then ``prefill`` of 64 tokens and 4 ``decode_step``s (logits
+    within 1e-4 of max |logit|); a frontend config takes ``make_batch``'s
+    frames and ``np.random.RandomState(2)``'s in place of tokens.  Step
+    2's grad norm is reported: a weight whose step-1 gradient is of the
+    order of AdamW's eps moves by up to 2 lr between two float32 sums
+    (tests/test_torch_ssm.py)."""
     import numpy as np
     import torch
     from repro_torch import tree as T
@@ -3205,14 +3245,16 @@ def phase_ssm_small_reference(dev):
                        adamw=AdamWConfig(lr=3e-3, warmup_steps=1,
                                          total_steps=100))
     dp = 2
-    for arch in ("xlstm-125m", "zamba2-2.7b"):
+    for arch in archs:
         cfg = base.reduced(base.get_config(arch)).replace(
             dtype="float32", cache_dtype="float32")
+        fd = cfg.frontend_dim if cfg.frontend else 0
         dcfg = DataConfig(global_batch=8, seq_len=64,
-                          vocab_size=cfg.vocab_size)
+                          vocab_size=cfg.vocab_size, frontend_dim=fd)
         init = TF.init_params(cfg, 0, "cpu")
-        tok = torch.as_tensor(np.random.RandomState(2).randint(
-            0, cfg.vocab_size, (2, 68)), dtype=torch.int32)
+        tok = _frames(cfg, 2, 68, 2, "cpu") if fd else torch.as_tensor(
+            np.random.RandomState(2).randint(0, cfg.vocab_size, (2, 68)),
+            dtype=torch.int32)
         out = {}
         for where in ("cpu", dev):
             step, _, _ = make_train_step(cfg, tcfg, dp, TF.param_shapes(cfg),
@@ -3236,7 +3278,7 @@ def phase_ssm_small_reference(dev):
                     logits.append(lg.cpu())
             out[str(where)] = (mets, first, logits)
         (mc, pc, lc), (mg, pg, lgd) = out["cpu"], out[str(dev)]
-        what = f"ssm small reference {arch}"
+        what = f"small reference {arch}"
         for (a, b), (c, d_) in zip(mc, mg):
             check(math.isclose(a, c, rel_tol=1e-4),
                   f"{what}: card loss {c} vs cpu {a}")
@@ -3254,7 +3296,8 @@ def phase_ssm_small_reference(dev):
                    for a, b in zip(lc, lgd))
         check(lerr <= 1e-4, f"{what}: prefill/decode logits differ by "
               f"{lerr} of max |logit|")
-        log(f"  small {arch} (f32): card loss / gnorm {mg} vs cpu {mc} "
+        log(f"  small {arch} (f32{', frames' if fd else ''}): card loss / "
+            f"gnorm {mg} vs cpu {mc} "
             f"(step 2's gnorm reported); params max |diff| {perr:.2e}, "
             f"{n_out} of {n_all} beyond 1e-5; prefill + 4 decode logits "
             f"{lerr:.2e} of max |logit|")
@@ -3287,9 +3330,10 @@ def phase_ssm_flash(dev, randn, row):
     torch.cuda.empty_cache()
 
 
-def ssm_loss_readings(cfg, dcfg, dev, seeds=(0,), faults=None):
-    """A recurrent train cell's forward on its whole global batch (one
-    forward: the sLSTM scan costs launches a call, not a row): ``loss_fn``'s
+def train_loss_readings(cfg, dcfg, dev, seeds=(0,), faults=None):
+    """A train cell's forward on its whole global batch (one forward: a
+    recurrent cell's sLSTM scan costs launches a call, not a row; a
+    frontend cell's batch is frames): ``loss_fn``'s
     cross entropy and z-loss, and each token's NLL.  For each seed the
     bf16 loss of ``init_params(cfg, seed)`` on ``make_batch(dcfg, seed)``,
     the plain float32 loss of the same weights (upcast) and the token gap,
@@ -3390,7 +3434,7 @@ def phase_ssm_train(dev):
         del first, bine_first
         torch.cuda.empty_cache()
         loss_atol, token_atol = SSM_GATES[cfg.name]
-        sound, faulty = ssm_loss_readings(cfg, dcfg, dev, (0, 1, 2),
+        sound, faulty = train_loss_readings(cfg, dcfg, dev, (0, 1, 2),
                                           SSM_FAULTS[cfg.name])
         ref = sound[0][1]
         for seed, (b16, f32, tg) in sound.items():
@@ -3446,10 +3490,11 @@ def phase_ssm_train(dev):
     return launches, nums
 
 
-def _planted_flash_fault():
-    """The flash kernel's output with its last 16 head columns zeroed (a
-    kernel that dropped head_dim 80's second panel): a context manager
-    over ``models.transformer``'s flash_attention."""
+def _planted_flash_fault(first: int = 64):
+    """The flash kernel's output with its head columns from ``first`` on
+    zeroed (a kernel that dropped its last panel: 64 at head_dim 80, 128
+    at 160): a context manager over ``models.transformer``'s
+    flash_attention."""
     import contextlib
     from repro_torch.models import transformer as TF
 
@@ -3459,7 +3504,7 @@ def _planted_flash_fault():
 
         def broken(q, k, v, **kw):
             o = real(q, k, v, **kw).clone()
-            o[..., 64:] = 0
+            o[..., first:] = 0
             return o
         TF.flash_attention = broken
         try:
@@ -3626,6 +3671,390 @@ def phase_ssm_serve(dev, randn):
     return launches, nums
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the frontend configs (pixtral-12b, musicgen-medium)
+# ---------------------------------------------------------------------------
+
+#: phase 14's gates, set from readings on an H100 (PERF.md, section 6):
+#: (c) a frames prefill against ``forward`` (plain attention) on the same
+#: frames, both float32 over the bf16 weights: max |diff| of the
+#: last-token logits within FRAMES_LOGIT_RTOL of max |logit| (read:
+#: pixtral-12b 7.1e-6, musicgen-medium 3.3e-6);
+FRAMES_LOGIT_RTOL = 2e-5
+#: (c) pixtral's token prefill (bf16, the wgmma kernel at 160) against the
+#: float32 prefill of the same weights (upcast): the mean of |bf16 -
+#: float32| over the batch's last-token logits in bf16 ulps of max
+#: |logit|, within PIXTRAL_LOGIT_ULPS on three seeds (read: 0.469-0.470,
+#: max 2.8-3.0), while the flash output with head columns 128-159 zeroed
+#: lands outside it on each (read: 29.8-30.0);
+PIXTRAL_LOGIT_ULPS = 0.75
+#: (d) the musicgen train cell's step-0 loss against the plain float32
+#: forward of the same weights (upcast) on the same frames, relative: both
+#: run float32 (the frames promote), so they differ by float32 sums (read:
+#: 0 at 16 layers, 1.2e-7 at 8, at (4, 1) and (2, 2)); the faults of
+#: FRONTEND_FAULTS land outside (at 16 layers GeGLU 3.4e-4, RoPE theta
+#: 5.8e-4; at 8 2.6e-4 and 7.3e-5)
+FRONTEND_LOSS_RTOL = 1e-5
+
+
+def _upcast_in_place(tree):
+    """Every leaf of a params tree (dicts and lists) to float32, one leaf
+    at a time, each bf16 leaf freed as its copy replaces it: pixtral's
+    25.6 GB of bf16 weights become 51.1 GB of float32 without both whole
+    trees on the card at once."""
+    import torch
+    keys = tree.keys() if isinstance(tree, dict) else range(len(tree))
+    for k in list(keys):
+        if isinstance(tree[k], (dict, list)):
+            _upcast_in_place(tree[k])
+        else:
+            tree[k] = tree[k].float()
+    torch.cuda.empty_cache()
+    return tree
+
+
+def _frames(cfg, B: int, T: int, seed: int, dev):
+    """``B`` prompts of ``T`` frames from ``np.random.RandomState(seed)``,
+    the fixed-batch loop's first draw (``launch.serve.fixed_batch_steps``)."""
+    import numpy as np
+    import torch
+    return torch.as_tensor(np.random.RandomState(seed).randn(
+        B, T, cfg.frontend_dim), dtype=torch.float32, device=dev)
+
+
+def loop_ms(fn, calls: int = 50) -> float:
+    """CUDA-event ms per call over ``calls`` back-to-back calls (one sync
+    at the end): the device time per call wherever it exceeds the host's,
+    a check on torch.profiler's ``device_ms`` (late in a smoke run one
+    session's kernels summed to under half of this, PERF.md)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(calls):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / calls
+
+
+def phase_frontend_flash(dev, randn, row):
+    """(b) The flash kernel at head_dim 160, pixtral-12b's prefill, q
+    [4, 1024, 32, 160] over 8 K/V heads, causal: bf16 on the wgmma kernel
+    (head_dim 256's tiles, columns 160-255 zero-filled by TMA) within 3e-2
+    of the plain version, float32 on the CUDA cores within 2e-5 (the
+    frames path's); a row each (event ms, device ms under torch.profiler,
+    host us, the bound, SDPA's times: cuDNN in bf16, its float32
+    backend's beside the float32 row; ``loop_ms`` of the kernel and of
+    SDPA beside them).  Then float32 at musicgen's prefill (q [8, 1024,
+    24, 64]) within 2e-5."""
+    import torch
+    from repro_torch.launch import cell
+
+    c = cell.PIXTRAL_SERVE_CELL
+    cfg = cell.serve_model_config(c)
+    heads = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+    B, T_ = c.slots, c.prompt_len_max
+    for dt, name, kernel in (
+            (torch.bfloat16, "flash_attention_hd160", "flash_kernel_wgmma"),
+            (torch.float32, "flash_attention_hd160_f32", "flash_kernel")):
+        kern, plain, lib, err, bound, by = flash_case(dev, randn, heads, T_,
+                                                      None, dt, B)
+        backend = sdpa_backend(lib)
+        loops = {"loop_ms": loop_ms(kern), "library_loop_ms": loop_ms(lib)}
+        log(f"  SDPA at q [{B}, {T_}, 32, 160] {str(dt)[6:]} causal ran: "
+            f"{backend}; 50 back-to-back calls: {ms(loops['loop_ms'])} ms "
+            f"a call, SDPA {ms(loops['library_loop_ms'])} ms")
+        row(name, err, kern, plain, bound, by, lib, device=kernel,
+            sdpa_backend=backend, **loops)
+        del kern, plain, lib
+        torch.cuda.empty_cache()
+    m = cell.serve_model_config(cell.MUSICGEN_SERVE_CELL)
+    flash_case(dev, randn, (m.n_heads, m.n_kv_heads, m.head_dim),
+               cell.MUSICGEN_SERVE_CELL.prompt_len_max, None, torch.float32,
+               cell.MUSICGEN_SERVE_CELL.slots)
+    torch.cuda.empty_cache()
+
+
+def pixtral_token_readings(cfg, dev, c, params, seeds) -> dict:
+    """pixtral's token prefill (a text-only request: ``c.slots`` prompts of
+    ``c.prompt_len_max`` tokens from ``np.random.RandomState(seed)``) in
+    bf16, on the wgmma flash kernel at 160, against the float32 prefill of
+    the same weights (upcast in place, float32 caches), for each seed
+    (``params``: the first seed's weights, then drawn from each seed), and
+    the bf16 prefill with ``_planted_flash_fault(128)``: max and mean of
+    |bf16 - float32| over the last-token logits in bf16 ulps of max
+    |logit|.
+    Consumes ``params`` (the tree is emptied).  Returns ({seed:
+    readings}, the first seed's bf16 prefill's launch counts)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import build as KB
+    from repro_torch.models import transformer as TF
+
+    f32 = cfg.replace(dtype="float32", cache_dtype="float32")
+    out, counts = {}, None
+    with torch.no_grad():
+        for seed in seeds:
+            if params is None:
+                params = TF.init_params(cfg, seed, dev)
+            prompt = torch.as_tensor(np.random.RandomState(seed).randint(
+                0, cfg.vocab_size, size=(c.slots, c.prompt_len_max)),
+                dtype=torch.int32, device=dev)
+            torch.cuda.synchronize()
+            KB.reset_launches()
+            t0 = time.perf_counter()
+            lb = TF.prefill(params, cfg, prompt)[0].float()
+            torch.cuda.synchronize()
+            dt_ms = (time.perf_counter() - t0) * 1e3
+            if counts is None:
+                counts = {k: v for k, v in KB.LAUNCHES.items() if v}
+            with _planted_flash_fault(128):
+                lf = TF.prefill(params, cfg, prompt)[0].float()
+            p32 = _upcast_in_place(params)
+            params = None
+            l32 = TF.prefill(p32, f32, prompt)[0].float()
+            p32.clear()         # the caller's reference to the tree too
+            del p32
+            torch.cuda.empty_cache()
+            ulp = float(bf16_ulp(l32.abs().max()))
+            check(bool(torch.isfinite(lb).all()),
+                  f"{cfg.name} seed {seed}: non-finite token logits")
+            out[seed] = {"max": float((lb - l32).abs().max()) / ulp,
+                         "mean": float((lb - l32).abs().mean()) / ulp,
+                         "fault_max": float((lf - l32).abs().max()) / ulp,
+                         "fault_mean": float((lf - l32).abs().mean()) / ulp,
+                         "max_abs_logit": float(l32.abs().max()),
+                         "prefill_ms": dt_ms}
+            del lb, lf, l32
+    return out, counts
+
+
+def phase_frontend_serve(dev, randn):
+    """(c) ``cell.FRONTEND_SERVE_CELLS`` through
+    ``launch.serve.run_fixed_batch`` on float32 frames (the prompt and each
+    step's input), 32 greedy tokens: pixtral-12b at full depth (4 x 1024
+    patches) and musicgen-medium (8 x 1024 frames).  The launch counts
+    read around the loop: 2 rmsnorm a layer and the final norm per
+    prefill and per decode step, one float32 flash a layer in the
+    prefill (the CUDA-core kernel: at head_dim 160 for pixtral, 64 for
+    musicgen), no wgmma launch; every token in the vocabulary; each
+    rmsnorm shape the loop gave the kernel (float32 rows, the bf16 gain
+    cast) held to the plain version within rtol 1e-6.  The frames
+    prefill's last-token logits within ``FRAMES_LOGIT_RTOL`` of max
+    |logit| of ``forward``'s (plain attention) on the same frames.  Then
+    pixtral's token prefill on the wgmma kernel at 160: its launches, and
+    |bf16 - float32| within ``PIXTRAL_LOGIT_ULPS`` on three seeds with the
+    planted panel fault's reading beside it (``pixtral_token_readings``).
+    Reports prefill ms, decode tokens/s and the peak.  Returns the
+    launches by path and the numbers."""
+    import torch
+    from repro_torch.kernels import build as KB
+    from repro_torch.kernels.rmsnorm import ops as RO
+    from repro_torch.launch import cell
+    from repro_torch.launch.serve import run_fixed_batch
+    from repro_torch.models import transformer as TF
+
+    launches, nums = {}, {}
+    for c in cell.FRONTEND_SERVE_CELLS:
+        cfg = cell.serve_model_config(c)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t_init = time.perf_counter()
+        params = TF.init_params(cfg, c.seed, dev)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t_init
+        L = cfg.n_layers
+        n_norm = 2 * L + 1
+        B, Lp, new = c.slots, c.prompt_len_max, c.max_new
+        log(f"  {cfg.name}: {L} layers, {TF.param_count(params):,} params "
+            f"({cfg.dtype}, drawn in {t_init:.1f} s), fixed batch {B} x "
+            f"{Lp} frames of {cfg.frontend_dim}, {new} greedy tokens")
+        shapes, real = set(), RO.rmsnorm_kernel
+
+        def recorded(x, w, eps):
+            shapes.add((*x.shape, eps, x.dtype, w.dtype))
+            return real(x, w, eps)
+        torch.cuda.synchronize()
+        KB.reset_launches()
+        RO.rmsnorm_kernel = recorded
+        try:
+            toks, got = run_fixed_batch(cfg, params, B, Lp, new,
+                                        seed=c.seed, device=dev)
+        finally:
+            RO.rmsnorm_kernel = real
+        counts = {k: v for k, v in KB.LAUNCHES.items() if v}
+        want = {"rmsnorm": n_norm * new, "flash_attention": L}
+        check(counts == want, f"{cfg.name} fixed batch on frames: launches "
+              f"{counts}, expected {want} (float32 flash on the CUDA cores)")
+        check(toks.shape == (B, new) and int(toks.min()) >= 0 and
+              int(toks.max()) < cfg.vocab_size,
+              f"{cfg.name}: tokens {toks.shape} out of range")
+        got["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        check({n for n, *_ in shapes} == {B * Lp, B} and
+              all(dt == wdt == torch.float32 for *_, dt, wdt in shapes),
+              f"{cfg.name}: rmsnorm shapes {sorted(shapes, key=str)}")
+        for rows_, d, eps, dt, _ in sorted(shapes, key=lambda t: t[:2]):
+            rmsnorm_case(randn, rows_, d, eps, dt)
+        got["rmsnorm_shapes"] = sorted([r, d] for r, d, *_ in shapes)
+        # the frames prefill against forward's plain attention
+        frames = _frames(cfg, B, Lp, c.seed, dev)
+        with torch.no_grad():
+            lp = TF.prefill(params, cfg, frames)[0][:, 0].float()
+            lfw = TF.forward(params, cfg, frames)[0][:, -1].clone()
+        del frames
+        torch.cuda.empty_cache()
+        check(lp.dtype == lfw.dtype == torch.float32 and
+              bool(torch.isfinite(lp).all()),
+              f"{cfg.name}: frames prefill logits not finite float32")
+        rel = float((lp - lfw).abs().max() / lfw.abs().max())
+        got["frames_prefill_vs_forward"] = rel
+        got["frames_max_abs_logit"] = float(lfw.abs().max())
+        del lp, lfw
+        log(f"  {cfg.name}: launches {counts}; prefill "
+            f"{got['prefill_ms']:.1f} ms, decode "
+            f"{got['decode_tokens_per_s']:.1f} tokens/s, peak "
+            f"{got['peak_gib']:.2f} GiB; rmsnorm at the loop's "
+            f"{len(shapes)} shapes (float32) within rtol 1e-6 of plain; the "
+            f"frames prefill's last-token logits {rel:.2e} of max |logit| "
+            f"({got['frames_max_abs_logit']:.3f}) from forward's (plain "
+            f"attention; gate {FRAMES_LOGIT_RTOL})")
+        check(rel <= FRAMES_LOGIT_RTOL,
+              f"{cfg.name}: frames prefill {rel} of max |logit| from forward")
+        launches[f"{cfg.name} (frames)"] = counts
+        if cfg.name == "pixtral-12b":
+            seeds = (c.seed, c.seed + 1, c.seed + 2)
+            read, tc = pixtral_token_readings(cfg, dev, c, params, seeds)
+            params = None
+            want = {"rmsnorm": n_norm, "flash_attention": L,
+                    "flash_attention_wgmma": L}
+            check(tc == want, f"{cfg.name} token prefill: launches {tc}, "
+                  f"expected {want} (bf16 flash on wgmma)")
+            launches[f"{cfg.name} (tokens)"] = tc
+            got["token_readings"] = read
+            for seed, r in read.items():
+                log(f"  {cfg.name} seed {seed}: token prefill "
+                    f"{r['prefill_ms']:.1f} ms; bf16 logits from float32, "
+                    f"in bf16 ulps of max |logit| ({r['max_abs_logit']:.3f})"
+                    f": max {r['max']:.1f}, mean {r['mean']:.3f}; with "
+                    f"head columns 128-159 zeroed {r['fault_max']:.1f} / "
+                    f"{r['fault_mean']:.3f}")
+            for seed, r in read.items():
+                check(r["mean"] <= PIXTRAL_LOGIT_ULPS,
+                      f"{cfg.name} seed {seed}: bf16 token prefill mean "
+                      f"{r['mean']} (max {r['max']}) bf16 ulps from float32 "
+                      f"(gate {PIXTRAL_LOGIT_ULPS})")
+                check(r["fault_mean"] > PIXTRAL_LOGIT_ULPS,
+                      f"{cfg.name} seed {seed}: the planted panel fault "
+                      f"lands mean {r['fault_mean']} ulps away, within the "
+                      f"gate")
+        del params
+        torch.cuda.empty_cache()
+        nums[cfg.name] = got
+    return launches, nums
+
+
+#: forward faults of the train cell that its loss gate must see: (name,
+#: fault(cfg, params) -> (cfg, params))
+FRONTEND_FAULTS = {"GeGLU for SwiGLU": _replace_cfg(act="geglu"),
+                   "RoPE theta 1e6 for 1e4": _replace_cfg(rope_theta=1e6)}
+
+
+def phase_frontend_train(dev):
+    """(d) ``cell.FRONTEND_TRAIN_CELL``: musicgen-medium at full width cut
+    to 16 of 48 layers, p = 4, batch 8 x 1024 float32 frames of 128, bf16,
+    float32 wire, at (dp, tp) = (4, 1) and (2, 2) (megatron_sp, the
+    replicated frontend_proj on each TP rank's sequence shard): two
+    pallas_fused steps and, at (4, 1), one bine step from the same start,
+    rank 0's params after the first bitwise equal; rs_step and ag_step
+    launched; the step-0 loss within ``FRONTEND_LOSS_RTOL`` of the plain
+    float32 forward of the same weights (upcast) on the same frames, as is
+    the bf16 model's own forward, while each fault of ``FRONTEND_FAULTS``
+    lands outside.  Warm step ms, tokens/s, peak, and the idle share from
+    ``launch/profile_step.py`` (the step's unprofiled wall time against
+    its profiled busy time).  Returns the launches by mesh and the
+    numbers."""
+    import torch
+    from repro_torch.launch import cell
+    from repro_torch.launch import profile_step as PS
+    from repro_torch.models import transformer as TF
+
+    tc = cell.FRONTEND_TRAIN_CELL
+    cfg, dcfg, run = train_runs(dev, tc.model_config())
+    tokens = dcfg.global_batch * dcfg.seq_len
+    n_params = TF.param_count(TF.param_shapes(cfg))
+    log(f"  {cfg.name}: {cfg.n_layers} layers, {n_params:,} params, d_model "
+        f"{cfg.d_model}; batch {dcfg.global_batch}x{dcfg.seq_len} frames of "
+        f"{dcfg.frontend_dim}")
+    sound, faulty = train_loss_readings(cfg, dcfg, dev, (0,),
+                                        FRONTEND_FAULTS)
+    b16, ref, tg0 = sound[0]
+    log(f"  {cfg.name} seed 0: bf16 forward loss {b16:.6f}, plain float32 "
+        f"{ref:.6f}, rel gap {(b16 - ref) / ref:+.2e}; token gap {tg0:.6f}")
+    for name, (loss, tg) in faulty.items():
+        log(f"  {cfg.name} seed 0, {name}: loss {loss:.6f}, rel gap "
+            f"{(loss - ref) / ref:+.2e}; token gap {tg:.6f}")
+        check(abs(loss - ref) > FRONTEND_LOSS_RTOL * abs(ref),
+              f"{cfg.name} with {name}: loss {loss} within "
+              f"{FRONTEND_LOSS_RTOL} of the sound float32 loss {ref}; the "
+              f"gate cannot see that fault")
+    check(abs(b16 - ref) <= FRONTEND_LOSS_RTOL * abs(ref),
+          f"{cfg.name}: bf16 forward loss {b16} vs float32 {ref}")
+    launches, nums = {}, {"n_layers": cfg.n_layers, "params": n_params,
+                          "bf16_forward_loss": b16, "f32_loss": ref,
+                          "token_gap": tg0, "fault_losses": faulty}
+    for dp, tp in tc.meshes:
+        mesh = f"{dp},{tp}"
+        tag = f"{cfg.name} ({mesh}) pallas_fused/float32"
+        counts, losses, times, peak, first = run(
+            cell.train_config("pallas_fused", "float32"), dp, 2, tag, tp=tp,
+            digest=True)
+        launches[mesh] = {k: counts[k] for k in ("rs_step", "ag_step")}
+        for k, v in launches[mesh].items():
+            check(v > 0, f"the {cfg.name} ({mesh}) train step did not "
+                  f"launch {k}")
+        check(abs(losses[0] - ref) <= FRONTEND_LOSS_RTOL * abs(ref),
+              f"{cfg.name} ({mesh}) step-0 loss {losses[0]} vs the plain "
+              f"float32 loss {ref} (rel {FRONTEND_LOSS_RTOL})")
+        rec = {"losses": losses, "loss_hex": losses[0].hex(),
+               "gnorms": run.gnorms[tag], "step_ms": [t * 1e3 for t in times],
+               "peak_gib": peak, "params_sha256": run.digests[tag]}
+        if tp == 1:
+            cb, lb, tb, _, bine_first = run(
+                cell.train_config("bine", "float32"), dp, 1,
+                f"{cfg.name} ({mesh}) bine/float32")
+            check(sum(cb.values()) == 0,
+                  f"the bine path launched kernels: {cb}")
+            check(all(torch.equal(a, b) for a, b in zip(first, bine_first)),
+                  f"{cfg.name}: bine and pallas_fused params differ after "
+                  f"one float32 step")
+            check(lb[0] == losses[0], f"{cfg.name}: bine loss {lb[0]} vs "
+                  f"pallas_fused {losses[0]}")
+            del bine_first
+        del first
+        torch.cuda.empty_cache()
+        prof = PS.profile(cfg, "pallas_fused", "float32", dev, mesh)
+        torch.cuda.empty_cache()
+        warm = times[1]
+        idle = 1 - prof["busy_ms"] / (warm * 1e3)
+        log(f"  {cfg.name} ({mesh}): loss {losses[0]:.6f}, plain float32 "
+            f"{ref:.6f} (rel gap {(losses[0] - ref) / ref:+.2e}); warm step "
+            f"{warm * 1e3:.1f} ms ({tokens / warm:.0f} tokens/s), peak "
+            f"{peak:.1f} GiB; profiled {prof['wall_ms']:.1f} ms wall, "
+            f"{prof['busy_ms']:.1f} ms busy: idle share {idle:.3f} of the "
+            f"unprofiled step ({prof['idle_share']:.3f} under the profiler)"
+            + ("; bine == pallas_fused bitwise" if tp == 1 else ""))
+        rec.update({"warm_step_ms": warm * 1e3, "tokens_per_s": tokens / warm,
+                    "idle_share_unprofiled": idle,
+                    "profile": {k: prof[k] for k in (
+                        "wall_ms", "busy_ms", "idle_share", "groups_ms",
+                        "group_launches")}})
+        nums[mesh] = rec
+    return launches, nums
+
+
 def main() -> int:
     # one 9.8 GB bucket buffer after another: keep the allocator's segments
     # growable so freed ones are reused (set before CUDA starts)
@@ -3649,7 +4078,7 @@ def main() -> int:
     from repro_torch.kernels.rmsnorm import kernel as RK
 
     t_all = time.perf_counter()
-    log("[1/13] build")
+    log("[1/14] build")
     t0 = time.perf_counter()
     libs = KB.build()
     for src in K.SOURCES:
@@ -3659,46 +4088,46 @@ def main() -> int:
     log(f"  built {', '.join(p.name for p in libs.values())} in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    log("[2/13] kernels vs plain versions")
+    log("[2/14] kernels vs plain versions")
     rows, qacc_launches, row, randn = phase_kernels(dev)
     torch.cuda.empty_cache()
 
-    log("[3/13] fused collectives vs stacked (bitwise)")
+    log("[3/14] fused collectives vs stacked (bitwise)")
     phase_collectives(dev)
 
-    log("[4/13] collectives API")
+    log("[4/14] collectives API")
     api_launches = phase_api(dev)
 
-    log("[5/13] two-tier (bine_hier)")
+    log("[5/14] two-tier (bine_hier)")
     hier_launches, two_tier = phase_two_tier(dev)
     torch.cuda.empty_cache()
 
-    log("[6/13] train")
+    log("[6/14] train")
     phase_small_reference(dev)
     launches, train = phase_train(dev)
     torch.cuda.empty_cache()
 
-    log("[7/13] serve")
+    log("[7/14] serve")
     phase_serve_small_reference(dev)
     serve_launches, serve, serve_ref = phase_serve(dev)
     torch.cuda.empty_cache()
 
-    log("[8/13] checkpoint, resume, measured tables, obs")
+    log("[8/14] checkpoint, resume, measured tables, obs")
     run_launches, runtime = phase_runtime(dev)
     torch.cuda.empty_cache()
 
-    log("[9/13] tensor parallelism")
+    log("[9/14] tensor parallelism")
     phase_tp_small_reference(dev)
     tp_launches, tp = phase_tp(dev)
     torch.cuda.empty_cache()
 
-    log("[10/13] serving under TP")
+    log("[10/14] serving under TP")
     phase_serve_tp_small_reference(dev)
     stp_launches, serve_tp = phase_serve_tp(
         dev, {"nums": serve, "ref": serve_ref})
     torch.cuda.empty_cache()
 
-    log("[11/13] dense configs (gemma3-4b, gemma-7b, qwen3-32b)")
+    log("[11/14] dense configs (gemma3-4b, gemma-7b, qwen3-32b)")
     t11 = time.perf_counter()
     phase_dense_flash(dev, randn, row)
     dense_launches, dense, g3tp_launches, g3tp = phase_dense_serve(dev)
@@ -3707,7 +4136,7 @@ def main() -> int:
     dense_s = time.perf_counter() - t11
     log(f"  phase 11: {dense_s:.0f} s")
 
-    log("[12/13] MoE train (mixtral-8x7b, expert parallelism)")
+    log("[12/14] MoE train (mixtral-8x7b, expert parallelism)")
     t12 = time.perf_counter()
     phase_moe_small_reference(dev)
     moe_launches, moe = phase_moe_train(dev)
@@ -3715,17 +4144,26 @@ def main() -> int:
     moe["seconds"] = time.perf_counter() - t12
     log(f"  phase 12: {moe['seconds']:.0f} s")
 
-    log("[13/13] recurrent blocks (xlstm-125m, zamba2-2.7b)")
+    log("[13/14] recurrent blocks (xlstm-125m, zamba2-2.7b)")
     t13 = time.perf_counter()
-    phase_ssm_small_reference(dev)
+    phase_model_small_reference(dev, ("xlstm-125m", "zamba2-2.7b"))
     phase_ssm_flash(dev, randn, row)
-    del row
     ssm_train_launches, ssm_train = phase_ssm_train(dev)
     ssm_serve_launches, ssm_serve = phase_ssm_serve(dev, randn)
-    del randn
     torch.cuda.empty_cache()
     ssm_s = time.perf_counter() - t13
     log(f"  phase 13: {ssm_s:.0f} s")
+
+    log("[14/14] frontend configs (pixtral-12b, musicgen-medium)")
+    t14 = time.perf_counter()
+    phase_model_small_reference(dev, ("pixtral-12b", "musicgen-medium"))
+    phase_frontend_flash(dev, randn, row)
+    fe_serve_launches, fe_serve = phase_frontend_serve(dev, randn)
+    fe_train_launches, fe_train = phase_frontend_train(dev)
+    del row, randn
+    torch.cuda.empty_cache()
+    fe_s = time.perf_counter() - t14
+    log(f"  phase 14: {fe_s:.0f} s")
     # each path's own kernel launches, read around that path alone
     by_path = {"train": dict(launches), "two-axis": hier_launches,
                "runtime": run_launches, "tp": tp_launches,
@@ -3737,7 +4175,10 @@ def main() -> int:
                   for m, n in moe_launches.items()},
                **{f"train {a}": n for a, n in ssm_train_launches.items()},
                **{f"serve {a} (fixed batch)": n
-                  for a, n in ssm_serve_launches.items()}}
+                  for a, n in ssm_serve_launches.items()},
+               **{f"serve {a}": n for a, n in fe_serve_launches.items()},
+               **{f"train musicgen-medium ({m})": n
+                  for m, n in fe_train_launches.items()}}
     for path, counts in by_path.items():
         for name, n in counts.items():
             check(n > 0, f"kernel {name} was not launched on the {path} "
@@ -3761,7 +4202,7 @@ def main() -> int:
     for name, n in g3train_launches.items():
         launches[name] += n
     for counts in list(moe_launches.values()) + list(
-            ssm_train_launches.values()):
+            ssm_train_launches.values()) + list(fe_train_launches.values()):
         for name, n in counts.items():
             launches[name] += n
     for name in ("ring_update", "matmul_pack_wgmma", "gather_matmul_wgmma"):
@@ -3789,6 +4230,16 @@ def main() -> int:
     launches["flash_attention_hd80"] = sum(
         n.get("flash_attention_wgmma", 0)
         for n in ssm_serve_launches.values())
+    # the frontend serve paths: their norms on the rmsnorm row; pixtral's
+    # token prefill (bf16, wgmma) on the flash_attention_hd160 row, its
+    # frames prefill (float32, CUDA cores) on flash_attention_hd160_f32
+    # (musicgen's float32 flash at head_dim 64 is in the by-path line)
+    launches["rmsnorm"] += sum(n["rmsnorm"]
+                               for n in fe_serve_launches.values())
+    launches["flash_attention_hd160"] = \
+        fe_serve_launches["pixtral-12b (tokens)"]["flash_attention_wgmma"]
+    launches["flash_attention_hd160_f32"] = \
+        fe_serve_launches["pixtral-12b (frames)"]["flash_attention"]
     launches["qacc"] = qacc_launches
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched on its path")
@@ -3807,6 +4258,8 @@ def main() -> int:
     log(f"moe: {json.dumps(moe)}")
     log("ssm: " + json.dumps({"train": ssm_train, "serve": ssm_serve,
                               "seconds": ssm_s}))
+    log("frontend: " + json.dumps({"serve": fe_serve, "train": fe_train,
+                                   "seconds": fe_s}))
     log(f"train: {json.dumps(train)}; total {time.perf_counter() - t_all:.0f} s")
     print(json.dumps({"kernels": list(rows.values())}))
     smi = subprocess.run(

@@ -2,10 +2,11 @@
 
 Port of ``repro.configs.base``.  The dataclass keeps every field of the
 reference so configs carry over unchanged; the registry holds the
-architectures the port can run: the four dense ones (phi4-mini,
-gemma3-4b, gemma-7b, qwen3-32b), the two MoE ones (mixtral-8x7b,
-phi3.5-moe-42b-a6.6b; trained, not served) and the two recurrent ones
-(xlstm-125m, zamba2-2.7b; on one TP rank).
+architectures of the reference, each a copy of its file: the four dense
+ones (phi4-mini, gemma3-4b, gemma-7b, qwen3-32b), the two MoE ones
+(mixtral-8x7b, phi3.5-moe-42b-a6.6b; trained, not served), the two
+recurrent ones (xlstm-125m, zamba2-2.7b; on one TP rank) and the two
+frontend stubs (musicgen-medium, pixtral-12b).
 """
 
 from __future__ import annotations
@@ -76,17 +77,13 @@ def register(cfg: ModelConfig) -> ModelConfig:
 def get_config(name: str) -> ModelConfig:
     if not _REGISTRY:
         _load_all()
-    if name not in _REGISTRY:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported (ROADMAP.md queue A item 5d: "
-            f"the frontend configs); ported: "
-            f"{sorted(_REGISTRY)}")
     return _REGISTRY[name]
 
 
 def _load_all():
-    from . import (gemma3_4b, gemma_7b, mixtral_8x7b, phi35_moe,  # noqa
-                   phi4_mini, qwen3_32b, xlstm_125m, zamba2_2p7b)
+    from . import (gemma3_4b, gemma_7b, mixtral_8x7b, musicgen_medium,  # noqa
+                   phi35_moe, phi4_mini, pixtral_12b, qwen3_32b,
+                   xlstm_125m, zamba2_2p7b)
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:

@@ -18,7 +18,7 @@
 // retrying:
 //
 // 1. flash_kernel_wgmma, on the tensor cores, for bf16 q, k, v with
-//    head_dim in (16, 32, 64, 80, 128, 256) whose strides and base
+//    head_dim in (16, 32, 64, 80, 128, 160, 256) whose strides and base
 //    addresses TMA can take (multiples of 16 bytes).  Bound: operations, 4 hd flops
 //    per live (query head, query, key) pair over the H100's 989 TFLOP/s
 //    bf16 tensor-core peak (0.0065 ms at q [1, 1024, 24, 128] causal).
@@ -52,7 +52,7 @@
 //        significant bits, so PV's error stays near the float32
 //        sum-order error, far below the output's one bf16 rounding.  The
 //        split doubles PV's tensor-core work (under 10 us at T = 1024).
-//    Registers: hd/2 accumulators (64 at hd 128, 128 at hd 256), 32
+//    Registers: HDP/2 accumulators (64 at hd 128, 128 at hd 160 and 256), 32
 //    scores and 8 packed P words a thread.  Shared memory: 5 tiles of
 //    64 x hd bf16 (Q and the K/V ring; 80 KB at hd 128, so two blocks fit
 //    an SM; 160 KB at hd 256, one).  At hd 256 PV is two m64n128k16 a
@@ -63,9 +63,17 @@
 //    (and counts them in the transaction bytes). QK^T runs its 5 k steps
 //    (columns 0-79: the fifth reads panel 1's first 16), PV the m64n128k16
 //    of head_dim 128 (columns 80-127 accumulate zeros, never stored): 1.6x
-//    PV's tensor-core work at 80, no new wgmma shape, no new swizzle. The
-//    same route takes 160 to head_dim 256's tiles (10 k steps, PV's
-//    second m64n128 over columns 128-255, three quarters zeros).
+//    PV's tensor-core work at 80, no new wgmma shape, no new swizzle.
+//    Head_dim 160 (pixtral-12b) takes the same route in head_dim 256's
+//    tiles: four 128-byte panels, the tensor maps' inner dim 160 (rows of
+//    320 bytes), so TMA zero-fills columns 160-191 of panel 2, and panel
+//    3 (columns 192-255) lies wholly out of bounds: TMA zero-fills it too,
+//    and its bytes count in the transaction bytes like any box's, so the
+//    barriers expect whole tiles as at 256.  QK^T runs 10 k steps (panels
+//    0-2, panel 2's first 32 columns), PV the two m64n128k16 of 256 (the
+//    second over columns 128-255, three quarters zeros, never stored):
+//    1.6x PV's tensor-core work at 160 and 160 KB of shared memory, one
+//    block an SM.
 // 2. flash_kernel, on the CUDA cores, for float32 (where it beats SDPA)
 //    and any other call: one block of 256 threads per (batch, query head,
 //    64-row query tile); GQA maps the query head to its kv head.  The Q
@@ -78,8 +86,9 @@
 //    tx + 16c (c < hd/16); the row max and sum are reduced across the 16
 //    threads of a row by shuffles.  Shared rows are padded so the reads
 //    are free of bank conflicts.  Shared memory is
-//    BQ (hd+1) + 2 BK (hd+1) + BQ (BK+4) floats: 210 KB at hd 256, under
-//    the 227 KB a block may opt into, so one block an SM.  Bound:
+//    BQ (hd+1) + 2 BK (hd+1) + BQ (BK+4) floats: 210 KB at hd 256 and
+//    138 KB at 160, under the 227 KB a block may opt into, so one block
+//    an SM.  Bound:
 //    operations, over 67 TFLOP/s float32.
 //
 // Numerics: no fast math; expf (CUDA cores) or exp2f of log2(e)-scaled
@@ -300,6 +309,9 @@ int dispatch(int hd, const void* q, const void* k, const void* v, void* o,
     case 128:
       return launch<T, 128>(q, k, v, o, B, nkv, g, Tq, Tk, st, window,
                             causal, scale, s);
+    case 160:
+      return launch<T, 160>(q, k, v, o, B, nkv, g, Tq, Tk, st, window,
+                            causal, scale, s);
     case 256:
       return launch<T, 256>(q, k, v, o, B, nkv, g, Tq, Tk, st, window,
                             causal, scale, s);
@@ -323,7 +335,8 @@ constexpr int kStages = 2;     // K/V tiles in flight
 
 template <int HD>
 struct Geo {
-  static constexpr int HDP = HD == 80 ? 128 : HD;   // the tiles' columns
+  // the tiles' columns: 80 in 128's tiles, 160 in 256's
+  static constexpr int HDP = HD == 80 ? 128 : HD == 160 ? 256 : HD;
   static constexpr int SW = HDP * 2 < 128 ? HDP * 2 : 128;  // swizzle, bytes
   static constexpr int PW = SW / 2;          // bf16 per swizzled row
   static constexpr int NP = HDP / PW;        // panels a tile (2 at HD=128)
@@ -356,7 +369,7 @@ __device__ __forceinline__ void pv_wgmma(float (&o)[Geo<HD>::NACC],
                                          uint32_t vaddr) {
   using G = Geo<HD>;
   const uint64_t db = make_desc(vaddr, G::PANEL, 8 * G::SW, G::LAYOUT);
-  if constexpr (HD == 256) {
+  if constexpr (HD == 256 || HD == 160) {
     // two m64n128 over V's column halves (two panels each): an n = 256
     // accumulator holds columns 0-127 in registers 0-63 as n = 128 does
     using Half = float[64];
@@ -606,7 +619,8 @@ int run(const void* q, const void* k, const void* v, void* o, int B, int nkv,
   using G = Geo<HD>;
   // q [B, nkv, g, Tq, HD] and k, v [B, nkv, Tk, HD], innermost first, in
   // the caller's strides (bytes); a box is one head's 64 rows x one panel
-  // (past the real head_dim, at 80, zero-filled)
+  // (past the real head_dim, at 80 and 160, zero-filled: at 160 the last
+// panel's box lies wholly past it)
   const uint64_t dq[5] = {HD, static_cast<uint64_t>(Tq),
                           static_cast<uint64_t>(g),
                           static_cast<uint64_t>(nkv),
@@ -644,7 +658,8 @@ extern "C" {
 
 // q, k, v, o: device pointers; strides in elements (the head dim has
 // stride 1): q and o [B, nkv, g, T, hd] as (b, n, g, t), k and v
-// [B, nkv, Tk, hd] as (b, n, t); hd in {16, 32, 64, 80, 128, 256}; window <= 0
+// [B, nkv, Tk, hd] as (b, n, t); hd in {16, 32, 64, 80, 128, 160, 256};
+// window <= 0
 // for none; bf16 selects __nv_bfloat16 inputs and output (else float32).
 int repro_flash_attention(const void* q, const void* k, const void* v,
                           void* o, int B, int nkv, int g, int Tq, int Tk,
@@ -666,7 +681,7 @@ int repro_flash_attention(const void* q, const void* k, const void* v,
 
 // the same arguments for bf16 on the tensor cores (the wrapper's
 // predicate: bf16, strides multiples of 8 elements, 16-byte aligned q, k,
-// v; hd in {16, 32, 64, 80, 128, 256})
+// v; hd in {16, 32, 64, 80, 128, 160, 256})
 int repro_flash_attention_wgmma(const void* q, const void* k, const void* v,
                                 void* o, int B, int nkv, int g, int Tq,
                                 int Tk, int hd, long long qb, long long qn,
@@ -693,6 +708,9 @@ int repro_flash_attention_wgmma(const void* q, const void* k, const void* v,
                          scale, s);
     case 128:
       return wg::run<128>(q, k, v, o, B, nkv, g, Tq, Tk, st, window, causal,
+                          scale, s);
+    case 160:
+      return wg::run<160>(q, k, v, o, B, nkv, g, Tq, Tk, st, window, causal,
                           scale, s);
     case 256:
       return wg::run<256>(q, k, v, o, B, nkv, g, Tq, Tk, st, window, causal,

@@ -35,8 +35,9 @@ _SIGNATURES = {
     + [B.INT, B.INT, B.FLOAT, B.VP],
 }
 #: head dims the kernels take (80: zamba2's shared attention, on the
-#: tensor cores in head_dim 128's tiles, columns 80-127 zero-filled)
-HEAD_DIMS = (16, 32, 64, 80, 128, 256)
+#: tensor cores in head_dim 128's tiles, columns 80-127 zero-filled; 160:
+#: pixtral-12b, in head_dim 256's tiles, columns 160-255 zero-filled)
+HEAD_DIMS = (16, 32, 64, 80, 128, 160, 256)
 
 
 def _lib():

@@ -32,6 +32,11 @@ served through the fixed-batch loop (zamba2 at full depth, 4 x 1024-token
 prompts; xlstm 8 x 1024), 32 greedy tokens each.  Each cell's comment
 says why.
 
+The frontend configs (``FRONTEND_SERVE_CELLS``, ``FRONTEND_TRAIN_CELL``):
+pixtral-12b at full depth and musicgen-medium at full depth served
+through the fixed-batch loop on float32 frames; musicgen-medium at full
+width cut to 16 of 48 layers trained at (dp, tp) = (4, 1) and (2, 2).
+
 The dense configs (``DENSE_SERVE_CELLS``): gemma3-4b at full depth
 (``GEMMA3_SERVE_CELL``: prompts past its 1024-token local window, pages
 of 2048), gemma-7b at full depth (``GEMMA7B_SERVE_CELL``) and qwen3-32b at
@@ -117,9 +122,26 @@ ZAMBA2_TRAIN_CELL = TrainCell("zamba2-2.7b", 12, ((4, 1),))
 #: cell measures what the host costs a recurrent model.
 XLSTM_TRAIN_CELL = TrainCell("xlstm-125m", 12, ((4, 1),))
 SSM_TRAIN_CELLS = (ZAMBA2_TRAIN_CELL, XLSTM_TRAIN_CELL)
+#: musicgen-medium (arXiv:2306.05284) at full width: d_model 1536, 24/24
+#: heads of 64, d_ff 6144, an untied vocabulary of 2048 EnCodec codes, its
+#: frontend stub's frontend_proj [128, 1536]; cut to 16 of its 48 layers
+#: (610,518,528 params, bf16), trained on float32 frames (the batch's 8 x
+#: 1024 frames of 128), so its stream, Q/K/V and logits run in float32
+#: over bf16 weights, as the reference's do.  Depth cut because the port
+#: has no remat yet (ROADMAP.md queue A item 5e): at 8 layers the step
+#: peaked at 16.0 GiB at (4, 1) and 21.2 at (2, 2) on an H100 (PERF.md),
+#: ~1.7 GiB more a layer at (2, 2), so 16 layers keep both meshes near
+#: 40 GiB on a card the earlier phases of the smoke have already used,
+#: and its steps within the smoke's time; 24 would near 64 GiB.  At (4, 1)
+#: pure data parallelism; at (2, 2) megatron_sp (24 heads over 2, d_model
+#: 1536 >= 1024), the replicated frontend_proj projecting each TP rank's
+#: sequence shard.  Users train musicgen so: data-parallel on EnCodec
+#: frames, tensor parallel where a model outgrows a rank.
+FRONTEND_TRAIN_CELL = TrainCell("musicgen-medium", 16, ((4, 1), (2, 2)))
 #: each train cell by arch (``launch/profile_step.py --arch``; the others
 #: take ``model_config(arch)``)
-TRAIN_CELLS = {c.arch: c for c in (MOE_TRAIN_CELL,) + SSM_TRAIN_CELLS}
+TRAIN_CELLS = {c.arch: c for c in (MOE_TRAIN_CELL,) + SSM_TRAIN_CELLS
+               + (FRONTEND_TRAIN_CELL,)}
 
 
 def tp_small_config() -> ModelConfig:
@@ -139,8 +161,11 @@ def tp_pure_sp_config() -> ModelConfig:
 
 
 def data_config(cfg: ModelConfig) -> DataConfig:
+    """The train cells' batch: 8 x 1024 tokens, or for a frontend model
+    float frames of its ``frontend_dim`` (``train.data.make_batch``)."""
     return DataConfig(global_batch=GLOBAL_BATCH, seq_len=SEQ_LEN,
-                      vocab_size=cfg.vocab_size)
+                      vocab_size=cfg.vocab_size,
+                      frontend_dim=cfg.frontend_dim if cfg.frontend else 0)
 
 
 def train_config(backend: str, wire_dtype: str,
@@ -219,9 +244,30 @@ ZAMBA2_SERVE_CELL = ServeCell(arch="zamba2-2.7b", slots=4, requests=4,
 XLSTM_SERVE_CELL = ServeCell(arch="xlstm-125m", slots=8, requests=8,
                              prompt_len_min=1024, prompt_len_max=1024)
 SSM_SERVE_CELLS = (ZAMBA2_SERVE_CELL, XLSTM_SERVE_CELL)
+#: the frontend stubs, served as the reference serves them: the pool
+#: refuses them (no token stream), so ``run_fixed_batch`` with random
+#: float32 frames as the prompt and as each decode step's input, 32
+#: greedy tokens.  pixtral-12b (hf mistralai/Pixtral-12B-2409) at full
+#: width and full depth: 40 layers of d_model 5120, 32/8 heads of 160,
+#: d_ff 14336, an untied vocabulary of 131072, 1024-d ViT patch features
+#: into frontend_proj (12,777,313,280 params, 25.6 GB bf16; init_params
+#: draws ``wi`` whole in float32, an 11.7 GB transient, so it fits), 4
+#: prompts of 1024 patches: a batch of images at the ViT's patch count.
+#: Its frames run float32 over the bf16 weights, so the prefill launches
+#: the CUDA-core flash kernel at head_dim 160, 40 a prefill (a text-only
+#: request, a token prompt, runs the wgmma kernel at 160).
+PIXTRAL_SERVE_CELL = ServeCell(arch="pixtral-12b", slots=4, requests=4,
+                               prompt_len_min=1024, prompt_len_max=1024)
+#: musicgen-medium at full width and full depth (48 layers,
+#: 1,818,576,384 params), 8 prompts of 1024 EnCodec frames of 128: a batch
+#: of audio continuations; its float32 prefill runs the CUDA-core flash
+#: kernel at head_dim 64.
+MUSICGEN_SERVE_CELL = ServeCell(arch="musicgen-medium", slots=8, requests=8,
+                                prompt_len_min=1024, prompt_len_max=1024)
+FRONTEND_SERVE_CELLS = (PIXTRAL_SERVE_CELL, MUSICGEN_SERVE_CELL)
 #: each served arch's cell (``launch/profile_serve.py --arch``)
 SERVE_CELLS = {c.arch: c for c in (SERVE_CELL,) + DENSE_SERVE_CELLS +
-               SSM_SERVE_CELLS}
+               SSM_SERVE_CELLS + FRONTEND_SERVE_CELLS}
 
 
 def serve_model_config(c: ServeCell = SERVE_CELL) -> ModelConfig:

@@ -15,13 +15,15 @@ device's idle share, as text and as one JSON line:
 ``--mesh data,model`` serves the cell over that many DP and TP ranks
 stacked on the card (``launch/cell.py`` ``SERVE_TP_SHAPE``); ``--arch``
 profiles that arch's serve cell (``cell.SERVE_CELLS``: phi4-mini,
-gemma3-4b, gemma-7b, qwen3-32b, zamba2-2.7b, xlstm-125m) in place of
-``SERVE_CELL``.  The recurrent configs, which the pool refuses, are
-profiled as ``launch.serve.run_fixed_batch`` serves them
-(:func:`profile_fixed`): one prefill of the cell's batch and ``STEPS``
-decode steps:
+gemma3-4b, gemma-7b, qwen3-32b, zamba2-2.7b, xlstm-125m, pixtral-12b,
+musicgen-medium) in place of ``SERVE_CELL``.  The recurrent and frontend
+configs, which the pool refuses, are profiled as
+``launch.serve.run_fixed_batch`` serves them (:func:`profile_fixed`): one
+prefill of the cell's batch (frames for a frontend) and ``STEPS`` decode
+steps:
 
   python -m repro_torch.launch.profile_serve --arch zamba2-2.7b
+  python -m repro_torch.launch.profile_serve --arch pixtral-12b
 """
 
 from __future__ import annotations

@@ -27,13 +27,22 @@ xla`` pins the defaults (no plan).  In place of the reference's
 run.  Runs on CUDA unless ``--device cpu`` is given.
 
 The architectures the pool cannot serve (``serve.engine.pool_supported``:
-recurrent blocks, MoE capacity dispatch) go, as in the reference, to
-:func:`run_fixed_batch`: one lock-step batch of ``--slots`` prompts of
-``--prompt-len-max`` tokens, greedily decoded for ``--max-new`` tokens.
-It serves the recurrent configs (xlstm-125m, zamba2-2.7b) on one TP rank;
-the MoE configs still raise (their prefill and decode are ROADMAP.md
-queue A item 5e), as does a model axis above 1 for the recurrent ones
-(item 5f).
+recurrent blocks, MoE capacity dispatch, modality frontends) go, as in
+the reference, to :func:`run_fixed_batch`: one lock-step batch of
+``--slots`` prompts of ``--prompt-len-max`` tokens (a frontend model's
+prompt and each decode step's input random float frames), greedily
+decoded for ``--max-new`` tokens.  It serves the recurrent configs
+(xlstm-125m, zamba2-2.7b) and the frontend ones (musicgen-medium,
+pixtral-12b) on one rank:
+
+  python -m repro_torch.launch.serve --arch pixtral-12b --slots 4 \
+      --prompt-len-max 1024                                # frames
+  python -m repro_torch.launch.serve --arch musicgen-medium --reduced --device cpu
+
+The MoE configs still raise (their prefill and decode are ROADMAP.md
+queue A item 5e), as does a model axis above 1: item 5f for the
+recurrent configs, item 5g (fixed-batch serving over TP ranks) for the
+others.
 """
 
 from __future__ import annotations
@@ -68,12 +77,24 @@ def fixed_batch_steps(cfg, params, batch: int, prompt_len: int,
     tokens drawn from ``np.random.RandomState(seed)`` as the reference
     draws them (caches exactly ``prompt_len`` long, as the reference's
     are), ``decode()`` one ``decode_step`` at the shared scalar position;
-    each returns its greedy tokens ``[batch, 1]``."""
+    each returns its greedy tokens ``[batch, 1]``.  A frontend model's
+    prompt is ``randn(batch, prompt_len, frontend_dim)`` float32 frames
+    and each decode step's input fresh ``randn(batch, 1, frontend_dim)``
+    frames from the same ``RandomState``, in the reference's order: the
+    greedy tokens are returned, the frames feed the next step."""
     dev = resolve_device(device)
     rng = np.random.RandomState(seed)
-    prompt = torch.as_tensor(rng.randint(0, cfg.vocab_size,
-                                         size=(batch, prompt_len)),
-                             dtype=torch.int32, device=dev)
+
+    def frames(length):
+        return torch.as_tensor(rng.randn(batch, length, cfg.frontend_dim),
+                               dtype=torch.float32, device=dev)
+
+    if cfg.frontend:
+        prompt = frames(prompt_len)
+    else:
+        prompt = torch.as_tensor(rng.randint(0, cfg.vocab_size,
+                                             size=(batch, prompt_len)),
+                                 dtype=torch.int32, device=dev)
     st = {}
 
     def prefill():
@@ -82,8 +103,9 @@ def fixed_batch_steps(cfg, params, batch: int, prompt_len: int,
         return st["tok"]
 
     def decode():
+        step_in = frames(1) if cfg.frontend else st["tok"]
         logits, st["cache"] = TF.decode_step(params, cfg, st["cache"],
-                                             st["tok"])
+                                             step_in)
         st["tok"] = torch.argmax(logits, dim=-1).to(torch.int32)
         return st["tok"]
     return prefill, decode
@@ -153,11 +175,17 @@ def main(argv=None):
     _, dp, tp = parse_mesh(args.mesh)
     if not pool_supported(cfg):
         TF._check_ported(cfg, serve=True, n_model=tp)
+        if tp != 1:
+            raise NotImplementedError(f"{cfg.name}: {TF.FIXED_BATCH_TP}, "
+                                      f"got --mesh {args.mesh}")
         if int(np.prod(dp)) != 1:
             raise ValueError(f"the fixed-batch loop runs on one rank, got "
                              f"--mesh {args.mesh}")
         params = TF.init_params(cfg, args.seed, dev)
-        print(f"[serve] {args.arch}: pool unsupported (recurrent blocks) — "
+        why = ("a modality frontend" if cfg.frontend else
+               "MoE capacity dispatch" if cfg.n_experts else
+               "recurrent blocks")
+        print(f"[serve] {args.arch}: pool unsupported ({why}) — "
               f"legacy fixed-batch loop")
         KB.reset_launches()
         run_fixed_batch(cfg, params, args.slots, args.prompt_len_max,

@@ -21,6 +21,12 @@ mixtral does not fit one card):
 
   python -m repro_torch.launch.train --arch mixtral-8x7b --reduced --mesh 2,2
 
+The frontend configs (``--arch musicgen-medium``, ``pixtral-12b``) train
+on float frames of their ``frontend_dim`` (``train.data.make_batch``)
+through the trainable ``frontend_proj``:
+
+  python -m repro_torch.launch.train --arch musicgen-medium --reduced --mesh 2,2
+
 ``--ckpt-dir D --ckpt-every N`` saves the global train state every N steps
 and after the last, in the reference's format; ``--resume`` continues from
 the latest step in ``D`` (a checkpoint of either package, at any DP size).
@@ -112,7 +118,8 @@ def main(argv=None):
     params = init_p(args.seed)
     state = init_s(params)
     dcfg = DataConfig(global_batch=args.batch, seq_len=args.seq,
-                      vocab_size=cfg.vocab_size, seed=args.seed + 1)
+                      vocab_size=cfg.vocab_size, seed=args.seed + 1,
+                      frontend_dim=cfg.frontend_dim if cfg.frontend else 0)
 
     def global_state():
         return to_global(cfg, tcfg, params, state, dp, tp=tp)

@@ -50,15 +50,28 @@ def rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
+def _promote(x, w):
+    """``x`` and ``w`` in one dtype, as ``jnp.einsum`` promotes them: a
+    frontend model's float32 frames times its bf16 weights run in float32
+    (autograd casts the weight's gradient back to bf16, as JAX's
+    transpose of the convert does).  Operands of one dtype pass as
+    they are."""
+    if x.dtype == w.dtype:
+        return x, w
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt), w.to(dt)
+
+
 def dense(x, w):
-    return torch.matmul(x, w)
+    return torch.matmul(*_promote(x, w))
 
 
 def dense_tp(x, w):
     """Stacked TP ranks: ``x [n, ..., d_in]`` times each rank's own
     ``w [n, d_in, d_out]``, one matmul per rank (a column- or
-    row-parallel product on the rank's shard)."""
+    row-parallel product on the rank's shard), promoted as ``dense``."""
     n = x.shape[0]
+    x, w = _promote(x, w)
     y = torch.bmm(x.reshape(n, -1, x.shape[-1]), w)
     return y.reshape(tuple(x.shape[:-1]) + (w.shape[-1],))
 

@@ -5,8 +5,14 @@ Port of ``repro.models.transformer``: the ``attn`` and ``moe`` blocks
 fixed-batch loop, queue A item 5e), and the recurrent ones, ``mamba2``,
 ``mlstm`` and ``slstm`` (``models.ssm``), with zamba2's weight-tied
 ``shared_attn`` block, on one TP rank (their tensor parallelism is queue
-A item 5f).  The parameter tree keeps the reference's layout —
-``segments[i]`` leaves are stacked ``[n_layers_in_segment, ...]``, a
+A item 5f); and the frontend stubs' input projection (musicgen-medium,
+pixtral-12b): float ``[B, T, frontend_dim]`` frames enter through
+``frontend_proj``, int tokens through ``embed``.  Frames are float32 and
+every product promotes as ``jnp.einsum`` does (``layers.dense``), so a
+bf16 frontend model fed frames runs its residual stream, Q/K/V and logits
+in float32 over bf16 weights, as the reference's does; its caches are
+cast to ``cache_dtype``.  The parameter tree keeps the reference's
+layout — ``segments[i]`` leaves are stacked ``[n_layers_in_segment, ...]``, a
 ``shared_attn`` firing's segment is ``{}`` and its weights live once in
 ``params["shared"]`` — and each leaf the reference's dtype (Mamba2's
 ``A_log``, ``D`` and ``dt_bias`` are float32 in a bf16 model), so trees
@@ -102,15 +108,18 @@ RECURRENT = ("mamba2", "mlstm", "slstm", "shared_attn")
 ATTN_KINDS = ("attn", "moe", "shared_attn")
 
 
+#: what refuses fixed-batch serving over more than one TP rank
+FIXED_BATCH_TP = ("fixed-batch serving over TP ranks is not ported "
+                  "(ROADMAP.md queue A item 5g: the reference runs "
+                  "run_fixed_batch under its mesh); serve it on one TP rank")
+
+
 def _check_ported(cfg, serve: bool = False, n_model: int = 1) -> None:
-    """Raise for what the port lacks: the frontend models everywhere,
-    ``moe`` on the serving path (``serve``), the recurrent blocks over
-    more than one TP rank (``n_model > 1``)."""
+    """Raise for what the port lacks: ``moe`` on the serving path
+    (``serve``), the recurrent blocks over more than one TP rank
+    (``n_model > 1``), and serving a frontend model over more than one TP
+    rank (the reference serves it through its fixed-batch loop only)."""
     kinds = {b.kind for b, _ in segments(cfg)}
-    if cfg.frontend is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend!r} frontend is not ported "
-            f"(ROADMAP.md queue A item 5d: the frontend models)")
     rec = sorted(kinds & set(RECURRENT))
     if n_model > 1 and rec:
         raise NotImplementedError(
@@ -123,6 +132,8 @@ def _check_ported(cfg, serve: bool = False, n_model: int = 1) -> None:
             f"{cfg.name}: MoE prefill and decode are not ported (ROADMAP.md "
             f"queue A item 5e: the reference serves MoE only through its "
             f"fixed-batch loop, run_fixed_batch; its pool refuses it)")
+    if serve and n_model > 1 and cfg.frontend is not None:
+        raise NotImplementedError(f"{cfg.name}: {FIXED_BATCH_TP}")
 
 
 # ---------------------------------------------------------------------------
@@ -175,8 +186,14 @@ def _param_tree(cfg, make) -> Dict[str, Any]:
     leaves)."""
     _check_ported(cfg)
     d = cfg.d_model
-    params: Dict[str, Any] = {
-        "embed": make((cfg.vocab_size, d), ("normal", 0.02))}
+    params: Dict[str, Any] = {}
+    if cfg.frontend is not None:
+        # the modality frontend stub: precomputed frames enter through a
+        # trainable projection; ``embed`` stays, as in the reference
+        params["frontend_proj"] = make((cfg.frontend_dim, d),
+                                       ("normal", 1.0 / math.sqrt(
+                                           cfg.frontend_dim)))
+    params["embed"] = make((cfg.vocab_size, d), ("normal", 0.02))
     segs = []
     for block, n in segments(cfg):
         # a shared_attn firing: weight-tied, its leaves in params["shared"]
@@ -266,8 +283,9 @@ def _layer(seg_p, l: int):
 
 
 def forward(params, cfg, inputs, positions=None, n_model: int = 1):
-    """inputs: [B,T] int tokens.  Returns (logits [B,T,V], aux_loss: the
-    MoE layers' aux summed, 0 for a dense model).
+    """inputs: [B,T] int tokens or [B,T,frontend_dim] float frames.
+    Returns (logits [B,T,V], aux_loss: the MoE layers' aux summed, 0 for
+    a dense model).
 
     ``n_model > 1``: ``params`` stacked over the TP ranks
     (``sharding.shard_params``), every rank given the same ``inputs``;
@@ -293,13 +311,13 @@ def forward(params, cfg, inputs, positions=None, n_model: int = 1):
                 aux_total = aux_total + aux
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
-    logits = torch.matmul(x, head)
-    return logits, aux_total
+    return L.dense(x, head), aux_total
 
 
 def loss_fn(params, cfg, batch, n_model: int = 1
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """batch: dict(inputs [B,T], targets [B,T], optional mask [B,T]).
+    """batch: dict(inputs [B,T] or [B,T,F], targets [B,T], optional mask
+    [B,T]).
 
     Cross entropy in fp32 with z-loss; returns (loss, metrics).  With
     ``n_model > 1`` every value is per TP rank, ``[n]`` (all equal):
@@ -449,6 +467,18 @@ def _embed_tp(E, cfg, tokens, tp: _TP):
     return x
 
 
+def _frames_tp(W, frames, tp: _TP):
+    """Float frames ``[B, T, F]`` through the replicated ``frontend_proj``
+    ``W [n, F, d]`` into the residual stream: each rank projects its own
+    sequence shard (the whole sequence when T does not divide n), with
+    its own copy of W, whose gradients the step sums over the TP ranks as
+    for every replicated leaf."""
+    n = W.shape[0]
+    x = SH.seq_shard(frames, n) if tp.sp else \
+        frames.expand((n,) + tuple(frames.shape))
+    return L.dense_tp(x, W)
+
+
 def _qkv_tp(p, cfg, h, pos, tp: _TP):
     """Each rank's rotated Q, K and V of the normed residual stream ``h``:
     under megatron_sp the whole sequence's heads of the rank's column
@@ -551,9 +581,10 @@ def _layer_tp(seg, l: int):
 
 def forward_tp(params, cfg, inputs, n_model: int):
     """The TP forward of one DP rank: ``params`` from
-    ``sharding.shard_params``, ``inputs [B, T]`` (every TP rank reads the
-    same tokens).  Returns the vocab-sharded logits ``[n, B, T, V/n]`` and
-    ``aux [n]`` (the MoE layers' aux summed, the same on every rank); for
+    ``sharding.shard_params``, ``inputs [B, T]`` tokens or ``[B, T, F]``
+    frames (every TP rank reads the same inputs).  Returns the
+    vocab-sharded logits ``[n, B, T, V/n]`` and ``aux [n]`` (the MoE
+    layers' aux summed, the same on every rank); for
     a vocab that does not divide n, ``[n, B, T, ceil(V/n)]`` with zeros in
     the last rank's padded columns (the logits of vocab ids ``>= V``)."""
     _check_ported(cfg, n_model=n_model)
@@ -561,7 +592,10 @@ def forward_tp(params, cfg, inputs, n_model: int):
     tp = _TP(cfg, n_model, T_)
     params = _megatron_layout(params, cfg, tp)
     pos = torch.arange(T_, dtype=torch.int32, device=inputs.device)
-    x = _embed_tp(params["embed"], cfg, inputs, tp)
+    if _is_frames(cfg, inputs):
+        x = _frames_tp(params["frontend_proj"], inputs, tp)
+    else:
+        x = _embed_tp(params["embed"], cfg, inputs, tp)
     aux_total = torch.zeros(n_model, dtype=torch.float32, device=x.device)
     for (block, nl), seg in zip(segments(cfg), params["segments"]):
         for l in range(nl):
@@ -763,10 +797,20 @@ def _decode_block(p, cfg, block: Block, x, cache, pos):
 def _logits(params, cfg, x):
     x = fused_rmsnorm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
-    return torch.matmul(x, head)
+    return L.dense(x, head)
+
+
+def _is_frames(cfg, inputs) -> bool:
+    """Float frames ``[B, T, frontend_dim]`` (the reference's test: a
+    frontend model and 3-d inputs), not int tokens ``[B, T]``."""
+    return cfg.frontend is not None and inputs.dim() == 3
 
 
 def _embed(params, cfg, tokens):
+    """The residual stream of ``tokens``: int tokens looked up in
+    ``embed``, or a frontend model's frames through ``frontend_proj``."""
+    if _is_frames(cfg, tokens):
+        return L.dense(tokens, params["frontend_proj"])
     x = params["embed"][tokens.long()]
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
@@ -774,7 +818,8 @@ def _embed(params, cfg, tokens):
 
 
 def decode_step(params, cfg, state, tokens, active=None):
-    """tokens: [B,1] int.  One decode step, caches written in place.
+    """tokens: [B,1] int (or [B,1,frontend_dim] frames).  One decode
+    step, caches written in place.
 
     ``state["pos"]`` may be a 0-dim tensor (legacy fixed batch) or a
     ``[B]`` vector (continuous-batching slot pool; see ``serve.kvcache``).

@@ -190,9 +190,10 @@ def make_serve_fns(model_cfg, scfg: ServeConfig, B: int, S_len: int,
             f"{model_cfg.name}: the continuous-batching pool cannot serve "
             f"this architecture (pool_supported: MoE capacity dispatch "
             f"couples batch rows, recurrent state would integrate the "
-            f"prompt padding); the reference serves it through its "
-            f"fixed-batch loop, launch.serve.run_fixed_batch here (the "
-            f"recurrent configs; MoE prefill and decode are ROADMAP.md "
+            f"prompt padding, a frontend has no token stream); the "
+            f"reference serves it through its fixed-batch loop, "
+            f"launch.serve.run_fixed_batch here (the recurrent and "
+            f"frontend configs; MoE prefill and decode are ROADMAP.md "
             f"queue A item 5e)")
     dev = resolve_device(device)
     layout = cache_layout(model_cfg, B, S_len, dp, tp) if tp > 1 else None

@@ -799,10 +799,16 @@ def _rank_grads(model_cfg, tcfg: TrainConfig, params, batch, tp: int = 1):
         loss, metrics = TF.loss_fn(tree, model_cfg, mb, n_model=tp)
         return (loss.mean() if tp > 1 else loss), metrics
 
+    def grad(loss):
+        # a leaf the inputs never reach (a frontend model's ``embed`` on
+        # frames) gets zeros, as JAX's gradient of it is
+        return torch.autograd.grad(loss, leaves, allow_unused=True,
+                                   materialize_grads=True)
+
     A = tcfg.accum_steps
     if A == 1:
         loss, metrics = lossf(batch)
-        grads = list(torch.autograd.grad(loss, leaves))
+        grads = list(grad(loss))
         return grads, {k: v.detach() for k, v in metrics.items()}
     mbs = {k: v.reshape((A, v.shape[0] // A) + tuple(v.shape[1:]))
            for k, v in batch.items()}
@@ -811,7 +817,7 @@ def _rank_grads(model_cfg, tcfg: TrainConfig, params, batch, tp: int = 1):
     me_acc: Dict[str, torch.Tensor] = {}
     for a in range(A):
         loss, me = lossf({k: v[a] for k, v in mbs.items()})
-        for acc, g in zip(g_acc, torch.autograd.grad(loss, leaves)):
+        for acc, g in zip(g_acc, grad(loss)):
             acc += g.to(torch.float32)
         for k, v in me.items():
             me_acc[k] = me_acc.get(k, 0.0) + v.detach().to(torch.float32)

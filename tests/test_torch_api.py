@@ -420,7 +420,9 @@ def test_unported_options_name_their_roadmap_item(tmp_path, monkeypatch):
     """``bine_hier`` runs; ``tuning="measured"`` runs and, with no measured
     table, falls back to the analytic decision with one warning; the
     ``_obs_record`` hook records every call; what is still not ported
-    names its ROADMAP.md item (the other architectures, item 5)."""
+    names its ROADMAP.md item; every architecture is registered (the last
+    two, the frontends, since item 5d), and an unknown one raises
+    ``KeyError``."""
     import warnings
     from repro_torch.configs import base as cfgbase
     from repro_torch.obs import metrics
@@ -452,9 +454,9 @@ def test_unported_options_name_their_roadmap_item(tmp_path, monkeypatch):
         api.allreduce(x, api.BINE)
     assert len(reg.series("collective_calls")) == 1
     assert "once per CALL" in api.__doc__
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue A item 5"):
-        cfgbase.get_config("pixtral-12b")
+    assert cfgbase.get_config("pixtral-12b").frontend == "vision"
+    with pytest.raises(KeyError):
+        cfgbase.get_config("no-such-arch")
     with pytest.raises(ValueError, match="not implemented for 'allreduce'"):
         api.allreduce(x, api.CollectiveConfig(wire_dtype="int8"))
     with pytest.raises(ValueError, match="unsupported wire_dtype"):

@@ -36,7 +36,7 @@ def test_every_module_imports_without_jax(subproc):
     assert n == n_files + n_pkgs
     for mod in SERVING_MODULES + TWO_TIER_MODULES + RUNTIME_MODULES + \
             TP_MODULES + DENSE_CONFIG_MODULES + MOE_MODULES + \
-            RECURRENT_MODULES:
+            RECURRENT_MODULES + FRONTEND_MODULES:
         assert (PORT / (mod.replace(".", "/") + ".py")).is_file(), mod
 
 
@@ -94,6 +94,13 @@ RECURRENT_MODULES = (
     "models.transformer", "interop", "train.step", "launch.serve",
     "launch.cell", "launch.profile_step", "launch.profile_serve",
     "kernels.flash_attention.kernel")
+
+
+#: the frontend slice: the two config copies, each imported above without
+#: jax
+FRONTEND_MODULES = (
+    "configs.musicgen_medium", "configs.pixtral_12b", "configs.base",
+    "models.layers", "models.transformer", "launch.serve", "launch.cell")
 
 
 def _imports(tree):

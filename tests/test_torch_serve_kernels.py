@@ -18,9 +18,9 @@ once, in a subprocess, and hands its outputs over as an ``.npz``.
 
 On a card (``cuda`` marker; skipped elsewhere) each kernel is held to its
 plain version: rmsnorm within float32 rtol 1e-6 or one bf16 ulp, flash
-attention within the tolerances above (at head_dim 80 too, the bf16 call
-on the tensor-core kernel, and at zamba2-2.7b's insert shape), qacc
-bitwise.
+attention within the tolerances above (at head_dim 80 and 160 too, the
+bf16 call on the tensor-core kernel, and at zamba2-2.7b's insert shape
+and pixtral-12b's prefill shape), qacc bitwise.
 """
 
 import math
@@ -74,11 +74,22 @@ FLASH_CASES = [
     (2, 130, 4, 4, 80, None, "bfloat16", 3e-2),
     (1, 320, 4, 2, 80, 100, "bfloat16", 3e-2),
     (1, 200, 2, 1, 80, 64, "float32", 2e-5),
+    # head_dim 160 (pixtral-12b, g = 4; its frames run float32): both
+    # kernels, g = 1 and 4, T a multiple of 64 and not, windows
+    (1, 256, 4, 4, 160, None, "float32", 2e-5),
+    (1, 192, 2, 2, 160, None, "bfloat16", 3e-2),
+    (2, 130, 8, 2, 160, None, "bfloat16", 3e-2),
+    (1, 320, 4, 1, 160, 100, "bfloat16", 3e-2),
+    (1, 200, 8, 2, 160, 64, "float32", 2e-5),
 ]
-#: on the card also zamba2-2.7b's insert, q [4, 1024, 32, 80], both dtypes
+#: on the card also zamba2-2.7b's insert, q [4, 1024, 32, 80], and
+#: pixtral-12b's prefill, q [4, 1024, 32, 160] over 8 K/V heads, both
+#: dtypes
 FLASH_CUDA_CASES = FLASH_CASES + [
     (4, 1024, 32, 32, 80, None, "bfloat16", 3e-2),
     (4, 1024, 32, 32, 80, None, "float32", 2e-5),
+    (4, 1024, 32, 8, 160, None, "bfloat16", 3e-2),
+    (4, 1024, 32, 8, 160, None, "float32", 2e-5),
 ]
 QACC_CASES = [(64, 128), (100, 256), (1, 64)]
 
@@ -304,6 +315,10 @@ FLASH_RULE = [
     ((1, 2048, 8, 4, 256, "bfloat16"), True),
     ((1, 1024, 16, 16, 256, "bfloat16"), True),
     ((1, 2048, 8, 4, 256, "float32"), False),
+    # pixtral-12b's prefill (head_dim 160: rows of 320 bytes): a token
+    # prompt's bf16, a frames prompt's float32
+    ((4, 1024, 32, 8, 160, "bfloat16"), True),
+    ((4, 1024, 32, 8, 160, "float32"), False),
 ]
 
 
@@ -597,7 +612,7 @@ def test_cuda_flash_attention_matches_plain(cuda_device, i):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("hd", [48, 96, 160, 512])
+@pytest.mark.parametrize("hd", [48, 96, 192, 512])
 def test_cuda_flash_attention_refuses_other_head_dims(cuda_device, hd,
                                                       dtype):
     """A head dim outside ``HEAD_DIMS`` raises on the card, whichever
