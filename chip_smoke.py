@@ -229,14 +229,30 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
              the step-0 loss within ``FRONTEND_LOSS_RTOL`` of the plain
              float32 forward while two faults land outside, step ms,
              tokens/s, peak and idle share (a ``frontend:`` JSON line).
+15. remat and MoE serving — (a) ``cfg.remat`` (on in every cell above,
+             the reference's default): the phi4-mini train cell (p = 4)
+             and the MoE cell at (2, 2) each trained two pallas_fused
+             steps with remat off and on, losses and params bitwise
+             equal, the MoE obs record the same (12 ``bine``
+             all_to_all calls), fewer bytes saved for the backward with
+             remat, step ms and peak both ways; (b)
+             ``cell.MOE_SERVE_CELL`` through
+             ``launch.serve.run_fixed_batch``: mixtral-8x7b at full width
+             cut to 8 layers, 4 x 1024 prompts, 32 greedy tokens, 2 L + 1
+             rmsnorm per prefill and per step and L flash per prefill,
+             all on wgmma, the capacity drops counted, each rmsnorm and
+             flash shape of the loop held to plain, the bf16 prefill
+             logits within ``MOE_LOGIT_ULPS`` of a plain float32
+             ``forward`` on three seeds with two MoE faults outside (a
+             ``remat-moe-serve:`` JSON line).
 
 The kernels line's launches of rs_step, ag_step and rs_step_q sum the
 train step's main path, its two-axis path, phase 8's runs, the TP path's,
 the gemma3 train step's, the MoE train steps', the recurrent train
-cells' and the frontend train cell's; those of rmsnorm the serve,
-serve-TP, dense serve and fixed-batch paths' (the frontend ones too);
-flash_attention's (head_dim 128) the serve, serve-TP and qwen3-32b
-paths', flash_attention_hd256's the gemma3-4b, gemma-7b and gemma3-4b
+cells', the frontend train cell's and phase 15a's; those of rmsnorm the
+serve, serve-TP, dense serve and fixed-batch paths' (the frontend and
+MoE ones too); flash_attention's (head_dim 128) the serve, serve-TP,
+qwen3-32b and mixtral fixed-batch paths', flash_attention_hd256's the gemma3-4b, gemma-7b and gemma3-4b
 serve-TP paths', flash_attention_hd80's zamba2's fixed-batch path's,
 flash_attention_hd160's pixtral's token prefill, and
 flash_attention_hd160_f32's pixtral's frames prefill (musicgen's float32
@@ -4055,6 +4071,319 @@ def phase_frontend_train(dev):
     return launches, nums
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: remat and MoE serving (queue A item 5e)
+# ---------------------------------------------------------------------------
+
+def phase_remat(dev):
+    """(a) ``cfg.remat`` on the train path: the phi4-mini train cell (p =
+    4) and the MoE cell at (2, 2) (expert parallelism), each trained two
+    pallas_fused float32-wire steps from the same start with remat off
+    and on: the losses (``float.hex``) and every rank's params after the
+    second step (sha256) bitwise equal; the MoE cell's obs record the same
+    both ways, its 12 ``bine`` all_to_all calls (a layer's dispatch,
+    block ids and combine, 2 DP ranks, 2 steps: the recompute records
+    none); the bytes autograd saves for one DP rank's loss
+    (``profile_step.saved_for_backward``) fewer with remat; step ms (the
+    warm one), peak GiB both ways.  Returns the launches by path and the
+    numbers."""
+    import torch
+    from repro_torch.launch import cell
+    from repro_torch.launch import profile_step as PS
+    from repro_torch.models import sharding as SH
+    from repro_torch.models import transformer as TF
+    from repro_torch.obs import metrics as OM
+    from repro_torch.train.data import make_batch
+
+    launches, nums = {}, {}
+    for arch, base_cfg, dp, tp in (
+            ("phi4-mini-3.8b", cell.model_config(), cell.N_DP, 1),
+            ("mixtral-8x7b", cell.MOE_TRAIN_CELL.model_config(), 2, 2)):
+        got = {}
+        for remat in (False, True):
+            cfg = base_cfg.replace(remat=remat)
+            _, dcfg, run = train_runs(dev, cfg)
+            tag = f"{arch} ({dp}, {tp}) remat {'on' if remat else 'off'}"
+            OM.get_registry().reset()
+            counts, losses, times, peak, _ = run(
+                cell.train_config("pallas_fused", "float32"), dp, 2, tag,
+                tp=tp, digest=True)
+            a2a = a2a_record()
+            params = TF.init_params(cfg, 0, dev)
+            if tp > 1:
+                params = SH.shard_params(cfg, params, tp)
+            rows = dcfg.global_batch // dp
+            batch = {k: torch.as_tensor(v[:rows], device=dev)
+                     for k, v in make_batch(dcfg, 0).items()}
+            saved = PS.saved_for_backward(cfg, params, batch, tp)
+            del params, batch
+            torch.cuda.empty_cache()
+            launches[tag] = {k: counts[k] for k in ("rs_step", "ag_step")}
+            got["on" if remat else "off"] = {
+                "losses_hex": [x.hex() for x in losses],
+                "params_sha256": run.digests[tag],
+                "step_ms": [t * 1e3 for t in times],
+                "warm_step_ms": times[1] * 1e3, "peak_gib": peak,
+                "saved_for_backward_gb": saved / 1e9,
+                "all_to_all": {b: list(v) for b, v in a2a.items()}}
+            log(f"  {tag}: losses {[round(x, 6) for x in losses]}, warm "
+                f"step {times[1] * 1e3:.1f} ms, peak {peak:.2f} GiB, "
+                f"saved for backward (one DP rank) {saved / 1e9:.3f} GB, "
+                f"params sha256 {run.digests[tag][:8]}")
+        off, on = got["off"], got["on"]
+        check(on["losses_hex"] == off["losses_hex"] and
+              on["params_sha256"] == off["params_sha256"],
+              f"{arch}: remat on and off differ: losses "
+              f"{on['losses_hex']} / {off['losses_hex']}, params "
+              f"{on['params_sha256'][:8]} / {off['params_sha256'][:8]}")
+        check(on["saved_for_backward_gb"] < off["saved_for_backward_gb"],
+              f"{arch}: remat saves {on['saved_for_backward_gb']} GB for "
+              f"the backward, without {off['saved_for_backward_gb']}")
+        check(on["all_to_all"] == off["all_to_all"],
+              f"{arch}: the obs record differs with remat: "
+              f"{on['all_to_all']} / {off['all_to_all']}")
+        if tp > 1:
+            want = 3 * dp * base_cfg.n_layers * 2
+            calls = sum(v[0] for v in on["all_to_all"].values())
+            check(set(on["all_to_all"]) == {"bine"} and calls == want,
+                  f"{arch}: EP all_to_all record {on['all_to_all']}, "
+                  f"expected {want} bine calls both ways")
+        log(f"  {arch} ({dp}, {tp}): remat on == off, bitwise (losses and "
+            f"params after 2 steps); warm step {on['warm_step_ms']:.1f} / "
+            f"{off['warm_step_ms']:.1f} ms on / off, peak "
+            f"{on['peak_gib']:.2f} / {off['peak_gib']:.2f} GiB, saved for "
+            f"backward {on['saved_for_backward_gb']:.3f} / "
+            f"{off['saved_for_backward_gb']:.3f} GB"
+            + (f"; all_to_all {on['all_to_all']}" if tp > 1 else ""))
+        nums[f"{arch} ({dp},{tp})"] = got
+    return launches, nums
+
+
+#: 15b's gate: mixtral-8x7b x8's bf16 prefill (the fixed-batch loop's
+#: prompts) against a plain float32 ``forward`` of the same weights
+#: (upcast) on the same tokens: the mean of |bf16 - float32| over the
+#: batch's last-token logits in bf16 ulps of max |logit|, within
+#: MOE_LOGIT_ULPS on three seeds, while each fault of ``MOE_SERVE_FAULTS``
+#: lands outside it on each.  Set from readings on an H100 (PERF.md,
+#: section 6): sound 0.95, 1.27, 0.59 (max 3.9-14.7: a routing flip moves
+#: one token's logits), the gates not renormalised 15.6-16.5, one of two
+#: expert blocks 19.7-21.0; about 1.5x the largest sound reading
+MOE_LOGIT_ULPS = 2.0
+
+
+def _unnormalised_route(real):
+    """The router with its top-k gates left as softmax probabilities, not
+    renormalised to sum to 1 (a fault)."""
+    def route(router_w, cfg, xt):
+        import torch
+        _, gate_idx, aux = real(router_w, cfg, xt)
+        probs = torch.softmax(torch.matmul(xt, router_w).to(torch.float32),
+                              dim=-1)
+        return torch.gather(probs, -1, gate_idx), gate_idx, aux
+    return route
+
+
+def _first_block_only(real):
+    """The dense MoE path with only the first of each expert's
+    ``ep_blocks`` column blocks summed (each later block's ``wo`` zeroed:
+    a fault)."""
+    def dense(p, cfg, x):
+        E, nb = cfg.n_experts, cfg.ep_blocks
+        wo = p["wo"].clone()
+        wo.view(E, nb, *wo.shape[1:])[:, 1:] = 0
+        return real(dict(p, wo=wo), cfg, x)
+    return dense
+
+
+#: forward faults 15b's gate must see: (name, (attribute of models.moe,
+#: its replacement given the real one))
+MOE_SERVE_FAULTS = {
+    "top-2 gates not renormalised": ("_route", _unnormalised_route),
+    "one of two expert blocks summed": ("_moe_dense", _first_block_only)}
+
+
+def moe_logit_readings(cfg, dev, c, params, seeds) -> dict:
+    """The MoE serve cell ``c``'s bf16 prefill (``c.slots`` prompts of
+    ``c.prompt_len_max`` tokens from ``np.random.RandomState(seed)``, the
+    fixed-batch loop's draw) against a plain float32 ``forward`` (plain
+    attention and norms) of the same weights (upcast in place) on the
+    same tokens, for each seed (``params``: the first seed's weights,
+    then drawn from each seed), and each fault of ``MOE_SERVE_FAULTS`` in
+    bf16: max and mean of |bf16 - float32| over the last-token logits in
+    bf16 ulps of max |logit|.  Consumes ``params``.  Returns {seed:
+    readings}."""
+    import numpy as np
+    import torch
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as TF
+
+    f32 = cfg.replace(dtype="float32")
+    out = {}
+    with torch.no_grad():
+        for seed in seeds:
+            if params is None:
+                params = TF.init_params(cfg, seed, dev)
+            prompt = torch.as_tensor(np.random.RandomState(seed).randint(
+                0, cfg.vocab_size, size=(c.slots, c.prompt_len_max)),
+                dtype=torch.int32, device=dev)
+            lb = TF.prefill(params, cfg, prompt)[0][:, 0].float()
+            faulty = {}
+            for name, (attr, make) in MOE_SERVE_FAULTS.items():
+                real = getattr(M, attr)
+                setattr(M, attr, make(real))
+                try:
+                    faulty[name] = TF.prefill(params, cfg,
+                                              prompt)[0][:, 0].float()
+                finally:
+                    setattr(M, attr, real)
+            p32 = _upcast_in_place(params)
+            params = None
+            l32 = TF.forward(p32, f32, prompt)[0][:, -1].clone()
+            p32.clear()
+            del p32
+            torch.cuda.empty_cache()
+            ulp = float(bf16_ulp(l32.abs().max()))
+            check(bool(torch.isfinite(lb).all()),
+                  f"{cfg.name} seed {seed}: non-finite prefill logits")
+            r = {"max": float((lb - l32).abs().max()) / ulp,
+                 "mean": float((lb - l32).abs().mean()) / ulp,
+                 "max_abs_logit": float(l32.abs().max())}
+            for name, lf in faulty.items():
+                r[name] = float((lf - l32).abs().mean()) / ulp
+            out[seed] = r
+            del lb, faulty, l32
+            torch.cuda.empty_cache()
+    return out
+
+
+def phase_moe_serve(dev, randn):
+    """(b) ``cell.MOE_SERVE_CELL`` through ``launch.serve.run_fixed_batch``
+    (the reference's loop: its pool refuses MoE): mixtral-8x7b at full
+    width cut to 8 layers, 4 prompts of 1024 tokens, 32 greedy tokens.
+    The launch counts read around the loop: 2 rmsnorm a layer and the
+    final norm per prefill and per decode step, one flash_attention a
+    layer in the prefill, all on wgmma (bf16 at head_dim 128); every token
+    in the vocabulary; the capacity dispatch's drops counted, prefill and
+    decode.  Each rmsnorm shape (rows 4096 and 4 at d 4096, bf16) held to
+    the plain version within one bf16 ulp and each flash shape the
+    prefill gave the kernel to its plain version (``flash_case``).  The
+    bf16 prefill's last-token logits within ``MOE_LOGIT_ULPS`` of a plain
+    float32 ``forward`` on three seeds, the faults of ``MOE_SERVE_FAULTS``
+    outside (``moe_logit_readings``).  Reports prefill ms, decode
+    tokens/s and the peak.  Returns the launches and the numbers."""
+    import torch
+    from repro_torch.kernels import build as KB
+    from repro_torch.kernels.rmsnorm import ops as RO
+    from repro_torch.launch import cell
+    from repro_torch.launch.serve import run_fixed_batch
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as TF
+
+    c = cell.MOE_SERVE_CELL
+    cfg = cell.serve_model_config(c)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_init = time.perf_counter()
+    params = TF.init_params(cfg, c.seed, dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t_init
+    L = cfg.n_layers
+    n_norm = 2 * L + 1
+    B, Lp, new = c.slots, c.prompt_len_max, c.max_new
+    log(f"  {cfg.name}: {L} of 32 layers, {TF.param_count(params):,} params "
+        f"({cfg.dtype}, drawn in {t_init:.1f} s), {cfg.n_experts} experts x "
+        f"{cfg.ep_blocks} blocks, top-{cfg.top_k}, window {cfg.window}; "
+        f"fixed batch {B} x {Lp} tokens, {new} greedy tokens")
+    norms, flashes, drops = set(), set(), []
+    real_norm, real_flash, real_slots = (RO.rmsnorm_kernel,
+                                         TF.flash_attention, M._slots)
+
+    def norm(x, w, eps):
+        norms.add((*x.shape, eps, x.dtype))
+        return real_norm(x, w, eps)
+
+    def flash(q, k, v, **kw):
+        flashes.add((tuple(q.shape), tuple(k.shape), kw.get("window"),
+                     q.dtype))
+        return real_flash(q, k, v, **kw)
+
+    def slots(dest, n_dest, cap):
+        out = real_slots(dest, n_dest, cap)
+        drops.append((dest.numel(), cap, out[1]))
+        return out
+    torch.cuda.synchronize()
+    KB.reset_launches()
+    RO.rmsnorm_kernel, TF.flash_attention, M._slots = norm, flash, slots
+    try:
+        toks, got = run_fixed_batch(cfg, params, B, Lp, new, seed=c.seed,
+                                    device=dev)
+    finally:
+        RO.rmsnorm_kernel, TF.flash_attention, M._slots = (
+            real_norm, real_flash, real_slots)
+    counts = {k: v for k, v in KB.LAUNCHES.items() if v}
+    want = {"rmsnorm": n_norm * new, "flash_attention": L,
+            "flash_attention_wgmma": L}
+    check(counts == want, f"{cfg.name} fixed batch: launches {counts}, "
+          f"expected {want} ({n_norm} norms a call, {L} flash on wgmma in "
+          f"the prefill)")
+    check(toks.shape == (B, new) and int(toks.min()) >= 0 and
+          int(toks.max()) < cfg.vocab_size,
+          f"{cfg.name}: tokens {toks.shape} out of range")
+    got["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    got["init_s"] = t_init
+    # the dispatches: L in the prefill (B * Lp tokens), L a decode step
+    n_items = {n for n, _, _ in drops}
+    check(len(drops) == L * new and n_items == {B * Lp * cfg.top_k,
+                                                 B * cfg.top_k},
+          f"{cfg.name}: dispatches {[(n, cap) for n, cap, _ in drops]}")
+    pre = [int((~k).sum()) for n, _, k in drops if n == B * Lp * cfg.top_k]
+    dec = [int((~k).sum()) for n, _, k in drops if n == B * cfg.top_k]
+    got["dropped_prefill"], got["dropped_decode"] = sum(pre), sum(dec)
+    got["slots_an_expert"] = sorted({cap for _, cap, _ in drops})
+    del drops
+    check({n for n, *_ in norms} == {B * Lp, B} and
+          all(dt == torch.bfloat16 for *_, dt in norms),
+          f"{cfg.name}: rmsnorm shapes {sorted(norms, key=str)}")
+    for rows_, d, eps, dt in sorted(norms, key=lambda t: t[:2]):
+        rmsnorm_case(randn, rows_, d, eps, dt)
+    got["rmsnorm_shapes"] = sorted([r, d] for r, d, *_ in norms)
+    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    check(flashes == {((B, Lp, nh, hd), (B, Lp, nkv, hd), cfg.window,
+                       torch.bfloat16)},
+          f"{cfg.name}: flash shapes {flashes}")
+    _, _, _, ferr, fbound, _ = flash_case(dev, randn, (nh, nkv, hd), Lp,
+                                          cfg.window, torch.bfloat16, b=B)
+    got["flash_max_abs_err"], got["flash_bound_ms"] = ferr, fbound
+    log(f"  {cfg.name}: launches {counts}; prefill {got['prefill_ms']:.1f} "
+        f"ms, decode {got['decode_tokens_per_s']:.1f} tokens/s, peak "
+        f"{got['peak_gib']:.2f} GiB; slots an expert "
+        f"{got['slots_an_expert']}, dropped (token, choice) items: prefill "
+        f"{got['dropped_prefill']} of {L * B * Lp * cfg.top_k}, decode "
+        f"{got['dropped_decode']} of {L * (new - 1) * B * cfg.top_k}; "
+        f"rmsnorm at the loop's {len(norms)} shapes within one bf16 ulp of "
+        f"plain, flash at the prefill's shape within 3e-2")
+    seeds = (c.seed, c.seed + 1, c.seed + 2)
+    read = moe_logit_readings(cfg, dev, c, params, seeds)
+    params = None
+    torch.cuda.empty_cache()
+    got["logit_readings"] = read
+    for seed, r in read.items():
+        log(f"  {cfg.name} seed {seed}: bf16 prefill logits from a plain "
+            f"float32 forward, in bf16 ulps of max |logit| "
+            f"({r['max_abs_logit']:.3f}): max {r['max']:.1f}, mean "
+            f"{r['mean']:.3f}; " + ", ".join(
+                f"{name} {r[name]:.3f}" for name in MOE_SERVE_FAULTS))
+    for seed, r in read.items():
+        check(r["mean"] <= MOE_LOGIT_ULPS,
+              f"{cfg.name} seed {seed}: bf16 prefill mean {r['mean']} (max "
+              f"{r['max']}) bf16 ulps from float32 (gate {MOE_LOGIT_ULPS})")
+        for name in MOE_SERVE_FAULTS:
+            check(r[name] > MOE_LOGIT_ULPS,
+                  f"{cfg.name} seed {seed}: the fault '{name}' lands mean "
+                  f"{r[name]} ulps away, within the gate")
+    return {f"{cfg.name} (fixed batch)": counts}, got
+
+
 def main() -> int:
     # one 9.8 GB bucket buffer after another: keep the allocator's segments
     # growable so freed ones are reused (set before CUDA starts)
@@ -4078,7 +4407,7 @@ def main() -> int:
     from repro_torch.kernels.rmsnorm import kernel as RK
 
     t_all = time.perf_counter()
-    log("[1/14] build")
+    log("[1/15] build")
     t0 = time.perf_counter()
     libs = KB.build()
     for src in K.SOURCES:
@@ -4088,46 +4417,46 @@ def main() -> int:
     log(f"  built {', '.join(p.name for p in libs.values())} in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    log("[2/14] kernels vs plain versions")
+    log("[2/15] kernels vs plain versions")
     rows, qacc_launches, row, randn = phase_kernels(dev)
     torch.cuda.empty_cache()
 
-    log("[3/14] fused collectives vs stacked (bitwise)")
+    log("[3/15] fused collectives vs stacked (bitwise)")
     phase_collectives(dev)
 
-    log("[4/14] collectives API")
+    log("[4/15] collectives API")
     api_launches = phase_api(dev)
 
-    log("[5/14] two-tier (bine_hier)")
+    log("[5/15] two-tier (bine_hier)")
     hier_launches, two_tier = phase_two_tier(dev)
     torch.cuda.empty_cache()
 
-    log("[6/14] train")
+    log("[6/15] train")
     phase_small_reference(dev)
     launches, train = phase_train(dev)
     torch.cuda.empty_cache()
 
-    log("[7/14] serve")
+    log("[7/15] serve")
     phase_serve_small_reference(dev)
     serve_launches, serve, serve_ref = phase_serve(dev)
     torch.cuda.empty_cache()
 
-    log("[8/14] checkpoint, resume, measured tables, obs")
+    log("[8/15] checkpoint, resume, measured tables, obs")
     run_launches, runtime = phase_runtime(dev)
     torch.cuda.empty_cache()
 
-    log("[9/14] tensor parallelism")
+    log("[9/15] tensor parallelism")
     phase_tp_small_reference(dev)
     tp_launches, tp = phase_tp(dev)
     torch.cuda.empty_cache()
 
-    log("[10/14] serving under TP")
+    log("[10/15] serving under TP")
     phase_serve_tp_small_reference(dev)
     stp_launches, serve_tp = phase_serve_tp(
         dev, {"nums": serve, "ref": serve_ref})
     torch.cuda.empty_cache()
 
-    log("[11/14] dense configs (gemma3-4b, gemma-7b, qwen3-32b)")
+    log("[11/15] dense configs (gemma3-4b, gemma-7b, qwen3-32b)")
     t11 = time.perf_counter()
     phase_dense_flash(dev, randn, row)
     dense_launches, dense, g3tp_launches, g3tp = phase_dense_serve(dev)
@@ -4136,7 +4465,7 @@ def main() -> int:
     dense_s = time.perf_counter() - t11
     log(f"  phase 11: {dense_s:.0f} s")
 
-    log("[12/14] MoE train (mixtral-8x7b, expert parallelism)")
+    log("[12/15] MoE train (mixtral-8x7b, expert parallelism)")
     t12 = time.perf_counter()
     phase_moe_small_reference(dev)
     moe_launches, moe = phase_moe_train(dev)
@@ -4144,7 +4473,7 @@ def main() -> int:
     moe["seconds"] = time.perf_counter() - t12
     log(f"  phase 12: {moe['seconds']:.0f} s")
 
-    log("[13/14] recurrent blocks (xlstm-125m, zamba2-2.7b)")
+    log("[13/15] recurrent blocks (xlstm-125m, zamba2-2.7b)")
     t13 = time.perf_counter()
     phase_model_small_reference(dev, ("xlstm-125m", "zamba2-2.7b"))
     phase_ssm_flash(dev, randn, row)
@@ -4154,16 +4483,25 @@ def main() -> int:
     ssm_s = time.perf_counter() - t13
     log(f"  phase 13: {ssm_s:.0f} s")
 
-    log("[14/14] frontend configs (pixtral-12b, musicgen-medium)")
+    log("[14/15] frontend configs (pixtral-12b, musicgen-medium)")
     t14 = time.perf_counter()
     phase_model_small_reference(dev, ("pixtral-12b", "musicgen-medium"))
     phase_frontend_flash(dev, randn, row)
     fe_serve_launches, fe_serve = phase_frontend_serve(dev, randn)
     fe_train_launches, fe_train = phase_frontend_train(dev)
-    del row, randn
     torch.cuda.empty_cache()
     fe_s = time.perf_counter() - t14
     log(f"  phase 14: {fe_s:.0f} s")
+
+    log("[15/15] remat and MoE serving (mixtral-8x7b)")
+    t15 = time.perf_counter()
+    remat_launches, remat = phase_remat(dev)
+    torch.cuda.empty_cache()
+    moe_serve_launches, moe_serve = phase_moe_serve(dev, randn)
+    del row, randn
+    torch.cuda.empty_cache()
+    p15_s = time.perf_counter() - t15
+    log(f"  phase 15: {p15_s:.0f} s")
     # each path's own kernel launches, read around that path alone
     by_path = {"train": dict(launches), "two-axis": hier_launches,
                "runtime": run_launches, "tp": tp_launches,
@@ -4178,7 +4516,9 @@ def main() -> int:
                   for a, n in ssm_serve_launches.items()},
                **{f"serve {a}": n for a, n in fe_serve_launches.items()},
                **{f"train musicgen-medium ({m})": n
-                  for m, n in fe_train_launches.items()}}
+                  for m, n in fe_train_launches.items()},
+               **{f"train {t}": n for t, n in remat_launches.items()},
+               **{f"serve {a}": n for a, n in moe_serve_launches.items()}}
     for path, counts in by_path.items():
         for name, n in counts.items():
             check(n > 0, f"kernel {name} was not launched on the {path} "
@@ -4202,7 +4542,8 @@ def main() -> int:
     for name, n in g3train_launches.items():
         launches[name] += n
     for counts in list(moe_launches.values()) + list(
-            ssm_train_launches.values()) + list(fe_train_launches.values()):
+            ssm_train_launches.values()) + list(
+            fe_train_launches.values()) + list(remat_launches.values()):
         for name, n in counts.items():
             launches[name] += n
     for name in ("ring_update", "matmul_pack_wgmma", "gather_matmul_wgmma"):
@@ -4236,6 +4577,11 @@ def main() -> int:
     # (musicgen's float32 flash at head_dim 64 is in the by-path line)
     launches["rmsnorm"] += sum(n["rmsnorm"]
                                for n in fe_serve_launches.values())
+    # the MoE serve path: its norms on the rmsnorm row, its bf16 flash at
+    # head_dim 128 on the flash_attention row
+    for n in moe_serve_launches.values():
+        launches["rmsnorm"] += n["rmsnorm"]
+        launches["flash_attention"] += n["flash_attention_wgmma"]
     launches["flash_attention_hd160"] = \
         fe_serve_launches["pixtral-12b (tokens)"]["flash_attention_wgmma"]
     launches["flash_attention_hd160_f32"] = \
@@ -4260,6 +4606,9 @@ def main() -> int:
                               "seconds": ssm_s}))
     log("frontend: " + json.dumps({"serve": fe_serve, "train": fe_train,
                                    "seconds": fe_s}))
+    log("remat-moe-serve: " + json.dumps({"remat": remat,
+                                          "moe_serve": moe_serve,
+                                          "seconds": p15_s}))
     log(f"train: {json.dumps(train)}; total {time.perf_counter() - t_all:.0f} s")
     print(json.dumps({"kernels": list(rows.values())}))
     smi = subprocess.run(

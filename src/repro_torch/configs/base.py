@@ -4,7 +4,8 @@ Port of ``repro.configs.base``.  The dataclass keeps every field of the
 reference so configs carry over unchanged; the registry holds the
 architectures of the reference, each a copy of its file: the four dense
 ones (phi4-mini, gemma3-4b, gemma-7b, qwen3-32b), the two MoE ones
-(mixtral-8x7b, phi3.5-moe-42b-a6.6b; trained, not served), the two
+(mixtral-8x7b, phi3.5-moe-42b-a6.6b; served through the fixed-batch
+loop), the two
 recurrent ones (xlstm-125m, zamba2-2.7b; on one TP rank) and the two
 frontend stubs (musicgen-medium, pixtral-12b).
 """

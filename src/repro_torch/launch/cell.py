@@ -2,7 +2,9 @@
 
 Train: full-width phi4-mini cut to 2 of its 32 layers, 4 DP ranks stacked
 on one card, global batch 8 x 1024 tokens, the table bucket size, AdamW
-with a 2-step warm-up.  ``chip_smoke.py`` and ``launch/profile_step.py``
+with a 2-step warm-up.  Remat (on, the reference's default) does not lift
+the cut: the step's peak is the 4 ranks' gradients and state after the
+backward, 2.6 GiB a layer with remat or without (PERF.md).  ``chip_smoke.py`` and ``launch/profile_step.py``
 both build their step from here, so the profiled step is the smoked one.
 ``hier_train_config`` stacks the same 4 ranks as two DP axes,
 ``("pod", "data")`` of shape ``HIER_DP`` = (2, 2), for the two-tier path.
@@ -23,7 +25,9 @@ slots split 512 a TP rank (megatron_sp prefill).
 MoE (``MOE_TRAIN_CELL``): mixtral-8x7b at full width cut to 1 of its 32
 layers, batch 8 x 1024, the float32 wire, at (dp, tp) = (2, 1) (the dense
 capacity dispatch on each DP rank) and (2, 2) (megatron_sp with expert
-parallelism: the dispatch and combine on the paper's all_to_all).
+parallelism: the dispatch and combine on the paper's all_to_all).  Served
+(``MOE_SERVE_CELL``): mixtral-8x7b at full width cut to 8 layers through
+the fixed-batch loop, 4 x 1024-token prompts.
 
 The recurrent configs (``SSM_TRAIN_CELLS``, ``SSM_SERVE_CELLS``):
 zamba2-2.7b at full width cut to 12 of its 54 Mamba2 blocks and
@@ -80,13 +84,16 @@ def model_config(arch: str = ARCH) -> ModelConfig:
 @dataclass(frozen=True)
 class TrainCell:
     """A train cell: ``arch`` at full width cut to ``n_layers``, run at
-    each (dp, tp) of ``meshes`` on ``data_config``'s batch."""
+    each (dp, tp) of ``meshes`` on ``data_config``'s batch, with the
+    config's remat unless ``remat`` is False."""
     arch: str
     n_layers: int
     meshes: Tuple[Tuple[int, int], ...]
+    remat: bool = True
 
     def model_config(self) -> ModelConfig:
-        return base.get_config(self.arch).replace(n_layers=self.n_layers)
+        cfg = base.get_config(self.arch).replace(n_layers=self.n_layers)
+        return cfg if self.remat else cfg.replace(remat=False)
 
 
 #: mixtral-8x7b (arXiv:2401.04088) at full width: d_model 4096, 32/8 heads
@@ -119,20 +126,25 @@ ZAMBA2_TRAIN_CELL = TrainCell("zamba2-2.7b", 12, ((4, 1),))
 #: (every 4th: a 1024-step scan over 768 units), a tied vocabulary of
 #: 50304 (95,402,496 params, bf16).  Full depth because it is small; the
 #: sLSTM scan is a Python loop of about 20 small launches a step, so this
-#: cell measures what the host costs a recurrent model.
-XLSTM_TRAIN_CELL = TrainCell("xlstm-125m", 12, ((4, 1),))
+#: cell measures what the host costs a recurrent model.  Without remat:
+#: under it each of the loop's ops also runs the checkpoint's Python
+#: saved-tensor hooks and runs again in the backward, and a step took
+#: 45.8-50.0 s on an H100 against 16-20 s without (phase 13 of the smoke
+#: 513 s against ~290, the whole smoke 1191 s of its 1200; PERF.md);
+#: remat on == off bitwise stays held on the CPU (tests/test_torch_remat.py).
+XLSTM_TRAIN_CELL = TrainCell("xlstm-125m", 12, ((4, 1),), remat=False)
 SSM_TRAIN_CELLS = (ZAMBA2_TRAIN_CELL, XLSTM_TRAIN_CELL)
 #: musicgen-medium (arXiv:2306.05284) at full width: d_model 1536, 24/24
 #: heads of 64, d_ff 6144, an untied vocabulary of 2048 EnCodec codes, its
 #: frontend stub's frontend_proj [128, 1536]; cut to 16 of its 48 layers
 #: (610,518,528 params, bf16), trained on float32 frames (the batch's 8 x
 #: 1024 frames of 128), so its stream, Q/K/V and logits run in float32
-#: over bf16 weights, as the reference's do.  Depth cut because the port
-#: has no remat yet (ROADMAP.md queue A item 5e): at 8 layers the step
-#: peaked at 16.0 GiB at (4, 1) and 21.2 at (2, 2) on an H100 (PERF.md),
-#: ~1.7 GiB more a layer at (2, 2), so 16 layers keep both meshes near
-#: 40 GiB on a card the earlier phases of the smoke have already used,
-#: and its steps within the smoke's time; 24 would near 64 GiB.  At (4, 1)
+#: over bf16 weights, as the reference's do.  Depth cut for the smoke's
+#: time, not for memory: with remat (``cfg.remat``, the reference's
+#: default) the (2, 2) step peaked at 8.45 GiB at 8 layers and 14.82 at
+#: 16 on an H100, 0.80 GiB a layer, against 20.62 and 40.91 (2.54 a
+#: layer) without (PERF.md), so all 48 would fit near 40 GiB; 16 keep
+#: its steps (~1.2-1.5 s) within the smoke's time.  At (4, 1)
 #: pure data parallelism; at (2, 2) megatron_sp (24 heads over 2, d_model
 #: 1536 >= 1024), the replicated frontend_proj projecting each TP rank's
 #: sequence shard.  Users train musicgen so: data-parallel on EnCodec
@@ -265,9 +277,27 @@ PIXTRAL_SERVE_CELL = ServeCell(arch="pixtral-12b", slots=4, requests=4,
 MUSICGEN_SERVE_CELL = ServeCell(arch="musicgen-medium", slots=8, requests=8,
                                 prompt_len_min=1024, prompt_len_max=1024)
 FRONTEND_SERVE_CELLS = (PIXTRAL_SERVE_CELL, MUSICGEN_SERVE_CELL)
+#: mixtral-8x7b (arXiv:2401.04088) at full width (d_model 4096, 32/8 heads
+#: of 128, 8 experts of d_ff 14336 in 2 blocks each, top-2, a 4096-token
+#: window, an untied vocabulary of 32000), served as the reference serves
+#: MoE: the pool refuses it (a token's keep or drop depends on the batch),
+#: so ``run_fixed_batch``, 4 prompts of 1024 tokens and 32 greedy tokens:
+#: long-context batch requests to a sparse model, how users serve
+#: mixtral.  Cut to 8 of its 32 layers (11,872,309,248 params, 23.7 GB
+#: bf16) because ``models.transformer.init_params`` draws each stacked
+#: leaf whole in float32 before the cast: at 8 layers ``wi`` alone is a
+#: 15.0 GB draw beside the bf16 weights; at 16 layers the weights and that
+#: draw would need ~77 GB.  The prefill dispatches the batch's 4096 tokens
+#: to 1280 slots an expert; each decode step's 4 tokens to 2 slots an
+#: expert (tokens drop), and reads every expert weight.  The window lies
+#: past the 1024-token prompt, so the prefill runs the causal flash kernel
+#: at head_dim 128 on wgmma.
+MOE_SERVE_CELL = ServeCell(arch="mixtral-8x7b", n_layers=8, slots=4,
+                           requests=4, prompt_len_min=1024,
+                           prompt_len_max=1024)
 #: each served arch's cell (``launch/profile_serve.py --arch``)
 SERVE_CELLS = {c.arch: c for c in (SERVE_CELL,) + DENSE_SERVE_CELLS +
-               SSM_SERVE_CELLS + FRONTEND_SERVE_CELLS}
+               SSM_SERVE_CELLS + FRONTEND_SERVE_CELLS + (MOE_SERVE_CELL,)}
 
 
 def serve_model_config(c: ServeCell = SERVE_CELL) -> ModelConfig:

@@ -16,14 +16,16 @@ device's idle share, as text and as one JSON line:
 stacked on the card (``launch/cell.py`` ``SERVE_TP_SHAPE``); ``--arch``
 profiles that arch's serve cell (``cell.SERVE_CELLS``: phi4-mini,
 gemma3-4b, gemma-7b, qwen3-32b, zamba2-2.7b, xlstm-125m, pixtral-12b,
-musicgen-medium) in place of ``SERVE_CELL``.  The recurrent and frontend
-configs, which the pool refuses, are profiled as
-``launch.serve.run_fixed_batch`` serves them (:func:`profile_fixed`): one
-prefill of the cell's batch (frames for a frontend) and ``STEPS`` decode
-steps:
+musicgen-medium, mixtral-8x7b) in place of ``SERVE_CELL``.  The
+recurrent, frontend and MoE configs, which the pool refuses, are
+profiled as ``launch.serve.run_fixed_batch`` serves them
+(:func:`profile_fixed`): one prefill of the cell's batch (frames for a
+frontend) and ``STEPS`` decode steps; for mixtral-8x7b (``MOE_SERVE_CELL``:
+8 of its 32 layers) also the device time under each MoE phase's range:
 
   python -m repro_torch.launch.profile_serve --arch zamba2-2.7b
   python -m repro_torch.launch.profile_serve --arch pixtral-12b
+  python -m repro_torch.launch.profile_serve --arch mixtral-8x7b
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from repro_torch.launch.serve import fixed_batch_steps
 from repro_torch.launch.profile_step import TOP, group_of
 from repro_torch.launch.train import parse_mesh
 from repro_torch.models import transformer as TF
+from repro_torch.models.moe import PHASES
 from repro_torch.serve.engine import (ServeConfig, make_serve_fns, page_len,
                                       pool_supported)
 from repro_torch.serve.sampling import gather_vocab
@@ -52,7 +55,11 @@ STEPS = 5
 
 
 def _profile(fn, reps: int):
-    """Wall ms per call, device ms per call by group, top kernels."""
+    """Wall ms per call, device ms per call by group, top kernels, and
+    the device ms per call under each MoE phase's range
+    (``models.moe.PHASES``: routing, dispatch, experts, combine), which
+    the groups hold already and which a range's own device span would
+    count twice."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -63,14 +70,19 @@ def _profile(fn, reps: int):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / reps
     by_group = defaultdict(float)
-    by_kernel = []
+    by_kernel, phases = [], {}
     for ev in prof.key_averages():
+        if ev.key in PHASES:
+            if ev.device_type == torch.autograd.DeviceType.CPU:
+                phases[ev.key] = ev.device_time_total / 1e3 / reps
+            continue
         dev_us = getattr(ev, "self_device_time_total", 0.0) or 0.0
         if dev_us <= 0 or ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         by_group[group_of(ev.key)] += dev_us / 1e3 / reps
         by_kernel.append((dev_us / 1e3 / reps, ev.count // reps, ev.key))
-    return wall_ms, dict(by_group), sorted(by_kernel, reverse=True)[:TOP]
+    return (wall_ms, dict(by_group), sorted(by_kernel, reverse=True)[:TOP],
+            phases)
 
 
 def profile(cfg, params, dev, mesh: str = "1,1",
@@ -116,7 +128,7 @@ def profile(cfg, params, dev, mesh: str = "1,1",
 
 
 def _report(name, fn, reps: int) -> dict:
-    wall_ms, groups, top = _profile(fn, reps)
+    wall_ms, groups, top, phases = _profile(fn, reps)
     busy = sum(groups.values())
     print(f"{name}: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms, "
           f"idle share {1 - busy / wall_ms:.3f}")
@@ -125,12 +137,20 @@ def _report(name, fn, reps: int) -> dict:
     print("  top kernels (ms per call, launches per call):")
     for ms, n, kname in top:
         print(f"    {ms:9.3f} ms  x{n:<5d} {kname[:90]}")
-    return {"wall_ms": wall_ms, "busy_ms": busy,
-            "idle_share": 1 - busy / wall_ms, "groups_ms": groups}
+    rec = {"wall_ms": wall_ms, "busy_ms": busy,
+           "idle_share": 1 - busy / wall_ms, "groups_ms": groups}
+    if phases:
+        print("  MoE layers by phase (device ms per call, in the groups "
+              "above):")
+        for k, ms in sorted(phases.items(), key=lambda t: -t[1]):
+            print(f"    {k:16s} {ms:9.3f} ms  {ms / wall_ms:6.1%}")
+        rec["moe_phases_ms"] = phases
+    return rec
 
 
 def profile_fixed(cfg, params, dev, c: cell.ServeCell) -> dict:
-    """The fixed-batch loop of the serve cell ``c`` (a recurrent config):
+    """The fixed-batch loop of the serve cell ``c`` (a recurrent, frontend
+    or MoE config; a MoE config's breakdown adds its layers' phases):
     one prefill of ``c.slots`` prompts of ``c.prompt_len_max`` tokens and
     ``STEPS`` greedy decode steps from it (``launch.serve``'s
     ``fixed_batch_steps``), under torch.profiler; prints the breakdown and

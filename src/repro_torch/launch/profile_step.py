@@ -14,13 +14,23 @@ another arch's train cell (``cell.model_config(arch)``, or its cell of
 ``cell.TRAIN_CELLS``: mixtral-8x7b's ``MOE_TRAIN_CELL``, one layer;
 zamba2-2.7b's and xlstm-125m's ``SSM_TRAIN_CELLS``, at their mesh
 ``4,1``); for a MoE arch it also splits the MoE layer's device time by
-phase, forward and backward (:func:`moe_split`: routing, dispatch, the
+phase, forward, recompute (``cfg.remat``: each layer's forward run again
+in the backward) and backward (:func:`moe_split`: routing, dispatch, the
 all_to_all, the experts, the combine):
 
   python -m repro_torch.launch.profile_step [--wire-dtype float32 int8] \
       [--mesh 2,2] [--arch mixtral-8x7b]
   python -m repro_torch.launch.profile_step --arch xlstm-125m \
       --wire-dtype float32
+
+``--remat-depths 2,4`` measures in place of the profile what remat
+(``cfg.remat``) saves: the cell's model at each depth with remat off and
+on, the step's resident and peak GiB, its ms and the bytes saved for one
+DP rank's backward, and the peak's slope per layer both ways
+(:func:`remat_memory`):
+
+  python -m repro_torch.launch.profile_step --wire-dtype float32 \
+      --remat-depths 2,4,6
 
 The device time is read from the profiler's raw kineto events
 (:func:`device_events`); ``--compare-accounting`` also reads the same
@@ -37,6 +47,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import math
 import time
 from collections import defaultdict
 
@@ -83,7 +94,7 @@ def device_events(prof):
     cuda = torch.autograd.DeviceType.CUDA
     for ev in prof.profiler.kineto_results.events():
         if ev.device_type() != cuda or ev.name() in PHASES or \
-                ev.is_user_annotation():
+                ev.name() == TF.RECOMPUTE or ev.is_user_annotation():
             continue
         yield ev.name(), ev.duration_ns() / 1e6
 
@@ -103,7 +114,7 @@ def key_average_groups(prof, steps: int) -> dict:
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total", 0.0) or 0.0
         if dev_us <= 0 or ev.device_type != torch.autograd.DeviceType.CUDA \
-                or ev.key in PHASES:      # a range's device span: no kernel
+                or ev.key in PHASES + (TF.RECOMPUTE,):  # a range's span
             continue
         by_group[group_of(ev.key)] += dev_us / 1e3 / steps
         launches[group_of(ev.key)] += ev.count // steps
@@ -112,11 +123,23 @@ def key_average_groups(prof, steps: int) -> dict:
             "group_launches": dict(launches), "group_counts": dict(counts)}
 
 
+def _recomputed(ev) -> bool:
+    """Does ``ev`` run inside a layer's recompute under remat (the
+    ``models.transformer.RECOMPUTE`` range, which the backward opens)?"""
+    while ev is not None:
+        if ev.name == TF.RECOMPUTE:
+            return True
+        ev = ev.cpu_parent
+    return False
+
+
 def moe_split(events, attr: str = "device_time_total") -> dict:
     """The MoE layers' time by phase (``models.moe.PHASES``), ms summed
-    over ``events`` (``prof.events()``), as ``"<phase> fwd"`` and
-    ``"<phase> bwd"``: a phase's forward is its range's time (the kernels
-    of every op under it); a backward op (``autograd::engine::
+    over ``events`` (``prof.events()``), as ``"<phase> fwd"``,
+    ``"<phase> recompute"`` and ``"<phase> bwd"``: a phase's forward is
+    its range's time (the kernels of every op under it); under remat the
+    same range run again inside the backward's ``RECOMPUTE`` range is its
+    recompute, kept apart; a backward op (``autograd::engine::
     evaluate_function: ...``) counts to the phase whose range ran its
     forward op, matched by the autograd sequence number.  ``attr`` is the
     event's time to read (device time; ``cpu_time_total`` on the CPU)."""
@@ -125,6 +148,9 @@ def moe_split(events, attr: str = "device_time_total") -> dict:
     seq_phase, out = {}, defaultdict(float)
     for ev in events:
         if ev.name not in PHASES or ev.device_type != cpu:
+            continue
+        if _recomputed(ev):
+            out[f"{ev.name} recompute"] += getattr(ev, attr) / 1e3
             continue
         out[f"{ev.name} fwd"] += getattr(ev, attr) / 1e3
         stack = list(ev.cpu_children)
@@ -138,6 +164,34 @@ def moe_split(events, attr: str = "device_time_total") -> dict:
                 ev.sequence_nr in seq_phase:
             out[f"{seq_phase[ev.sequence_nr]} bwd"] += getattr(ev, attr) / 1e3
     return dict(out)
+
+
+def saved_for_backward(cfg, params, batch, tp: int = 1) -> int:
+    """The bytes autograd saves for the backward of ``loss_fn`` on one DP
+    rank (``params``: its tree, ``batch``: its shard, as the train step's
+    ``_rank_grads`` runs it), each storage counted once, read by a
+    ``saved_tensors_hooks`` pack hook through the forward.  Under
+    ``cfg.remat`` a checkpointed layer's saves go to the checkpoint's own
+    hooks and are recomputed, so they are not counted; the layer inputs
+    the checkpoint holds (one residual stream a layer) are not either."""
+    from repro_torch import tree as T
+    seen = {}
+
+    def pack(t):
+        st = t.untyped_storage()
+        seen[st.data_ptr()] = st.nbytes()
+        # the storage stays alive with the graph (so no other tensor takes
+        # its address), but the packed tensor carries no grad_fn: packing
+        # an op's output itself would tie it to its node in a cycle that
+        # no collector sees, and its bytes would outlive the graph
+        return t.detach()
+
+    leaves = [x.detach().requires_grad_(True) for x in T.flatten(params)]
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        loss, _ = TF.loss_fn(T.unflatten(params, leaves), cfg, batch,
+                             n_model=tp)
+    del loss
+    return sum(seen.values())
 
 
 def profile(cfg, backend: str, wire_dtype: str, dev, mesh: str = "4,1",
@@ -220,6 +274,78 @@ def profile(cfg, backend: str, wire_dtype: str, dev, mesh: str = "4,1",
     return rec
 
 
+def remat_memory(cfg, backend: str, wire_dtype: str, dev, mesh: str,
+                 depths) -> list:
+    """The memory remat saves, by depth: for each depth of ``depths`` the
+    train cell's model cut to it, with ``cfg.remat`` off and on, one
+    warm-up step and one measured step over the ranks of ``mesh``: the
+    resident GiB before the step (params, optimizer state), the step's
+    peak GiB and its ms, and the bytes saved for one DP rank's backward
+    (:func:`saved_for_backward`).  Prints each row, then each setting's
+    slope of the peak per layer between the first and the last depth, and
+    returns the rows."""
+    from repro_torch.launch.train import parse_mesh
+    from repro_torch.models import sharding as SH
+    axes, dp, tp = parse_mesh(mesh)
+    tcfg = cell.train_config(backend, wire_dtype).replace(dp_axes=axes)
+    n_dp = dp if isinstance(dp, int) else math.prod(dp)
+    rows = []
+    for depth in depths:
+        for remat in (False, True):
+            c = cfg.replace(n_layers=depth, remat=remat)
+            dcfg = cell.data_config(c)
+            params = TF.init_params(c, 0, dev)
+            if tp > 1:
+                params = SH.shard_params(c, params, tp)
+            batch = {k: torch.as_tensor(v[:dcfg.global_batch // n_dp],
+                                        device=dev)
+                     for k, v in make_batch(dcfg, 0).items()}
+            saved = saved_for_backward(c, params, batch, tp)
+            del params, batch
+            gc.collect()
+            torch.cuda.empty_cache()
+            step, _, _ = make_train_step(c, tcfg, dp, TF.param_shapes(c),
+                                         dev, tp=tp)
+            init_p, init_s = make_init_fns(c, tcfg, dp, dev, tp=tp)
+            params = init_p(0)
+            state = init_s(params)
+            params, state, m = step(params, state, make_batch(dcfg, 0))
+            float(m["loss"])
+            torch.cuda.synchronize()
+            resident = torch.cuda.memory_allocated() / 2 ** 30
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, make_batch(dcfg, 1))
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+            row = {"n_layers": depth, "remat": remat,
+                   "step_ms": (time.perf_counter() - t0) * 1e3,
+                   "resident_gib": resident,
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                   "saved_for_backward_gb": saved / 1e9, "loss": loss}
+            rows.append(row)
+            print(f"{c.name} x{depth} mesh {mesh} remat "
+                  f"{'on ' if remat else 'off'}: step {row['step_ms']:.1f} "
+                  f"ms, resident {resident:.2f} GiB, peak "
+                  f"{row['peak_gib']:.2f} GiB, saved for backward (one DP "
+                  f"rank) {saved / 1e9:.3f} GB, loss {loss:.6f}",
+                  flush=True)
+            del step, params, state, m
+            gc.collect()
+            torch.cuda.empty_cache()
+    lo, hi = min(depths), max(depths)
+    if hi > lo:
+        for remat in (False, True):
+            pk = {r["n_layers"]: r["peak_gib"] for r in rows
+                  if r["remat"] == remat}
+            print(f"remat {'on ' if remat else 'off'}: peak slope "
+                  f"{(pk[hi] - pk[lo]) / (hi - lo):.3f} GiB a layer "
+                  f"({lo} -> {hi} layers)")
+    print(json.dumps({"arch": cfg.name, "mesh": mesh, "remat_memory": rows}),
+          flush=True)
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--backend", default="pallas_fused",
@@ -232,12 +358,19 @@ def main(argv=None):
                     help="the train cell of this arch")
     ap.add_argument("--compare-accounting", action="store_true",
                     help="also read the profile by key_averages")
+    ap.add_argument("--remat-depths", default="",
+                    help="e.g. 2,4: in place of the profile, the step's "
+                         "memory with remat off and on at each depth")
     args = ap.parse_args(argv)
 
     dev = resolve_device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     c = cell.TRAIN_CELLS.get(args.arch)
     cfg = c.model_config() if c else cell.model_config(args.arch)
+    if args.remat_depths:
+        remat_memory(cfg, args.backend, args.wire_dtype[0], dev, args.mesh,
+                     [int(d) for d in args.remat_depths.split(",")])
+        return
     for wire_dtype in args.wire_dtype:
         profile(cfg, args.backend, wire_dtype, dev, args.mesh,
                 compare=args.compare_accounting)

@@ -32,17 +32,20 @@ the reference, to :func:`run_fixed_batch`: one lock-step batch of
 ``--slots`` prompts of ``--prompt-len-max`` tokens (a frontend model's
 prompt and each decode step's input random float frames), greedily
 decoded for ``--max-new`` tokens.  It serves the recurrent configs
-(xlstm-125m, zamba2-2.7b) and the frontend ones (musicgen-medium,
-pixtral-12b) on one rank:
+(xlstm-125m, zamba2-2.7b), the frontend ones (musicgen-medium,
+pixtral-12b) and the MoE ones (mixtral-8x7b, phi3.5-moe-42b-a6.6b: the
+capacity dispatch over each call's tokens, so a decode step's B tokens
+compete for an expert's slots) on one rank:
 
   python -m repro_torch.launch.serve --arch pixtral-12b --slots 4 \
       --prompt-len-max 1024                                # frames
   python -m repro_torch.launch.serve --arch musicgen-medium --reduced --device cpu
+  python -m repro_torch.launch.serve --arch mixtral-8x7b --reduced --device cpu
 
-The MoE configs still raise (their prefill and decode are ROADMAP.md
-queue A item 5e), as does a model axis above 1: item 5f for the
+A model axis above 1 raises: ROADMAP.md queue A item 5f for the
 recurrent configs, item 5g (fixed-batch serving over TP ranks) for the
-others.
+others.  Full-depth mixtral (46.7 B) does not fit one card; its serve
+cell (``launch/cell.py`` ``MOE_SERVE_CELL``) cuts it to 8 layers.
 """
 
 from __future__ import annotations

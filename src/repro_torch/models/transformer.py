@@ -1,8 +1,9 @@
 """Decoder LM backbone: pattern-segmented layer stack.
 
 Port of ``repro.models.transformer``: the ``attn`` and ``moe`` blocks
-(``moe`` on the training path only: the reference serves MoE through its
-fixed-batch loop, queue A item 5e), and the recurrent ones, ``mamba2``,
+(``moe`` served on one TP rank, through the fixed-batch loop as the
+reference serves it; over TP ranks it is queue A item 5g), and the
+recurrent ones, ``mamba2``,
 ``mlstm`` and ``slstm`` (``models.ssm``), with zamba2's weight-tied
 ``shared_attn`` block, on one TP rank (their tensor parallelism is queue
 A item 5f); and the frontend stubs' input projection (musicgen-medium,
@@ -19,7 +20,12 @@ layout — ``segments[i]`` leaves are stacked ``[n_layers_in_segment, ...]``, a
 cross between the packages leaf for leaf (``repro_torch.interop``).
 Layers of a segment run in a Python loop over the stacked leaves (the
 reference's ``lax.scan``); the shared block's gradient sums over its
-firings, as autograd adds a reused leaf's.
+firings, as autograd adds a reused leaf's.  Under ``cfg.remat`` (the
+reference's default; ``reduced`` turns it off) each layer of a segment is
+rematerialized as the reference's ``jax.checkpoint(body)`` is
+(:func:`_remat`): its activations are recomputed in the backward, to the
+same bits, and the ``shared_attn`` firings, applied outside the
+reference's scan, are not.
 
 Two paths, as in the reference: ``forward``/``loss_fn`` (training, through
 autograd) keep the plain ``layers.rmsnorm`` and the query-chunked
@@ -45,11 +51,14 @@ step, as the reference's concatenation promotes it).
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch import tree as T
@@ -57,6 +66,7 @@ from repro_torch.collectives import stacked
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.rmsnorm.ops import rmsnorm as fused_rmsnorm
+from repro_torch.obs import metrics as OM
 
 from . import layers as L
 from . import moe as M
@@ -115,10 +125,11 @@ FIXED_BATCH_TP = ("fixed-batch serving over TP ranks is not ported "
 
 
 def _check_ported(cfg, serve: bool = False, n_model: int = 1) -> None:
-    """Raise for what the port lacks: ``moe`` on the serving path
-    (``serve``), the recurrent blocks over more than one TP rank
-    (``n_model > 1``), and serving a frontend model over more than one TP
-    rank (the reference serves it through its fixed-batch loop only)."""
+    """Raise for what the port lacks: the recurrent blocks over more than
+    one TP rank (``n_model > 1``, item 5f), and serving (``serve``) a
+    frontend or MoE model over more than one TP rank (item 5g: the
+    reference serves both through its fixed-batch loop, under its mesh,
+    where a MoE prefill would take ``_moe_ep``)."""
     kinds = {b.kind for b, _ in segments(cfg)}
     rec = sorted(kinds & set(RECURRENT))
     if n_model > 1 and rec:
@@ -127,12 +138,8 @@ def _check_ported(cfg, serve: bool = False, n_model: int = 1) -> None:
             f"(ROADMAP.md queue A item 5f: the reference shards Mamba2's "
             f"d_inner, mLSTM's inner dim and sLSTM's units); run it on one "
             f"TP rank")
-    if serve and "moe" in kinds:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE prefill and decode are not ported (ROADMAP.md "
-            f"queue A item 5e: the reference serves MoE only through its "
-            f"fixed-batch loop, run_fixed_batch; its pool refuses it)")
-    if serve and n_model > 1 and cfg.frontend is not None:
+    if serve and n_model > 1 and (cfg.frontend is not None or
+                                  "moe" in kinds):
         raise NotImplementedError(f"{cfg.name}: {FIXED_BATCH_TP}")
 
 
@@ -275,6 +282,43 @@ def _apply_block(p, cfg, block: Block, x, positions):
     return x + L.mlp(p["mlp"], cfg, y), None
 
 
+#: the ``torch.profiler`` range around a layer's recompute under remat
+#: (``launch/profile_step.py`` splits its time from the forward's and the
+#: backward's)
+RECOMPUTE = "remat.recompute"
+
+
+@contextlib.contextmanager
+def _recomputing():
+    """A layer's recompute in the backward: in its own profiler range, and
+    with the obs registry off, so each collective the layer calls
+    (``moe._moe_ep``'s all_to_all) is recorded once a step with remat on
+    or off, as the reference's, recorded at trace time, is under
+    ``jax.checkpoint``.  Kernel launches (``build.LAUNCHES``) still count:
+    they are real."""
+    with record_function(RECOMPUTE), OM.disabled():
+        yield
+
+
+def _remat_contexts():
+    return contextlib.nullcontext(), _recomputing()
+
+
+def _remat(cfg, layer, x):
+    """``layer(x)`` -> (x', aux or None), rematerialized under
+    ``cfg.remat`` as the reference's ``jax.checkpoint(body)``: autograd
+    keeps only ``x`` and recomputes the layer's activations in the
+    backward, where they are needed.  The recompute runs the same ops on
+    the same inputs, so the gradients are the same bits.  The aux comes
+    out of the checkpoint as an output.  Without autograd (serving, a
+    ``no_grad`` forward) nothing is kept either way, so the layer runs
+    plain.  The layers draw no random numbers: no RNG state is kept."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return layer(x)
+    return checkpoint(layer, x, use_reentrant=False,
+                      context_fn=_remat_contexts, preserve_rng_state=False)
+
+
 def _layer(seg_p, l: int):
     """Layer ``l``'s parameters out of a stacked segment tree."""
     if isinstance(seg_p, dict):
@@ -306,7 +350,10 @@ def forward(params, cfg, inputs, positions=None, n_model: int = 1):
             x, _ = _apply_block(params["shared"], cfg, block, x, positions)
             continue
         for l in range(n):
-            x, aux = _apply_block(_layer(seg_p, l), cfg, block, x, positions)
+            # the recompute calls the layer after the loop has moved on:
+            # its parameters and block are bound now
+            x, aux = _remat(cfg, lambda h, p=_layer(seg_p, l), b=block:
+                            _apply_block(p, cfg, b, h, positions), x)
             if aux is not None:
                 aux_total = aux_total + aux
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
@@ -572,6 +619,18 @@ def _mlp_tp(p, cfg, y, tp: _TP):
     return tp.reduce(out) if mega else out
 
 
+def _block_tp(p, cfg, block: Block, x, pos, tp: _TP):
+    """One layer of the TP forward on the residual stream ``x``: (x', its
+    MoE aux ``[n]``, or None for an ``attn`` layer)."""
+    x = x + _attn_tp(p["attn"], cfg, block,
+                     L.rmsnorm(x, _bw(p["ln1"], x), cfg.norm_eps), pos, tp)
+    y = L.rmsnorm(x, _bw(p["ln2"], x), cfg.norm_eps)
+    if block.kind == "moe":
+        m, aux = M.moe(p["moe"], cfg, y, tp.n, tp.sp)
+        return x + m, aux
+    return x + _mlp_tp(p["mlp"], cfg, y, tp), None
+
+
 def _layer_tp(seg, l: int):
     """Layer ``l`` of a stacked segment (leaves ``[n, n_layers, ...]``)."""
     if isinstance(seg, dict):
@@ -599,17 +658,10 @@ def forward_tp(params, cfg, inputs, n_model: int):
     aux_total = torch.zeros(n_model, dtype=torch.float32, device=x.device)
     for (block, nl), seg in zip(segments(cfg), params["segments"]):
         for l in range(nl):
-            p = _layer_tp(seg, l)
-            x = x + _attn_tp(p["attn"], cfg, block,
-                             L.rmsnorm(x, _bw(p["ln1"], x), cfg.norm_eps),
-                             pos, tp)
-            y = L.rmsnorm(x, _bw(p["ln2"], x), cfg.norm_eps)
-            if block.kind == "moe":
-                m, aux = M.moe(p["moe"], cfg, y, n_model, tp.sp)
+            x, aux = _remat(cfg, lambda h, p=_layer_tp(seg, l), b=block:
+                            _block_tp(p, cfg, b, h, pos, tp), x)
+            if aux is not None:
                 aux_total = aux_total + aux
-                x = x + m
-            else:
-                x = x + _mlp_tp(p["mlp"], cfg, y, tp)
     x = tp.gather(L.rmsnorm(x, _bw(params["final_norm"], x), cfg.norm_eps))
     head = params["embed"].transpose(1, 2) if cfg.tie_embeddings \
         else params["lm_head"]
@@ -790,8 +842,18 @@ def _decode_block(p, cfg, block: Block, x, cache, pos):
         return _recurrent(p, cfg, block, x, fused_rmsnorm, cache)
     h, cache = _decode_attn(p, cfg, block, x, cache, pos)
     x = x + h
-    return x + L.mlp(p["mlp"], cfg,
-                     fused_rmsnorm(x, p["ln2"], cfg.norm_eps)), cache
+    return x + _ffn(p, cfg, block, fused_rmsnorm(x, p["ln2"],
+                                                 cfg.norm_eps)), cache
+
+
+def _ffn(p, cfg, block: Block, z):
+    """A serving layer's feed-forward on the normed stream ``z``: the MLP,
+    or for a ``moe`` block ``moe.moe`` on one rank (the capacity dispatch
+    over the call's tokens, its drops included: in decode the batch's B
+    tokens) with its aux dropped, as the reference's serving blocks do."""
+    if block.kind == "moe":
+        return M.moe(p["moe"], cfg, z)[0]
+    return L.mlp(p["mlp"], cfg, z)
 
 
 def _logits(params, cfg, x):
@@ -919,7 +981,7 @@ def _prefill_block(p, cfg, block: Block, x, positions, length=None):
                      fused_rmsnorm(x, p["ln1"], cfg.norm_eps), positions)
     o = flash_attention(q, k, v, window=block.window, causal=True)
     x = x + L.dense(o.reshape(B, T, nh * hd).to(x.dtype), p["attn"]["wo"])
-    x = x + L.mlp(p["mlp"], cfg, fused_rmsnorm(x, p["ln2"], cfg.norm_eps))
+    x = x + _ffn(p, cfg, block, fused_rmsnorm(x, p["ln2"], cfg.norm_eps))
     return x, _page_cache(cfg, block, k, v, length)
 
 

@@ -117,8 +117,8 @@ class ServeFns:
     :func:`make_serve_fns` raises for the ones :func:`pool_supported`
     refuses.  The reference's legacy fixed-batch pair is
     ``launch.serve.run_fixed_batch`` on ``models.transformer``'s
-    ``prefill`` and ``decode_step``: it serves the recurrent configs; the
-    MoE ones' prefill and decode are ROADMAP.md queue A item 5e.
+    ``prefill`` and ``decode_step``: it serves the recurrent, frontend
+    and MoE configs.
     """
     init_pool: Callable
     insert: Callable
@@ -192,9 +192,7 @@ def make_serve_fns(model_cfg, scfg: ServeConfig, B: int, S_len: int,
             f"couples batch rows, recurrent state would integrate the "
             f"prompt padding, a frontend has no token stream); the "
             f"reference serves it through its fixed-batch loop, "
-            f"launch.serve.run_fixed_batch here (the recurrent and "
-            f"frontend configs; MoE prefill and decode are ROADMAP.md "
-            f"queue A item 5e)")
+            f"launch.serve.run_fixed_batch here")
     dev = resolve_device(device)
     layout = cache_layout(model_cfg, B, S_len, dp, tp) if tp > 1 else None
 

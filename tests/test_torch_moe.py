@@ -39,8 +39,10 @@ Held against ``repro``:
     full width and reduced; the config fields and full-size parameter
     counts.
 
-Serving refuses MoE, as the reference's pool does (``pool_supported``),
-naming queue A item 5e.
+The pool refuses MoE, as the reference's does (``pool_supported``); the
+fixed-batch loop serves it on one TP rank (tests/test_torch_moe_serve.py
+holds it to the reference) and over a model axis raises naming queue A
+item 5g.
 """
 
 from concurrent.futures import ThreadPoolExecutor
@@ -697,14 +699,17 @@ def test_moe_full_size_parameter_count(arch):
 
 
 # ---------------------------------------------------------------------------
-# Serving refuses MoE; the train CLI runs it
+# Serving: the pool refuses MoE, the fixed-batch loop serves it; the train
+# CLI runs it
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_serving_refuses_moe(arch):
-    """The pool refuses MoE as the reference's does (``pool_supported``),
-    and the serve CLI, ``prefill``, ``decode_step`` and
-    ``init_decode_state`` raise naming queue A item 5e."""
+def test_serving_refuses_moe(arch, capsys):
+    """The pool refuses MoE as the reference's does (``pool_supported``);
+    the serve CLI's fixed-batch loop, ``prefill``, ``decode_step`` and
+    ``init_decode_state`` serve it on the CPU (its numbers against the
+    reference: tests/test_torch_moe_serve.py), and over a model axis the
+    CLI and ``prefill_tp`` raise naming queue A item 5g."""
     from repro.serve import engine as jeng
     from repro_torch.launch import serve as LS
     from repro_torch.serve import engine as E
@@ -713,17 +718,28 @@ def test_serving_refuses_moe(arch):
     assert E.pool_supported(cfg) == jeng.pool_supported(
         jbase.reduced(jbase.get_config(arch)))
     assert E.pool_supported(tbase.get_config("gemma3-4b"))
-    with pytest.raises(NotImplementedError, match="5e"):
-        LS.main(["--arch", arch, "--reduced", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="pool_supported"):
+        E.make_serve_fns(cfg, E.ServeConfig(), 2, 64, "cpu")
+    LS.main(["--arch", arch, "--reduced", "--device", "cpu", "--slots", "2",
+             "--prompt-len-max", "32", "--max-new", "3"])
+    out = capsys.readouterr().out
+    assert "pool unsupported (MoE capacity dispatch)" in out
+    assert "fixed-batch decode 2 steps" in out
     params = TF.init_params(cfg, 0, "cpu")
-    toks = torch.zeros((1, 32), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="5e"):
-        TF.prefill(params, cfg, toks)
-    with pytest.raises(NotImplementedError, match="5e"):
-        TF.init_decode_state(cfg, 1, 32, "cpu")
-    with pytest.raises(NotImplementedError, match="5e"):
-        TF.decode_step(params, cfg, {"segments": [], "pos": torch.zeros(
-            (), dtype=torch.int32)}, toks[:, :1])
+    toks = torch.zeros((2, 32), dtype=torch.int64)
+    with torch.no_grad():
+        logits, st = TF.prefill(params, cfg, toks)
+        empty = TF.init_decode_state(cfg, 2, 32, "cpu")
+        assert [tuple(x.shape) for x in TR.flatten(empty)] == \
+            [tuple(x.shape) for x in TR.flatten(st)]
+        logits, st = TF.decode_step(params, cfg, st, toks[:, :1])
+    assert logits.shape == (2, 1, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all()) and int(st["pos"]) == 33
+    with pytest.raises(NotImplementedError, match="5g"):
+        LS.main(["--arch", arch, "--reduced", "--device", "cpu", "--mesh",
+                 "1,2"])
+    with pytest.raises(NotImplementedError, match="5g"):
+        TF.prefill_tp(params, cfg, toks, 2)
 
 
 def test_train_cli_runs_moe_expert_parallel(capsys):

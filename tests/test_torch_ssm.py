@@ -729,8 +729,8 @@ def test_padded_prefill_raises_for_recurrent_blocks():
 
 def test_serve_cli_runs_the_fixed_batch_loop(capsys):
     """The serve CLI sends the recurrent configs to the fixed-batch loop
-    (the pool refuses them, as the reference's does); MoE still raises,
-    naming queue A item 5e."""
+    (the pool refuses them, as the reference's does); MoE goes there too
+    since item 5e, and over a model axis raises naming item 5g."""
     from repro_torch.launch import serve
     from repro_torch.serve import engine as E
     for arch in ARCHS:
@@ -739,6 +739,6 @@ def test_serve_cli_runs_the_fixed_batch_loop(capsys):
                 "--slots", "2", "--prompt-len-max", "32", "--max-new", "3"])
     out = capsys.readouterr().out
     assert "legacy fixed-batch loop" in out and "sample token ids" in out
-    with pytest.raises(NotImplementedError, match="5e"):
+    with pytest.raises(NotImplementedError, match="5g"):
         serve.main(["--arch", "mixtral-8x7b", "--reduced", "--device",
-                    "cpu"])
+                    "cpu", "--mesh", "1,2"])
