@@ -191,7 +191,7 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
              launched, the loss and each token's NLL within
              ``SSM_GATES`` of the plain float32 forward (three seeds'
              bf16 forwards inside, two faults an arch outside), step ms,
-             tokens/s, peak, and the idle share from
+             tokens/s, peak, and zamba2's idle share from
              ``launch/profile_step.py``; (d) ``cell.SSM_SERVE_CELLS``
              through ``launch.serve.run_fixed_batch``: zamba2-2.7b at full
              depth (4 x 1024 prompts) and xlstm-125m (8 x 1024), 32 greedy
@@ -245,15 +245,44 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
              logits within ``MOE_LOGIT_ULPS`` of a plain float32
              ``forward`` on three seeds with two MoE faults outside (a
              ``remat-moe-serve:`` JSON line).
+16. the recurrent blocks and the fixed-batch loop over TP ranks — (a)
+             reduced zamba2-2.7b and xlstm-125m at d_model 1024
+             (megatron_sp: split heads and units) and xlstm at 64
+             (pure_sp), float32: the TP forward, prefill_tp and 3
+             decode_step_tp steps within 1e-4 of max |logit| of one
+             rank's; (b) ``cell.SSM_TP_TRAIN_CELLS`` at (dp, tp) = (2,
+             2): zamba2-2.7b x12 (megatron_sp) and xlstm-125m x4
+             (pure_sp), two pallas_fused steps and a bine step (bitwise
+             after the first), zamba2 remat on == off (params sha256),
+             rs_step and ag_step launched, the step-0 loss within phase
+             13's ``SSM_GATES`` loss bound of the plain float32 one-rank
+             forward, the TP bf16 forward's token gap within its token
+             bound and a TP fault (``TP_FAULTS``) outside; zamba2's grad
+             norms within ``SSM_TP_GNORM_RTOL`` of phase 13's p = 4 run and
+             its step-1 loss within the loss bound of that run's, two
+             gradient faults (``TP_GRAD_FAULTS``) outside; step ms,
+             tokens/s, peak; (c) ``cell.FIXED_TP_SERVE_CELLS`` through
+             ``launch.serve.run_fixed_batch`` over 2 TP ranks:
+             zamba2-2.7b at full depth, mixtral-8x7b x8 (its prefill on
+             expert parallelism) and musicgen-medium (frames), the
+             whole-row norms on rmsnorm and every flash launch counted,
+             each rmsnorm and flash shape of the loop held to plain, the
+             prefill logits within ``FIXED_TP_ULPS`` of the one-rank
+             prefill on three seeds with planted faults outside, the
+             greedy tokens against phases 13-15's, prefill ms, tokens/s,
+             peak (an ``ssm-tp:`` JSON line).
 
 The kernels line's launches of rs_step, ag_step and rs_step_q sum the
 train step's main path, its two-axis path, phase 8's runs, the TP path's,
 the gemma3 train step's, the MoE train steps', the recurrent train
-cells', the frontend train cell's and phase 15a's; those of rmsnorm the
-serve, serve-TP, dense serve and fixed-batch paths' (the frontend and
-MoE ones too); flash_attention's (head_dim 128) the serve, serve-TP,
-qwen3-32b and mixtral fixed-batch paths', flash_attention_hd256's the gemma3-4b, gemma-7b and gemma3-4b
-serve-TP paths', flash_attention_hd80's zamba2's fixed-batch path's,
+cells' (phase 16's at (2, 2) too), the frontend train cell's and phase
+15a's; those of rmsnorm the serve, serve-TP, dense serve and fixed-batch
+paths' (the frontend and MoE ones, and phase 16's over TP ranks, too);
+flash_attention's (head_dim 128) the serve, serve-TP, qwen3-32b and
+mixtral fixed-batch paths' (one rank and two),
+flash_attention_hd256's the gemma3-4b, gemma-7b and gemma3-4b serve-TP
+paths', flash_attention_hd80's zamba2's fixed-batch paths' (one rank and
+two),
 flash_attention_hd160's pixtral's token prefill, and
 flash_attention_hd160_f32's pixtral's frames prefill (musicgen's float32
 flash at head_dim 64 counts in the by-path line only); the ``kernels by
@@ -3402,6 +3431,13 @@ def train_loss_readings(cfg, dcfg, dev, seeds=(0,), faults=None):
     return sound, faulty
 
 
+#: phase 13's train cells left unprofiled: xlstm's sLSTM scans make one
+#: step ~1 M profiler events (48 s of profiled wall on an H100, more to
+#: read them), past the smoke's time; ``launch/profile_step.py --arch
+#: xlstm-125m`` reads its step
+SSM_UNPROFILED = ("xlstm-125m",)
+
+
 def phase_ssm_train(dev):
     """(c) ``cell.SSM_TRAIN_CELLS``: zamba2-2.7b at full width cut to 12
     of 54 Mamba2 blocks (two firings of the tied shared block) and
@@ -3412,10 +3448,10 @@ def phase_ssm_train(dev):
     ``SSM_GATES`` loss bound of the plain float32 forward of the same
     weights and its tokens' NLL within its token bound on average, as are
     three seeds' bf16 forwards, while each fault of ``SSM_FAULTS`` lands
-    outside the token gate.  Then each step's device groups under
-    ``launch/profile_step.py``, and its idle share against the step's
-    unprofiled wall time.  Returns the fused steps' launches by arch and
-    the numbers."""
+    outside the token gate.  Then, but for ``SSM_UNPROFILED``, each
+    step's device groups under ``launch/profile_step.py``, and its idle
+    share against the step's unprofiled wall time.  Returns the fused
+    steps' launches by arch and the numbers."""
     import torch
     from repro_torch.launch import cell
     from repro_torch.launch import profile_step as PS
@@ -3476,20 +3512,12 @@ def phase_ssm_train(dev):
                   f"{token_atol} of the sound float32 run; the gate "
                   f"cannot see that fault")
         torch.cuda.empty_cache()
-        # one profiled step for xlstm: its sLSTM scans make every step
-        # hundreds of thousands of profiler events
-        prof = PS.profile(cfg, "pallas_fused", "float32", dev, f"{dp},1",
-                          steps=1 if cfg.name == "xlstm-125m" else 2)
-        torch.cuda.empty_cache()
         warm = times[1]
-        idle = 1 - prof["busy_ms"] / (warm * 1e3)
         log(f"  {cfg.name} bine float32 step == pallas_fused float32 step, "
             f"bitwise; loss {losses[0]:.6f}, plain float32 {ref:.6f} "
             f"(bounds {loss_atol} / token {token_atol}); warm step "
             f"{warm * 1e3:.1f} ms ({tokens / warm:.0f} tokens/s), peak "
-            f"{peak:.1f} GiB; profiled {prof['wall_ms']:.1f} ms wall, "
-            f"{prof['busy_ms']:.1f} ms busy: idle share {idle:.3f} of the "
-            f"unprofiled step ({prof['idle_share']:.3f} under the profiler)")
+            f"{peak:.1f} GiB")
         nums[cfg.name] = {
             "n_layers": cfg.n_layers, "params": n_params,
             "loss_hex": losses[0].hex(), "losses": losses,
@@ -3498,11 +3526,20 @@ def phase_ssm_train(dev):
             "fault_losses": faulty, "step_ms": [t * 1e3 for t in times],
             "warm_step_ms": warm * 1e3, "tokens_per_s": tokens / warm,
             "peak_gib": peak, "bine_step_ms_cold": tb[0] * 1e3,
-            "bine_peak_gib": peak_b, "params_sha256": run.digests[tag],
-            "profile": {k: prof[k] for k in (
-                "wall_ms", "busy_ms", "idle_share", "groups_ms",
-                "group_launches")},
-            "idle_share_unprofiled": idle}
+            "bine_peak_gib": peak_b, "params_sha256": run.digests[tag]}
+        if cfg.name in SSM_UNPROFILED:
+            continue
+        prof = PS.profile(cfg, "pallas_fused", "float32", dev, f"{dp},1",
+                          steps=2)
+        torch.cuda.empty_cache()
+        idle = 1 - prof["busy_ms"] / (warm * 1e3)
+        log(f"  {cfg.name}: profiled {prof['wall_ms']:.1f} ms wall, "
+            f"{prof['busy_ms']:.1f} ms busy: idle share {idle:.3f} of the "
+            f"unprofiled step ({prof['idle_share']:.3f} under the profiler)")
+        nums[cfg.name]["profile"] = {k: prof[k] for k in (
+            "wall_ms", "busy_ms", "idle_share", "groups_ms",
+            "group_launches")}
+        nums[cfg.name]["idle_share_unprofiled"] = idle
     return launches, nums
 
 
@@ -3632,6 +3669,7 @@ def phase_ssm_serve(dev, randn):
                                         seed=c.seed, device=dev)
         finally:
             RO.rmsnorm_kernel = real
+        FIXED_TOKENS[cfg.name] = toks
         counts = {k: v for k, v in KB.LAUNCHES.items() if v}
         want = {"rmsnorm": n_norm * new}
         if n_attn:
@@ -3901,6 +3939,7 @@ def phase_frontend_serve(dev, randn):
                                         seed=c.seed, device=dev)
         finally:
             RO.rmsnorm_kernel = real
+        FIXED_TOKENS[cfg.name] = toks
         counts = {k: v for k, v in KB.LAUNCHES.items() if v}
         want = {"rmsnorm": n_norm * new, "flash_attention": L}
         check(counts == want, f"{cfg.name} fixed batch on frames: launches "
@@ -4320,6 +4359,7 @@ def phase_moe_serve(dev, randn):
     finally:
         RO.rmsnorm_kernel, TF.flash_attention, M._slots = (
             real_norm, real_flash, real_slots)
+    FIXED_TOKENS[cfg.name] = toks
     counts = {k: v for k, v in KB.LAUNCHES.items() if v}
     want = {"rmsnorm": n_norm * new, "flash_attention": L,
             "flash_attention_wgmma": L}
@@ -4384,6 +4424,581 @@ def phase_moe_serve(dev, randn):
     return {f"{cfg.name} (fixed batch)": counts}, got
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the recurrent blocks and the fixed-batch loop over TP ranks
+# ---------------------------------------------------------------------------
+
+#: the one-rank fixed-batch loops' greedy tokens (phases 13-15), by arch,
+#: which phase 16's loops over TP ranks are compared with
+FIXED_TOKENS = {}
+
+#: phase 16's serve gates: the mean over the batch's last-token logits of
+#: |TP prefill - one-rank prefill| (same weights and prompt), in bf16 ulps
+#: of max |logit|, per arch, on three seeds; each planted fault must land
+#: outside on each.  Set at about 1.5x the largest sound reading of the
+#: three seeds on an H100 (PERF.md, section 6): zamba2 2.01-2.08 (bf16;
+#: its one-rank bf16 prefill reads 2.1 from float32, phase 13; faults
+#: 14.4-14.9 and 3.87-3.98), mixtral 7.73-13.3 (EP drops other tokens than
+#: the dense path; the flash fault 29.2-30.7), musicgen 1.07e-4-2.23e-4
+#: (frames: float32 end to end; the flash fault 24.2-49.2)
+FIXED_TP_ULPS = {"zamba2-2.7b": 3.1, "mixtral-8x7b": 20.0,
+                 "musicgen-medium": 3.4e-4}
+
+
+def _split_norm_fault():
+    """A fault: every cross-rank norm over the rank's own share of its row
+    (the psum of the sums of squares dropped)."""
+    import contextlib
+    from repro_torch.models import ssm as S
+
+    @contextlib.contextmanager
+    def planted():
+        real = S.split_rmsnorm
+        S.split_rmsnorm = lambda y, g, eps, n: S.L.rmsnorm(y, g, eps)
+        try:
+            yield
+        finally:
+            S.split_rmsnorm = real
+    return planted()
+
+
+def _own_block_fault():
+    """A fault: under pure_sp each TP rank keeps the other end's sequence
+    block of its whole-sequence recurrent output (rank t block n-1-t),
+    not its own."""
+    import contextlib
+    import torch
+    from repro_torch.models import transformer as TF
+
+    def swapped(self, x):
+        if not self.sp:
+            return x
+        k = x.shape[2] // self.n
+        return torch.stack([x[t].narrow(1, (self.n - 1 - t) * k, k)
+                            for t in range(self.n)])
+
+    @contextlib.contextmanager
+    def planted():
+        real = TF._TP.own
+        TF._TP.own = swapped
+        try:
+            yield
+        finally:
+            TF._TP.own = real
+    return planted()
+
+
+#: phase 16's TP-path faults, per arch: name -> context manager factory
+TP_FAULTS = {
+    "zamba2-2.7b": {"cross-rank norms without their psum": _split_norm_fault},
+    "xlstm-125m": {"each rank keeping the other's sequence block":
+                   _own_block_fault},
+    "mixtral-8x7b": {},
+    "musicgen-medium": {},
+}
+
+
+def _replicated_sum_fault():
+    """A gradient fault: the TP sum of the replicated leaves' gradients
+    dropped (``train.step._tp_sum_replicated``), so each TP rank updates
+    its copy with its own share of the gradient."""
+    import contextlib
+    from repro_torch.train import step as SP
+
+    @contextlib.contextmanager
+    def planted():
+        real = SP._tp_sum_replicated
+        SP._tp_sum_replicated = lambda grads, mds: grads
+        try:
+            yield
+        finally:
+            SP._tp_sum_replicated = real
+    return planted()
+
+
+def _split_norm_backward_fault():
+    """A gradient fault: every cross-rank norm's forward as it is, its
+    backward through the rank's own sum of squares only (the psum's
+    backward dropped)."""
+    import contextlib
+    import torch
+    from repro_torch.collectives import stacked
+    from repro_torch.models import ssm as S
+
+    def norm(y, g, eps, n):
+        yf = y.to(torch.float32)
+        ss = (yf * yf).sum(dim=-1, keepdim=True)
+        whole = stacked.psum(ss.unflatten(0, (n, -1))).flatten(0, 1)
+        ss = ss + (whole - ss).detach()
+        out = yf * torch.rsqrt(ss / (n * y.shape[-1]) + eps)
+        return (out * (1.0 + g.to(torch.float32))).to(y.dtype)
+
+    @contextlib.contextmanager
+    def planted():
+        real = S.split_rmsnorm
+        S.split_rmsnorm = norm
+        try:
+            yield
+        finally:
+            S.split_rmsnorm = real
+    return planted()
+
+
+#: 16b's gradient faults (zamba2 at (2, 2)), each outside
+#: ``SSM_TP_GNORM_RTOL``: name -> context manager factory
+TP_GRAD_FAULTS = {
+    "replicated leaves' TP sum dropped": _replicated_sum_fault,
+    "cross-rank norms' backward without their psum":
+        _split_norm_backward_fault}
+
+#: 16b's gradient gate: zamba2 x12's grad norm at (2, 2) against phase
+#: 13's p = 4 run of the same cell (same weights and batches), relative,
+#: at steps 0 and 1.  Set at about 1.5x the larger reading on an H100
+#: (PERF.md, section 6): 1.32e-4 and 7.8e-7; the faults read 6.6e-3 and
+#: 1.47e-2
+SSM_TP_GNORM_RTOL = 2e-4
+
+
+def phase_tp_small(dev):
+    """16a: reduced zamba2-2.7b and xlstm-125m at d_model 1024
+    (megatron_sp: Mamba2's heads, mLSTM's heads and sLSTM's units split
+    over the ranks) and xlstm-125m at 64 (pure_sp), float32 with float32
+    caches, on the card: the TP forward at tp 2 against the one-rank
+    forward, and ``prefill_tp`` of 64 tokens with 3 ``decode_step_tp``
+    steps (the fixed-batch layout, ``engine.cache_layout``) against
+    ``prefill`` and ``decode_step``, all within 1e-4 of max |logit|, 13a's
+    bound (xlstm at 1024 read 2.1e-5 on the CPU: its exponential gates
+    amplify the ranks' other summation order)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import base
+    from repro_torch.models import sharding as SH
+    from repro_torch.models import transformer as TF
+    from repro_torch.serve import engine as E
+    from repro_torch.serve import kvcache as KV
+
+    for arch, kw in (("zamba2-2.7b", dict(d_model=1024)),
+                     ("xlstm-125m", dict(d_model=1024)),
+                     ("xlstm-125m", {})):
+        cfg = base.reduced(base.get_config(arch)).replace(
+            dtype="float32", cache_dtype="float32", **kw)
+        params = TF.init_params(cfg, 0, dev)
+        tok = torch.as_tensor(np.random.RandomState(5).randint(
+            0, cfg.vocab_size, (2, 67)), dtype=torch.int32, device=dev)
+        lay = E.cache_layout(cfg, 2, 64, 1, 2)
+        errs = []
+        with torch.no_grad():
+            ref = TF.forward(params, cfg, tok[:, :64])[0]
+            got = TF.forward(SH.shard_params(cfg, params, 2), cfg,
+                             tok[:, :64], n_model=2)[0]
+            got = TF.vocab_logits(got, cfg.vocab_size)
+            errs.append(float((got - ref).abs().max() / ref.abs().max()))
+            lg, st1 = TF.prefill(params, cfg, tok[:, :64])
+            blocks, g = TF.prefill_tp(params, cfg, tok[:, :64], 2)
+            st = KV.state_from_global(cfg, g, lay)
+            pairs = [(TF.vocab_logits(blocks, cfg.vocab_size), lg)]
+            for t in range(3):
+                x = tok[:, 64 + t:65 + t]
+                lg, st1 = TF.decode_step(params, cfg, st1, x)
+                blocks, st = TF.decode_step_tp(params, cfg, st, x, lay)
+                pairs.append((TF.vocab_logits(blocks, cfg.vocab_size), lg))
+            errs += [float((a - b).abs().max() / b.abs().max())
+                     for a, b in pairs]
+        what = (f"small TP {arch} d_model {cfg.d_model} "
+                f"({SH.strategy(cfg, 2)})")
+        check(max(errs) <= 1e-4, f"{what}: forward / prefill / decode "
+              f"logits {errs} of max |logit| from one rank (bound 1e-4)")
+        log(f"  {what}: forward, prefill + 3 decode logits at tp 2 within "
+            f"{max(errs):.2e} of max |logit| of one rank (bound 1e-4)")
+        del params, st, st1
+        torch.cuda.empty_cache()
+
+
+def tp_token_readings(cfg, dcfg, dev, tp: int, faults) -> dict:
+    """The bf16 forward over ``tp`` TP ranks of ``init_params(cfg, 0)`` on
+    ``make_batch(dcfg, 0)`` (the train cell's step-0 weights and batch),
+    sound and with each fault of ``faults`` (name -> context manager)
+    planted, against the plain float32 one-rank forward of the same
+    weights (upcast): each run's loss (cross entropy and z-loss, as
+    ``train_loss_readings``) and token gap, the mean over tokens of |NLL
+    - float32 NLL|.  Returns {"f32": loss, "sound": (loss, gap), name:
+    (loss, gap)}."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.models import sharding as SH
+    from repro_torch.models import transformer as TF
+    from repro_torch.train.data import make_batch
+
+    def nll(logits, c, batch):
+        logits = logits.float()
+        lse = torch.logsumexp(logits, dim=-1)
+        tok = lse - torch.gather(logits, -1,
+                                 batch["targets"][..., None].long())[..., 0]
+        return float(tok.mean() + c.z_loss * (lse * lse).mean()), \
+            tok.reshape(-1)
+
+    out = {}
+    with torch.no_grad():
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in make_batch(dcfg, 0).items()}
+        params = TF.init_params(cfg, 0, dev)
+        p32 = T.tree_map(lambda x: x.float(), params)
+        f32 = cfg.replace(dtype="float32")
+        ref = nll(TF.forward(p32, f32, batch["inputs"])[0], f32, batch)
+        del p32
+        torch.cuda.empty_cache()
+        out["f32"] = ref[0]
+        sp = SH.shard_params(cfg, params, tp)
+        del params
+        torch.cuda.empty_cache()
+
+        def run():
+            lg = TF.vocab_logits(TF.forward(sp, cfg, batch["inputs"],
+                                            n_model=tp)[0], cfg.vocab_size)
+            loss, tok = nll(lg, cfg, batch)
+            return loss, float((tok - ref[1]).abs().mean())
+        out["sound"] = run()
+        for name, fault in faults.items():
+            with fault():
+                out[name] = run()
+        del sp, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_gradient_check(cfg, run, tag, losses, one_rank, dp, tp, loss_atol):
+    """zamba2's TP gradients against phase 13's p = 4 run of the same cell
+    (``one_rank[cfg.name]``): the grad norms of ``run``'s two steps
+    (``tag``, their ``losses``) within ``SSM_TP_GNORM_RTOL``, the step-1 loss
+    within ``loss_atol``, and each fault of ``TP_GRAD_FAULTS`` (one
+    pallas_fused step) outside the grad norm gate.  Returns the
+    readings."""
+    from repro_torch.launch import cell
+
+    one = one_rank.get(cfg.name)
+    check(one is not None and one["n_layers"] == cfg.n_layers,
+          f"{cfg.name}: no p = 4 run at {cfg.n_layers} layers to hold the "
+          f"TP gradients to")
+    rel = [abs(a - b) / b for a, b in zip(run.gnorms[tag], one["gnorms"])]
+    step1 = abs(losses[1] - one["losses"][1])
+    faults = {}
+    for name, fault in TP_GRAD_FAULTS.items():
+        ftag = f"{tag} ({name})"
+        with fault():
+            run(cell.train_config("pallas_fused", "float32"), dp, 1, ftag,
+                tp=tp)
+        faults[name] = abs(run.gnorms[ftag][0] - one["gnorms"][0]) \
+            / one["gnorms"][0]
+    log(f"  {cfg.name} at ({dp}, {tp}) against p = 4: grad norms "
+        f"{run.gnorms[tag]} / {one['gnorms']}, relative " +
+        ", ".join(f"{r:.3e}" for r in rel) + f" (gate {SSM_TP_GNORM_RTOL}); "
+        f"step-1 loss {losses[1]:.6f} / "
+        f"{one['losses'][1]:.6f}, {step1:.2e} apart (bound {loss_atol}); " +
+        "; ".join(f"{k}: step-0 grad norm {v:.3e} relative"
+                  for k, v in faults.items()))
+    check(max(rel) <= SSM_TP_GNORM_RTOL, f"{cfg.name} at ({dp}, {tp}): grad "
+          f"norms {run.gnorms[tag]} vs p = 4's {one['gnorms']}: relative "
+          f"{rel} (gate {SSM_TP_GNORM_RTOL})")
+    check(step1 <= loss_atol, f"{cfg.name} at ({dp}, {tp}): step-1 loss "
+          f"{step1} from p = 4's (bound {loss_atol})")
+    for name, r in faults.items():
+        check(r > SSM_TP_GNORM_RTOL, f"{cfg.name} with {name}: grad norm "
+              f"{r} from p = 4's, within the gate {SSM_TP_GNORM_RTOL}")
+    return {"gnorm_rel_p4": rel, "step1_loss_gap_p4": step1,
+            "grad_faults_gnorm_rel": faults}
+
+
+def phase_ssm_tp_train(dev, one_rank):
+    """16b: ``cell.SSM_TP_TRAIN_CELLS`` at (dp, tp) = (2, 2), bf16, float32
+    wire: zamba2-2.7b x12 (megatron_sp) and xlstm-125m x4 (pure_sp).  Two
+    pallas_fused steps (rs_step and ag_step launched) and one bine step
+    from the same start, rank 0's params after the first bitwise equal;
+    for zamba2 (remat on, the config's) the same two steps with remat off,
+    its params sha256 equal.  The step-0 loss within the loss bound of
+    phase 13's ``SSM_GATES`` of the plain float32 one-rank forward of the
+    same weights, the TP bf16 forward's tokens within its token bound on
+    average, and each TP fault of ``TP_FAULTS`` outside the token bound
+    (``tp_token_readings``).  The gradients: zamba2's grad norms at steps
+    0 and 1 within ``SSM_TP_GNORM_RTOL`` of phase 13's p = 4 run of the same
+    cell (``one_rank``: phase 13's numbers by arch), its step-1 loss (after
+    one update) within the loss bound of that run's, and each fault of
+    ``TP_GRAD_FAULTS`` (one step) outside the grad norm gate.  Reports the
+    warm step ms, tokens/s and peak GiB.  Returns the fused steps'
+    launches by arch and the numbers."""
+    import torch
+    from repro_torch.launch import cell
+    from repro_torch.models import sharding as SH
+    from repro_torch.models import transformer as TF
+
+    launches, nums = {}, {}
+    for tc in cell.SSM_TP_TRAIN_CELLS:
+        cfg, dcfg, run = train_runs(dev, tc.model_config())
+        dp, tp = tc.meshes[0]
+        tokens = dcfg.global_batch * dcfg.seq_len
+        log(f"  {cfg.name} x{cfg.n_layers}: (dp, tp) = ({dp}, {tp}), "
+            f"{SH.strategy(cfg, tp)}, remat {cfg.remat}, batch "
+            f"{dcfg.global_batch}x{dcfg.seq_len}")
+        tag = f"{cfg.name} tp pallas_fused/float32"
+        counts, losses, times, peak, first = run(
+            cell.train_config("pallas_fused", "float32"), dp, 2, tag,
+            tp=tp, digest=True)
+        launches[cfg.name] = {k: counts[k] for k in ("rs_step", "ag_step")}
+        for k, v in launches[cfg.name].items():
+            check(v > 0, f"the {cfg.name} TP train step did not launch {k}")
+        cb, lb, _, _, bine_first = run(cell.train_config("bine", "float32"),
+                                       dp, 1, f"{cfg.name} tp bine/float32",
+                                       tp=tp)
+        check(sum(cb.values()) == 0, f"the bine path launched kernels: {cb}")
+        check(all(torch.equal(a, b) for a, b in zip(first, bine_first)) and
+              lb[0] == losses[0], f"{cfg.name} at ({dp}, {tp}): bine and "
+              f"pallas_fused differ after one float32 step")
+        del first, bine_first
+        torch.cuda.empty_cache()
+        rec = {}
+        if cfg.remat:
+            _, _, run_off = train_runs(dev, cfg.replace(remat=False))
+            _, loff, toff, peak_off, _ = run_off(
+                cell.train_config("pallas_fused", "float32"), dp, 2,
+                tag + " remat off", tp=tp, digest=True)
+            check(run_off.digests[tag + " remat off"] == run.digests[tag]
+                  and loff == losses, f"{cfg.name} at ({dp}, {tp}): remat "
+                  f"on and off differ (losses {losses} / {loff})")
+            rec = {"remat_off_step_ms": [t * 1e3 for t in toff],
+                   "remat_off_peak_gib": peak_off}
+            log(f"  {cfg.name}: remat on == off after 2 steps (params "
+                f"sha256 {run.digests[tag][:16]}..., losses bitwise); peak "
+                f"{peak:.1f} GiB on, {peak_off:.1f} off")
+            torch.cuda.empty_cache()
+        loss_atol, token_atol = SSM_GATES[cfg.name]
+        if cfg.name == "zamba2-2.7b":
+            rec.update(tp_gradient_check(cfg, run, tag, losses, one_rank,
+                                         dp, tp, loss_atol))
+        read = tp_token_readings(cfg, dcfg, dev, tp, TP_FAULTS[cfg.name])
+        ref = read["f32"]
+        check(math.isfinite(losses[0]) and abs(losses[0] - ref) <= loss_atol,
+              f"{cfg.name} at ({dp}, {tp}): step-0 loss {losses[0]} vs the "
+              f"plain float32 loss {ref} (bound {loss_atol})")
+        s_loss, s_gap = read["sound"]
+        check(abs(s_loss - ref) <= loss_atol and s_gap <= token_atol,
+              f"{cfg.name} TP bf16 forward: loss {s_loss} vs {ref}, token "
+              f"gap {s_gap} (bounds {loss_atol}, {token_atol})")
+        for name in TP_FAULTS[cfg.name]:
+            check(read[name][1] > token_atol, f"{cfg.name} with {name}: "
+                  f"token gap {read[name][1]} within {token_atol}; the gate "
+                  f"cannot see that fault")
+        warm = times[1]
+        faults = "; ".join(f"{k}: loss {v[0]:.6f}, token gap {v[1]:.4f}"
+                           for k, v in read.items()
+                           if k not in ("f32", "sound"))
+        log(f"  {cfg.name} TP: bine == pallas_fused bitwise; step-0 loss "
+            f"{losses[0]:.6f}, plain float32 {ref:.6f}; the TP bf16 forward "
+            f"{s_loss:.6f}, token gap {s_gap:.4f} (bounds {loss_atol} / "
+            f"{token_atol}); {faults}; warm step {warm * 1e3:.1f} ms "
+            f"({tokens / warm:.0f} tokens/s), peak {peak:.1f} GiB")
+        nums[cfg.name] = dict(
+            rec, n_layers=cfg.n_layers, mesh=[dp, tp],
+            strategy=SH.strategy(cfg, tp), loss_hex=losses[0].hex(),
+            losses=losses, gnorms=run.gnorms[tag], f32_loss=ref,
+            readings=read,
+            step_ms=[t * 1e3 for t in times], warm_step_ms=warm * 1e3,
+            tokens_per_s=tokens / warm, peak_gib=peak,
+            params_sha256=run.digests[tag])
+        torch.cuda.empty_cache()
+    return launches, nums
+
+
+def fixed_tp_logit_readings(cfg, dev, c, params, n, seeds, faults) -> dict:
+    """The serve cell ``c``'s prefill over ``n`` TP ranks against the
+    one-rank prefill of the same weights on the same prompt (the
+    fixed-batch loop's draw from ``np.random.RandomState(seed)``: tokens,
+    or float32 frames for a frontend model), sound and with each fault of
+    ``faults`` (name -> context manager factory) planted in the TP one,
+    for each seed (``params``: the first seed's weights, the others drawn
+    from theirs): the mean and max of |TP - one rank| over the batch's
+    last-token logits, in bf16 ulps of the one-rank max |logit|.  Consumes
+    ``params``.  Returns {seed: {name: (mean, max)}}."""
+    import contextlib
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as TF
+
+    B, Lp = c.slots, c.prompt_len_max
+    out = {}
+    with torch.no_grad():
+        for seed in seeds:
+            if params is None:
+                params = TF.init_params(cfg, seed, dev)
+            rng = np.random.RandomState(seed)
+            prompt = (torch.as_tensor(rng.randn(B, Lp, cfg.frontend_dim),
+                                      dtype=torch.float32, device=dev)
+                      if cfg.frontend else torch.as_tensor(
+                          rng.randint(0, cfg.vocab_size, size=(B, Lp)),
+                          dtype=torch.int32, device=dev))
+            ref = TF.prefill(params, cfg, prompt)[0].float()
+            check(bool(torch.isfinite(ref).all()),
+                  f"{cfg.name} seed {seed}: non-finite prefill logits")
+            ulp = float(bf16_ulp(ref.abs().max()))
+            read = {}
+            for name, fault in [("sound", None)] + list(faults.items()):
+                with (fault() if fault else contextlib.nullcontext()):
+                    lg = TF.vocab_logits(TF.prefill_tp(params, cfg, prompt,
+                                                       n)[0],
+                                         cfg.vocab_size).float()
+                read[name] = (float((lg - ref).abs().mean()) / ulp,
+                              float((lg - ref).abs().max()) / ulp)
+                del lg
+                torch.cuda.empty_cache()
+            out[seed] = read
+            params = None
+            del ref
+            torch.cuda.empty_cache()
+    return out
+
+
+def phase_fixed_tp_serve(dev, randn):
+    """16c: ``cell.FIXED_TP_SERVE_CELLS`` through
+    ``launch.serve.run_fixed_batch`` over ``cell.FIXED_TP`` = 2 TP ranks:
+    zamba2-2.7b at full depth (4 x 1024), mixtral-8x7b x8 (4 x 1024, its
+    prefill on expert parallelism) and musicgen-medium at full depth (8 x
+    1024 frames), 32 greedy tokens each, on the same weights as the
+    one-rank cells of phases 13-15.  The launches read around the loop:
+    one rmsnorm per whole-row norm a call (ln1 and ln2, each recurrent
+    block's ln1, the final norm; a split block's gated norm reduces over
+    the ranks in plain ops), the flash kernel once a prefill per
+    attention layer (the ranks in its batch).  Every rmsnorm and flash
+    shape the loop gave the kernels (rows slots x prompt length and slots
+    at d_model; q ``[n * slots, prompt, heads / n, head_dim]``) is
+    recorded and held to the plain version (``rmsnorm_case``,
+    ``flash_case``).  The bf16 prefill logits against the one-rank
+    prefill's within ``FIXED_TP_ULPS`` bf16 ulps of max |logit| (the mean)
+    on three seeds, each planted fault outside on each
+    (``fixed_tp_logit_readings``: the flash kernel's last head columns
+    zeroed; zamba2's cross-rank norms without their psum); the greedy
+    tokens against the one-rank loop's (phases 13-15): all equal on
+    musicgen's float32 frames path, the first ones and the share reported
+    on the bf16 paths, where logits a few ulps apart flip near ties (and
+    mixtral's EP prefill drops other tokens than the dense path).  Prefill
+    ms, decode tokens/s and the peak (the cross-rank norms' share of the
+    device time is ``launch/profile_serve.py --mesh 1,2``'s).  Returns the
+    launches by arch and the numbers."""
+    import torch
+    from repro_torch.kernels import build as KB
+    from repro_torch.kernels.rmsnorm import ops as RO
+    from repro_torch.launch import cell
+    from repro_torch.launch.serve import run_fixed_batch
+    from repro_torch.models import sharding as SH
+    from repro_torch.models import transformer as TF
+
+    n = cell.FIXED_TP
+    launches, nums = {}, {}
+    for c in cell.FIXED_TP_SERVE_CELLS:
+        cfg = cell.serve_model_config(c)
+        torch.cuda.empty_cache()
+        params = TF.init_params(cfg, c.seed, dev)
+        torch.cuda.reset_peak_memory_stats()
+        segs = TF.segments(cfg)
+        n_attn = sum(k for b, k in segs if b.kind not in TF.RECURRENT)
+        n_norm = 1 + sum(
+            k * (1 if TF.recurrent_split(cfg, b.kind, n) else 2)
+            if b.kind in TF.RECURRENT else 2 * k for b, k in segs)
+        B, Lp, new = c.slots, c.prompt_len_max, c.max_new
+        dt = torch.float32 if cfg.frontend else torch.bfloat16
+        log(f"  {cfg.name} x{cfg.n_layers} over {n} TP ranks "
+            f"({SH.strategy(cfg, n)}): fixed batch {B} x {Lp}, {new} greedy "
+            f"tokens")
+        norms, flashes = set(), set()
+        real_norm, real_flash = RO.rmsnorm_kernel, TF.flash_attention
+
+        def norm(x, w, eps):
+            norms.add((*x.shape, eps, x.dtype))
+            return real_norm(x, w, eps)
+
+        def flash(q, k, v, **kw):
+            flashes.add((tuple(q.shape), tuple(k.shape), kw.get("window"),
+                         q.dtype))
+            return real_flash(q, k, v, **kw)
+        torch.cuda.synchronize()
+        KB.reset_launches()
+        RO.rmsnorm_kernel, TF.flash_attention = norm, flash
+        try:
+            toks, got = run_fixed_batch(cfg, params, B, Lp, new,
+                                        seed=c.seed, device=dev, tp=n)
+        finally:
+            RO.rmsnorm_kernel, TF.flash_attention = real_norm, real_flash
+        counts = {k: v for k, v in KB.LAUNCHES.items() if v}
+        want = {"rmsnorm": n_norm * new, "flash_attention": n_attn}
+        if not cfg.frontend:
+            want["flash_attention_wgmma"] = n_attn
+        check(counts == want, f"{cfg.name} over {n} TP ranks: launches "
+              f"{counts}, expected {want} ({n_norm} whole-row norms a call, "
+              f"{n_attn} flash in the prefill)")
+        launches[cfg.name] = counts
+        got["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        one = FIXED_TOKENS.get(cfg.name)
+        check(one is not None and one.shape == toks.shape,
+              f"{cfg.name}: no one-rank tokens to compare with")
+        got["first_tokens_equal"] = int((toks[:, 0] == one[:, 0]).sum())
+        got["tokens_agree"] = float((toks == one).mean())
+        check(int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size,
+              f"{cfg.name}: tokens out of range")
+        if cfg.frontend:
+            check(got["tokens_agree"] == 1.0, f"{cfg.name}: float32 frames "
+                  f"over {n} TP ranks gave other tokens than one rank: "
+                  f"{got['tokens_agree']:.1%} agree")
+        # the kernels at the shapes the loop gave them, against plain
+        check(norms == {(B * Lp, cfg.d_model, cfg.norm_eps, dt),
+                        (B, cfg.d_model, cfg.norm_eps, dt)},
+              f"{cfg.name} over {n} TP ranks: rmsnorm shapes "
+              f"{sorted(norms, key=str)}")
+        for rows_, d, eps, ndt in sorted(norms, key=lambda t: t[:2]):
+            rmsnorm_case(randn, rows_, d, eps, ndt)
+        nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        window = {w for _, _, w, _ in flashes}
+        check(len(window) == 1 and {f[:2] + f[3:] for f in flashes} == {(
+            (n * B, Lp, nh // n, hd), (n * B, Lp, nkv // n, hd), dt)},
+              f"{cfg.name} over {n} TP ranks: flash shapes {flashes}")
+        *_, ferr, fbound, _ = flash_case(dev, randn, (nh, nkv, hd), Lp,
+                                         window.pop(), dt, b=n * B, tp=n)
+        got["flash_max_abs_err"], got["flash_bound_ms"] = ferr, fbound
+        got["rmsnorm_shapes"] = sorted([r, d] for r, d, *_ in norms)
+        log(f"  {cfg.name} over {n} TP ranks: rmsnorm at the loop's "
+            f"{len(norms)} shapes and flash at q [{n * B}, {Lp}, {nh // n}, "
+            f"{hd}] ({str(dt)[6:]}) held to plain")
+        # the prefill logits against one rank's on three seeds, sound and
+        # with faults
+        faults = dict(TP_FAULTS[cfg.name])
+        faults["flash kernel's last head columns zeroed"] = \
+            lambda: _planted_flash_fault(cfg.head_dim * 3 // 4)
+        read = fixed_tp_logit_readings(cfg, dev, c, params, n,
+                                       (c.seed, c.seed + 1, c.seed + 2),
+                                       faults)
+        params = None
+        torch.cuda.empty_cache()
+        gate = FIXED_TP_ULPS[cfg.name]
+        for seed, r in read.items():
+            log(f"  {cfg.name} seed {seed}: prefill logits over {n} TP ranks "
+                f"from one rank's, in bf16 ulps of max |logit| (mean / "
+                f"max): " + "; ".join(f"{k} {v[0]:.3g} / {v[1]:.3g}"
+                                      for k, v in r.items()))
+        for seed, r in read.items():
+            check(r["sound"][0] <= gate, f"{cfg.name} seed {seed} over {n} "
+                  f"TP ranks: bf16 prefill logits mean {r['sound'][0]} (max "
+                  f"{r['sound'][1]}) bf16 ulps from one rank's (gate "
+                  f"{gate})")
+            for name in faults:
+                check(r[name][0] > gate, f"{cfg.name} seed {seed} with "
+                      f"{name}: prefill logits mean {r[name][0]} ulps from "
+                      f"one rank's, within the gate {gate}")
+        got["logit_ulps"] = read
+        log(f"  {cfg.name} over {n} TP ranks: launches {counts}; first "
+            f"tokens equal {got['first_tokens_equal']}/{B}, all tokens "
+            f"{got['tokens_agree']:.1%}; prefill {got['prefill_ms']:.1f} ms, "
+            f"decode {got['decode_tokens_per_s']:.1f} tokens/s, peak "
+            f"{got['peak_gib']:.2f} GiB")
+        nums[cfg.name] = got
+    return launches, nums
+
+
 def main() -> int:
     # one 9.8 GB bucket buffer after another: keep the allocator's segments
     # growable so freed ones are reused (set before CUDA starts)
@@ -4407,7 +5022,7 @@ def main() -> int:
     from repro_torch.kernels.rmsnorm import kernel as RK
 
     t_all = time.perf_counter()
-    log("[1/15] build")
+    log("[1/16] build")
     t0 = time.perf_counter()
     libs = KB.build()
     for src in K.SOURCES:
@@ -4417,46 +5032,46 @@ def main() -> int:
     log(f"  built {', '.join(p.name for p in libs.values())} in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    log("[2/15] kernels vs plain versions")
+    log("[2/16] kernels vs plain versions")
     rows, qacc_launches, row, randn = phase_kernels(dev)
     torch.cuda.empty_cache()
 
-    log("[3/15] fused collectives vs stacked (bitwise)")
+    log("[3/16] fused collectives vs stacked (bitwise)")
     phase_collectives(dev)
 
-    log("[4/15] collectives API")
+    log("[4/16] collectives API")
     api_launches = phase_api(dev)
 
-    log("[5/15] two-tier (bine_hier)")
+    log("[5/16] two-tier (bine_hier)")
     hier_launches, two_tier = phase_two_tier(dev)
     torch.cuda.empty_cache()
 
-    log("[6/15] train")
+    log("[6/16] train")
     phase_small_reference(dev)
     launches, train = phase_train(dev)
     torch.cuda.empty_cache()
 
-    log("[7/15] serve")
+    log("[7/16] serve")
     phase_serve_small_reference(dev)
     serve_launches, serve, serve_ref = phase_serve(dev)
     torch.cuda.empty_cache()
 
-    log("[8/15] checkpoint, resume, measured tables, obs")
+    log("[8/16] checkpoint, resume, measured tables, obs")
     run_launches, runtime = phase_runtime(dev)
     torch.cuda.empty_cache()
 
-    log("[9/15] tensor parallelism")
+    log("[9/16] tensor parallelism")
     phase_tp_small_reference(dev)
     tp_launches, tp = phase_tp(dev)
     torch.cuda.empty_cache()
 
-    log("[10/15] serving under TP")
+    log("[10/16] serving under TP")
     phase_serve_tp_small_reference(dev)
     stp_launches, serve_tp = phase_serve_tp(
         dev, {"nums": serve, "ref": serve_ref})
     torch.cuda.empty_cache()
 
-    log("[11/15] dense configs (gemma3-4b, gemma-7b, qwen3-32b)")
+    log("[11/16] dense configs (gemma3-4b, gemma-7b, qwen3-32b)")
     t11 = time.perf_counter()
     phase_dense_flash(dev, randn, row)
     dense_launches, dense, g3tp_launches, g3tp = phase_dense_serve(dev)
@@ -4465,7 +5080,7 @@ def main() -> int:
     dense_s = time.perf_counter() - t11
     log(f"  phase 11: {dense_s:.0f} s")
 
-    log("[12/15] MoE train (mixtral-8x7b, expert parallelism)")
+    log("[12/16] MoE train (mixtral-8x7b, expert parallelism)")
     t12 = time.perf_counter()
     phase_moe_small_reference(dev)
     moe_launches, moe = phase_moe_train(dev)
@@ -4473,7 +5088,7 @@ def main() -> int:
     moe["seconds"] = time.perf_counter() - t12
     log(f"  phase 12: {moe['seconds']:.0f} s")
 
-    log("[13/15] recurrent blocks (xlstm-125m, zamba2-2.7b)")
+    log("[13/16] recurrent blocks (xlstm-125m, zamba2-2.7b)")
     t13 = time.perf_counter()
     phase_model_small_reference(dev, ("xlstm-125m", "zamba2-2.7b"))
     phase_ssm_flash(dev, randn, row)
@@ -4483,7 +5098,7 @@ def main() -> int:
     ssm_s = time.perf_counter() - t13
     log(f"  phase 13: {ssm_s:.0f} s")
 
-    log("[14/15] frontend configs (pixtral-12b, musicgen-medium)")
+    log("[14/16] frontend configs (pixtral-12b, musicgen-medium)")
     t14 = time.perf_counter()
     phase_model_small_reference(dev, ("pixtral-12b", "musicgen-medium"))
     phase_frontend_flash(dev, randn, row)
@@ -4493,15 +5108,30 @@ def main() -> int:
     fe_s = time.perf_counter() - t14
     log(f"  phase 14: {fe_s:.0f} s")
 
-    log("[15/15] remat and MoE serving (mixtral-8x7b)")
+    log("[15/16] remat and MoE serving (mixtral-8x7b)")
     t15 = time.perf_counter()
     remat_launches, remat = phase_remat(dev)
     torch.cuda.empty_cache()
     moe_serve_launches, moe_serve = phase_moe_serve(dev, randn)
-    del row, randn
     torch.cuda.empty_cache()
     p15_s = time.perf_counter() - t15
     log(f"  phase 15: {p15_s:.0f} s")
+
+    log("[16/16] recurrent blocks and the fixed-batch loop over TP ranks")
+    t16 = time.perf_counter()
+    phase_tp_small(dev)
+    t16b = time.perf_counter()
+    ssm_tp_launches, ssm_tp_train = phase_ssm_tp_train(dev, ssm_train)
+    torch.cuda.empty_cache()
+    t16c = time.perf_counter()
+    fixed_tp_launches, fixed_tp = phase_fixed_tp_serve(dev, randn)
+    del row, randn
+    torch.cuda.empty_cache()
+    t16d = time.perf_counter()
+    p16_parts = {"16a": t16b - t16, "16b": t16c - t16b, "16c": t16d - t16c}
+    p16_s = time.perf_counter() - t16
+    log(f"  phase 16: {p16_s:.0f} s (" + ", ".join(
+        f"{k} {v:.0f} s" for k, v in p16_parts.items()) + ")")
     # each path's own kernel launches, read around that path alone
     by_path = {"train": dict(launches), "two-axis": hier_launches,
                "runtime": run_launches, "tp": tp_launches,
@@ -4518,7 +5148,11 @@ def main() -> int:
                **{f"train musicgen-medium ({m})": n
                   for m, n in fe_train_launches.items()},
                **{f"train {t}": n for t, n in remat_launches.items()},
-               **{f"serve {a}": n for a, n in moe_serve_launches.items()}}
+               **{f"serve {a}": n for a, n in moe_serve_launches.items()},
+               **{f"train {a} (2, 2)": n
+                  for a, n in ssm_tp_launches.items()},
+               **{f"serve {a} (fixed batch, tp 2)": n
+                  for a, n in fixed_tp_launches.items()}}
     for path, counts in by_path.items():
         for name, n in counts.items():
             check(n > 0, f"kernel {name} was not launched on the {path} "
@@ -4543,7 +5177,8 @@ def main() -> int:
         launches[name] += n
     for counts in list(moe_launches.values()) + list(
             ssm_train_launches.values()) + list(
-            fe_train_launches.values()) + list(remat_launches.values()):
+            fe_train_launches.values()) + list(remat_launches.values()) + \
+            list(ssm_tp_launches.values()):
         for name, n in counts.items():
             launches[name] += n
     for name in ("ring_update", "matmul_pack_wgmma", "gather_matmul_wgmma"):
@@ -4582,6 +5217,16 @@ def main() -> int:
     for n in moe_serve_launches.values():
         launches["rmsnorm"] += n["rmsnorm"]
         launches["flash_attention"] += n["flash_attention_wgmma"]
+    # the fixed-batch loops over TP ranks: their norms on the rmsnorm row;
+    # zamba2's shared attention (head_dim 80) on the flash_attention_hd80
+    # row, mixtral's (128, bf16) on the flash_attention row (musicgen's
+    # float32 flash at 64 is in the by-path line)
+    for a, n in fixed_tp_launches.items():
+        launches["rmsnorm"] += n["rmsnorm"]
+        if a == "zamba2-2.7b":
+            launches["flash_attention_hd80"] += n["flash_attention_wgmma"]
+        elif a == "mixtral-8x7b":
+            launches["flash_attention"] += n["flash_attention_wgmma"]
     launches["flash_attention_hd160"] = \
         fe_serve_launches["pixtral-12b (tokens)"]["flash_attention_wgmma"]
     launches["flash_attention_hd160_f32"] = \
@@ -4609,6 +5254,10 @@ def main() -> int:
     log("remat-moe-serve: " + json.dumps({"remat": remat,
                                           "moe_serve": moe_serve,
                                           "seconds": p15_s}))
+    log("ssm-tp: " + json.dumps({"train": ssm_tp_train,
+                                 "fixed_batch": fixed_tp,
+                                 "seconds": p16_s,
+                                 "part_seconds": p16_parts}))
     log(f"train: {json.dumps(train)}; total {time.perf_counter() - t_all:.0f} s")
     print(json.dumps({"kernels": list(rows.values())}))
     smi = subprocess.run(

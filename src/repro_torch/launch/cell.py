@@ -36,6 +36,12 @@ served through the fixed-batch loop (zamba2 at full depth, 4 x 1024-token
 prompts; xlstm 8 x 1024), 32 greedy tokens each.  Each cell's comment
 says why.
 
+Over TP ranks (``SSM_TP_TRAIN_CELLS``, ``FIXED_TP_SERVE_CELLS``):
+zamba2-2.7b's train cell at (dp, tp) = (2, 2) (megatron_sp) and
+xlstm-125m at full width cut to 4 blocks at (2, 2) (pure_sp); zamba2's,
+mixtral's and musicgen's fixed-batch serve cells over ``FIXED_TP`` = 2 TP
+ranks.
+
 The frontend configs (``FRONTEND_SERVE_CELLS``, ``FRONTEND_TRAIN_CELL``):
 pixtral-12b at full depth and musicgen-medium at full depth served
 through the fixed-batch loop on float32 frames; musicgen-medium at full
@@ -150,6 +156,20 @@ SSM_TRAIN_CELLS = (ZAMBA2_TRAIN_CELL, XLSTM_TRAIN_CELL)
 #: sequence shard.  Users train musicgen so: data-parallel on EnCodec
 #: frames, tensor parallel where a model outgrows a rank.
 FRONTEND_TRAIN_CELL = TrainCell("musicgen-medium", 16, ((4, 1), (2, 2)))
+#: the recurrent configs over TP ranks, 2 DP ranks of 2 TP ranks stacked
+#: on the card.  zamba2-2.7b's cell above at (2, 2): megatron_sp (32
+#: heads over 2, d_model 2560), each TP rank 40 of its 80 Mamba2 heads
+#: (2560 of the 5120 channels, its share of each gated norm reduced over
+#: the ranks) and 16 of the shared block's 32 attention heads; users
+#: train a hybrid so where it outgrows a rank.  xlstm-125m at full width
+#: cut to 4 of its 12 blocks (3 mLSTM, 1 sLSTM: each kind on the path) at
+#: (2, 2): pure_sp (4 heads, d_model 768 < 1024), each TP rank running
+#: every recurrent block on the whole gathered sequence and keeping its
+#: own half; cut because its sLSTM scan is a Python loop of ~20 launches
+#: a step, which a full-depth step (16-20 s at p = 4) would repeat past
+#: the smoke's time.  Both without remat for xlstm, as its p = 4 cell.
+SSM_TP_TRAIN_CELLS = (TrainCell("zamba2-2.7b", 12, ((2, 2),)),
+                      TrainCell("xlstm-125m", 4, ((2, 2),), remat=False))
 #: each train cell by arch (``launch/profile_step.py --arch``; the others
 #: take ``model_config(arch)``)
 TRAIN_CELLS = {c.arch: c for c in (MOE_TRAIN_CELL,) + SSM_TRAIN_CELLS
@@ -295,6 +315,15 @@ FRONTEND_SERVE_CELLS = (PIXTRAL_SERVE_CELL, MUSICGEN_SERVE_CELL)
 MOE_SERVE_CELL = ServeCell(arch="mixtral-8x7b", n_layers=8, slots=4,
                            requests=4, prompt_len_min=1024,
                            prompt_len_max=1024)
+#: the fixed-batch loop over TP ranks: zamba2-2.7b (megatron_sp: its
+#: Mamba2 heads and states split over the ranks, its shared attention's
+#: heads and 1024-slot caches too), mixtral-8x7b x8 (megatron_sp, the
+#: prefill's 1024 tokens a sequence on expert parallelism) and
+#: musicgen-medium (megatron_sp, frames), each its one-rank cell above
+#: over ``FIXED_TP`` TP ranks: how users serve a model too large or too
+#: slow for one rank's memory bandwidth
+FIXED_TP = 2
+FIXED_TP_SERVE_CELLS = (ZAMBA2_SERVE_CELL, MOE_SERVE_CELL, MUSICGEN_SERVE_CELL)
 #: each served arch's cell (``launch/profile_serve.py --arch``)
 SERVE_CELLS = {c.arch: c for c in (SERVE_CELL,) + DENSE_SERVE_CELLS +
                SSM_SERVE_CELLS + FRONTEND_SERVE_CELLS + (MOE_SERVE_CELL,)}

@@ -21,9 +21,13 @@ recurrent, frontend and MoE configs, which the pool refuses, are
 profiled as ``launch.serve.run_fixed_batch`` serves them
 (:func:`profile_fixed`): one prefill of the cell's batch (frames for a
 frontend) and ``STEPS`` decode steps; for mixtral-8x7b (``MOE_SERVE_CELL``:
-8 of its 32 layers) also the device time under each MoE phase's range:
+8 of its 32 layers) also the device time under each MoE phase's range.
+Their ``--mesh 1,n`` serves the loop over n TP ranks; a split recurrent
+block's cross-rank norms (``models.ssm.SPLIT_NORM``) are then read as a
+range too:
 
   python -m repro_torch.launch.profile_serve --arch zamba2-2.7b
+  python -m repro_torch.launch.profile_serve --arch zamba2-2.7b --mesh 1,2
   python -m repro_torch.launch.profile_serve --arch pixtral-12b
   python -m repro_torch.launch.profile_serve --arch mixtral-8x7b
 """
@@ -45,6 +49,7 @@ from repro_torch.launch.profile_step import TOP, group_of
 from repro_torch.launch.train import parse_mesh
 from repro_torch.models import transformer as TF
 from repro_torch.models.moe import PHASES
+from repro_torch.models.ssm import SPLIT_NORM
 from repro_torch.serve.engine import (ServeConfig, make_serve_fns, page_len,
                                       pool_supported)
 from repro_torch.serve.sampling import gather_vocab
@@ -54,12 +59,16 @@ from repro_torch.serve.scheduler import poisson_trace
 STEPS = 5
 
 
+#: the ranges read by device time: each MoE phase's, the cross-rank norms'
+RANGES = PHASES + (SPLIT_NORM,)
+
+
 def _profile(fn, reps: int):
     """Wall ms per call, device ms per call by group, top kernels, and
-    the device ms per call under each MoE phase's range
-    (``models.moe.PHASES``: routing, dispatch, experts, combine), which
-    the groups hold already and which a range's own device span would
-    count twice."""
+    the device ms per call under each range of ``RANGES`` (the MoE
+    phases, ``models.moe.PHASES``: routing, dispatch, experts, combine;
+    the cross-rank norms), which the groups hold already and which a
+    range's own device span would count twice."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -72,7 +81,7 @@ def _profile(fn, reps: int):
     by_group = defaultdict(float)
     by_kernel, phases = [], {}
     for ev in prof.key_averages():
-        if ev.key in PHASES:
+        if ev.key in RANGES:
             if ev.device_type == torch.autograd.DeviceType.CPU:
                 phases[ev.key] = ev.device_time_total / 1e3 / reps
             continue
@@ -139,29 +148,36 @@ def _report(name, fn, reps: int) -> dict:
         print(f"    {ms:9.3f} ms  x{n:<5d} {kname[:90]}")
     rec = {"wall_ms": wall_ms, "busy_ms": busy,
            "idle_share": 1 - busy / wall_ms, "groups_ms": groups}
-    if phases:
+    moe = {k: v for k, v in phases.items() if k in PHASES}
+    if moe:
         print("  MoE layers by phase (device ms per call, in the groups "
               "above):")
-        for k, ms in sorted(phases.items(), key=lambda t: -t[1]):
+        for k, ms in sorted(moe.items(), key=lambda t: -t[1]):
             print(f"    {k:16s} {ms:9.3f} ms  {ms / wall_ms:6.1%}")
-        rec["moe_phases_ms"] = phases
+        rec["moe_phases_ms"] = moe
+    if SPLIT_NORM in phases:
+        ms = phases[SPLIT_NORM]
+        print(f"  cross-rank norms ({SPLIT_NORM}): {ms:9.3f} ms, "
+              f"{ms / busy:6.1%} of the device's busy time")
+        rec["split_norm_ms"] = ms
     return rec
 
 
-def profile_fixed(cfg, params, dev, c: cell.ServeCell) -> dict:
+def profile_fixed(cfg, params, dev, c: cell.ServeCell, tp: int = 1) -> dict:
     """The fixed-batch loop of the serve cell ``c`` (a recurrent, frontend
-    or MoE config; a MoE config's breakdown adds its layers' phases):
-    one prefill of ``c.slots`` prompts of ``c.prompt_len_max`` tokens and
-    ``STEPS`` greedy decode steps from it (``launch.serve``'s
-    ``fixed_batch_steps``), under torch.profiler; prints the breakdown and
-    returns ``{"prefill": ..., "decode_step": ...}``."""
+    or MoE config; a MoE config's breakdown adds its layers' phases) over
+    ``tp`` TP ranks: one prefill of ``c.slots`` prompts of
+    ``c.prompt_len_max`` tokens and ``STEPS`` greedy decode steps from it
+    (``launch.serve``'s ``fixed_batch_steps``), under torch.profiler;
+    prints the breakdown and returns ``{"prefill": ..., "decode_step":
+    ...}``."""
     prefill, decode = fixed_batch_steps(cfg, params, c.slots,
-                                        c.prompt_len_max, c.seed, dev)
+                                        c.prompt_len_max, c.seed, dev, tp)
     with torch.no_grad():
         prefill()
         decode()                                              # warm-up
         print(f"{cfg.name} x{cfg.n_layers} layers, fixed batch {c.slots} x "
-              f"{c.prompt_len_max} tokens, on "
+              f"{c.prompt_len_max} tokens, {tp} TP rank(s), on "
               f"{torch.cuda.get_device_name(0)}")
         out = {"prefill": _report("prefill", prefill, 1)}
         prefill()
@@ -182,7 +198,11 @@ def main(argv=None):
     cfg = cell.serve_model_config(c)
     params = TF.init_params(cfg, c.seed, dev)
     if not pool_supported(cfg):
-        print(json.dumps(profile_fixed(cfg, params, dev, c)))
+        _, dp, tp = parse_mesh(args.mesh)
+        if int(np.prod(dp)) != 1:
+            raise ValueError(f"the fixed-batch loop runs one DP rank, got "
+                             f"--mesh {args.mesh}")
+        print(json.dumps(profile_fixed(cfg, params, dev, c, tp)))
         return
     print(json.dumps(profile(cfg, params, dev, args.mesh, c)))
 

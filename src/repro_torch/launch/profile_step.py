@@ -23,6 +23,15 @@ all_to_all, the experts, the combine):
   python -m repro_torch.launch.profile_step --arch xlstm-125m \
       --wire-dtype float32
 
+The recurrent cells over TP ranks (``cell.SSM_TP_TRAIN_CELLS``: a
+``--mesh`` one of them lists picks that cell, xlstm-125m's cut to 4
+blocks):
+
+  python -m repro_torch.launch.profile_step --arch zamba2-2.7b --mesh 2,2 \
+      --wire-dtype float32
+  python -m repro_torch.launch.profile_step --arch xlstm-125m --mesh 2,2 \
+      --wire-dtype float32
+
 ``--remat-depths 2,4`` measures in place of the profile what remat
 (``cfg.remat``) saves: the cell's model at each depth with remat off and
 on, the step's resident and peak GiB, its ms and the bytes saved for one
@@ -365,7 +374,10 @@ def main(argv=None):
 
     dev = resolve_device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
-    c = cell.TRAIN_CELLS.get(args.arch)
+    mesh = tuple(int(v) for v in args.mesh.split(","))
+    c = next((t for t in cell.SSM_TP_TRAIN_CELLS
+              if t.arch == args.arch and mesh in t.meshes),
+             cell.TRAIN_CELLS.get(args.arch))
     cfg = c.model_config() if c else cell.model_config(args.arch)
     if args.remat_depths:
         remat_memory(cfg, args.backend, args.wire_dtype[0], dev, args.mesh,

@@ -35,17 +35,23 @@ decoded for ``--max-new`` tokens.  It serves the recurrent configs
 (xlstm-125m, zamba2-2.7b), the frontend ones (musicgen-medium,
 pixtral-12b) and the MoE ones (mixtral-8x7b, phi3.5-moe-42b-a6.6b: the
 capacity dispatch over each call's tokens, so a decode step's B tokens
-compete for an expert's slots) on one rank:
+compete for an expert's slots), on one rank or over ``--mesh 1,n`` TP
+ranks (``transformer.prefill_tp`` / ``decode_step_tp``: a MoE prefill
+takes expert parallelism where the sequence and the expert blocks divide
+n, as the reference's does under its mesh):
 
   python -m repro_torch.launch.serve --arch pixtral-12b --slots 4 \
       --prompt-len-max 1024                                # frames
   python -m repro_torch.launch.serve --arch musicgen-medium --reduced --device cpu
   python -m repro_torch.launch.serve --arch mixtral-8x7b --reduced --device cpu
+  python -m repro_torch.launch.serve --arch zamba2-2.7b --reduced --device cpu \
+      --mesh 1,2                                           # over 2 TP ranks
+  python -m repro_torch.launch.serve --arch zamba2-2.7b --slots 4 \
+      --prompt-len-max 1024 --mesh 1,2                     # on the card
 
-A model axis above 1 raises: ROADMAP.md queue A item 5f for the
-recurrent configs, item 5g (fixed-batch serving over TP ranks) for the
-others.  Full-depth mixtral (46.7 B) does not fit one card; its serve
-cell (``launch/cell.py`` ``MOE_SERVE_CELL``) cuts it to 8 layers.
+The fixed-batch loop runs one DP rank: a data axis above 1 raises.
+Full-depth mixtral (46.7 B) does not fit one card; its serve cell
+(``launch/cell.py`` ``MOE_SERVE_CELL``) cuts it to 8 layers.
 """
 
 from __future__ import annotations
@@ -61,8 +67,11 @@ from repro_torch.configs import base as cfgbase
 from repro_torch.kernels import build as KB
 from repro_torch.launch.cell import SERVE_CELL
 from repro_torch.launch.train import parse_mesh
+from repro_torch.models import sharding as SH
 from repro_torch.models import transformer as TF
-from repro_torch.serve.engine import (ServeConfig, make_serve_fns, page_len,
+from repro_torch.serve import kvcache as KV
+from repro_torch.serve.engine import (ServeConfig, cache_layout,
+                                      make_serve_fns, page_len,
                                       pool_supported)
 from repro_torch.serve.scheduler import (ContinuousBatchingScheduler,
                                          poisson_trace, wall_ttft_ms)
@@ -74,7 +83,7 @@ def _sync(dev) -> None:
 
 
 def fixed_batch_steps(cfg, params, batch: int, prompt_len: int,
-                      seed: int = 0, device="cuda"):
+                      seed: int = 0, device="cuda", tp: int = 1):
     """The fixed-batch loop's two steps, as closures over one cache:
     ``prefill()`` runs ``prefill`` on ``batch`` prompts of ``prompt_len``
     tokens drawn from ``np.random.RandomState(seed)`` as the reference
@@ -84,8 +93,13 @@ def fixed_batch_steps(cfg, params, batch: int, prompt_len: int,
     prompt is ``randn(batch, prompt_len, frontend_dim)`` float32 frames
     and each decode step's input fresh ``randn(batch, 1, frontend_dim)``
     frames from the same ``RandomState``, in the reference's order: the
-    greedy tokens are returned, the frames feed the next step."""
+    greedy tokens are returned, the frames feed the next step.  Over
+    ``tp > 1`` stacked TP ranks they run ``prefill_tp`` and
+    ``decode_step_tp``, the state laid out by ``engine.cache_layout``
+    (the ranks' vocab blocks gathered before the argmax)."""
     dev = resolve_device(device)
+    layout = cache_layout(cfg, batch, prompt_len, 1, tp) if tp > 1 \
+        else None
     rng = np.random.RandomState(seed)
 
     def frames(length):
@@ -101,29 +115,40 @@ def fixed_batch_steps(cfg, params, batch: int, prompt_len: int,
     st = {}
 
     def prefill():
-        logits, st["cache"] = TF.prefill(params, cfg, prompt)
+        if layout is None:
+            logits, st["cache"] = TF.prefill(params, cfg, prompt)
+        else:
+            blocks, cache = TF.prefill_tp(params, cfg, prompt, tp)
+            logits = TF.vocab_logits(blocks, cfg.vocab_size)
+            st["cache"] = KV.state_from_global(cfg, cache, layout)
         st["tok"] = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
         return st["tok"]
 
     def decode():
         step_in = frames(1) if cfg.frontend else st["tok"]
-        logits, st["cache"] = TF.decode_step(params, cfg, st["cache"],
-                                             step_in)
+        if layout is None:
+            logits, st["cache"] = TF.decode_step(params, cfg, st["cache"],
+                                                 step_in)
+        else:
+            blocks, st["cache"] = TF.decode_step_tp(params, cfg, st["cache"],
+                                                    step_in, layout)
+            logits = TF.vocab_logits(blocks, cfg.vocab_size)
         st["tok"] = torch.argmax(logits, dim=-1).to(torch.int32)
         return st["tok"]
     return prefill, decode
 
 
 def run_fixed_batch(cfg, params, batch: int, prompt_len: int, max_new: int,
-                    seed: int = 0, device="cuda"):
+                    seed: int = 0, device="cuda", tp: int = 1):
     """The reference's legacy lock-step loop for the architectures the
     pool cannot serve: one prefill and ``max_new - 1`` greedy decode steps
-    (``fixed_batch_steps``).  Prints the reference's lines; returns the
-    tokens ``[batch, max_new]`` (numpy) and the numbers: prefill and
-    decode ms (synced, host clock), decode tokens/s."""
+    (``fixed_batch_steps``, over ``tp`` TP ranks).  Prints the
+    reference's lines; returns the tokens ``[batch, max_new]`` (numpy) and
+    the numbers: prefill and decode ms (synced, host clock), decode
+    tokens/s."""
     dev = resolve_device(device)
     B, Lp = batch, prompt_len
-    prefill, decode = fixed_batch_steps(cfg, params, B, Lp, seed, dev)
+    prefill, decode = fixed_batch_steps(cfg, params, B, Lp, seed, dev, tp)
     with torch.no_grad():
         _sync(dev)
         t0 = time.perf_counter()
@@ -177,22 +202,20 @@ def main(argv=None):
 
     _, dp, tp = parse_mesh(args.mesh)
     if not pool_supported(cfg):
-        TF._check_ported(cfg, serve=True, n_model=tp)
-        if tp != 1:
-            raise NotImplementedError(f"{cfg.name}: {TF.FIXED_BATCH_TP}, "
-                                      f"got --mesh {args.mesh}")
         if int(np.prod(dp)) != 1:
-            raise ValueError(f"the fixed-batch loop runs on one rank, got "
+            raise ValueError(f"the fixed-batch loop runs one DP rank, got "
                              f"--mesh {args.mesh}")
         params = TF.init_params(cfg, args.seed, dev)
         why = ("a modality frontend" if cfg.frontend else
                "MoE capacity dispatch" if cfg.n_experts else
                "recurrent blocks")
         print(f"[serve] {args.arch}: pool unsupported ({why}) — "
-              f"legacy fixed-batch loop")
+              f"legacy fixed-batch loop" +
+              (f" over {tp} TP ranks ({SH.strategy(cfg, tp)})"
+               if tp > 1 else ""))
         KB.reset_launches()
         run_fixed_batch(cfg, params, args.slots, args.prompt_len_max,
-                        args.max_new, seed=args.seed, device=dev)
+                        args.max_new, seed=args.seed, device=dev, tp=tp)
         print(f"[serve] kernel launches: "
               f"{ {k: v for k, v in KB.LAUNCHES.items() if v} }")
         return

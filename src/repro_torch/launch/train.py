@@ -27,6 +27,15 @@ through the trainable ``frontend_proj``:
 
   python -m repro_torch.launch.train --arch musicgen-medium --reduced --mesh 2,2
 
+The recurrent configs (``--arch zamba2-2.7b``, ``xlstm-125m``) take a
+model axis too: under megatron_sp (zamba2 at full width) each TP rank
+runs its share of Mamba2's heads, mLSTM's heads or sLSTM's units; under
+pure_sp (xlstm-125m) every rank runs each recurrent block on the whole
+sequence:
+
+  python -m repro_torch.launch.train --arch zamba2-2.7b --reduced --mesh 2,2 \
+      --device cpu --steps 2 --batch 8 --seq 64
+
 ``--ckpt-dir D --ckpt-every N`` saves the global train state every N steps
 and after the last, in the reference's format; ``--resume`` continues from
 the latest step in ``D`` (a checkpoint of either package, at any DP size).

@@ -257,7 +257,10 @@ class KVLayout:
     ``batch_split`` is false) and TP rank t's shard: ``W / n_tp`` slots of
     each page (``"seq"``, slot ``s`` on rank ``s // (W / n_tp)``), or
     ``nkv / n_tp`` KV heads (``"heads"``).  A leaf that does not split
-    (``"whole"``, or the pages over DP) is held once, not once a rank."""
+    (``"whole"``, or the pages over DP) is held once, not once a rank.  A
+    recurrent segment of the fixed-batch loop uses ``kv`` alone: its
+    states split over the TP ranks by heads or units (``"heads"``, leaves
+    ``[n_layers, n_tp, B, ...]``) or held once (``"whole"``)."""
     n_dp: int
     n_tp: int
     batch_split: bool

@@ -6,8 +6,19 @@ for op the reference's math, so float32 results agree within rounding.
 Each ``lax.scan`` of the reference (over chunks for Mamba2 and mLSTM,
 over steps for sLSTM) is a Python loop here, and autograd differentiates
 it.  The reference's GSPMD constraint on Mamba2's channels changes no
-value and has no counterpart (tensor parallelism of these blocks is
-ROADMAP.md queue A item 5f).
+value and has no counterpart.
+
+Tensor parallelism.  Each block takes an optional ``tp``
+(:class:`Ranks`): ``n`` TP ranks stacked into the batch dim, the input
+``[n * B, T, d]`` (rank t's rows ``t * B .. (t + 1) * B``), each leaf
+``[n, ...]`` the rank's own.  With ``split`` (megatron_sp) a rank holds
+its heads (Mamba2, mLSTM) or units (sLSTM): its norm over the split dim
+sums its squares over the ranks (:meth:`Ranks.norm`), a contraction over
+the split dim with a replicated weight (mLSTM's gates) sums its partial
+products over the ranks, and the block's output is the rank's partial
+sum of the down projection, which the caller reduces.  Without it every
+rank runs the whole block on its own copies.  With no ``tp`` (the
+default) every op is the one-rank one.
 
 Matching the reference's functions:
 
@@ -35,10 +46,117 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
+
+from repro_torch.collectives import stacked
 
 from . import layers as L
 
 Norm = Callable[..., torch.Tensor]
+
+
+class _One:
+    """One rank (no ``tp``): every op as the reference's."""
+
+    n, split = 1, False
+
+    def dense(self, x, w):
+        return L.dense(x, w)
+
+    def rows(self, v, x):
+        """``v [k]`` as ``[1, k]``, broadcast over the rows of ``x``."""
+        return v[None]
+
+    def tap(self, w, k: int):
+        return w[k]
+
+    def conv_step(self, h, w):
+        return torch.einsum("bkc,kc->bc", h, w.to(h.dtype))
+
+    def heads(self, uh, w):
+        return torch.einsum("btnh,nhg->btng", uh, w)
+
+    def gate(self, u, w):
+        return L.dense(u, w)
+
+    def norm(self, norm: Norm, y, w, eps: float):
+        return norm(y, w, eps)
+
+
+class Ranks(_One):
+    """``n`` TP ranks stacked into the batch dim of a recurrent block (see
+    the module docstring).  ``split``: each rank holds its heads or units
+    (megatron_sp), else every rank the whole block (pure_sp)."""
+
+    def __init__(self, n: int, split: bool):
+        self.n, self.split = n, split
+
+    def _ranked(self, x):
+        return x.unflatten(0, (self.n, -1))
+
+    def dense(self, x, w):
+        """``x [n * B, ..., i]`` times each rank's ``w [n, i, o]``."""
+        return L.dense_tp(self._ranked(x), w).flatten(0, 1)
+
+    def rows(self, v, x):
+        """Each rank's ``v [n, k]`` for each of its rows of ``x``:
+        ``[n * B, k]``."""
+        return v.repeat_interleave(x.shape[0] // self.n, dim=0)
+
+    def tap(self, w, k: int):
+        return w[:, k]
+
+    def conv_step(self, h, w):
+        return torch.einsum("rbkc,rkc->rbc", self._ranked(h),
+                            w.to(h.dtype)).flatten(0, 1)
+
+    def heads(self, uh, w):
+        return torch.einsum("rbtnh,rnhg->rbtng", self._ranked(uh),
+                            w).flatten(0, 1)
+
+    def gate(self, u, w):
+        """A contraction of ``u`` over the split dim with a replicated
+        weight (``w [n, di / n, nh]``, the rank's rows): the ranks'
+        partial products summed, each rank keeping its heads' columns (a
+        reduce-scatter over the heads)."""
+        y = self.dense(u, w)
+        if not self.split:
+            return y
+        part = self._ranked(y)
+        return stacked.psum_scatter(part, part.dim() - 2).flatten(0, 1)
+
+    def norm(self, norm: Norm, y, w, eps: float):
+        """The block's RMSNorm over its last dim with each rank's gain
+        ``w [n, k]``: ``norm`` on each rank's whole row, or, split, the
+        row's sum of squares reduced over the ranks (the plain ops of
+        ``layers.rmsnorm``: the kernel normalises one rank's row)."""
+        g = self.rows(w, y).view((y.shape[0],) + (1,) * (y.dim() - 2)
+                                 + (w.shape[-1],))
+        if not self.split:
+            return norm(y, g, eps)
+        return split_rmsnorm(y, g, eps, self.n)
+
+
+_ONE = _One()
+
+#: the ``torch.profiler`` range around each cross-rank norm
+#: (``launch/profile_serve.py`` reads its device time)
+SPLIT_NORM = "ssm.split_rmsnorm"
+
+
+def split_rmsnorm(y, g, eps: float, n: int):
+    """``layers.rmsnorm`` of rows split over ``n`` stacked ranks: ``y [n *
+    B, ..., k]`` holds each rank's ``k`` of the row's ``n * k`` values,
+    ``g`` the gains broadcast against it.  Each rank's sum of squares is
+    summed over the ranks (``stacked.psum``, whose backward is a psum)
+    before the scale."""
+    with record_function(SPLIT_NORM):
+        dt = y.dtype
+        yf = y.to(torch.float32)
+        ss = (yf * yf).sum(dim=-1, keepdim=True)
+        ss = stacked.psum(ss.unflatten(0, (n, -1))).flatten(0, 1)
+        out = yf * torch.rsqrt(ss / (n * y.shape[-1]) + eps)
+        return (out * (1.0 + g.to(torch.float32))).to(dt)
 
 
 def _softplus(x):
@@ -123,66 +241,71 @@ def init_slstm(cfg, make, lead: Tuple[int, ...] = ()) -> Dict[str, object]:
 # Mamba2 (SSD)
 # ---------------------------------------------------------------------------
 
-def _causal_conv(x, w):
+def _causal_conv(x, w, tp=_ONE):
     """x: [B,T,C], w: [K,C] depthwise causal conv."""
-    K = w.shape[0]
+    K = w.shape[-2]
     T = x.shape[1]
     pad = F.pad(x, (0, 0, K - 1, 0))
     out = torch.zeros_like(x)
     for k in range(K):
-        out = out + pad[:, k:k + T, :] * w[k][None, None, :]
+        out = out + pad[:, k:k + T, :] * tp.rows(tp.tap(w, k), x)[:, None, :]
     return out
 
 
-def _conv_step(cs, xr, w):
+def _conv_step(cs, xr, w, tp=_ONE):
     """Decode's conv: the state ``cs [B, K-1, C]`` and the new input
     ``xr [B, 1, C]`` -> (the conv output [B, 1, C], the next state)."""
     h = torch.cat([cs.to(torch.promote_types(cs.dtype, xr.dtype)),
                    xr.to(torch.promote_types(cs.dtype, xr.dtype))], dim=1)
-    return torch.einsum("bkc,kc->bc", h, w.to(h.dtype))[:, None, :], h[:, 1:]
+    return tp.conv_step(h, w)[:, None, :], h[:, 1:]
 
 
 def mamba2(p, cfg, x, state=None, return_state: bool = False,
-           norm: Optional[Norm] = None):
+           norm: Optional[Norm] = None, tp: Optional[Ranks] = None):
     """SSD forward.  x: [B,T,d].
 
     state (decode): dict(conv {x, B, C} [B,K-1,C], ssm [B,nh,hd,dstate])
     or None.  Chunked SSD over T otherwise; the single-step recurrence for
-    decode (T == 1)."""
+    decode (T == 1).  ``tp``: :class:`Ranks` (split: each rank its heads'
+    channels of z, x and conv_x, its heads of A_log, D, dt_bias and
+    m_dt's columns, B and C whole; the state ``[B, nh/n, hd, ds]``, conv
+    ``x`` ``[B, K-1, din/n]``)."""
     norm = norm or L.rmsnorm
+    tp = tp or _ONE
     B, T, d = x.shape
-    din = cfg.ssm_expand * d
     hd = cfg.ssm_head_dim
-    nh = din // hd
     ds = cfg.ssm_state
     f32 = torch.float32
 
-    z = L.dense(x, p["m_z"])                       # [B,T,din]
-    xr = L.dense(x, p["m_x"])                      # [B,T,din]
-    Br = L.dense(x, p["m_B"])                      # [B,T,ds]
-    Cr = L.dense(x, p["m_C"])                      # [B,T,ds]
-    dt_raw = L.dense(x, p["m_dt"])                 # [B,T,nh]
+    z = tp.dense(x, p["m_z"])                      # [B,T,din]
+    xr = tp.dense(x, p["m_x"])                     # [B,T,din]
+    Br = tp.dense(x, p["m_B"])                     # [B,T,ds]
+    Cr = tp.dense(x, p["m_C"])                     # [B,T,ds]
+    dt_raw = tp.dense(x, p["m_dt"])                # [B,T,nh]
+    din = z.shape[-1]                              # the rank's, split
+    nh = din // hd
 
     if state is None:
         K1 = cfg.ssm_conv - 1
         new_conv = ({"x": xr[:, T - K1:], "B": Br[:, T - K1:],
                      "C": Cr[:, T - K1:]} if return_state else None)
-        xr = _causal_conv(xr, p["conv_x"])
-        Br = _causal_conv(Br, p["conv_B"])
-        Cr = _causal_conv(Cr, p["conv_C"])
+        xr = _causal_conv(xr, p["conv_x"], tp)
+        Br = _causal_conv(Br, p["conv_B"], tp)
+        Cr = _causal_conv(Cr, p["conv_C"], tp)
     else:
         cs = state["conv"]
-        xr, nx = _conv_step(cs["x"], xr, p["conv_x"])
-        Br, nb = _conv_step(cs["B"], Br, p["conv_B"])
-        Cr, nc = _conv_step(cs["C"], Cr, p["conv_C"])
+        xr, nx = _conv_step(cs["x"], xr, p["conv_x"], tp)
+        Br, nb = _conv_step(cs["B"], Br, p["conv_B"], tp)
+        Cr, nc = _conv_step(cs["C"], Cr, p["conv_C"], tp)
         new_conv = {"x": nx, "B": nb, "C": nc}
     xs = F.silu(xr).reshape(B, T, nh, hd)
     Bm = F.silu(Br)                                # [B,T,ds]
     Cm = F.silu(Cr)                                # [B,T,ds]
 
-    dt_v = _softplus(dt_raw.to(f32) + p["dt_bias"][None, None, :])  # [B,T,nh]
-    A = -torch.exp(p["A_log"])                                      # [nh]
-    decay = dt_v * A[None, None, :]                # log-decay per step
+    dt_v = _softplus(dt_raw.to(f32)
+                     + tp.rows(p["dt_bias"], x)[:, None, :])   # [B,T,nh]
+    A = -torch.exp(p["A_log"])                                 # [nh]
+    decay = dt_v * tp.rows(A, x)[:, None, :]       # log-decay per step
 
     if state is not None:
         # single step: S' = exp(decay)·S + dt·B⊗x ; y = C·S' + D·x
@@ -193,10 +316,10 @@ def mamba2(p, cfg, x, state=None, return_state: bool = False,
                * Bm[:, 0, None, None, :].to(f32))
         S = S * g + upd
         y = torch.einsum("bhps,bs->bhp", S, Cm[:, 0].to(f32))
-        y = y + p["D"][None, :, None] * xs[:, 0].to(f32)
+        y = y + tp.rows(p["D"], x)[:, :, None] * xs[:, 0].to(f32)
         y = y.reshape(B, 1, din).to(x.dtype)
-        out = L.dense(norm(y * F.silu(z), p["norm"], cfg.norm_eps),
-                      p["out_proj"])
+        out = tp.dense(tp.norm(norm, y * F.silu(z), p["norm"], cfg.norm_eps),
+                       p["out_proj"])
         return out, {"conv": new_conv, "ssm": S}
 
     # ---- chunked SSD ----
@@ -235,10 +358,10 @@ def mamba2(p, cfg, x, state=None, return_state: bool = False,
             "bjhp,bjs->bhps", w_state[..., None] * xw, bq)
         ys.append(y_intra + y_inter)
     y = torch.stack(ys, 1).reshape(B, T, nh, hd)
-    y = y + p["D"][None, None, :, None] * xs.to(f32)
+    y = y + tp.rows(p["D"], x)[:, None, :, None] * xs.to(f32)
     y = y.reshape(B, T, din).to(x.dtype)
-    out = L.dense(norm(y * F.silu(z), p["norm"], cfg.norm_eps),
-                  p["out_proj"])
+    out = tp.dense(tp.norm(norm, y * F.silu(z), p["norm"], cfg.norm_eps),
+                   p["out_proj"])
     if return_state:
         return out, {"conv": new_conv, "ssm": S}
     return out
@@ -249,24 +372,28 @@ def mamba2(p, cfg, x, state=None, return_state: bool = False,
 # ---------------------------------------------------------------------------
 
 def mlstm(p, cfg, x, state=None, return_state: bool = False,
-          norm: Optional[Norm] = None):
+          norm: Optional[Norm] = None, tp: Optional[Ranks] = None):
     """Chunkwise mLSTM: linear attention with exponential gating, log-space
     stable.  x: [B,T,d]; state: dict(C [B,nh,hd,hd], n [B,nh,hd], m
     [B,nh]) for decode.  Works in the 2x up-projected inner dim with
-    block-diagonal q/k/v."""
+    block-diagonal q/k/v.  ``tp``: :class:`Ranks` (split: each rank its
+    heads of the inner dim, of wq/wk/wv and of the state; the gates' rows
+    of wgi/wgf, their partial products reduce-scattered over the
+    heads)."""
     norm = norm or L.rmsnorm
+    tp = tp or _ONE
     B, T, d = x.shape
     f32 = torch.float32
-    u = L.dense(x, p["wup"])                                  # [B,T,di]
-    di = u.shape[-1]
-    nh = cfg.n_heads
-    hd = di // nh
+    u = tp.dense(x, p["wup"])                                 # [B,T,di]
+    di = u.shape[-1]                              # the rank's, split
+    hd = 2 * d // cfg.n_heads
+    nh = di // hd
     uh = u.reshape(B, T, nh, hd)
-    q = torch.einsum("btnh,nhg->btng", uh, p["wq"]) / math.sqrt(hd)
-    k = torch.einsum("btnh,nhg->btng", uh, p["wk"])
-    v = torch.einsum("btnh,nhg->btng", uh, p["wv"])
-    i_pre = L.dense(u, p["wgi"]).to(f32)                      # [B,T,nh]
-    f_pre = L.dense(u, p["wgf"]).to(f32)
+    q = tp.heads(uh, p["wq"]) / math.sqrt(hd)
+    k = tp.heads(uh, p["wk"])
+    v = tp.heads(uh, p["wv"])
+    i_pre = tp.gate(u, p["wgi"]).to(f32)                      # [B,T,nh]
+    f_pre = tp.gate(u, p["wgf"]).to(f32)
     logf = F.logsigmoid(f_pre)                                # log forget
 
     if state is not None:  # decode: one step
@@ -282,7 +409,8 @@ def mlstm(p, cfg, x, state=None, return_state: bool = False,
         den = torch.abs(torch.einsum("bhk,bhk->bh", qf, n))
         y = num / torch.maximum(den, torch.exp(-m_new))[..., None]
         y = y.reshape(B, 1, di).to(x.dtype)
-        return _mlstm_out(p, cfg, x, y, norm), {"C": C, "n": n, "m": m_new}
+        return _mlstm_out(p, cfg, x, y, norm, tp), {"C": C, "n": n,
+                                                    "m": m_new}
 
     Q = _chunk_len(cfg, T)
     nQ = T // Q
@@ -325,31 +453,38 @@ def mlstm(p, cfg, x, state=None, return_state: bool = False,
         n = n * decay[:, :, None] + torch.einsum("bjh,bjhk->bhk", wk, kf)
         m = m_new
     y = torch.stack(ys, 1).reshape(B, T, di).to(x.dtype)
-    out = _mlstm_out(p, cfg, x, y, norm)
+    out = _mlstm_out(p, cfg, x, y, norm, tp)
     if return_state:
         return out, {"C": C, "n": n, "m": m}
     return out
 
 
-def _mlstm_out(p, cfg, x, y, norm: Norm):
-    """Gated output + down-projection: y in the inner (2x) dim -> d."""
-    og = torch.sigmoid(L.dense(x, p["wgate"]))
-    return L.dense(norm(y, p["norm"], cfg.norm_eps) * og, p["down"])
+def _mlstm_out(p, cfg, x, y, norm: Norm, tp=_ONE):
+    """Gated output + down-projection: y in the inner (2x) dim -> d (a
+    rank's partial sum, split)."""
+    og = torch.sigmoid(tp.dense(x, p["wgate"]))
+    return tp.dense(tp.norm(norm, y, p["norm"], cfg.norm_eps) * og,
+                    p["down"])
 
 
 def slstm(p, cfg, x, state=None, return_state: bool = False,
-          norm: Optional[Norm] = None):
+          norm: Optional[Norm] = None, tp: Optional[Ranks] = None):
     """sLSTM with exponential gating and a stabiliser; a diagonal
     recurrence (per-unit recurrent weights), scanned over time.
-    x: [B,T,d]; state: dict(c, n, h, m [B,d]) or None."""
+    x: [B,T,d]; state: dict(c, n, h, m [B,d]) or None.  ``tp``:
+    :class:`Ranks` (split: each rank its units: the columns of wi, wf,
+    wz, wo, its r*, its state ``[B, d/n]``, the rows of ``out``; the
+    recurrence is diagonal, so its scan needs no collective)."""
     norm = norm or L.rmsnorm
-    B, T, d = x.shape
+    tp = tp or _ONE
+    B, T, _ = x.shape
     f32 = torch.float32
     # the four gates' input projections [4, B, T, d] and recurrent weights
-    zs = torch.stack([L.dense(x, p[k]).to(f32)
+    zs = torch.stack([tp.dense(x, p[k]).to(f32)
                       for k in ("wi", "wf", "wz", "wo")])
-    r = torch.stack([p[k].to(f32) for k in ("ri", "rf", "rz", "ro")])
-    r = r[:, None, :]                                          # [4, 1, d]
+    d = zs.shape[-1]                              # the rank's units, split
+    r = torch.stack([tp.rows(p[k].to(f32), x)
+                     for k in ("ri", "rf", "rz", "ro")])       # [4, 1, d]
     if state is None:
         c = n = h = torch.zeros((B, d), dtype=f32, device=x.device)
         m = torch.full((B, d), -1e30, dtype=f32, device=x.device)
@@ -373,7 +508,7 @@ def slstm(p, cfg, x, state=None, return_state: bool = False,
         m = m_new
         hs.append(h)
     y = torch.stack(hs, 1).to(x.dtype)
-    out = L.dense(norm(y, p["norm"], cfg.norm_eps), p["out"])
+    out = tp.dense(tp.norm(norm, y, p["norm"], cfg.norm_eps), p["out"])
     if return_state:
         return out, {"c": c, "n": n, "h": h, "m": m}
     return out

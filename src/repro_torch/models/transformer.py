@@ -1,14 +1,13 @@
 """Decoder LM backbone: pattern-segmented layer stack.
 
-Port of ``repro.models.transformer``: the ``attn`` and ``moe`` blocks
-(``moe`` served on one TP rank, through the fixed-batch loop as the
-reference serves it; over TP ranks it is queue A item 5g), and the
-recurrent ones, ``mamba2``,
-``mlstm`` and ``slstm`` (``models.ssm``), with zamba2's weight-tied
-``shared_attn`` block, on one TP rank (their tensor parallelism is queue
-A item 5f); and the frontend stubs' input projection (musicgen-medium,
-pixtral-12b): float ``[B, T, frontend_dim]`` frames enter through
-``frontend_proj``, int tokens through ``embed``.  Frames are float32 and
+Port of ``repro.models.transformer``: the ``attn`` and ``moe`` blocks, the
+recurrent ones, ``mamba2``, ``mlstm`` and ``slstm`` (``models.ssm``),
+with zamba2's weight-tied ``shared_attn`` block, and the frontend stubs'
+input projection (musicgen-medium, pixtral-12b): float ``[B, T,
+frontend_dim]`` frames enter through ``frontend_proj``, int tokens
+through ``embed``.  Every block trains over stacked TP ranks and serves
+over them in the fixed-batch loop, as the reference's GSPMD step and
+serve functions do.  Frames are float32 and
 every product promotes as ``jnp.einsum`` does (``layers.dense``), so a
 bf16 frontend model fed frames runs its residual stream, Q/K/V and logits
 in float32 over bf16 weights, as the reference's does; its caches are
@@ -112,35 +111,10 @@ def segments(cfg) -> List[Tuple[Block, int]]:
     return out
 
 
-#: the blocks of the recurrent configs (xlstm-125m, zamba2-2.7b)
-RECURRENT = ("mamba2", "mlstm", "slstm", "shared_attn")
 #: the blocks whose prefill and decode hold K/V caches
 ATTN_KINDS = ("attn", "moe", "shared_attn")
-
-
-#: what refuses fixed-batch serving over more than one TP rank
-FIXED_BATCH_TP = ("fixed-batch serving over TP ranks is not ported "
-                  "(ROADMAP.md queue A item 5g: the reference runs "
-                  "run_fixed_batch under its mesh); serve it on one TP rank")
-
-
-def _check_ported(cfg, serve: bool = False, n_model: int = 1) -> None:
-    """Raise for what the port lacks: the recurrent blocks over more than
-    one TP rank (``n_model > 1``, item 5f), and serving (``serve``) a
-    frontend or MoE model over more than one TP rank (item 5g: the
-    reference serves both through its fixed-batch loop, under its mesh,
-    where a MoE prefill would take ``_moe_ep``)."""
-    kinds = {b.kind for b, _ in segments(cfg)}
-    rec = sorted(kinds & set(RECURRENT))
-    if n_model > 1 and rec:
-        raise NotImplementedError(
-            f"{cfg.name}: tensor parallelism of blocks {rec} is not ported "
-            f"(ROADMAP.md queue A item 5f: the reference shards Mamba2's "
-            f"d_inner, mLSTM's inner dim and sLSTM's units); run it on one "
-            f"TP rank")
-    if serve and n_model > 1 and (cfg.frontend is not None or
-                                  "moe" in kinds):
-        raise NotImplementedError(f"{cfg.name}: {FIXED_BATCH_TP}")
+#: the recurrent blocks (``models.ssm``), whose decode state is theirs
+RECURRENT = ("mamba2", "mlstm", "slstm")
 
 
 # ---------------------------------------------------------------------------
@@ -191,7 +165,6 @@ def _param_tree(cfg, make) -> Dict[str, Any]:
     init one of ``("normal", std)``, ``("zeros",)`` or ``("ones",)`` and
     dtype the leaf's where it is not ``cfg.dtype`` (Mamba2's float32 SSM
     leaves)."""
-    _check_ported(cfg)
     d = cfg.d_model
     params: Dict[str, Any] = {}
     if cfg.frontend is not None:
@@ -251,7 +224,7 @@ def param_count(params) -> int:
 # ---------------------------------------------------------------------------
 
 #: a recurrent block's sublayer key in its parameter tree
-_SUBLAYER = {"mamba2": "mamba", "mlstm": "mlstm", "slstm": "slstm"}
+_SUBLAYER = dict(zip(RECURRENT, ("mamba", "mlstm", "slstm")))
 
 
 def _recurrent(p, cfg, block: Block, x, norm, state=None):
@@ -339,7 +312,6 @@ def forward(params, cfg, inputs, positions=None, n_model: int = 1):
         if positions is not None:
             raise ValueError("the TP forward runs positions 0..T-1")
         return forward_tp(params, cfg, inputs, n_model)
-    _check_ported(cfg)
     B, T = inputs.shape[:2]
     if positions is None:
         positions = torch.arange(T, dtype=torch.int32, device=inputs.device)
@@ -404,6 +376,14 @@ def loss_fn(params, cfg, batch, n_model: int = 1
 # take the layer dim) it is all-gathered over the ranks first, as GSPMD
 # must.  The residual stream between blocks is sequence-sharded
 # ``[n, B, T/n, d]`` when T divides by n, else every rank holds it whole.
+#
+# A recurrent block (``_recurrent_tp``) runs over the whole sequence: each
+# rank gathers it, then under megatron_sp runs its own heads (Mamba2,
+# mLSTM) or units (sLSTM) and its partial down projection is reduced into
+# the stream, as a row-parallel product is; under pure_sp (and a Mamba2
+# whose heads do not divide the ranks) every rank runs the whole block on
+# its own copies and keeps its own sequence block, so the gather's
+# backward, a reduce-scatter, counts every token's gradient once.
 
 class _TP:
     """The layout of one TP forward: ``n`` ranks, its strategy, and
@@ -419,6 +399,11 @@ class _TP:
     def reduce(self, x):
         """Partial sums over the ranks -> the residual stream."""
         return SH.seq_reduce_scatter(x) if self.sp else stacked.psum(x)
+
+    def own(self, x):
+        """The whole sequence on every rank -> the residual stream (each
+        rank's own sequence block; no communication)."""
+        return SH.rank_block(x, 1) if self.sp else x
 
 
 #: per-rank dim of each weight's Megatron block in a segment leaf
@@ -458,15 +443,63 @@ def _vocab_block(w, md: int, dim: int):
     return _block_of(w, md, dim)
 
 
+#: each leaf of a recurrent sublayer that splits over the TP ranks under
+#: megatron_sp (``recurrent_split``), with the dim of its heads, channels
+#: or units in a layer's leaf: the specs' sharded leaves, and the
+#: replicated ones of which each rank reads its own block (Mamba2's m_dt
+#: columns, mLSTM's wq/wk/wv heads and wgi/wgf rows, sLSTM's wi/wf/wo
+#: columns and out rows, every norm gain); a leaf not named (Mamba2's B
+#: and C projections and convs) every rank reads whole
+_SPLIT_DIM = {
+    "mamba": {"m_z": 1, "m_x": 1, "m_dt": 1, "conv_x": 1, "A_log": 0,
+              "D": 0, "dt_bias": 0, "norm": 0, "out_proj": 0},
+    "mlstm": {"wup": 1, "wgate": 1, "wq": 0, "wk": 0, "wv": 0, "wgi": 0,
+              "wgf": 0, "norm": 0, "down": 0},
+    "slstm": {"wi": 1, "wf": 1, "wz": 1, "wo": 1, "ri": 0, "rf": 0, "rz": 0,
+              "ro": 0, "norm": 0, "out": 0},
+}
+
+
+def recurrent_split(cfg, kind: str, n: int) -> bool:
+    """Whether a recurrent block's heads or units split over ``n`` TP
+    ranks: under megatron_sp, Mamba2 where its heads divide n (the
+    reference shards its channels only then, ``ssm.py:107-108``), mLSTM
+    where its heads do (each rank's slice of the inner dim whole heads of
+    the block-diagonal q/k/v), sLSTM where its units do.  Else every rank
+    runs it whole."""
+    if SH.strategy(cfg, n) != "megatron_sp":
+        return False
+    if kind == "mamba2":
+        return (cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim) % n == 0
+    if kind == "mlstm":
+        return cfg.n_heads % n == 0
+    return cfg.d_model % n == 0
+
+
+def _megatron_sub(sub, md, dims, kv_whole: bool = False):
+    """One sublayer's leaves as its contractions read them: each leaf
+    named in ``dims`` the rank's block of that per-rank dim
+    (:func:`_block_of`), K/V whole under the GQA rule (``kv_whole``),
+    every other leaf whole (all-gathered where the specs shard it)."""
+    def one(k, w):
+        if k in dims and not (kv_whole and k in ("wk", "wv")):
+            return _block_of(w, md[k], dims[k])
+        return stacked.all_gather(w, md[k]) if md[k] >= 0 else w
+    return {k: one(k, w) for k, w in sub.items()}
+
+
 def _megatron_layout(params, cfg, tp: _TP):
     """``params`` as the contractions read them: the vocab block of the
     embedding (and head, :func:`_vocab_block`); under megatron_sp also
-    each weight's Megatron block (``_MEGATRON_DIM``), where K/V stay whole
-    under the GQA rule (``n_kv_heads % n != 0``: the heads split after the
-    repeat).  The expert blocks of a ``moe`` sublayer stay each rank's
-    shard for expert parallelism; where the stream is not
-    sequence-sharded (T % n != 0) ``moe.moe`` runs the dense path, and a
-    sharded expert leaf is all-gathered over the ranks first."""
+    each weight's Megatron block (``_MEGATRON_DIM``; the shared block's
+    ``_SERVE_DIM``), where K/V stay whole under the GQA rule
+    (``n_kv_heads % n != 0``: the heads split after the repeat), and each
+    recurrent leaf's block of its heads or units (``_SPLIT_DIM``, where
+    ``recurrent_split``; else every leaf whole).  The expert blocks of a
+    ``moe`` sublayer stay each rank's shard for expert parallelism; where
+    the stream is not sequence-sharded (T % n != 0) ``moe.moe`` runs the
+    dense path, and a sharded expert leaf is all-gathered over the ranks
+    first."""
     mds = SH.model_dims(cfg, param_shapes(cfg), tp.n)
     out = dict(params)
     out["embed"] = _vocab_block(params["embed"], mds["embed"], 0)
@@ -476,20 +509,31 @@ def _megatron_layout(params, cfg, tp: _TP):
         return out
     kv_whole = cfg.n_kv_heads % tp.n != 0
     segs = []
-    for seg, md in zip(params["segments"], mds["segments"]):
+    for (block, _), seg, md in zip(segments(cfg), params["segments"],
+                                   mds["segments"]):
         seg = dict(seg)
         for sub in ("attn", "mlp"):
             if sub in seg:
-                seg[sub] = {k: w if (k not in _MEGATRON_DIM or
-                                     (kv_whole and k in ("wk", "wv")))
-                            else _block_of(w, md[sub][k], _MEGATRON_DIM[k])
-                            for k, w in seg[sub].items()}
+                seg[sub] = _megatron_sub(seg[sub], md[sub], _MEGATRON_DIM,
+                                         kv_whole)
+        if block.kind in _SUBLAYER:
+            sub = _SUBLAYER[block.kind]
+            split = recurrent_split(cfg, block.kind, tp.n)
+            seg[sub] = _megatron_sub(
+                seg[sub], md[sub], {k: d + 1 for k, d in
+                                    _SPLIT_DIM[sub].items()} if split else {})
         if "moe" in seg and not tp.sp:
             seg["moe"] = {k: w if md["moe"][k] < 0 else
                           stacked.all_gather(w, md["moe"][k])
                           for k, w in seg["moe"].items()}
         segs.append(seg)
     out["segments"] = segs
+    if "shared" in params:
+        out["shared"] = dict(params["shared"])
+        for sub in ("attn", "mlp"):
+            out["shared"][sub] = _megatron_sub(
+                params["shared"][sub], mds["shared"][sub], _SERVE_DIM,
+                kv_whole)
     return out
 
 
@@ -619,9 +663,30 @@ def _mlp_tp(p, cfg, y, tp: _TP):
     return tp.reduce(out) if mega else out
 
 
+def _recurrent_tp(p, cfg, block: Block, x, tp: _TP):
+    """A recurrent layer of the TP forward on the residual stream ``x``:
+    each rank gathers the whole sequence and runs the block
+    (``models.ssm`` over :class:`ssm.Ranks`), split over its heads or
+    units (its partial down projection reduced into the stream) or whole
+    (its own sequence block kept)."""
+    eps = cfg.norm_eps
+    h = tp.gather(L.rmsnorm(x, _bw(p["ln1"], x), eps))       # [n,B,T,d]
+    split = recurrent_split(cfg, block.kind, tp.n)
+    out = getattr(S, block.kind)(
+        p[_SUBLAYER[block.kind]], cfg, h.flatten(0, 1),
+        tp=S.Ranks(tp.n, split)).unflatten(0, (tp.n, -1))
+    x = x + (tp.reduce(out) if split else tp.own(out))
+    if "mlp" in p:          # a Mamba2 block outside zamba
+        x = x + _mlp_tp(p["mlp"], cfg, L.rmsnorm(x, _bw(p["ln2"], x), eps),
+                        tp)
+    return x
+
+
 def _block_tp(p, cfg, block: Block, x, pos, tp: _TP):
     """One layer of the TP forward on the residual stream ``x``: (x', its
-    MoE aux ``[n]``, or None for an ``attn`` layer)."""
+    MoE aux ``[n]``, or None for another layer)."""
+    if block.kind in _SUBLAYER:
+        return _recurrent_tp(p, cfg, block, x, tp), None
     x = x + _attn_tp(p["attn"], cfg, block,
                      L.rmsnorm(x, _bw(p["ln1"], x), cfg.norm_eps), pos, tp)
     y = L.rmsnorm(x, _bw(p["ln2"], x), cfg.norm_eps)
@@ -646,7 +711,6 @@ def forward_tp(params, cfg, inputs, n_model: int):
     layers' aux summed, the same on every rank); for
     a vocab that does not divide n, ``[n, B, T, ceil(V/n)]`` with zeros in
     the last rank's padded columns (the logits of vocab ids ``>= V``)."""
-    _check_ported(cfg, n_model=n_model)
     T_ = inputs.shape[1]
     tp = _TP(cfg, n_model, T_)
     params = _megatron_layout(params, cfg, tp)
@@ -657,6 +721,9 @@ def forward_tp(params, cfg, inputs, n_model: int):
         x = _embed_tp(params["embed"], cfg, inputs, tp)
     aux_total = torch.zeros(n_model, dtype=torch.float32, device=x.device)
     for (block, nl), seg in zip(segments(cfg), params["segments"]):
+        if block.kind == "shared_attn":
+            x, _ = _block_tp(params["shared"], cfg, block, x, pos, tp)
+            continue
         for l in range(nl):
             x, aux = _remat(cfg, lambda h, p=_layer_tp(seg, l), b=block:
                             _block_tp(p, cfg, b, h, pos, tp), x)
@@ -760,7 +827,6 @@ def _init_block_cache(cfg, block: Block, B: int, S_len: int,
 def init_decode_state(cfg, B: int, S_len: int, device="cuda") -> dict:
     """Per-segment stacked caches mirroring ``params['segments']`` (a
     ``shared_attn`` firing's ``[1, ...]``)."""
-    _check_ported(cfg, serve=True)
     dev = resolve_device(device)
     segs = []
     for block, n in segments(cfg):
@@ -890,7 +956,6 @@ def decode_step(params, cfg, state, tokens, active=None):
     them.
 
     Returns (logits [B,1,V], state)."""
-    _check_ported(cfg, serve=True)
     pos = state["pos"]
     x = _embed(params, cfg, tokens)
     segs = []
@@ -929,17 +994,11 @@ def prefill(params, cfg, inputs, length=None):
     take no ``length``, as in the reference: their state would integrate
     the padding.
     """
-    _check_ported(cfg, serve=True)
     B, T = inputs.shape[:2]
     dev = inputs.device
     positions = torch.arange(T, dtype=torch.int32, device=dev)
     if length is not None:
-        bad = sorted({b.kind for b, _ in segments(cfg)} - set(ATTN_KINDS))
-        if bad:
-            raise NotImplementedError(
-                f"padded prefill (length=...) unsupported for blocks {bad}: "
-                f"recurrent state would integrate the padding")
-        length = torch.as_tensor(length, device=dev).to(torch.int32)
+        length = _padded_length(cfg, length, dev)
     x = _embed(params, cfg, inputs)
     segs = []
     for (block, n), seg_p in zip(segments(cfg), params["segments"]):
@@ -962,6 +1021,17 @@ def prefill(params, cfg, inputs, length=None):
         xl = x.index_select(1, last)
         pos_out = length.reshape(())
     return _logits(params, cfg, xl), {"segments": segs, "pos": pos_out}
+
+
+def _padded_length(cfg, length, dev):
+    """A padded prefill's ``length`` as a 0-dim int32 tensor; raises for
+    recurrent blocks, as the reference's prefill takes no length there."""
+    bad = sorted({b.kind for b, _ in segments(cfg)} - set(ATTN_KINDS))
+    if bad:
+        raise NotImplementedError(
+            f"padded prefill (length=...) unsupported for blocks {bad}: "
+            f"recurrent state would integrate the padding")
+    return torch.as_tensor(length, device=dev).to(torch.int32)
 
 
 def _prefill_block(p, cfg, block: Block, x, positions, length=None):
@@ -1033,11 +1103,25 @@ def _page_cache(cfg, block: Block, k, v, length=None) -> dict:
 # as the reference's GSPMD prefill runs them (the flash kernel takes no
 # query offset, so on the card only megatron_sp prefill launches it).
 # Its K/V are gathered to the page's global layout, which
-# ``serve.kvcache.write_slot`` splits over the ranks.
+# ``serve.kvcache.write_slot`` splits over the ranks.  A MoE layer takes
+# expert parallelism where ``moe.use_ep`` allows it (the reference's
+# ``_moe_ep`` at ``moe.py:108``); frames enter through the replicated
+# ``frontend_proj`` (``_frames_tp``).  A recurrent layer gathers the whole
+# sequence and, split (``recurrent_split``), runs each rank's heads or
+# units, its partial down projection reduced into the stream; else it runs
+# once, on the whole sequence every rank holds alike, each rank keeping
+# its own block.  Its state leaves in the global layout too: the ranks'
+# heads or units concatenated (``join_state``).
 #
-# Decode runs the projections and the MLP once on the replicated stream;
-# each rank scores only the keys it holds, and a sequence-sharded page's
-# partial softmax is combined over the ranks in float32 (flash decoding).
+# Decode runs the projections, the MLP and a MoE layer's dense path once
+# on the replicated stream; each rank scores only the keys it holds, and
+# a sequence-sharded page's partial softmax is combined over the ranks in
+# float32 (flash decoding).  A split recurrent layer runs each rank's
+# heads or units from its own state (``split_state``: ``[n, B, ...]``) and
+# sums the ranks' partial outputs; a whole one runs once from its state,
+# held once.  The fixed-batch loop (a 0-dim ``pos``) writes K/V as
+# ``decode_step``'s scalar path does: clamped into the page's last slot
+# past its end, the reference's ``dynamic_update_slice``.
 # Logits leave both as the ranks' vocab blocks ``[n, B, 1, ceil(V/n)]``,
 # the last zero-padded past V, which the sampler gathers.
 
@@ -1045,6 +1129,43 @@ def _page_cache(cfg, block: Block, k, v, length=None) -> dict:
 #: d_out]``): the column block of the input projections, the row block of
 #: the output ones
 _SERVE_DIM = {"wq": 1, "wk": 1, "wv": 1, "wi": 1, "wg": 1, "wo": 0}
+
+#: per recurrent block, the dim of its heads or units in each decode state
+#: leaf of one layer that splits over the TP ranks (``[B, ...]``); a leaf
+#: not named (Mamba2's B and C conv states) every rank holds whole
+STATE_DIM = {"mamba2": {"x": 2, "ssm": 1},
+             "mlstm": {"C": 1, "n": 1, "m": 1},
+             "slstm": {"c": 1, "n": 1, "h": 1, "m": 1}}
+
+
+def _state_map(kind: str, state, fn):
+    """``fn(leaf, dim)`` over one layer's (or a segment's) recurrent state,
+    ``dim`` the leaf's ``STATE_DIM`` entry or None."""
+    return T.unflatten(state, [fn(x, STATE_DIM[kind].get(path[-1]))
+                               for path, x in T.flatten_with_path(state)])
+
+
+def split_state(kind: str, state, n: int, lead: int = 0):
+    """A recurrent state in its global layout (leaves ``[*lead, B,
+    ...]``, ``lead`` leading dims such as a segment's layers) -> the TP
+    ranks' ``[*lead, n, B, ...]``: each rank its block of the split dim,
+    or its own copy of a leaf held whole."""
+    def one(x, d):
+        if d is None:
+            return x.unsqueeze(lead).expand(
+                x.shape[:lead] + (n,) + x.shape[lead:]).clone()
+        return torch.stack(x.chunk(n, dim=lead + d), dim=lead)
+    return _state_map(kind, state, one)
+
+
+def join_state(kind: str, state, lead: int = 0):
+    """Inverse of :func:`split_state`: the ranks' blocks concatenated,
+    rank 0's copy of a leaf held whole."""
+    def one(x, d):
+        if d is None:
+            return x.select(lead, 0)
+        return torch.cat(x.unbind(lead), dim=lead + d)
+    return _state_map(kind, state, one)
 
 
 def _rank_layer(p, cfg, tp: _TP):
@@ -1056,6 +1177,8 @@ def _rank_layer(p, cfg, tp: _TP):
     kv_whole = cfg.n_kv_heads % n != 0
     out = {}
     for sub in ("attn", "mlp"):
+        if sub not in p:
+            continue
         out[sub] = {}
         for k, w in p[sub].items():
             if tp.strat == "megatron_sp" and k in _SERVE_DIM and not (
@@ -1064,6 +1187,15 @@ def _rank_layer(p, cfg, tp: _TP):
             else:
                 out[sub][k] = w.expand((n,) + tuple(w.shape))
     return out
+
+
+def _rank_recurrent(sub, kind: str, n: int):
+    """A recurrent sublayer's weights, held once, as split TP ranks read
+    them: views ``[n, ...]`` of each leaf's block of its heads or units
+    (``_SPLIT_DIM``), of the whole leaf where every rank reads it."""
+    dims = _SPLIT_DIM[_SUBLAYER[kind]]
+    return {k: SH.rank_view(w, dims[k], n) if k in dims
+            else w.expand((n,) + tuple(w.shape)) for k, w in sub.items()}
 
 
 def _vocab_blocks(logits, n: int):
@@ -1076,13 +1208,63 @@ def _vocab_blocks(logits, n: int):
     return logits.unflatten(-1, (n, logits.shape[-1] // n)).movedim(-2, 0)
 
 
+def vocab_logits(blocks, V: int):
+    """The ranks' vocab blocks ``[n, ..., Vl]`` -> the logits ``[...,
+    V]`` (the all-gather of the sampler)."""
+    return blocks.movedim(0, -2).flatten(-2)[..., :V]
+
+
+def _ffn_tp(p, rp, cfg, block: Block, y, tp: _TP):
+    """A prefill layer's feed-forward on the normed stream ``y``: the MLP
+    over the rank views ``rp``, or a MoE layer's ``moe.moe`` over the
+    ranks, its aux dropped (expert parallelism on each rank's view of the
+    expert blocks where ``moe.use_ep`` allows, else every rank's dense
+    path on the whole blocks)."""
+    if block.kind != "moe":
+        return _mlp_tp(rp["mlp"], cfg, y, tp)
+    n = tp.n
+    ep = tp.sp and M.use_ep(cfg, n, y.shape[2] * n)
+    mp = {k: SH.rank_view(w, 0, n) if ep and k != "router"
+          else w.expand((n,) + tuple(w.shape)) for k, w in p["moe"].items()}
+    return M.moe(mp, cfg, y, n, tp.sp)[0]
+
+
+def _prefill_recurrent_tp(p, cfg, block: Block, x, tp: _TP):
+    """:func:`_prefill_block`'s recurrent layer on the stacked TP ranks:
+    (x', the layer's final state in its global layout)."""
+    n = tp.n
+    eps = cfg.norm_eps
+    fn = getattr(S, block.kind)
+    sub = p[_SUBLAYER[block.kind]]
+    h = tp.gather(fused_rmsnorm(x, p["ln1"], eps))            # [n,B,T,d]
+    if recurrent_split(cfg, block.kind, n):
+        out, st = fn(_rank_recurrent(sub, block.kind, n), cfg,
+                     h.flatten(0, 1), return_state=True,
+                     tp=S.Ranks(n, True))
+        x = x + tp.reduce(out.unflatten(0, (n, -1)))
+        st = join_state(block.kind, T.tree_map(
+            lambda v: v.unflatten(0, (n, -1)), st))
+    else:
+        out, st = fn(sub, cfg, h[0], return_state=True, norm=fused_rmsnorm)
+        x = x + (SH.seq_shard(out, n) if tp.sp else out)
+    if "mlp" in p:          # a Mamba2 block outside zamba
+        x = x + _mlp_tp(_rank_layer(p, cfg, tp)["mlp"], cfg,
+                        fused_rmsnorm(x, p["ln2"], eps), tp)
+    if block.kind == "mamba2":
+        dt = getattr(torch, cfg.cache_dtype)
+        st["conv"] = {k: v.to(dt) for k, v in st["conv"].items()}
+    return x, st
+
+
 def _prefill_block_tp(p, cfg, block: Block, x, pos, tp: _TP, length):
     """:func:`_prefill_block` on the stacked TP ranks: ``x`` is the
     residual stream (``[n, B, T/n, d]``, or ``[n, B, T, d]`` when T does
     not divide n); the cache comes back in the page's global layout."""
+    if block.kind in _SUBLAYER:
+        return _prefill_recurrent_tp(p, cfg, block, x, tp)
     n = tp.n
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    T = pos.shape[0]
+    T_ = pos.shape[0]
     rp = _rank_layer(p, cfg, tp)
     q, k, v = _qkv_tp(rp["attn"], cfg,
                       fused_rmsnorm(x, p["ln1"], cfg.norm_eps), pos, tp)
@@ -1098,26 +1280,27 @@ def _prefill_block_tp(p, cfg, block: Block, x, pos, tp: _TP, length):
         o = flash_attention(q.flatten(0, 1), kf.flatten(0, 1),
                             vf.flatten(0, 1), window=block.window,
                             causal=True)
-        o = o.reshape(n, q.shape[1], T, (nh // n) * hd).to(x.dtype)
+        o = o.reshape(n, q.shape[1], T_, (nh // n) * hd).to(x.dtype)
         x = x + tp.reduce(L.dense_tp(o, rp["attn"]["wo"]))
     else:
         kw, vw = SH.seq_gather(k), SH.seq_gather(v)
         o = _seq_parallel_attn(cfg, block, q, kw, vw, pos, n)
         x = x + L.dense_tp(o.to(x.dtype), rp["attn"]["wo"])
         kg, vg = kw[0], vw[0]
-    x = x + _mlp_tp(rp["mlp"], cfg,
+    x = x + _ffn_tp(p, rp, cfg, block,
                     fused_rmsnorm(x, p["ln2"], cfg.norm_eps), tp)
     return x, _page_cache(cfg, block, kg, vg, length)
 
 
 def prefill_tp(params, cfg, inputs, n_model: int, length=None):
     """:func:`prefill` over ``n_model`` stacked TP ranks, ``params`` the
-    global tree held once.  Returns the last-token logits as vocab blocks
-    ``[n, B, 1, ceil(V/n)]`` and the decode state in its global layout
-    (every rank's K/V gathered).  pure_sp with T % n != 0 falls through to
-    the single path, as the reference's attention does; every rank would
-    run it on the same values."""
-    _check_ported(cfg, serve=True, n_model=n_model)
+    global tree held once; ``inputs`` int tokens ``[B, T]`` or a frontend
+    model's frames ``[B, T, F]``.  Returns the last-token logits as vocab
+    blocks ``[n, B, 1, ceil(V/n)]`` and the decode state in its global
+    layout (every rank's K/V gathered, a split recurrent state's heads or
+    units joined).  pure_sp with T % n != 0 falls through to the single
+    path, as the reference's attention does; every rank would run it on
+    the same values."""
     B, T_ = inputs.shape[:2]
     tp = _TP(cfg, n_model, T_)
     if tp.strat == "pure_sp" and not tp.sp:
@@ -1126,19 +1309,27 @@ def prefill_tp(params, cfg, inputs, n_model: int, length=None):
     dev = inputs.device
     pos = torch.arange(T_, dtype=torch.int32, device=dev)
     if length is not None:
-        length = torch.as_tensor(length, device=dev).to(torch.int32)
-    x = _embed(params, cfg, inputs)
-    x = SH.seq_shard(x, n_model) if tp.sp else \
-        x.expand((n_model,) + tuple(x.shape))
+        length = _padded_length(cfg, length, dev)
+    if _is_frames(cfg, inputs):
+        W = params["frontend_proj"]
+        x = _frames_tp(W.expand((n_model,) + tuple(W.shape)), inputs, tp)
+    else:
+        x = _embed(params, cfg, inputs)
+        x = SH.seq_shard(x, n_model) if tp.sp else \
+            x.expand((n_model,) + tuple(x.shape))
     segs = []
     for (block, n), seg_p in zip(segments(cfg), params["segments"]):
+        if block.kind == "shared_attn":
+            x, c = _prefill_block_tp(params["shared"], cfg, block, x, pos,
+                                     tp, length)
+            segs.append(_stack([c]))
+            continue
         caches = []
         for l in range(n):
             x, c = _prefill_block_tp(_layer(seg_p, l), cfg, block, x, pos,
                                      tp, length)
             caches.append(c)
-        segs.append({k: torch.stack([c[k] for c in caches])
-                     for k in caches[0]})
+        segs.append(_stack(caches))
     x = tp.gather(x)[0]                                  # [B, T, d]
     if length is None:
         xl = x[:, -1:]
@@ -1151,15 +1342,18 @@ def prefill_tp(params, cfg, inputs, n_model: int, length=None):
             {"segments": segs, "pos": pos_out})
 
 
-def _decode_attn_tp(p, cfg, block: Block, x, cache, pos, lay):
+def _decode_attn_tp(p, cfg, block: Block, x, cache, pos, lay,
+                    clamp: bool = False):
     """:func:`_decode_attn` over a KV pool laid out by ``lay``
     (``sharding.KVLayout``; ``cache`` leaves ``[rows, B_local, W_local,
     nkv_local, hd]``), ``pos [B]``.  Q, K and V come from the replicated
     stream ``x [B, 1, d]``; the new K/V land on the rank whose shard holds
-    slot ``pos % W`` (``pos``), a slot past its page dropping its write.
-    Each rank scores its own keys, their positions decoded from global
-    slot indices.  A sequence-sharded page combines the ranks' partial
-    softmax in float32; a head-sharded one gathers the ranks' heads."""
+    slot ``pos % W`` (``pos``), a slot past its page dropping its write
+    (``clamp``: landing in the page's last slot, the fixed-batch loop's
+    write).  Each rank scores its own keys, their positions decoded from
+    global slot indices.  A sequence-sharded page combines the ranks'
+    partial softmax in float32; a head-sharded one gathers the ranks'
+    heads."""
     ck, cv = cache["k"], cache["v"]
     _, Bl, Wl, nkvl, hd = ck.shape
     rdp, rt = lay.rdp, lay.rtp
@@ -1175,7 +1369,7 @@ def _decode_attn_tp(p, cfg, block: Block, x, cache, pos, lay):
                      pos[:, None].to(torch.int32))
     b = torch.arange(B, device=dev)
     r, bl = b // Bl, b % Bl                 # each page's DP rank and row
-    ok = slot < W
+    ok = torch.ones_like(slot, dtype=torch.bool) if clamp else slot < W
     sc = torch.clamp(slot, max=W - 1).long()
     heads = lay.kv == "heads"
     if heads:       # every rank writes its heads
@@ -1244,23 +1438,59 @@ def _combine_partial(o, m, d, has):
     return (num / den[..., None])[0]
 
 
+def _decode_recurrent_tp(p, cfg, block: Block, x, state, lay):
+    """A recurrent layer's decode step over the TP ranks on the replicated
+    stream ``x [B, 1, d]``: split (``lay.kv == "heads"``), each rank its
+    heads or units from its own state ``[n, B, ...]``, the ranks' partial
+    outputs summed (a psum); whole, once from the state held once, as
+    :func:`decode_step`.  Returns (x', the new state)."""
+    if lay.kv != "heads":
+        return _recurrent(p, cfg, block, x, fused_rmsnorm, state)
+    n = lay.n_tp
+    h = fused_rmsnorm(x, p["ln1"], cfg.norm_eps)
+    out, st = getattr(S, block.kind)(
+        _rank_recurrent(p[_SUBLAYER[block.kind]], block.kind, n), cfg,
+        h.expand((n,) + tuple(h.shape)).flatten(0, 1),
+        state=T.tree_map(lambda v: v.flatten(0, 1), state),
+        return_state=True, tp=S.Ranks(n, True))
+    x = x + stacked.psum(out.unflatten(0, (n, -1)))[0]
+    if "mlp" in p:          # a Mamba2 block outside zamba
+        x = x + L.mlp(p["mlp"], cfg, fused_rmsnorm(x, p["ln2"],
+                                                   cfg.norm_eps))
+    return x, T.tree_map(lambda v: v.unflatten(0, (n, -1)), st)
+
+
 def decode_step_tp(params, cfg, state, tokens, layout, active=None):
-    """:func:`decode_step` over a KV pool laid out per segment by
-    ``layout`` (``sharding.KVLayout``s; ``state["pos"]`` is ``[B]``).
-    Returns the logits as vocab blocks ``[n_tp, B, 1, ceil(V/n_tp)]`` and
-    the state, its caches written in place."""
-    _check_ported(cfg, serve=True, n_model=layout[0].n_tp)
+    """:func:`decode_step` over a state laid out per segment by ``layout``
+    (``sharding.KVLayout``s; a recurrent segment's states split over the
+    ranks when its ``kv`` is ``"heads"``, held once when ``"whole"``).
+    ``state["pos"]`` is ``[B]`` (the pool) or 0-dim (the fixed-batch
+    loop, its K/V writes clamped as :func:`decode_step`'s).  ``tokens``:
+    ``[B, 1]`` int, or ``[B, 1, frontend_dim]`` frames.  Returns the
+    logits as vocab blocks ``[n_tp, B, 1, ceil(V/n_tp)]`` and the state,
+    its caches written in place."""
     pos = state["pos"]
     x = _embed(params, cfg, tokens)
+    fixed = pos.dim() == 0
+    posv = pos.expand(x.shape[0]).contiguous() if fixed else pos
+    segs = []
     for (block, n), seg_p, seg_c, lay in zip(
             segments(cfg), params["segments"], state["segments"], layout):
+        shared = block.kind == "shared_attn"
+        caches = []
         for l in range(n):
-            p = _layer(seg_p, l)
-            x = x + _decode_attn_tp(p, cfg, block, x, _layer(seg_c, l), pos,
-                                    lay)
-            x = x + L.mlp(p["mlp"], cfg,
-                          fused_rmsnorm(x, p["ln2"], cfg.norm_eps))
+            p = params["shared"] if shared else _layer(seg_p, l)
+            if block.kind in _SUBLAYER:
+                x, c = _decode_recurrent_tp(p, cfg, block, x,
+                                            _layer(seg_c, l), lay)
+                caches.append(c)
+                continue
+            x = x + _decode_attn_tp(p, cfg, block, x, _layer(seg_c, l),
+                                    posv, lay, clamp=fixed)
+            x = x + _ffn(p, cfg, block, fused_rmsnorm(x, p["ln2"],
+                                                      cfg.norm_eps))
+        segs.append(_stack(caches) if caches else seg_c)
     logits = _vocab_blocks(_logits(params, cfg, x), layout[0].n_tp)
     adv = 1 if active is None else torch.as_tensor(
         active, device=pos.device).to(torch.int32)
-    return logits, {"segments": state["segments"], "pos": pos + adv}
+    return logits, {"segments": segs, "pos": pos + adv}

@@ -143,11 +143,19 @@ def cache_layout(model_cfg, B: int, S_len: int, dp=1,
     how its K/V split over the ``tp`` TP ranks, by the reference's rule in
     its order: over the page's slots (``"seq"``) when the cache width W
     divides by tp, else over the KV heads (``"heads"``) when they do, else
-    not at all (``"whole"``)."""
+    not at all (``"whole"``).  A recurrent segment (the fixed-batch loop's)
+    holds its decode states split over the TP ranks by heads or units
+    (``"heads"``) where ``transformer.recurrent_split``, else once
+    (``"whole"``); its width is 0."""
     n_dp = _ranks(dp)
     split = B % n_dp == 0 and B >= n_dp
     out = []
     for block, _ in T.segments(model_cfg):
+        if block.kind in T.RECURRENT:
+            kv = "heads" if T.recurrent_split(model_cfg, block.kind, tp) \
+                else "whole"
+            out.append(SH.KVLayout(n_dp, tp, split, kv, 0))
+            continue
         W = S_len if block.window is None else min(block.window, S_len)
         if W % tp == 0:
             kv = "seq"

@@ -20,7 +20,10 @@ segment) the pool is rank-stacked: a leaf is ``[n_layers, rows, B_local,
 W_local, nkv_local, hd]``, row ``r * rtp + t`` holding DP rank r's pages
 and TP rank t's slots or KV heads, a leaf that does not split held once.
 :func:`pool_to_global` and :func:`pool_from_global` convert it to and
-from the reference's global pool ``[n_layers, B, W, nkv, hd]``.
+from the reference's global pool ``[n_layers, B, W, nkv, hd]``;
+:func:`state_from_global` and :func:`state_to_global` do the same for the
+fixed-batch loop's decode state, whose recurrent segments split over the
+TP ranks by heads or units (``transformer.split_state``).
 
 Host-side bookkeeping lives in :class:`SlotAllocator`: a FIFO free list
 plus occupancy accounting, free of torch, so the scheduler's admission
@@ -87,24 +90,43 @@ def reset_slot(pool: dict, slot) -> dict:
     return pool
 
 
+def _kv_to_global(seg: dict, lay) -> dict:
+    """One segment's K/V split by ``lay`` -> the global ``[n_layers, B,
+    W, nkv, hd]`` (a copy)."""
+    out = {}
+    for k, x in seg.items():
+        n, _, Bl, Wl, nl, hd = x.shape
+        x = x.view(n, lay.rdp, lay.rtp, Bl, Wl, nl, hd)
+        x = x.permute(0, 1, 3, 4, 2, 5, 6) if lay.kv == "heads" else \
+            x.permute(0, 1, 3, 2, 4, 5, 6)
+        out[k] = x.clone(memory_format=torch.contiguous_format).view(
+            n, lay.rdp * Bl, lay.width, -1, hd)
+    return out
+
+
+def _kv_from_global(seg: dict, lay) -> dict:
+    """Inverse of :func:`_kv_to_global` (a copy)."""
+    out = {}
+    for k, x in seg.items():
+        n, B, _, _, hd = x.shape
+        x = x.unflatten(1, (lay.rdp, B // lay.rdp))
+        x = x.unflatten(4, (lay.rtp, -1)).permute(0, 1, 4, 2, 3, 5, 6) \
+            if lay.kv == "heads" else \
+            x.unflatten(3, (lay.rtp, -1)).permute(0, 1, 3, 2, 4, 5, 6)
+        out[k] = x.clone(memory_format=torch.contiguous_format).view(
+            (n, lay.rows) + tuple(x.shape[3:]))
+    return out
+
+
 def pool_to_global(pool: dict, layout) -> dict:
     """A pool -> the reference's global layout: leaves ``[n_layers, B, W,
     nkv, hd]``, a copy (the one-card pool, ``layout`` None, is returned
     as it is)."""
     if layout is None:
         return pool
-    segs = []
-    for seg, lay in zip(pool["segments"], layout):
-        out = {}
-        for k, x in seg.items():
-            n, _, Bl, Wl, nl, hd = x.shape
-            x = x.view(n, lay.rdp, lay.rtp, Bl, Wl, nl, hd)
-            x = x.permute(0, 1, 3, 4, 2, 5, 6) if lay.kv == "heads" else \
-                x.permute(0, 1, 3, 2, 4, 5, 6)
-            out[k] = x.clone(memory_format=torch.contiguous_format).view(
-                n, lay.rdp * Bl, lay.width, -1, hd)
-        segs.append(out)
-    return {"segments": segs, "pos": pool["pos"].clone()}
+    return {"segments": [_kv_to_global(seg, lay) for seg, lay in
+                         zip(pool["segments"], layout)],
+            "pos": pool["pos"].clone()}
 
 
 def pool_from_global(pool: dict, layout) -> dict:
@@ -112,19 +134,40 @@ def pool_from_global(pool: dict, layout) -> dict:
     ``layout`` (a copy)."""
     if layout is None:
         return pool
+    return {"segments": [_kv_from_global(seg, lay) for seg, lay in
+                         zip(pool["segments"], layout)],
+            "pos": pool["pos"].clone()}
+
+
+def state_from_global(model_cfg, state: dict, layout) -> dict:
+    """A decode state in its global layout (``transformer.prefill_tp``'s)
+    -> split by ``layout`` (``serve.engine.cache_layout``): K/V as
+    :func:`pool_from_global`, a recurrent segment's states over the TP
+    ranks by heads or units where its ``kv`` is ``"heads"``, else held
+    once as they are."""
     segs = []
-    for seg, lay in zip(pool["segments"], layout):
-        out = {}
-        for k, x in seg.items():
-            n, B, _, _, hd = x.shape
-            x = x.unflatten(1, (lay.rdp, B // lay.rdp))
-            x = x.unflatten(4, (lay.rtp, -1)).permute(0, 1, 4, 2, 3, 5, 6) \
-                if lay.kv == "heads" else \
-                x.unflatten(3, (lay.rtp, -1)).permute(0, 1, 3, 2, 4, 5, 6)
-            out[k] = x.clone(memory_format=torch.contiguous_format).view(
-                (n, lay.rows) + tuple(x.shape[3:]))
-        segs.append(out)
-    return {"segments": segs, "pos": pool["pos"].clone()}
+    for (block, _), seg, lay in zip(T.segments(model_cfg),
+                                    state["segments"], layout):
+        if block.kind not in T.RECURRENT:
+            seg = _kv_from_global(seg, lay)
+        elif lay.kv == "heads":
+            seg = T.split_state(block.kind, seg, lay.n_tp, lead=1)
+        segs.append(seg)
+    return {"segments": segs, "pos": state["pos"]}
+
+
+def state_to_global(model_cfg, state: dict, layout) -> dict:
+    """Inverse of :func:`state_from_global`: the reference's global decode
+    state."""
+    segs = []
+    for (block, _), seg, lay in zip(T.segments(model_cfg),
+                                    state["segments"], layout):
+        if block.kind not in T.RECURRENT:
+            seg = _kv_to_global(seg, lay)
+        elif lay.kv == "heads":
+            seg = T.join_state(block.kind, seg, lead=1)
+        segs.append(seg)
+    return {"segments": segs, "pos": state["pos"]}
 
 
 def _split(x, lay):

@@ -517,10 +517,7 @@ def _global_shapes(model_cfg, params_or_shapes, tp: int):
 def step_layout(model_cfg, tcfg: TrainConfig, dp, params_shapes,
                 tp: int = 1) -> Layout:
     """The :class:`Layout` of ``params_shapes`` (global) over the DP sizes
-    ``dp`` and a model axis of ``tp``.  Raises for the recurrent blocks
-    at ``tp > 1`` (ROADMAP.md queue A item 5f)."""
-    if tp > 1:
-        TF._check_ported(model_cfg, n_model=tp)
+    ``dp`` and a model axis of ``tp``."""
     rk = Ranks(dp_shape(tcfg, dp), int(tp))
     zd_tree = zero.zero_layout(model_cfg, params_shapes, rk.n_dp, rk.tp)
     shapes = [tuple(x.shape) for x in T.flatten(params_shapes)]
@@ -824,6 +821,13 @@ def _rank_grads(model_cfg, tcfg: TrainConfig, params, batch, tp: int = 1):
     return [g / A for g in g_acc], {k: v / A for k, v in me_acc.items()}
 
 
+def _tp_sum_replicated(grads, mds):
+    """A leaf each TP rank holds whole (model dim < 0) saw only that
+    rank's share of the work: its ``[tp, ...]`` gradients summed over the
+    TP ranks (GSPMD's implicit reduction), before the DP collectives."""
+    return [stacked.psum(x) if md < 0 else x for x, md in zip(grads, mds)]
+
+
 def make_train_step(model_cfg, tcfg: TrainConfig, dp, params_shapes,
                     device="cuda", tp: int = 1):
     """Returns ``(step, info, layout)``.
@@ -887,11 +891,7 @@ def make_train_step(model_cfg, tcfg: TrainConfig, dp, params_shapes,
             g, m = _rank_grads(model_cfg, tcfg, params[r],
                                {k: v[r] for k, v in shards.items()}, rk.tp)
             if rk.tp > 1:
-                # a leaf each TP rank holds whole saw only that rank's
-                # share of the work: sum over the TP ranks (GSPMD's
-                # implicit reduction) before the DP collectives
-                g = [stacked.psum(x) if md < 0 else x
-                     for x, md in zip(g, mds)]
+                g = _tp_sum_replicated(g, mds)
             grads.append(g)
             mets.append(m)
 

@@ -32,14 +32,14 @@ pixtral-12b and musicgen-medium (frontend_dim 16):
     shard), ``pallas_fused``, 64 KiB buckets: loss and grad norm rtol
     1e-4, the state after step 2 within ``tests/test_torch_tp.py``'s
     ``BOUNDS``; the bucket plan and report equal the reference's;
-  * the refusals: the pool refuses frontends; ``prefill_tp``,
-    ``decode_step_tp`` and the serve CLI with a model axis name ROADMAP.md
-    queue A item 5g.
+  * the pool refuses frontends; ``prefill_tp``, ``decode_step_tp`` and
+    the serve CLI with a model axis serve them (since item 5g: against the
+    reference in tests/test_torch_fixed_batch_tp.py) and agree with one
+    rank; a data axis above 1 in the fixed-batch loop raises.
 """
 
 import contextlib
 import io
-import types
 from concurrent.futures import ThreadPoolExecutor
 
 import jax
@@ -559,29 +559,48 @@ def test_bucket_plan_and_report_match_jax(arch, n_dp, tp):
 # The CLIs and the refusals
 # ---------------------------------------------------------------------------
 
-def test_serve_refuses_frontends_over_tp_naming_5g():
-    """The pool refuses frontends (no token stream), as the reference's
-    does; serving one over more than one TP rank (``prefill_tp``,
-    ``decode_step_tp``, the serve CLI's fixed-batch branch with a model
-    axis) names ROADMAP.md queue A item 5g."""
+def test_serve_refuses_frontends_over_tp_naming_5g(capsys):
+    """Named for the refusal it pinned until item 5g was ported: the pool
+    refuses frontends (no token stream), as the reference's does; over 2
+    TP ranks ``prefill_tp`` and ``decode_step_tp`` on frames (float32
+    caches, the state laid out by ``engine.cache_layout``) now give the
+    one-rank logits within F32_TOL, and the serve CLI's fixed-batch branch
+    with a model axis the one-rank sample tokens; a data axis above 1
+    raises (the loop runs one DP rank)."""
     from repro_torch.launch import serve
     from repro_torch.serve import engine as E
-    cfg = _red("musicgen-medium")
+    from repro_torch.serve import kvcache as KV
+    cfg = _red("musicgen-medium", cache_dtype="float32")
     for arch in ARCHS:
         assert not E.pool_supported(tbase.get_config(arch))
     with pytest.raises(NotImplementedError, match="frontend"):
         E.make_serve_fns(cfg, E.ServeConfig(), 2, 32, "cpu")
     params = TF.init_params(cfg, 0, "cpu")
-    frames = torch.zeros((1, 16, cfg.frontend_dim))
-    with pytest.raises(NotImplementedError, match="5g"):
-        TF.prefill_tp(params, cfg, frames, 2)
-    with pytest.raises(NotImplementedError, match="5g"):
-        TF.decode_step_tp(params, cfg, {"pos": torch.zeros(1)},
-                          frames[:, :1], [types.SimpleNamespace(n_tp=2)])
-    for mesh in ("1,2", "2,2", "1,1,2"):
-        with pytest.raises(NotImplementedError, match="5g"):
-            serve.main(["--arch", "musicgen-medium", "--reduced", "--device",
-                        "cpu", "--mesh", mesh])
+    frames = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (1, 17, cfg.frontend_dim)).astype(np.float32))
+    lay = E.cache_layout(cfg, 1, 16, 1, 2)
+    with torch.no_grad():
+        ref, st1 = TF.prefill(params, cfg, frames[:, :16])
+        blocks, st = TF.prefill_tp(params, cfg, frames[:, :16], 2)
+        _close(TF.vocab_logits(blocks, cfg.vocab_size), ref.numpy(), F32_TOL,
+               "prefill_tp")
+        ref, _ = TF.decode_step(params, cfg, st1, frames[:, 16:])
+        blocks, _ = TF.decode_step_tp(params, cfg,
+                                      KV.state_from_global(cfg, st, lay),
+                                      frames[:, 16:], lay)
+        _close(TF.vocab_logits(blocks, cfg.vocab_size), ref.numpy(), F32_TOL,
+               "decode_step_tp")
+    outs = {}
+    for mesh in ("1,1", "1,2", "1,1,2"):
+        serve.main(["--arch", "musicgen-medium", "--reduced", "--device",
+                    "cpu", "--mesh", mesh, "--slots", "2",
+                    "--prompt-len-max", "16", "--max-new", "3"])
+        outs[mesh] = [l for l in capsys.readouterr().out.splitlines()
+                      if "sample token ids" in l]
+    assert outs["1,2"] == outs["1,1"] == outs["1,1,2"] and outs["1,1"]
+    with pytest.raises(ValueError, match="one DP rank"):
+        serve.main(["--arch", "musicgen-medium", "--reduced", "--device",
+                    "cpu", "--mesh", "2,2"])
 
 
 def test_clis_run_the_frontends_on_frames(capsys):

@@ -41,8 +41,9 @@ Held against ``repro``:
 
 The pool refuses MoE, as the reference's does (``pool_supported``); the
 fixed-batch loop serves it on one TP rank (tests/test_torch_moe_serve.py
-holds it to the reference) and over a model axis raises naming queue A
-item 5g.
+holds it to the reference) and over a model axis (since item 5g:
+tests/test_torch_fixed_batch_tp.py holds it to the reference's (1, 2)
+serve functions), its prefill on expert parallelism.
 """
 
 from concurrent.futures import ThreadPoolExecutor
@@ -708,8 +709,11 @@ def test_serving_refuses_moe(arch, capsys):
     """The pool refuses MoE as the reference's does (``pool_supported``);
     the serve CLI's fixed-batch loop, ``prefill``, ``decode_step`` and
     ``init_decode_state`` serve it on the CPU (its numbers against the
-    reference: tests/test_torch_moe_serve.py), and over a model axis the
-    CLI and ``prefill_tp`` raise naming queue A item 5g."""
+    reference: tests/test_torch_moe_serve.py), and over a model axis (the
+    5g of the name: a refusal until that item was ported) the CLI runs
+    and ``prefill_tp``, on expert parallelism, gives the one-rank dense
+    path's logits out of the drop regime (capacity factor 8: these 64
+    identical tokens all route to the same experts)."""
     from repro.serve import engine as jeng
     from repro_torch.launch import serve as LS
     from repro_torch.serve import engine as E
@@ -735,11 +739,17 @@ def test_serving_refuses_moe(arch, capsys):
         logits, st = TF.decode_step(params, cfg, st, toks[:, :1])
     assert logits.shape == (2, 1, cfg.vocab_size)
     assert bool(torch.isfinite(logits).all()) and int(st["pos"]) == 33
-    with pytest.raises(NotImplementedError, match="5g"):
-        LS.main(["--arch", arch, "--reduced", "--device", "cpu", "--mesh",
-                 "1,2"])
-    with pytest.raises(NotImplementedError, match="5g"):
-        TF.prefill_tp(params, cfg, toks, 2)
+    LS.main(["--arch", arch, "--reduced", "--device", "cpu", "--mesh", "1,2",
+             "--slots", "2", "--prompt-len-max", "32", "--max-new", "3"])
+    out = capsys.readouterr().out
+    assert "over 2 TP ranks" in out and "fixed-batch decode 2 steps" in out
+    c8 = cfg.replace(capacity_factor=8.0)
+    assert M.use_ep(c8, 2, toks.shape[1])
+    with torch.no_grad():
+        ref, _ = TF.prefill(params, c8, toks)
+        blocks, _ = TF.prefill_tp(params, c8, toks, 2)
+    got = TF.vocab_logits(blocks, cfg.vocab_size)
+    assert float((got - ref).abs().max()) <= 2e-5 * float(ref.abs().max())
 
 
 def test_train_cli_runs_moe_expert_parallel(capsys):

@@ -39,8 +39,10 @@ numpy arrays from a seed.  Held against ``repro``, float32:
   * every full-width leaf's shape and dtype against
     ``jax.eval_shape(init_params)``, and the parameter counts.
 
-Tensor parallelism of these blocks raises, naming ROADMAP.md queue A
-item 5f.
+Over TP ranks (since item 5f), the forward, the loss, the TP prefill,
+the train step and both CLIs run these configs and agree with one rank
+(their tests against the reference: ``tests/test_torch_ssm_tp.py``,
+``tests/test_torch_ssm_tp_steps.py``, ``tests/test_torch_fixed_batch_tp.py``).
 """
 
 import contextlib
@@ -57,6 +59,7 @@ from repro.models import transformer as JT
 from repro_torch import tree as TR
 from repro_torch.configs import base as tbase
 from repro_torch.interop import params_from_numpy, train_state_to_numpy
+from repro_torch.models import sharding as SH
 from repro_torch.models import ssm as S
 from repro_torch.models import transformer as TF
 from repro_torch.optim.adamw import AdamWConfig
@@ -697,26 +700,61 @@ def test_init_params_keeps_the_float32_leaves():
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_tensor_parallelism_raises_naming_5f(arch):
+def test_tensor_parallelism_raises_naming_5f(arch, capsys):
+    """Named for the refusal it pinned until item 5f was ported: the same
+    calls over 2 TP ranks now run and agree with one rank (float32,
+    pure_sp at these widths): the forward's logits and the loss within
+    2e-5 of max |logit| and rtol 1e-5, the TP prefill's logits and its
+    state (float32 caches), one train step's loss at (2, 2) against (2,
+    1), and the CLIs' sample tokens and first loss against one rank's."""
     cfg = _red(arch)
-    toks = torch.zeros((1, 16), dtype=torch.int32)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, 16))).to(torch.int32)
     params = TF.init_params(cfg, 0, "cpu")
-    with pytest.raises(NotImplementedError, match="5f"):
-        TF.forward(params, cfg, toks, n_model=2)
-    with pytest.raises(NotImplementedError, match="5f"):
-        TF.loss_fn(params, cfg, {"inputs": toks, "targets": toks}, n_model=2)
-    with pytest.raises(NotImplementedError, match="5f"):
-        TF.prefill_tp(params, cfg, toks, 2)
-    with pytest.raises(NotImplementedError, match="5f"):
-        make_train_step(cfg, _tcfg("bine"), 2, TF.param_shapes(cfg), "cpu",
-                        tp=2)
+    sp = SH.shard_params(cfg, params, 2)
+    batch = {"inputs": toks, "targets": toks}
+    with torch.no_grad():
+        ref, _ = TF.forward(params, cfg, toks)
+        got, _ = TF.forward(sp, cfg, toks, n_model=2)
+        got = torch.cat(list(got), dim=-1)[..., :cfg.vocab_size]
+        assert float((got - ref).abs().max()) <= 2e-5 * float(
+            ref.abs().max())
+        loss1, _ = TF.loss_fn(params, cfg, batch)
+        loss2, _ = TF.loss_fn(sp, cfg, batch, n_model=2)
+        np.testing.assert_allclose(loss2.numpy(), float(loss1), rtol=1e-5)
+        c32 = cfg.replace(cache_dtype="float32")    # no bf16 rounding flip
+        lg1, st1 = TF.prefill(params, c32, toks)
+        blocks, st2 = TF.prefill_tp(params, c32, toks, 2)
+        _close(TF.vocab_logits(blocks, cfg.vocab_size), lg1.numpy(),
+               MODEL_TOL, "prefill_tp")
+        for a, b in zip(TR.flatten(st2), TR.flatten(st1)):
+            _close(a, b.to(torch.float32).numpy(), MODEL_TOL,
+                   "prefill_tp state")
+    losses = {}
+    dcfg = DataConfig(global_batch=4, seq_len=16, vocab_size=cfg.vocab_size)
+    for tp in (1, 2):
+        step, _, _ = make_train_step(cfg, _tcfg("bine"), 2,
+                                     TF.param_shapes(cfg), "cpu", tp=tp)
+        ip, is_ = make_init_fns(cfg, _tcfg("bine"), 2, "cpu", tp=tp)
+        p = ip(0)
+        losses[tp] = float(step(p, is_(p), make_batch(dcfg, 0))[2]["loss"])
+    np.testing.assert_allclose(losses[2], losses[1], rtol=1e-5)
     from repro_torch.launch import serve, train
-    with pytest.raises(NotImplementedError, match="5f"):
+    outs = {}
+    for mesh in ("1,1", "1,2"):
         serve.main(["--arch", arch, "--reduced", "--device", "cpu",
-                    "--mesh", "1,2"])
-    with pytest.raises(NotImplementedError, match="5f"):
+                    "--mesh", mesh, "--slots", "2", "--prompt-len-max",
+                    "16", "--max-new", "3"])
+        outs[mesh] = [l for l in capsys.readouterr().out.splitlines()
+                      if "sample token ids" in l]
+    assert outs["1,2"] == outs["1,1"] and outs["1,1"]
+    for mesh in ("2,1", "2,2"):
         train.main(["--arch", arch, "--reduced", "--device", "cpu",
-                    "--mesh", "2,2", "--steps", "1"])
+                    "--mesh", mesh, "--steps", "1", "--batch", "4", "--seq",
+                    "16", "--log-every", "1"])
+        outs[mesh] = [l.split()[3] for l in capsys.readouterr().out
+                      .splitlines() if l.startswith("step     0")]
+    assert outs["2,2"] == outs["2,1"] and outs["2,1"]
 
 
 def test_padded_prefill_raises_for_recurrent_blocks():
@@ -730,7 +768,8 @@ def test_padded_prefill_raises_for_recurrent_blocks():
 def test_serve_cli_runs_the_fixed_batch_loop(capsys):
     """The serve CLI sends the recurrent configs to the fixed-batch loop
     (the pool refuses them, as the reference's does); MoE goes there too
-    since item 5e, and over a model axis raises naming item 5g."""
+    since item 5e, and over a model axis since item 5g (a data axis above
+    1 raises: the loop runs one DP rank)."""
     from repro_torch.launch import serve
     from repro_torch.serve import engine as E
     for arch in ARCHS:
@@ -739,6 +778,12 @@ def test_serve_cli_runs_the_fixed_batch_loop(capsys):
                 "--slots", "2", "--prompt-len-max", "32", "--max-new", "3"])
     out = capsys.readouterr().out
     assert "legacy fixed-batch loop" in out and "sample token ids" in out
-    with pytest.raises(NotImplementedError, match="5g"):
+    serve.main(["--arch", "mixtral-8x7b", "--reduced", "--device", "cpu",
+                "--mesh", "1,2", "--slots", "2", "--prompt-len-max", "32",
+                "--max-new", "3"])
+    out = capsys.readouterr().out
+    assert "legacy fixed-batch loop over 2 TP ranks" in out
+    assert "sample token ids" in out
+    with pytest.raises(ValueError, match="one DP rank"):
         serve.main(["--arch", "mixtral-8x7b", "--reduced", "--device",
-                    "cpu", "--mesh", "1,2"])
+                    "cpu", "--mesh", "2,2"])
