@@ -271,12 +271,35 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
              prefill on three seeds with planted faults outside, the
              greedy tokens against phases 13-15's, prefill ms, tokens/s,
              peak (an ``ssm-tp:`` JSON line).
+17. the measurement plane — ``launch/tune.py --grid small --topology
+             lumi`` in process on the card (p = 4 and 8 stacked, 64 KiB,
+             1 MiB and 16 MiB, every candidate backend and int8 / bf16
+             wire pair, each cell on a budgeted worker thread): no failed
+             cell, every time finite and positive, every rank count's
+             cells exactly the grid's, each measured table cell the
+             argmin of its medians (backend and wire rows), all 18 cells
+             measured, rs_step, ag_step and rs_step_q launched by the
+             probe; every pallas_fused cell of the probe rerun at its
+             shapes on its payload (float32, bf16 and int8 wires), held
+             bitwise to stacked ``bine`` on the same wire and the float32
+             ones to their definitions (a float64 rank sum within 1e-4);
+             ``api.allreduce(backend="auto", tuning="measured")``
+             on a measured cell launching what the table names (the same
+             kernel counts and bits as that backend called directly); a
+             drift store with one planted mis-priced cell: ``hints``
+             flags it and only it, and ``tune --hints`` re-probes only
+             its axes; ``launch/report.py`` on phase 8's obs registry
+             (link bytes, one chosen line per preset, the probe's drift
+             table, prom and trace outputs) (a ``tune:`` JSON line with
+             every cell's median, least and most rep in us, the cells
+             picked within the reps' spread, and the timed reps' share of
+             the probe's wall).
 
 The kernels line's launches of rs_step, ag_step and rs_step_q sum the
 train step's main path, its two-axis path, phase 8's runs, the TP path's,
 the gemma3 train step's, the MoE train steps', the recurrent train
-cells' (phase 16's at (2, 2) too), the frontend train cell's and phase
-15a's; those of rmsnorm the serve, serve-TP, dense serve and fixed-batch
+cells' (phase 16's at (2, 2) too), the frontend train cell's, phase
+15a's and phase 17's probe; those of rmsnorm the serve, serve-TP, dense serve and fixed-batch
 paths' (the frontend and MoE ones, and phase 16's over TP ranks, too);
 flash_attention's (head_dim 128) the serve, serve-TP, qwen3-32b and
 mixtral fixed-batch paths' (one rank and two),
@@ -1961,7 +1984,8 @@ def bucket_closed_forms(plan, decisions, topology: str):
 def phase_runtime(dev):
     """Phase 8 on the train cell (``launch/cell.py``, pallas_fused,
     float32 wire).  Returns (the step kernels' launches of its runs, the
-    numbers it logs)."""
+    numbers it logs, its obs registry as a ``launch/report.py``
+    artifact)."""
     import shutil
     import tempfile
     import torch
@@ -1970,7 +1994,7 @@ def phase_runtime(dev):
     from repro_torch.kernels import build as KB
     from repro_torch.launch import cell
     from repro_torch.models import transformer as TF
-    from repro_torch.obs import collect, metrics
+    from repro_torch.obs import collect, metrics, timeline
     from repro_torch.train import checkpoint as ckpt
     from repro_torch.train.data import make_batch
     from repro_torch.train.runtime import (FailureInjector, TrainLoop,
@@ -2235,7 +2259,13 @@ def phase_runtime(dev):
         launches = {k: KB.LAUNCHES[k] for k in ("rs_step", "ag_step")}
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    return launches, out
+    # the phase's obs record as a report artifact (phase 17 renders it)
+    artifact = {"format": 1, "kind": "train", "timestamp": None,
+                "config": {"topology": tcfg.topology,
+                           "backend": tcfg.backend},
+                "registry": reg.snapshot(),
+                "timeline": timeline.get_timeline().to_json_dict()}
+    return launches, out, artifact
 
 
 # ---------------------------------------------------------------------------
@@ -4999,6 +5029,388 @@ def phase_fixed_tp_serve(dev, randn):
     return launches, nums
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the measurement plane (tuner probe, store, refresh, drift, CLIs)
+# ---------------------------------------------------------------------------
+
+#: the grid and preset phase 17 tunes: p = 4 and 8, 64 KiB / 1 MiB / 16
+#: MiB; lumi is grouped, so bine_hier is a candidate
+TUNE_GRID, TUNE_TOPOLOGY = "small", "lumi"
+#: each probe cell's wall-clock budget in phase 17 (s): every cell runs on
+#: a worker thread, as a budgeted tune run's do
+TUNE_BUDGET_S = 60.0
+#: the mis-priced cell phase 17 plants in a drift store, measured/predicted
+TUNE_PLANTED = ("allgather", 8, 1 << 20, 5.0)
+
+
+def _cli(main_fn, argv):
+    """Run a CLI's ``main(argv)`` in process; returns (rc, stdout)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main_fn(argv)
+    return rc, buf.getvalue()
+
+
+def _argmin_cells(measurements, table, topology):
+    """Each fully timed (collective, p, bucket) cell's fastest backend and
+    fastest (backend, wire) pair, computed here from the medians of the
+    raw measurements (ties to the earlier candidate)."""
+    from repro_torch.topology import CANDIDATES, wire_candidates
+    times = {}
+    for m in measurements:
+        key = (m.collective, m.p, table.bucket_of(m.nbytes))
+        times.setdefault(key, {}).setdefault(
+            (m.backend, m.wire_dtype), []).append(m.time_s)
+    cells, wire_cells = {}, {}
+    for key, per in times.items():
+        med = {bw: statistics.median(ts) for bw, ts in per.items()}
+        cands = [(b, "float32") for b in CANDIDATES[key[0]]]
+        if all(c in med for c in cands):
+            cells[key] = min(cands, key=lambda c: med[c])[0]
+        pairs = wire_candidates(key[0], topology)
+        if key[0] in table.wire_entries and all(c in med for c in pairs):
+            wire_cells[key] = min(pairs, key=lambda c: med[c])
+    return cells, wire_cells
+
+
+#: the kernels each pallas_fused probe cell must launch, by (collective,
+#: wire); the float32 allreduce runs both steps
+TUNE_CELL_KERNELS = {"reduce_scatter": ("rs_step",), "allgather": ("ag_step",),
+                     "allreduce": ("rs_step", "ag_step")}
+
+
+def _probe_shapes_vs_plain(dev, spec):
+    """Every ``pallas_fused`` cell of the probe at its own shapes and on
+    its own payload (``tuner.probe._payload_cached``): reduce_scatter and
+    allgather on the float32, bfloat16 and int8 wires, allreduce on
+    float32, each held bitwise to its stacked twin (``bine``, the same
+    wire), the float32 reduce_scatter and allreduce to a float64 rank sum
+    within 1e-4 (every rank alike), the float32 allgather to the
+    rank-ordered blocks exactly.  Each fused call must launch its step
+    kernels (``TUNE_CELL_KERNELS``; ``rs_step_q`` for the int8
+    reduce_scatter).  These launches compare: the path's are read around
+    the probe.  Returns (calls checked, the largest float64 error)."""
+    import torch
+    from repro_torch.collectives import api
+    from repro_torch.kernels import build as KB
+    from repro_torch.tuner import probe
+
+    calls, worst = 0, 0.0
+    for p in spec.ps:
+        for nbytes in spec.sizes:
+            x = probe._payload_cached(nbytes, p, dev)
+            blk = x[:, :x.shape[1] // p].contiguous()
+            ref = x.double().sum(0)
+            for wire in ("float32", "bfloat16", "int8"):
+                fused = api.CollectiveConfig(
+                    backend=api.PALLAS_FUSED_BACKEND, wire_dtype=wire)
+                twin = fused.replace(backend="bine")
+                cases = [("reduce_scatter", api.reduce_scatter, x),
+                         ("allgather", api.allgather, blk)]
+                if wire == "float32":
+                    cases.append(("allreduce", api.allreduce, x))
+                for coll, fn, inp in cases:
+                    what = f"pallas_fused {coll} p{p} {nbytes} B {wire}"
+                    before = dict(KB.LAUNCHES)
+                    got = fn(inp, fused)
+                    torch.cuda.synchronize()
+                    ran = {k for k, v in KB.LAUNCHES.items()
+                           if v != before[k]}
+                    want = (("rs_step_q",) if (coll, wire) ==
+                            ("reduce_scatter", "int8")
+                            else TUNE_CELL_KERNELS[coll])
+                    check(set(want) <= ran, f"{what} launched {ran}")
+                    same_bits([got], [fn(inp, twin)], what)
+                    calls += 1
+                    if wire != "float32":
+                        continue
+                    if coll == "allgather":
+                        check(torch.equal(got, blk.reshape(1, -1).expand(
+                            p, -1)), f"{what}: not the rank-ordered blocks")
+                        continue
+                    flat = got.reshape(-1) if coll == "reduce_scatter" \
+                        else got[0]
+                    err = float((flat.double() - ref).abs().max())
+                    check(err < 1e-4 and (coll == "reduce_scatter" or all(
+                        torch.equal(got[0], got[r]) for r in range(p))),
+                          f"{what}: not the rank sum ({err})")
+                    worst = max(worst, err)
+            del x, blk, ref
+    probe._payload_cache.clear()
+    return calls, worst
+
+
+def phase_tune(dev, obs_artifact):
+    """Phase 17: ``launch/tune.py`` on the card, its store, table, drift
+    store and ``--hints`` mode, ``auto`` under ``tuning="measured"``, and
+    ``launch/report.py`` on phase 8's obs registry.  Returns (the step
+    kernels' launches during the probe, the numbers it logs)."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch import topology as TP
+    from repro_torch.collectives import api
+    from repro_torch.kernels import build as KB
+    from repro_torch.launch import report, tune
+    from repro_torch.obs import drift
+    from repro_torch.topology.presets import PRESETS
+    from repro_torch.tuner import load_all_measurements
+    from repro_torch.tuner.probe import GRIDS, grid_cells
+
+    t_phase = time.perf_counter()
+    spec, topo = GRIDS[TUNE_GRID], TUNE_TOPOLOGY
+    tmp_root = ROOT / "build"
+    tmp_root.mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="tune_smoke_", dir=tmp_root))
+    env = {"REPRO_MEASURE_DIR": str(root / "measurements"),
+           "REPRO_DRIFT_DIR": str(root / "drift"),
+           "REPRO_MEASURED_TABLE_DIR": str(root / "tables")}
+    saved = {k: os.environ.get(k) for k in env}
+    out = {"grid": TUNE_GRID, "topology": topo,
+           "device": torch.cuda.get_device_name(dev)}
+    try:
+        os.environ.update(env)
+        TP.invalidate_tables()
+        # (a) the tune CLI on the card, the step kernels counted around it
+        torch.cuda.synchronize()
+        KB.reset_launches()
+        t0 = time.perf_counter()
+        rc, text = _cli(tune.main, [
+            "--grid", TUNE_GRID, "--topology", topo, "--device", "cuda",
+            "--timestamp", "chip_smoke", "--budget-s", str(TUNE_BUDGET_S)])
+        probe_s = time.perf_counter() - t0
+        launches = {k: KB.LAUNCHES[k]
+                    for k in ("rs_step", "ag_step", "rs_step_q")}
+        check(rc == 0, f"tune exited {rc}:\n{text[-3000:]}")
+        closing = json.loads(text.strip().splitlines()[-1])
+        for k, v in launches.items():
+            check(v > 0, f"{k} was not launched by the probe")
+        sets = load_all_measurements(topology=topo)
+        check(sorted(ms.p for ms in sets) == sorted(spec.ps),
+              f"measurement sets at p = {[ms.p for ms in sets]}")
+        want = {(n, c, b, w) for n, c, b, w in grid_cells(spec, topo)}
+        cells_us, spread, n_cells = {}, {}, 0
+        for ms in sets:
+            prov = ms.provenance
+            check(not any(k in prov for k in ("failed_cells", "skipped_ps",
+                                                "aborted")),
+                  f"p={ms.p}: provenance {prov}")
+            check(prov["platform"] == "gpu" and ms.device_kind ==
+                  out["device"], f"p={ms.p}: provenance {prov}")
+            got = [(m.nbytes, m.collective, m.backend, m.wire_dtype)
+                   for m in ms.measurements]
+            check(len(got) == len(set(got)) and set(got) == want,
+                  f"p={ms.p}: cells {sorted(set(got) ^ want)} off the grid")
+            reps_us = json.loads(prov["cells_us"])
+            for m in ms.measurements:
+                check(math.isfinite(m.time_s) and m.time_s > 0 and
+                      m.reps == spec.reps, f"cell {m}")
+                lo, hi, total, wall = reps_us[
+                    f"{m.collective}:{m.backend}:{m.wire_dtype}:{m.nbytes}"]
+                spread[(m.p, m.collective, m.backend, m.wire_dtype,
+                        m.nbytes)] = (lo, hi, total, wall)
+                # median, least and most rep
+                cells_us[f"p{m.p} {m.collective} {m.backend} "
+                         f"{m.wire_dtype} {m.nbytes}"] = [
+                             m.time_s * 1e6, lo, hi]
+            n_cells += len(got)
+        vs_calls, vs_err = _probe_shapes_vs_plain(dev, spec)
+        log(f"  the probe's pallas_fused cells at its own shapes and "
+            f"payload: {vs_calls} calls bitwise equal to stacked bine on "
+            f"the same wire; float32 reduce_scatter / allreduce vs the "
+            f"float64 rank sum {vs_err:.2e} (bound 1e-4)")
+        out["vs_plain"] = {"calls": vs_calls, "max_abs_err_f64": vs_err}
+
+        # (b) the table: every measured cell the argmin of its medians
+        base = TP.load_table(topo)
+        table = TP.load_table(topo, tuning="measured")
+        flat = [m for ms in sets for m in ms.measurements]
+        cells, wire_cells = _argmin_cells(flat, table, topo)
+        n_full = len(spec.ps) * len(spec.sizes) * len(spec.collectives)
+        check(table.measured_cell_count() == len(cells) == n_full ==
+              closing["measured_cells"],
+              f"measured cells {table.measured_cell_count()} / "
+              f"{len(cells)} / {closing['measured_cells']}, grid {n_full}")
+        chosen = {}
+        for (c, p, i), b in sorted(cells.items()):
+            nb = table.size_buckets[i]
+            check(table.provenance_of(c, p, nb) == "measured" and
+                  table.lookup(c, p, nb) == b,
+                  f"({c}, {p}, {nb}): table {table.lookup(c, p, nb)}, "
+                  f"argmin {b}")
+            chosen[f"{c} p{p} {nb}"] = b
+        for (c, p, i), bw in sorted(wire_cells.items()):
+            nb = table.size_buckets[i]
+            check(table.wire_provenance_of(c, p, nb) == "measured" and
+                  table.lookup_wire(c, p, nb) == bw,
+                  f"wire ({c}, {p}, {nb}): table "
+                  f"{table.lookup_wire(c, p, nb)}, argmin {bw}")
+            chosen[f"{c} p{p} {nb} wire"] = "/".join(bw)
+        check(closing["analytic_overrides"] == table.overrides_vs(base),
+              f"overrides {closing}")
+        # how far apart the winner and the runner-up lie: a cell whose
+        # runner-up's fastest rep beats the winner's slowest is a pick
+        # within the reps' spread; and the share of the probe's wall in
+        # the timed reps (CUDA-event sums) and in the cells (host clock)
+        per = {}
+        for m in flat:
+            if m.wire_dtype == "float32":
+                per.setdefault((m.collective, m.p, m.nbytes), []).append(
+                    (m.time_s, m.backend))
+        close = []
+        for (c, p, nb), ts in sorted(per.items()):
+            (_, b1), (_, b2) = sorted(ts)[:2]
+            if (spread[(p, c, b2, "float32", nb)][0]
+                    <= spread[(p, c, b1, "float32", nb)][1]):
+                close.append(f"{c} p{p} {nb} {b1}/{b2}")
+        timed_share = sum(v[2] for v in spread.values()) / (probe_s * 1e6)
+        cell_share = sum(v[3] for v in spread.values()) / (probe_s * 1e6)
+        out.update({"within_spread": close, "timed_share": timed_share,
+                    "cell_share": cell_share})
+        log(f"  spread: in {len(close)} of {len(per)} backend cells the "
+            f"runner-up's fastest rep beats the winner's slowest "
+            f"({'; '.join(close) or 'none'}); the timed reps fill "
+            f"{timed_share:.1%} of the probe's wall, the cells (warmup, "
+            f"reps) {cell_share:.1%}")
+        log(f"  tune --grid {TUNE_GRID} --topology {topo}: {n_cells} cells "
+            f"in {probe_s:.1f} s ({probe_s / n_cells * 1e3:.0f} ms a "
+            f"cell), no failed cell; {closing['measured_cells']} table "
+            f"cells measured, each the argmin of its medians, "
+            f"{closing['analytic_overrides']} override the analytic "
+            f"choice; launches {launches}")
+        log("  chosen: " + "; ".join(f"{k} {v}" for k, v in chosen.items()))
+
+        # (c) auto under tuning="measured" launches what the table names
+        fused = [k for k in sorted(cells) if k[0] == "allreduce"
+                 and cells[k] == api.PALLAS_FUSED_BACKEND]
+        c, p, i = (fused or sorted(k for k in cells
+                                   if k[0] == "allreduce"))[-1]
+        nb = table.size_buckets[i]
+        x = torch.randn((p, nb // 4), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(17))
+        named = table.lookup(c, p, nb)
+        auto = api.CollectiveConfig(backend="auto", topology=topo,
+                                    tuning="measured")
+        runs = {}
+        for tag, cfg in (("auto", auto),
+                         ("named", auto.replace(backend=named))):
+            torch.cuda.synchronize()
+            before = dict(KB.LAUNCHES)
+            y = api.allreduce(x, cfg)
+            torch.cuda.synchronize()
+            runs[tag] = (y, {k: KB.LAUNCHES[k] - before[k]
+                             for k in KB.LAUNCHES
+                             if KB.LAUNCHES[k] != before[k]})
+        check(api.resolve_backend(c, p, nb, auto) == named and
+              runs["auto"][1] == runs["named"][1] and
+              torch.equal(runs["auto"][0], runs["named"][0]),
+              f"auto at ({c}, {p}, {nb}) launched {runs['auto'][1]}, the "
+              f"table names {named} ({runs['named'][1]})")
+        if named == api.PALLAS_FUSED_BACKEND:
+            check(runs["auto"][1].get("rs_step", 0) > 0 and
+                  runs["auto"][1].get("ag_step", 0) > 0,
+                  f"auto -> pallas_fused launched {runs['auto'][1]}")
+        out["auto"] = {"cell": [c, p, nb], "backend": named,
+                       "launches": runs["auto"][1]}
+        log(f"  auto, tuning=measured, allreduce p={p} {nb} B: "
+            f"{named}, launches {runs['auto'][1]} == {named} called "
+            f"directly, bitwise")
+        del x, runs, y
+
+        # (d) the probe's own drift, then a planted mis-priced cell:
+        # hints flag it alone and --hints re-probes only its axes
+        real = drift.load_all_drift(topology=topo)
+        flagged = sum(len(drift.hints(ds)) for ds in real)
+        out["drift_cells"] = sum(len(ds.cells) for ds in real)
+        out["drift_flagged"] = flagged
+        pc, pp, pnb, factor = TUNE_PLANTED
+        (ms8,) = [ms for ms in sets if ms.p == pp]
+        plant = drift.DriftSet(device_kind=ms8.device_kind, topology=topo,
+                               p=pp, provenance={"source": "chip_smoke"})
+        for m in ms8.measurements:
+            pred = drift.predicted_time(m.collective, m.backend, pp,
+                                        m.nbytes, topo, m.wire_dtype)
+            check(pred is not None and pred > 0, f"no model time for {m}")
+            bad = (m.collective, m.nbytes) == (pc, pnb)
+            drift.observe(plant, m.collective, m.backend, m.nbytes,
+                          pred * (factor if bad else 1.0), m.wire_dtype)
+        pdir = str(root / "planted")
+        check(drift.save_drift(plant, dir=pdir) is not None,
+              "planted drift store not written")
+        hs = drift.hints(plant)
+        check([(h.collective, h.p, h.bucket) for h in hs] ==
+              [(pc, pp, drift.payload_bucket(pnb))],
+              f"hints {hs} on the planted store")
+        t0 = time.perf_counter()
+        rc, text = _cli(tune.main, [
+            "--grid", TUNE_GRID, "--topology", topo, "--device", "cuda",
+            "--hints", "--drift-dir", pdir,
+            "--store-dir", str(root / "hinted"),
+            "--table-out", str(root / "hinted.json")])
+        hints_s = time.perf_counter() - t0
+        check(rc == 0, f"tune --hints exited {rc}:\n{text[-3000:]}")
+        (hms,) = load_all_measurements(dir=str(root / "hinted"))
+        hint_nb = drift.bucket_bytes(drift.payload_bucket(pnb))
+        got = {(m.collective, m.p, m.nbytes) for m in hms.measurements}
+        check(got == {(pc, pp, hint_nb)} and len(hms.measurements) == len(
+            [1 for n, cc, _, _ in grid_cells(spec, topo)
+             if (n, cc) == (spec.sizes[0], pc)]),
+              f"--hints probed {sorted(got)} ({len(hms.measurements)} "
+              f"cells)")
+        out["hints"] = {"planted": [pc, pp, pnb, factor],
+                        "reprobed_cells": len(hms.measurements),
+                        "seconds": hints_s}
+        log(f"  drift: the probe's own residuals flag {flagged} of "
+            f"{out['drift_cells']} cells against the {topo} model; the "
+            f"planted {pc} p={pp} {pnb} B x{factor} cell flagged alone, "
+            f"--hints re-probed its {len(hms.measurements)} cells in "
+            f"{hints_s:.1f} s")
+
+        # (e) the report CLI on phase 8's obs registry and the drift store
+        art = root / "phase8_obs.json"
+        art.write_text(json.dumps(obs_artifact))
+        prom, trace = root / "m.prom", root / "trace.json"
+        rc, text = _cli(report.main, [
+            "--artifact", str(art), "--topology", topo, "--prom", str(prom),
+            "--trace-out", str(trace)])
+        check(rc == 0, f"report exited {rc}:\n{text[-3000:]}")
+        for preset in PRESETS:
+            check(f"preset={preset} p=8 nbytes=1048576 collective="
+                  f"allreduce chosen=" in text,
+                  f"report: no chosen line for {preset}")
+        reg_rows = len([ln for ln in text.splitlines()
+                        if "global_frac=" in ln])
+        check(reg_rows > 0, "report: no link-byte rows")
+        check(text.count("<-- RETUNE") == flagged,
+              f"report marks {text.count('<-- RETUNE')} cells, the drift "
+              f"store flags {flagged}")
+        check(json.loads(trace.read_text())["traceEvents"] is not None and
+              "collective_calls_total" in prom.read_text(),
+              "report side outputs")
+        out["report"] = {"link_rows": reg_rows,
+                         "retune_marks": text.count("<-- RETUNE")}
+        log(f"  report on phase 8's registry: {reg_rows} link-byte rows, "
+            f"{len(PRESETS)} chosen lines, {out['report']['retune_marks']}"
+            f" RETUNE marks, prom and trace written")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        TP.invalidate_tables()
+        shutil.rmtree(root, ignore_errors=True)
+    out.update({"cells_us": cells_us, "n_cells": n_cells,
+                "probe_s": probe_s, "s_per_cell": probe_s / n_cells,
+                "measured_cells": closing["measured_cells"],
+                "analytic_overrides": closing["analytic_overrides"],
+                "chosen": chosen, "launches": launches,
+                "seconds": time.perf_counter() - t_phase})
+    return launches, out
+
+
 def main() -> int:
     # one 9.8 GB bucket buffer after another: keep the allocator's segments
     # growable so freed ones are reused (set before CUDA starts)
@@ -5022,7 +5434,7 @@ def main() -> int:
     from repro_torch.kernels.rmsnorm import kernel as RK
 
     t_all = time.perf_counter()
-    log("[1/16] build")
+    log("[1/17] build")
     t0 = time.perf_counter()
     libs = KB.build()
     for src in K.SOURCES:
@@ -5032,46 +5444,46 @@ def main() -> int:
     log(f"  built {', '.join(p.name for p in libs.values())} in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    log("[2/16] kernels vs plain versions")
+    log("[2/17] kernels vs plain versions")
     rows, qacc_launches, row, randn = phase_kernels(dev)
     torch.cuda.empty_cache()
 
-    log("[3/16] fused collectives vs stacked (bitwise)")
+    log("[3/17] fused collectives vs stacked (bitwise)")
     phase_collectives(dev)
 
-    log("[4/16] collectives API")
+    log("[4/17] collectives API")
     api_launches = phase_api(dev)
 
-    log("[5/16] two-tier (bine_hier)")
+    log("[5/17] two-tier (bine_hier)")
     hier_launches, two_tier = phase_two_tier(dev)
     torch.cuda.empty_cache()
 
-    log("[6/16] train")
+    log("[6/17] train")
     phase_small_reference(dev)
     launches, train = phase_train(dev)
     torch.cuda.empty_cache()
 
-    log("[7/16] serve")
+    log("[7/17] serve")
     phase_serve_small_reference(dev)
     serve_launches, serve, serve_ref = phase_serve(dev)
     torch.cuda.empty_cache()
 
-    log("[8/16] checkpoint, resume, measured tables, obs")
-    run_launches, runtime = phase_runtime(dev)
+    log("[8/17] checkpoint, resume, measured tables, obs")
+    run_launches, runtime, obs_artifact = phase_runtime(dev)
     torch.cuda.empty_cache()
 
-    log("[9/16] tensor parallelism")
+    log("[9/17] tensor parallelism")
     phase_tp_small_reference(dev)
     tp_launches, tp = phase_tp(dev)
     torch.cuda.empty_cache()
 
-    log("[10/16] serving under TP")
+    log("[10/17] serving under TP")
     phase_serve_tp_small_reference(dev)
     stp_launches, serve_tp = phase_serve_tp(
         dev, {"nums": serve, "ref": serve_ref})
     torch.cuda.empty_cache()
 
-    log("[11/16] dense configs (gemma3-4b, gemma-7b, qwen3-32b)")
+    log("[11/17] dense configs (gemma3-4b, gemma-7b, qwen3-32b)")
     t11 = time.perf_counter()
     phase_dense_flash(dev, randn, row)
     dense_launches, dense, g3tp_launches, g3tp = phase_dense_serve(dev)
@@ -5080,7 +5492,7 @@ def main() -> int:
     dense_s = time.perf_counter() - t11
     log(f"  phase 11: {dense_s:.0f} s")
 
-    log("[12/16] MoE train (mixtral-8x7b, expert parallelism)")
+    log("[12/17] MoE train (mixtral-8x7b, expert parallelism)")
     t12 = time.perf_counter()
     phase_moe_small_reference(dev)
     moe_launches, moe = phase_moe_train(dev)
@@ -5088,7 +5500,7 @@ def main() -> int:
     moe["seconds"] = time.perf_counter() - t12
     log(f"  phase 12: {moe['seconds']:.0f} s")
 
-    log("[13/16] recurrent blocks (xlstm-125m, zamba2-2.7b)")
+    log("[13/17] recurrent blocks (xlstm-125m, zamba2-2.7b)")
     t13 = time.perf_counter()
     phase_model_small_reference(dev, ("xlstm-125m", "zamba2-2.7b"))
     phase_ssm_flash(dev, randn, row)
@@ -5098,7 +5510,7 @@ def main() -> int:
     ssm_s = time.perf_counter() - t13
     log(f"  phase 13: {ssm_s:.0f} s")
 
-    log("[14/16] frontend configs (pixtral-12b, musicgen-medium)")
+    log("[14/17] frontend configs (pixtral-12b, musicgen-medium)")
     t14 = time.perf_counter()
     phase_model_small_reference(dev, ("pixtral-12b", "musicgen-medium"))
     phase_frontend_flash(dev, randn, row)
@@ -5108,7 +5520,7 @@ def main() -> int:
     fe_s = time.perf_counter() - t14
     log(f"  phase 14: {fe_s:.0f} s")
 
-    log("[15/16] remat and MoE serving (mixtral-8x7b)")
+    log("[15/17] remat and MoE serving (mixtral-8x7b)")
     t15 = time.perf_counter()
     remat_launches, remat = phase_remat(dev)
     torch.cuda.empty_cache()
@@ -5117,7 +5529,7 @@ def main() -> int:
     p15_s = time.perf_counter() - t15
     log(f"  phase 15: {p15_s:.0f} s")
 
-    log("[16/16] recurrent blocks and the fixed-batch loop over TP ranks")
+    log("[16/17] recurrent blocks and the fixed-batch loop over TP ranks")
     t16 = time.perf_counter()
     phase_tp_small(dev)
     t16b = time.perf_counter()
@@ -5132,6 +5544,11 @@ def main() -> int:
     p16_s = time.perf_counter() - t16
     log(f"  phase 16: {p16_s:.0f} s (" + ", ".join(
         f"{k} {v:.0f} s" for k, v in p16_parts.items()) + ")")
+
+    log("[17/17] the measurement plane (tune, drift, report)")
+    tune_launches, tune_nums = phase_tune(dev, obs_artifact)
+    torch.cuda.empty_cache()
+    log(f"  phase 17: {tune_nums['seconds']:.0f} s")
     # each path's own kernel launches, read around that path alone
     by_path = {"train": dict(launches), "two-axis": hier_launches,
                "runtime": run_launches, "tp": tp_launches,
@@ -5152,7 +5569,8 @@ def main() -> int:
                **{f"train {a} (2, 2)": n
                   for a, n in ssm_tp_launches.items()},
                **{f"serve {a} (fixed batch, tp 2)": n
-                  for a, n in fixed_tp_launches.items()}}
+                  for a, n in fixed_tp_launches.items()},
+               "tune": tune_launches}
     for path, counts in by_path.items():
         for name, n in counts.items():
             check(n > 0, f"kernel {name} was not launched on the {path} "
@@ -5174,6 +5592,8 @@ def main() -> int:
     for name, n in tp_launches.items():
         launches[name] += n
     for name, n in g3train_launches.items():
+        launches[name] += n
+    for name, n in tune_launches.items():
         launches[name] += n
     for counts in list(moe_launches.values()) + list(
             ssm_train_launches.values()) + list(
@@ -5258,6 +5678,7 @@ def main() -> int:
                                  "fixed_batch": fixed_tp,
                                  "seconds": p16_s,
                                  "part_seconds": p16_parts}))
+    log(f"tune: {json.dumps(tune_nums)}")
     log(f"train: {json.dumps(train)}; total {time.perf_counter() - t_all:.0f} s")
     print(json.dumps({"kernels": list(rows.values())}))
     smi = subprocess.run(

@@ -1,10 +1,11 @@
-"""Run-wide observability: metrics registry, link-byte attribution and
-trace-timeline export.
+"""Run-wide observability: metrics registry, link-byte attribution,
+predicted-vs-measured drift, and trace-timeline export.
 
-The port of ``repro.obs`` less ``obs.drift`` (ROADMAP.md queue A item 6):
+The port of ``repro.obs``:
 
   * :mod:`repro_torch.obs.metrics`  — counters/gauges/quantile histograms;
   * :mod:`repro_torch.obs.collect`  — per-dispatch link-byte attribution;
+  * :mod:`repro_torch.obs.drift`    — EWMA residuals + retune hints;
   * :mod:`repro_torch.obs.timeline` — Chrome-trace/Perfetto + Prometheus
     text.
 """

@@ -21,8 +21,8 @@ cells.
 Measured tables live in their own directory (``REPRO_MEASURED_TABLE_DIR``,
 default ``<cache>/measured`` with ``<cache>`` = ``REPRO_TABLE_DIR`` or
 ``~/.cache/repro-bine/tables``, the reference's paths), one
-``<topology>.json`` each, written by the reference's tuner (writing them
-in the port is ROADMAP.md queue A item 6).  ``tuning="measured"`` merges
+``<topology>.json`` each, written by either package's tuner
+(``launch/tune.py``).  ``tuning="measured"`` merges
 their measured cells over the analytic base at load time; a missing,
 grid-stale, truncated or hand-edited file warns once per ``(topology, p,
 tuning)`` and falls back to the analytic decisions, as in the reference.
@@ -133,6 +133,21 @@ class DecisionTable:
         q = p if p in per_p else self.nearest_p(p)
         row = per_p.get(q)
         return row[self.bucket_of(nbytes)] if row else ANALYTIC
+
+    def measured_cell_count(self) -> int:
+        return sum(row.count(MEASURED)
+                   for per_p in self.provenance.values()
+                   for row in per_p.values())
+
+    def overrides_vs(self, base: "DecisionTable") -> int:
+        """How many MEASURED cells pick a different backend than ``base``
+        (the analytic table they were refreshed against)."""
+        return sum(
+            1 for c, per_p in self.entries.items()
+            for p, row in per_p.items()
+            for i, b in enumerate(row)
+            if self.provenance_of(c, p, self.size_buckets[i]) == MEASURED
+            and b != base.entries[c][p][i])
 
     def to_json_dict(self) -> dict:
         d = {

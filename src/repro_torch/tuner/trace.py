@@ -2,7 +2,7 @@
 
 The port's copy of ``repro.tuner.trace`` (numpy-free, on the port's
 ``core.schedules`` and ``core.traffic``); ``obs.collect`` replays through
-it.  The rest of the tuner is ROADMAP.md queue A item 6.
+it.
 ``core.traffic`` *counts* global bytes in closed form (one pass over the
 schedule, summing the messages that cross a group boundary).  This module
 *replays* the schedule message by message onto the topology and maintains

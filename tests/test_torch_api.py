@@ -37,6 +37,7 @@ from repro_torch.collectives import api
 from repro_torch.collectives import stacked
 from repro_torch.kernels.collectives import kernel as K
 from repro_torch.kernels.collectives import ops
+from torch_threads import pin_threads, subproc  # noqa: F401
 
 ROOT = 1
 PS = (4, 8)

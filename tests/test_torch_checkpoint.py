@@ -33,6 +33,7 @@ from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.data import DataConfig, make_batch
 from repro_torch.train.step import (TrainConfig, from_global, make_init_fns,
                                     make_train_step, to_global)
+from torch_threads import pin_threads  # noqa: F401
 
 BF16 = np.dtype(ml_dtypes.bfloat16)
 

@@ -10,6 +10,7 @@ import torch
 
 from repro.collectives import compression as jcomp
 from repro_torch.collectives import compression as tcomp
+from torch_threads import pin_threads  # noqa: F401
 
 rng = np.random.RandomState(0)
 

@@ -18,6 +18,7 @@ from repro_torch.collectives import compression as tcomp
 from repro_torch.kernels import build as KB
 from repro_torch.kernels.collectives import kernel as K
 from repro_torch.kernels.collectives import ref as R
+from torch_threads import pin_threads  # noqa: F401
 
 
 class _Lazy:

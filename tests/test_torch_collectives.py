@@ -10,6 +10,7 @@ import torch
 from repro_torch.collectives import stacked
 from repro_torch.kernels.collectives import kernel as K
 from repro_torch.kernels.collectives import ops
+from torch_threads import pin_threads, subproc  # noqa: F401
 
 PS = (4, 8)
 

@@ -63,6 +63,7 @@ from repro_torch.serve import sampling as SP
 from repro_torch.serve.scheduler import ContinuousBatchingScheduler, Request
 from repro_torch.train import buckets as tbk
 from repro_torch.train import zero as tzero
+from torch_threads import pin_threads, subproc  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 

@@ -49,16 +49,8 @@ from repro_torch.models import sharding as SH
 from repro_torch.models import transformer as TF
 from repro_torch.serve import engine as E
 from repro_torch.serve import kvcache as KV
+from torch_threads import pin_threads, subproc  # noqa: F401
 
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """Many small ops: one intra-op thread for this module, restored
-    after it."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 #: tag -> (arch, replacements of its reduced config)

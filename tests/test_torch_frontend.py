@@ -59,6 +59,7 @@ from repro_torch.train.data import DataConfig, make_batch
 from repro_torch.train.step import (TrainConfig, bucket_report,
                                     make_init_fns, make_train_step)
 from test_torch_tp import BOUNDS, _mostly_close
+from torch_threads import pin_threads, subproc  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 

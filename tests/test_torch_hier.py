@@ -31,6 +31,7 @@ from repro.collectives import shmap as jshmap
 from repro.core import schedules as jsc
 from repro_torch.collectives import api, stacked
 from repro_torch.core import schedules as tsc
+from torch_threads import pin_threads, subproc  # noqa: F401
 
 P = 8
 #: tier stacks of the executor cases: tier_split of tpu_multipod and lumi

@@ -6,6 +6,7 @@ import os
 import pathlib
 
 import pytest
+from torch_threads import pin_threads, subproc  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -36,7 +37,7 @@ def test_every_module_imports_without_jax(subproc):
     assert n == n_files + n_pkgs
     for mod in SERVING_MODULES + TWO_TIER_MODULES + RUNTIME_MODULES + \
             TP_MODULES + DENSE_CONFIG_MODULES + MOE_MODULES + \
-            RECURRENT_MODULES + FRONTEND_MODULES:
+            RECURRENT_MODULES + FRONTEND_MODULES + TUNER_MODULES:
         assert (PORT / (mod.replace(".", "/") + ".py")).is_file(), mod
 
 
@@ -101,6 +102,13 @@ RECURRENT_MODULES = (
 FRONTEND_MODULES = (
     "configs.musicgen_medium", "configs.pixtral_12b", "configs.base",
     "models.layers", "models.transformer", "launch.serve", "launch.cell")
+
+
+#: the measurement plane's slice: the probe, the store, the refresh, the
+#: drift store and the two CLIs, each imported above without jax
+TUNER_MODULES = (
+    "tuner.probe", "tuner.store", "tuner.refresh", "tuner.trace",
+    "obs.drift", "topology.table", "launch.tune", "launch.report")
 
 
 def _imports(tree):

@@ -28,6 +28,7 @@ from repro_torch.models import transformer as TT
 from repro_torch.train import buckets as tbk
 from repro_torch.train import zero as tzero
 from repro_torch.train.data import DataConfig, make_batch
+from torch_threads import pin_threads  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 

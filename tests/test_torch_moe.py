@@ -67,20 +67,10 @@ from repro_torch.train.data import DataConfig, make_batch
 from repro_torch.train.step import (TrainConfig, bucket_report,
                                     make_init_fns, make_train_step)
 from test_torch_tp import BOUNDS, BOUNDS_INT8, _mostly_close
+from torch_threads import pin_threads, subproc  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """The port's MoE steps are many small ops: on a CPU that other test
-    workers and the JAX subprocesses share, intra-op threads only wait on
-    each other (a step took minutes so).  One thread for this module,
-    restored after it."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 ARCHS = ["mixtral-8x7b", "phi3.5-moe-42b-a6.6b"]
 #: full-size parameter counts (the port's and the reference's)

@@ -38,16 +38,8 @@ from repro_torch.configs import base as tbase
 from repro_torch.interop import params_from_numpy
 from repro_torch.models import moe as M
 from repro_torch.models import transformer as TF
+from torch_threads import pin_threads, subproc  # noqa: F401
 
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """Many small ops: one intra-op thread for this module, as
-    tests/test_torch_moe.py runs, restored after it."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 ARCHS = ["mixtral-8x7b", "phi3.5-moe-42b-a6.6b"]

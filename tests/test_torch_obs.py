@@ -33,6 +33,7 @@ from repro_torch.obs import collect, metrics, timeline
 from repro_torch.obs.metrics import Histogram, Registry
 from repro_torch.topology.presets import get_topology
 from repro_torch.tuner import trace
+from torch_threads import pin_threads, subproc  # noqa: F401
 
 PAYLOAD = 1 << 20  # pow2 so every replay term is an exact binary float
 

@@ -42,17 +42,8 @@ from repro_torch.obs import metrics as OM
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train import step as ST
 from repro_torch.train.data import DataConfig, make_batch
+from torch_threads import pin_threads  # noqa: F401
 
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """Many small ops (the recurrent loops, the MoE dispatch): one
-    intra-op thread for this module, as tests/test_torch_moe.py and
-    tests/test_torch_ssm.py run, restored after it."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _red(arch):

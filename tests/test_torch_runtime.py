@@ -36,6 +36,7 @@ from repro_torch.train.runtime import (DeviceFailure, FailureInjector,
                                        TrainLoopConfig, shrunk_dp,
                                        train_build)
 from repro_torch.train.step import TrainConfig
+from torch_threads import pin_threads  # noqa: F401
 
 
 @pytest.fixture

@@ -39,6 +39,7 @@ from repro_torch.serve.kvcache import SlotAllocator
 from repro_torch.serve.sampling import SamplingParams
 from repro_torch.serve.scheduler import (ContinuousBatchingScheduler, Request,
                                          _pct, latency_summary, poisson_trace)
+from torch_threads import pin_threads, subproc  # noqa: F401
 
 WINDOWS = {"full": None, "w16": 16}
 #: the padded prompts' real lengths: past and short of the 16-token window

@@ -39,6 +39,7 @@ from repro_torch.kernels.qdot import ref as QR
 from repro_torch.kernels.rmsnorm import kernel as RK
 from repro_torch.kernels.rmsnorm import ops as RO
 from repro_torch.kernels.rmsnorm import ref as RR
+from torch_threads import pin_threads, subproc  # noqa: F401
 
 RMS_SHAPES = [(8, 64), (256, 128), (3, 7, 96), (1000, 48)]
 RMS_DTYPES = {"float32": 1e-6, "bfloat16": 2e-2}

@@ -56,6 +56,7 @@ from repro_torch.serve import kvcache as KV
 from repro_torch.serve import sampling as SP
 from repro_torch.serve.scheduler import (ContinuousBatchingScheduler,
                                          poisson_trace)
+from torch_threads import pin_threads, subproc  # noqa: F401
 
 #: the model configs, as (arch, replacements) both packages apply
 CFG_A = ("phi4-mini-3.8b", dict(

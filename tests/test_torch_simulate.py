@@ -16,6 +16,7 @@ from repro.core import simulate as jsim
 from repro_torch.core import schedules as tsc
 from repro_torch.core import simulate as tsim
 from repro_torch.topology import presets as tpresets
+from torch_threads import pin_threads  # noqa: F401
 
 PS = (4, 6, 8, 12, 16, 24)
 ROOTED = ("broadcast", "reduce", "gather", "scatter")

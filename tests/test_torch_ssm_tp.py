@@ -55,18 +55,10 @@ from repro_torch.models import transformer as TF
 from repro_torch.train.data import DataConfig, make_batch
 from repro_torch.train.step import (TrainConfig, bucket_report,
                                     make_init_fns, make_train_step)
+from torch_threads import pin_threads, subproc  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """Many small ops: one intra-op thread for this module, restored
-    after it."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 #: configs: tag -> (arch, replacements of its reduced config)

@@ -44,18 +44,10 @@ from repro_torch.train.step import TrainConfig, make_init_fns, make_train_step
 from test_torch_ssm import STEP2_GNORM_RTOL
 from test_torch_ssm_tp import CFGS, PRELUDE, _cfg, _tp_grads
 from test_torch_tp import BOUNDS, _mostly_close
+from torch_threads import pin_threads, subproc  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """Many small ops: one intra-op thread for this module, restored
-    after it."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 #: train runs at (2, 2), each the config of its name; each its subprocess

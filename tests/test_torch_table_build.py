@@ -16,6 +16,7 @@ import pytest
 from repro.topology import table as jtable
 from repro_torch.core import simulate
 from repro_torch.topology import cost, presets, table
+from torch_threads import pin_threads  # noqa: F401
 
 H100_HBM_BW = 3.35e12
 TEST_PS = (4, 8, 16, 64)

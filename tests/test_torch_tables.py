@@ -18,6 +18,7 @@ from repro.topology import PRESETS, select_bucket_bytes
 from repro_torch import topology as ttopo
 from repro_torch.core import schedules as tsc
 from repro_torch.core import tables as ttb
+from torch_threads import pin_threads  # noqa: F401
 
 PS = [2, 4, 8, 16, 32]
 KINDS = ["bine_dd", "recdoub_dd", "bine_dh", "recdoub_dh"]

@@ -13,6 +13,7 @@ from repro.topology import presets as jpresets
 from repro_torch.kernels.collectives import plan as tplan
 from repro_torch.topology import cost as tcost
 from repro_torch.topology import presets as tpresets
+from torch_threads import pin_threads  # noqa: F401
 
 NAMES = tuple(jpresets.PRESETS) + ("nowhere",)
 PS = (4, 8, 16, 64)

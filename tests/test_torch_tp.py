@@ -73,6 +73,7 @@ from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train.data import DataConfig, make_batch
 from repro_torch.train.step import (TrainConfig, bucket_report, from_global,
                                     make_init_fns, make_train_step, to_global)
+from torch_threads import pin_threads, subproc  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 

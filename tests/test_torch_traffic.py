@@ -18,6 +18,7 @@ from repro.topology import presets as jpresets
 from repro_torch.core import schedules as tsc
 from repro_torch.core import traffic as ttr
 from repro_torch.topology import presets as tpresets
+from torch_threads import pin_threads  # noqa: F401
 
 PS = (8, 16, 64, 256)
 GROUPED = ("LUMI", "LEONARDO", "MARENOSTRUM5", "TPU_MULTIPOD")

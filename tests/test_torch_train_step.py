@@ -50,6 +50,10 @@ from repro_torch.train import zero
 from repro_torch.train.data import DataConfig, make_batch
 from repro_torch.train.step import (TrainConfig, make_train_step,
                                     shard_owner)
+# the reference runs keep XLA's default CPU pool (the conftest's
+# ``subproc``): single-threaded Eigen sums the int8 runs' matmuls in
+# another order, which moves a parameter past the loose bound
+from torch_threads import bounded, pin_threads  # noqa: F401
 
 STEPS, N_DP, BUCKET = 2, 4, 1 << 16
 #: runs whose reference state is checkpointed after STEPS steps and then
@@ -152,8 +156,9 @@ def jax_run(subproc, tmp_path_factory):
     jobs = {str(tmp / f"out{i}.npz"): {t: RUNS[t] for t in g}
             for i, g in enumerate(GROUPS)}
     ckpt_dir = str(tmp / "ckpt")
+    run = bounded(subproc)
     with ThreadPoolExecutor(len(jobs)) as pool:
-        for f in [pool.submit(subproc, JAX_CODE.format(
+        for f in [pool.submit(run, JAX_CODE.format(
                 runs=runs, bucket=BUCKET, steps=STEPS, path=path,
                 ckpt_runs=CKPT_RUNS, ckpt_dir=ckpt_dir), N_DP, 600)
                 for path, runs in jobs.items()]:
