@@ -185,7 +185,8 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
              cores within 2e-5; a ``flash_attention_hd80`` row beside
              SDPA); (c) ``cell.SSM_TRAIN_CELLS``: zamba2-2.7b at full
              width cut to 12 of 54 Mamba2 blocks (two firings of its tied
-             shared block) and xlstm-125m at full depth, p = 4, batch 8 x
+             shared block) and xlstm-125m x4 (of 12; the smoke's cut,
+             ``SSM_SMOKE_BLOCKS``), p = 4, batch 8 x
              1024, float32 wire: two pallas_fused steps and a bine step,
              params bitwise equal after the first, rs_step and ag_step
              launched, the loss and each token's NLL within
@@ -294,15 +295,50 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
              every cell's median, least and most rep in us, the cells
              picked within the reps' spread, and the timed reps' share of
              the probe's wall).
+18. the serve fleet and resilience — (a) reduced phi4-mini (float32),
+             3 replicas x 3 pages of 64 over one set of engine fns, 10
+             requests over 3 sessions: the fleet with the fleet cell's
+             drains and respawn, and the supervised run of
+             tests/test_torch_fleet_engine.py (crash r0@2 displacing
+             in-flight work, straggler r1@4 x8, respawn 2 ticks later,
+             ttr 2) on the card and on the CPU, every stream equal; (b)
+             ``cell.FLEET_CELL``: phi4-mini at full width and depth (phase
+             7's weights from the same seed), 3 replicas x 3 pages of
+             1024 tokens, 12 greedy Poisson requests of 16 tokens over 3
+             sessions, drain r1@4, respawn r1@9, drain r2@7: every request
+             retires with its tokens, every logit is finite, 65 rmsnorm
+             per insert and per decode step and 32 flash per insert, all
+             on wgmma, every rmsnorm and flash shape the fleet gave the
+             kernels (rows 1024, 1 and 3 at d 3072; q [1, 1024, 24,
+             128])
+             held to plain, the streams bitwise those of one replica of 3
+             pages on the same trace; then the supervised run on a
+             ``FakeTimer`` (crash r0 at the first tick >= 2 at which it
+             holds in-flight requests, straggler r1 x4 there): every
+             request not in flight at the crash bitwise the undisturbed
+             fleet's, the pre-crash tokens of those in flight kept (their
+             replayed tokens' agreement, tokens/s, each replica's EWMA
+             tick, MTTR, peak and pool bytes reported); (c) the elastic
+             resume of tests/test_torch_elastic.py on the card: reduced
+             phi4-mini, p = 4 ``pallas_fused`` for 2 steps on the int8
+             wire and on ``wire_dtype="auto"`` (its float32 buckets on
+             rs_step), bitwise (params, optimizer state with ``ef``,
+             losses) the same steps on stacked ``bine``, rank 1 lost, p' = 3 ``ring`` through
+             ``elastic_train_config``, bitwise the fresh p' = 3 restore;
+             (d) ``launch/fleet.py`` in process (reduced, drains, a
+             respawn, a crash, ``--obs-out``) and ``launch/report.py``
+             rendering the fleet's counters; the placement plan's chosen
+             strategy per preset (a ``fleet:`` JSON line).
 
 The kernels line's launches of rs_step, ag_step and rs_step_q sum the
 train step's main path, its two-axis path, phase 8's runs, the TP path's,
 the gemma3 train step's, the MoE train steps', the recurrent train
 cells' (phase 16's at (2, 2) too), the frontend train cell's, phase
-15a's and phase 17's probe; those of rmsnorm the serve, serve-TP, dense serve and fixed-batch
-paths' (the frontend and MoE ones, and phase 16's over TP ranks, too);
-flash_attention's (head_dim 128) the serve, serve-TP, qwen3-32b and
-mixtral fixed-batch paths' (one rank and two),
+15a's, phase 17's probe and phase 18's elastic runs before the rank
+loss; those of rmsnorm the serve, serve-TP, dense serve, fixed-batch
+and fleet paths' (the frontend and MoE ones, and phase 16's over TP
+ranks, too); flash_attention's (head_dim 128) the serve, serve-TP,
+qwen3-32b, mixtral fixed-batch (one rank and two) and fleet paths',
 flash_attention_hd256's the gemma3-4b, gemma-7b and gemma3-4b serve-TP
 paths', flash_attention_hd80's zamba2's fixed-batch paths' (one rank and
 two),
@@ -310,7 +346,9 @@ flash_attention_hd160's pixtral's token prefill, and
 flash_attention_hd160_f32's pixtral's frames prefill (musicgen's float32
 flash at head_dim 64 counts in the by-path line only); the ``kernels by
 path:`` line gives each
-path's own counts, each of which must be above 0.  Prints a ``kernels:``
+path's own counts, each of which must be above 0: ``fleet`` (phase 18b's
+rmsnorm and flash) and ``elastic`` (phase 18c's rs_step, ag_step and
+rs_step_q before the loss) among them.  Prints a ``kernels:``
 summary, one JSON line of per-kernel numbers, the card's name and power
 limit, and as its last line
 ``{"ok": true, "device": {...}}``.  Exits 2 without a result when there is
@@ -319,6 +357,7 @@ no CUDA device or no ``src/repro_torch`` beside this file.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -3250,11 +3289,21 @@ def phase_moe_train(dev):
 #: NLL - float32 NLL| within the second, as phase 12 gates the MoE cell;
 #: each fault of ``SSM_FAULTS`` must land outside the token gate.  zamba2
 #: x12 read loss gaps +0.00051, +0.00003, +0.00011 and token gaps
-#: 0.0256-0.0264 on seeds 0-2 (its GeGLU fault 0.061); xlstm-125m -0.0006,
-#: -0.0020, -0.000001 and 0.0474-0.0500 (its mLSTM fault 0.544): each
-#: gate is about 1.5x its largest token reading and 3-4x its largest loss
-#: gap
-SSM_GATES = {"zamba2-2.7b": (0.002, 0.04), "xlstm-125m": (0.006, 0.075)}
+#: 0.0256-0.0264 on seeds 0-2 (its GeGLU fault 0.061).  xlstm-125m x4
+#: (``SSM_SMOKE_BLOCKS``; phase 16's (2, 2) cell is the same 4 blocks)
+#: read -0.00024, +0.00009, -0.00021 and 0.0135-0.0143 (its faults 0.354
+#: and 0.463), its p = 4 and (2, 2) step-0 losses 0.00032 and 0.00042 from
+#: the plain float32 loss; at full depth it read -0.0006, -0.0020,
+#: -0.000001 and 0.0474-0.0500 under the gates (0.006, 0.075).  Each gate
+#: is about 1.5x its largest token reading and 4x its largest loss gap
+SSM_GATES = {"zamba2-2.7b": (0.002, 0.04), "xlstm-125m": (0.0018, 0.022)}
+#: phase 13's cut of a train cell's depth, per arch: xlstm-125m's sLSTM
+#: scan is a Python loop of about 20 small launches a step, so its full
+#: 12 blocks took 16-29 s a step on an H100 and three steps plus the
+#: gates' forwards ~115 s of the smoke's 1200; 4 blocks (3 mLSTM, 1 sLSTM:
+#: each kind on the path) as its (2, 2) cell.  ``cell.XLSTM_TRAIN_CELL``
+#: keeps full depth for ``launch/profile_step.py --arch xlstm-125m``
+SSM_SMOKE_BLOCKS = {"xlstm-125m": 4}
 #: phase 13's serve gate: zamba2's bf16 prefill logits against the
 #: float32 prefill of the same weights (upcast, float32 caches), the mean
 #: of |bf16 - float32| over the batch's last-token logits in bf16 ulps of
@@ -3471,8 +3520,8 @@ SSM_UNPROFILED = ("xlstm-125m",)
 def phase_ssm_train(dev):
     """(c) ``cell.SSM_TRAIN_CELLS``: zamba2-2.7b at full width cut to 12
     of 54 Mamba2 blocks (two firings of the tied shared block) and
-    xlstm-125m at full depth, p = 4, batch 8 x 1024, bf16, float32 wire:
-    two pallas_fused steps and one bine step from the same start, rank
+    xlstm-125m cut to 4 of 12 blocks here (``SSM_SMOKE_BLOCKS``), p = 4, batch 8 x 1024, bf16, float32
+    wire: two pallas_fused steps and one bine step from the same start, rank
     0's params after the first bitwise equal (and the losses), rs_step
     and ag_step launched by the fused steps; the step-0 loss within its
     ``SSM_GATES`` loss bound of the plain float32 forward of the same
@@ -3489,6 +3538,8 @@ def phase_ssm_train(dev):
 
     launches, nums = {}, {}
     for tc in cell.SSM_TRAIN_CELLS:
+        tc = dataclasses.replace(
+            tc, n_layers=SSM_SMOKE_BLOCKS.get(tc.arch, tc.n_layers))
         cfg, dcfg, run = train_runs(dev, tc.model_config())
         dp = tc.meshes[0][0]
         tokens = dcfg.global_batch * dcfg.seq_len
@@ -5411,6 +5462,512 @@ def phase_tune(dev, obs_artifact):
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the serve fleet and resilience
+# ---------------------------------------------------------------------------
+
+#: the small references' chaos schedule (tests/test_torch_fleet_engine.py):
+#: crash r0 at tick 2, straggler r1 at tick 4 x8, respawn 2 ticks later
+SMALL_CHAOS = ((2, "crash", 0, 1.0), (4, "straggler", 1, 8.0))
+#: the full-width supervised run's straggler multiple and respawn delay
+FLEET_STRAGGLER, FLEET_RESPAWN_DELAY = 4.0, 2
+
+
+def fleet_streams(trace):
+    return {r.rid: [int(t) for t in r.generated] for r in trace}
+
+
+def fleet_serve(cfg, fns, params, n_replicas, n_slots, S, trace, seed,
+                events=(), chaos=None, fake_timer=False, on_crash=None):
+    """``trace`` through a ``Fleet`` of ``n_replicas`` x ``n_slots`` pages
+    over ``fns`` (one set, one copy of ``params``), under a
+    ``FleetSupervisor`` when ``chaos`` (FaultEvent tuples) is given, on a
+    ``FakeTimer`` (deterministic routing) when ``fake_timer``;
+    ``on_crash(displaced)`` sees the requests a crash ejects.  Returns
+    (fleet, stats, supervisor or None)."""
+    from repro_torch.fleet import Fleet, FleetConfig, FleetEvent
+    from repro_torch.resilience import (ChaosSchedule, FaultEvent,
+                                        FleetSupervisor, SupervisorConfig)
+    from repro_torch.resilience.fakes import FakeTimer
+
+    kw = {"timer": FakeTimer()} if fake_timer else {}
+    fleet = Fleet(cfg, fns, params, FleetConfig(
+        n_replicas=n_replicas, n_slots=n_slots, seed=seed), S, **kw)
+    if on_crash is not None:
+        for rep in fleet.replicas:
+            def crash(rep=rep, crash=rep.crash):
+                displaced = crash()
+                on_crash(displaced)
+                return displaced
+            rep.crash = crash
+    fleet.submit_trace(trace)
+    evs = [FleetEvent(*e) for e in events]
+    if chaos is None:
+        return fleet, fleet.run(events=evs), None
+    sup = FleetSupervisor(fleet, ChaosSchedule([FaultEvent(*e)
+                                                for e in chaos]),
+                          SupervisorConfig(respawn_delay=FLEET_RESPAWN_DELAY))
+    return fleet, sup.run(events=evs), sup
+
+
+def phase_fleet_small_reference(dev):
+    """The supervised fleet of tests/test_torch_fleet_engine.py on reduced
+    phi4-mini (float32), the card against the CPU: 3 replicas x 3 pages of
+    64, 10 requests over 3 sessions, the drains and respawn of the fleet
+    cell, then the supervised run (crash r0@2 displacing in-flight work,
+    straggler r1@4 x8, respawn 2 ticks later).  Every stream equal: the
+    card's fleet, the card's supervised run, the CPU's supervised run."""
+    from repro_torch.configs import base
+    from repro_torch.launch import cell
+    from repro_torch.models import transformer as TF
+    from repro_torch import tree as T
+    from repro_torch.serve import engine as E
+    from repro_torch.serve.scheduler import poisson_trace
+
+    cfg = base.reduced(base.get_config("phi4-mini-3.8b")).replace(
+        dtype="float32", cache_dtype="float32")
+    init = TF.init_params(cfg, 0, "cpu")
+    S, runs = 64, {}
+    for where in ("cpu", dev):
+        params = T.tree_map(lambda x: x.to(where), init)
+        fns = E.make_serve_fns(cfg, E.ServeConfig(), 3, S, where)
+        for tag, kw in (("fleet", dict(events=cell.FLEET_CELL.events)),
+                        ("chaos", dict(chaos=SMALL_CHAOS))):
+            if where == "cpu" and tag == "fleet":
+                continue
+            trace = poisson_trace(10, 1.0, (5, 40), 6, cfg.vocab_size,
+                                  seed=5, n_sessions=3)
+            _, _, sup = fleet_serve(cfg, fns, params, 3, 3, S, trace, 11,
+                                    fake_timer=True, **kw)
+            check(all(r.finished and len(r.generated) == 6 for r in trace),
+                  f"fleet small reference {tag} on {where}: unfinished")
+            runs[f"{tag} {where}"] = fleet_streams(trace)
+            if sup is not None:
+                rec = sup.crash_log
+                check(len(rec) == 1 and rec[0].displaced >= 1
+                      and rec[0].ttr == 2,
+                      f"fleet small reference on {where}: crash log {rec}")
+    base_run = runs[f"fleet {dev}"]
+    for k, v in runs.items():
+        check(v == base_run, f"fleet small reference: {k} streams {v} vs "
+              f"fleet {dev} {base_run}")
+    log(f"  small reference (reduced, f32): {len(runs)} runs (fleet and "
+        f"supervised on the card, supervised on the CPU), every stream "
+        f"equal; crash r0@2 displaced in-flight work, ttr 2")
+
+
+def phase_fleet_cell(dev, randn):
+    """``cell.FLEET_CELL``: phi4-mini at full width and depth (phase 7's
+    weights, the port's init_params at the serve cell's seed), 3 replicas
+    x 3 pages of 1024 tokens over one set of engine fns, 12 greedy Poisson
+    requests of 16 tokens over 3 sessions, drain r1@4, respawn r1@9,
+    drain r2@7.  Checks every request retires with its tokens and every
+    logit is finite, the launches (65 rmsnorm per insert and per decode
+    step, 32 flash per insert, all on wgmma), every rmsnorm and flash
+    shape the fleet gave the kernels (rows: a page and its last row at
+    insert, the 3 pages at decode; q ``[1, page, 24, 128]``) held to the plain version
+    (``rmsnorm_case``, ``flash_case``), the streams bitwise those of one
+    replica of 3 pages on the same trace; then the supervised run
+    (crash r0 at the first tick >= 2 at which it holds in-flight requests,
+    straggler r1 x4 there, respawn 2 ticks later; on a FakeTimer, so the
+    routing is the undisturbed run's): every request the crash did not
+    catch in flight bitwise the undisturbed fleet's, the pre-crash tokens
+    of those it did kept.  Reports tokens/s, each replica's EWMA tick,
+    MTTR, the replayed tokens' agreement, peak and pool bytes.  Returns
+    (the fleet path's launches, the numbers)."""
+    import torch
+    from repro_torch.kernels import build as KB
+    from repro_torch.kernels.rmsnorm import ops as RO
+    from repro_torch.launch import cell
+    from repro_torch.models import transformer as TF
+    from repro_torch.serve import engine as E
+    from repro_torch.serve.scheduler import poisson_trace
+
+    fc = cell.FLEET_CELL
+    c = fc.serve
+    cfg = cell.serve_model_config(c)
+    S = E.page_len(cfg, c.prompt_len_max, c.max_new)
+    torch.cuda.reset_peak_memory_stats()
+    params = TF.init_params(cfg, c.seed, dev)
+    fns = E.make_serve_fns(cfg, E.ServeConfig(), c.slots, S, dev)
+    finite = []
+    for name in ("insert", "decode_slots"):
+        def wrapped(*args, fn=getattr(fns, name)):
+            logits, pool = fn(*args)
+            finite.append(torch.isfinite(logits).all())
+            return logits, pool
+        setattr(fns, name, wrapped)
+
+    def trace():
+        return poisson_trace(c.requests, c.rate,
+                             (c.prompt_len_min, c.prompt_len_max), c.max_new,
+                             cfg.vocab_size, seed=c.seed,
+                             temperature=c.temperature,
+                             n_sessions=fc.sessions)
+
+    log(f"  {cfg.name}: {cfg.n_layers} layers ({cfg.dtype}), "
+        f"{fc.replicas} replicas x {c.slots} pages x {S} tokens, "
+        f"{c.requests} requests at {c.rate}/tick over {fc.sessions} "
+        f"sessions, {c.max_new} new tokens each; events "
+        + ", ".join(f"{a} r{r}@{t}" for t, a, r in fc.events))
+    # (a) the fleet, timed, its launches read around it and the kernels'
+    # shapes recorded
+    norms, flashes = set(), set()
+    real_norm, real_flash = RO.rmsnorm_kernel, TF.flash_attention
+
+    def norm(x, w, eps):
+        norms.add((*x.shape, eps, x.dtype))
+        return real_norm(x, w, eps)
+
+    def flash(q, k, v, **kw):
+        flashes.add((tuple(q.shape), tuple(k.shape), kw.get("window"),
+                     q.dtype))
+        return real_flash(q, k, v, **kw)
+    reqs = trace()
+    torch.cuda.synchronize()
+    KB.reset_launches()
+    RO.rmsnorm_kernel, TF.flash_attention = norm, flash
+    try:
+        t0 = time.perf_counter()
+        fleet, stats, _ = fleet_serve(cfg, fns, params, fc.replicas,
+                                      c.slots, S, reqs, c.seed,
+                                      events=fc.events)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        RO.rmsnorm_kernel, TF.flash_attention = real_norm, real_flash
+    launches = {k: KB.LAUNCHES[k] for k in ("rmsnorm", "flash_attention",
+                                             "flash_attention_wgmma")}
+    check(all(r.finished and len(r.generated) == c.max_new for r in reqs),
+          "fleet: not every request retired with its tokens")
+    check(bool(torch.stack(finite).all()), "fleet: non-finite logits")
+    L, n_dec, n_ins = cfg.n_layers, stats["decode_steps"], len(reqs)
+    want = {"rmsnorm": (2 * L + 1) * (n_ins + n_dec),
+            "flash_attention": L * n_ins, "flash_attention_wgmma": L * n_ins}
+    check(launches == want, f"fleet: launches {launches}, expected {want}")
+    check(stats["replicas"][1]["respawns"] == 1
+          and stats["replicas"][2]["state"] == "stopped",
+          f"fleet: replica states {stats['replicas']}")
+    pool_bytes = sum(t.numel() * t.element_size()
+                     for rep in fleet.replicas
+                     for seg in rep.sched.pool["segments"]
+                     for t in seg.values())
+    fleet_tokens = fleet_streams(reqs)
+    nums = {"tokens_per_s": stats["tokens_out"] / wall, "wall_s": wall,
+            "ticks": stats["ticks"], "decode_steps": n_dec,
+            "ewma_tick_ms": {str(r): v["ewma_tick_s"] * 1e3
+                             for r, v in stats["replicas"].items()},
+            "routing": stats["routing"]["per_replica"],
+            "spilled": stats["routing"]["n_spilled"]}
+    log(f"  fleet: {stats['tokens_out']} tokens in {wall:.2f} s "
+        f"({nums['tokens_per_s']:.1f} tokens/s), {stats['ticks']} ticks, "
+        f"{n_dec} decode steps, routed {nums['routing']} "
+        f"({nums['spilled']} spilled); EWMA tick ms " + ", ".join(
+            f"r{r} {v:.2f}" for r, v in nums["ewma_tick_ms"].items())
+        + f"; launches {launches} == {2 * L + 1} x (inserts + steps) and "
+        f"{L} x inserts, every flash launch on wgmma")
+    # (b) one replica of the same pages on the same trace: bitwise
+    one = trace()
+    fleet_serve(cfg, fns, params, 1, c.slots, S, one, c.seed)
+    check(fleet_streams(one) == fleet_tokens,
+          "fleet: streams differ from one replica of "
+          f"{c.slots} pages")
+    log(f"  fleet streams == one replica of {c.slots} pages on the same "
+        f"trace (bitwise, {c.requests} requests)")
+    # the kernels at the shapes the fleet gave them, against plain
+    dt = torch.bfloat16
+    check(norms == {(r, cfg.d_model, cfg.norm_eps, dt)
+                    for r in (S, 1, c.slots)},
+          f"fleet: rmsnorm shapes {sorted(norms, key=str)}")
+    for rows_, d, eps, ndt in sorted(norms, key=lambda t: t[:2]):
+        *_, nerr, _ = rmsnorm_case(randn, rows_, d, eps, ndt)
+        nums.setdefault("rmsnorm_max_abs_err", {})[f"{rows_}x{d}"] = nerr
+    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    window = {w for _, _, w, _ in flashes}
+    check(len(window) == 1 and {f[:2] + f[3:] for f in flashes} == {(
+        (1, S, nh, hd), (1, S, nkv, hd), dt)},
+          f"fleet: flash shapes {flashes}")
+    *_, ferr, fbound, _ = flash_case(dev, randn, (nh, nkv, hd), S,
+                                     window.pop(), dt)
+    nums["flash_max_abs_err"], nums["flash_bound_ms"] = ferr, fbound
+    log(f"  fleet: rmsnorm at its {len(norms)} shapes (rows {S}, 1 and "
+        f"{c.slots}, d {cfg.d_model}, bf16) and flash at q [1, {S}, {nh}, "
+        f"{hd}] (bf16) held to plain")
+    # (c) the undisturbed fleet on a FakeTimer, tick by tick, to find the
+    # first tick >= 2 at which replica 0 holds in-flight requests
+    from repro_torch.fleet import Fleet, FleetConfig
+    from repro_torch.resilience.fakes import FakeTimer
+    calm = trace()
+    probe = Fleet(cfg, fns, params, FleetConfig(
+        n_replicas=fc.replicas, n_slots=c.slots, seed=c.seed), S,
+        timer=FakeTimer())
+    probe.submit_trace(calm)
+    crash_tick = None
+    while True:
+        if crash_tick is None and probe.clock >= 2 and \
+                probe.replicas[0].sched.n_running:
+            crash_tick = probe.clock
+        if not probe.step():
+            break
+    check(crash_tick is not None, "fleet: replica 0 never held requests")
+    del probe
+    # (d) the supervised run
+    caught = {}
+    chaotic = trace()
+    _, cstats, sup = fleet_serve(
+        cfg, fns, params, fc.replicas, c.slots, S, chaotic, c.seed,
+        chaos=((crash_tick, "crash", 0, 1.0),
+               (crash_tick, "straggler", 1, FLEET_STRAGGLER)),
+        fake_timer=True,
+        on_crash=lambda reqs: caught.update(
+            {r.rid: list(r.generated) for r in reqs if r.generated}))
+    check(len(sup.crash_log) == 1 and caught,
+          f"fleet: crash log {sup.crash_log}, in flight {sorted(caught)}")
+    calm_t, chaos_t = fleet_streams(calm), fleet_streams(chaotic)
+    check(all(len(v) == c.max_new for v in chaos_t.values()),
+          "fleet: a supervised request lost tokens")
+    for rid, toks in chaos_t.items():
+        if rid in caught:
+            g = len(caught[rid])
+            check(toks[:g] == caught[rid] == calm_t[rid][:g],
+                  f"fleet: request {rid}'s pre-crash tokens not kept")
+        else:
+            check(toks == calm_t[rid], f"fleet: request {rid} (not in "
+                  f"flight at the crash) differs from the undisturbed run")
+    replayed = [(a, b) for rid in caught
+                for a, b in zip(chaos_t[rid][len(caught[rid]):],
+                                calm_t[rid][len(caught[rid]):])]
+    agree = sum(a == b for a, b in replayed)
+    rec = sup.crash_log[0]
+    nums.update({
+        "crash_tick": crash_tick, "displaced": rec.displaced,
+        "in_flight": {str(k): len(v) for k, v in caught.items()},
+        "ttr_ticks": rec.ttr, "mttr_ticks": sup.mttr(),
+        "replayed_tokens_agree": [agree, len(replayed)],
+        "calm_equals_fleet": calm_t == fleet_tokens,
+        "pool_bytes": pool_bytes,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+    log(f"  supervised: crash r0@{crash_tick} ({rec.displaced} displaced, "
+        f"{len(caught)} in flight with {sorted(map(len, caught.values()))} "
+        f"tokens), straggler r1 x{FLEET_STRAGGLER:g}, respawned @"
+        f"{rec.respawn_tick} (ttr {rec.ttr}, MTTR {sup.mttr()} ticks); "
+        f"requests not in flight == undisturbed (bitwise), pre-crash "
+        f"tokens kept; replayed tokens agree {agree}/{len(replayed)} "
+        f"(bf16 prefill of the folded prefix against decode: reported, "
+        f"not gated); undisturbed FakeTimer fleet == timed fleet: "
+        f"{nums['calm_equals_fleet']}")
+    log(f"  peak {nums['peak_gib']:.2f} GiB (weights once, pools "
+        f"{pool_bytes / 2 ** 30:.3f} GiB for {fc.replicas} x {c.slots} "
+        f"pages)")
+    del params, fns, fleet
+    torch.cuda.empty_cache()
+    return launches, nums
+
+
+def phase_elastic(dev):
+    """tests/test_torch_elastic.py's resume on the card: reduced phi4-mini
+    (float32), 4 stacked ranks on ``pallas_fused`` for 2 steps, held
+    bitwise (params, optimizer state with the ``ef`` buffers, losses) to
+    the same 2 steps on stacked ``bine`` (no kernel) from the same init on
+    the same wire, which holds the step kernels to plain at this path's
+    64 KiB buckets; the global state saved under ``build/``; rank 1 lost; the survivors at p' = 3
+    through ``elastic_train_config`` (``ring``, float32 wire, the ``ef``
+    leaves dropped by ``elastic_restore``) for 2 steps, bitwise equal,
+    params and optimizer state, to a fresh hand-configured p' = 3 run
+    restored from the same checkpoint.  Twice: on the int8 wire (every
+    bucket's reduce-scatter on rs_step_q, its allgather on ag_step) and on
+    ``wire_dtype="auto"`` (the joint table's per-bucket wire: float32
+    buckets on rs_step, int8 ones on rs_step_q).  Returns (the p = 4 runs'
+    launches, the numbers)."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.configs import base
+    from repro_torch.kernels import build as KB
+    from repro_torch.models import transformer as TF
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.resilience import elastic
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.data import DataConfig, make_batch
+    from repro_torch.train.step import (TrainConfig, from_global,
+                                        make_init_fns, make_train_step,
+                                        to_global)
+
+    cfg = base.reduced(base.get_config("phi4-mini-3.8b")).replace(
+        dtype="float32")
+    shapes = TF.param_shapes(cfg)
+    dcfg = DataConfig(global_batch=12, seq_len=64, vocab_size=cfg.vocab_size)
+
+    def tcfg(backend, wire):
+        return TrainConfig(backend=backend, wire_dtype=wire,
+                           bucket_bytes=1 << 16, adamw=AdamWConfig(
+                               lr=3e-3, warmup_steps=1, total_steps=100))
+
+    def advance(step, params, state, start, n, log_=None):
+        for s in range(start, start + n):
+            params, state, m = step(params, state, make_batch(dcfg, s))
+            if log_ is not None:
+                log_.append((float(m["loss"]), float(m["grad_norm"])))
+        return params, state
+
+    launches = dict.fromkeys(("rs_step", "ag_step", "rs_step_q"), 0)
+    nums = {}
+    tmp_root = ROOT / "build"
+    tmp_root.mkdir(exist_ok=True)
+    for wire in ("int8", "auto"):
+        root = Path(tempfile.mkdtemp(prefix="elastic_smoke_", dir=tmp_root))
+        try:
+            # the p = 4 steps on the kernels, then on stacked bine (no
+            # kernel) from the same init on the same wire: bitwise equal
+            pre = {}
+            for backend in ("pallas_fused", "bine"):
+                t4 = tcfg(backend, wire)
+                step4, _, _ = make_train_step(cfg, t4, 4, shapes, dev)
+                init_p, init_s = make_init_fns(cfg, t4, 4, dev)
+                params = init_p(0)
+                state = init_s(params)
+                torch.cuda.synchronize()
+                KB.reset_launches()
+                mets = []
+                params, state = advance(step4, params, state, 0, 2, mets)
+                torch.cuda.synchronize()
+                pre[backend] = ({k: KB.LAUNCHES[k] for k in launches}, mets,
+                                to_global(cfg, t4, params, state, 4,
+                                          device="cpu"))
+                del params, state
+            (mine, lf, gf), (cb, lb4, gb4) = pre["pallas_fused"], pre["bine"]
+            check(sum(cb.values()) == 0,
+                  f"elastic {wire}: the bine steps launched kernels: {cb}")
+            pf, pb = T.flatten_with_path(gf), T.flatten_with_path(gb4)
+            check(lf == lb4 and [k for k, _ in pf] == [k for k, _ in pb]
+                  and all(torch.equal(a, b) for (_, a), (_, b) in
+                          zip(pf, pb)),
+                  f"elastic {wire}: the p = 4 pallas_fused steps differ from "
+                  f"stacked bine's (losses {lf} vs {lb4})")
+            del pb, gb4
+            for k, v in mine.items():
+                launches[k] += v
+            t0 = tcfg("pallas_fused", wire)
+            ckpt.save(str(root), 2, gf)
+            del pf, gf
+            plan = elastic.plan_survivors(4, [1], backend="pallas_fused",
+                                          topology="lumi")
+            check(plan.p_new == 3 and plan.backend == "ring",
+                  f"elastic: plan {plan.describe()}")
+            runs = []
+            for tc in (elastic.elastic_train_config(t0, 3),
+                       tcfg("ring", "float32")):
+                ip, is_ = make_init_fns(cfg, tc, 3, dev)
+                fresh = ip(0)
+                like = to_global(cfg, tc, fresh, is_(fresh), 3,
+                                 device="meta")
+                tree, info = elastic.elastic_restore(str(root), 2, like,
+                                                     device="cpu")
+                check(info["kept_init"] == [] and info["dropped"]
+                      and all("['ef']" in p for p in info["dropped"]),
+                      f"elastic {wire}: restore info {info}")
+                params, state = from_global(cfg, tc, tree, 3, dev)
+                step3, _, _ = make_train_step(cfg, tc, 3, shapes, dev)
+                mets = []
+                params, state = advance(step3, params, state, 2, 2, mets)
+                runs.append((to_global(cfg, tc, params, state, 3,
+                                       device="cpu"), mets,
+                             len(info["dropped"])))
+                del params, state
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        (ga, la, nd), (gb, lb, _) = runs
+        fa, fb = T.flatten(ga), T.flatten(gb)
+        check(la == lb and len(fa) == len(fb)
+              and all(torch.equal(a, b) for a, b in zip(fa, fb)),
+              f"elastic {wire}: the resume differs from the fresh p' = 3 "
+              f"restore")
+        nums[wire] = {"launches_p4": mine, "ef_dropped": nd,
+                      "losses_p4": [x for x, _ in lf],
+                      "losses": [x for x, _ in la],
+                      "grad_norms": [g for _, g in la]}
+        log(f"  elastic ({wire} wire): p = 4 pallas_fused x2 (launches "
+            f"{mine}; params, optimizer state and losses bitwise stacked "
+            f"bine's on the same wire) -> lose rank 1 -> p' = 3 ring "
+            f"float32 x2 ({nd} ef "
+            f"leaves dropped): params and optimizer state bitwise the fresh"
+            f" p' = 3 restore; losses "
+            f"{[f'{x:.6f}' for x in nums[wire]['losses']]}")
+    return launches, nums
+
+
+def phase_fleet_cli(dev):
+    """``launch/fleet.py`` in process on the card (reduced phi4-mini,
+    drains, a respawn, a crash, ``--obs-out``) and ``launch/report.py`` on
+    its artifact: the fleet's counters rendered.  Also the placement
+    plan's chosen strategy per preset for 2 replicas of 4 TP ranks on the
+    fleet cell's pages (reported).  Returns the numbers."""
+    import tempfile
+    from repro_torch.fleet.placement import decode_payloads, plan_placement
+    from repro_torch.launch import cell
+    from repro_torch.launch import fleet as fleet_cli
+    from repro_torch.launch import report
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs import timeline as obs_timeline
+    from repro_torch.topology.presets import PRESETS
+
+    obs_metrics.get_registry().reset()
+    obs_timeline.get_timeline().clear()
+    tmp_root = ROOT / "build"
+    tmp_root.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="fleet_smoke_",
+                                     dir=tmp_root) as d:
+        art = Path(d) / "fleet.json"
+        _, text = _cli(fleet_cli.main, [
+            "--arch", "phi4-mini-3.8b", "--reduced", "--replicas", "3",
+            "--slots", "3", "--requests", "8", "--max-new", "4",
+            "--sessions", "3", "--drain", "2:1", "--respawn", "5:1",
+            "--chaos-events", "1:crash:0", "--obs-out", str(art),
+            "--timestamp", "smoke"])
+        check("[fleet] finished 8/8" in text and "1 crashes" in text,
+              f"fleet CLI: {text[-600:]}")
+        artifact = json.loads(art.read_text())
+        check(artifact["kind"] == "fleet_serve", "fleet CLI: artifact kind")
+        rc, rep = _cli(report.main, ["--artifact", str(art)])
+    counters = [c for c in ("fleet_drains", "fleet_respawns",
+                            "fleet_crashes", "chaos_events")
+                if f"[report]   {c}" in rep]
+    check(rc == 0 and len(counters) == 4 and "fleet_tick_seconds" in rep,
+          f"report on the fleet artifact: rc {rc}, {rep[-600:]}")
+    launches = [ln for ln in text.splitlines() if "kernel launches" in ln]
+    log(f"  launch/fleet.py (reduced, cuda): 8/8 finished, 1 crash; "
+        f"{launches[0].strip() if launches else ''}; report renders "
+        f"{', '.join(counters)} and fleet_tick_seconds")
+    cfg = cell.serve_model_config(cell.FLEET_CELL.serve)
+    pay = decode_payloads(cell.FLEET_CELL.serve.slots, cfg.n_heads,
+                          cfg.head_dim, cfg.vocab_size)
+    chosen = {}
+    for preset in PRESETS:
+        plan = plan_placement(preset, 8, 2, 4, pay)
+        chosen[preset] = [plan.chosen,
+                          plan.scores[plan.chosen].global_bytes,
+                          plan.scores["round_robin"].global_bytes]
+    log("  placement (8 ranks, 2 replicas x tp 4, phi4-mini payloads at 3 "
+        "pages): " + "; ".join(f"{p} {v[0]} ({v[1]:.0f} vs round_robin "
+                               f"{v[2]:.0f} global B/tick)"
+                               for p, v in chosen.items()))
+    return {"placement": chosen, "report_counters": counters}
+
+
+def phase_fleet(dev, randn):
+    """Phase 18.  Returns (launches by path: fleet and elastic, the
+    numbers)."""
+    t0 = time.perf_counter()
+    phase_fleet_small_reference(dev)
+    fleet_launches, nums = phase_fleet_cell(dev, randn)
+    el_launches, el = phase_elastic(dev)
+    nums["elastic"] = el
+    nums.update(phase_fleet_cli(dev))
+    nums["seconds"] = time.perf_counter() - t0
+    return {"fleet": fleet_launches, "elastic": el_launches}, nums
+
+
 def main() -> int:
     # one 9.8 GB bucket buffer after another: keep the allocator's segments
     # growable so freed ones are reused (set before CUDA starts)
@@ -5434,7 +5991,7 @@ def main() -> int:
     from repro_torch.kernels.rmsnorm import kernel as RK
 
     t_all = time.perf_counter()
-    log("[1/17] build")
+    log("[1/18] build")
     t0 = time.perf_counter()
     libs = KB.build()
     for src in K.SOURCES:
@@ -5444,46 +6001,46 @@ def main() -> int:
     log(f"  built {', '.join(p.name for p in libs.values())} in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    log("[2/17] kernels vs plain versions")
+    log("[2/18] kernels vs plain versions")
     rows, qacc_launches, row, randn = phase_kernels(dev)
     torch.cuda.empty_cache()
 
-    log("[3/17] fused collectives vs stacked (bitwise)")
+    log("[3/18] fused collectives vs stacked (bitwise)")
     phase_collectives(dev)
 
-    log("[4/17] collectives API")
+    log("[4/18] collectives API")
     api_launches = phase_api(dev)
 
-    log("[5/17] two-tier (bine_hier)")
+    log("[5/18] two-tier (bine_hier)")
     hier_launches, two_tier = phase_two_tier(dev)
     torch.cuda.empty_cache()
 
-    log("[6/17] train")
+    log("[6/18] train")
     phase_small_reference(dev)
     launches, train = phase_train(dev)
     torch.cuda.empty_cache()
 
-    log("[7/17] serve")
+    log("[7/18] serve")
     phase_serve_small_reference(dev)
     serve_launches, serve, serve_ref = phase_serve(dev)
     torch.cuda.empty_cache()
 
-    log("[8/17] checkpoint, resume, measured tables, obs")
+    log("[8/18] checkpoint, resume, measured tables, obs")
     run_launches, runtime, obs_artifact = phase_runtime(dev)
     torch.cuda.empty_cache()
 
-    log("[9/17] tensor parallelism")
+    log("[9/18] tensor parallelism")
     phase_tp_small_reference(dev)
     tp_launches, tp = phase_tp(dev)
     torch.cuda.empty_cache()
 
-    log("[10/17] serving under TP")
+    log("[10/18] serving under TP")
     phase_serve_tp_small_reference(dev)
     stp_launches, serve_tp = phase_serve_tp(
         dev, {"nums": serve, "ref": serve_ref})
     torch.cuda.empty_cache()
 
-    log("[11/17] dense configs (gemma3-4b, gemma-7b, qwen3-32b)")
+    log("[11/18] dense configs (gemma3-4b, gemma-7b, qwen3-32b)")
     t11 = time.perf_counter()
     phase_dense_flash(dev, randn, row)
     dense_launches, dense, g3tp_launches, g3tp = phase_dense_serve(dev)
@@ -5492,7 +6049,7 @@ def main() -> int:
     dense_s = time.perf_counter() - t11
     log(f"  phase 11: {dense_s:.0f} s")
 
-    log("[12/17] MoE train (mixtral-8x7b, expert parallelism)")
+    log("[12/18] MoE train (mixtral-8x7b, expert parallelism)")
     t12 = time.perf_counter()
     phase_moe_small_reference(dev)
     moe_launches, moe = phase_moe_train(dev)
@@ -5500,7 +6057,7 @@ def main() -> int:
     moe["seconds"] = time.perf_counter() - t12
     log(f"  phase 12: {moe['seconds']:.0f} s")
 
-    log("[13/17] recurrent blocks (xlstm-125m, zamba2-2.7b)")
+    log("[13/18] recurrent blocks (xlstm-125m, zamba2-2.7b)")
     t13 = time.perf_counter()
     phase_model_small_reference(dev, ("xlstm-125m", "zamba2-2.7b"))
     phase_ssm_flash(dev, randn, row)
@@ -5510,7 +6067,7 @@ def main() -> int:
     ssm_s = time.perf_counter() - t13
     log(f"  phase 13: {ssm_s:.0f} s")
 
-    log("[14/17] frontend configs (pixtral-12b, musicgen-medium)")
+    log("[14/18] frontend configs (pixtral-12b, musicgen-medium)")
     t14 = time.perf_counter()
     phase_model_small_reference(dev, ("pixtral-12b", "musicgen-medium"))
     phase_frontend_flash(dev, randn, row)
@@ -5520,7 +6077,7 @@ def main() -> int:
     fe_s = time.perf_counter() - t14
     log(f"  phase 14: {fe_s:.0f} s")
 
-    log("[15/17] remat and MoE serving (mixtral-8x7b)")
+    log("[15/18] remat and MoE serving (mixtral-8x7b)")
     t15 = time.perf_counter()
     remat_launches, remat = phase_remat(dev)
     torch.cuda.empty_cache()
@@ -5529,7 +6086,7 @@ def main() -> int:
     p15_s = time.perf_counter() - t15
     log(f"  phase 15: {p15_s:.0f} s")
 
-    log("[16/17] recurrent blocks and the fixed-batch loop over TP ranks")
+    log("[16/18] recurrent blocks and the fixed-batch loop over TP ranks")
     t16 = time.perf_counter()
     phase_tp_small(dev)
     t16b = time.perf_counter()
@@ -5537,7 +6094,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     t16c = time.perf_counter()
     fixed_tp_launches, fixed_tp = phase_fixed_tp_serve(dev, randn)
-    del row, randn
+    del row
     torch.cuda.empty_cache()
     t16d = time.perf_counter()
     p16_parts = {"16a": t16b - t16, "16b": t16c - t16b, "16c": t16d - t16c}
@@ -5545,10 +6102,16 @@ def main() -> int:
     log(f"  phase 16: {p16_s:.0f} s (" + ", ".join(
         f"{k} {v:.0f} s" for k, v in p16_parts.items()) + ")")
 
-    log("[17/17] the measurement plane (tune, drift, report)")
+    log("[17/18] the measurement plane (tune, drift, report)")
     tune_launches, tune_nums = phase_tune(dev, obs_artifact)
     torch.cuda.empty_cache()
     log(f"  phase 17: {tune_nums['seconds']:.0f} s")
+
+    log("[18/18] the serve fleet and resilience (fleet, supervisor, elastic)")
+    fleet_by_path, fleet_nums = phase_fleet(dev, randn)
+    del randn
+    torch.cuda.empty_cache()
+    log(f"  phase 18: {fleet_nums['seconds']:.0f} s")
     # each path's own kernel launches, read around that path alone
     by_path = {"train": dict(launches), "two-axis": hier_launches,
                "runtime": run_launches, "tp": tp_launches,
@@ -5570,7 +6133,7 @@ def main() -> int:
                   for a, n in ssm_tp_launches.items()},
                **{f"serve {a} (fixed batch, tp 2)": n
                   for a, n in fixed_tp_launches.items()},
-               "tune": tune_launches}
+               "tune": tune_launches, **fleet_by_path}
     for path, counts in by_path.items():
         for name, n in counts.items():
             check(n > 0, f"kernel {name} was not launched on the {path} "
@@ -5594,6 +6157,8 @@ def main() -> int:
     for name, n in g3train_launches.items():
         launches[name] += n
     for name, n in tune_launches.items():
+        launches[name] += n
+    for name, n in fleet_by_path["elastic"].items():
         launches[name] += n
     for counts in list(moe_launches.values()) + list(
             ssm_train_launches.values()) + list(
@@ -5647,6 +6212,10 @@ def main() -> int:
             launches["flash_attention_hd80"] += n["flash_attention_wgmma"]
         elif a == "mixtral-8x7b":
             launches["flash_attention"] += n["flash_attention_wgmma"]
+    # the fleet path: phi4-mini's norms and flash at head_dim 128 (bf16)
+    launches["rmsnorm"] += fleet_by_path["fleet"]["rmsnorm"]
+    launches["flash_attention"] += \
+        fleet_by_path["fleet"]["flash_attention_wgmma"]
     launches["flash_attention_hd160"] = \
         fe_serve_launches["pixtral-12b (tokens)"]["flash_attention_wgmma"]
     launches["flash_attention_hd160_f32"] = \
@@ -5679,6 +6248,7 @@ def main() -> int:
                                  "seconds": p16_s,
                                  "part_seconds": p16_parts}))
     log(f"tune: {json.dumps(tune_nums)}")
+    log(f"fleet: {json.dumps(fleet_nums)}")
     log(f"train: {json.dumps(train)}; total {time.perf_counter() - t_all:.0f} s")
     print(json.dumps({"kernels": list(rows.values())}))
     smi = subprocess.run(

@@ -47,6 +47,10 @@ pixtral-12b at full depth and musicgen-medium at full depth served
 through the fixed-batch loop on float32 frames; musicgen-medium at full
 width cut to 16 of 48 layers trained at (dp, tp) = (4, 1) and (2, 2).
 
+The serve fleet (``FLEET_CELL``): the serve cell's model and weights in
+3 replicas of 3 pages, 12 requests over 3 sessions, with drains and a
+respawn mid-trace.
+
 The dense configs (``DENSE_SERVE_CELLS``): gemma3-4b at full depth
 (``GEMMA3_SERVE_CELL``: prompts past its 1024-token local window, pages
 of 2048), gemma-7b at full depth (``GEMMA7B_SERVE_CELL``) and qwen3-32b at
@@ -324,6 +328,35 @@ MOE_SERVE_CELL = ServeCell(arch="mixtral-8x7b", n_layers=8, slots=4,
 #: slow for one rank's memory bandwidth
 FIXED_TP = 2
 FIXED_TP_SERVE_CELLS = (ZAMBA2_SERVE_CELL, MOE_SERVE_CELL, MUSICGEN_SERVE_CELL)
+
+
+@dataclass(frozen=True)
+class FleetCell:
+    """A serve fleet: ``replicas`` replicas of ``serve``'s model, each
+    with ``serve.slots`` pages, over one set of engine fns and one copy of
+    the weights; ``serve``'s trace tagged with ``sessions`` session ids
+    (the router's affinity key); ``events`` the (tick, action, replica)
+    drains and respawns fired mid-trace."""
+    serve: ServeCell
+    replicas: int
+    sessions: int
+    events: Tuple[Tuple[int, str, int], ...]
+
+
+#: phi4-mini at full width and depth (SERVE_CELL's model and weights) in 3
+#: replicas of 3 pages of 1024 tokens, 12 greedy Poisson requests at 1.0
+#: per tick with prompts of 64-512 tokens and 16 new tokens each over 3
+#: sessions, replica 1 drained at tick 4 and respawned at 9, replica 2
+#: drained at 7.  Bytes: the weights held once, 3,836,021,760 params (7.67
+#: GB bf16), and 9 pages x 128 MiB of bf16 K/V (32 layers x 1024 slots x
+#: 8 KV heads x 128 x 2 (K and V) x 2 bytes), 1.125 GiB.  Users run a
+#: fleet of data-parallel replicas behind a session-affine router when one
+#: replica's pool cannot hold the traffic, and drain and respawn replicas
+#: as hosts come and go.
+FLEET_CELL = FleetCell(
+    serve=ServeCell(slots=3, requests=12, rate=1.0, max_new=16),
+    replicas=3, sessions=3,
+    events=((4, "drain", 1), (9, "respawn", 1), (7, "drain", 2)))
 #: each served arch's cell (``launch/profile_serve.py --arch``)
 SERVE_CELLS = {c.arch: c for c in (SERVE_CELL,) + DENSE_SERVE_CELLS +
                SSM_SERVE_CELLS + FRONTEND_SERVE_CELLS + (MOE_SERVE_CELL,)}

@@ -36,6 +36,7 @@ backends.
 
 from __future__ import annotations
 
+import dataclasses
 from functools import lru_cache
 from typing import Dict, Tuple, Union
 
@@ -264,6 +265,31 @@ def _wire_scale(collective: str, backend: str, wire_dtype: str) -> float:
             f"({collective!r}, backend={backend!r}); codec wires exist for "
             f"{WIRE_CODEC_COLLECTIVES} on {WIRE_CODEC_BACKENDS}")
     return wire_factor(wire_dtype)
+
+
+def degrade_topology(topo: Union[GroupedTopo, TorusTopo], beta_scale: float,
+                     alpha_scale: float = 1.0
+                     ) -> Union[GroupedTopo, TorusTopo]:
+    """Re-price a link degradation: a new frozen topo whose slow tier is
+    ``beta_scale``x slower (``alpha_scale``x higher latency).
+
+    Grouped topologies degrade the *global* tier only — a DCN/Dragonfly
+    link event's fault domain does not include the links inside a group;
+    the torus has one link class, so the whole fabric degrades.  The
+    whole cost stack (``predict_time``, ``table.build_table``) is pure in
+    the topo argument, so pricing a degraded network is just passing this
+    in; :mod:`repro_torch.resilience.chaos` routes its ``link_slow`` fault
+    kind through here.
+    """
+    if beta_scale < 1.0 or alpha_scale < 1.0:
+        raise ValueError("a degraded link cannot get faster: scales >= 1")
+    if isinstance(topo, TorusTopo) or not hasattr(topo, "beta_global"):
+        return dataclasses.replace(topo, beta=topo.beta * beta_scale,
+                                   alpha=topo.alpha * alpha_scale)
+    return dataclasses.replace(
+        topo,
+        beta_global=topo.beta_global * beta_scale,
+        alpha_global=topo.alpha_global * alpha_scale)
 
 
 def predict_time(collective: str, backend: str, p: int, nbytes: float,

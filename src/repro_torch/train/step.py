@@ -853,7 +853,9 @@ def make_train_step(model_cfg, tcfg: TrainConfig, dp, params_shapes,
         raise ValueError(
             f"backend={tcfg.backend!r} cannot execute at non-power-of-"
             f"two n_dp={n_dp} (butterfly schedules need pow2 rank counts); "
-            f"use backend='ring' or 'xla'")
+            f"use backend='ring' or 'xla', or derive the config via "
+            f"repro_torch.resilience.elastic.elastic_train_config, which "
+            f"picks the executable fallback for a survivor set")
     plan = lay.plan
     if tcfg.wire_dtype == "int8":
         if n_dp & (n_dp - 1):

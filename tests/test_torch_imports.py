@@ -37,7 +37,8 @@ def test_every_module_imports_without_jax(subproc):
     assert n == n_files + n_pkgs
     for mod in SERVING_MODULES + TWO_TIER_MODULES + RUNTIME_MODULES + \
             TP_MODULES + DENSE_CONFIG_MODULES + MOE_MODULES + \
-            RECURRENT_MODULES + FRONTEND_MODULES + TUNER_MODULES:
+            RECURRENT_MODULES + FRONTEND_MODULES + TUNER_MODULES + \
+            FLEET_MODULES:
         assert (PORT / (mod.replace(".", "/") + ".py")).is_file(), mod
 
 
@@ -109,6 +110,15 @@ FRONTEND_MODULES = (
 TUNER_MODULES = (
     "tuner.probe", "tuner.store", "tuner.refresh", "tuner.trace",
     "obs.drift", "topology.table", "launch.tune", "launch.report")
+
+
+#: the fleet and resilience slice: the two packages, their modules and
+#: the fleet CLI, each imported above without jax
+FLEET_MODULES = (
+    "fleet.__init__", "fleet.feedback", "fleet.router", "fleet.placement",
+    "fleet.replica", "fleet.fleet", "resilience.__init__",
+    "resilience.chaos", "resilience.fakes", "resilience.supervisor",
+    "resilience.elastic", "launch.fleet", "topology.cost")
 
 
 def _imports(tree):

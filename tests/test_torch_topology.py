@@ -117,6 +117,27 @@ def test_predict_time_matches(name):
 
 
 @pytest.mark.parametrize("name", jpresets.PRESETS)
+def test_degrade_topology_matches(name):
+    """``degrade_topology`` at p = 4 ... 64: the same degraded fields (the
+    global tier of a grouped preset, every link of the torus), the same
+    predicted times on them, the same refusal of a speed-up."""
+    for p in PS:
+        tt = tpresets.get_topology(name, p)
+        tj = jpresets.get_topology(name, p)
+        for beta, alpha in ((1.0, 1.0), (3.0, 2.0), (0.5, 1.0), (2.0, 0.5)):
+            got = _outcome(lambda: tcost.degrade_topology(tt, beta, alpha))
+            exp = _outcome(lambda: jcost.degrade_topology(tj, beta, alpha))
+            if got[0] != "ok" or exp[0] != "ok":
+                assert got == exp, (p, beta, alpha)
+                continue
+            assert _topo_fields(got[1]) == _topo_fields(exp[1])
+            for n in SIZES:
+                assert tcost.predict_time("allreduce", "bine", p, n,
+                                          got[1]) == \
+                    jcost.predict_time("allreduce", "bine", p, n, exp[1])
+
+
+@pytest.mark.parametrize("name", jpresets.PRESETS)
 def test_bucket_sizing_matches(name):
     for p in PS:
         tj = jpresets.get_topology(name, p)
