@@ -3430,12 +3430,12 @@ def phase_model_small_reference(dev, archs):
 def phase_ssm_flash(dev, randn, row):
     """(b) The flash kernel at head_dim 80, zamba2-2.7b's shared attention
     at its serve cell's prefill, q, k, v [4, 1024, 32, 80] causal (g = 1):
-    bf16 on the wgmma kernel (head_dim 128's tiles, columns 80-127
-    zero-filled by TMA) within 3e-2 of the plain version, float32 on the
-    CUDA cores within 2e-5 (``flash_case``); the ``flash_attention_hd80``
-    row (event ms, device ms under torch.profiler, host us, the bound by
-    operations over 989 TFLOP/s against bytes over 3.35 TB/s, SDPA's
-    times, its backend named)."""
+    bf16 on the wgmma kernel (tiles of a 64- and a 16-column panel, no
+    padded column; two warpgroups a block) within 3e-2 of the plain
+    version, float32 on the CUDA cores within 2e-5 (``flash_case``); the
+    ``flash_attention_hd80`` row (event ms, device ms under
+    torch.profiler, host us, the bound by operations over 989 TFLOP/s
+    against bytes over 3.35 TB/s, SDPA's times, its backend named)."""
     import torch
     from repro_torch.launch import cell
 
@@ -3878,13 +3878,13 @@ def loop_ms(fn, calls: int = 50) -> float:
 def phase_frontend_flash(dev, randn, row):
     """(b) The flash kernel at head_dim 160, pixtral-12b's prefill, q
     [4, 1024, 32, 160] over 8 K/V heads, causal: bf16 on the wgmma kernel
-    (head_dim 256's tiles, columns 160-255 zero-filled by TMA) within 3e-2
-    of the plain version, float32 on the CUDA cores within 2e-5 (the
-    frames path's); a row each (event ms, device ms under torch.profiler,
-    host us, the bound, SDPA's times: cuDNN in bf16, its float32
-    backend's beside the float32 row; ``loop_ms`` of the kernel and of
-    SDPA beside them).  Then float32 at musicgen's prefill (q [8, 1024,
-    24, 64]) within 2e-5."""
+    (tiles of two 64-column panels and a 32-column one, no padded
+    column) within 3e-2 of the plain version, float32 on the CUDA cores
+    within 2e-5 (the frames path's); a row each (event ms, device ms
+    under torch.profiler, host us, the bound, SDPA's times: cuDNN in
+    bf16, its float32 backend's beside the float32 row; ``loop_ms`` of
+    the kernel and of SDPA beside them).  Then float32 at musicgen's
+    prefill (q [8, 1024, 24, 64]) within 2e-5."""
     import torch
     from repro_torch.launch import cell
 

@@ -19,11 +19,14 @@
 //
 // 1. flash_kernel_wgmma, on the tensor cores, for bf16 q, k, v with
 //    head_dim in (16, 32, 64, 80, 128, 160, 256) whose strides and base
-//    addresses TMA can take (multiples of 16 bytes).  Bound: operations, 4 hd flops
-//    per live (query head, query, key) pair over the H100's 989 TFLOP/s
-//    bf16 tensor-core peak (0.0065 ms at q [1, 1024, 24, 128] causal).
+//    addresses TMA can take (multiples of 16 bytes).  Bound: the larger
+//    of operations, 4 hd flops per live (query head, query, key) pair
+//    over the H100's 989 TFLOP/s bf16 tensor-core peak (0.0065 ms at q
+//    [1, 1024, 24, 128] causal), and bytes, q, k, v read and o written
+//    once over 3.35 TB/s (0.0250 ms at zamba2's q [4, 1024, 32, 80]).
 //    Design: one block of one consumer warpgroup (128 threads) per
-//    (batch, query head, 64 queries).  The serve cell's 1024-token
+//    (batch, query head, 64 queries; two and 128 at head_dim 80, below).
+//    The serve cell's 1024-token
 //    prefill is then 384 blocks, two resident per SM: the causal
 //    imbalance (a query tile's key count grows with its row) is spread
 //    over many small blocks.  Blocks that fold a GQA group's heads (each
@@ -32,48 +35,48 @@
 //    pay only on grids that fill the card several times over, which no
 //    path of the port launches yet.  The blocks with the most live key
 //    tiles launch first.
-//    Thread 0 loads by TMA (swizzled to the row width: 128 bytes, or
-//    64 / 32 at head_dim 32 / 16): the Q tile once, then a ring of
-//    kStages (2) 64-key K and V tiles, each stage with a full and an
-//    empty mbarrier; it refills a stage once the warpgroup has released
-//    it.  The warpgroup runs, per live key tile:
+//    Thread 0 loads by TMA: the Q tiles once, then a ring of kStages (2)
+//    64-key K and V tiles, each stage with a full and an empty mbarrier;
+//    it refills a stage once the warpgroup has released it.  A tile is
+//    panels of 64 rows, one TMA box each: 64-column panels swizzled over
+//    128 bytes (the whole row below head_dim 64), then, where 64 does not
+//    divide head_dim, one narrower tail panel in its own swizzle and
+//    tensor map: 64 + 64 + 32 columns (the tail over 64 bytes) at 160,
+//    64 + 16 (over 32 bytes) at 80.  No panel holds a column past
+//    head_dim, so the transaction bytes a stage waits for are the tile's
+//    real bytes.  The warpgroup runs, per live key tile:
 //      S = Q K^T as head_dim/16 m64n64k16 wgmmas, Q and K K-major from
-//        shared memory, into 32 float32 registers a thread;
+//        shared memory (each k step in its panel's layout), into 32
+//        float32 registers a thread;
 //      the online softmax in registers, in log2 units (exp2f, log2(e)
 //        folded into the scale: expf's range reduction made the softmax,
 //        not the tensor cores, the limit); a row's 64 scores lie in the 4
 //        lanes of a quad (two shuffles for its max and sum), and a tile
 //        live for every row and key skips the masks;
-//      O += P V as m64n{hd}k16 wgmmas with A from registers: the S
-//        accumulator's layout is wgmma's register-A layout, so P packs to
-//        bf16 pairs with no shuffle.  P is split, p_hi = bf16(p) and
-//        p_lo = bf16(p - p_hi), and both multiply the same V tile (V read
-//        MN-major through the transpose-B bit): p keeps about 16
-//        significant bits, so PV's error stays near the float32
-//        sum-order error, far below the output's one bf16 rounding.  The
-//        split doubles PV's tensor-core work (under 10 us at T = 1024).
-//    Registers: HDP/2 accumulators (64 at hd 128, 128 at hd 160 and 256), 32
-//    scores and 8 packed P words a thread.  Shared memory: 5 tiles of
-//    64 x hd bf16 (Q and the K/V ring; 80 KB at hd 128, so two blocks fit
-//    an SM; 160 KB at hd 256, one).  At hd 256 PV is two m64n128k16 a
-//    16-key step, over V's column halves of two 128-byte panels each.
-//    Head_dim 80 (zamba2's shared attention) keeps head_dim 128's tiles:
-//    two 64-column, 128-byte-swizzled panels, the tensor maps given the
-//    real inner dim 80, so TMA zero-fills columns 80-127 of Q, K and V
-//    (and counts them in the transaction bytes). QK^T runs its 5 k steps
-//    (columns 0-79: the fifth reads panel 1's first 16), PV the m64n128k16
-//    of head_dim 128 (columns 80-127 accumulate zeros, never stored): 1.6x
-//    PV's tensor-core work at 80, no new wgmma shape, no new swizzle.
-//    Head_dim 160 (pixtral-12b) takes the same route in head_dim 256's
-//    tiles: four 128-byte panels, the tensor maps' inner dim 160 (rows of
-//    320 bytes), so TMA zero-fills columns 160-191 of panel 2, and panel
-//    3 (columns 192-255) lies wholly out of bounds: TMA zero-fills it too,
-//    and its bytes count in the transaction bytes like any box's, so the
-//    barriers expect whole tiles as at 256.  QK^T runs 10 k steps (panels
-//    0-2, panel 2's first 32 columns), PV the two m64n128k16 of 256 (the
-//    second over columns 128-255, three quarters zeros, never stored):
-//    1.6x PV's tensor-core work at 160 and 160 KB of shared memory, one
-//    block an SM.
+//      O += P V as m64n{hd}k16 wgmmas with A from registers (at hd 256
+//        two m64n128k16 over V's column halves; at 160 m64n128k16 and
+//        m64n32k16 over the full and the tail panels, at 80 m64n64k16
+//        and m64n16k16): the S accumulator's layout is wgmma's
+//        register-A layout, so P packs to bf16 pairs with no shuffle.  P
+//        is split, p_hi = bf16(p) and p_lo = bf16(p - p_hi), and both
+//        multiply the same V tile (V read MN-major through the
+//        transpose-B bit): p keeps about 16 significant bits, so PV's
+//        error stays near the float32 sum-order error, far below the
+//        output's one bf16 rounding.  The split doubles PV's tensor-core
+//        work (under 10 us at T = 1024).
+//    At head_dim 80 (zamba2-2.7b's shared attention) a block holds two
+//    consumer warpgroups, 128 query rows, that share the K/V ring: each
+//    K/V tile is read from L2 once for both, and a warpgroup passes over
+//    a tile dead for its own rows (it waits for it and releases it).
+//    Registers: hd/2 accumulators a thread (40 at hd 80, 64 at 128, 80 at
+//    160, 128 at 256) and 32 scores.  Shared memory: the Q tiles and 4
+//    K/V tiles of 64 x hd bf16: 61 KB at hd 80 (two blocks an SM), 81 KB
+//    at 128 (two), 101 KB at 160 (two), 161 KB at 256 (one); the launch
+//    bounds ask for two blocks an SM at 80 and 160 (Geo::MIN_BLOCKS).
+//    Issuing tile j+1's QK^T before tile j's PV (its softmax under the
+//    PV) measured slower at 80 and 160 on an H100, and so did one tensor
+//    map a tensor in narrower swizzles (five 32- or 16-column panels) at
+//    80 (PERF.md, section 6).
 // 2. flash_kernel, on the CUDA cores, for float32 (where it beats SDPA)
 //    and any other call: one block of 256 threads per (batch, query head,
 //    64-row query tile); GQA maps the query head to its kv head.  The Q
@@ -101,6 +104,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "../../csrc/hopper.cuh"
 
@@ -335,21 +340,45 @@ constexpr int kStages = 2;     // K/V tiles in flight
 
 template <int HD>
 struct Geo {
-  // the tiles' columns: 80 in 128's tiles, 160 in 256's
-  static constexpr int HDP = HD == 80 ? 128 : HD == 160 ? 256 : HD;
-  static constexpr int SW = HDP * 2 < 128 ? HDP * 2 : 128;  // swizzle, bytes
+  // a tile's columns: NM panels of PW columns, swizzled over SW bytes
+  // (128: 64 columns, or the whole row below head_dim 64), then, where
+  // PW does not divide HD, one tail panel of TW columns over 2 TW bytes
+  // (32 columns at 160, 16 at 80); no panel holds a column past HD
+  static constexpr int SW = HD >= 64 ? 128 : 2 * HD;
   static constexpr int PW = SW / 2;          // bf16 per swizzled row
-  static constexpr int NP = HDP / PW;        // panels a tile (2 at HD=128)
-  static constexpr int NACC = HDP / 2;       // O accumulator registers
+  static constexpr int NM = HD / PW;         // full panels a tile
+  static constexpr int TW = HD % PW;         // tail panel's columns, or 0
+  static constexpr int TSW = 2 * TW;         // its swizzle, bytes
+  static constexpr int NACC = HD / 2;        // O accumulator registers
   static constexpr int PANEL = 64 * SW;      // one 64-row panel, bytes
-  static constexpr int TILE = NP * PANEL;    // one 64 x HD tile, bytes
+  static constexpr int TILE = NM * PANEL + 64 * TSW;   // one 64 x HD tile
   static constexpr int LAYOUT = desc_layout(SW);
+  static constexpr int NMAPS = TW > 0 ? 6 : 3;   // tensor maps: q, k, v
+  // consumer warpgroups a block, 64 query rows each, sharing one K/V
+  // ring (two at head_dim 80: each K/V tile read once for 128 rows), and
+  // the blocks an SM the launch bounds ask for: as many as shared memory
+  // allows at 80 (2 x 61 KB) and 160 (2 x 101 KB)
+  static constexpr int WGS = HD == 80 ? 2 : 1;
+  static constexpr int MIN_BLOCKS = HD == 80 || HD == 160 ? 2 : 1;
+  static constexpr int THREADS = 128 * WGS;
 };
+
+// q, k, v's tensor maps (boxes of one full panel), then their tail
+// panel's
+struct Maps3 {
+  CUtensorMap t[3];
+};
+struct Maps6 {
+  CUtensorMap t[6];
+};
+template <int HD>
+using Maps = std::conditional_t<Geo<HD>::NMAPS == 6, Maps6, Maps3>;
 
 template <int HD>
 constexpr size_t smem_bytes() {
-  // the Q tile, the K/V ring, its barriers and Q's, 1 KB alignment slack
-  return static_cast<size_t>(1 + 2 * kStages) * Geo<HD>::TILE +
+  // the Q tiles, the K/V ring, its barriers and Q's, 1 KB alignment slack
+  using G = Geo<HD>;
+  return static_cast<size_t>(G::WGS + 2 * kStages) * G::TILE +
          (1 + 2 * kStages) * 8 + 1024;
 }
 
@@ -358,68 +387,93 @@ template <int HD>
 __device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int kk) {
   using G = Geo<HD>;
   constexpr int STEPS = G::PW / 16;          // k steps a panel row holds
-  return make_desc(tile + (kk / STEPS) * G::PANEL + (kk % STEPS) * 32, 16,
-                   8 * G::SW, G::LAYOUT);
+  if (kk < G::NM * STEPS)
+    return make_desc(tile + (kk / STEPS) * G::PANEL + (kk % STEPS) * 32, 16,
+                     8 * G::SW, G::LAYOUT);
+  return make_desc(tile + G::NM * G::PANEL + (kk - G::NM * STEPS) * 32, 16,
+                   8 * G::TSW, desc_layout(G::TSW));
 }
 
-// O += P V for one 16-key step, V's rows at shared address ``vaddr``
+// D[64 x N] += A (registers) * B (shared, MN-major), D at ``d``
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t (&a)[4],
+                                         uint64_t db) {
+  using D = float[N / 2];
+  D& r = *reinterpret_cast<D*>(d);
+  if constexpr (N == 128) {
+    wgmma_rs_m64n128(r, a, db, 1);
+  } else if constexpr (N == 64) {
+    wgmma_rs_m64n64(r, a, db, 1);
+  } else if constexpr (N == 32) {
+    wgmma_rs_m64n32(r, a, db, 1);
+  } else {
+    static_assert(N == 16, "no wgmma of this width");
+    wgmma_rs_m64n16(r, a, db, 1);
+  }
+}
+
+// O += P V for 16-key step kk of the V tile at shared address ``vtile``
 template <int HD>
 __device__ __forceinline__ void pv_wgmma(float (&o)[Geo<HD>::NACC],
                                          const uint32_t (&a)[4],
-                                         uint32_t vaddr) {
+                                         uint32_t vtile, int kk) {
   using G = Geo<HD>;
+  const uint32_t vaddr = vtile + kk * 16 * G::SW;
   const uint64_t db = make_desc(vaddr, G::PANEL, 8 * G::SW, G::LAYOUT);
-  if constexpr (HD == 256 || HD == 160) {
+  if constexpr (HD == 256) {
     // two m64n128 over V's column halves (two panels each): an n = 256
     // accumulator holds columns 0-127 in registers 0-63 as n = 128 does
-    using Half = float[64];
-    const uint64_t db2 =
-        make_desc(vaddr + 2 * G::PANEL, G::PANEL, 8 * G::SW, G::LAYOUT);
-    wgmma_rs_m64n128(*reinterpret_cast<Half*>(o), a, db, 1);
-    wgmma_rs_m64n128(*reinterpret_cast<Half*>(o + 64), a, db2, 1);
-  } else if constexpr (HD == 128 || HD == 80) {
-    wgmma_rs_m64n128(o, a, db, 1);
-  } else if constexpr (HD == 64) {
-    wgmma_rs_m64n64(o, a, db, 1);
-  } else if constexpr (HD == 32) {
-    wgmma_rs_m64n32(o, a, db, 1);
+    wgmma_rs<128>(o, a, db);
+    wgmma_rs<128>(o + 64, a, make_desc(vaddr + 2 * G::PANEL, G::PANEL,
+                                       8 * G::SW, G::LAYOUT));
   } else {
-    wgmma_rs_m64n16(o, a, db, 1);
+    wgmma_rs<G::NM * G::PW>(o, a, db);
+    if constexpr (G::TW > 0) {
+      // the tail panel's columns, after the full panels' in the registers
+      // (m64n32k16 at 160, m64n16k16 at 80)
+      wgmma_rs<G::TW>(o + G::NM * G::PW / 2, a,
+                      make_desc(vtile + G::NM * G::PANEL + kk * 16 * G::TSW,
+                                64 * G::TSW, 8 * G::TSW,
+                                desc_layout(G::TSW)));
+    }
   }
 }
 
 // K/V tile j (key tile kt) into stage j % kStages, completing on its full
-// barrier
+// barrier: each panel one box, the tail panel through the tail maps
 template <int HD>
 __device__ __forceinline__ void load_kv(uint8_t* Ks, uint8_t* Vs,
-                                        const CUtensorMap* tk,
-                                        const CUtensorMap* tv, uint64_t* full,
+                                        const Maps<HD>& m, uint64_t* full,
                                         int j, int kt, int hn, int b) {
   using G = Geo<HD>;
   const int s = j % kStages;
   mbar_expect_tx(&full[s], 2 * G::TILE);
 #pragma unroll
-  for (int p = 0; p < G::NP; ++p) {
-    tma_load_4d(Ks + s * G::TILE + p * G::PANEL, tk, &full[s], p * G::PW,
+  for (int p = 0; p < G::NM; ++p) {
+    tma_load_4d(Ks + s * G::TILE + p * G::PANEL, &m.t[1], &full[s], p * G::PW,
                 kt * 64, hn, b);
-    tma_load_4d(Vs + s * G::TILE + p * G::PANEL, tv, &full[s], p * G::PW,
+    tma_load_4d(Vs + s * G::TILE + p * G::PANEL, &m.t[2], &full[s], p * G::PW,
                 kt * 64, hn, b);
+  }
+  if constexpr (G::TW > 0) {
+    tma_load_4d(Ks + s * G::TILE + G::NM * G::PANEL, &m.t[4], &full[s],
+                G::NM * G::PW, kt * 64, hn, b);
+    tma_load_4d(Vs + s * G::TILE + G::NM * G::PANEL, &m.t[5], &full[s],
+                G::NM * G::PW, kt * 64, hn, b);
   }
 }
 
 template <int HD>
-__global__ void __launch_bounds__(128, 1)
-flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
-                   const __grid_constant__ CUtensorMap tk,
-                   const __grid_constant__ CUtensorMap tv,
+__global__ void __launch_bounds__(Geo<HD>::THREADS, Geo<HD>::MIN_BLOCKS)
+flash_kernel_wgmma(const __grid_constant__ Maps<HD> m,
                    __nv_bfloat16* __restrict__ o, int nkv, int Tq, int Tk,
                    long long ob, long long on, long long og,
                    long long ot, int window, int causal, float scale) {
   using G = Geo<HD>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
-  uint8_t* Qs = smem;                              // one tile
-  uint8_t* Ks = Qs + G::TILE;                      // [kStages] tiles
+  uint8_t* Qs = smem;                              // [WGS] tiles
+  uint8_t* Ks = Qs + G::WGS * G::TILE;             // [kStages] tiles
   uint8_t* Vs = Ks + kStages * G::TILE;            // [kStages] tiles
   uint64_t* bars = reinterpret_cast<uint64_t*>(Vs + kStages * G::TILE);
   uint64_t* qbar = bars;
@@ -428,15 +482,21 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
 
   const int b = blockIdx.x / nkv, hn = blockIdx.x % nkv;
   const int qh = blockIdx.y;                       // query head in the group
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * 64;   // heaviest tiles first
+  // the block's 64 WGS query rows from qb, heaviest first; this
+  // warpgroup's 64 from q0
+  const int qb = (gridDim.z - 1 - blockIdx.z) * 64 * G::WGS;
+  const int wg = G::WGS > 1 ? threadIdx.x / 128 : 0;
+  const int q0 = qb + 64 * wg;
 
-  // the live key tiles (the TPU kernel's block skipping, kernel.py:49-54)
-  const int q_last = min(q0 + 63, Tq - 1);
+  // the block's live key tiles (the TPU kernel's block skipping,
+  // kernel.py:49-54); each warpgroup passes over a tile dead for its own
+  // rows (it waits for it and releases it)
+  const int q_last = min(qb + 64 * G::WGS - 1, Tq - 1);
   int kt_end = (Tk + 63) / 64;
   if (causal) kt_end = min(kt_end, q_last / 64 + 1);
   int kt_begin = 0;
   if (window > 0) {
-    const int lo = q0 - window + 1;
+    const int lo = qb - window + 1;
     if (lo > 0) kt_begin = lo / 64;
   }
   const int ntiles = max(0, kt_end - kt_begin);
@@ -445,21 +505,31 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
     mbar_init(qbar, 1);
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 128);
+      mbar_init(&empty[s], G::THREADS);
     }
     fence_barrier_init();
   }
   __syncthreads();
 
-  // thread 0 issues every load: Q once, then K/V tile j into stage
-  // j % kStages as soon as the warpgroup has released tile j - kStages
+  // thread 0 issues every load: the Q tiles once, then K/V tile j into
+  // stage j % kStages as soon as every warpgroup has released tile
+  // j - kStages
   if (threadIdx.x == 0) {
-    mbar_expect_tx(qbar, G::TILE);
+    mbar_expect_tx(qbar, G::WGS * G::TILE);
 #pragma unroll
-    for (int p = 0; p < G::NP; ++p)
-      tma_load_5d(Qs + p * G::PANEL, &tq, qbar, p * G::PW, q0, qh, hn, b);
+    for (int w = 0; w < G::WGS; ++w) {
+      uint8_t* qs = Qs + w * G::TILE;
+#pragma unroll
+      for (int p = 0; p < G::NM; ++p)
+        tma_load_5d(qs + p * G::PANEL, &m.t[0], qbar, p * G::PW, qb + 64 * w,
+                    qh, hn, b);
+      if constexpr (G::TW > 0) {
+        tma_load_5d(qs + G::NM * G::PANEL, &m.t[3], qbar, G::NM * G::PW,
+                    qb + 64 * w, qh, hn, b);
+      }
+    }
     for (int j = 0; j < min(kStages, ntiles); ++j)
-      load_kv<HD>(Ks, Vs, &tk, &tv, full, j, kt_begin + j, hn, b);
+      load_kv<HD>(Ks, Vs, m, full, j, kt_begin + j, hn, b);
   }
   __syncwarp();
 
@@ -472,109 +542,115 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
   for (int i = 0; i < G::NACC; ++i) acc[i] = 0.0f;
   float mrow[2] = {NEG_INF, NEG_INF}, lrow[2] = {0.0f, 0.0f};
-  const uint32_t qtile = smem_u32(Qs);
+  const uint32_t qtile = smem_u32(Qs + wg * G::TILE);
   const float scale_log2 = scale * 1.4426950408889634f;   // log2(e) folded in
+  // the key tiles live for this warpgroup's rows (none past Tq)
+  int my_begin = 0;
+  if (window > 0 && q0 - window + 1 > 0) my_begin = (q0 - window + 1) / 64;
+  const int my_end = q0 >= Tq ? 0 : causal ? min(kt_end, q0 / 64 + 1)
+                                           : kt_end;
 
   mbar_wait(qbar, 0);
   for (int j = 0; j < ntiles; ++j) {
-    const int s = j % kStages, k0 = (kt_begin + j) * 64;
+    const int s = j % kStages, kt = kt_begin + j, k0 = kt * 64;
     mbar_wait(&full[s], (j / kStages) & 1);
+    // a tile dead for this warpgroup's rows is waited for and released
+    if (G::WGS == 1 || (kt >= my_begin && kt < my_end)) {
+      // S = Q K^T: m64n64k16 over head_dim, Q and K both K-major
+      float sc[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] = 0.0f;
+      const uint32_t ktile = smem_u32(Ks + s * G::TILE);
+      fence_regs(sc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_ss_m64n64<0>(sc, kmajor_desc<HD>(qtile, kk),
+                           kmajor_desc<HD>(ktile, kk), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
 
-    // S = Q K^T: m64n64k16 over head_dim (not the padded columns), Q
-    // and K both K-major
-    float sc[32];
+      // online softmax over the tile, the plain version's masks; scores in
+      // log2 units (exp2f); a row's 64 keys live in the 4 lanes of a quad.
+      // A tile live for every (row, key) of the warpgroup skips the masks.
+      uint32_t live = 0xffffffffu;
+      float mx[2] = {NEG_INF, NEG_INF};
+      if (k0 + 63 < Tk && (!causal || k0 + 63 <= q0) &&
+          (window <= 0 || q0 + 63 - k0 < window)) {
 #pragma unroll
-    for (int i = 0; i < 32; ++i) sc[i] = 0.0f;
-    const uint32_t ktile = smem_u32(Ks + s * G::TILE);
-    fence_regs(sc);
-    wgmma_fence();
+        for (int i = 0; i < 32; ++i) {
+          sc[i] *= scale_log2;
+          mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+        }
+      } else {
+        live = 0;
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
-      wgmma_ss_m64n64<0>(sc, kmajor_desc<HD>(qtile, kk),
-                         kmajor_desc<HD>(ktile, kk), 1);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(sc);
-
-    // online softmax over the tile, the plain version's masks; scores in
-    // log2 units (exp2f); a row's 64 keys live in the 4 lanes of a quad.
-    // A tile live for every (row, key) of the block skips the masks.
-    uint32_t live = 0xffffffffu;
-    float mx[2] = {NEG_INF, NEG_INF};
-    if (k0 + 63 < Tk && (!causal || k0 + 63 <= q0) &&
-        (window <= 0 || q0 + 63 - k0 < window)) {
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        sc[i] *= scale_log2;
-        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+        for (int i = 0; i < 32; ++i) {
+          const int h = (i >> 1) & 1;
+          const int tqp = q0 + ra + 8 * h;
+          const int tkp = k0 + 8 * (i / 4) + cq + (i & 1);
+          const bool ok = tkp < Tk && (!causal || tkp <= tqp) &&
+                          (window <= 0 || tqp - tkp < window);
+          live |= static_cast<uint32_t>(ok) << i;
+          sc[i] = ok ? sc[i] * scale_log2 : NEG_INF;
+          mx[h] = fmaxf(mx[h], sc[i]);
+        }
       }
-    } else {
-      live = 0;
+      float alpha[2], rs[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        mx[h] = fmaxf(mrow[h], mx[h]);
+      }
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
         const int h = (i >> 1) & 1;
-        const int tqp = q0 + ra + 8 * h;
-        const int tkp = k0 + 8 * (i / 4) + cq + (i & 1);
-        const bool ok = tkp < Tk && (!causal || tkp <= tqp) &&
-                        (window <= 0 || tqp - tkp < window);
-        live |= static_cast<uint32_t>(ok) << i;
-        sc[i] = ok ? sc[i] * scale_log2 : NEG_INF;
-        mx[h] = fmaxf(mx[h], sc[i]);
+        sc[i] = (live >> i) & 1u ? exp2f(sc[i] - mx[h]) : 0.0f;
+        rs[h] += sc[i];
       }
-    }
-    float alpha[2], rs[2] = {0.0f, 0.0f};
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      mx[h] = fmaxf(mrow[h], mx[h]);
-    }
+      for (int h = 0; h < 2; ++h) {
+        rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 1);
+        rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 2);
+        alpha[h] = exp2f(mrow[h] - mx[h]);
+        lrow[h] = lrow[h] * alpha[h] + rs[h];
+        mrow[h] = mx[h];
+      }
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int h = (i >> 1) & 1;
-      sc[i] = (live >> i) & 1u ? exp2f(sc[i] - mx[h]) : 0.0f;
-      rs[h] += sc[i];
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 1);
-      rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 2);
-      alpha[h] = exp2f(mrow[h] - mx[h]);
-      lrow[h] = lrow[h] * alpha[h] + rs[h];
-      mrow[h] = mx[h];
-    }
-#pragma unroll
-    for (int i = 0; i < G::NACC; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      for (int i = 0; i < G::NACC; ++i) acc[i] *= alpha[(i >> 1) & 1];
 
-    // O += P V with P = p_hi + p_lo, two bf16 terms from the registers
-    // (the accumulator layout of S is wgmma's register-A layout); V is
-    // read MN-major through the transpose-B bit
-    const uint32_t vtile = smem_u32(Vs + s * G::TILE);
-    fence_regs(acc);
-    wgmma_fence();
+      // O += P V with P = p_hi + p_lo, two bf16 terms from the registers
+      // (the accumulator layout of S is wgmma's register-A layout); V is
+      // read MN-major through the transpose-B bit
+      const uint32_t vtile = smem_u32(Vs + s * G::TILE);
+      fence_regs(acc);
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t hi[4], lo[4];
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t hi[4], lo[4];
 #pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const float x0 = sc[8 * kk + 2 * t], x1 = sc[8 * kk + 2 * t + 1];
-        hi[t] = pack_bf16(x0, x1);
-        const __nv_bfloat162 hb = *reinterpret_cast<__nv_bfloat162*>(&hi[t]);
-        lo[t] = pack_bf16(x0 - __bfloat162float(hb.x),
-                          x1 - __bfloat162float(hb.y));
+        for (int t = 0; t < 4; ++t) {
+          const float x0 = sc[8 * kk + 2 * t], x1 = sc[8 * kk + 2 * t + 1];
+          hi[t] = pack_bf16(x0, x1);
+          const __nv_bfloat162 hb = *reinterpret_cast<__nv_bfloat162*>(&hi[t]);
+          lo[t] = pack_bf16(x0 - __bfloat162float(hb.x),
+                            x1 - __bfloat162float(hb.y));
+        }
+        pv_wgmma<HD>(acc, hi, vtile, kk);
+        pv_wgmma<HD>(acc, lo, vtile, kk);
       }
-      pv_wgmma<HD>(acc, hi, vtile + kk * 16 * G::SW);
-      pv_wgmma<HD>(acc, lo, vtile + kk * 16 * G::SW);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
     }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(acc);
 
     mbar_arrive(&empty[s]);
     if (threadIdx.x == 0 && j + kStages < ntiles) {
       mbar_wait(&empty[s], (j / kStages) & 1);
-      load_kv<HD>(Ks, Vs, &tk, &tv, full, j + kStages, kt_begin + j + kStages,
-                  hn, b);
+      load_kv<HD>(Ks, Vs, m, full, j + kStages, kt_begin + j + kStages, hn,
+                  b);
     }
     __syncwarp();
   }
@@ -595,9 +671,8 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
 }
 
 template <int HD>
-int launch(const CUtensorMap& mq, const CUtensorMap& mk,
-           const CUtensorMap& mv, void* o, int B, int nkv, int g, int Tq,
-           int Tk, const Strides& st, int window, int causal, float scale,
+int launch(const Maps<HD>& m, void* o, int B, int nkv, int g, int Tq, int Tk,
+           const Strides& st, int window, int causal, float scale,
            cudaStream_t stream) {
   const size_t smem = smem_bytes<HD>();
   auto kern = flash_kernel_wgmma<HD>;
@@ -605,10 +680,11 @@ int launch(const CUtensorMap& mq, const CUtensorMap& mk,
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(B * nkv, g, (Tq + 63) / 64);
-  kern<<<grid, 128, smem, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(o), nkv, Tq, Tk, st.ob, st.on,
-      st.og, st.ot, window, causal, scale);
+  constexpr int threads = Geo<HD>::THREADS, rows = 64 * Geo<HD>::WGS;
+  const dim3 grid(B * nkv, g, (Tq + rows - 1) / rows);
+  kern<<<grid, threads, smem, stream>>>(
+      m, static_cast<__nv_bfloat16*>(o), nkv, Tq, Tk, st.ob, st.on, st.og,
+      st.ot, window, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -619,8 +695,6 @@ int run(const void* q, const void* k, const void* v, void* o, int B, int nkv,
   using G = Geo<HD>;
   // q [B, nkv, g, Tq, HD] and k, v [B, nkv, Tk, HD], innermost first, in
   // the caller's strides (bytes); a box is one head's 64 rows x one panel
-  // (past the real head_dim, at 80 and 160, zero-filled: at 160 the last
-// panel's box lies wholly past it)
   const uint64_t dq[5] = {HD, static_cast<uint64_t>(Tq),
                           static_cast<uint64_t>(g),
                           static_cast<uint64_t>(nkv),
@@ -638,18 +712,41 @@ int run(const void* q, const void* k, const void* v, void* o, int B, int nkv,
   const uint64_t sv[3] = {static_cast<uint64_t>(st.vt) * 2,
                           static_cast<uint64_t>(st.vn) * 2,
                           static_cast<uint64_t>(st.vb) * 2};
-  const uint32_t box[5] = {G::PW, 64, 1, 1, 1};
-  CUtensorMap mq, mk, mv;
-  cudaError_t err = encode_tiled_bf16(&mq, q, 5, dq, sq, box, G::SW);
-  if (err == cudaSuccess) {
-    err = encode_tiled_bf16(&mk, k, 4, dk, sk, box, G::SW);
-  }
-  if (err == cudaSuccess) {
-    err = encode_tiled_bf16(&mv, v, 4, dk, sv, box, G::SW);
+  Maps<HD> m;
+  cudaError_t err = cudaSuccess;
+  for (int i = 0; i < G::NMAPS && err == cudaSuccess; ++i) {
+    // maps 0-2 in boxes of one full panel, 3-5 of the tail panel
+    const bool tail = i >= 3;
+    const uint32_t box[5] = {static_cast<uint32_t>(tail ? G::TW : G::PW), 64,
+                             1, 1, 1};
+    const int sw = tail ? G::TSW : G::SW;
+    err = i % 3 == 0 ? encode_tiled_bf16(&m.t[i], q, 5, dq, sq, box, sw)
+          : i % 3 == 1 ? encode_tiled_bf16(&m.t[i], k, 4, dk, sk, box, sw)
+                       : encode_tiled_bf16(&m.t[i], v, 4, dk, sv, box, sw);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  return launch<HD>(mq, mk, mv, o, B, nkv, g, Tq, Tk, st, window, causal,
-                    scale, s);
+  return launch<HD>(m, o, B, nkv, g, Tq, Tk, st, window, causal, scale, s);
+}
+
+// blocks an SM, shared memory a block, registers a thread and local
+// (spilled) bytes a thread of flash_kernel_wgmma<HD>
+template <int HD>
+int residency(int* out) {
+  const size_t smem = smem_bytes<HD>();
+  auto kern = flash_kernel_wgmma<HD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  cudaFuncAttributes attr{};
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kern);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &out[0], kern, Geo<HD>::THREADS, smem);
+  }
+  out[1] = static_cast<int>(smem);
+  out[2] = attr.numRegs;
+  out[3] = static_cast<int>(attr.localSizeBytes);
+  return static_cast<int>(err);
 }
 
 }  // namespace wg
@@ -715,6 +812,30 @@ int repro_flash_attention_wgmma(const void* q, const void* k, const void* v,
     case 256:
       return wg::run<256>(q, k, v, o, B, nkv, g, Tq, Tk, st, window, causal,
                           scale, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// the tensor-core kernel at hd: out[0] its blocks an SM (the occupancy
+// API at its shared memory), out[1] shared bytes a block, out[2]
+// registers a thread, out[3] local (spilled) bytes a thread
+int repro_flash_attention_wgmma_residency(int hd, int* out) {
+  switch (hd) {
+    case 16:
+      return wg::residency<16>(out);
+    case 32:
+      return wg::residency<32>(out);
+    case 64:
+      return wg::residency<64>(out);
+    case 80:
+      return wg::residency<80>(out);
+    case 128:
+      return wg::residency<128>(out);
+    case 160:
+      return wg::residency<160>(out);
+    case 256:
+      return wg::residency<256>(out);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -4,9 +4,12 @@ Counterpart of ``repro.kernels.flash_attention.kernel`` (TPU kernel 8,
 ``flash_attention_kernel``), CUDA C++ in ``csrc/flash_attention.cu``, two
 kernels chosen by ``flash_uses_wgmma``: for bf16 a tensor-core (``wgmma``)
 kernel, one warpgroup a block per (batch, query head, 64 queries), TMA
-loads of Q and a 2-stage K/V ring, QK^T and PV (P split into two bf16
-terms) on ``wgmma``; for float32 a CUDA-core kernel, one block
-per (batch, query head, 64-row query tile).  Both keep the online softmax
+loads of Q and a 2-stage K/V ring in tiles of the real head_dim
+(64-column panels and, at head_dim 80 and 160, a 16- or 32-column tail
+panel: no padded column), QK^T and PV (P split into two bf16 terms) on
+``wgmma``, at 80 two warpgroups of 64 queries sharing the ring; for
+float32 a CUDA-core kernel, one block per (batch, query head, 64-row
+query tile).  Both keep the online softmax
 in float32 and skip dead key tiles.  The kernels read strided views, so
 the model's ``[B, T, heads, hd]`` tensors need no transposed copies, and
 they write the output in that layout (returned as a view shaped like
@@ -18,6 +21,7 @@ handed CUDA tensors it launches the kernel or raises.
 
 from __future__ import annotations
 
+import ctypes
 import math
 from pathlib import Path
 
@@ -33,15 +37,28 @@ _SIGNATURES = {
     + [B.INT, B.INT, B.FLOAT, B.INT, B.VP],
     "repro_flash_attention_wgmma": [B.VP] * 4 + [B.INT] * 6 + [B.LL] * 14
     + [B.INT, B.INT, B.FLOAT, B.VP],
+    "repro_flash_attention_wgmma_residency": [B.INT, B.VP],
 }
 #: head dims the kernels take (80: zamba2's shared attention, on the
-#: tensor cores in head_dim 128's tiles, columns 80-127 zero-filled; 160:
-#: pixtral-12b, in head_dim 256's tiles, columns 160-255 zero-filled)
+#: tensor cores in a 64-column and a 16-column panel; 160: pixtral-12b,
+#: in two 64-column panels and a 32-column one)
 HEAD_DIMS = (16, 32, 64, 80, 128, 160, 256)
 
 
 def _lib():
     return B.load(SOURCE, _SIGNATURES)
+
+
+def wgmma_residency(hd: int) -> dict:
+    """The tensor-core kernel at head_dim ``hd`` on the current card: its
+    blocks an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` at its
+    shared memory), shared bytes a block, registers a thread and local
+    (spilled) bytes a thread."""
+    out = (ctypes.c_int * 4)()
+    B.raise_on(_lib().repro_flash_attention_wgmma_residency(
+        hd, ctypes.cast(out, ctypes.c_void_p)), "flash_attention_wgmma")
+    return dict(zip(("blocks_per_sm", "smem_bytes", "registers",
+                     "local_bytes"), out))
 
 
 def flash_uses_wgmma(q, k, v) -> bool:

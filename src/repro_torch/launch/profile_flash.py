@@ -1,0 +1,166 @@
+"""What one bf16 flash-attention call costs on the card, beside cuDNN's.
+
+At the paths' shapes (``SHAPES``: causal, bf16, the model's ``[B, T,
+heads, hd]`` tensors as the paths hand them to ``ops.flash_attention``)
+prints, in one process and in turns (the kernel, then cuDNN's SDPA forced
+with ``sdpa_kernel([SDPBackend.CUDNN_ATTENTION])``, then cuDNN and the
+kernel again), for each of the two:
+
+  * event ms: CUDA events around one call, median of 20 (host and device
+    together, as ``chip_smoke.py``'s ``ms``);
+  * device ms per call under ``torch.profiler`` (the kernel's
+    ``flash_kernel_wgmma`` launches; every kernel of the SDPA call);
+  * host us per call: 100 calls in a row with no sync;
+  * loop ms: CUDA events around 50 back-to-back calls, per call;
+
+then the plain version once (one CUDA-event timing) and the kernel's max
+|diff| to it, the bound (q, k, v read and o written once over 3.35 TB/s
+against 4 hd flops a live (query head, query, key) over 989 TFLOP/s, the
+larger), and the tensor-core kernel's residency (blocks an SM from
+``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, shared bytes a block,
+registers and spilled bytes a thread) where the tree has that entry point.
+The last line is one JSON object of it all, with the card's name and
+power limit.
+
+Only the wrapper's public entry points are used, so the same file runs
+against an older tree of the port (copied into it):
+
+  python -m repro_torch.launch.profile_flash [--shapes hd160,hd80]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+
+import torch
+
+from repro_torch.launch.profile_rmsnorm import (device_ms_per_call, event_ms,
+                                                host_us_per_call)
+
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+#: name -> (B, T, query heads, K/V heads, head_dim): pixtral-12b's token
+#: prefill, zamba2-2.7b's shared-attention prefill on one rank and over 2
+#: TP ranks (the ranks folded into the batch), phi4-mini's insert,
+#: gemma3-4b's insert
+SHAPES = {
+    "hd160": (4, 1024, 32, 8, 160),
+    "hd80": (4, 1024, 32, 32, 80),
+    "hd80_tp": (8, 1024, 16, 16, 80),
+    "hd128": (1, 1024, 24, 8, 128),
+    "hd256": (1, 2048, 8, 4, 256),
+}
+#: calls timed on the host clock (below the launch queue's depth: the
+#: device runs longer than the host a call)
+HOST_CALLS = 100
+
+
+def loop_ms(fn, calls: int = 50) -> float:
+    """CUDA-event ms per call over ``calls`` back-to-back calls."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(calls):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / calls
+
+
+def timings(fn, match) -> dict:
+    return {"event_ms": event_ms(fn),
+            "device_ms": device_ms_per_call(fn, match),
+            "host_us": host_us_per_call(fn, HOST_CALLS),
+            "loop_ms": loop_ms(fn)}
+
+
+def bound(Bn: int, T: int, nh: int, nkv: int, hd: int) -> tuple:
+    """(bound ms, what bounds it) of a causal call."""
+    nbytes = 2 * Bn * T * (nh + nkv) * hd * 2
+    flops = 4 * hd * Bn * nh * T * (T + 1) // 2
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return max(t_b, t_f) * 1e3, "bytes" if t_b > t_f else "operations"
+
+
+def residency(hd: int):
+    """The tensor-core kernel's residency, or None in a tree without the
+    entry point."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    fn = getattr(FK, "wgmma_residency", None)
+    return None if fn is None else fn(hd)
+
+
+def measure(name: str, dev) -> dict:
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as FO
+    from repro_torch.kernels.flash_attention import ref as FR
+
+    Bn, T, nh, nkv, hd = SHAPES[name]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn((Bn, T, n, hd), generator=gen, device=dev)
+               .to(torch.bfloat16) for n in (nh, nkv, nkv))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    kern = lambda: FO.flash_attention(q, k, v)
+    # under sdpa_kernel([SDPBackend.CUDNN_ATTENTION]) only
+    cudnn = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                   enable_gqa=True)
+    only_cudnn = lambda: sdpa_kernel([SDPBackend.CUDNN_ATTENTION])
+    qg = q.reshape(Bn, T, nkv, nh // nkv, hd).permute(0, 2, 3, 1, 4)
+    plain = lambda: FR.flash_attention_ref(qg, k.permute(0, 2, 1, 3),
+                                           v.permute(0, 2, 1, 3))
+    got = kern().float()
+    exp = plain().float().permute(0, 3, 1, 2, 4).reshape(Bn, T, nh, hd)
+    with only_cudnn():
+        lib = cudnn().float().transpose(1, 2)
+    out = {"shape": [Bn, T, nh, nkv, hd],
+           "max_abs_err": float((got - exp).abs().max()),
+           "cudnn_max_abs_err": float((lib - exp).abs().max())}
+    del got, exp, lib
+    out["kernel"] = [timings(kern, "flash_kernel_wgmma")]
+    with only_cudnn():
+        out["cudnn"] = [timings(cudnn, None), timings(cudnn, None)]
+    out["kernel"].append(timings(kern, "flash_kernel_wgmma"))
+    out["plain_ms"] = event_ms(plain, reps=1)
+    out["bound_ms"], out["bound_by"] = bound(Bn, T, nh, nkv, hd)
+    out["residency"] = residency(hd)
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--shapes", default=",".join(SHAPES),
+                    help="comma-separated names of SHAPES")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_flash needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"flash attention on {card}")
+    res = {"card": card, "device": torch.cuda.get_device_name(0)}
+    for name in args.shapes.split(","):
+        r = res[name] = measure(name, dev)
+        print(f"  {name} q {r['shape']} bf16 causal: max |diff| "
+              f"{r['max_abs_err']:.3e}, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), plain {r['plain_ms']:.4f} ms, "
+              f"residency {r['residency']}")
+        for who in ("kernel", "cudnn"):
+            for i, t in enumerate(r[who]):
+                print(f"    {who} (turn {i + 1}): event "
+                      f"{t['event_ms']:.4f} ms, device {t['device_ms']:.4f} "
+                      f"ms ({r['bound_ms'] / t['device_ms']:.0%} of the "
+                      f"bound), host {t['host_us']:.2f} us, 50 back to back "
+                      f"{t['loop_ms']:.4f} ms")
+        torch.cuda.empty_cache()
+    print(json.dumps(res))
+
+
+if __name__ == "__main__":
+    main()

@@ -85,12 +85,27 @@ FLASH_CASES = [
 ]
 #: on the card also zamba2-2.7b's insert, q [4, 1024, 32, 80], and
 #: pixtral-12b's prefill, q [4, 1024, 32, 160] over 8 K/V heads, both
-#: dtypes
+#: dtypes; then the edges of the tensor-core kernel's tiles at head_dim 80
+#: and 160 (64-column panels and a 16- or 32-column tail panel; at 80 two
+#: warpgroups of 64 queries a block): T = 40 (Tk < 64: one partial key
+#: tile), 100 (Tq and Tk off 64), 200 and 300 (Tq off 64 and off the
+#: block's 128 rows), windows that cross a key tile, g = 1, 4 and 8, and
+#: zamba2-2.7b's prefill over 2 TP ranks, q [8, 1024, 16, 80]
 FLASH_CUDA_CASES = FLASH_CASES + [
     (4, 1024, 32, 32, 80, None, "bfloat16", 3e-2),
     (4, 1024, 32, 32, 80, None, "float32", 2e-5),
     (4, 1024, 32, 8, 160, None, "bfloat16", 3e-2),
     (4, 1024, 32, 8, 160, None, "float32", 2e-5),
+    (1, 40, 4, 4, 80, None, "bfloat16", 3e-2),
+    (2, 100, 16, 4, 80, None, "bfloat16", 3e-2),
+    (1, 300, 8, 1, 80, 100, "bfloat16", 3e-2),
+    (1, 200, 8, 8, 80, 48, "bfloat16", 3e-2),
+    (8, 1024, 16, 16, 80, None, "bfloat16", 3e-2),
+    (1, 40, 8, 1, 160, None, "bfloat16", 3e-2),
+    (2, 100, 4, 4, 160, 64, "bfloat16", 3e-2),
+    (1, 300, 16, 4, 160, 100, "bfloat16", 3e-2),
+    (1, 200, 8, 2, 160, None, "bfloat16", 3e-2),
+    (1, 130, 16, 2, 160, 70, "bfloat16", 3e-2),
 ]
 QACC_CASES = [(64, 128), (100, 256), (1, 64)]
 
@@ -627,6 +642,22 @@ def test_cuda_flash_attention_refuses_other_head_dims(cuda_device, hd,
     assert B.LAUNCHES == before
 
 
+#: head_dim -> the tensor-core kernel's blocks an SM: two at 80 (of two
+#: warpgroups each, 61 KB) and 160 (101 KB), as many as shared memory
+#: allows
+FLASH_WGMMA_BLOCKS = {16: 1, 32: 1, 64: 1, 80: 2, 128: 2, 160: 2, 256: 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", FK.HEAD_DIMS)
+def test_cuda_flash_wgmma_residency(cuda_device, hd):
+    """At every head dim the tensor-core kernel spills no register and
+    holds the blocks an SM that its launch bounds ask for."""
+    r = FK.wgmma_residency(hd)
+    assert r["local_bytes"] == 0, r
+    assert r["blocks_per_sm"] >= FLASH_WGMMA_BLOCKS[hd], r
+
+
 #: bf16 GQA grids that fill an H100's 132 SMs several times over
 #: (phi4-mini's 24/8 heads, g = 8, and g = 4 with a window): correctness
 #: inputs for the tensor-core kernel at larger batch and length
@@ -674,6 +705,8 @@ def _off_tma(kind, shape, gen, dev):
 FLASH_OFF_TMA_CASES = [
     (1, 256, 8, 2, 128, None, "wide"),
     (2, 130, 4, 1, 64, 48, "odd"),
+    (2, 100, 4, 4, 80, 48, "odd"),
+    (1, 130, 8, 2, 160, None, "odd"),
 ]
 
 
