@@ -2659,28 +2659,6 @@ def phase_serve_tp(dev, one_card):
 # Phase 11: the dense configs (gemma3-4b, gemma-7b, qwen3-32b)
 # ---------------------------------------------------------------------------
 
-def sdpa_backend(fn) -> str:
-    """The SDPA backend that ran ``fn`` (an SDPA call): those of
-    ``torch.nn.attention.SDPBackend`` that, forced alone, give its output
-    bit for bit (a backend that refuses the call is passed over)."""
-    import warnings
-    import torch
-    from torch.nn.attention import SDPBackend, sdpa_kernel
-    want = fn()
-    same = []
-    for b in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
-              SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
-        try:
-            with sdpa_kernel([b]), warnings.catch_warnings():
-                warnings.simplefilter("ignore")   # why a backend refuses
-                got = fn()
-        except RuntimeError:
-            continue
-        if torch.equal(got, want):
-            same.append(b.name.lower())
-    return " or ".join(same) or "none alone"
-
-
 def phase_dense_flash(dev, randn, row):
     """(a) The flash kernel at head_dim 256, the card against the plain
     version (``flash_case``: bf16 within 3e-2 on the wgmma kernel,
@@ -2700,6 +2678,7 @@ def phase_dense_flash(dev, randn, row):
     [pages, d_model] (d_model 2560, 3072 and 5120)."""
     import torch
     from repro_torch.launch import cell
+    from repro_torch.launch.profile_flash import sdpa_backend
     from repro_torch.serve import engine as E
 
     g3, g7, q3 = (cell.serve_model_config(c)
@@ -3438,6 +3417,7 @@ def phase_ssm_flash(dev, randn, row):
     against bytes over 3.35 TB/s, SDPA's times, its backend named)."""
     import torch
     from repro_torch.launch import cell
+    from repro_torch.launch.profile_flash import sdpa_backend
 
     cfg = cell.serve_model_config(cell.ZAMBA2_SERVE_CELL)
     heads = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
@@ -3887,6 +3867,7 @@ def phase_frontend_flash(dev, randn, row):
     prefill (q [8, 1024, 24, 64]) within 2e-5."""
     import torch
     from repro_torch.launch import cell
+    from repro_torch.launch.profile_flash import sdpa_backend
 
     c = cell.PIXTRAL_SERVE_CELL
     cfg = cell.serve_model_config(c)

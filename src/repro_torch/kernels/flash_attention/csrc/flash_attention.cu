@@ -25,7 +25,8 @@
 //    [1, 1024, 24, 128] causal), and bytes, q, k, v read and o written
 //    once over 3.35 TB/s (0.0250 ms at zamba2's q [4, 1024, 32, 80]).
 //    Design: one block of one consumer warpgroup (128 threads) per
-//    (batch, query head, 64 queries; two and 128 at head_dim 80, below).
+//    (batch, query head, 64 queries; two warpgroups at head_dim 80 and
+//    256, below).
 //    The serve cell's 1024-token
 //    prefill is then 384 blocks, two resident per SM: the causal
 //    imbalance (a query tile's key count grows with its row) is spread
@@ -35,9 +36,10 @@
 //    pay only on grids that fill the card several times over, which no
 //    path of the port launches yet.  The blocks with the most live key
 //    tiles launch first.
-//    Thread 0 loads by TMA: the Q tiles once, then a ring of kStages (2)
-//    64-key K and V tiles, each stage with a full and an empty mbarrier;
-//    it refills a stage once the warpgroup has released it.  A tile is
+//    Thread 0 loads by TMA: the Q tiles once, then a ring of 2 (3 at
+//    256) stages of 64-key K and V tiles, each stage with a full and an
+//    empty mbarrier; a stage is refilled once its tile's warpgroups have
+//    released it.  A tile is
 //    panels of 64 rows, one TMA box each: 64-column panels swizzled over
 //    128 bytes (the whole row below head_dim 64), then, where 64 does not
 //    divide head_dim, one narrower tail panel in its own swizzle and
@@ -68,11 +70,33 @@
 //    consumer warpgroups, 128 query rows, that share the K/V ring: each
 //    K/V tile is read from L2 once for both, and a warpgroup passes over
 //    a tile dead for its own rows (it waits for it and releases it).
+//    At head_dim 256 (gemma3-4b's and gemma-7b's inserts: 256 blocks on
+//    132 SMs, one block an SM, the heaviest first) the SMs' loads are
+//    already even, so the time is one warpgroup's serial chain of key
+//    tiles (QK^T, softmax, PV; 32 at T = 2048 causal), and the tensor
+//    pipe idles under its softmax.
+//    There a block holds two consumer warpgroups (256 threads) over its
+//    one 64-row Q tile, and they take the block's live key tiles in turn
+//    (warpgroup w the tiles j = w mod 2 of the block's range): each chain
+//    is half as long, and one warpgroup's softmax runs under the other's
+//    products.  A stage's empty barrier counts only the warpgroup its tile
+//    was dealt to, and that warpgroup's first thread refills it with tile
+//    j + 3 (the other warpgroup's).  A stage's tiles alternate between the
+//    warpgroups, so each stage has a full barrier a warpgroup: one
+//    barrier's phases would let a warpgroup whose wait comes before the
+//    other's tile lands read that unfinished phase's parity as its own
+//    tile's.
+//    Each warpgroup keeps its own online softmax (m, l, float32
+//    accumulator; m = NEG_INF, l = 0 where it got no tile), and the two
+//    merge through the drained ring (split_epilogue): each hands the
+//    other the half of its accumulator that the other writes (64 KB in
+//    all) with its m and l, then writes 128 of the 256 columns.
 //    Registers: hd/2 accumulators a thread (40 at hd 80, 64 at 128, 80 at
 //    160, 128 at 256) and 32 scores.  Shared memory: the Q tiles and 4
-//    K/V tiles of 64 x hd bf16: 61 KB at hd 80 (two blocks an SM), 81 KB
-//    at 128 (two), 101 KB at 160 (two), 161 KB at 256 (one); the launch
-//    bounds ask for two blocks an SM at 80 and 160 (Geo::MIN_BLOCKS).
+//    (6 at 256) K/V tiles of 64 x hd bf16: 61 KB at hd 80 (two blocks an
+//    SM), 81 KB at 128 (two), 101 KB at 160 (two), 225 KB at 256 (one);
+//    the launch bounds ask for two blocks an SM at 80 and 160
+//    (Geo::MIN_BLOCKS).
 //    Issuing tile j+1's QK^T before tile j's PV (its softmax under the
 //    PV) measured slower at 80 and 160 on an H100, and so did one tensor
 //    map a tensor in narrower swizzles (five 32- or 16-column panels) at
@@ -336,8 +360,6 @@ namespace wg {
 
 using namespace hopper;
 
-constexpr int kStages = 2;     // K/V tiles in flight
-
 template <int HD>
 struct Geo {
   // a tile's columns: NM panels of PW columns, swizzled over SW bytes
@@ -354,11 +376,24 @@ struct Geo {
   static constexpr int TILE = NM * PANEL + 64 * TSW;   // one 64 x HD tile
   static constexpr int LAYOUT = desc_layout(SW);
   static constexpr int NMAPS = TW > 0 ? 6 : 3;   // tensor maps: q, k, v
-  // consumer warpgroups a block, 64 query rows each, sharing one K/V
-  // ring (two at head_dim 80: each K/V tile read once for 128 rows), and
-  // the blocks an SM the launch bounds ask for: as many as shared memory
-  // allows at 80 (2 x 61 KB) and 160 (2 x 101 KB)
-  static constexpr int WGS = HD == 80 ? 2 : 1;
+  // consumer warpgroups a block (WGS) sharing one K/V ring, and its
+  // 64-row query tiles (QT): at head_dim 80 two warpgroups of 64 rows
+  // each (each K/V tile read once for 128 rows); at 256 two warpgroups
+  // over one 64-row tile that deal its key tiles between them (KSPLIT:
+  // each chain half as long) and merge their partial softmax at the end.
+  // K/V tiles in flight (STAGES), and the blocks an SM the launch bounds
+  // ask for: as many as shared memory allows at 80 (2 x 61 KB) and 160
+  // (2 x 101 KB)
+  static constexpr int WGS = HD == 80 || HD == 256 ? 2 : 1;
+  static constexpr int QT = HD == 80 ? 2 : 1;
+  static constexpr bool KSPLIT = WGS > QT;
+  static constexpr int STAGES = KSPLIT ? 3 : 2;
+  // full barriers a stage: one a warpgroup where they deal the tiles, so
+  // a warpgroup's barrier carries only its own tiles' phases
+  static constexpr int FULLS = KSPLIT ? WGS : 1;
+  // (a barrier's tiles then come every STAGES x FULLS tiles)
+  static_assert(!KSPLIT || (WGS == 2 && STAGES % 2 == 1),
+                "the warpgroups' full barriers need an odd ring");
   static constexpr int MIN_BLOCKS = HD == 80 || HD == 160 ? 2 : 1;
   static constexpr int THREADS = 128 * WGS;
 };
@@ -377,9 +412,11 @@ using Maps = std::conditional_t<Geo<HD>::NMAPS == 6, Maps6, Maps3>;
 template <int HD>
 constexpr size_t smem_bytes() {
   // the Q tiles, the K/V ring, its barriers and Q's, 1 KB alignment slack
+  // (at 256: 32 KB + 3 x 64 KB + 1104 bytes = 230,480 of the 232,448 a
+  // block may opt into)
   using G = Geo<HD>;
-  return static_cast<size_t>(G::WGS + 2 * kStages) * G::TILE +
-         (1 + 2 * kStages) * 8 + 1024;
+  return static_cast<size_t>(G::QT + 2 * G::STAGES) * G::TILE +
+         (1 + (G::FULLS + 1) * G::STAGES) * 8 + 1024;
 }
 
 // shared-memory descriptor of k step kk (16 deep) of a K-major 64 x HD tile
@@ -439,27 +476,117 @@ __device__ __forceinline__ void pv_wgmma(float (&o)[Geo<HD>::NACC],
   }
 }
 
-// K/V tile j (key tile kt) into stage j % kStages, completing on its full
+// the full barrier of K/V tile j (stage j % STAGES; at 256 the barrier of
+// the warpgroup it is dealt to, j % 2)
+template <int HD>
+__device__ __forceinline__ uint64_t* full_bar(uint64_t* full, int j) {
+  using G = Geo<HD>;
+  return &full[(j % G::STAGES) * G::FULLS + j % G::FULLS];
+}
+
+// K/V tile j (key tile kt) into stage j % STAGES, completing on its full
 // barrier: each panel one box, the tail panel through the tail maps
 template <int HD>
 __device__ __forceinline__ void load_kv(uint8_t* Ks, uint8_t* Vs,
                                         const Maps<HD>& m, uint64_t* full,
                                         int j, int kt, int hn, int b) {
   using G = Geo<HD>;
-  const int s = j % kStages;
-  mbar_expect_tx(&full[s], 2 * G::TILE);
+  const int s = j % G::STAGES;
+  uint64_t* bar = full_bar<HD>(full, j);
+  mbar_expect_tx(bar, 2 * G::TILE);
 #pragma unroll
   for (int p = 0; p < G::NM; ++p) {
-    tma_load_4d(Ks + s * G::TILE + p * G::PANEL, &m.t[1], &full[s], p * G::PW,
+    tma_load_4d(Ks + s * G::TILE + p * G::PANEL, &m.t[1], bar, p * G::PW,
                 kt * 64, hn, b);
-    tma_load_4d(Vs + s * G::TILE + p * G::PANEL, &m.t[2], &full[s], p * G::PW,
+    tma_load_4d(Vs + s * G::TILE + p * G::PANEL, &m.t[2], bar, p * G::PW,
                 kt * 64, hn, b);
   }
   if constexpr (G::TW > 0) {
-    tma_load_4d(Ks + s * G::TILE + G::NM * G::PANEL, &m.t[4], &full[s],
+    tma_load_4d(Ks + s * G::TILE + G::NM * G::PANEL, &m.t[4], bar,
                 G::NM * G::PW, kt * 64, hn, b);
-    tma_load_4d(Vs + s * G::TILE + G::NM * G::PANEL, &m.t[5], &full[s],
+    tma_load_4d(Vs + s * G::TILE + G::NM * G::PANEL, &m.t[5], bar,
                 G::NM * G::PW, kt * 64, hn, b);
+  }
+}
+
+// The merge of head_dim 256's two chains.  Warpgroup w holds, for this
+// thread's rows row and row + 8, its own m (log2 units), l and float32
+// accumulator over the key tiles dealt to it (m = NEG_INF, l = 0, acc = 0
+// where it got none) and writes o's columns 128 w .. 128 w + 127; the other
+// warpgroup hands it that half of its accumulator and its m and l through
+// shared memory, float i * 128 + t for element i of thread t (a warp's
+// 32 floats in 32 banks).  With m = max(m_0, m_1), each half is scaled by
+// exp2(m_w - m): a warpgroup that saw no live key of the row is scaled by
+// 0 and the other by exactly 1, so the result is the other's bit for bit,
+// and a row with no live key at all gives 0 / 1e-30 = 0.
+
+// element i of thread t's accumulator half H (columns 128 H ..) to x[i * 128]
+template <int H>
+__device__ __forceinline__ void put_half(float* x, const float (&acc)[128]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) x[i * 128] = acc[64 * H + i];
+}
+
+// o's columns 128 H .. 128 H + 127 at rows row and row + 8: this
+// warpgroup's half H times a, plus the other's (x) times b, over li
+template <int H>
+__device__ __forceinline__ void merge_half(__nv_bfloat16* op,
+                                           const float (&acc)[128],
+                                           const float* x, const float (&a)[2],
+                                           const float (&b)[2],
+                                           const float (&li)[2], int row,
+                                           int Tq, long long ot, int cq) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int tqp = row + 8 * r;
+    if (tqp >= Tq) continue;
+#pragma unroll
+    for (int c = 0; c < 16; ++c) {
+      const int i = 4 * c + 2 * r;
+      *reinterpret_cast<uint32_t*>(op + tqp * ot + 128 * H + 8 * c + cq) =
+          pack_bf16((acc[64 * H + i] * a[r] + x[i * 128] * b[r]) / li[r],
+                    (acc[64 * H + i + 1] * a[r] + x[(i + 1) * 128] * b[r]) /
+                        li[r]);
+    }
+  }
+}
+
+// the merge, into the drained ring at xch: per warpgroup 64 floats of the
+// half the other writes, then its m and l of 2 rows (68 x 128 floats)
+__device__ __forceinline__ void split_epilogue(
+    float* xch, const float (&acc)[128], const float (&mrow)[2],
+    const float (&lrow)[2], int wg, __nv_bfloat16* op, int row, int Tq,
+    long long ot, int cq) {
+  constexpr int X = 68 * 128;
+  const int t = threadIdx.x % 128;
+  // both chains are done: every K/V tile consumed, every wgmma waited for
+  __syncthreads();
+  float* give = xch + wg * X + t;
+  if (wg == 0) {
+    put_half<1>(give, acc);
+  } else {
+    put_half<0>(give, acc);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    give[(64 + r) * 128] = mrow[r];
+    give[(66 + r) * 128] = lrow[r];
+  }
+  __syncthreads();
+  const float* take = xch + (1 - wg) * X + t;
+  float a[2], b[2], li[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float mo = take[(64 + r) * 128];
+    const float mm = fmaxf(mrow[r], mo);
+    a[r] = exp2f(mrow[r] - mm);
+    b[r] = exp2f(mo - mm);
+    li[r] = fmaxf(lrow[r] * a[r] + take[(66 + r) * 128] * b[r], 1e-30f);
+  }
+  if (wg == 0) {
+    merge_half<0>(op, acc, take, a, b, li, row, Tq, ot, cq);
+  } else {
+    merge_half<1>(op, acc, take, a, b, li, row, Tq, ot, cq);
   }
 }
 
@@ -470,28 +597,31 @@ flash_kernel_wgmma(const __grid_constant__ Maps<HD> m,
                    long long ob, long long on, long long og,
                    long long ot, int window, int causal, float scale) {
   using G = Geo<HD>;
+  constexpr int NS = G::STAGES;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
-  uint8_t* Qs = smem;                              // [WGS] tiles
-  uint8_t* Ks = Qs + G::WGS * G::TILE;             // [kStages] tiles
-  uint8_t* Vs = Ks + kStages * G::TILE;            // [kStages] tiles
-  uint64_t* bars = reinterpret_cast<uint64_t*>(Vs + kStages * G::TILE);
+  uint8_t* Qs = smem;                              // [QT] tiles
+  uint8_t* Ks = Qs + G::QT * G::TILE;              // [NS] tiles
+  uint8_t* Vs = Ks + NS * G::TILE;                 // [NS] tiles
+  uint64_t* bars = reinterpret_cast<uint64_t*>(Vs + NS * G::TILE);
   uint64_t* qbar = bars;
-  uint64_t* full = bars + 1;                       // [kStages]
-  uint64_t* empty = full + kStages;                // [kStages]
+  uint64_t* full = bars + 1;                       // [NS][FULLS]
+  uint64_t* empty = full + NS * G::FULLS;          // [NS]
 
   const int b = blockIdx.x / nkv, hn = blockIdx.x % nkv;
   const int qh = blockIdx.y;                       // query head in the group
-  // the block's 64 WGS query rows from qb, heaviest first; this
-  // warpgroup's 64 from q0
-  const int qb = (gridDim.z - 1 - blockIdx.z) * 64 * G::WGS;
+  // the block's 64 QT query rows from qb, heaviest first; this
+  // warpgroup's query tile qw, its 64 rows from q0 (at 256 both
+  // warpgroups hold the block's one tile)
+  const int qb = (gridDim.z - 1 - blockIdx.z) * 64 * G::QT;
   const int wg = G::WGS > 1 ? threadIdx.x / 128 : 0;
-  const int q0 = qb + 64 * wg;
+  const int qw = G::KSPLIT ? 0 : wg;
+  const int q0 = qb + 64 * qw;
 
   // the block's live key tiles (the TPU kernel's block skipping,
-  // kernel.py:49-54); each warpgroup passes over a tile dead for its own
-  // rows (it waits for it and releases it)
-  const int q_last = min(qb + 64 * G::WGS - 1, Tq - 1);
+  // kernel.py:49-54); at 80 each warpgroup passes over a tile dead for
+  // its own rows (it waits for it and releases it)
+  const int q_last = min(qb + 64 * G::QT - 1, Tq - 1);
   int kt_end = (Tk + 63) / 64;
   if (causal) kt_end = min(kt_end, q_last / 64 + 1);
   int kt_begin = 0;
@@ -501,23 +631,27 @@ flash_kernel_wgmma(const __grid_constant__ Maps<HD> m,
   }
   const int ntiles = max(0, kt_end - kt_begin);
 
+  // a stage is released by the warpgroups that consume its tile: all of
+  // them, or at 256 the one it was dealt to
   if (threadIdx.x == 0) {
     mbar_init(qbar, 1);
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], G::THREADS);
+    for (int s = 0; s < NS; ++s) {
+      for (int w = 0; w < G::FULLS; ++w)
+        mbar_init(&full[s * G::FULLS + w], 1);
+      mbar_init(&empty[s], G::KSPLIT ? 128 : G::THREADS);
     }
     fence_barrier_init();
   }
   __syncthreads();
 
-  // thread 0 issues every load: the Q tiles once, then K/V tile j into
-  // stage j % kStages as soon as every warpgroup has released tile
-  // j - kStages
+  // thread 0 loads the Q tiles once and the first NS K/V tiles; K/V tile
+  // j + NS goes into stage j % NS as soon as tile j's consumers have
+  // released it, issued by thread 0 (at 256 by the releasing warpgroup's
+  // first thread: the other warpgroup's next tile but one)
   if (threadIdx.x == 0) {
-    mbar_expect_tx(qbar, G::WGS * G::TILE);
+    mbar_expect_tx(qbar, G::QT * G::TILE);
 #pragma unroll
-    for (int w = 0; w < G::WGS; ++w) {
+    for (int w = 0; w < G::QT; ++w) {
       uint8_t* qs = Qs + w * G::TILE;
 #pragma unroll
       for (int p = 0; p < G::NM; ++p)
@@ -528,7 +662,7 @@ flash_kernel_wgmma(const __grid_constant__ Maps<HD> m,
                     qb + 64 * w, qh, hn, b);
       }
     }
-    for (int j = 0; j < min(kStages, ntiles); ++j)
+    for (int j = 0; j < min(NS, ntiles); ++j)
       load_kv<HD>(Ks, Vs, m, full, j, kt_begin + j, hn, b);
   }
   __syncwarp();
@@ -542,7 +676,7 @@ flash_kernel_wgmma(const __grid_constant__ Maps<HD> m,
 #pragma unroll
   for (int i = 0; i < G::NACC; ++i) acc[i] = 0.0f;
   float mrow[2] = {NEG_INF, NEG_INF}, lrow[2] = {0.0f, 0.0f};
-  const uint32_t qtile = smem_u32(Qs + wg * G::TILE);
+  const uint32_t qtile = smem_u32(Qs + qw * G::TILE);
   const float scale_log2 = scale * 1.4426950408889634f;   // log2(e) folded in
   // the key tiles live for this warpgroup's rows (none past Tq)
   int my_begin = 0;
@@ -551,11 +685,16 @@ flash_kernel_wgmma(const __grid_constant__ Maps<HD> m,
                                            : kt_end;
 
   mbar_wait(qbar, 0);
-  for (int j = 0; j < ntiles; ++j) {
-    const int s = j % kStages, kt = kt_begin + j, k0 = kt * 64;
-    mbar_wait(&full[s], (j / kStages) & 1);
-    // a tile dead for this warpgroup's rows is waited for and released
-    if (G::WGS == 1 || (kt >= my_begin && kt < my_end)) {
+  // at 256 warpgroup wg walks the block's tiles j = wg, wg + 2, ...
+  constexpr int STEP = G::KSPLIT ? G::WGS : 1;
+  for (int j = G::KSPLIT ? wg : 0; j < ntiles; j += STEP) {
+    const int s = j % NS, kt = kt_begin + j, k0 = kt * 64;
+    // tile j is the (j / (NS FULLS))-th on its barrier; at 256 the
+    // stage's last tile was the other warpgroup's, on the other barrier
+    mbar_wait(full_bar<HD>(full, j), (j / (NS * G::FULLS)) & 1);
+    // at 80 a tile dead for this warpgroup's rows is waited for and
+    // released
+    if (G::WGS == 1 || G::KSPLIT || (kt >= my_begin && kt < my_end)) {
       // S = Q K^T: m64n64k16 over head_dim, Q and K both K-major
       float sc[32];
 #pragma unroll
@@ -647,25 +786,30 @@ flash_kernel_wgmma(const __grid_constant__ Maps<HD> m,
     }
 
     mbar_arrive(&empty[s]);
-    if (threadIdx.x == 0 && j + kStages < ntiles) {
-      mbar_wait(&empty[s], (j / kStages) & 1);
-      load_kv<HD>(Ks, Vs, m, full, j + kStages, kt_begin + j + kStages, hn,
-                  b);
+    const bool issuer = G::KSPLIT ? threadIdx.x % 128 == 0 : threadIdx.x == 0;
+    if (issuer && j + NS < ntiles) {
+      mbar_wait(&empty[s], (j / NS) & 1);
+      load_kv<HD>(Ks, Vs, m, full, j + NS, kt_begin + j + NS, hn, b);
     }
     __syncwarp();
   }
 
-  // o = acc / max(l, 1e-30): 0 for a row with no live key
   __nv_bfloat16* op = o + b * ob + hn * on + qh * og;
+  if constexpr (G::KSPLIT) {
+    split_epilogue(reinterpret_cast<float*>(Ks), acc, mrow, lrow, wg, op,
+                   q0 + ra, Tq, ot, cq);
+  } else {
+    // o = acc / max(l, 1e-30): 0 for a row with no live key
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int tqp = q0 + ra + 8 * r;
-    if (tqp >= Tq) continue;
-    const float li = fmaxf(lrow[r], 1e-30f);
+    for (int r = 0; r < 2; ++r) {
+      const int tqp = q0 + ra + 8 * r;
+      if (tqp >= Tq) continue;
+      const float li = fmaxf(lrow[r], 1e-30f);
 #pragma unroll
-    for (int c = 0; c < HD / 8; ++c) {
-      *reinterpret_cast<uint32_t*>(op + tqp * ot + 8 * c + cq) = pack_bf16(
-          acc[4 * c + 2 * r] / li, acc[4 * c + 2 * r + 1] / li);
+      for (int c = 0; c < HD / 8; ++c) {
+        *reinterpret_cast<uint32_t*>(op + tqp * ot + 8 * c + cq) = pack_bf16(
+            acc[4 * c + 2 * r] / li, acc[4 * c + 2 * r + 1] / li);
+      }
     }
   }
 }
@@ -680,7 +824,7 @@ int launch(const Maps<HD>& m, void* o, int B, int nkv, int g, int Tq, int Tk,
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  constexpr int threads = Geo<HD>::THREADS, rows = 64 * Geo<HD>::WGS;
+  constexpr int threads = Geo<HD>::THREADS, rows = 64 * Geo<HD>::QT;
   const dim3 grid(B * nkv, g, (Tq + rows - 1) / rows);
   kern<<<grid, threads, smem, stream>>>(
       m, static_cast<__nv_bfloat16*>(o), nkv, Tq, Tk, st.ob, st.on, st.og,
@@ -728,8 +872,8 @@ int run(const void* q, const void* k, const void* v, void* o, int B, int nkv,
   return launch<HD>(m, o, B, nkv, g, Tq, Tk, st, window, causal, scale, s);
 }
 
-// blocks an SM, shared memory a block, registers a thread and local
-// (spilled) bytes a thread of flash_kernel_wgmma<HD>
+// blocks an SM, shared memory a block, registers a thread, local
+// (spilled) bytes a thread and threads a block of flash_kernel_wgmma<HD>
 template <int HD>
 int residency(int* out) {
   const size_t smem = smem_bytes<HD>();
@@ -746,6 +890,7 @@ int residency(int* out) {
   out[1] = static_cast<int>(smem);
   out[2] = attr.numRegs;
   out[3] = static_cast<int>(attr.localSizeBytes);
+  out[4] = Geo<HD>::THREADS;
   return static_cast<int>(err);
 }
 
@@ -819,7 +964,8 @@ int repro_flash_attention_wgmma(const void* q, const void* k, const void* v,
 
 // the tensor-core kernel at hd: out[0] its blocks an SM (the occupancy
 // API at its shared memory), out[1] shared bytes a block, out[2]
-// registers a thread, out[3] local (spilled) bytes a thread
+// registers a thread, out[3] local (spilled) bytes a thread, out[4]
+// threads a block
 int repro_flash_attention_wgmma_residency(int hd, int* out) {
   switch (hd) {
     case 16:

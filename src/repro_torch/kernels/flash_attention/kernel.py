@@ -7,10 +7,12 @@ kernel, one warpgroup a block per (batch, query head, 64 queries), TMA
 loads of Q and a 2-stage K/V ring in tiles of the real head_dim
 (64-column panels and, at head_dim 80 and 160, a 16- or 32-column tail
 panel: no padded column), QK^T and PV (P split into two bf16 terms) on
-``wgmma``, at 80 two warpgroups of 64 queries sharing the ring; for
-float32 a CUDA-core kernel, one block per (batch, query head, 64-row
-query tile).  Both keep the online softmax
-in float32 and skip dead key tiles.  The kernels read strided views, so
+``wgmma``; at 80 two warpgroups of 64 queries sharing the ring; at 256
+two warpgroups over the block's 64 queries that take its key tiles in
+turn through a 3-stage ring, each with its own online softmax, merged
+through shared memory at the end; for float32 a CUDA-core kernel, one
+block per (batch, query head, 64-row query tile).  Both keep the online
+softmax in float32 and skip dead key tiles.  The kernels read strided views, so
 the model's ``[B, T, heads, hd]`` tensors need no transposed copies, and
 they write the output in that layout (returned as a view shaped like
 ``q``).
@@ -52,13 +54,13 @@ def _lib():
 def wgmma_residency(hd: int) -> dict:
     """The tensor-core kernel at head_dim ``hd`` on the current card: its
     blocks an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` at its
-    shared memory), shared bytes a block, registers a thread and local
-    (spilled) bytes a thread."""
-    out = (ctypes.c_int * 4)()
+    shared memory), shared bytes a block, registers a thread, local
+    (spilled) bytes a thread and threads a block."""
+    out = (ctypes.c_int * 5)()
     B.raise_on(_lib().repro_flash_attention_wgmma_residency(
         hd, ctypes.cast(out, ctypes.c_void_p)), "flash_attention_wgmma")
     return dict(zip(("blocks_per_sm", "smem_bytes", "registers",
-                     "local_bytes"), out))
+                     "local_bytes", "threads"), out))
 
 
 def flash_uses_wgmma(q, k, v) -> bool:

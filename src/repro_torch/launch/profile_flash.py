@@ -1,10 +1,10 @@
-"""What one bf16 flash-attention call costs on the card, beside cuDNN's.
+"""What one bf16 flash-attention call costs on the card, beside the library's.
 
-At the paths' shapes (``SHAPES``: causal, bf16, the model's ``[B, T,
-heads, hd]`` tensors as the paths hand them to ``ops.flash_attention``)
-prints, in one process and in turns (the kernel, then cuDNN's SDPA forced
-with ``sdpa_kernel([SDPBackend.CUDNN_ATTENTION])``, then cuDNN and the
-kernel again), for each of the two:
+At the paths' shapes (``SHAPES``: causal, some with a window, bf16, the
+model's ``[B, T, heads, hd]`` tensors as the paths hand them to
+``ops.flash_attention``) prints, in one process and in turns (the
+kernel, then the library, then the library and the kernel again), for
+each of the two:
 
   * event ms: CUDA events around one call, median of 20 (host and device
     together, as ``chip_smoke.py``'s ``ms``);
@@ -13,19 +13,23 @@ kernel again), for each of the two:
   * host us per call: 100 calls in a row with no sync;
   * loop ms: CUDA events around 50 back-to-back calls, per call;
 
-then the plain version once (one CUDA-event timing) and the kernel's max
+The library is cuDNN's SDPA forced with
+``sdpa_kernel([SDPBackend.CUDNN_ATTENTION])`` on a causal shape, and SDPA
+on the dense window mask, the backend that ran named, on a windowed one.
+Then the plain version once (one CUDA-event timing) and the kernel's max
 |diff| to it, the bound (q, k, v read and o written once over 3.35 TB/s
 against 4 hd flops a live (query head, query, key) over 989 TFLOP/s, the
 larger), and the tensor-core kernel's residency (blocks an SM from
 ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, shared bytes a block,
-registers and spilled bytes a thread) where the tree has that entry point.
-The last line is one JSON object of it all, with the card's name and
-power limit.
+registers and spilled bytes a thread, threads a block) where the tree
+has that entry point.  The last line is one JSON object of it all, with
+the card's name and power limit.
 
 Only the wrapper's public entry points are used, so the same file runs
 against an older tree of the port (copied into it):
 
   python -m repro_torch.launch.profile_flash [--shapes hd160,hd80]
+  python -m repro_torch.launch.profile_flash --shapes hd256,hd256_w,hd256_tp,hd256_g1
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from __future__ import annotations
 import argparse
 import json
 import subprocess
+import warnings
 
 import torch
 
@@ -41,16 +46,20 @@ from repro_torch.launch.profile_rmsnorm import (device_ms_per_call, event_ms,
 
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
-#: name -> (B, T, query heads, K/V heads, head_dim): pixtral-12b's token
-#: prefill, zamba2-2.7b's shared-attention prefill on one rank and over 2
-#: TP ranks (the ranks folded into the batch), phi4-mini's insert,
-#: gemma3-4b's insert
+#: name -> (B, T, query heads, K/V heads, head_dim, window or None):
+#: pixtral-12b's token prefill, zamba2-2.7b's shared-attention prefill on
+#: one rank and over 2 TP ranks (the ranks folded into the batch),
+#: phi4-mini's insert, gemma3-4b's insert on its global and its local
+#: (1024-token window) layers, and over 2 TP ranks, gemma-7b's insert
 SHAPES = {
-    "hd160": (4, 1024, 32, 8, 160),
-    "hd80": (4, 1024, 32, 32, 80),
-    "hd80_tp": (8, 1024, 16, 16, 80),
-    "hd128": (1, 1024, 24, 8, 128),
-    "hd256": (1, 2048, 8, 4, 256),
+    "hd160": (4, 1024, 32, 8, 160, None),
+    "hd80": (4, 1024, 32, 32, 80, None),
+    "hd80_tp": (8, 1024, 16, 16, 80, None),
+    "hd128": (1, 1024, 24, 8, 128, None),
+    "hd256": (1, 2048, 8, 4, 256, None),
+    "hd256_w": (1, 2048, 8, 4, 256, 1024),
+    "hd256_tp": (2, 2048, 4, 2, 256, None),
+    "hd256_g1": (1, 1024, 16, 16, 256, None),
 }
 #: calls timed on the host clock (below the launch queue's depth: the
 #: device runs longer than the host a call)
@@ -78,12 +87,39 @@ def timings(fn, match) -> dict:
             "loop_ms": loop_ms(fn)}
 
 
-def bound(Bn: int, T: int, nh: int, nkv: int, hd: int) -> tuple:
-    """(bound ms, what bounds it) of a causal call."""
+def live_pairs(T: int, window=None) -> int:
+    """(query, key) pairs a causal mask over T tokens keeps, with keys at
+    most ``window - 1`` behind their query where a window is given."""
+    w = T if window is None else min(window, T)
+    return w * (w + 1) // 2 + (T - w) * w
+
+
+def bound(Bn: int, T: int, nh: int, nkv: int, hd: int, window=None) -> tuple:
+    """(bound ms, what bounds it) of a causal call over its live pairs."""
     nbytes = 2 * Bn * T * (nh + nkv) * hd * 2
-    flops = 4 * hd * Bn * nh * T * (T + 1) // 2
+    flops = 4 * hd * Bn * nh * live_pairs(T, window)
     t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
     return max(t_b, t_f) * 1e3, "bytes" if t_b > t_f else "operations"
+
+
+def sdpa_backend(fn) -> str:
+    """The SDPA backend that ran ``fn`` (an SDPA call): those of
+    ``torch.nn.attention.SDPBackend`` that, forced alone, give its output
+    bit for bit (a backend that refuses the call is passed over)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    want = fn()
+    same = []
+    for b in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+              SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([b]), warnings.catch_warnings():
+                warnings.simplefilter("ignore")   # why a backend refuses
+                got = fn()
+        except RuntimeError:
+            continue
+        if torch.equal(got, want):
+            same.append(b.name.lower())
+    return " or ".join(same) or "none alone"
 
 
 def residency(hd: int):
@@ -95,38 +131,51 @@ def residency(hd: int):
 
 
 def measure(name: str, dev) -> dict:
+    from contextlib import nullcontext
     from torch.nn.attention import SDPBackend, sdpa_kernel
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as FO
     from repro_torch.kernels.flash_attention import ref as FR
 
-    Bn, T, nh, nkv, hd = SHAPES[name]
+    Bn, T, nh, nkv, hd, window = SHAPES[name]
     gen = torch.Generator(device=dev).manual_seed(0)
     q, k, v = (torch.randn((Bn, T, n, hd), generator=gen, device=dev)
                .to(torch.bfloat16) for n in (nh, nkv, nkv))
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    kern = lambda: FO.flash_attention(q, k, v)
-    # under sdpa_kernel([SDPBackend.CUDNN_ATTENTION]) only
-    cudnn = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                   enable_gqa=True)
-    only_cudnn = lambda: sdpa_kernel([SDPBackend.CUDNN_ATTENTION])
+    kern = lambda: FO.flash_attention(q, k, v, window=window)
+    if window is None:
+        # cuDNN's, forced
+        lib_fn = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        only_lib = lambda: sdpa_kernel([SDPBackend.CUDNN_ATTENTION])
+    else:
+        # the backend SDPA picks for the dense window mask
+        pos = torch.arange(T, device=dev)
+        mask = (pos[None, :] <= pos[:, None]) & \
+            (pos[:, None] - pos[None, :] < window)
+        lib_fn = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        only_lib = nullcontext
     qg = q.reshape(Bn, T, nkv, nh // nkv, hd).permute(0, 2, 3, 1, 4)
     plain = lambda: FR.flash_attention_ref(qg, k.permute(0, 2, 1, 3),
-                                           v.permute(0, 2, 1, 3))
+                                           v.permute(0, 2, 1, 3),
+                                           window=window)
     got = kern().float()
     exp = plain().float().permute(0, 3, 1, 2, 4).reshape(Bn, T, nh, hd)
-    with only_cudnn():
-        lib = cudnn().float().transpose(1, 2)
-    out = {"shape": [Bn, T, nh, nkv, hd],
+    with only_lib():
+        lib = lib_fn().float().transpose(1, 2)
+        backend = sdpa_backend(lib_fn)
+    out = {"shape": [Bn, T, nh, nkv, hd], "window": window,
            "max_abs_err": float((got - exp).abs().max()),
-           "cudnn_max_abs_err": float((lib - exp).abs().max())}
+           "library_backend": backend,
+           "library_max_abs_err": float((lib - exp).abs().max())}
     del got, exp, lib
     out["kernel"] = [timings(kern, "flash_kernel_wgmma")]
-    with only_cudnn():
-        out["cudnn"] = [timings(cudnn, None), timings(cudnn, None)]
+    with only_lib():
+        out["library"] = [timings(lib_fn, None), timings(lib_fn, None)]
     out["kernel"].append(timings(kern, "flash_kernel_wgmma"))
     out["plain_ms"] = event_ms(plain, reps=1)
-    out["bound_ms"], out["bound_by"] = bound(Bn, T, nh, nkv, hd)
+    out["bound_ms"], out["bound_by"] = bound(Bn, T, nh, nkv, hd, window)
     out["residency"] = residency(hd)
     return out
 
@@ -147,11 +196,12 @@ def main(argv=None):
     res = {"card": card, "device": torch.cuda.get_device_name(0)}
     for name in args.shapes.split(","):
         r = res[name] = measure(name, dev)
-        print(f"  {name} q {r['shape']} bf16 causal: max |diff| "
-              f"{r['max_abs_err']:.3e}, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}), plain {r['plain_ms']:.4f} ms, "
-              f"residency {r['residency']}")
-        for who in ("kernel", "cudnn"):
+        print(f"  {name} q {r['shape']} bf16 causal, window "
+              f"{r['window']}: max |diff| {r['max_abs_err']:.3e}, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+              f"{r['plain_ms']:.4f} ms, residency {r['residency']}; "
+              f"library: SDPA on {r['library_backend']}")
+        for who in ("kernel", "library"):
             for i, t in enumerate(r[who]):
                 print(f"    {who} (turn {i + 1}): event "
                       f"{t['event_ms']:.4f} ms, device {t['device_ms']:.4f} "

@@ -1,0 +1,56 @@
+"""``launch/profile_flash.bound``, the least time of a flash call that the
+profile sets each reading against, counted on the CPU: 4 hd flops for
+every (query head, query, key) pair the causal (and window) mask keeps,
+summed from the dense mask, over 989 TFLOP/s, against q, k, v read and o
+written once over 3.35 TB/s; the larger bounds it."""
+
+import pytest
+import torch
+
+from repro_torch.launch import profile_flash as PF
+from torch_threads import pin_threads  # noqa: F401
+
+
+def _mask_pairs(T, window):
+    pos = torch.arange(T)
+    keep = pos[None, :] <= pos[:, None]
+    if window is not None:
+        keep &= pos[:, None] - pos[None, :] < window
+    return int(keep.sum())
+
+
+#: (B, T, nh, nkv, hd, window): gemma3-4b's causal and windowed inserts,
+#: gemma-7b's (bound by bytes), small shapes with a window past T and one
+#: of a single key
+BOUND_CASES = [
+    (1, 2048, 8, 4, 256, None),
+    (1, 2048, 8, 4, 256, 1024),
+    (1, 1024, 16, 16, 256, None),
+    (2, 300, 4, 2, 64, 100),
+    (1, 130, 2, 1, 128, 500),
+    (1, 64, 2, 2, 80, 1),
+]
+
+
+@pytest.mark.parametrize("case", BOUND_CASES,
+                         ids=lambda c: "x".join(map(str, c[:5]))
+                         + f"-w{c[5]}")
+def test_bound_counts_live_pairs_and_bytes(case):
+    Bn, T, nh, nkv, hd, window = case
+    t_f = 4 * hd * Bn * nh * _mask_pairs(T, window) / 989e12
+    t_b = 2 * Bn * T * (nh + nkv) * hd * 2 / 3.35e12
+    ms, by = PF.bound(Bn, T, nh, nkv, hd, window)
+    assert ms == pytest.approx(max(t_f, t_b) * 1e3, rel=1e-12)
+    assert by == ("bytes" if t_b > t_f else "operations")
+
+
+def test_bound_of_the_head_dim_256_paths():
+    """The bounds quoted for the four head_dim-256 shapes: 0.0174 ms at
+    gemma3-4b's causal insert and its serve-TP insert, 0.0130 ms at its
+    windowed one (operations), 0.0100 ms at gemma-7b's (bytes)."""
+    got = {n: PF.bound(*PF.SHAPES[n]) for n in
+           ("hd256", "hd256_tp", "hd256_w", "hd256_g1")}
+    assert [round(ms, 4) for ms, _ in got.values()] == \
+        [0.0174, 0.0174, 0.0130, 0.0100]
+    assert [by for _, by in got.values()] == \
+        ["operations", "operations", "operations", "bytes"]

@@ -90,7 +90,12 @@ FLASH_CASES = [
 #: warpgroups of 64 queries a block): T = 40 (Tk < 64: one partial key
 #: tile), 100 (Tq and Tk off 64), 200 and 300 (Tq off 64 and off the
 #: block's 128 rows), windows that cross a key tile, g = 1, 4 and 8, and
-#: zamba2-2.7b's prefill over 2 TP ranks, q [8, 1024, 16, 80]
+#: zamba2-2.7b's prefill over 2 TP ranks, q [8, 1024, 16, 80]; then head
+#: dim 256's two warpgroups that take a 64-row tile's key tiles in turn:
+#: T = 40 (one live tile, the second warpgroup idle), 100 and 130 (an odd
+#: number of tiles), 300 with windows 64 and 100 (crossing tiles), g = 1,
+#: 2 and 8, gemma3-4b's windowed insert and its serve-TP insert (the 2 TP
+#: ranks folded into the batch)
 FLASH_CUDA_CASES = FLASH_CASES + [
     (4, 1024, 32, 32, 80, None, "bfloat16", 3e-2),
     (4, 1024, 32, 32, 80, None, "float32", 2e-5),
@@ -106,6 +111,13 @@ FLASH_CUDA_CASES = FLASH_CASES + [
     (1, 300, 16, 4, 160, 100, "bfloat16", 3e-2),
     (1, 200, 8, 2, 160, None, "bfloat16", 3e-2),
     (1, 130, 16, 2, 160, 70, "bfloat16", 3e-2),
+    (1, 40, 8, 4, 256, None, "bfloat16", 3e-2),
+    (2, 100, 4, 2, 256, None, "bfloat16", 3e-2),
+    (1, 130, 16, 2, 256, None, "bfloat16", 3e-2),
+    (1, 300, 8, 8, 256, 64, "bfloat16", 3e-2),
+    (1, 300, 8, 1, 256, 100, "bfloat16", 3e-2),
+    (1, 2048, 8, 4, 256, 1024, "bfloat16", 3e-2),
+    (2, 2048, 4, 2, 256, None, "bfloat16", 3e-2),
 ]
 QACC_CASES = [(64, 128), (100, 256), (1, 64)]
 
@@ -646,16 +658,22 @@ def test_cuda_flash_attention_refuses_other_head_dims(cuda_device, hd,
 #: warpgroups each, 61 KB) and 160 (101 KB), as many as shared memory
 #: allows
 FLASH_WGMMA_BLOCKS = {16: 1, 32: 1, 64: 1, 80: 2, 128: 2, 160: 2, 256: 1}
+#: head_dim -> its threads a block: two warpgroups at 80 (128 query rows)
+#: and at 256 (one 64-row tile, its key tiles taken in turn)
+FLASH_WGMMA_THREADS = {16: 128, 32: 128, 64: 128, 80: 256, 128: 128,
+                       160: 128, 256: 256}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("hd", FK.HEAD_DIMS)
 def test_cuda_flash_wgmma_residency(cuda_device, hd):
-    """At every head dim the tensor-core kernel spills no register and
-    holds the blocks an SM that its launch bounds ask for."""
+    """At every head dim the tensor-core kernel spills no register, holds
+    the blocks an SM that its launch bounds ask for and runs its
+    warpgroups a block."""
     r = FK.wgmma_residency(hd)
     assert r["local_bytes"] == 0, r
     assert r["blocks_per_sm"] >= FLASH_WGMMA_BLOCKS[hd], r
+    assert r["threads"] == FLASH_WGMMA_THREADS[hd], r
 
 
 #: bf16 GQA grids that fill an H100's 132 SMs several times over
