@@ -209,9 +209,12 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
              prefill q [4, 1024, 32, 160] over 8 K/V heads, causal: bf16
              on wgmma within 3e-2 (``flash_attention_hd160``), float32 on
              the CUDA cores within 2e-5 (``flash_attention_hd160_f32``,
-             the frames path's), each row beside SDPA with 50
-             back-to-back calls timed (``loop_ms``), and float32 at
-             musicgen's prefill (q [8, 1024, 24, 64]); (c)
+             the frames path's), and float32 at musicgen's frames
+             prefill (q [8, 1024, 24, 64], ``flash_attention_hd64_f32``),
+             each row beside SDPA with 50 back-to-back calls timed
+             (``loop_ms``), the float32 rows also beside SDPA's efficient
+             backend on K and V repeated to the query heads
+             (``efficient_*``); (c)
              ``cell.FRONTEND_SERVE_CELLS`` through
              ``launch.serve.run_fixed_batch`` on float32 frames:
              pixtral-12b at full depth (4 x 1024 patches) and
@@ -342,10 +345,10 @@ qwen3-32b, mixtral fixed-batch (one rank and two) and fleet paths',
 flash_attention_hd256's the gemma3-4b, gemma-7b and gemma3-4b serve-TP
 paths', flash_attention_hd80's zamba2's fixed-batch paths' (one rank and
 two),
-flash_attention_hd160's pixtral's token prefill, and
-flash_attention_hd160_f32's pixtral's frames prefill (musicgen's float32
-flash at head_dim 64 counts in the by-path line only); the ``kernels by
-path:`` line gives each
+flash_attention_hd160's pixtral's token prefill,
+flash_attention_hd160_f32's pixtral's frames prefill and
+flash_attention_hd64_f32's musicgen's frames prefill (one rank and two);
+the ``kernels by path:`` line gives each
 path's own counts, each of which must be above 0: ``fleet`` (phase 18b's
 rmsnorm and flash) and ``elastic`` (phase 18c's rs_step, ag_step and
 rs_step_q before the loss) among them.  Prints a ``kernels:``
@@ -396,6 +399,8 @@ SOURCE = {"rs_step": CSRC + "collective_steps.cu",
           KSRC + "flash_attention/csrc/flash_attention.cu",
           "flash_attention_hd160_f32":
           KSRC + "flash_attention/csrc/flash_attention.cu",
+          "flash_attention_hd64_f32":
+          KSRC + "flash_attention/csrc/flash_attention.cu",
           "qacc": KSRC + "qdot/csrc/qacc.cu"}
 REPLACES = {
     "rs_step": "src/repro/kernels/collectives/kernel.py:78",
@@ -412,6 +417,8 @@ REPLACES = {
     "flash_attention_hd80": "src/repro/kernels/flash_attention/kernel.py:91",
     "flash_attention_hd160": "src/repro/kernels/flash_attention/kernel.py:91",
     "flash_attention_hd160_f32":
+    "src/repro/kernels/flash_attention/kernel.py:91",
+    "flash_attention_hd64_f32":
     "src/repro/kernels/flash_attention/kernel.py:91",
     "qacc": "src/repro/kernels/qdot/kernel.py:27",
 }
@@ -806,7 +813,7 @@ def bf16_ulp(x):
     return torch.pow(2.0, e - 7)
 
 
-def flash_case(dev, randn, heads, T, window, dt, b=1, tp=1):
+def flash_case(dev, randn, heads, T, window, dt, b=1, tp=1, efficient=None):
     """One flash-attention call on the card at the model's layout (q
     ``[b, T, nh / tp, hd]``, k and v ``[b, T, nkv / tp, hd]`` from
     ``randn``; ``heads`` = (nh, nkv, hd)), causal, optionally windowed:
@@ -814,7 +821,10 @@ def flash_case(dev, randn, heads, T, window, dt, b=1, tp=1):
     float32 within 2e-5 on the CUDA cores, the launch counts saying which
     ran), timed beside the plain version and SDPA, with its bound by
     operations or bytes.  Returns (kernel fn, plain fn, SDPA fn, max
-    |diff|, bound ms, what bounds it)."""
+    |diff|, bound ms, what bounds it); a dict passed as ``efficient``
+    gets under "fn" SDPA's call on K and V repeated to the query heads
+    (made here, outside any timing), for its efficient backend, which
+    ``enable_gqa`` passes over in float32."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import build as KB
@@ -838,6 +848,10 @@ def flash_case(dev, randn, heads, T, window, dt, b=1, tp=1):
     if window is None:
         lib = lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True)
+        if efficient is not None:
+            kr, vr = (t.repeat_interleave(hq // hk, dim=1) for t in (kt, vt))
+            efficient["fn"] = lambda: F.scaled_dot_product_attention(
+                qt, kr, vr, is_causal=True)
     else:
         lib = lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, enable_gqa=True)
@@ -3855,43 +3869,71 @@ def loop_ms(fn, calls: int = 50) -> float:
     return a.elapsed_time(b) / calls
 
 
+def efficient_sdpa(fn) -> dict:
+    """SDPA forced to its efficient backend on ``fn`` (an SDPA call): the
+    backend that ran, named as ``sdpa_backend`` names it, its event ms,
+    device ms under torch.profiler and 50 back-to-back calls' ms; or
+    ``"refused"`` where that backend does not take the call."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.launch import profile_rmsnorm as PR
+    from repro_torch.launch.profile_flash import refuses, sdpa_backend
+
+    if refuses(SDPBackend.EFFICIENT_ATTENTION, fn):
+        return {"efficient_backend": "refused"}
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+        return {"efficient_backend": sdpa_backend(fn),
+                "efficient_ms": time_ms(fn),
+                "efficient_device_ms": PR.device_ms_per_call(fn),
+                "efficient_loop_ms": loop_ms(fn)}
+
+
 def phase_frontend_flash(dev, randn, row):
     """(b) The flash kernel at head_dim 160, pixtral-12b's prefill, q
     [4, 1024, 32, 160] over 8 K/V heads, causal: bf16 on the wgmma kernel
     (tiles of two 64-column panels and a 32-column one, no padded
     column) within 3e-2 of the plain version, float32 on the CUDA cores
-    within 2e-5 (the frames path's); a row each (event ms, device ms
-    under torch.profiler, host us, the bound, SDPA's times: cuDNN in
-    bf16, its float32 backend's beside the float32 row; ``loop_ms`` of
-    the kernel and of SDPA beside them).  Then float32 at musicgen's
-    prefill (q [8, 1024, 24, 64]) within 2e-5."""
+    within 2e-5 (the frames path's); then float32 at musicgen's
+    frames prefill (q [8, 1024, 24, 64]) within 2e-5.  A row each (event
+    ms, device ms under torch.profiler, host us, the bound, SDPA's times:
+    cuDNN in bf16, SDPA's own choice beside the float32 rows and its
+    efficient backend on K and V repeated to the query heads
+    (``efficient_*``); ``loop_ms`` of the kernel and of SDPA beside
+    them)."""
     import torch
     from repro_torch.launch import cell
     from repro_torch.launch.profile_flash import sdpa_backend
 
-    c = cell.PIXTRAL_SERVE_CELL
-    cfg = cell.serve_model_config(c)
-    heads = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
-    B, T_ = c.slots, c.prompt_len_max
-    for dt, name, kernel in (
-            (torch.bfloat16, "flash_attention_hd160", "flash_kernel_wgmma"),
-            (torch.float32, "flash_attention_hd160_f32", "flash_kernel")):
-        kern, plain, lib, err, bound, by = flash_case(dev, randn, heads, T_,
-                                                      None, dt, B)
+    pix, mus = cell.PIXTRAL_SERVE_CELL, cell.MUSICGEN_SERVE_CELL
+    for c, dt, name, kernel in (
+            (pix, torch.bfloat16, "flash_attention_hd160",
+             "flash_kernel_wgmma"),
+            (pix, torch.float32, "flash_attention_hd160_f32", "flash_kernel"),
+            (mus, torch.float32, "flash_attention_hd64_f32", "flash_kernel")):
+        cfg = cell.serve_model_config(c)
+        heads = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+        B, T_ = c.slots, c.prompt_len_max
+        eff = {} if dt == torch.float32 else None
+        kern, plain, lib, err, bound, by = flash_case(
+            dev, randn, heads, T_, None, dt, B, efficient=eff)
         backend = sdpa_backend(lib)
-        loops = {"loop_ms": loop_ms(kern), "library_loop_ms": loop_ms(lib)}
-        log(f"  SDPA at q [{B}, {T_}, 32, 160] {str(dt)[6:]} causal ran: "
-            f"{backend}; 50 back-to-back calls: {ms(loops['loop_ms'])} ms "
-            f"a call, SDPA {ms(loops['library_loop_ms'])} ms")
+        extra = {"loop_ms": loop_ms(kern), "library_loop_ms": loop_ms(lib)}
+        if eff is not None:
+            extra.update(efficient_sdpa(eff.pop("fn")))
+        shape = f"[{B}, {T_}, {heads[0]}, {heads[2]}]"
+        log(f"  SDPA at q {shape} {str(dt)[6:]} causal ran: {backend}; 50 "
+            f"back-to-back calls: {ms(extra['loop_ms'])} ms a call, SDPA "
+            f"{ms(extra['library_loop_ms'])} ms"
+            + ("" if eff is None else
+               f"; efficient backend on repeated K/V: "
+               f"{extra['efficient_backend']}"
+               + ("" if "efficient_ms" not in extra else
+                  f", {ms(extra['efficient_ms'])} ms, device "
+                  f"{ms(extra['efficient_device_ms'])} ms, 50 back to back "
+                  f"{ms(extra['efficient_loop_ms'])} ms")))
         row(name, err, kern, plain, bound, by, lib, device=kernel,
-            sdpa_backend=backend, **loops)
+            sdpa_backend=backend, **extra)
         del kern, plain, lib
         torch.cuda.empty_cache()
-    m = cell.serve_model_config(cell.MUSICGEN_SERVE_CELL)
-    flash_case(dev, randn, (m.n_heads, m.n_kv_heads, m.head_dim),
-               cell.MUSICGEN_SERVE_CELL.prompt_len_max, None, torch.float32,
-               cell.MUSICGEN_SERVE_CELL.slots)
-    torch.cuda.empty_cache()
 
 
 def pixtral_token_readings(cfg, dev, c, params, seeds) -> dict:
@@ -6174,8 +6216,8 @@ def main() -> int:
         for n in ssm_serve_launches.values())
     # the frontend serve paths: their norms on the rmsnorm row; pixtral's
     # token prefill (bf16, wgmma) on the flash_attention_hd160 row, its
-    # frames prefill (float32, CUDA cores) on flash_attention_hd160_f32
-    # (musicgen's float32 flash at head_dim 64 is in the by-path line)
+    # frames prefill (float32) on flash_attention_hd160_f32, musicgen's
+    # (float32, head_dim 64) on flash_attention_hd64_f32 (below)
     launches["rmsnorm"] += sum(n["rmsnorm"]
                                for n in fe_serve_launches.values())
     # the MoE serve path: its norms on the rmsnorm row, its bf16 flash at
@@ -6185,8 +6227,8 @@ def main() -> int:
         launches["flash_attention"] += n["flash_attention_wgmma"]
     # the fixed-batch loops over TP ranks: their norms on the rmsnorm row;
     # zamba2's shared attention (head_dim 80) on the flash_attention_hd80
-    # row, mixtral's (128, bf16) on the flash_attention row (musicgen's
-    # float32 flash at 64 is in the by-path line)
+    # row, mixtral's (128, bf16) on the flash_attention row, musicgen's
+    # float32 flash at 64 on flash_attention_hd64_f32 (below)
     for a, n in fixed_tp_launches.items():
         launches["rmsnorm"] += n["rmsnorm"]
         if a == "zamba2-2.7b":
@@ -6201,6 +6243,11 @@ def main() -> int:
         fe_serve_launches["pixtral-12b (tokens)"]["flash_attention_wgmma"]
     launches["flash_attention_hd160_f32"] = \
         fe_serve_launches["pixtral-12b (frames)"]["flash_attention"]
+    # musicgen's float32 flash at head_dim 64: its frames prefill on one
+    # rank and over 2 TP ranks (the by-path line's two musicgen serve paths)
+    launches["flash_attention_hd64_f32"] = \
+        fe_serve_launches["musicgen-medium (frames)"]["flash_attention"] + \
+        fixed_tp_launches["musicgen-medium"]["flash_attention"]
     launches["qacc"] = qacc_launches
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched on its path")

@@ -13,9 +13,8 @@
 // The tensors may be strided views (the head dim contiguous), so the
 // caller's [B, T, heads, hd] layout is read and written in place.
 //
-// Two kernels compute it; the wrapper's predicate (kernel.py,
-// flash_uses_wgmma) picks one by dtype, head_dim and strides, never by
-// retrying:
+// Three kernels compute it; the wrapper's predicate (kernel.py,
+// flash_uses_wgmma) and the dtype pick one, never by retrying:
 //
 // 1. flash_kernel_wgmma, on the tensor cores, for bf16 q, k, v with
 //    head_dim in (16, 32, 64, 80, 128, 160, 256) whose strides and base
@@ -101,25 +100,58 @@
 //    PV) measured slower at 80 and 160 on an H100, and so did one tensor
 //    map a tensor in narrower swizzles (five 32- or 16-column panels) at
 //    80 (PERF.md, section 6).
-// 2. flash_kernel, on the CUDA cores, for float32 (where it beats SDPA)
-//    and any other call: one block of 256 threads per (batch, query head,
-//    64-row query tile); GQA maps the query head to its kv head.  The Q
-//    tile is staged once in shared memory as float32; the block walks only
-//    the live 64-key tiles (the causal and window bounds of the tile, the
-//    TPU kernel's block-level skipping at kernel.py:49-54), staging K and
-//    V through shared memory.  QK^T and PV run in float32: thread (ty, tx)
-//    of the 16 x 16 grid holds the scores of rows 4ty..4ty+3 and keys
-//    tx + 16j (j < 4) and the accumulator of those rows for columns
-//    tx + 16c (c < hd/16); the row max and sum are reduced across the 16
-//    threads of a row by shuffles.  Shared rows are padded so the reads
-//    are free of bank conflicts.  Shared memory is
-//    BQ (hd+1) + 2 BK (hd+1) + BQ (BK+4) floats: 210 KB at hd 256 and
-//    138 KB at 160, under the 227 KB a block may opt into, so one block
-//    an SM.  Bound:
-//    operations, over 67 TFLOP/s float32.
+// 2. flash_kernel_f32, on the CUDA cores, for float32 q, k, v at every
+//    head_dim.  Bound: operations, 4 hd flops per live (query head, query,
+//    key) pair over the H100's 67 TFLOP/s float32 peak (0.6417 ms at
+//    pixtral-12b's frames prefill, q [4, 1024, 32, 160] over 8).  What
+//    limits it is the shared-memory pipe: an SM issues 128 FFMAs a clock
+//    but moves 32 lane-floats of shared data a clock, and a 16-byte load
+//    costs a quarter-warp's wavefront each even when the lanes share its
+//    address (PERF.md: Q read as whole-warp broadcasts measured slower).
+//    So the design counts the floats each lane loads per FMA (0.25 keeps
+//    up with the FMAs; the old kernel's was 0.5 in QK^T).
+//    One block of 8 warps (256 threads) per (batch, query head, 128 query
+//    rows; 64 at head_dim 256), the blocks with the most live key tiles
+//    first.  Each warp owns 16 query rows (8 at 256) outright: their
+//    scores, softmax and output.  So P and the rows' rescale pass through
+//    the warp's own slice of shared memory under __syncwarp, and a key
+//    tile dead for the warp's rows is skipped by that warp alone.
+//    Q, K and V lie row-major in shared memory, rows padded by 4 floats
+//    (16-byte reads of 8 consecutive rows hit 8 different bank groups at
+//    every head_dim), filled by cp.async: 16-byte copies where every base
+//    and stride allows, else 4-byte ones; rows past Tq or Tk are
+//    zero-filled.  Q is loaded once; K and V are one 64-key tile each,
+//    and V tile j lands under tile j's QK^T while K tile j + 1 lands under
+//    tile j's PV (two barriers a tile).
+//    QK^T: lane (ty, tx) of a warp's TR x TC grid (4 x 8; 2 x 16 at 256)
+//    holds the scores of rows ty + TR i and keys tx + TC j; a 4-deep step
+//    of d reads a float4 of each (4 + 8: 0.375 floats a FMA).  Softmax in
+//    log2 units (exp2f of the scores scaled by scale log2(e)), a row's
+//    max across its TC lanes by shuffles; each lane keeps its own part of
+//    the row sum, summed across the lanes once at the end.
+//    PV: lane (uy, ux) of a TR2 x TC2 grid holds rows uy + TR2 i and
+//    columns VW (ux + TC2 c) + e (e < VW); each 4 keys it reads a float4
+//    of P per row (4 consecutive keys) and VW columns of each V row.  At
+//    160 a lane holds all 16 rows and 5 columns (0.26 floats a FMA), at
+//    80 8 rows and 5 columns, at 64 8 rows and 4.
+//    Shared memory: (BQ + 2 BK) (hd + 4) + BQ (BK + TC) + 2 BQ floats:
+//    201 KB at 160, 216 KB at 256, 169 KB at 128 and 121 KB at 80 (one
+//    block an SM), 105 KB at 64 (two).  No spilled register.
+//    Split-TF32 products on the tensor cores (mma.sync m16n8k8, three
+//    products a term) measured faster only while they accumulated P V in
+//    the tensor cores across all key tiles, which doubled the frames
+//    prefill's logit error; summed apart they ran no faster (PERF.md).
+// 3. flash_kernel_bf16, for the bf16 calls the tensor-core predicate
+//    refuses (strides or base addresses TMA cannot take): one block of 256
+//    threads per (batch, query head, 64-row query tile) that stages Q, K
+//    and V as float32 through shared memory (rows padded by one float) and
+//    walks the live 64-key tiles; thread (ty, tx) of the 16 x 16 grid
+//    holds the scores of rows 4ty..4ty+3 and keys tx + 16j (j < 4) and the
+//    accumulator of those rows for columns tx + 16c (c < hd/16).  Shared
+//    memory BQ (hd+1) + 2 BK (hd+1) + BQ (BK+4) floats (210 KB at 256).
 //
-// Numerics: no fast math; expf (CUDA cores) or exp2f of log2(e)-scaled
-// scores (tensor cores), IEEE division; sums in another order than the
+// Numerics: no fast math; exp2f of log2(e)-scaled scores (expf in
+// flash_kernel_bf16), IEEE division; sums in another order than the
 // plain version's, so results agree within float32 rounding (2e-5) and,
 // for bf16 inputs, within bf16 rounding (3e-2).
 // Kernels launch on the caller's stream and allocate nothing; each C
@@ -135,20 +167,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int BQ = 64;   // query rows a block
-constexpr int BK = 64;   // keys a tile
-constexpr int PS = BK + 4;
 constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* o, float v) { *o = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* o, float v) {
-  *o = __float2bfloat16_rn(v);
-}
 
 struct Strides {
   long long qb, qn, qg, qt;   // q [B, nkv, g, Tq, hd]
@@ -157,18 +176,403 @@ struct Strides {
   long long ob, on, og, ot;   // o like q
 };
 
+// ---------------------------------------------------------------------------
+// float32 on the CUDA cores
+// ---------------------------------------------------------------------------
+
+namespace cc {
+
+template <int HD>
+struct Geo {
+  static constexpr int WM = HD == 256 ? 8 : 16;   // query rows a warp
+  static constexpr int NW = 8;                     // warps a block
+  static constexpr int THREADS = 32 * NW;
+  static constexpr int BQ = WM * NW;               // query rows a block
+  static constexpr int BK = 64;                    // keys a tile
+  static constexpr int RS = HD + 4;                // padded Q, K, V row
+  // QK^T: a warp's WM x BK scores on a TR x TC lane grid, SR x SK a lane
+  static constexpr int TR = WM / 4;
+  static constexpr int TC = 32 / TR;
+  static constexpr int SR = WM / TR;
+  static constexpr int SK = BK / TC;
+  // P's row pitch: PS = TC mod 32 makes the lanes' stores hit 32 banks,
+  // and rows 2 or 4 float4s apart keep PV's P reads conflict-free
+  static constexpr int PS = BK + TC;
+  // PV: a warp's WM x HD output on a TR2 x TC2 lane grid, OR x OC a lane,
+  // read from V in vectors of VW columns
+  static constexpr int TC2 = HD == 16 || HD == 32 ? 8
+                             : HD == 64 || HD == 80 ? 16
+                                                    : 32;
+  static constexpr int TR2 = 32 / TC2;
+  static constexpr int OR = WM / TR2;
+  static constexpr int OC = HD / TC2;
+  static constexpr int VW = OC % 4 == 0 ? 4 : OC % 2 == 0 ? 2 : 1;
+  // the d loop's unroll: as deep as the registers hold without spilling
+  static constexpr int UNROLL = HD <= 64 || HD == 160 ? 2 : 4;
+  // Q, K, V, the warps' P slices, then each row's rescale and sum
+  static constexpr int FLOATS = (BQ + 2 * BK) * RS + BQ * PS + 2 * BQ;
+  // two blocks an SM at 64 (registers <= 128), one elsewhere (at 16 and
+  // 32 the launch bounds' cap of 128 registers spilled)
+  static constexpr int MIN_BLOCKS = HD == 64 ? 2 : 1;
+  static_assert(HD % 16 == 0 && TR * TC == 32 && SR * TR == WM &&
+                    SK * TC == BK && SR * SK <= 32,
+                "QK^T lane grid");
+  static_assert(TR2 * TC2 == 32 && OR * TR2 == WM && OC * TC2 == HD &&
+                    TR2 <= 4,
+                "PV lane grid");
+  static_assert(PS % 32 == TC && (BQ * HD / 4) % THREADS == 0 &&
+                    (BK * HD / 4) % THREADS == 0,
+                "shared layout");
+};
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool in) {
+  // src-size 0 fills the 16 bytes with zeros
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   hopper::smem_u32(dst)),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   hopper::smem_u32(dst)),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// rows t0 .. t0 + ROWS - 1 of a [T, HD] view (row stride ``stride``) into
+// ``dst`` [ROWS][HD + 4], rows from ``n`` on as zeros: 16-byte copies when
+// ``vec`` (every base and stride a multiple of 16 bytes), else 4-byte ones
+template <int HD, int ROWS, int THREADS>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          long long stride, int t0, int n,
+                                          bool vec) {
+  constexpr int CH = HD / 4;   // 16-byte pieces a row
+#pragma unroll
+  for (int i = 0; i < ROWS * CH / THREADS; ++i) {
+    const int c = threadIdx.x + i * THREADS;
+    const int r = c / CH, x = (c % CH) * 4, t = t0 + r;
+    const bool in = t < n;
+    const float* g = in ? src + t * stride + x : src;
+    float* s = dst + r * (HD + 4) + x;
+    if (vec) {
+      cp_async16(s, g, in);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) cp_async4(s + e, in ? g + e : src, in);
+    }
+  }
+}
+
+__device__ __forceinline__ float elem(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// VW consecutive floats at p (16-, 8- or 4-byte aligned) into r
+template <int VW>
+__device__ __forceinline__ void load_vec(float (&r)[VW], const float* p) {
+  if constexpr (VW == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    r[0] = t.x;
+    r[1] = t.y;
+    r[2] = t.z;
+    r[3] = t.w;
+  } else if constexpr (VW == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    r[0] = t.x;
+    r[1] = t.y;
+  } else {
+    r[0] = *p;
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(Geo<HD>::THREADS, Geo<HD>::MIN_BLOCKS)
+flash_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int nkv,
+                 int g, int Tq, int Tk, Strides st, int window, int causal,
+                 float scale, int vec) {
+  using G = Geo<HD>;
+  constexpr int WM = G::WM, BK = G::BK, RS = G::RS, PS = G::PS;
+  constexpr int TR = G::TR, TC = G::TC, SR = G::SR, SK = G::SK;
+  constexpr int TR2 = G::TR2, TC2 = G::TC2, OR = G::OR, OC = G::OC;
+  constexpr int VW = G::VW;
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);   // [BQ][RS]
+  float* Ks = Qs + G::BQ * RS;                    // [BK][RS]
+  float* Vs = Ks + BK * RS;                       // [BK][RS]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* Ps = Vs + BK * RS + warp * WM * PS;      // this warp's [WM][PS]
+  float* Al = Vs + BK * RS + G::BQ * PS + warp * WM;   // its rows' rescale
+  float* Ls = Al + G::BQ;                              // its rows' sums
+
+  const int head = blockIdx.x;
+  const int hg = head % g, hn = (head / g) % nkv, b = head / (g * nkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * G::BQ;   // heaviest first
+  const float* qp = q + b * st.qb + hn * st.qn + hg * st.qg;
+  const float* kp = k + b * st.kb + hn * st.kn;
+  const float* vp = v + b * st.vb + hn * st.vn;
+
+  // the block's live key tiles (the TPU kernel's block skipping,
+  // kernel.py:49-54), then this warp's: none past Tq
+  const int q_last = min(q0 + G::BQ - 1, Tq - 1);
+  int kt_end = (Tk + BK - 1) / BK;
+  if (causal) kt_end = min(kt_end, q_last / BK + 1);
+  int kt_begin = 0;
+  if (window > 0 && q0 - window + 1 > 0) kt_begin = (q0 - window + 1) / BK;
+  const int wq0 = q0 + warp * WM, wq_last = min(wq0 + WM - 1, Tq - 1);
+  int w_begin = 0;
+  if (window > 0 && wq0 - window + 1 > 0) w_begin = (wq0 - window + 1) / BK;
+  const int w_end = wq0 >= Tq ? 0 : causal ? min(kt_end, wq_last / BK + 1)
+                                           : kt_end;
+
+  load_rows<HD, G::BQ, G::THREADS>(Qs, qp, st.qt, q0, Tq, vec);
+  if (kt_begin < kt_end)
+    load_rows<HD, BK, G::THREADS>(Ks, kp, st.kt, kt_begin * BK, Tk, vec);
+
+  // QK^T lane (ty, tx): rows ty + TR i, keys tx + TC j of the warp's tile;
+  // PV lane (uy, ux): rows uy + TR2 i, columns VW (ux + TC2 c) + e
+  const int ty = lane / TC, tx = lane % TC;
+  const int uy = lane / TC2, ux = lane % TC2;
+  const float c2 = scale * 1.4426950408889634f;   // log2(e) folded in
+  float acc[OR][OC];
+#pragma unroll
+  for (int i = 0; i < OR; ++i)
+#pragma unroll
+    for (int c = 0; c < OC; ++c) acc[i][c] = 0.0f;
+  // each row's running max (log2 units) and this lane's part of its sum
+  float mrow[SR], lrow[SR];
+#pragma unroll
+  for (int i = 0; i < SR; ++i) {
+    mrow[i] = NEG_INF;
+    lrow[i] = 0.0f;
+  }
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int k0 = kt * BK;
+    cp_async_wait_all();
+    __syncthreads();   // K tile kt (and Q) landed; V's last readers done
+    load_rows<HD, BK, G::THREADS>(Vs, vp, st.vt, k0, Tk, vec);
+    const bool live = kt >= w_begin && kt < w_end;
+    if (live) {
+      float s[SR][SK];
+#pragma unroll
+      for (int i = 0; i < SR; ++i)
+#pragma unroll
+        for (int j = 0; j < SK; ++j) s[i][j] = 0.0f;
+      const float* qr = Qs + (warp * WM + ty) * RS;
+      const float* kr = Ks + tx * RS;
+#pragma unroll (G::UNROLL)
+      for (int d = 0; d < HD; d += 4) {
+        float4 a[SR];
+#pragma unroll
+        for (int i = 0; i < SR; ++i)
+          a[i] = *reinterpret_cast<const float4*>(qr + i * TR * RS + d);
+#pragma unroll
+        for (int j = 0; j < SK; ++j) {
+          const float4 kv =
+              *reinterpret_cast<const float4*>(kr + j * TC * RS + d);
+#pragma unroll
+          for (int i = 0; i < SR; ++i) {
+            s[i][j] = fmaf(a[i].x, kv.x, s[i][j]);
+            s[i][j] = fmaf(a[i].y, kv.y, s[i][j]);
+            s[i][j] = fmaf(a[i].z, kv.z, s[i][j]);
+            s[i][j] = fmaf(a[i].w, kv.w, s[i][j]);
+          }
+        }
+      }
+
+      // online softmax, the plain version's masks; a tile live for every
+      // (row, key) of the warp skips them
+      uint32_t ok = 0xffffffffu;
+      if (!(k0 + BK <= Tk && (!causal || k0 + BK - 1 <= wq0) &&
+            (window <= 0 || wq_last - k0 < window))) {
+        ok = 0;
+#pragma unroll
+        for (int i = 0; i < SR; ++i) {
+          const int tq = wq0 + ty + TR * i;
+#pragma unroll
+          for (int j = 0; j < SK; ++j) {
+            const int tk = k0 + tx + TC * j;
+            const bool in = tk < Tk && (!causal || tk <= tq) &&
+                            (window <= 0 || tq - tk < window);
+            ok |= static_cast<uint32_t>(in) << (i * SK + j);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < SR; ++i) {
+        float mx = NEG_INF;
+#pragma unroll
+        for (int j = 0; j < SK; ++j)
+          if ((ok >> (i * SK + j)) & 1u) mx = fmaxf(mx, s[i][j]);
+#pragma unroll
+        for (int off = TC / 2; off > 0; off >>= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        const float mn = fmaxf(mrow[i], mx * c2);
+        float rs = 0.0f;
+        float* prow = Ps + (ty + TR * i) * PS + tx;
+#pragma unroll
+        for (int j = 0; j < SK; ++j) {
+          const float p = (ok >> (i * SK + j)) & 1u
+                              ? exp2f(fmaf(s[i][j], c2, -mn))
+                              : 0.0f;
+          rs += p;
+          prow[TC * j] = p;
+        }
+        const float alpha = exp2f(mrow[i] - mn);
+        lrow[i] = lrow[i] * alpha + rs;
+        mrow[i] = mn;
+        if (tx == 0) Al[ty + TR * i] = alpha;
+      }
+      __syncwarp();
+    }
+    cp_async_wait_all();
+    __syncthreads();   // V tile kt landed; K's readers done
+    if (kt + 1 < kt_end)
+      load_rows<HD, BK, G::THREADS>(Ks, kp, st.kt, k0 + BK, Tk, vec);
+    if (live) {
+#pragma unroll
+      for (int i = 0; i < OR; ++i) {
+        const float a = Al[uy + TR2 * i];
+#pragma unroll
+        for (int c = 0; c < OC; ++c) acc[i][c] *= a;
+      }
+      const float* pr = Ps + uy * PS;
+      const float* vr = Vs + VW * ux;
+#pragma unroll 2
+      for (int kk = 0; kk < BK; kk += 4) {
+        float4 p[OR];
+#pragma unroll
+        for (int i = 0; i < OR; ++i)
+          p[i] = *reinterpret_cast<const float4*>(pr + i * TR2 * PS + kk);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+#pragma unroll
+          for (int cv = 0; cv < OC / VW; ++cv) {
+            float w[VW];
+            load_vec<VW>(w, vr + (kk + e) * RS + cv * VW * TC2);
+#pragma unroll
+            for (int x = 0; x < VW; ++x)
+#pragma unroll
+              for (int i = 0; i < OR; ++i)
+                acc[i][cv * VW + x] =
+                    fmaf(elem(p[i], e), w[x], acc[i][cv * VW + x]);
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait_all();   // nothing in flight at the end (no live tile)
+
+  // o = acc / max(l, 1e-30): 0 for a row with no live key
+#pragma unroll
+  for (int i = 0; i < SR; ++i) {
+    float l = lrow[i];
+#pragma unroll
+    for (int off = TC / 2; off > 0; off >>= 1)
+      l += __shfl_xor_sync(0xffffffffu, l, off);
+    if (tx == 0) Ls[ty + TR * i] = l;
+  }
+  __syncwarp();
+  float* op = o + b * st.ob + hn * st.on + hg * st.og;
+#pragma unroll
+  for (int i = 0; i < OR; ++i) {
+    const int r = uy + TR2 * i, tq = wq0 + r;
+    if (tq >= Tq) continue;
+    const float li = fmaxf(Ls[r], 1e-30f);
+#pragma unroll
+    for (int cv = 0; cv < OC / VW; ++cv)
+#pragma unroll
+      for (int x = 0; x < VW; ++x)
+        op[tq * st.ot + VW * (ux + TC2 * cv) + x] = acc[i][cv * VW + x] / li;
+  }
+}
+
+template <int HD>
+constexpr size_t smem_bytes() {
+  return static_cast<size_t>(Geo<HD>::FLOATS) * sizeof(float);
+}
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, void* o, int B,
+           int nkv, int g, int Tq, int Tk, const Strides& st, int window,
+           int causal, float scale, cudaStream_t stream) {
+  using G = Geo<HD>;
+  constexpr size_t smem = smem_bytes<HD>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_kernel_f32<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // 16-byte copies where every base and stride allows them
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(q) |
+                          reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v);
+  const long long strides = st.qb | st.qn | st.qg | st.qt | st.kb | st.kn |
+                            st.kt | st.vb | st.vn | st.vt;
+  const int vec = bases % 16 == 0 && strides % 4 == 0;
+  const dim3 grid(B * nkv * g, (Tq + G::BQ - 1) / G::BQ);
+  flash_kernel_f32<HD><<<grid, G::THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), nkv, g, Tq, Tk,
+      st, window, causal, scale, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// blocks an SM, shared memory a block, registers a thread, local (spilled)
+// bytes a thread and threads a block of flash_kernel_f32<HD>
+template <int HD>
+int residency(int* out) {
+  const size_t smem = smem_bytes<HD>();
+  auto kern = flash_kernel_f32<HD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  cudaFuncAttributes attr{};
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kern);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &out[0], kern, Geo<HD>::THREADS, smem);
+  }
+  out[1] = static_cast<int>(smem);
+  out[2] = attr.numRegs;
+  out[3] = static_cast<int>(attr.localSizeBytes);
+  out[4] = Geo<HD>::THREADS;
+  return static_cast<int>(err);
+}
+
+}  // namespace cc
+
+// ---------------------------------------------------------------------------
+// bf16 on the CUDA cores, for the calls TMA cannot take
+// ---------------------------------------------------------------------------
+
+namespace bf {
+
+constexpr int kThreads = 256;
+constexpr int BQ = 64;   // query rows a block
+constexpr int BK = 64;   // keys a tile
+constexpr int PS = BK + 4;
+
 template <int HD>
 constexpr size_t smem_bytes() {
   return static_cast<size_t>(BQ * (HD + 1) + 2 * BK * (HD + 1) + BQ * PS) *
          sizeof(float);
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int nkv, int g,
-             int Tq, int Tk, Strides st, int window, int causal,
-             float scale) {
+flash_kernel_bf16(const __nv_bfloat16* __restrict__ q,
+                  const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v,
+                  __nv_bfloat16* __restrict__ o, int nkv, int g, int Tq,
+                  int Tk, Strides st, int window, int causal, float scale) {
   constexpr int RS = HD + 1;       // padded row of Q, K, V in shared memory
   constexpr int CPT = HD / 16;     // accumulator columns a thread
   extern __shared__ float sm[];
@@ -181,14 +585,14 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int head = blockIdx.y;
   const int hg = head % g, hn = (head / g) % nkv, b = head / (g * nkv);
   const int q0 = blockIdx.x * BQ;
-  const T* qp = q + b * st.qb + hn * st.qn + hg * st.qg;
-  const T* kp = k + b * st.kb + hn * st.kn;
-  const T* vp = v + b * st.vb + hn * st.vn;
-  T* op = o + b * st.ob + hn * st.on + hg * st.og;
+  const __nv_bfloat16* qp = q + b * st.qb + hn * st.qn + hg * st.qg;
+  const __nv_bfloat16* kp = k + b * st.kb + hn * st.kn;
+  const __nv_bfloat16* vp = v + b * st.vb + hn * st.vn;
+  __nv_bfloat16* op = o + b * st.ob + hn * st.on + hg * st.og;
 
   for (int e = tid; e < BQ * HD; e += kThreads) {
     const int r = e / HD, c = e % HD, t = q0 + r;
-    Qs[r * RS + c] = t < Tq ? to_f(qp[t * st.qt + c]) : 0.0f;
+    Qs[r * RS + c] = t < Tq ? __bfloat162float(qp[t * st.qt + c]) : 0.0f;
   }
 
   float m[4], l[4], acc[4][CPT];
@@ -217,8 +621,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = tid; e < BK * HD; e += kThreads) {
       const int r = e / HD, c = e % HD, t = k0 + r;
       const bool in = t < Tk;
-      Ks[r * RS + c] = in ? to_f(kp[t * st.kt + c]) : 0.0f;
-      Vs[r * RS + c] = in ? to_f(vp[t * st.vt + c]) : 0.0f;
+      Ks[r * RS + c] = in ? __bfloat162float(kp[t * st.kt + c]) : 0.0f;
+      Vs[r * RS + c] = in ? __bfloat162float(vp[t * st.vt + c]) : 0.0f;
     }
     __syncthreads();
 
@@ -297,53 +701,49 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float li = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int cc = 0; cc < CPT; ++cc)
-      store(op + tq * st.ot + tx + 16 * cc, acc[i][cc] / li);
+      op[tq * st.ot + tx + 16 * cc] = __float2bfloat16_rn(acc[i][cc] / li);
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int nkv, int g, int Tq, int Tk, const Strides& st, int window,
            int causal, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_kernel_bf16<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Tq + BQ - 1) / BQ, B * nkv * g);
-  flash_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), nkv, g, Tq, Tk, st,
-      window, causal, scale);
+  flash_kernel_bf16<HD><<<grid, kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      nkv, g, Tq, Tk, st, window, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch(int hd, const void* q, const void* k, const void* v, void* o,
-             int B, int nkv, int g, int Tq, int Tk, const Strides& st,
-             int window, int causal, float scale, cudaStream_t s) {
+}  // namespace bf
+
+// f(std::integral_constant<int, hd>) for hd one of the kernels' head
+// dims, else cudaErrorInvalidValue
+template <typename F>
+int by_head_dim(int hd, F f) {
   switch (hd) {
     case 16:
-      return launch<T, 16>(q, k, v, o, B, nkv, g, Tq, Tk, st, window, causal,
-                           scale, s);
+      return f(std::integral_constant<int, 16>{});
     case 32:
-      return launch<T, 32>(q, k, v, o, B, nkv, g, Tq, Tk, st, window, causal,
-                           scale, s);
+      return f(std::integral_constant<int, 32>{});
     case 64:
-      return launch<T, 64>(q, k, v, o, B, nkv, g, Tq, Tk, st, window, causal,
-                           scale, s);
+      return f(std::integral_constant<int, 64>{});
     case 80:
-      return launch<T, 80>(q, k, v, o, B, nkv, g, Tq, Tk, st, window, causal,
-                           scale, s);
+      return f(std::integral_constant<int, 80>{});
     case 128:
-      return launch<T, 128>(q, k, v, o, B, nkv, g, Tq, Tk, st, window,
-                            causal, scale, s);
+      return f(std::integral_constant<int, 128>{});
     case 160:
-      return launch<T, 160>(q, k, v, o, B, nkv, g, Tq, Tk, st, window,
-                            causal, scale, s);
+      return f(std::integral_constant<int, 160>{});
     case 256:
-      return launch<T, 256>(q, k, v, o, B, nkv, g, Tq, Tk, st, window,
-                            causal, scale, s);
+      return f(std::integral_constant<int, 256>{});
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -901,8 +1301,8 @@ extern "C" {
 // q, k, v, o: device pointers; strides in elements (the head dim has
 // stride 1): q and o [B, nkv, g, T, hd] as (b, n, g, t), k and v
 // [B, nkv, Tk, hd] as (b, n, t); hd in {16, 32, 64, 80, 128, 160, 256};
-// window <= 0
-// for none; bf16 selects __nv_bfloat16 inputs and output (else float32).
+// window <= 0 for none.  On the CUDA cores: bf16 selects __nv_bfloat16
+// inputs and output (flash_kernel_bf16), else float32 (flash_kernel_f32).
 int repro_flash_attention(const void* q, const void* k, const void* v,
                           void* o, int B, int nkv, int g, int Tq, int Tk,
                           int hd, long long qb, long long qn, long long qg,
@@ -913,12 +1313,13 @@ int repro_flash_attention(const void* q, const void* k, const void* v,
                           float scale, int bf16, void* stream) {
   const Strides st{qb, qn, qg, qt, kb, kn, kt, vb, vn, vt, ob, on, og, ot};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    return dispatch<__nv_bfloat16>(hd, q, k, v, o, B, nkv, g, Tq, Tk, st,
-                                   window, causal, scale, s);
-  }
-  return dispatch<float>(hd, q, k, v, o, B, nkv, g, Tq, Tk, st, window,
-                         causal, scale, s);
+  return by_head_dim(hd, [&](auto h) {
+    constexpr int HD = decltype(h)::value;
+    return bf16 ? bf::launch<HD>(q, k, v, o, B, nkv, g, Tq, Tk, st, window,
+                                 causal, scale, s)
+                : cc::launch<HD>(q, k, v, o, B, nkv, g, Tq, Tk, st, window,
+                                 causal, scale, s);
+  });
 }
 
 // the same arguments for bf16 on the tensor cores (the wrapper's
@@ -935,56 +1336,24 @@ int repro_flash_attention_wgmma(const void* q, const void* k, const void* v,
                                 void* stream) {
   const Strides st{qb, qn, qg, qt, kb, kn, kt, vb, vn, vt, ob, on, og, ot};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-    case 16:
-      return wg::run<16>(q, k, v, o, B, nkv, g, Tq, Tk, st, window, causal,
-                         scale, s);
-    case 32:
-      return wg::run<32>(q, k, v, o, B, nkv, g, Tq, Tk, st, window, causal,
-                         scale, s);
-    case 64:
-      return wg::run<64>(q, k, v, o, B, nkv, g, Tq, Tk, st, window, causal,
-                         scale, s);
-    case 80:
-      return wg::run<80>(q, k, v, o, B, nkv, g, Tq, Tk, st, window, causal,
-                         scale, s);
-    case 128:
-      return wg::run<128>(q, k, v, o, B, nkv, g, Tq, Tk, st, window, causal,
-                          scale, s);
-    case 160:
-      return wg::run<160>(q, k, v, o, B, nkv, g, Tq, Tk, st, window, causal,
-                          scale, s);
-    case 256:
-      return wg::run<256>(q, k, v, o, B, nkv, g, Tq, Tk, st, window, causal,
-                          scale, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return by_head_dim(hd, [&](auto h) {
+    return wg::run<decltype(h)::value>(q, k, v, o, B, nkv, g, Tq, Tk, st,
+                                       window, causal, scale, s);
+  });
 }
 
-// the tensor-core kernel at hd: out[0] its blocks an SM (the occupancy
-// API at its shared memory), out[1] shared bytes a block, out[2]
-// registers a thread, out[3] local (spilled) bytes a thread, out[4]
-// threads a block
+// a kernel's residency at hd: out[0] its blocks an SM (the occupancy API
+// at its shared memory), out[1] shared bytes a block, out[2] registers a
+// thread, out[3] local (spilled) bytes a thread, out[4] threads a block;
+// of the tensor-core kernel, then of the float32 CUDA-core kernel
 int repro_flash_attention_wgmma_residency(int hd, int* out) {
-  switch (hd) {
-    case 16:
-      return wg::residency<16>(out);
-    case 32:
-      return wg::residency<32>(out);
-    case 64:
-      return wg::residency<64>(out);
-    case 80:
-      return wg::residency<80>(out);
-    case 128:
-      return wg::residency<128>(out);
-    case 160:
-      return wg::residency<160>(out);
-    case 256:
-      return wg::residency<256>(out);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return by_head_dim(
+      hd, [&](auto h) { return wg::residency<decltype(h)::value>(out); });
+}
+
+int repro_flash_attention_f32_residency(int hd, int* out) {
+  return by_head_dim(
+      hd, [&](auto h) { return cc::residency<decltype(h)::value>(out); });
 }
 
 }  // extern "C"

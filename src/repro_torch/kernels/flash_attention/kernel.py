@@ -1,21 +1,27 @@
 """The flash-attention kernel and its wrapper.
 
 Counterpart of ``repro.kernels.flash_attention.kernel`` (TPU kernel 8,
-``flash_attention_kernel``), CUDA C++ in ``csrc/flash_attention.cu``, two
-kernels chosen by ``flash_uses_wgmma``: for bf16 a tensor-core (``wgmma``)
-kernel, one warpgroup a block per (batch, query head, 64 queries), TMA
-loads of Q and a 2-stage K/V ring in tiles of the real head_dim
-(64-column panels and, at head_dim 80 and 160, a 16- or 32-column tail
-panel: no padded column), QK^T and PV (P split into two bf16 terms) on
-``wgmma``; at 80 two warpgroups of 64 queries sharing the ring; at 256
-two warpgroups over the block's 64 queries that take its key tiles in
-turn through a 3-stage ring, each with its own online softmax, merged
-through shared memory at the end; for float32 a CUDA-core kernel, one
-block per (batch, query head, 64-row query tile).  Both keep the online
-softmax in float32 and skip dead key tiles.  The kernels read strided views, so
-the model's ``[B, T, heads, hd]`` tensors need no transposed copies, and
-they write the output in that layout (returned as a view shaped like
-``q``).
+``flash_attention_kernel``), CUDA C++ in ``csrc/flash_attention.cu``,
+three kernels chosen by ``flash_uses_wgmma`` and the dtype.  For bf16 a
+tensor-core (``wgmma``) kernel, one warpgroup a block per (batch, query
+head, 64 queries), TMA loads of Q and a 2-stage K/V ring in tiles of the
+real head_dim (64-column panels and, at head_dim 80 and 160, a 16- or
+32-column tail panel: no padded column), QK^T and PV (P split into two
+bf16 terms) on ``wgmma``; at 80 two warpgroups of 64 queries sharing the
+ring; at 256 two warpgroups over the block's 64 queries that take its key
+tiles in turn through a 3-stage ring, each with its own online softmax,
+merged through shared memory at the end.  For float32 a CUDA-core kernel
+(``flash_kernel_f32``): 8 warps a block per (batch, query head, 128
+queries; 64 at head_dim 256), each warp owning its 16 (8) rows' scores,
+softmax and output, Q and one K and one V tile in shared memory filled
+by ``cp.async``, register tiles that load 0.26-0.375 floats a lane per
+FMA (the older kernel's 0.5); at the paths' shapes it is faster than
+SDPA's float32 backends (``PERF.md``).  The bf16 calls TMA cannot take
+run the older CUDA-core design (``flash_kernel_bf16``).  All keep the
+online softmax in float32 and skip dead key tiles.  The kernels read
+strided views, so the model's ``[B, T, heads, hd]`` tensors need no
+transposed copies, and they write the output in that layout (returned as
+a view shaped like ``q``).
 
 A wrapper handed CPU tensors runs the plain version from ``ref.py``;
 handed CUDA tensors it launches the kernel or raises.
@@ -40,6 +46,7 @@ _SIGNATURES = {
     "repro_flash_attention_wgmma": [B.VP] * 4 + [B.INT] * 6 + [B.LL] * 14
     + [B.INT, B.INT, B.FLOAT, B.VP],
     "repro_flash_attention_wgmma_residency": [B.INT, B.VP],
+    "repro_flash_attention_f32_residency": [B.INT, B.VP],
 }
 #: head dims the kernels take (80: zamba2's shared attention, on the
 #: tensor cores in a 64-column and a 16-column panel; 160: pixtral-12b,
@@ -51,16 +58,25 @@ def _lib():
     return B.load(SOURCE, _SIGNATURES)
 
 
+def _residency(entry: str, hd: int) -> dict:
+    out = (ctypes.c_int * 5)()
+    B.raise_on(getattr(_lib(), entry)(hd, ctypes.cast(out, ctypes.c_void_p)),
+               entry)
+    return dict(zip(("blocks_per_sm", "smem_bytes", "registers",
+                     "local_bytes", "threads"), out))
+
+
 def wgmma_residency(hd: int) -> dict:
     """The tensor-core kernel at head_dim ``hd`` on the current card: its
     blocks an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` at its
     shared memory), shared bytes a block, registers a thread, local
     (spilled) bytes a thread and threads a block."""
-    out = (ctypes.c_int * 5)()
-    B.raise_on(_lib().repro_flash_attention_wgmma_residency(
-        hd, ctypes.cast(out, ctypes.c_void_p)), "flash_attention_wgmma")
-    return dict(zip(("blocks_per_sm", "smem_bytes", "registers",
-                     "local_bytes", "threads"), out))
+    return _residency("repro_flash_attention_wgmma_residency", hd)
+
+
+def f32_residency(hd: int) -> dict:
+    """The same of the float32 CUDA-core kernel at head_dim ``hd``."""
+    return _residency("repro_flash_attention_f32_residency", hd)
 
 
 def flash_uses_wgmma(q, k, v) -> bool:
@@ -114,8 +130,8 @@ def flash_attention_kernel(q, k, v, *, window=None, causal: bool = True,
             Bn, nkv, g, Tq, Tk, hd, *q.stride()[:4], *k.stride()[:3],
             *v.stride()[:3], *out.stride()[:4],
             0 if window is None else int(window), int(causal), float(scale))
+    B.check(Tq <= 64 * 65535, f"flash_attention Tq {Tq} out of range")
     if flash_uses_wgmma(q, k, v):
-        B.check(Tq <= 64 * 65535, f"flash_attention Tq {Tq} out of range")
         B.raise_on(_lib().repro_flash_attention_wgmma(*args, B.stream(q)),
                    "flash_attention_wgmma")
         B.LAUNCHES["flash_attention_wgmma"] += 1

@@ -95,7 +95,12 @@ FLASH_CASES = [
 #: T = 40 (one live tile, the second warpgroup idle), 100 and 130 (an odd
 #: number of tiles), 300 with windows 64 and 100 (crossing tiles), g = 1,
 #: 2 and 8, gemma3-4b's windowed insert and its serve-TP insert (the 2 TP
-#: ranks folded into the batch)
+#: ranks folded into the batch); then the float32 kernel's tiles (blocks of
+#: 128 query rows, 64 at head_dim 256, in warps of 16 or 8 rows, 64-key
+#: tiles): every head dim, T = 40, 100, 200 and 300 (rows and keys off
+#: the tiles), windows that cross a key tile, g = 1, 4 and 8,
+#: musicgen-medium's frames prefill q [8, 1024, 24, 64] and gemma3-4b's
+#: insert at float32
 FLASH_CUDA_CASES = FLASH_CASES + [
     (4, 1024, 32, 32, 80, None, "bfloat16", 3e-2),
     (4, 1024, 32, 32, 80, None, "float32", 2e-5),
@@ -118,6 +123,23 @@ FLASH_CUDA_CASES = FLASH_CASES + [
     (1, 300, 8, 1, 256, 100, "bfloat16", 3e-2),
     (1, 2048, 8, 4, 256, 1024, "bfloat16", 3e-2),
     (2, 2048, 4, 2, 256, None, "bfloat16", 3e-2),
+    (1, 40, 4, 4, 16, None, "float32", 2e-5),
+    (2, 100, 8, 2, 32, 48, "float32", 2e-5),
+    (1, 200, 8, 1, 64, 70, "float32", 2e-5),
+    (1, 300, 16, 4, 64, None, "float32", 2e-5),
+    (1, 40, 8, 1, 80, None, "float32", 2e-5),
+    (1, 300, 4, 4, 80, 100, "float32", 2e-5),
+    (2, 100, 16, 2, 128, 48, "float32", 2e-5),
+    (1, 300, 4, 1, 128, None, "float32", 2e-5),
+    (1, 40, 4, 1, 160, None, "float32", 2e-5),
+    (2, 100, 4, 4, 160, 64, "float32", 2e-5),
+    (1, 300, 8, 2, 160, 100, "float32", 2e-5),
+    (1, 40, 8, 1, 256, None, "float32", 2e-5),
+    (2, 100, 8, 2, 256, None, "float32", 2e-5),
+    (1, 200, 8, 8, 256, 100, "float32", 2e-5),
+    (1, 300, 8, 1, 256, 64, "float32", 2e-5),
+    (8, 1024, 24, 24, 64, None, "float32", 2e-5),
+    (1, 2048, 8, 4, 256, None, "float32", 2e-5),
 ]
 QACC_CASES = [(64, 128), (100, 256), (1, 64)]
 
@@ -674,6 +696,70 @@ def test_cuda_flash_wgmma_residency(cuda_device, hd):
     assert r["local_bytes"] == 0, r
     assert r["blocks_per_sm"] >= FLASH_WGMMA_BLOCKS[hd], r
     assert r["threads"] == FLASH_WGMMA_THREADS[hd], r
+
+
+#: head_dim -> the float32 kernel's blocks an SM: two of 105 KB at 64
+#: (within 128 registers a thread), one elsewhere (at 16 and 32 a cap of
+#: 128 registers spilled, and no path runs them)
+FLASH_F32_BLOCKS = {16: 1, 32: 1, 64: 2, 80: 1, 128: 1, 160: 1, 256: 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", FK.HEAD_DIMS)
+def test_cuda_flash_f32_residency(cuda_device, hd):
+    """At every head dim the float32 kernel spills no register, holds the
+    blocks an SM it was designed for and runs 8 warps a block."""
+    r = FK.f32_residency(hd)
+    assert r["local_bytes"] == 0, r
+    assert r["blocks_per_sm"] >= FLASH_F32_BLOCKS[hd], r
+    assert r["threads"] == 256, r
+
+
+#: (B, T, nh, nkv, hd, view of q, k and v, causal) for float32 views
+#: whose strides or base addresses leave 16-byte copies out (the kernel's
+#: 4-byte copies), and calls without the causal mask
+FLASH_F32_VIEW_CASES = [
+    (1, 200, 8, 2, 160, "wide", True),
+    (2, 130, 4, 1, 64, "odd", True),
+    (1, 100, 4, 4, 256, "odd", False),
+    (2, 300, 8, 2, 80, None, False),
+    (1, 130, 16, 4, 128, "wide", False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_F32_VIEW_CASES,
+                         ids=lambda c: "x".join(map(str, c[:5]))
+                         + f"-{c[5]}-causal{int(c[6])}")
+def test_cuda_flash_attention_f32_views_match_plain(cuda_device, case):
+    """The float32 kernel on views that 16-byte copies cannot take (rows
+    one float wider than the head dim, or bases 4 bytes off) and without
+    the causal mask, within float32 rounding of the plain version."""
+    Bn, T, nh, nkv, hd, kind, causal = case
+    gen = torch.Generator(device=cuda_device).manual_seed(T + hd)
+
+    def make(shape):
+        *lead, d = shape
+        if kind == "wide":
+            return torch.randn((*lead, d + 1), generator=gen,
+                               device=cuda_device)[..., :d]
+        if kind == "odd":
+            flat = torch.randn(math.prod(shape) + 1, generator=gen,
+                               device=cuda_device)
+            return flat[1:].view(shape)
+        return torch.randn(shape, generator=gen, device=cuda_device)
+
+    g = nh // nkv
+    qg = make((Bn, nkv, g, T, hd))
+    k, v = (make((Bn, nkv, T, hd)) for _ in range(2))
+    before = dict(B.LAUNCHES)
+    got = FK.flash_attention_kernel(qg, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert B.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert B.LAUNCHES["flash_attention_wgmma"] == \
+        before["flash_attention_wgmma"]
+    exp = FR.flash_attention_ref(qg, k, v, causal=causal)
+    assert float((got - exp).abs().max()) < 2e-5
 
 
 #: bf16 GQA grids that fill an H100's 132 SMs several times over
